@@ -28,6 +28,9 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: full-size-model tests (minutes on CPU)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (patent_tpu_torch kernels); "
+                   "skips without one")
 
 
 @pytest.fixture()
