@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``patent_tpu_torch/csrc``.
 
-All ``csrc/*.cu`` files compile, with ``nvcc`` for Hopper (``sm_90a``), into
-ONE shared library with a plain C interface, loaded with ``ctypes``.  The
-library lands in ``build/patent_tpu_torch/`` at the repository root, named
-by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the earlier build.  A plain C interface keeps the build
-to seconds: nothing includes PyTorch's headers.
+Each ``csrc/*.cu`` file compiles, with ``nvcc`` for Hopper (``sm_90a``), to
+an object file, all of them at once in parallel processes, and the objects
+link into ONE shared library with a plain C interface, loaded with
+``ctypes``.  The library lands in ``build/patent_tpu_torch/`` at the
+repository root, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the earlier build.  A plain C
+interface keeps the build to seconds: nothing includes PyTorch's headers.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``call`` raises when that is not 0.  Nothing here
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "patent_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -59,6 +60,12 @@ def _nvcc() -> str:
                        "patent_tpu_torch CUDA kernels cannot be built")
 
 
+def _check(cmd: list[str], returncode: int, output: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{output}")
+
+
 def library() -> _Lib:
     """Build (if needed) and load the kernel library."""
     global _LIB
@@ -74,14 +81,32 @@ def library() -> _Lib:
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in srcs if s.endswith(".cu")]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for src in (s for s in srcs if s.endswith(".cu")):
+            obj = f"{tmp}.{os.path.basename(src)}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        try:
+            for cmd, proc in procs:
+                out = proc.communicate()[0]
+                _check(cmd, proc.returncode, out)
+            done = subprocess.run(link, capture_output=True, text=True)
+            _check(link, done.returncode, done.stdout + done.stderr)
+        finally:
+            for _cmd, proc in procs:     # a failed build stops the others
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)
     _LIB = _Lib(ctypes.CDLL(path), seconds, path)
     return _LIB

@@ -20,14 +20,15 @@
 //   * the GEMMs run on the tensor cores (nvcuda::wmma bf16, f32
 //     accumulate), 128x128x32 block tiles, a two-stage cp.async ring, and
 //     fused epilogues (+bias, +bias+quick_gelu, +bias+residual);
-//   * attention runs one block per (query tile of 64, head, image) with
-//     K and V of the whole sequence in shared memory (2 x 208 x 64 bf16),
-//     the [64, S] score tile in shared memory, and both products on wmma;
+//   * attention (csrc/attention.cuh) runs one block per (query tile of 64,
+//     head, image) with K and V of the whole sequence in shared memory
+//     (2 x 208 x 64 bf16), the [64, S] score tile in shared memory, and
+//     both products on wmma;
 //   * the softmax subtracts the row max (the usual GPU form), in f32, and
 //     rounds p to bf16 for the p.v product; the denominator sums the same
 //     rounded p, as the TPU kernel's denominator-in-the-matmul does.  The
-//     TPU's exp2 form with scores clamped to [-100, 80] is a VPU trick of
-//     that machine and is not carried over.
+//     TPU's exp2 form with scores clamped to [-100, 80] is kept only where
+//     the TPU kernels' numerics must be reproduced (the int8 layer).
 //   * This first version keeps the layer as seven launches, so the MLP
 //     hidden [M, 3072] and the QKV tile pass through device memory (the TPU
 //     kernel keeps them on chip).  Keeping them on chip, wgmma and TMA are
@@ -35,6 +36,7 @@
 
 #include <mma.h>
 
+#include "attention.cuh"
 #include "common.cuh"
 
 using namespace nvcuda;
@@ -172,124 +174,10 @@ __global__ void layernorm_kernel(const InT* __restrict__ x, int ldx,
     orow[c] = __float2bfloat16((ptt::to_f(xr[c]) - mu) * rstd * scale[c] + bias[c]);
 }
 
-constexpr int HD = 64;   // head width this kernel is written for
-constexpr int QT = 64;   // query rows per block
-constexpr int ATT_THREADS = 128;
-constexpr int KV_LD = HD + 8;
-
-__host__ __device__ inline int att_s_ld(int S) { return (S > HD ? S : HD) + 8; }
-
-size_t attention_smem_bytes(int S) {
-  const size_t sld = att_s_ld(S);
-  return (2 * (size_t)S + QT) * KV_LD * sizeof(bf16)   // K, V, Q
-         + QT * sld * sizeof(float)                      // scores, then O
-         + QT * sld * sizeof(bf16)                       // p
-         + QT * sizeof(float);                           // 1 / row sum
-}
-
-// softmax(q k^T * scale) v for one (query tile, head, image).  q, k, v, o
-// are row-major views with their own image and row strides (in elements);
-// the head's 64 columns start at head * 64.  S % 16 == 0.
-__global__ void __launch_bounds__(ATT_THREADS)
-    attention_kernel(const bf16* __restrict__ q, long long q_img, int q_row,
-                     int n_q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, long long kv_img, int kv_row,
-                     bf16* __restrict__ o, long long o_img, int o_row, int S,
-                     int valid_len, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int sld = att_s_ld(S);
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + (size_t)S * KV_LD;
-  bf16* Qs = Vs + (size_t)S * KV_LD;
-  float* Ss = reinterpret_cast<float*>(Qs + QT * KV_LD);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + (size_t)QT * sld);
-  float* inv = reinterpret_cast<float*>(Ps + (size_t)QT * sld);
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bf16* qb = q + b * q_img + h * HD;
-  const bf16* kb = k + b * kv_img + h * HD;
-  const bf16* vb = v + b * kv_img + h * HD;
-
-  for (int c = tid; c < S * (HD / 8); c += ATT_THREADS) {
-    const int r = c >> 3, cc = (c & 7) * 8;
-    *reinterpret_cast<uint4*>(&Ks[r * KV_LD + cc]) =
-        *reinterpret_cast<const uint4*>(&kb[(size_t)r * kv_row + cc]);
-    *reinterpret_cast<uint4*>(&Vs[r * KV_LD + cc]) =
-        *reinterpret_cast<const uint4*>(&vb[(size_t)r * kv_row + cc]);
-  }
-  for (int c = tid; c < QT * (HD / 8); c += ATT_THREADS) {
-    const int r = c >> 3, cc = (c & 7) * 8;
-    const int qr = qt * QT + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (qr < n_q) val = *reinterpret_cast<const uint4*>(&qb[(size_t)qr * q_row + cc]);
-    *reinterpret_cast<uint4*>(&Qs[r * KV_LD + cc]) = val;
-  }
-  __syncthreads();
-
-  // scores: each warp owns 16 query rows
-  const int r0 = warp * 16;
-  for (int n = 0; n < S; n += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-    wmma::fill_fragment(sacc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(a, &Qs[r0 * KV_LD + kk], KV_LD);
-      wmma::load_matrix_sync(kf, &Ks[n * KV_LD + kk], KV_LD);
-      wmma::mma_sync(sacc, a, kf, sacc);
-    }
-    wmma::store_matrix_sync(&Ss[r0 * sld + n], sacc, sld, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // max-subtracted softmax numerator p (bf16) and 1 / sum(p)
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr;
-    const float* srow = Ss + (size_t)r * sld;
-    float mx = -INFINITY;
-    for (int c = lane; c < valid_len; c += 32) mx = fmaxf(mx, srow[c] * scale);
-    mx = ptt::warp_max(mx);
-    float sum = 0.0f;
-    for (int c = lane; c < S; c += 32) {
-      const float p = c < valid_len ? expf(srow[c] * scale - mx) : 0.0f;
-      const bf16 pb = __float2bfloat16(p);
-      Ps[r * sld + c] = pb;
-      sum += __bfloat162float(pb);
-    }
-    sum = ptt::warp_sum(sum);
-    if (lane == 0) inv[r] = 1.0f / sum;
-  }
-  __syncwarp();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[HD / 16];
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j) wmma::fill_fragment(oacc[j], 0.0f);
-  for (int kk = 0; kk < S; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, &Ps[r0 * sld + kk], sld);
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-      wmma::load_matrix_sync(vf, &Vs[kk * KV_LD + j * 16], KV_LD);
-      wmma::mma_sync(oacc[j], a, vf, oacc[j]);
-    }
-  }
-  // the warp's own score rows are free now: stage O there
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j)
-    wmma::store_matrix_sync(&Ss[r0 * sld + j * 16], oacc[j], sld,
-                            wmma::mem_row_major);
-  __syncwarp();
-  bf16* ob = o + b * o_img + h * HD;
-  for (int e = lane; e < 16 * HD; e += 32) {
-    const int r = r0 + e / HD, c = e % HD;
-    const int qr = qt * QT + r;
-    if (qr < n_q)
-      ob[(size_t)qr * o_row + c] = __float2bfloat16(Ss[r * sld + c] * inv[r]);
-  }
-}
+// the bf16 layer's max-subtracted softmax, scores scaled by 1/sqrt(64)
+constexpr float ATT_SCALE = 0.125f;
+constexpr auto attention =
+    ptt_attention::attention<ptt_attention::SOFTMAX_MAXSUB, bf16>;
 
 template <int EPI, typename ResT, typename OutT>
 void gemm(const bf16* A, int lda, const bf16* B, int ldb, const float* bias,
@@ -304,21 +192,6 @@ template <typename InT>
 void layernorm(const InT* x, int ldx, const float* s, const float* b, bf16* out,
                int M, int D, cudaStream_t st) {
   layernorm_kernel<InT><<<(M + 7) / 8, 256, 0, st>>>(x, ldx, s, b, out, D, M, D);
-}
-
-int attention(const bf16* q, long long q_img, int q_row, int n_q, const bf16* k,
-              const bf16* v, long long kv_img, int kv_row, bf16* o,
-              long long o_img, int o_row, int B, int H, int S, int valid_len,
-              cudaStream_t st) {
-  const size_t smem = attention_smem_bytes(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((n_q + QT - 1) / QT, H, B);
-  attention_kernel<<<grid, ATT_THREADS, smem, st>>>(
-      q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img, o_row, S,
-      valid_len, 1.0f / sqrtf((float)HD));
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -358,7 +231,7 @@ int ptt_bf16_layer(const void* x, void* out, int B, int S, int D, int H, int F,
   PTT_CHECK();
   int err = attention(qkvb, (long long)S * 3 * D, 3 * D, S, qkvb + D,
                       qkvb + 2 * D, (long long)S * 3 * D, 3 * D, aob,
-                      (long long)S * D, D, B, H, S, valid_len, st);
+                      (long long)S * D, D, B, H, S, valid_len, ATT_SCALE, st);
   if (err) return err;
   gemm<EPI_BIAS_RES, bf16, float>(aob, D, (const bf16*)wout, D,
                                   (const float*)bout, xb, D, x1f, D, M, D, D,
@@ -411,7 +284,7 @@ int ptt_bf16_layer_cls(const void* x, void* out, int B, int S, int D, int H,
                               D, st);
   PTT_CHECK();
   int err = attention(qb, D, D, 1, kvb, kvb + D, (long long)S * 2 * D, 2 * D,
-                      aob, D, D, B, H, S, valid_len, st);
+                      aob, D, D, B, H, S, valid_len, ATT_SCALE, st);
   if (err) return err;
   gemm<EPI_BIAS_RES, bf16, float>(aob, D, (const bf16*)wout, D,
                                   (const float*)bout, xb, S * D, x1f, D, B, D,

@@ -1,5 +1,6 @@
 """CLIP ViT image tower for serving (port of the image path of
-patent_tpu/models/vit.py with ``fused_layer=True``).
+patent_tpu/models/vit.py with ``fused_layer=True``), and the parts it
+shares with the int8 tower (models/vit_int8.py).
 
 Layouts follow the JAX package at the public surface: pixels NHWC
 [B, H, W, 3], weights [in, out] as in the Flax tree, activations [B, S, D].
@@ -108,23 +109,17 @@ class EncoderLayer(nn.Module):
                 self.w1, self.b1, self.w2, self.b2)
 
 
-class VisionTransformer(nn.Module):
-    """CLIP vision tower → projected image features.
+class TowerBase(nn.Module):
+    """What the bf16 and the int8 towers share: the patch embedding, CLS
+    and position embeddings, pre-LN, the token stream padded once to a
+    multiple of 16, post-LN and the projection, in the Flax layout.
+    Subclasses build ``self.blocks`` in ``_blocks`` and run them in
+    ``forward``.  Weights are random (from ``generator``) until a state
+    dict is loaded."""
 
-    ``dtype``: the compute dtype of the stack (bf16 for serving; the CUDA
-    layer kernels take bf16 only).  ``kernels=False`` runs the layers'
-    plain PyTorch versions on any device (the card's reference for timing
-    and checks); ``kernels=True`` lets each layer call dispatch on the
-    tensor's device (kernel on CUDA, plain version on the CPU).
-    ``keep_tokens``: serve only the K darkest patches plus CLS.  Weights are
-    random (from ``generator``) until a state dict is loaded; the layers'
-    matrices are held in ``dtype`` and ``load_state_dict`` casts f32 ones
-    on the way in, once."""
-
-    def __init__(self, config: VisionConfig = VIT_B16,
-                 dtype: torch.dtype = torch.bfloat16,
-                 keep_tokens: int | None = None, kernels: bool = True,
-                 device=None, generator: torch.Generator | None = None):
+    def __init__(self, config: VisionConfig, dtype: torch.dtype,
+                 keep_tokens: int | None, kernels: bool, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -140,17 +135,20 @@ class VisionTransformer(nn.Module):
             (config.num_patches + 1, d), generator=generator, device=device))
         self.pre_ln_scale = nn.Parameter(torch.ones(d, device=device))
         self.pre_ln_bias = nn.Parameter(torch.zeros(d, device=device))
-        self.blocks = nn.ModuleList(
-            EncoderLayer(d, config.mlp_dim, dtype, device, generator)
-            for _ in range(config.num_layers))
+        self.blocks = self._blocks(device, generator)
         self.post_ln_scale = nn.Parameter(torch.ones(d, device=device))
         self.post_ln_bias = nn.Parameter(torch.zeros(d, device=device))
         self.projection = nn.Parameter(torch.randn(
             (d, config.projection_dim), generator=generator, device=device)
             / math.sqrt(d))
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        """pixel_values [B, H, W, 3] (NHWC, normalized) → [B, projection]."""
+    def _blocks(self, device, generator) -> nn.ModuleList:
+        raise NotImplementedError
+
+    def embed(self, pixel_values: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """pixel_values [B, H, W, 3] (NHWC, normalized) → (token stream
+        [B, S, D] in ``dtype``, the token axis padded to a multiple of 16;
+        the true length S)."""
         cfg, cdt = self.config, self.dtype
         p = cfg.patch_size
         x = F.conv2d(pixel_values.to(cdt).permute(0, 3, 1, 2),
@@ -165,6 +163,45 @@ class VisionTransformer(nn.Module):
         seq = x.shape[1]
         x = F.pad(x.to(cdt), (0, 0, 0, bf16_layer.required_seq_pad_bf16(seq)
                               - seq)).contiguous()
+        return x, seq
+
+    def readout(self, cls: torch.Tensor) -> torch.Tensor:
+        """CLS rows [B, D] → features [B, projection] (post-LN and the
+        projection in f32)."""
+        x = layernorm_f32(cls, self.post_ln_scale, self.post_ln_bias)
+        return x @ self.projection.float()
+
+
+class VisionTransformer(TowerBase):
+    """CLIP vision tower → projected image features.
+
+    ``dtype``: the compute dtype of the stack (bf16 for serving; the CUDA
+    layer kernels take bf16 only).  ``kernels=False`` runs the layers'
+    plain PyTorch versions on any device (the card's reference for timing
+    and checks); ``kernels=True`` lets each layer call dispatch on the
+    tensor's device (kernel on CUDA, plain version on the CPU).
+    ``keep_tokens``: serve only the K darkest patches plus CLS.  The
+    layers' matrices are held in ``dtype`` and ``load_state_dict`` casts
+    f32 ones on the way in, once."""
+
+    def __init__(self, config: VisionConfig = VIT_B16,
+                 dtype: torch.dtype = torch.bfloat16,
+                 keep_tokens: int | None = None, kernels: bool = True,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__(config, dtype, keep_tokens, kernels, device,
+                         generator)
+
+    def _blocks(self, device, generator) -> nn.ModuleList:
+        cfg = self.config
+        return nn.ModuleList(
+            EncoderLayer(cfg.hidden_dim, cfg.mlp_dim, self.dtype, device,
+                         generator)
+            for _ in range(cfg.num_layers))
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """pixel_values [B, H, W, 3] (NHWC, normalized) → [B, projection]."""
+        cfg = self.config
+        x, seq = self.embed(pixel_values)
         if self.kernels:
             block, last = (bf16_layer.fused_layer_block_bf16,
                            bf16_layer.fused_layer_cls_bf16)
@@ -174,5 +211,4 @@ class VisionTransformer(nn.Module):
         for i, layer in enumerate(self.blocks):
             fn = last if i == cfg.num_layers - 1 else block
             x = fn(x, *layer.weights(), cfg.num_heads, valid_len=seq)
-        x = layernorm_f32(x, self.post_ln_scale, self.post_ln_bias)
-        return x @ self.projection.float()
+        return self.readout(x)

@@ -1,10 +1,13 @@
-"""Map between the Flax ``VisionTransformer`` param tree of the JAX package
-and the state dict of ``patent_tpu_torch.models.vit.VisionTransformer``.
+"""Map between the Flax param trees of the JAX package and the state dicts
+of the port's towers: ``VisionTransformer`` (``params_from_jax`` /
+``params_to_jax``) and ``Int8VisionTransformer`` (``int8_params_from_jax``,
+the tree ``patent_tpu.models.vit_int8.quantize_vit_params`` returns).
 
 The tree is nested dicts of numpy arrays, with or without the
-``{"params": ...}`` wrapper.  Only the patch embedding changes layout
-(Flax conv kernel [kh, kw, in, out] ↔ torch conv weight [out, in, kh, kw]);
-every other leaf maps one to one, [in, out] dense kernels included.
+``{"params": ...}`` wrapper.  The patch embedding changes layout (Flax conv
+kernel [kh, kw, in, out] ↔ torch conv weight [out, in, kh, kw]), and the
+int8 matrices go from [in, out] to the port's K-major [out, in]; every
+other leaf maps one to one, the float [in, out] dense kernels included.
 """
 
 from __future__ import annotations
@@ -31,27 +34,62 @@ _TOP_LEAVES = [
 ]
 
 
+# (flax path within block_i of the int8 tree, torch name within blocks.i);
+# the int8 matrices are transposed to [out, in]
+_INT8_LAYER_LEAVES = [
+    (("ln1", "scale"), "ln1_scale"), (("ln1", "bias"), "ln1_bias"),
+    (("attn", "qkv_w"), "wqkv_t"), (("attn", "qkv_s"), "sqkv"),
+    (("attn", "qkv_b"), "bqkv"), (("attn", "out_w"), "wout_t"),
+    (("attn", "out_s"), "sout"), (("attn", "out_b"), "bout"),
+    (("ln2", "scale"), "ln2_scale"), (("ln2", "bias"), "ln2_bias"),
+    (("mlp_in_w",), "w1_t"), (("mlp_in_s",), "s1"), (("mlp_in_b",), "b1"),
+    (("mlp_out_w",), "w2_t"), (("mlp_out_s",), "s2"), (("mlp_out_b",), "b2"),
+]
+
+
 def _num_layers(tree: dict) -> int:
     return sum(1 for k in tree if k.startswith("block_"))
 
 
-def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """Flax param tree (numpy leaves) → torch state dict (f32)."""
+def _get(node, path) -> torch.Tensor:
+    """The leaf at ``path``: int8 kept, everything else as f32."""
+    for key in path:
+        node = node[key]
+    a = np.asarray(node)
+    return torch.from_numpy(np.array(
+        a, dtype=np.int8 if a.dtype == np.int8 else np.float32))
+
+
+def _top_from_jax(tree: dict) -> tuple[dict, dict[str, torch.Tensor]]:
+    """(the unwrapped tree, the state dict of its non-layer leaves)."""
     if "params" in tree and "patch_embed" not in tree:
         tree = tree["params"]
-
-    def get(node, path):
-        for key in path:
-            node = node[key]
-        return torch.from_numpy(np.array(node, dtype=np.float32))
-
-    sd = {"patch_embed": get(tree, ("patch_embed", "kernel")).permute(
+    sd = {"patch_embed": _get(tree, ("patch_embed", "kernel")).permute(
         3, 2, 0, 1).contiguous()}
     for path, name in _TOP_LEAVES:
-        sd[name] = get(tree, path)
+        sd[name] = _get(tree, path)
+    return tree, sd
+
+
+def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """Flax ``VisionTransformer`` param tree (numpy leaves) → torch state
+    dict (f32)."""
+    tree, sd = _top_from_jax(tree)
     for i in range(_num_layers(tree)):
         for path, name in _LAYER_LEAVES:
-            sd[f"blocks.{i}.{name}"] = get(tree[f"block_{i}"], path)
+            sd[f"blocks.{i}.{name}"] = _get(tree[f"block_{i}"], path)
+    return sd
+
+
+def int8_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """Flax ``Int8VisionTransformer`` param tree → state dict of the port's
+    ``Int8VisionTransformer`` (int8 matrices [out, in], the rest f32)."""
+    tree, sd = _top_from_jax(tree)
+    for i in range(_num_layers(tree)):
+        for path, name in _INT8_LAYER_LEAVES:
+            leaf = _get(tree[f"block_{i}"], path)
+            sd[f"blocks.{i}.{name}"] = (leaf.T.contiguous() if name.endswith(
+                "_t") else leaf)
     return sd
 
 

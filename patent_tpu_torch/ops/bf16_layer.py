@@ -22,36 +22,18 @@ import math
 import torch
 
 from .. import _build
-from .common import check_cuda_tensor, layernorm_f32, round_up
+from .common import (check_attention_shape, check_cuda_tensor,
+                     layernorm_f32, mm_f32, round_up)
 
 _P, _I = _build.P, _build.I
 _SIG_LAYER = [_P, _P] + [_I] * 6 + [_P] * 12 + [_P] * 5 + [_P]
 _SIG_CLS = [_P, _P] + [_I] * 6 + [_P] * 12 + [_P] * 7 + [_P]
-
-_HEAD_DIM = 64          # the head width csrc/bf16_layer.cu is written for
-_SMEM_LIMIT = 232448    # shared memory a block may use on the H100
 
 
 def required_seq_pad_bf16(seq: int) -> int:
     """Token-axis padding: a multiple of 16 rows (the tensor-core tile
     height), 197 → 208."""
     return round_up(max(seq, 16), 16)
-
-
-def _attention_smem_bytes(s: int) -> int:
-    sld = max(s, _HEAD_DIM) + 8
-    return (2 * s + 64) * (_HEAD_DIM + 8) * 2 + 64 * sld * 6 + 64 * 4
-
-
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b (2-D or batched 3-D) with f32 products and sums, the result
-    unrounded: bf16 operands are exact in f32, so this is the kernels'
-    bf16 x bf16 → f32.  On the card, cuBLAS's bf16 GEMM with an f32
-    output; elsewhere an f32 matmul."""
-    if a.is_cuda and a.dtype != torch.float32:
-        return (torch.mm if a.dim() == 2 else torch.bmm)(
-            a, b, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float())
 
 
 def _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
@@ -67,7 +49,7 @@ def _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
     cdt = x.dtype
 
     def dense(a, w, bias):
-        rows = _mm_f32(a.reshape(-1, a.shape[-1]).to(cdt), w.to(cdt))
+        rows = mm_f32(a.reshape(-1, a.shape[-1]).to(cdt), w.to(cdt))
         return rows.reshape(*a.shape[:-1], -1) + bias.float()
 
     def heads(t):                    # [B, T, D] → [B·H, T, hd]
@@ -78,12 +60,12 @@ def _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
     kv = dense(h, wqkv[:, d:], bqkv[d:]).to(cdt)
     q = dense(h[:, :1] if cls_only else h, wqkv[:, :d], bqkv[:d]).to(cdt)
     k, v = kv.split(d, dim=-1)
-    scores = _mm_f32(heads(q), heads(k).transpose(-1, -2)) / math.sqrt(hd)
+    scores = mm_f32(heads(q), heads(k).transpose(-1, -2)) / math.sqrt(hd)
     if valid_len < s:
         key_pad = torch.arange(s, device=x.device) >= valid_len
         scores = scores.masked_fill(key_pad, float("-inf"))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)).to(cdt)
-    ao = _mm_f32(p, heads(v)) / p.float().sum(dim=-1, keepdim=True)
+    ao = mm_f32(p, heads(v)) / p.float().sum(dim=-1, keepdim=True)
     ao = ao.to(cdt).reshape(b, num_heads, -1, hd).transpose(1, 2)
     x1 = (x[:, :1] if cls_only else x).float() + dense(
         ao.reshape(b, -1, d), wout, bout)
@@ -123,15 +105,7 @@ def _kernel_args(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
     check_cuda_tensor("x", x, torch.bfloat16)
     b, s, d = x.shape
     f = w1.shape[1]
-    if d % num_heads or d // num_heads != _HEAD_DIM:
-        raise ValueError(f"CUDA layer kernel needs head_dim {_HEAD_DIM}, "
-                         f"got D={d} with {num_heads} heads")
-    if s % 16 or not 1 <= valid_len <= s:
-        raise ValueError(f"token axis {s} must be padded to a multiple of "
-                         f"16 with 1 <= valid_len ({valid_len}) <= {s}")
-    if _attention_smem_bytes(s) > _SMEM_LIMIT:
-        raise ValueError(f"sequence {s} exceeds the attention kernel's "
-                         f"shared memory")
+    check_attention_shape(d, num_heads, s, valid_len)
     if f % 8:
         raise ValueError(f"MLP width {f} must be a multiple of 8")
 

@@ -1,9 +1,10 @@
-"""The parts of patent_tpu/ops/flash_attention.py that the serving layer
-shares: the exp2-domain score clamp and the plain one-pass softmax·v.
+"""The parts of patent_tpu/ops/flash_attention.py that the serving layers
+share: the exp2-domain score clamp and the plain one-pass softmax·v.
 
-The CUDA layer kernel (csrc/bf16_layer.cu) uses the usual max-subtracted
-softmax instead; ``one_pass_softmax_pv`` stays as the plain statement of
-the TPU kernel's form, for tests and comparison.
+The int8 layer (ops/quant_matmul.py, csrc/int8_layer.cu) computes this
+exp2 form with the clamp; the bf16 layer kernel (csrc/bf16_layer.cu) uses
+the usual max-subtracted softmax instead.  ``one_pass_softmax_pv`` is the
+plain statement of the TPU kernels' form, for tests and comparison.
 """
 
 from __future__ import annotations

@@ -1,21 +1,27 @@
 """CLI glue for the retrieval actions encode / retrieve / eval (port of
 patent_tpu/retrieval/cli_actions.py).
 
-Two differences from the JAX package: index filenames carry a ``_torch``
-backend tag, so neither package loads the other's gallery under the same
-name, and the fine-tuned weights tag hashes the bytes of ``state.npz``
-(the JAX one hashes the directory's mtime, which an in-place re-save can
-leave unchanged).
+Three differences from the JAX package: the device is named by the caller
+(``--device``, the card by default) and a missing card is an error, not a
+fall-back to the CPU; index filenames carry a ``_torch`` backend tag, so
+neither package loads the other's gallery under the same name; and the
+fine-tuned weights tag hashes the bytes of ``state.npz`` (the JAX one
+hashes the directory's mtime, which an in-place re-save can leave
+unchanged).
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import os
 
 import torch
 
-from patent_tpu.input.pipeline import list_images
+from ..data.ground_truth import (build_ground_truth, save_ground_truth,
+                                 split_query_gallery)
+from ..data.schema import records_from_metadata
+from ..input.pipeline import list_images
 
 _BACKEND_TAG = "_torch"
 
@@ -33,20 +39,29 @@ def _file_hash(path: str) -> str:
     return h.hexdigest()[:8]
 
 
-def pick_device() -> torch.device:
-    """The card when there is one, else the CPU.  Float32 matmuls and
+def select_device(name: str = "cuda") -> torch.device:
+    """The device the caller asked for: "cuda" (the card; RuntimeError when
+    there is none, never a silent CPU run) or "cpu".  Float32 matmuls and
     convolutions run in full f32 (no TF32), as the JAX scan's HIGHEST."""
+    if name not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {name!r}")
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is visible (torch.cuda.is_available()"
+                           " is false); pass --device cpu to run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(name)
 
 
-def index_prefix(path: str, gallery_dir: str, keep_tokens: int | None = None,
+def index_prefix(path: str, gallery_dir: str, quantize: bool = False,
+                 keep_tokens: int | None = None,
                  weights_tag: str = "") -> str:
-    """Identity-tagged on-disk index prefix: backend, pruning, weights and
-    a hash of the corpus path, so a stale or foreign index is never
-    loaded."""
+    """Identity-tagged on-disk index prefix: backend, precision, pruning,
+    weights and a hash of the corpus path, so a stale or foreign index is
+    never loaded."""
     tag = _BACKEND_TAG
+    if quantize:
+        tag += "_int8"
     if keep_tokens:
         tag += f"_kt{keep_tokens}"
     if weights_tag:
@@ -60,6 +75,7 @@ def index_prefix(path: str, gallery_dir: str, keep_tokens: int | None = None,
 def _build_encoder(args, image_size: int, device: torch.device):
     """(encoder, weights tag) for the serving tower at ``image_size``."""
     from ..models.vit import VIT_B16, VisionConfig, VisionTransformer
+    from ..models.vit_int8 import Int8VisionTransformer
     from ..models.weights import params_from_jax
     from ..utils import checkpoint
     from .engine import make_device_normalizing_encoder
@@ -79,8 +95,11 @@ def _build_encoder(args, image_size: int, device: torch.device):
                   f"serving the exact (unpruned) tower")
             keep = None
         args.keep_tokens = keep
+    # the weights are built or loaded in f32: the int8 tower quantizes
+    # them from their f32 values (as the JAX package does), the bf16 tower
+    # rounds them once
     gen = torch.Generator(device="cpu").manual_seed(0)
-    model = VisionTransformer(config, dtype=torch.bfloat16, keep_tokens=keep,
+    model = VisionTransformer(config, dtype=torch.float32, keep_tokens=keep,
                               generator=gen)
     models_dir = os.path.join(args.path, "models")
     finetuned = os.path.join(models_dir, "clip_finetune_best")
@@ -101,6 +120,14 @@ def _build_encoder(args, image_size: int, device: torch.device):
             print(f"loaded finetuned vision tower from {finetuned}")
     else:
         print("using randomly initialized encoder")
+    if getattr(args, "quantize", False):
+        model = Int8VisionTransformer.from_float(model)
+        print("serving int8-quantized encoder")
+    else:
+        bf16 = VisionTransformer(config, dtype=torch.bfloat16,
+                                 keep_tokens=keep)
+        bf16.load_state_dict(model.state_dict())
+        model = bf16
     if keep:
         print(f"ink-mass token selection: serving {keep} of "
               f"{config.num_patches} patches per image")
@@ -112,11 +139,6 @@ def _corpus(args, image_size: int):
     """(gallery_dir, query_dir, ground_truth_path): prepared split dirs
     under --path, else a real corpus (metadata.json + images/) split with
     the reference protocol, else a generated synthetic corpus."""
-    import json
-
-    from patent_tpu.data import (build_ground_truth, records_from_metadata,
-                                 save_ground_truth, split_query_gallery)
-
     force_synth = getattr(args, "synthetic", False)
     gallery = os.path.join(args.path, "test_gallery")
     query = os.path.join(args.path, "test_query")
@@ -160,8 +182,7 @@ def write_synthetic_split(root: str, image_size: int,
     """The synthetic retrieval corpus of the JAX CLI (``num_patents`` × 6
     figures, hard=True; 40 patents split into 160 gallery and 80 query
     figures): ``root``/test_gallery, test_query and ground_truth.json."""
-    from patent_tpu.data import (build_ground_truth, save_ground_truth,
-                                 split_query_gallery, synthetic)
+    from ..data import synthetic
 
     records = synthetic.synthetic_records(num_patents=num_patents,
                                           figures_per_patent=6, seed=0)
@@ -193,7 +214,7 @@ def build_engine(args):
     Returns (gallery_dir, query_dir, gt_path, engine, prefix)."""
     from .engine import RetrievalEngine
 
-    device = pick_device()
+    device = select_device(getattr(args, "device", "cuda"))
     gallery_dir, query_dir, gt_path = _corpus(
         args, 64 if args.synthetic else 224)
     image_size = _gallery_image_size(gallery_dir)
@@ -203,6 +224,7 @@ def build_engine(args):
                              cache_dir=os.path.join(args.path,
                                                     "decoded_cache"))
     prefix = index_prefix(args.path, gallery_dir,
+                          getattr(args, "quantize", False),
                           getattr(args, "keep_tokens", None),
                           weights_tag=weights_tag)
     return gallery_dir, query_dir, gt_path, engine, prefix

@@ -1,9 +1,9 @@
 """Encode → index → retrieve → evaluate (port of
 patent_tpu/retrieval/engine.py, one device, no scan batching).
 
-Reuses the JAX package's host modules, which load no JAX: ``ImageBatcher``
-(threaded decode into fixed-shape u8 batches), ``DecodedU8Cache`` and the
-reference metric battery.
+Host side: ``ImageBatcher`` (threaded decode into fixed-shape u8 batches),
+``DecodedU8Cache`` and the reference metric battery, the port's own copies
+of the JAX package's host modules.
 """
 
 from __future__ import annotations
@@ -15,10 +15,9 @@ from typing import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from patent_tpu.input.cache import DecodedU8Cache
-from patent_tpu.input.pipeline import CLIP_MEAN, CLIP_STD, ImageBatcher, list_images
-from patent_tpu.metrics.retrieval_metrics import RetrievalMetrics, evaluate_rankings
-
+from ..input.cache import DecodedU8Cache
+from ..input.pipeline import CLIP_MEAN, CLIP_STD, ImageBatcher, list_images
+from ..metrics.retrieval_metrics import RetrievalMetrics, evaluate_rankings
 from .index import EmbeddingIndex
 
 Encoder = Callable[[np.ndarray], np.ndarray]

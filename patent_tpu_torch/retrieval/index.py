@@ -1,13 +1,15 @@
-"""Exact cosine top-k index on one device (port of the cosine, unquantized,
+"""Exact cosine top-k index on one device (port of the cosine,
 single-device part of patent_tpu/retrieval/index.py).
 
 ``topk_search`` is the oracle: a blockwise f32 scan (plain matmuls, as the
 JAX package leaves it to XLA).  ``topk_search_cosine_fast`` over-fetches a
 ``DEFAULT_RERANK_MULT``·k candidate pool with the bucketed bf16 kernel
 (ops/topk_kernel) and re-ranks it exactly in f32, so its answer equals the
-scan's, ties included.  ``EmbeddingIndex`` takes the fast path on a CUDA
-device whenever the pool is smaller than the gallery, and the scan
-otherwise; it reads and writes the JAX index's ``.npy`` + ``.json`` files.
+scan's, ties included; ``topk_search_quantized`` does the same from an
+int8 gallery.  ``EmbeddingIndex`` takes a candidate path whenever the pool
+is smaller than the gallery (the bf16 one on a CUDA device only; the int8
+one, ``quantized=True``, on any device), and the scan otherwise; it reads
+and writes the JAX index's ``.npy`` + ``.json`` files.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import json
 import numpy as np
 import torch
 
-from ..ops.topk_kernel import (bucket_topk_bf16, bucket_topk_supported,
-                               prepare_cosine_gallery_bf16)
+from ..ops.topk_kernel import (bucket_topk_bf16, bucket_topk_int8,
+                               bucket_topk_supported,
+                               prepare_cosine_gallery_bf16, quantize_gallery,
+                               quantize_queries)
 
 DEFAULT_RERANK_MULT = 8
 
@@ -108,13 +112,51 @@ def topk_search_cosine_fast(queries: torch.Tensor, gal_bf16: torch.Tensor,
     return _cosine_rerank_device(pidx, q, gallery_f32, k)
 
 
+def topk_search_quantized(queries: torch.Tensor, gal_i8: torch.Tensor,
+                          gal_scale: torch.Tensor, gallery_f32: torch.Tensor,
+                          k: int = 10, block_size: int = 8192,
+                          rerank_mult: int = DEFAULT_RERANK_MULT
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact cosine top-k from an int8 gallery (``quantize_gallery``): the
+    queries are normalized and row-quantized, the bucketed int8 stage
+    over-fetches a ``rerank_mult``·k pool, and the exact f32 re-rank gives
+    the same answer as ``topk_search``, ties included.  The scan answers
+    when the pool would cover the gallery or exceed the stage's capacity."""
+    q = queries.float()
+    n = gal_i8.shape[0]
+    pool = min(max(k * rerank_mult, k), n)
+    if pool >= n or not bucket_topk_supported(n, pool):
+        return topk_search(q, gallery_f32, k=k, block_size=block_size)
+    q_i8, q_scale = quantize_queries(q)
+    _pv, pidx = bucket_topk_int8(q_i8, q_scale, gal_i8, gal_scale, pool)
+    return _cosine_rerank_device(pidx, q, gallery_f32, k)
+
+
+def _default_device(embeddings) -> torch.device:
+    """A tensor's own device; for anything else the card, which must be
+    there (pass ``device="cpu"`` for the CPU)."""
+    if isinstance(embeddings, torch.Tensor):
+        return embeddings.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("EmbeddingIndex: no CUDA card is visible; pass "
+                           "device='cpu' to index on the CPU")
+    return torch.device("cuda")
+
+
 class EmbeddingIndex:
     """In-memory exact cosine index on one device; persistence matches the
-    reference's ``.npy`` + names-JSON layout."""
+    reference's ``.npy`` + names-JSON layout.
+
+    ``device``: where the gallery lives; by default a tensor's own device
+    and the card for a numpy array.  ``quantized=True``: the gallery also
+    lives as per-row int8 (``quantize_gallery``), and searches take their
+    candidates from it (``topk_search_quantized``); the f32 copy stays for
+    the re-rank and persistence."""
 
     def __init__(self, embeddings, names: list[str],
                  similarity: str = "cosine",
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 quantized: bool = False):
         if similarity != "cosine":
             raise NotImplementedError(
                 f"similarity {similarity!r} is not yet ported to "
@@ -122,14 +164,17 @@ class EmbeddingIndex:
         if len(names) != int(embeddings.shape[0]):
             raise ValueError(f"names ({len(names)}) and embeddings "
                              f"({embeddings.shape[0]}) disagree")
-        if device is None:
-            device = (embeddings.device if isinstance(embeddings, torch.Tensor)
-                      else "cpu")
-        self.device = torch.device(device)
+        self.device = torch.device(device if device is not None
+                                   else _default_device(embeddings))
         self.names = list(names)
         self.similarity = similarity
         self.embeddings = torch.as_tensor(embeddings, dtype=torch.float32,
                                           device=self.device)
+        self.quantized = quantized
+        if quantized:
+            i8, scale = quantize_gallery(self.embeddings.cpu().numpy())
+            self.emb_i8 = torch.from_numpy(i8).to(self.device)
+            self.emb_scale = torch.from_numpy(scale).to(self.device)
         # bf16 candidate copy for the kernel path, built on the first
         # search that takes it (full-ranking callers never pay for it)
         self._gal16 = None
@@ -143,7 +188,11 @@ class EmbeddingIndex:
         """Exact top-k: (scores [Q, k], indices [Q, k]) best-first."""
         q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         k = min(k, len(self.names))
-        if fused_cosine_eligible(len(self.names), k, self.device):
+        if self.quantized:
+            vals, idx = topk_search_quantized(
+                q, self.emb_i8, self.emb_scale, self.embeddings, k=k,
+                block_size=block_size)
+        elif fused_cosine_eligible(len(self.names), k, self.device):
             if self._gal16 is None:
                 self._gal16, self._gal16_valid = \
                     prepare_cosine_gallery_bf16(self.embeddings)

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from patent_tpu_torch.models.vit import VisionConfig, VisionTransformer
+from patent_tpu_torch.models.vit_int8 import Int8VisionTransformer
 from patent_tpu_torch.ops import bf16_layer, topk_kernel
-from patent_tpu_torch.retrieval.cli_actions import pick_device
+from patent_tpu_torch.ops import quant_matmul as qm
+from patent_tpu_torch.retrieval.cli_actions import select_device
 from patent_tpu_torch.retrieval.index import EmbeddingIndex
 
 pytestmark = pytest.mark.gpu
@@ -34,7 +36,7 @@ BIASES = (1, 3, 5, 7, 9, 11)
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return pick_device()
+    return select_device("cuda")
 
 
 def _layer_case(dev, b=3, seed=0):
@@ -175,3 +177,161 @@ def test_tower_kernels_match_plain_layers(cuda):
     assert got.shape == (5, 32)
     assert _rel_err(got, want) <= 4e-3
     assert _min_cosine(got, want) > 0.9999
+
+
+# int8 sub-layers: the integer products are exact, so the kernel and the
+# plain version differ only where a LayerNorm or f32 dot summed in another
+# order flips an int8 code (chip_smoke.py's gate, set ~4x above the
+# floor measured there at ViT-B/16 widths); dropping the key mask, a bias
+# or the per-channel scales moves the output by 1e-2 or more
+INT8_REL_TOL = 3e-4
+INT8_BIASES = {"attention": (1, 4, 7), "mlp": (1, 4, 7)}
+INT8_SCALES = {"attention": (3, 6), "mlp": (3, 6)}
+
+
+def _int8_case(dev, b=3, seed=0):
+    """(x as in _layer_case, attention parameters, MLP parameters): f32
+    matrices quantized per output channel and held [out, in]."""
+    x, _p = _layer_case(dev, b, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+
+    def r(*shape, std):
+        return std * torch.randn(*shape, generator=g, device=dev)
+
+    def m(rows, cols):
+        q, scale = qm.quantize_weight(r(rows, cols, std=rows ** -0.5))
+        return q.T.contiguous(), scale
+
+    wqkv, sqkv = m(D, 3 * D)
+    wout, sout = m(D, D)
+    w1, s1 = m(D, F)
+    w2, s2 = m(F, D)
+    attn = (1 + r(D, std=0.1), r(D, std=0.1), wqkv, sqkv, r(3 * D, std=0.2),
+            wout, sout, r(D, std=0.02))
+    mlp = (1 + r(D, std=0.1), r(D, std=0.1), w1, s1, r(F, std=0.02), w2, s2,
+           r(D, std=0.02))
+    return x, attn, mlp
+
+
+@pytest.mark.parametrize("name", ["quant_attention_block",
+                                  "quant_attention_cls", "quant_mlp_block"])
+def test_int8_kernel_matches_plain_and_controls_do_not(cuda, name):
+    kernel = getattr(qm, name)
+    plain = getattr(qm, name + "_plain")
+    x, attn, mlp = _int8_case(cuda)
+    attention = name != "quant_mlp_block"
+    kind = "attention" if attention else "mlp"
+    params = attn if attention else mlp
+
+    def run(fn, p, valid=VALID):
+        out = fn(x, *p, HEADS, valid_len=valid) if attention else fn(x, *p)
+        return out[:, :VALID] if name == "quant_attention_block" else out
+
+    n0 = kernel.launches
+    got = run(kernel, params)
+    want = run(plain, params)
+    torch.cuda.synchronize()
+    assert kernel.launches == n0 + 1
+    assert torch.isfinite(got.float()).all()
+    assert _rel_err(got, want) <= INT8_REL_TOL
+    assert _min_cosine(got, want) > 0.9999
+    if attention:
+        assert _rel_err(run(plain, params, S), want) > INT8_REL_TOL
+    for i in INT8_BIASES[kind]:
+        q = list(params)
+        q[i] = torch.zeros_like(q[i])
+        assert _rel_err(run(plain, q), want) > INT8_REL_TOL, i
+    for i in INT8_SCALES[kind]:
+        q = list(params)
+        q[i] = torch.full_like(q[i], float(q[i].mean()))
+        assert _rel_err(run(plain, q), want) > INT8_REL_TOL, i
+
+
+def test_int8_cls_kernel_is_row_0_of_the_attention_kernel(cuda):
+    x, attn, _mlp = _int8_case(cuda)
+    full = qm.quant_attention_block(x, *attn, HEADS, valid_len=VALID)
+    cls = qm.quant_attention_cls(x, *attn, HEADS, valid_len=VALID)
+    torch.cuda.synchronize()
+    assert cls.shape == (x.shape[0], D)
+    # the same kernels and per-element operations for row 0: equal bits
+    assert torch.equal(cls, full[:, 0])
+
+
+def test_int8_kernels_reject_what_they_do_not_take(cuda):
+    x, attn, mlp = _int8_case(cuda)
+    with pytest.raises(ValueError):      # f32 tokens
+        qm.quant_attention_block(x.float(), *attn, HEADS, valid_len=VALID)
+    with pytest.raises(ValueError):      # head_dim 32
+        qm.quant_attention_block(x, *attn, 4, valid_len=VALID)
+    with pytest.raises(ValueError):      # weights in the [in, out] layout
+        qm.quant_attention_block(x, *attn[:2], attn[2].T, *attn[3:], HEADS,
+                                 valid_len=VALID)
+    with pytest.raises(ValueError):      # float matrices
+        qm.quant_mlp_block(x, *mlp[:2], mlp[2].float(), *mlp[3:])
+
+
+def test_int8_bucket_kernel_equals_plain(cuda):
+    """Exact per-bucket top-2 beyond 2048 rows, ragged query tile, an
+    exact duplicate and rows of scale 0: the integer products are exact,
+    so every value and column equals the plain version's."""
+    dev = cuda
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, d, nq = 5000, 64, 70
+    gal = torch.randn(n, d, generator=g, device=dev)
+    gal[3000] = gal[1976]                    # same bucket (mod 1024)
+    q = torch.randn(nq, d, generator=g, device=dev)
+    q[0] = gal[1976]
+    gi8, gscale = (torch.from_numpy(a).to(dev) for a in
+                   topk_kernel.quantize_gallery(gal.cpu().numpy()))
+    gscale[::97] = 0.0
+    qi8, qscale = topk_kernel.quantize_queries(q)
+    got = topk_kernel._bucket_top2_cuda(qi8, gi8, gscale, 1024)
+    want = topk_kernel.bucket_top2_int8_plain(qi8, gi8, gscale, 1024)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_quantized_index_takes_the_kernel_path_and_equals_the_scan(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    gal = torch.randn(5000, 64, generator=g, device=cuda)
+    q = gal[:16] + 0.3 * torch.randn(16, 64, generator=g, device=cuda)
+    names = [f"g{i}" for i in range(5000)]
+    n0 = topk_kernel.bucket_topk_int8.launches
+    v, i = EmbeddingIndex(gal, names, quantized=True).search(q, k=10)
+    assert topk_kernel.bucket_topk_int8.launches == n0 + 1
+    cv, ci = EmbeddingIndex(gal.cpu(), names).search(q.cpu(), k=10)
+    assert (i == ci).all()
+    assert abs(v - cv).max() < 1e-5
+
+
+def test_int8_tower_kernels_match_plain_layers(cuda):
+    """Each int8 layer agrees with its plain version to an ulp, but an
+    int8 code flipped by a rounding difference is a step of 1/127 of its
+    row's range, and the layers carry it on: features within 2e-2
+    relative error and cosine 0.999 over three layers."""
+    cfg = VisionConfig(image_size=32, patch_size=8, hidden_dim=D,
+                       num_layers=3, num_heads=HEADS, mlp_dim=F,
+                       projection_dim=32)
+    gen = torch.Generator().manual_seed(6)
+    tower = VisionTransformer(cfg, dtype=torch.float32, generator=gen)
+    with torch.no_grad():        # init leaves them 0 and 1: make each matter
+        for prm in tower.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.05 * torch.randn(prm.shape, generator=gen))
+    tower = Int8VisionTransformer.from_float(tower.to(cuda)).eval()
+    px = torch.randn(5, 32, 32, 3, device=cuda)
+    counts = [fn.launches for fn in (qm.quant_attention_block,
+                                     qm.quant_attention_cls,
+                                     qm.quant_mlp_block)]
+    with torch.inference_mode():
+        got = tower(px)
+        tower.kernels = False
+        want = tower(px)
+    assert [fn.launches for fn in (qm.quant_attention_block,
+                                   qm.quant_attention_cls,
+                                   qm.quant_mlp_block)] == \
+        [counts[0] + 2, counts[1] + 1, counts[2] + 3]
+    assert got.shape == (5, 32)
+    assert _rel_err(got, want) <= 2e-2
+    assert _min_cosine(got, want) > 0.999

@@ -144,7 +144,7 @@ def test_embedding_index_search_matches_jax_index(data, n, k):
     gallery = gallery[:n]
     names = [f"g{i}" for i in range(n)]
     jv, ji = jax_index.EmbeddingIndex(gallery, names).search(queries, k=k)
-    idx = torch_index.EmbeddingIndex(gallery, names)
+    idx = torch_index.EmbeddingIndex(gallery, names, device="cpu")
     tv, ti = idx.search(queries, k=k)
     assert ti.shape == (queries.shape[0], min(k, n))
     np.testing.assert_array_equal(ti, ji)
@@ -175,11 +175,12 @@ def test_index_files_interchange_with_jax(data, tmp_path):
     """Both packages read and write the same .npy + .json layout."""
     _q, gallery = data
     names = [f"fig{i}.png" for i in range(50)]
-    torch_index.EmbeddingIndex(gallery[:50], names).save(str(tmp_path / "t"))
+    torch_index.EmbeddingIndex(gallery[:50], names, device="cpu").save(
+        str(tmp_path / "t"))
     j = jax_index.EmbeddingIndex.load(str(tmp_path / "t"))
     assert j.names == names
     np.testing.assert_array_equal(np.asarray(j.embeddings), gallery[:50])
     jax_index.EmbeddingIndex(gallery[:50], names).save(str(tmp_path / "j"))
-    t = torch_index.EmbeddingIndex.load(str(tmp_path / "j"))
+    t = torch_index.EmbeddingIndex.load(str(tmp_path / "j"), device="cpu")
     assert t.names == names
     np.testing.assert_array_equal(t.embeddings.numpy(), gallery[:50])
