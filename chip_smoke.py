@@ -18,16 +18,27 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    stage equal to its plain version), re-ranked top-10 against the f32
    scan; the bf16 and the int8 towers with kernels against the same
    towers with plain layers, and the int8 tower against the bf16 tower;
-4. the slice end to end through the CLI: encode, retrieve --k 20 and eval
-   on a 224 px synthetic corpus (60 patents x 6 figures) with seeded
+   the fine-tune's trainable attention sub-layer and MLP block, forward
+   and backward (given the same cotangent), at a training step's shapes
+   (B=128; the MLP on 128 x 197 rows, several backward chunks) and with
+   most keys pad, with their controls (no key mask, a bias zeroed, no
+   clamp gate where scores pass +80, the LayerNorm's term of dx dropped,
+   the ragged last rows or the last chunk's rows dropped);
+4. the slices end to end through the CLI: encode, retrieve --k 20 and
+   eval on a 224 px synthetic corpus (60 patents x 6 figures) with seeded
    ViT-B/16 weights saved as a clip_finetune_best checkpoint, first with
    the bf16 tower and then with --quantize, and an
-   EmbeddingIndex(quantized=True) over the int8-encoded gallery; every
-   kernel's launch count over its path must be > 0;
+   EmbeddingIndex(quantized=True) over the int8-encoded gallery; then
+   finetune --epochs 1, ViT-B/16 on a 224 px corpus (48 patents x 4
+   figures: two steps of 64 pairs), and eval serving the checkpoint it
+   wrote; every kernel's launch count over its path must be > 0;
 5. times (CUDA events): the bf16 and the int8 tower img/s at batch 128,
    cosine top-k QPS at 1M x 512, Q=256, k=10 through the bf16 kernel
-   path, the quantized path and the f32 scan, and every kernel against
-   its plain version at the main path's shapes.
+   path, the quantized path and the f32 scan, every kernel against its
+   plain version at the main path's shapes, and one fine-tune step at 64
+   pairs with kernels against plain blocks (first held to them: metrics
+   and every trainable gradient, from the same seeded weights), with its
+   profile.
 
 The line before the last is a JSON object with one entry per kernel
 (its launches on the main path, error against the plain version, times
@@ -38,10 +49,13 @@ is printed.  Needs one CUDA card; without one it exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import glob
+import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -49,6 +63,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, "build", "chip_smoke_run")
+FT_DIR = os.path.join(ROOT, "build", "chip_smoke_finetune")
 
 
 def fail(msg: str) -> None:
@@ -76,12 +91,12 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(torch, plain, kernel) -> tuple[float, float]:
+def in_turns(torch, plain, kernel, iters: int = 20) -> tuple[float, float]:
     """(plain ms, kernel ms), measured plain, kernel, kernel, plain."""
-    p1 = cuda_ms(torch, plain)
-    k1 = cuda_ms(torch, kernel)
-    k2 = cuda_ms(torch, kernel)
-    p2 = cuda_ms(torch, plain)
+    p1 = cuda_ms(torch, plain, iters=iters)
+    k1 = cuda_ms(torch, kernel, iters=iters)
+    k2 = cuda_ms(torch, kernel, iters=iters)
+    p2 = cuda_ms(torch, plain, iters=iters)
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
@@ -103,7 +118,7 @@ def kernel_breakdown(torch, fn, iters: int = 3) -> list[tuple[str, float]]:
 
 
 def min_row_cosine(torch, a, b) -> float:
-    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    a, b = (t.float().reshape(-1, t.shape[-1]) for t in (a, b))
     return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
 
 
@@ -356,6 +371,251 @@ def check_int8(torch, qm, name, x, p, heads, valid) -> float:
                 INT8_REL_TOL, INT8_MAX_ULPS)
 
 
+# The fine-tune's trainable blocks (rows 12, 13, 15, 16): the kernel and
+# the plain version round the same bf16 intermediates and differ by f32
+# summation order only (the cotangent sums also by the order of their
+# atomic adds).  Measured on the H100 (this script's output): relative
+# error 0 to 2.3e-6 forward, 0 to 5.2e-5 backward (B 128, the MLP on
+# 25,216 rows), at most 1 ulp; the gates sit 3-4x above, and the nearest
+# control (b1 = 0, on dx) is at 8.7e-3.
+TRAIN_FWD_REL_TOL, TRAIN_FWD_MAX_ULPS = 1e-5, 2
+TRAIN_BWD_REL_TOL, TRAIN_BWD_MAX_ULPS = 1.5e-4, 2
+# the q columns of every fourth head scaled by this, so that a share of
+# their scores passes the +80 clamp and the backward's gate matters
+SATURATED_Q_GAIN = 25.0
+MLP_GRADS = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+
+
+def fold_q(torch, wqkv, bqkv, d, heads, gain: float = 1.0):
+    """(wqkv, bqkv) as the row-12/13 kernels take them: the q columns
+    scaled by log2(e)/sqrt(hd), as ``fused_attention_block`` folds them,
+    and those of every fourth head by ``gain`` besides."""
+    hd = d // heads
+    col = torch.full((3 * d,), 1.0, device=wqkv.device)
+    col[:d] = math.log2(math.e) / math.sqrt(hd)
+    col[:d].view(heads, hd)[::4] *= gain
+    return ((wqkv.float() * col).to(wqkv.dtype).contiguous(),
+            (bqkv.float() * col).contiguous())
+
+
+def saturated_share(torch, x, wqkv, bqkv, heads, valid) -> float:
+    """Share of the valid (query, key) scores of the gained heads at or
+    above the +80 clamp."""
+    b, s, d = x.shape
+    qkv = (x.float() @ wqkv.float() + bqkv).reshape(b, s, 3, heads, -1)
+    q, k = qkv[:, :, 0, ::4], qkv[:, :, 1, ::4]
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k)[..., :valid, :valid]
+    return float((sc >= 80.0).float().mean())
+
+
+def check_train_attention(torch, fa, x, p, heads, valid, gen,
+                          saturate: bool = False) -> tuple[float, float]:
+    """Hold rows 12 and 13 to their plain versions on x [B, S, D] with
+    `valid` keys (row 13 given a cotangent whose pad rows are 0, as the
+    tower's slice gives it), with controls that must fail the same gates:
+    the plain version without the key mask and with each bias zeroed; with
+    ``saturate``, every fourth head's scores partly past the +80 clamp and
+    the control the plain backward without the clamp's gate.  Returns the
+    max-abs errors (forward, backward)."""
+    b, s, d = x.shape
+    wqkv, bqkv = fold_q(torch, p[2], p[3], d, heads,
+                        SATURATED_Q_GAIN if saturate else 1.0)
+    wout, bout = p[4], p[5]
+    zb = torch.zeros_like(bqkv)
+    tag = f"valid {valid}/{s}" + (", saturated" if saturate else "")
+    e12 = 0.0
+    if not saturate:
+        def fwd(fn, bq=bqkv, bo=bout, v=valid):
+            return fn(x, wqkv, bq, wout, bo, heads, v)[:, :valid]
+
+        plain = fa.fused_attention_block_plain
+        e12 = gate(torch, f"fused_attention_fwd {tag}",
+                   fwd(fa.fused_attention_fwd), fwd(plain),
+                   {"no key mask": fwd(plain, v=s), "bqkv=0": fwd(plain, zb),
+                    "bout=0": fwd(plain, bo=torch.zeros_like(bout))},
+                   TRAIN_FWD_REL_TOL, TRAIN_FWD_MAX_ULPS)
+    keep = (torch.arange(s, device=x.device) < valid)[:, None]
+    da = (torch.randn(b, s, d, generator=gen, device=x.device)
+          * keep).to(torch.bfloat16)
+
+    def bwd(bq=bqkv, v=valid, gate_on=True):
+        return fa.attention_bwd_plain(x, wqkv, bq, da, heads, v, gate_on)
+
+    got = fa.fused_attention_bwd(x, wqkv, bqkv, da, heads, valid)
+    ref = bwd()
+    torch.cuda.synchronize()
+    # pad queries have a zero cotangent and pad keys no gradient: those
+    # rows of dqkv are 0 exactly; the gates below read the valid rows
+    check(not bool(got[0][:, valid:].any()),
+          f"fused_attention_bwd {tag}: pad rows of dqkv are not 0")
+    if saturate:
+        share = saturated_share(torch, x, wqkv, bqkv, heads, valid)
+        print(f"[kernel] saturated case: {100 * share:.2f}% of the gained "
+              "heads' valid scores at or above +80")
+        check(0.0 < share < 0.5, "the saturated case does not saturate "
+              "a share of the scores")
+        controls = [{"no clamp gate": bwd(gate_on=False)}, {}]
+    else:
+        no_mask, no_bias = bwd(v=s), bwd(bq=zb)
+        controls = [{"no key mask": no_mask, "bqkv=0": no_bias},
+                    {"no key mask": no_mask, "bqkv=0": no_bias}]
+    e13 = gate(torch, f"fused_attention_bwd dqkv {tag}", got[0][:, :valid],
+               ref[0][:, :valid],
+               {c: t[0][:, :valid] for c, t in controls[0].items()},
+               TRAIN_BWD_REL_TOL, TRAIN_BWD_MAX_ULPS)
+    if controls[1]:
+        e13 = max(e13, gate(torch, f"fused_attention_bwd A {tag}",
+                            got[1][:, :valid], ref[1][:, :valid],
+                            {c: t[1][:, :valid]
+                             for c, t in controls[1].items()},
+                            TRAIN_FWD_REL_TOL, TRAIN_FWD_MAX_ULPS))
+    return e12, e13
+
+
+def check_train_mlp(torch, mm, x2, p, gen) -> tuple[float, float]:
+    """Hold rows 15 and 16 to their plain versions on x2 [M, D] (the
+    unpadded rows of a token stream), with controls that must fail the
+    same gates: the forward with each bias zeroed; the backward with b1
+    zeroed, dx without the LayerNorm's term (dx = dout), and each
+    cotangent sum without the ragged last tile of rows and without the
+    rows of the backward's last chunk.  Returns the max-abs errors
+    (forward, backward)."""
+    m = x2.shape[0]
+    lns, lnb, w1, b1, w2, b2 = p[6:12]
+    args = [lns, lnb, w1, b1, w2, b2]
+
+    def with_zero(i):
+        q = list(args)
+        q[i] = torch.zeros_like(q[i])
+        return q
+
+    plain = mm.fused_mlp_block_bf16_plain
+    e15 = gate(torch, f"fused_mlp_fwd M {m}", mm.fused_mlp_fwd(x2, *args),
+               plain(x2, *args),
+               {"ln2_bias=0": plain(x2, *with_zero(1)),
+                "b1=0": plain(x2, *with_zero(3)),
+                "b2=0": plain(x2, *with_zero(5))},
+               TRAIN_FWD_REL_TOL, TRAIN_FWD_MAX_ULPS)
+    do2 = torch.randn(x2.shape, generator=gen, device=x2.device).to(
+        torch.bfloat16)
+    got = mm.fused_mlp_bwd(x2, do2, *args[:5])
+    ref = mm._mlp_bwd_plain(x2, do2, *args[:5])
+    no_b1 = mm._mlp_bwd_plain(x2, do2, *with_zero(3)[:5])
+    # the ragged last tile of rows, and the last of the backward's chunks
+    tails = {m % 128 or 128, (m - 1) % mm.CHUNK_ROWS + 1}
+    no_tail = {t: mm._mlp_bwd_plain(x2[:-t], do2[:-t], *args[:5])
+               for t in tails if t < m}
+    e16 = 0.0
+    for i, gname in enumerate(MLP_GRADS):
+        if i == 0:
+            controls = {"dLN dropped": do2, "b1=0": no_b1[0]}
+        else:
+            controls = {f"last {t} rows dropped": g[i]
+                        for t, g in no_tail.items()}
+            if gname != "db2":         # sum(dout) does not depend on b1
+                controls["b1=0"] = no_b1[i]
+        e16 = max(e16, gate(torch, f"fused_mlp_bwd {gname} M {m}", got[i],
+                            ref[i], controls, TRAIN_BWD_REL_TOL,
+                            TRAIN_BWD_MAX_ULPS))
+    return e15, e16
+
+
+# One fine-tune step with the kernels against one with the plain blocks,
+# from the same weights on the same batch.  The step's metrics must agree
+# within STEP_METRIC_REL_TOL relative, and the tower's gradients, given one
+# cotangent of its features for both, within STEP_GRAD_REL_TOL in norm for
+# every trainable leaf (as tests/test_torch_gpu.py holds a 3-layer tower).
+# Measured on the H100: metrics 4e-5 apart, tower gradients at most 1.05e-2
+# (the last blocks' w1, whose inputs carry eleven layers' rounding
+# differences, as the serving tower's features differ by 6.5e-3).  The
+# step's own gradients are printed but not gated: with random weights the
+# 128 features nearly coincide (the contrastive loss sits at ln(127)), so
+# the loss's cotangent is a small difference of large terms and moves far
+# more than the features do (measured 4.9e-2 apart, and bias gradients
+# that sum it over the batch up to 0.17 apart).
+STEP_METRIC_REL_TOL = 2e-3
+STEP_GRAD_REL_TOL = 2e-2
+
+
+def rel_gap(a, b) -> float:
+    """||a - b|| / ||b||."""
+    return float((a - b).norm() / b.norm())
+
+
+def grad_gaps(gk: dict, gp: dict) -> dict[str, float]:
+    """Per-leaf rel_gap of two gradients (name → tensor)."""
+    return {n: rel_gap(gk[n], g) for n, g in gp.items()}
+
+
+def check_train_step(torch, metrics, tower, step, dz, yardstick) -> None:
+    """Hold one training step with the kernels to one with the plain
+    blocks; each of the first four arguments is a (kernels, plain) pair:
+    the step's metrics, the tower's gradients given one cotangent, the
+    step's gradients, and the loss's cotangent of the tower's features.
+    ``yardstick``: per-leaf gaps of the plain tower's gradients when its
+    pixels get noise of std 1e-3, printed beside the tower's gaps."""
+    (mk, mp), (tk, tp), (sk, sp) = metrics, tower, step
+    metric_gaps = {key: abs(mk[key] - want) / abs(want)
+                   for key, want in mp.items()}
+    check(set(tk) == set(tp) and set(sk) == set(sp) and tp,
+          "the kernels and the plain blocks train different leaves")
+    tgaps, sgaps = grad_gaps(tk, tp), grad_gaps(sk, sp)
+
+    def largest(gaps):
+        return ", ".join(f"{n} {g:.3g}" for n, g in sorted(
+            gaps.items(), key=lambda kv: -kv[1])[:3])
+
+    print("[kernel] fine-tune step, ViT-B/16, kernels vs plain blocks: "
+          + ", ".join(f"{key} {mk[key]:.6f} vs {mp[key]:.6f}"
+                      for key in mp)
+          + f"; tower gradients given one cotangent, {len(tp)} trainable "
+          f"leaves, largest gaps: {largest(tgaps)} (yardstick, plain vs "
+          f"plain on pixels + 1e-3 noise: {largest(yardstick)}); the "
+          "step's gradients "
+          f"({len(sp)} leaves), largest gaps: {largest(sgaps)}, with the "
+          f"loss's cotangent of the features {rel_gap(*dz):.3g} "
+          "apart")
+    check(all(math.isfinite(v) for v in mk.values())
+          and all(g <= STEP_METRIC_REL_TOL for g in metric_gaps.values()),
+          f"training step metrics with kernels {mk} differ from the plain "
+          f"blocks' {mp} by more than {STEP_METRIC_REL_TOL} relative")
+    check(all(bool(torch.isfinite(g).all()) for g in sk.values()),
+          "the step's gradients with kernels are not finite")
+    for name, gap in tgaps.items():
+        check(math.isfinite(gap) and gap <= STEP_GRAD_REL_TOL,
+              f"tower gradient of {name} with kernels differs from the "
+              f"plain blocks' by {gap:.3g} in norm (gate "
+              f"{STEP_GRAD_REL_TOL})")
+
+
+def train_bounds(b, s, valid, d, f) -> dict[str, tuple]:
+    """bound() of rows 12, 13, 15, 16 on the fine-tune's shapes: attention
+    on the padded stream [B, S, D] over the valid keys, the MLP on the
+    B·valid unpadded rows; each input read once and each output written
+    once (activations bf16, matrices bf16, vectors and the MLP's parameter
+    cotangents f32)."""
+    m, mv = b * s, b * valid
+    attn = 4 * b * s * valid * d               # q kᵀ and p v, valid keys
+    return {
+        "fused_attention_fwd": bound(
+            2 * 2 * m * d + 2 * 4 * d * d + 4 * 4 * d,
+            {"bf16": 2 * m * d * 3 * d + attn + 2 * m * d * d}),
+        # the wrapper recomputes qkv from x, then the six products of the
+        # attention backward (s, p v, dp, dq, dk, dv)
+        "fused_attention_bwd": bound(
+            2 * m * d + 2 * 3 * d * d + 4 * 3 * d + 2 * m * d
+            + 2 * m * 3 * d + 2 * m * d,
+            {"bf16": 2 * m * d * 3 * d + 3 * attn}),
+        "fused_mlp_fwd": bound(
+            2 * 2 * mv * d + 2 * 2 * d * f + 4 * (3 * d + f),
+            {"bf16": 4 * mv * d * f}),
+        # recompute g, then dW2, da, dW1, dh: five products of 2·M·D·F
+        "fused_mlp_bwd": bound(
+            3 * 2 * mv * d + 2 * 2 * d * f + 4 * (2 * d + f)
+            + 4 * (2 * d * f + 3 * d + f),
+            {"bf16": 10 * mv * d * f})}
+
+
 def main() -> None:
     try:
         import torch
@@ -375,9 +635,16 @@ def main() -> None:
     from patent_tpu_torch.models.vit import VIT_B16, VisionTransformer
     from patent_tpu_torch.models.vit_int8 import Int8VisionTransformer
     from patent_tpu_torch.models.weights import params_to_jax
+    from patent_tpu_torch.data.synthetic import write_synthetic_corpus
     from patent_tpu_torch.ops import bf16_layer, topk_kernel
+    from patent_tpu_torch.ops import bf16_mlp_grad as mm
+    from patent_tpu_torch.ops import flash_attention as fa
     from patent_tpu_torch.ops import quant_matmul as qm
+    from patent_tpu_torch.train.finetune_clip import (init_finetune_state,
+                                                      make_finetune_step)
+    from patent_tpu_torch.utils.config import ClipFinetuneConfig
     from patent_tpu_torch.retrieval import index as index_mod
+    from patent_tpu_torch.retrieval.engine import device_normalize
     from patent_tpu_torch.retrieval.cli_actions import (select_device,
                                                         write_synthetic_split)
     from patent_tpu_torch.utils import checkpoint
@@ -435,6 +702,29 @@ def main() -> None:
     print("[kernel] fused_layer_cls_bf16 equals row 0 of "
           "fused_layer_block_bf16, and quant_attention_cls row 0 of "
           "quant_attention_block, bit for bit")
+
+    # the fine-tune's trainable blocks, on a generator of their own so that
+    # the draws above and below stay those of the serving checks: at the
+    # main path's shapes (64 pairs are 128 images: attention on the stream
+    # padded to 208, the MLP on the 128 x 197 unpadded rows, which the
+    # backward takes in several chunks), then with most keys pad, then
+    # with scores past the clamp
+    fgen = torch.Generator(device=dev).manual_seed(3)
+    bt = 128
+    for bv, v in ((bt, valid), (b, 96)):
+        x = layer_input(torch, bv, s, d, v, fgen, dev)
+        e12, e13 = check_train_attention(torch, fa, x, p, heads, v, fgen)
+        errs["fused_attention_fwd"] = max(errs.get("fused_attention_fwd", 0.0),
+                                          e12)
+        errs["fused_attention_bwd"] = max(errs.get("fused_attention_bwd", 0.0),
+                                          e13)
+    _e, e13 = check_train_attention(torch, fa, x, p, heads, 96, fgen,
+                                    saturate=True)
+    errs["fused_attention_bwd"] = max(errs["fused_attention_bwd"], e13)
+    x = layer_input(torch, bt, s, d, valid, fgen, dev)
+    errs["fused_mlp_fwd"], errs["fused_mlp_bwd"] = check_train_mlp(
+        torch, mm, x[:, :valid].reshape(-1, d).contiguous(), p, fgen)
+    del x
 
     n_big, dg, nq, k = 1_000_000, 512, 64, 10
     gal = torch.randn(n_big, dg, generator=gen, device=dev)
@@ -561,9 +851,10 @@ def main() -> None:
           f"gallery of {n_gallery} rows is too small to reach the kernel")
     launches = {}
 
-    def run_path(what, counters, run):
+    def run_path(what, counters, run, record: bool = True):
         """Run one path with its kernels' counts set to 0 just before and
-        read just after; every kernel of the path must have launched."""
+        read just after; every kernel of the path must have launched.
+        ``record``: the counts are those of the kernels' main path."""
         for fn in counters:
             fn.launches = 0
         t0 = time.perf_counter()
@@ -574,7 +865,8 @@ def main() -> None:
               f"launches {got}")
         check(all(v > 0 for v in got.values()),
               f"a kernel of the path '{what}' was never launched")
-        launches.update(got)
+        if record:
+            launches.update(got)
 
     def cli_slice(flags, model):
         check(cli(["encode", "--path", RUN_DIR] + flags) == 0,
@@ -622,10 +914,54 @@ def main() -> None:
     print("[slice] quantized index top-20 over the int8-encoded gallery "
           "equals the f32 scan")
 
+    # the fine-tune: ViT-B/16 trained from seeded weights on a 224 px
+    # corpus (192 anchors, 19 held out: two steps of 64 pairs and one
+    # validation batch), then served by eval through the bf16 kernels
+    shutil.rmtree(FT_DIR, ignore_errors=True)
+    write_synthetic_corpus(FT_DIR, num_patents=48, figures_per_patent=4,
+                           image_size=224)
+    log = io.StringIO()
+
+    def finetune():
+        with contextlib.redirect_stdout(log):
+            rc = cli(["finetune", "--path", FT_DIR, "--epochs", "1"])
+        print(log.getvalue(), end="")
+        check(rc == 0, "finetune failed")
+
+    run_path("finetune --epochs 1 (ViT-B/16, 64 pairs a step)",
+             (fa.fused_attention_fwd, fa.fused_attention_bwd,
+              mm.fused_mlp_fwd, mm.fused_mlp_bwd), finetune)
+    losses = [float(t) for t in re.findall(r"train_loss=(\S+)",
+                                           log.getvalue())]
+    ckpt = os.path.join(FT_DIR, "models", "clip_finetune_best")
+    with open(os.path.join(ckpt, "metadata.json")) as fh:
+        val_loss = json.load(fh)["val_loss"]
+    check(len(losses) == 1 and math.isfinite(losses[0])
+          and math.isfinite(val_loss),
+          f"fine-tune losses not finite: train {losses}, val {val_loss}")
+    run_path("eval on the fine-tuned checkpoint",
+             (bf16_layer.fused_layer_block_bf16,
+              bf16_layer.fused_layer_cls_bf16),
+             lambda: check(cli(["eval", "--path", FT_DIR, "--model", "FT"])
+                           == 0, "eval of the fine-tuned tower failed"),
+             record=False)
+    npys = glob.glob(os.path.join(FT_DIR, "embeddings", "*_torch_ft*.npy"))
+    check(len(npys) == 1, f"expected one _ft index, found {npys}")
+    emb = np.load(npys[0])
+    with open(os.path.join(FT_DIR, "results",
+                           "evaluation_results_FT.json")) as fh:
+        summary = json.load(fh)["summary_metrics"]
+    check(emb.shape[1] == 512 and bool(np.isfinite(emb).all())
+          and all(0.0 <= float(v) <= 1.0 for key, v in summary.items()
+                  if key != "num_missing_rankings"),
+          f"fine-tuned index {emb.shape} or metrics out of range: {summary}")
+    print(f"[slice] fine-tune train loss {losses[0]:.4f}, val loss "
+          f"{val_loss:.4f}; eval served {os.path.basename(npys[0])} "
+          f"{emb.shape}: {summary}")
+
     # ---- 5. times
     times = {}
-    bt = 128
-    pix = torch.randn(bt, 224, 224, 3, generator=gen, device=dev)
+    pix =torch.randn(bt, 224, 224, 3, generator=gen, device=dev)
 
     def run_tower(model, kernels):
         def go():
@@ -661,9 +997,109 @@ def main() -> None:
         plain = getattr(module, kname + "_plain")
         times[kname] = in_turns(torch, lambda: plain(xb, *args),
                                 lambda: kernel(xb, *args))
-    del xb
+    # the trainable blocks at one training step's shapes: 64 pairs are
+    # 128 images, attention on the stream padded to 208, the MLP on the
+    # 128 x 197 unpadded rows
+    wqkv_f, bqkv_f = fold_q(torch, p[2], p[3], d, heads)
+    attn_args = (wqkv_f, bqkv_f, p[4], p[5], heads, valid)
+    da = torch.randn(bt, s, d, generator=fgen, device=dev)
+    da[:, valid:] = 0.0
+    da = da.to(torch.bfloat16)
+    x2 = xb[:, :valid].reshape(-1, d).contiguous()
+    do2 = torch.randn(x2.shape, generator=fgen, device=dev).to(torch.bfloat16)
+    for kname, plain, kernel, args in (
+            ("fused_attention_fwd", fa.fused_attention_block_plain,
+             fa.fused_attention_fwd, (xb, *attn_args)),
+            ("fused_attention_bwd", fa.attention_bwd_plain,
+             fa.fused_attention_bwd, (xb, wqkv_f, bqkv_f, da, heads, valid)),
+            ("fused_mlp_fwd", mm.fused_mlp_block_bf16_plain, mm.fused_mlp_fwd,
+             (x2, *p[6:12])),
+            ("fused_mlp_bwd", mm._mlp_bwd_plain, mm.fused_mlp_bwd,
+             (x2, do2, *p[6:11]))):
+        times[kname] = in_turns(torch, lambda: plain(*args),
+                                lambda: kernel(*args))
+    del xb, da, x2, do2
     bounds = {**layer_bounds(bt, s, valid, d, f, int8=False),
-              **layer_bounds(bt, s, valid, d, f, int8=True)}
+              **layer_bounds(bt, s, valid, d, f, int8=True),
+              **train_bounds(bt, s, valid, d, f)}
+
+    # one training step at 64 pairs (ClipFinetuneConfig's defaults), u8
+    # batches already on the card: first one step with the kernels against
+    # one with the plain blocks, each from the same seeded weights, then
+    # the times of both
+    cfg = ClipFinetuneConfig()
+    n_nodes = 192
+    table = np.random.default_rng(0).standard_normal((n_nodes, 128)).astype(
+        np.float32)
+    images = torch.randint(0, 256, (2 * cfg.batch_size, 224, 224, 3),
+                           generator=fgen, device=dev, dtype=torch.uint8)
+    nodes = torch.randint(0, n_nodes, (cfg.batch_size,), generator=fgen,
+                          device=dev)
+    cot = torch.randn(2 * cfg.batch_size, VIT_B16.projection_dim,
+                      generator=fgen, device=dev)
+    x_ft = device_normalize(images)
+    x_noisy = x_ft + 1e-3 * torch.randn(x_ft.shape, generator=fgen,
+                                        device=dev)
+
+    def tower_grads(vit, x):
+        """The tower's gradients given ``cot`` for the features of x."""
+        vit.zero_grad(set_to_none=True)
+        vit(x).backward(cot)
+        return {n: t.grad.clone() for n, t in vit.named_parameters()
+                if t.grad is not None}
+
+    runs = []
+    for kernels in (True, False):
+        model, opt = init_finetune_state(VIT_B16, cfg, table, seed=0,
+                                         device=dev)
+        model.vit.kernels = kernels
+        step, _eval_step = make_finetune_step(model, opt)
+        # the tower alone, given one cotangent for both runs; the plain
+        # tower on pixels with noise of std 1e-3 is the yardstick
+        tower = tower_grads(model.vit, x_ft)
+        if not kernels:
+            yardstick = grad_gaps(tower_grads(model.vit, x_noisy), tower)
+        # the whole step (it sets the gradients to None first), keeping
+        # the loss's cotangent of the tower's features
+        kept = {}
+
+        def keep_dz(_module, _inputs, out):
+            out.register_hook(lambda g: kept.update(dz=g.clone()))
+
+        hook = model.vit.register_forward_hook(keep_dz)
+        metrics = step(images, nodes, cfg.alpha_max)
+        hook.remove()
+        runs.append(({k: float(v) for k, v in metrics.items()}, tower,
+                     {n: t.grad for n, t in model.named_parameters()
+                      if t.grad is not None}, kept["dz"]))
+    check_train_step(torch, *zip(*runs), yardstick)
+    del runs, tower, x_ft, x_noisy
+    metrics = {}
+
+    def train_step(kernels):
+        def go():
+            model.vit.kernels = kernels
+            metrics.update(step(images, nodes, cfg.alpha_max))
+        return go
+
+    step_p, step_k = in_turns(torch, train_step(False), train_step(True),
+                              iters=10)
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"training step metrics not finite: {metrics}")
+    n_img = 2 * cfg.batch_size
+    print(f"[time] fine-tune step, ViT-B/16 @224, {cfg.batch_size} pairs "
+          f"({n_img} images, last {cfg.trainable_blocks} blocks trained): "
+          f"kernels {step_k:.2f} ms/step ({n_img / step_k * 1e3:.1f} img/s "
+          f"forward + backward), plain blocks {step_p:.2f} ms/step "
+          f"({n_img / step_p * 1e3:.1f} img/s) {label}")
+    rows = kernel_breakdown(torch, train_step(True))
+    busy = sum(ms for _k, ms in rows)
+    print(f"[time] fine-tune step with kernels, device time by kernel "
+          f"(torch.profiler, 3 steps): {busy:.2f} ms busy of {step_k:.2f} ms "
+          f"wall ({100 * busy / step_k:.1f}%); "
+          + "; ".join(f"{ms:.2f} ms {100 * ms / step_k:.1f}% {kname[:90]}"
+                      for kname, ms in rows[:12]))
+    del model, opt, images
 
     gal = torch.randn(n_big, dg, generator=gen, device=dev)
     g16, gvalid = topk_kernel.prepare_cosine_gallery_bf16(gal)
@@ -713,7 +1149,15 @@ def main() -> None:
             ("quant_attention_cls", "int8_layer.cu",
              "patent_tpu/ops/quant_matmul.py:960"),
             ("quant_mlp_block", "int8_layer.cu",
-             "patent_tpu/ops/quant_matmul.py:1069")]
+             "patent_tpu/ops/quant_matmul.py:1069"),
+            ("fused_attention_fwd", "fused_attention.cu",
+             "patent_tpu/ops/flash_attention.py:258"),
+            ("fused_attention_bwd", "fused_attention.cu",
+             "patent_tpu/ops/flash_attention.py:360"),
+            ("fused_mlp_fwd", "mlp_grad.cu",
+             "patent_tpu/ops/bf16_mlp_grad.py:157"),
+            ("fused_mlp_bwd", "mlp_grad.cu",
+             "patent_tpu/ops/bf16_mlp_grad.py:182")]
     errs["bucket_topk_bf16"] = err_topk
     # no single PyTorch call computes any of these functions, so there is
     # no library time to set beside them

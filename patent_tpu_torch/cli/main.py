@@ -1,10 +1,16 @@
-"""Command-line interface of the port (the retrieval actions of
-patent_tpu/cli/main.py).
+"""Command-line interface of the port (the retrieval actions and the CLIP
+fine-tune of patent_tpu/cli/main.py).
 
     python -m patent_tpu_torch.cli encode|retrieve|eval --path DIR
         [--device cuda|cpu] [--synthetic] [--k K] [--query IMG]
         [--model NAME] [--positives patent|cpc] [--keep-tokens K]
         [--quantize] [--profile exact|recommended|turbo]
+    python -m patent_tpu_torch.cli finetune --path DIR [--device cuda|cpu]
+        [--epochs N] [--keep-tokens K] [key=value ...]
+
+``finetune`` trains on ``DIR``/metadata.json + images/ when present, else
+on a generated synthetic corpus, and writes
+``DIR``/models/clip_finetune_best, which every retrieval action loads.
 
 ``--device`` defaults to the card; without one the command exits non-zero
 rather than run on the CPU.  The other actions of the JAX CLI and HF
@@ -19,7 +25,8 @@ import sys
 
 from ..utils.config import SERVING_PROFILES
 
-# the JAX CLI's action set; only RETRIEVAL_ACTIONS run here so far
+# the JAX CLI's action set; only RETRIEVAL_ACTIONS and finetune run here
+# so far
 ACTIONS = ["train", "train_gcn", "train_hyp", "train_hyp_con", "train_end",
            "train_end_2", "train_class", "plot", "train_class_pro", "test",
            "infer", "dist", "prep", "encode", "retrieve", "eval", "bench",
@@ -59,6 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="patent",
                    help="ground-truth positives for eval: same patent or "
                         "same medium CPC")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="fine-tune epochs (default: ClipFinetuneConfig's)")
+    p.add_argument("overrides", nargs="*",
+                   help="fine-tune config overrides as key=value")
     return p
 
 
@@ -76,7 +87,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
-    if args.action not in RETRIEVAL_ACTIONS:
+    if args.action not in RETRIEVAL_ACTIONS + ("finetune",):
         print(f"action {args.action!r} is not yet ported to "
               "patent_tpu_torch", file=sys.stderr)
         return 2
@@ -94,6 +105,10 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as e:
         print(f"--device {args.device}: {e}", file=sys.stderr)
         return 1
+    if args.action == "finetune":
+        from ..train.cli_finetune import run_finetune_action
+
+        return run_finetune_action(args)
     return run_retrieval_action(args.action, args)
 
 

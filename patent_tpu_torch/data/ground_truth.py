@@ -1,11 +1,12 @@
 """Query/gallery split and ground truth of the reference protocol (the
 port's copy of the parts of patent_tpu/data/ground_truth.py that the
-retrieval actions call).
+retrieval and fine-tune actions call).
 
 ``split_query_gallery``: patents with at least 3 figures give 2 random
 figures to the query set, the rest to the gallery (seed 42).
 ``build_ground_truth``: per query figure, the gallery figures of the same
 patent and those sharing its medium CPC, with the grant-month filter.
+``figure_to_pos_figures``: the fine-tune's anchor → positives map.
 """
 
 from __future__ import annotations
@@ -65,3 +66,19 @@ def build_ground_truth(query_records: Sequence[FigureRecord],
 def save_ground_truth(ground_truth: Mapping[str, dict], path: str) -> None:
     with open(path, "w") as f:
         json.dump(dict(ground_truth), f, indent=2)
+
+
+def figure_to_pos_figures(records: Sequence[FigureRecord]
+                          ) -> dict[str, list[str]]:
+    """figure name → the other figures of its patent, sorted (figures of a
+    one-figure patent are left out)."""
+    by_patent: dict[str, list[str]] = defaultdict(list)
+    for r in records:
+        by_patent[r.patent_id].append(r.figure_id)
+    out: dict[str, list[str]] = {}
+    for figs in by_patent.values():
+        for f in figs:
+            others = [g for g in figs if g != f]
+            if others:
+                out[f] = sorted(others)
+    return out

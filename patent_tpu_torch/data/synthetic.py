@@ -1,5 +1,6 @@
 """Synthetic DeepPatent-like retrieval corpus (the port's copy of the parts
-of patent_tpu/data/synthetic.py that the retrieval actions call).
+of patent_tpu/data/synthetic.py that the retrieval and fine-tune actions
+call).
 
 Records follow the real corpus's naming and CPC hierarchy; figures of one
 patent share a base drawing, so the ground truth is learnable.  For one
@@ -8,6 +9,7 @@ seed the records and PNG bytes equal the JAX package's, byte for byte.
 
 from __future__ import annotations
 
+import json
 import os
 import zlib
 from typing import Sequence
@@ -102,3 +104,19 @@ def write_synthetic_images(records: Sequence[FigureRecord], root: str,
         Image.fromarray(img).save(path)
         paths.append(path)
     return paths
+
+
+def write_synthetic_corpus(root: str, num_patents: int = 20,
+                           figures_per_patent: int = 4, image_size: int = 64,
+                           seed: int = 0) -> tuple[list[FigureRecord], str]:
+    """A corpus on disk, ``root``/images/ and ``root``/metadata.json, as the
+    fine-tune reads a real one; → (records, images_dir)."""
+    meta = synthetic_metadata(num_patents, figures_per_patent, seed)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "metadata.json"), "w") as f:
+        json.dump(meta, f)
+    records = records_from_metadata(meta)
+    images_dir = os.path.join(root, "images")
+    write_synthetic_images(records, images_dir, image_size=image_size,
+                           seed=seed)
+    return records, images_dir

@@ -1,6 +1,7 @@
-"""CLIP ViT image tower for serving (port of the image path of
-patent_tpu/models/vit.py with ``fused_layer=True``), and the parts it
-shares with the int8 tower (models/vit_int8.py).
+"""CLIP ViT image towers (port of the image path of
+patent_tpu/models/vit.py): the serving tower (``fused_layer=True``), the
+parts it shares with the int8 tower (models/vit_int8.py), and the
+trainable tower of the fine-tune (``TrainableVisionTransformer``).
 
 Layouts follow the JAX package at the public surface: pixels NHWC
 [B, H, W, 3], weights [in, out] as in the Flax tree, activations [B, S, D].
@@ -212,3 +213,123 @@ class VisionTransformer(TowerBase):
             fn = last if i == cfg.num_layers - 1 else block
             x = fn(x, *layer.weights(), cfg.num_heads, valid_len=seq)
         return self.readout(x)
+
+
+def layernorm_flax(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Flax ``nn.LayerNorm(dtype=float32)`` as the JAX tower computes it:
+    f32 statistics with the fast variance E[x²] − E[x]² (clipped at 0),
+    then ``(x − mean) · (rsqrt(var + eps) · scale) + bias``, in f32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    return (xf - mu) * (torch.rsqrt(var + eps) * scale.float()) + bias.float()
+
+
+def cls_last_layer(x, ln1_s, ln1_b, wqkv, bqkv, wout, bout, ln2_s, ln2_b,
+                   w1, b1, w2, b2, num_heads: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The trainable last layer for the CLS row only (port of
+    patent_tpu/models/vit.py ``_cls_last_layer``): [B, S, D] → [B, 1, D].
+    LN1 and the K/V projections run over every row, the rest for row 0;
+    gradient-exact, since only row 0 reaches the read-out.  Plain PyTorch
+    with autograd (the TPU package has no kernel here): f32 LayerNorms and
+    residual, products in ``dtype``."""
+    b, s, d = x.shape
+    hd = d // num_heads
+    h = layernorm_f32(x, ln1_s, ln1_b).to(dtype)
+    kv = h @ wqkv[:, d:].to(dtype) + bqkv[d:].to(dtype)
+    q = h[:, :1] @ wqkv[:, :d].to(dtype) + bqkv[:d].to(dtype)
+    k, v = kv.split(d, dim=-1)
+
+    def heads(t):
+        return t.reshape(b, -1, num_heads, hd)
+
+    # the JAX layer scales q by a numpy scalar, which promotes the scores
+    # to f32
+    attn = torch.einsum("bqhd,bkhd->bhqk",
+                        heads(q).float() * (1.0 / math.sqrt(hd)),
+                        heads(k).float())
+    attn = torch.softmax(attn.float(), dim=-1).to(dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", attn, heads(v)).reshape(b, 1, d)
+    x1 = x[:, :1] + o @ wout.to(dtype) + bout.to(dtype)
+    h2 = layernorm_f32(x1, ln2_s, ln2_b).to(dtype)
+    g = (h2 @ w1.to(dtype)).float() + b1.float()
+    a = (g * torch.sigmoid(1.702 * g)).to(dtype)
+    out = (a @ w2.to(dtype)).float() + b2.float()
+    return (x1.float() + out).to(x.dtype)
+
+
+class TrainableVisionTransformer(TowerBase):
+    """The fine-tune tower (the JAX ``VisionTransformer`` with
+    ``fused_block=True, fused_mlp=True, cls_last=True``): the serving
+    tower's parameters and state-dict names, held as f32 masters and cast
+    to bf16 each step where the Flax modules cast them.
+
+    Layers 0..N-2 run ``fused_attention_block`` on LN1(x) plus the
+    residual, then ``fused_mlp_block_bf16``; the last layer is
+    ``cls_last_layer``.  The token stream is not padded here: the attention
+    sub-layer pads per call and slices back, so pad rows get no cotangent.
+    ``kernels=False`` runs the plain versions of the four kernels on any
+    device; ``kernels=True`` dispatches on the tensor's device (kernel on
+    CUDA, plain version on the CPU)."""
+
+    def __init__(self, config: VisionConfig = VIT_B16,
+                 keep_tokens: int | None = None, kernels: bool = True,
+                 device=None, generator: torch.Generator | None = None):
+        super().__init__(config, torch.float32, keep_tokens, kernels, device,
+                         generator)
+        self.compute_dtype = torch.bfloat16
+
+    def _blocks(self, device, generator) -> nn.ModuleList:
+        cfg = self.config
+        return nn.ModuleList(
+            EncoderLayer(cfg.hidden_dim, cfg.mlp_dim, torch.float32, device,
+                         generator)
+            for _ in range(cfg.num_layers))
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """pixel_values [B, H, W, 3] (NHWC, normalized) → [B, projection]
+        (f32)."""
+        from ..ops.bf16_mlp_grad import fused_mlp_block_bf16
+        from ..ops.flash_attention import fused_attention_block
+
+        cfg, cdt = self.config, self.compute_dtype
+        p = cfg.patch_size
+        x = F.conv2d(pixel_values.to(cdt).permute(0, 3, 1, 2),
+                     self.patch_embed.to(cdt), stride=p)
+        b = x.shape[0]
+        x = x.flatten(2).transpose(1, 2)
+        cls_row = self.class_embedding.to(cdt).expand(b, 1, -1)
+        x = assemble_token_stream(x, pixel_values, cfg, cls_row,
+                                  self.position_embedding.to(cdt),
+                                  self.keep_tokens)
+        x = layernorm_flax(x, self.pre_ln_scale, self.pre_ln_bias)
+        for layer in self.blocks[:-1]:
+            h = layernorm_flax(x, layer.ln1_scale, layer.ln1_bias)
+            x = x + fused_attention_block(
+                h.to(cdt), layer.wqkv.to(cdt), layer.bqkv.to(cdt),
+                layer.wout.to(cdt), layer.bout.to(cdt), cfg.num_heads,
+                kernels=self.kernels)
+            x = fused_mlp_block_bf16(x.to(cdt), layer.ln2_scale,
+                                     layer.ln2_bias, layer.w1, layer.b1,
+                                     layer.w2, layer.b2,
+                                     kernels=self.kernels)
+        x = cls_last_layer(x, *self.blocks[-1].weights(), cfg.num_heads, cdt)
+        x = layernorm_flax(x[:, 0], self.post_ln_scale, self.post_ln_bias)
+        return x @ self.projection
+
+
+def finetune_param_names(model: nn.Module, num_trainable_blocks: int = 9,
+                         num_layers: int = 12) -> set[str]:
+    """The trainable parameter names (port of ``finetune_param_labels``):
+    the last ``num_trainable_blocks`` blocks, post-LN and the projection."""
+    first = num_layers - num_trainable_blocks
+    out = set()
+    for name, _prm in model.named_parameters():
+        if name.startswith("blocks."):
+            if int(name.split(".")[1]) >= first:
+                out.add(name)
+        elif name.startswith(("post_ln", "projection")):
+            out.add(name)
+    return out

@@ -1,13 +1,18 @@
 """Map between the Flax param trees of the JAX package and the state dicts
-of the port's towers: ``VisionTransformer`` (``params_from_jax`` /
-``params_to_jax``) and ``Int8VisionTransformer`` (``int8_params_from_jax``,
-the tree ``patent_tpu.models.vit_int8.quantize_vit_params`` returns).
+of the port's towers: ``VisionTransformer`` (and the trainable tower, which
+has its names; ``params_from_jax`` / ``params_to_jax``), the whole
+fine-tune tree ``{"vit": ..., "head": ...}`` of the fine-tune's
+``FinetuneModel`` (the same two functions: keys ``vit.*`` and ``head.*``)
+and ``Int8VisionTransformer`` (``int8_params_from_jax``, the tree
+``patent_tpu.models.vit_int8.quantize_vit_params`` returns).
 
 The tree is nested dicts of numpy arrays, with or without the
 ``{"params": ...}`` wrapper.  The patch embedding changes layout (Flax conv
 kernel [kh, kw, in, out] ↔ torch conv weight [out, in, kh, kw]), and the
-int8 matrices go from [in, out] to the port's K-major [out, in]; every
-other leaf maps one to one, the float [in, out] dense kernels included.
+int8 matrices go from [in, out] to the port's K-major [out, in], and the
+alignment head's Flax ``Dense_0`` (image projector) and ``Dense_1`` (graph
+projector) kernels become ``nn.Linear`` weights [out, in]; every other
+leaf maps one to one, the tower's float [in, out] dense kernels included.
 """
 
 from __future__ import annotations
@@ -47,6 +52,18 @@ _INT8_LAYER_LEAVES = [
 ]
 
 
+# (flax path within the alignment head, torch name within head.,
+# transposed)
+_HEAD_LEAVES = [
+    (("graph_embedding",), "graph_embedding", False),
+    (("logit_scale",), "logit_scale", False),
+    (("Dense_0", "kernel"), "img_proj.0.weight", True),
+    (("Dense_0", "bias"), "img_proj.0.bias", False),
+    (("Dense_1", "kernel"), "graph_proj.0.weight", True),
+    (("Dense_1", "bias"), "graph_proj.0.bias", False),
+]
+
+
 def _num_layers(tree: dict) -> int:
     return sum(1 for k in tree if k.startswith("block_"))
 
@@ -73,7 +90,16 @@ def _top_from_jax(tree: dict) -> tuple[dict, dict[str, torch.Tensor]]:
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """Flax ``VisionTransformer`` param tree (numpy leaves) → torch state
-    dict (f32)."""
+    dict (f32); a fine-tune tree ``{"vit", "head"}`` → the state dict of a
+    ``FinetuneModel`` (``vit.*`` and ``head.*``)."""
+    if "params" in tree and "vit" not in tree and "patch_embed" not in tree:
+        tree = tree["params"]
+    if "vit" in tree:
+        sd = {f"vit.{k}": v for k, v in params_from_jax(tree["vit"]).items()}
+        for path, name, transpose in _HEAD_LEAVES:
+            leaf = _get(tree["head"], path)
+            sd[f"head.{name}"] = leaf.T.contiguous() if transpose else leaf
+        return sd
     tree, sd = _top_from_jax(tree)
     for i in range(_num_layers(tree)):
         for path, name in _LAYER_LEAVES:
@@ -93,14 +119,25 @@ def int8_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _put(node, path, value):
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value.detach().float().cpu().numpy()
+
+
 def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
     """Torch state dict → Flax param tree of f32 numpy arrays (no wrapper),
-    the inverse of ``params_from_jax``."""
-    def put(node, path, value):
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value.detach().float().cpu().numpy()
-
+    the inverse of ``params_from_jax``: a tower's, or a ``FinetuneModel``'s
+    → ``{"vit": ..., "head": ...}``."""
+    if any(k.startswith("vit.") for k in state_dict):
+        head: dict = {}
+        for path, name, transpose in _HEAD_LEAVES:
+            leaf = state_dict[f"head.{name}"]
+            _put(head, path, leaf.T if transpose else leaf)
+        return {"vit": params_to_jax({k[4:]: v for k, v in state_dict.items()
+                                      if k.startswith("vit.")}),
+                "head": head}
+    put = _put
     tree: dict = {}
     put(tree, ("patch_embed", "kernel"),
         state_dict["patch_embed"].permute(2, 3, 1, 0))

@@ -1,18 +1,46 @@
-"""The parts of patent_tpu/ops/flash_attention.py that the serving layers
-share: the exp2-domain score clamp and the plain one-pass softmax·v.
+"""Attention of the JAX package's patent_tpu/ops/flash_attention.py: the
+exp2-domain score clamp and one-pass softmax·v the serving layers share,
+and the trainable attention sub-layer ``fused_attention_block`` of the
+fine-tune tower with its backward.
 
-The int8 layer (ops/quant_matmul.py, csrc/int8_layer.cu) computes this
-exp2 form with the clamp; the bf16 layer kernel (csrc/bf16_layer.cu) uses
-the usual max-subtracted softmax instead.  ``one_pass_softmax_pv`` is the
-plain statement of the TPU kernels' form, for tests and comparison.
+``fused_attention_block`` computes ``(x Wqkv + b) → MHA → @ Wout + b``
+(pre-residual) as a ``torch.autograd.Function``.  The fold of
+log2(e)/√hd into the q columns, the pad of the token axis to a multiple of
+16 and the slice back stay outside the Function, as in JAX, so autograd
+differentiates them.  Inside it:
+
+* forward (``fused_attention_fwd``, TPU row 12): on a CUDA tensor the
+  kernel of csrc/fused_attention.cu, on a CPU tensor its plain version
+  ``fused_attention_block_plain``;
+* backward (``_fab_bwd``): recompute qkv, ``da = dout Woutᵀ``, then
+  ``fused_attention_bwd`` (TPU row 13: kernel, or ``attention_bwd_plain``
+  on the CPU) gives dqkv and the head outputs A, and the five products
+  ``dWout = Aᵀ dout``, ``dbout``, ``dx = dqkv W′ᵀ``, ``dW′ = xᵀ dqkv``,
+  ``db′`` follow as plain products of bf16 values summed in f32.  Nothing
+  [S, S]-sized is kept from the forward: only its inputs.
+
+The exp2 form clamps scores to [-100, 80] and the backward gates the
+gradient of scores at or above +80 to zero, so a head whose logits
+saturate stops learning; ``attention_saturation`` watches for it.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .common import (check_attention_shape, check_cuda_tensor, mm_f32,
+                     round_up)
 
 SCORE_CLAMP_LO = -100.0
 SCORE_CLAMP_HI = 80.0
+_LN2 = math.log(2.0)
+_P, _I = _build.P, _build.I
+_SIG_FWD = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P]
+_SIG_BWD = [_P] * 6 + [_I] * 5 + [_P] * 3 + [_P]
 
 
 def one_pass_softmax_pv(q: torch.Tensor, k: torch.Tensor, v_ext: torch.Tensor,
@@ -35,3 +63,229 @@ def valid_col(sp: int, seq_len: int, dtype: torch.dtype,
               device: torch.device | str = "cpu") -> torch.Tensor:
     """[sp, 1] column: 1 for rows below ``seq_len``, 0 for pad rows."""
     return (torch.arange(sp, device=device)[:, None] < seq_len).to(dtype)
+
+
+def attention_saturation(x: torch.Tensor, wqkv: torch.Tensor,
+                         bqkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Max pre-clamp exp2-domain attention score of one block, to compare
+    with ``SCORE_CLAMP_HI``: near it, the gated backward zeroes the
+    gradient of the saturated scores.  ``x``: the block's post-LN
+    activations [B, S, D]; weights as ``fused_attention_block`` takes
+    them."""
+    b, s, d = x.shape
+    hd = d // num_heads
+    qkv = x @ wqkv + bqkv.reshape(-1)
+    q = qkv[..., :d].reshape(b, s, num_heads, hd)
+    k = qkv[..., d:2 * d].reshape(b, s, num_heads, hd)
+    scale2 = math.log2(math.e) / math.sqrt(hd)
+    return torch.einsum("bqhd,bkhd->bhqk", q * scale2, k).max()
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, D] → [B·H, S, hd]."""
+    b, s, d = t.shape
+    return (t.reshape(b, s, num_heads, d // num_heads).transpose(1, 2)
+            .reshape(b * num_heads, s, d // num_heads))
+
+
+def _unheads(t: torch.Tensor, b: int) -> torch.Tensor:
+    """[B·H, S, hd] → [B, S, D]."""
+    bh, s, hd = t.shape
+    return t.reshape(b, bh // b, s, hd).transpose(1, 2).reshape(b, s, -1)
+
+
+def _qkv(x, wqkv_f, bqkv_f) -> torch.Tensor:
+    """bf16(x W′ + b′), f32 accumulation: [B, S, 3D]."""
+    b, s, d = x.shape
+    return (mm_f32(x.reshape(-1, d), wqkv_f) + bqkv_f.float()).to(
+        x.dtype).reshape(b, s, -1)
+
+
+def _scores_p(q, k, valid_len: int):
+    """(s, p): f32 scores q kᵀ [B·H, S, S] and p = bf16(exp2(clip(s))) with
+    the pad keys' p set to 0 (what the zeroed V rows and the 0/1 valid
+    column of the TPU kernel's V_ext make of them)."""
+    s = mm_f32(q, k.transpose(1, 2))
+    p = torch.exp2(s.clamp(SCORE_CLAMP_LO, SCORE_CLAMP_HI))
+    key_pad = torch.arange(s.shape[-1], device=s.device) >= valid_len
+    return s, p.masked_fill(key_pad, 0.0).to(q.dtype)
+
+
+def fused_attention_block_plain(x, wqkv_f, bqkv_f, wout, bout, num_heads: int,
+                                valid_len: int) -> torch.Tensor:
+    """Plain version of the row-12 kernel on the padded stream x [B, S, D]
+    with pre-folded weights: qkv rounded after the f32 bias add, p rounded
+    before p·v, ``ao = bf16((p v) / sum p)``, then ``bf16(ao Wout + bout)``
+    (pre-residual)."""
+    b, s, d = x.shape
+    qkv = _qkv(x, wqkv_f, bqkv_f)
+    q, k, v = (_heads(t.contiguous(), num_heads) for t in qkv.split(d, -1))
+    _s, p = _scores_p(q, k, valid_len)
+    ao = (mm_f32(p, v) / p.float().sum(-1, keepdim=True)).to(x.dtype)
+    out = mm_f32(_unheads(ao, b).reshape(-1, d), wout) + bout.float()
+    return out.to(x.dtype).reshape(b, s, d)
+
+
+def attention_bwd_plain(x, wqkv_f, bqkv_f, da, num_heads: int,
+                        valid_len: int, gate: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the row-13 kernel: recompute qkv, then (dqkv
+    [B, S, 3D] in pre-scaled-q coordinates, A [B, S, D] the head outputs),
+    both bf16, from da = dout Woutᵀ [B, S, D] bf16.  Scores at or above the
+    +80 clamp get a zero gradient (the gate; ``gate=False`` drops it, a
+    control that checks must tell apart); pad keys get dk = dv = 0."""
+    b, s, d = x.shape
+    cdt = x.dtype
+    qkv = _qkv(x, wqkv_f, bqkv_f)
+    q, k, v = (_heads(t.contiguous(), num_heads) for t in qkv.split(d, -1))
+    sc, p = _scores_p(q, k, valid_len)
+    valid = (torch.arange(s, device=x.device) < valid_len).float()
+    o_ext = mm_f32(p, v)
+    den = p.float().sum(-1, keepdim=True)
+    o = o_ext / den
+    do = _heads(da, num_heads).float()
+    dn = (do / den).to(cdt)
+    dden = (-(do * o).sum(-1, keepdim=True) / den).to(cdt)
+    dp = mm_f32(dn, v.transpose(1, 2)) + dden.float() * valid
+    ds = _LN2 * dp * p.float()
+    if gate:
+        ds = torch.where(sc < SCORE_CLAMP_HI, ds, 0.0)
+    ds = ds.to(cdt)
+    dq = mm_f32(ds, k)
+    dk = mm_f32(ds.transpose(1, 2), q)
+    dv = mm_f32(p.transpose(1, 2), dn) * valid[:, None]
+    dqkv = torch.cat([_unheads(t.to(cdt), b) for t in (dq, dk, dv)], -1)
+    return dqkv, _unheads(o.to(cdt), b)
+
+
+def _kernel_check(x, num_heads, valid_len, mats, vecs) -> None:
+    """Raise unless the CUDA kernels take this call: x [B, S, D] and the
+    matrices bf16, the biases f32, all contiguous on the card."""
+    check_cuda_tensor("x", x, torch.bfloat16)
+    b, s, d = x.shape
+    check_attention_shape(d, num_heads, s, valid_len)
+    for name, t, shape in mats:
+        check_cuda_tensor(name, t, torch.bfloat16, shape)
+    for name, t, n in vecs:
+        check_cuda_tensor(name, t, torch.float32, (n,))
+
+
+def fused_attention_fwd(x, wqkv_f, bqkv_f, wout, bout, num_heads: int,
+                        valid_len: int) -> torch.Tensor:
+    """Row 12: the attention sub-layer forward on the padded stream.  CPU
+    tensor: the plain version; CUDA tensor (bf16 x and matrices, f32
+    biases): the kernel, or an error."""
+    if x.device.type == "cpu":
+        return fused_attention_block_plain(x, wqkv_f, bqkv_f, wout, bout,
+                                           num_heads, valid_len)
+    b, s, d = x.shape
+    _kernel_check(x, num_heads, valid_len,
+                  [("wqkv", wqkv_f, (d, 3 * d)), ("wout", wout, (d, d))],
+                  [("bqkv", bqkv_f, 3 * d), ("bout", bout, d)])
+    m, dev = b * s, x.device
+    out = torch.empty_like(x)
+    scratch = [torch.empty(m, 3 * d, dtype=torch.bfloat16, device=dev),
+               torch.empty(m, d, dtype=torch.bfloat16, device=dev)]
+    _build.call("ptt_fab_fwd", _SIG_FWD, _build.ptr(x), _build.ptr(out), b, s,
+                d, num_heads, valid_len,
+                *map(_build.ptr, (wqkv_f, bqkv_f, wout, bout, *scratch)),
+                _build.stream(dev))
+    fused_attention_fwd.launches += 1
+    return out
+
+
+fused_attention_fwd.launches = 0
+
+
+def fused_attention_bwd(x, wqkv_f, bqkv_f, da, num_heads: int,
+                        valid_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row 13: (dqkv, A) from the saved inputs and da.  CPU tensor: the
+    plain version; CUDA tensor (bf16): the kernel, or an error."""
+    if x.device.type == "cpu":
+        return attention_bwd_plain(x, wqkv_f, bqkv_f, da, num_heads,
+                                   valid_len)
+    b, s, d = x.shape
+    _kernel_check(x, num_heads, valid_len,
+                  [("wqkv", wqkv_f, (d, 3 * d)), ("da", da, (b, s, d))],
+                  [("bqkv", bqkv_f, 3 * d)])
+    dev = x.device
+    dqkv = torch.empty(b, s, 3 * d, dtype=torch.bfloat16, device=dev)
+    a = torch.empty_like(x)
+    scratch = [torch.empty(b * s, 3 * d, dtype=torch.bfloat16, device=dev),
+               torch.empty(b * s, d, dtype=torch.bfloat16, device=dev),
+               torch.empty(b, num_heads, s, dtype=torch.float32, device=dev)]
+    _build.call("ptt_fab_bwd", _SIG_BWD,
+                *map(_build.ptr, (x, wqkv_f, bqkv_f, da, dqkv, a)), b, s, d,
+                num_heads, valid_len, *map(_build.ptr, scratch),
+                _build.stream(dev))
+    fused_attention_bwd.launches += 1
+    return dqkv, a
+
+
+fused_attention_bwd.launches = 0
+
+
+def _fab_bwd(x, wqkv_f, bqkv_f, wout, dout, num_heads: int, valid_len: int,
+             attention_bwd=fused_attention_bwd, need_dx: bool = True):
+    """The Function's backward (JAX ``_fab_bwd``): (dx, dW′, db′, dWout,
+    dbout), dx None unless ``need_dx``.  The products take bf16 values and
+    sum in f32, as JAX's f32 products of the same values do; each result
+    is rounded to its primal's dtype (dbout to Wout's, as JAX does)."""
+    b, s, d = x.shape
+    dout = dout.to(x.dtype).contiguous()
+    dout2 = dout.reshape(-1, d)
+    da = mm_f32(dout2, wout.T).to(x.dtype).reshape(b, s, d)
+    dqkv, a = attention_bwd(x, wqkv_f, bqkv_f.float(), da, num_heads,
+                            valid_len)
+    dqkv2 = dqkv.reshape(-1, 3 * d)
+    dwout = mm_f32(a.reshape(-1, d).T, dout2).to(wout.dtype)
+    dbout = dout2.float().sum(0).to(wout.dtype)
+    dx = (mm_f32(dqkv2, wqkv_f.T).to(x.dtype).reshape(b, s, d)
+          if need_dx else None)
+    dwqkv = mm_f32(x.reshape(-1, d).T, dqkv2).to(wqkv_f.dtype)
+    dbqkv = dqkv2.float().sum(0).to(bqkv_f.dtype)
+    return dx, dwqkv, dbqkv, dwout, dbout
+
+
+class _FusedAttentionBlock(torch.autograd.Function):
+    """Rows 12 and 13 on the padded stream with pre-folded weights.  Saves
+    only its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv_f, bqkv_f, wout, bout, num_heads, valid_len,
+                kernels):
+        ctx.save_for_backward(x, wqkv_f, bqkv_f, wout)
+        ctx.num_heads, ctx.valid_len, ctx.kernels = num_heads, valid_len, \
+            kernels
+        ctx.bout_dtype = bout.dtype
+        fwd = fused_attention_fwd if kernels else fused_attention_block_plain
+        return fwd(x, wqkv_f, bqkv_f.float(), wout, bout.float(), num_heads,
+                   valid_len)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, wqkv_f, bqkv_f, wout = ctx.saved_tensors
+        dx, dw, db, dwout, dbout = _fab_bwd(
+            x, wqkv_f, bqkv_f, wout, dout, ctx.num_heads, ctx.valid_len,
+            attention_bwd=(fused_attention_bwd if ctx.kernels
+                           else attention_bwd_plain),
+            need_dx=ctx.needs_input_grad[0])
+        return dx, dw, db, dwout, dbout.to(ctx.bout_dtype), None, None, None
+
+
+def fused_attention_block(x, wqkv, bqkv, wout, bout, num_heads: int,
+                          kernels: bool = True) -> torch.Tensor:
+    """Attention sub-layer ``(x Wqkv + b) → MHA → @ Wout + b`` (pre-residual),
+    differentiable.  x [B, S, D] (post-LN activations, in the compute
+    dtype), wqkv [D, 3D], bqkv [3D], wout [D, D], bout [D] in the compute
+    dtype as the tower casts them.  ``kernels=False`` runs the plain
+    versions on any device (the card's reference)."""
+    b, s, d = x.shape
+    scale2 = math.log2(math.e) / math.sqrt(d // num_heads)
+    wqkv_f = torch.cat([wqkv[:, :d] * scale2, wqkv[:, d:]], dim=1)
+    bqkv_f = torch.cat([bqkv[:d] * scale2, bqkv[d:]])
+    sp = round_up(max(s, 16), 16)
+    xp = F.pad(x, (0, 0, 0, sp - s)).contiguous()
+    out = _FusedAttentionBlock.apply(xp, wqkv_f.contiguous(), bqkv_f, wout,
+                                     bout, num_heads, s, kernels)
+    return out[:, :s]

@@ -6,6 +6,9 @@ A checkpoint ``<directory>/<name>/`` holds
     state.npz       leaf arrays keyed L00000, L00001, ... in pytree
                     flatten order (dict keys sorted)
     manifest.json   {"paths": [path spec per leaf], "n": count}
+    metadata.json   what the writer says of it (e.g. the validation loss);
+                    the JAX manager writes it as <name>.meta.json beside
+                    the directory
 
 where a path spec is a list of ["d", key] (dict) / ["s", index] (sequence)
 / ["a", name] (attribute) segments.  No pickle: loading never runs code.
@@ -76,9 +79,11 @@ def _flatten(node: Any, prefix: list, out: list) -> None:
         out.append((prefix, np.asarray(node)))
 
 
-def save(directory: str, name: str, state: dict) -> str:
+def save(directory: str, name: str, state: dict,
+         metadata: dict | None = None) -> str:
     """Write ``state`` (nested dicts/lists of arrays and numbers) as
-    checkpoint ``name`` in the layout above; returns its directory."""
+    checkpoint ``name`` in the layout above, with ``metadata`` (default {})
+    in metadata.json; returns its directory."""
     path = os.path.join(directory, name)
     os.makedirs(path, exist_ok=True)
     flat: list = []
@@ -87,4 +92,6 @@ def save(directory: str, name: str, state: dict) -> str:
                         **{f"L{i:05d}": leaf for i, (_, leaf) in enumerate(flat)})
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump({"paths": [p for p, _ in flat], "n": len(flat)}, f)
+    with open(os.path.join(path, "metadata.json"), "w") as f:
+        json.dump(metadata or {}, f, indent=2)
     return path

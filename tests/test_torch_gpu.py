@@ -8,15 +8,23 @@ This file imports no JAX module of its own, so it runs where only PyTorch
 is installed.  ``chip_smoke.py`` repeats the checks at ViT-B/16 shapes.
 """
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
 from patent_tpu_torch.models.vit import VisionConfig, VisionTransformer
 from patent_tpu_torch.models.vit_int8 import Int8VisionTransformer
-from patent_tpu_torch.ops import bf16_layer, topk_kernel
+from patent_tpu_torch.ops import bf16_layer
+from patent_tpu_torch.ops import bf16_mlp_grad as mm
+from patent_tpu_torch.ops import flash_attention as fa
 from patent_tpu_torch.ops import quant_matmul as qm
+from patent_tpu_torch.ops import topk_kernel
 from patent_tpu_torch.retrieval.cli_actions import select_device
 from patent_tpu_torch.retrieval.index import EmbeddingIndex
+from patent_tpu_torch.train import finetune_clip
+from patent_tpu_torch.utils.config import ClipFinetuneConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -335,3 +343,180 @@ def test_int8_tower_kernels_match_plain_layers(cuda):
     assert got.shape == (5, 32)
     assert _rel_err(got, want) <= 2e-2
     assert _min_cosine(got, want) > 0.999
+
+
+# The fine-tune's trainable blocks (rows 12, 13, 15, 16 of PERF.md's
+# table).  Forward: the serving layer's gate.  Backward: a flipped bf16
+# rounding of p, dn or ds (attention) or dg (MLP) would reach every
+# product after it.  At ViT-B/16 widths chip_smoke.py measures 1.5e-7 to
+# 3.6e-5 on the H100 (not measured at these widths); every control below
+# moves the plain backward by 8.7e-3 or more.
+TRAIN_BWD_REL_TOL = 4e-3
+
+
+def _fold(wqkv, bqkv, gain=1.0):
+    """(wqkv, bqkv) as the row-12/13 kernels take them: the q columns
+    scaled by log2(e)/sqrt(hd), as fused_attention_block folds them, and
+    those of head 0 by ``gain`` besides."""
+    col = torch.ones(3 * D, device=wqkv.device)
+    col[:D] = math.log2(math.e) / math.sqrt(D // HEADS)
+    col[:D // HEADS] *= gain
+    return ((wqkv.float() * col).to(torch.bfloat16).contiguous(),
+            (bqkv.float() * col).contiguous())
+
+
+def test_trainable_attention_kernels_match_plain_and_controls_do_not(cuda):
+    x, p = _layer_case(cuda)
+    wqkv, bqkv = _fold(p[2], p[3])
+    wout, bout = p[4], p[5]
+    n12, n13 = fa.fused_attention_fwd.launches, fa.fused_attention_bwd.launches
+    got = fa.fused_attention_fwd(x, wqkv, bqkv, wout, bout, HEADS, VALID)
+    want = fa.fused_attention_block_plain(x, wqkv, bqkv, wout, bout, HEADS,
+                                          VALID)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    da = torch.randn(x.shape, generator=g, device=cuda)
+    da[:, VALID:] = 0.0
+    da = da.to(torch.bfloat16)
+    dqkv, a = fa.fused_attention_bwd(x, wqkv, bqkv, da, HEADS, VALID)
+    dqkv_p, a_p = fa.attention_bwd_plain(x, wqkv, bqkv, da, HEADS, VALID)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_fwd.launches, fa.fused_attention_bwd.launches) \
+        == (n12 + 1, n13 + 1)
+    v = slice(0, VALID)
+    assert _rel_err(got[:, v], want[:, v]) <= REL_TOL
+    assert _rel_err(a[:, v], a_p[:, v]) <= REL_TOL
+    assert _rel_err(dqkv[:, v], dqkv_p[:, v]) <= TRAIN_BWD_REL_TOL
+    assert not dqkv[:, VALID:].any()         # pad queries and pad keys
+    zb = torch.zeros_like(bqkv)
+    for name, ctrl in (
+            ("no key mask", fa.fused_attention_block_plain(
+                x, wqkv, bqkv, wout, bout, HEADS, S)),
+            ("bqkv=0", fa.fused_attention_block_plain(
+                x, wqkv, zb, wout, bout, HEADS, VALID)),
+            ("bout=0", fa.fused_attention_block_plain(
+                x, wqkv, bqkv, wout, torch.zeros_like(bout), HEADS, VALID))):
+        assert _rel_err(ctrl[:, v], want[:, v]) > REL_TOL, name
+    for name, ctrl in (
+            ("no key mask", fa.attention_bwd_plain(x, wqkv, bqkv, da, HEADS,
+                                                   S)[0]),
+            ("bqkv=0", fa.attention_bwd_plain(x, wqkv, zb, da, HEADS,
+                                              VALID)[0])):
+        assert _rel_err(ctrl[:, v], dqkv_p[:, v]) > TRAIN_BWD_REL_TOL, name
+
+
+def test_trainable_attention_gates_the_clamp_on_the_card(cuda):
+    """Head 0's q columns scaled 40x, so that a share of its scores passes
+    +80: the five gradients of the whole differentiable block through the
+    kernels are finite and agree with the plain versions', and the plain
+    backward without the gate is far from the gated one."""
+    x, p = _layer_case(cuda, seed=1)
+    x = x[:, :VALID].contiguous()            # the block pads per call
+    gain = torch.ones(3 * D, device=cuda)
+    gain[:D // HEADS] = 40.0
+    wqkv = (p[2].float() * gain).to(torch.bfloat16)
+    bqkv = (p[3] * gain).to(torch.bfloat16)
+    assert float(fa.attention_saturation(x.float(), wqkv.float(),
+                                         bqkv.float(), HEADS)) \
+        > fa.SCORE_CLAMP_HI
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cot = torch.randn(x.shape, generator=g, device=cuda)
+    grads = []
+    for kernels in (True, False):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (x, wqkv, bqkv, p[4], p[5].to(torch.bfloat16))]
+        out = fa.fused_attention_block(*leaves, HEADS, kernels=kernels)
+        (out.float() * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for name, got, want in zip(("x", "wqkv", "bqkv", "wout", "bout"),
+                               *grads):
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel_err(got, want) <= TRAIN_BWD_REL_TOL, name
+    wqkv_f, bqkv_f = _fold(p[2], p[3], gain=40.0)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 32 - VALID))
+    da = torch.nn.functional.pad(cot, (0, 0, 0, 32 - VALID)).to(
+        torch.bfloat16)
+    gated = fa.attention_bwd_plain(xp, wqkv_f, bqkv_f, da, HEADS, VALID)[0]
+    ungated = fa.attention_bwd_plain(xp, wqkv_f, bqkv_f, da, HEADS, VALID,
+                                     gate=False)[0]
+    assert _rel_err(ungated, gated) > 10 * TRAIN_BWD_REL_TOL
+
+
+@pytest.mark.parametrize("m", [64, 77, 2 * mm.CHUNK_ROWS + 77],
+                         ids=["M64", "M77-ragged", "three-chunks-ragged"])
+def test_trainable_mlp_kernels_match_plain_and_controls_do_not(cuda, m):
+    """Rows 15 and 16 against their plain versions; the third case runs
+    the backward's chunk loop (row offsets, the f32 accumulation of dW1 and
+    dW2 across chunks, the column sums) with a ragged last chunk."""
+    x, p = _layer_case(cuda, b=-(-m // S))
+    x2 = x.reshape(-1, D)[:m].contiguous()
+    lns, lnb, w1, b1, w2, b2 = p[6:12]
+    n15, n16 = mm.fused_mlp_fwd.launches, mm.fused_mlp_bwd.launches
+    got = mm.fused_mlp_fwd(x2, lns, lnb, w1, b1, w2, b2)
+    want = mm.fused_mlp_block_bf16_plain(x2, lns, lnb, w1, b1, w2, b2)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    do2 = torch.randn(x2.shape, generator=g, device=cuda).to(torch.bfloat16)
+    grads = mm.fused_mlp_bwd(x2, do2, lns, lnb, w1, b1, w2)
+    grads_p = mm._mlp_bwd_plain(x2, do2, lns, lnb, w1, b1, w2)
+    no_b1 = mm._mlp_bwd_plain(x2, do2, lns, lnb, w1, torch.zeros_like(b1),
+                              w2)
+    no_tail = mm._mlp_bwd_plain(x2[:-13], do2[:-13], lns, lnb, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert (mm.fused_mlp_fwd.launches, mm.fused_mlp_bwd.launches) == \
+        (n15 + 1, n16 + 1)
+    assert got.dtype == torch.bfloat16 and _rel_err(got, want) <= REL_TOL
+    for i, name in ((3, "b1"), (5, "b2"), (1, "ln_bias")):
+        q = [lns, lnb, w1, b1, w2, b2]
+        q[i] = torch.zeros_like(q[i])
+        assert _rel_err(mm.fused_mlp_block_bf16_plain(x2, *q), want) \
+            > REL_TOL, name
+    assert [t.dtype for t in grads] == [torch.bfloat16] + [torch.float32] * 6
+    for i, (a, b) in enumerate(zip(grads, grads_p)):
+        assert _rel_err(a, b) <= TRAIN_BWD_REL_TOL, i
+        if i:          # each cotangent sum: the ragged last rows count
+            assert _rel_err(no_tail[i], b) > TRAIN_BWD_REL_TOL, i
+    assert _rel_err(do2, grads_p[0]) > TRAIN_BWD_REL_TOL   # dLN dropped
+    for i in range(6):
+        assert _rel_err(no_b1[i], grads_p[i]) > TRAIN_BWD_REL_TOL, i
+
+
+def test_trainable_tower_step_kernels_match_plain_blocks(cuda):
+    """One fine-tune step of a 3-layer tower (head_dim 64) from the same
+    weights and batch, with the kernels and with the plain blocks: the
+    step's metrics within 2e-3 relative, the trainable gradients within
+    2e-2 in norm (1e-1 for the scalar logit_scale, a sum of cancelling
+    terms), and the kernels launched once per layer and block."""
+    vc = VisionConfig(image_size=32, patch_size=8, hidden_dim=D,
+                      num_layers=3, num_heads=HEADS, mlp_dim=F,
+                      projection_dim=32)
+    cfg = ClipFinetuneConfig(batch_size=4, trainable_blocks=2)
+    vgae = np.random.default_rng(0).standard_normal((10, 16)).astype(
+        np.float32)
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3),
+                                           dtype=np.uint8)).to(cuda)
+    nodes = torch.from_numpy(rng.integers(0, 10, 4)).to(cuda)
+    runs = []
+    for kernels in (True, False):
+        model, opt = finetune_clip.init_finetune_state(vc, cfg, vgae,
+                                                       device=cuda)
+        model.vit.kernels = kernels
+        step, _ = finetune_clip.make_finetune_step(model, opt)
+        counts = [fn.launches for fn in (
+            fa.fused_attention_fwd, fa.fused_attention_bwd,
+            mm.fused_mlp_fwd, mm.fused_mlp_bwd)]
+        metrics = step(images, nodes, 0.05)
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {k: t.grad.clone() for k, t in model.named_parameters()
+                      if t.grad is not None},
+                     [fn.launches - c for fn, c in zip(
+                         (fa.fused_attention_fwd, fa.fused_attention_bwd,
+                          mm.fused_mlp_fwd, mm.fused_mlp_bwd), counts)]))
+    (mk, gk, nk), (mp, gp, np_) = runs
+    assert nk == [2, 1, 2, 1] and np_ == [0, 0, 0, 0]
+    for key, want in mp.items():
+        assert math.isfinite(mk[key])
+        assert mk[key] == pytest.approx(want, rel=2e-3), key
+    assert set(gk) == set(gp)
+    for name, want in gp.items():
+        err = float((gk[name] - want).norm() / (want.norm() + 1e-12))
+        assert err <= (2e-2 if want.numel() > 1 else 1e-1), (name, err)

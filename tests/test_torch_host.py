@@ -5,6 +5,7 @@ The parity tests of the slice rely on these: the synthetic corpus must
 come out byte for byte the same from both packages for a seed.
 """
 
+import contextlib
 import json
 import os
 
@@ -166,3 +167,67 @@ def test_decoded_cache_shares_files_with_jax(images, tmp_path):
             row = jc.get(p)
             assert (row is None) == p.endswith("broken.png")
         assert jc.misses == 1
+
+
+def test_synthetic_corpus_equals_jax(tmp_path):
+    """The fine-tune's on-disk corpus: the same metadata.json and PNG
+    files, byte for byte, and the same records, for a seed."""
+    jrec, jdir = jax_synth.write_synthetic_corpus(
+        str(tmp_path / "j"), num_patents=5, figures_per_patent=3,
+        image_size=32, seed=2)
+    trec, tdir = torch_synth.write_synthetic_corpus(
+        str(tmp_path / "t"), num_patents=5, figures_per_patent=3,
+        image_size=32, seed=2)
+    assert [tuple(vars(r).values()) for r in trec] == \
+        [tuple(vars(r).values()) for r in jrec]
+    assert (tmp_path / "t" / "metadata.json").read_bytes() == \
+        (tmp_path / "j" / "metadata.json").read_bytes()
+    names = sorted(os.listdir(jdir))
+    assert sorted(os.listdir(tdir)) == names and len(names) == 15
+    for n in names:
+        with open(os.path.join(tdir, n), "rb") as a, \
+                open(os.path.join(jdir, n), "rb") as b:
+            assert a.read() == b.read(), n
+    assert torch_gt.figure_to_pos_figures(trec) == \
+        jax_gt.figure_to_pos_figures(jrec)
+
+
+@pytest.mark.parametrize("native,cached", [
+    (False, False), (None, False), (False, True), (None, True)],
+    ids=["u8-pil", "u8-auto", "u8-pil-cache", "u8-auto-cache"])
+def test_pair_batcher_equals_jax(images, tmp_path, native, cached):
+    """The same u8 (images, nodes) batches as the JAX batcher with
+    ``out_dtype="u8"`` for a fixed order: anchors then positives, a pair
+    dropped where either side fails to decode (the undecodable file is an
+    anchor in one pair and a positive in another), the tail dropped, and an
+    order shorter than a batch given whole."""
+    broken = next(p for p in images if p.endswith("broken.png"))
+    good = [p for p in images if p != broken]
+    anchors, positives = good[:8], good[7:15][::-1]
+    anchors[5], positives[2] = broken, broken
+    nodes = np.arange(8) * 3 + 1
+    order = [5, 0, 3, 1, 7, 2, 6]
+    kw = dict(batch_size=3, image_size=32, num_workers=2, use_native=native)
+    runs = []
+    for i, (pkg, cache_mod, extra) in enumerate((
+            (jax_pipeline, jax_cache, {"out_dtype": "u8"}),
+            (torch_pipeline, torch_cache, {}))):
+        with contextlib.ExitStack() as stack:
+            cache = (stack.enter_context(cache_mod.DecodedU8Cache(
+                str(tmp_path / f"c{i}"), 32)) if cached else None)
+            pb = stack.enter_context(pkg.PairBatcher(
+                anchors, positives, nodes, cache=cache, **kw, **extra))
+            runs.append([list(pb.epoch(order)), list(pb.epoch(order[:2]))])
+    want, got = runs
+    # 7 ids in batches of 3: the tail id dropped; the broken pairs (ids 5
+    # and 2) leave 2 of 3 pairs in each of the two batches, and 1 of 2 in
+    # the short order
+    assert [len(n) for _im, n in want[0]] == [2, 2]
+    assert [len(n) for _im, n in want[1]] == [1]
+    for gs, ws in zip(got, want):
+        assert len(gs) == len(ws)
+        for (gi, gn), (wi, wn) in zip(gs, ws):
+            assert gi.dtype == wi.dtype == np.uint8
+            assert gi.shape == wi.shape
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gn, wn)

@@ -170,7 +170,8 @@ def test_cli_never_imports_jax(runs):
 
 
 @pytest.mark.parametrize("argv", [
-    ["finetune"], ["serve"], ["train_gcn"],
+    ["finetune", "--checkpoint", "/nonexistent/hf_clip"], ["serve"],
+    ["train_gcn"],
     ["eval", "--checkpoint", "/nonexistent/hf_clip"]],
     ids=["finetune", "serve", "train_gcn", "hf-checkpoint"])
 def test_unported_surface_exits_nonzero(argv, tmp_path, capsys):
