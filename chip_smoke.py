@@ -23,7 +23,12 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    (B=128; the MLP on 128 x 197 rows, several backward chunks) and with
    most keys pad, with their controls (no key mask, a bias zeroed, no
    clamp gate where scores pass +80, the LayerNorm's term of dx dropped,
-   the ragged last rows or the last chunk's rows dropped);
+   the ragged last rows or the last chunk's rows dropped); the hyperbolic
+   kernels at the Poincaré path's shapes: the Möbius dense layer at
+   [512, 512] x [512, 256] (control: no bias), the pairwise distance at
+   [256, 128] x [16,059, 128] (control: c off by 1%), the Poincaré bucket
+   stage at 1M x 128, Q=256, pool 80, equal to its plain version (control:
+   no b term);
 4. the slices end to end through the CLI: encode, retrieve --k 20 and
    eval on a 224 px synthetic corpus (60 patents x 6 figures) with seeded
    ViT-B/16 weights saved as a clip_finetune_best checkpoint, first with
@@ -31,14 +36,24 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    EmbeddingIndex(quantized=True) over the int8-encoded gallery; then
    finetune --epochs 1, ViT-B/16 on a 224 px corpus (48 patents x 4
    figures: two steps of 64 pairs), and eval serving the checkpoint it
-   wrote; every kernel's launch count over its path must be > 0;
+   wrote; then the hyperbolic serving path: infer and dist on a
+   DeepPatent-2018-scale prepared_training_data (16,059 patents x 2
+   figures, CLIP-width features of 512) with a seeded checkpoint of the
+   HypTrainConfig model (512 -> 256 -> 128, c = 2) in the JAX layout, and
+   a HyperbolicRetrievalEngine(quantized=True) over 1M feature rows
+   answering 256 queries at k = 10, held by recall to the exact f64
+   ranking over the whole gallery; every kernel's launch count over its
+   path must be > 0;
 5. times (CUDA events): the bf16 and the int8 tower img/s at batch 128,
    cosine top-k QPS at 1M x 512, Q=256, k=10 through the bf16 kernel
    path, the quantized path and the f32 scan, every kernel against its
    plain version at the main path's shapes, and one fine-tune step at 64
    pairs with kernels against plain blocks (first held to them: metrics
    and every trainable gradient, from the same seeded weights), with its
-   profile.
+   profile; the hyperbolic encoder over 1M rows with row 18 against its
+   plain first layer, the label-retrieval mAP over the 32k figures (device
+   and host parts), and Poincaré top-10 QPS at 1M x 128 through the kernel
+   path against the scan.
 
 The line before the last is a JSON object with one entry per kernel
 (its launches on the main path, error against the plain version, times
@@ -64,6 +79,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, "build", "chip_smoke_run")
 FT_DIR = os.path.join(ROOT, "build", "chip_smoke_finetune")
+HYP_DIR = os.path.join(ROOT, "build", "chip_smoke_hyperbolic")
 
 
 def fail(msg: str) -> None:
@@ -117,6 +133,18 @@ def kernel_breakdown(torch, fn, iters: int = 3) -> list[tuple[str, float]]:
     return sorted(rows, key=lambda r: -r[1])
 
 
+def print_breakdown(torch, what: str, fn) -> None:
+    """Print the device time by kernel of one call of ``fn`` against its
+    CUDA-event wall time."""
+    wall = cuda_ms(torch, fn, warmup=1, iters=3)
+    rows = kernel_breakdown(torch, fn)
+    busy = sum(ms for _k, ms in rows)
+    print(f"[time] {what}: device time by kernel (torch.profiler, 3 calls) "
+          f"{busy:.3f} ms busy of {wall:.3f} ms wall "
+          f"({100 * busy / wall:.1f}%); "
+          + "; ".join(f"{ms:.3f} ms {kname[:70]}" for kname, ms in rows[:6]))
+
+
 def min_row_cosine(torch, a, b) -> float:
     a, b = (t.float().reshape(-1, t.shape[-1]) for t in (a, b))
     return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
@@ -168,8 +196,9 @@ INT8_TOWER_MIN_COS = 0.9995
 # held only far from garbage
 INT8_VS_BF16_MIN_COS = 0.9
 
-# H100 SXM datasheet peaks (dense) and memory rate, for bound_ms
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# H100 SXM datasheet peaks (dense) and memory rate, for bound_ms; fp32 is
+# the rate outside the tensor cores (rows 17 and 18 exclude TF32)
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -616,6 +645,359 @@ def train_bounds(b, s, valid, d, f) -> dict[str, tuple]:
             {"bf16": 10 * mv * d * f})}
 
 
+# Rows 17 and 18 against their plain versions: both are f32 throughout
+# and differ by the order of their sums and by their tanh / log, so the
+# gate is on max |kernel - plain| / max |plain|.  Measured on the H100:
+# 4.1e-7 (row 17), 1.0e-6 (row 18); the gates sit at 5x and 4x, and the
+# nearest control (the bias dropped from row 18) is at 2.4e-2.
+HYP_REL_TOL = {"pairwise_dist_pallas": 2e-6, "mobius_dense_pallas": 4e-6}
+# the kernel path's top-10 at 1M x 128 against the exact f64 ranking over
+# the whole gallery
+POINCARE_MIN_RECALL = 0.999
+
+
+def max_rel(got, ref) -> float:
+    """max |got - ref| / max |ref|."""
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def hyp_gate(torch, kname, tag, got, ref, controls: dict) -> float:
+    """Hold a hyperbolic kernel's output to its plain version's within
+    HYP_REL_TOL[kname] and require every control to fail the same gate.
+    Returns the max-abs error."""
+    torch.cuda.synchronize()
+    tol = HYP_REL_TOL[kname]
+    check(bool(torch.isfinite(got).all()), f"{kname} {tag}: non-finite")
+    err = max_rel(got, ref)
+    cerr = {c: max_rel(t, ref) for c, t in controls.items()}
+    print(f"[kernel] {kname} {tag} vs plain: max rel err {err:.3g} (gate "
+          f"{tol}); controls (must fail): "
+          + ", ".join(f"{c} {e:.3g}" for c, e in cerr.items()))
+    check(err <= tol, f"{kname} {tag} disagrees with its plain version "
+          f"(gate: max rel err <= {tol})")
+    for c, e in cerr.items():
+        check(e > tol, f"{kname} {tag}: control '{c}' passes the gate")
+    return float((got - ref).abs().max())
+
+
+def ball_points(torch, n, d, c, gen, dev, r_hi=0.95):
+    """n points of the ball of curvature c: uniform directions, radii up
+    to r_hi of its radius."""
+    v = torch.randn(n, d, generator=gen, device=dev)
+    r = 0.05 + (r_hi - 0.05) * torch.rand(n, 1, generator=gen, device=dev)
+    return (v / v.norm(dim=-1, keepdim=True) * r / math.sqrt(c)).contiguous()
+
+
+def hyperbolic_bounds(n_enc, k_in, d_hid, n_fig, n_pat, d_emb, nq, n_gal,
+                      pool) -> dict[str, tuple]:
+    """bound() of rows 18, 17 and 4 at the path's shapes: each input read
+    once and each output written once; f32 FMAs for 18 and 17, int8
+    products for 4 (whose rows carry three f32 terms, its queries two)."""
+    return {
+        "mobius_dense_pallas": bound(
+            4 * (n_enc * k_in + k_in * d_hid + d_hid + n_enc * d_hid),
+            {"fp32": 2 * n_enc * k_in * d_hid}),
+        "pairwise_dist_pallas": bound(
+            4 * (n_fig * d_emb + n_pat * d_emb + n_fig * n_pat),
+            {"fp32": 2 * n_fig * n_pat * d_emb}),
+        "bucket_topk_poincare": bound(
+            n_gal * d_emb + 12 * n_gal + nq * (d_emb + 8) + nq * pool * 12,
+            {"int8": 2 * nq * n_gal * d_emb})}
+
+
+def exact_poincare_topk(torch, q, gal, c, k, chunk: int = 32):
+    """The exact top-k by f64 distance over the whole gallery: the arcosh
+    argument 1 + 2c|u-v|²/((1-c|u|²)(1-c|v|²)) is monotone in the
+    distance; |u-v|² from an f64 Gram product."""
+    g = gal.double()
+    g2 = (g * g).sum(-1)
+    beta = 1.0 - c * g2
+    out = []
+    for s in range(0, q.shape[0], chunk):
+        u = q[s:s + chunk].double()
+        u2 = (u * u).sum(-1, keepdim=True)
+        sq = (u2 - 2.0 * (u @ g.T) + g2).clamp_min(0.0)
+        arg = sq / ((1.0 - c * u2) * beta)
+        out.append(torch.topk(arg, k, dim=1, largest=False).indices)
+    return torch.cat(out)
+
+
+# The hyperbolic path's shapes: the HypTrainConfig model (512 -> 256 ->
+# 128, c = 2); the engine's batch of 512 feature rows; one evaluation batch
+# of 256 figures against DeepPatent 2018's 16,059 patents (two figures
+# each); a gallery of 1M rows and 256 queries.
+HYP_SIZES = {"c": 2.0, "n_enc": 512, "k_in": 512, "d_hid": 256,
+             "d_emb": 128, "n_fig": 256, "patents": 16059,
+             "n_gal": 1_000_000, "nq": 256, "map_subset": 2048}
+
+
+def hyperbolic_kernel_checks(torch, dev, errs: dict, z: dict) -> dict:
+    """Rows 18, 17 and 4 against their plain versions at the path's
+    shapes, on a generator of their own: row 18 on unit features (which
+    saturate the layer at the projection radius, as the encoder's first
+    layer is) and on features x 0.02 (inside the ball), row 17 on ball
+    points up to 0.95/sqrt(c), row 4 over a 1M-row ball gallery (equal to
+    its plain version).  Returns the inputs the times reuse."""
+    from patent_tpu_torch.ops import pallas_kernels as pk
+    from patent_tpu_torch.ops import poincare, topk_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    c, k_in, d_hid, d_emb = z["c"], z["k_in"], z["d_hid"], z["d_emb"]
+    lim = math.sqrt(6.0 / (k_in + d_hid))
+    w18 = (2.0 * torch.rand(k_in, d_hid, generator=gen, device=dev) - 1.0
+           ) * lim
+    b18 = poincare.expmap0(1e-3 * torch.randn(d_hid, generator=gen,
+                                              device=dev), c).contiguous()
+    x18 = torch.randn(z["n_enc"], k_in, generator=gen, device=dev)
+    plain18 = pk.mobius_dense_pallas_plain
+    for tag, xs in (("unit features", x18), ("features x 0.02", 0.02 * x18)):
+        # a saturated row sits on the boundary, where Möbius-adding any
+        # bias returns the row itself: there only the K-loop control bites
+        controls = {"last 32 of K dropped": plain18(xs[:, :-32], w18[:-32],
+                                                    b18, c)}
+        if tag != "unit features":
+            controls["no bias"] = plain18(xs, w18, torch.zeros_like(b18), c)
+        errs["mobius_dense_pallas"] = max(
+            errs.get("mobius_dense_pallas", 0.0),
+            hyp_gate(torch, "mobius_dense_pallas", f"[{z['n_enc']}, {k_in}] "
+                     f"x [{k_in}, {d_hid}], {tag}",
+                     pk.mobius_dense_pallas(xs, w18, b18, c),
+                     plain18(xs, w18, b18, c), controls))
+    x17 = ball_points(torch, z["n_fig"], d_emb, c, gen, dev)
+    y17 = ball_points(torch, z["patents"], d_emb, c, gen, dev)
+    errs["pairwise_dist_pallas"] = hyp_gate(
+        torch, "pairwise_dist_pallas", f"[{z['n_fig']}, {d_emb}] x "
+        f"[{z['patents']}, {d_emb}], radii to 0.95/sqrt(c)",
+        pk.pairwise_dist_pallas(x17, y17, c),
+        pk.pairwise_dist_pallas_plain(x17, y17, c),
+        {"c x 1.01": pk.pairwise_dist_pallas_plain(x17, y17, 1.01 * c)})
+    nq = z["nq"]
+    gal = ball_points(torch, z["n_gal"], d_emb, c, gen, dev)
+    hq = torch.cat([gal[:nq // 2] * 0.999,
+                    ball_points(torch, nq - nq // 2, d_emb, c, gen, dev)])
+    pgal = topk_kernel.prepare_poincare_gallery(gal, c)
+    terms = topk_kernel.quantize_poincare_queries(hq)
+    top2 = topk_kernel._bucket_top2_poincare_cuda(*terms, pgal)
+    top2_plain = topk_kernel.bucket_top2_poincare_plain(*terms, pgal)
+    no_b = topk_kernel.bucket_top2_poincare_plain(
+        *terms, pgal._replace(b=torch.zeros_like(pgal.b)))
+    torch.cuda.synchronize()
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(top2, top2_plain))
+    control = any(not torch.equal(a, b) for a, b in zip(no_b, top2_plain))
+    print(f"[kernel] bucket_topk_poincare n={z['n_gal']}, D={d_emb}, Q={nq}: "
+          f"(v1, i1, v2, i2) equal to plain: {equal}; control without the "
+          f"b term differs: {control}")
+    check(equal and control, "Poincaré bucket kernel check failed")
+    errs["bucket_topk_poincare"] = 0.0
+    return {"gen": gen, "w18": w18, "b18": b18, "x18": x18, "x17": x17,
+            "y17": y17, "hq": hq, "pgal": pgal}
+
+
+def hyperbolic_slice(torch, dev, z: dict, h: dict, run_path, cli) -> None:
+    """The hyperbolic serving path: a prepared_training_data of z["patents"]
+    patents with two figures each and CLIP-width features, the
+    HypTrainConfig model from seeded weights saved as the JAX train_hyp
+    saves its best checkpoint (the actions read no negatives, so the
+    negative ratios are small); ``infer`` and ``dist`` through the CLI; the
+    mAP on a subset with the kernels against the plain versions on the
+    CPU; then HyperbolicRetrievalEngine(quantized=True) over z["n_gal"]
+    seeded feature rows answering z["nq"] queries at k = 10, held by
+    recall to the exact f64 ranking.  Adds what the times reuse to h."""
+    import numpy as np
+
+    from patent_tpu_torch.data import synthetic as synth
+    from patent_tpu_torch.data.graph_build import (build_feature_matrix,
+                                                   build_hetero_graph)
+    from patent_tpu_torch.data.prep import prepare_training_data
+    from patent_tpu_torch.models.hyperbolic import HyperbolicEmbeddingModel
+    from patent_tpu_torch.models.weights import hyperbolic_params_to_jax
+    from patent_tpu_torch.ops import pallas_kernels as pk
+    from patent_tpu_torch.ops import topk_kernel
+    from patent_tpu_torch.retrieval import index as index_mod
+    from patent_tpu_torch.retrieval.hyperbolic_engine import \
+        HyperbolicRetrievalEngine
+    from patent_tpu_torch.train import evaluate as hyp_eval
+    from patent_tpu_torch.utils import checkpoint
+
+    c, gen, nq, n_gal = z["c"], h["gen"], z["nq"], z["n_gal"]
+    shutil.rmtree(HYP_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    records = synth.synthetic_records(num_patents=z["patents"],
+                                      figures_per_patent=2, seed=0)
+    graph = build_hetero_graph(records)
+    xf = build_feature_matrix(graph, synth.synthetic_features(
+        records, dim=z["k_in"], seed=0), feature_dim=z["k_in"])
+    td = prepare_training_data(graph, xf, neg_ratio=1, fig_pair_ratio=1,
+                               seed=0)
+    td.save(os.path.join(HYP_DIR, "prepared_training_data"))
+    model = HyperbolicEmbeddingModel(
+        feature_dim=z["k_in"], embed_dim=z["d_emb"], label_num=td.num_labels,
+        hidden_dims=(z["d_hid"],), c=c,
+        generator=torch.Generator().manual_seed(2018))
+    checkpoint.save(os.path.join(HYP_DIR, "models"),
+                    f"best_retrieval_model_c{c}_e{z['d_emb']}",
+                    {"params": hyperbolic_params_to_jax(model.state_dict()),
+                     "step": 0, "epoch": 0})
+    num_patents = td.label_offsets["medium_cpcs"] - td.label_offsets["patents"]
+    print(f"[slice] hyperbolic data: {td.x_figures.shape[0]} figures, "
+          f"{num_patents} patents, {td.num_labels} labels, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    log = io.StringIO()
+
+    def infer_dist():
+        with contextlib.redirect_stdout(log):
+            rcs = [cli([action, "--path", HYP_DIR, "--device", dev.type,
+                        "--latent_dim", str(z["d_emb"]),
+                        f"hidden_dims=[{z['d_hid']}]", f"curvature={c}"])
+                   for action in ("infer", "dist")]
+        print(log.getvalue(), end="")
+        check(rcs == [0, 0], f"infer / dist failed: {rcs}")
+
+    run_path(f"infer + dist ({z['patents']} patents x 2 figures, "
+             "HypTrainConfig widths)",
+             (pk.pairwise_dist_pallas, pk.mobius_dense_pallas), infer_dist)
+    out = log.getvalue()
+    maps = re.findall(r"mAP \(label retrieval\): (\S+)", out)
+    dist_json = json.loads(out[out.index("{"):out.rindex("}") + 1])
+    check(len(maps) == 1 and 0.0 <= float(maps[0]) <= 1.0
+          and set(dist_json) == {"patent", "medium", "big", "main"}
+          and all(math.isfinite(v["true_mean"])
+                  and math.isfinite(v["random_mean"]) and v["n"] > 0
+                  for v in dist_json.values()),
+          f"infer / dist output out of range: {maps}, {dist_json}")
+    fig_pos: dict = {}
+    for f_, p_ in td.y_pos.tolist():
+        fig_pos.setdefault(f_, []).append(p_)
+    sub = sorted(fig_pos)[:z["map_subset"]]
+    model = model.to(dev).eval()
+    map_k = hyp_eval.evaluate_retrieval_map(model, td.x_figures, sub,
+                                            fig_pos, num_patents)
+    map_p = hyp_eval.evaluate_retrieval_map(model.cpu(), td.x_figures, sub,
+                                            fig_pos, num_patents)
+    model = model.to(dev)
+    print(f"[slice] infer mAP {maps[0]} over {len(fig_pos)} figures; on "
+          f"{len(sub)} of them {map_k:.6f} with kernels, {map_p:.6f} with "
+          "the plain versions on the CPU")
+    check(abs(map_k - map_p) <= 1e-4, "label mAP with kernels differs from "
+          "the plain versions'")
+
+    # half the queries are gallery rows with noise
+    feats = torch.randn(n_gal, z["k_in"], generator=gen, device=dev)
+    qfeat = torch.cat([feats[:nq // 2] + 0.05 * torch.randn(
+        nq // 2, z["k_in"], generator=gen, device=dev),
+        torch.randn(nq - nq // 2, z["k_in"], generator=gen, device=dev)])
+    names = [f"g{i}" for i in range(n_gal)]
+    got = {}
+
+    def engine_path():
+        engine = HyperbolicRetrievalEngine(model, feats, names, device=dev,
+                                           quantized=True)
+        q_enc = engine.encode_features(qfeat)
+        got.update(engine=engine, q=q_enc,
+                   top=engine.index.search(q_enc, k=10))
+
+    run_path(f"HyperbolicRetrievalEngine(quantized=True), {n_gal} rows, "
+             f"{nq} queries at k=10",
+             (pk.mobius_dense_pallas, topk_kernel.bucket_topk_poincare),
+             engine_path)
+    emb = got["engine"].index.embeddings
+    radius = emb.norm(dim=-1) * math.sqrt(c)
+    exact = exact_poincare_topk(torch, got["q"], emb, c, 10).cpu().numpy()
+    _sv, scan_i = index_mod.topk_search(got["q"], emb, k=10,
+                                        similarity="poincare", c=c)
+
+    def recall(idx) -> float:
+        return float(np.mean([len(set(a) & set(b)) / 10.0
+                              for a, b in zip(idx, exact)]))
+
+    rec_k, rec_s = recall(got["top"][1]), recall(scan_i.cpu().numpy())
+    print(f"[slice] Poincaré top-10 at {n_gal} x {z['d_emb']} (encoded radii "
+          f"{float(radius.min()):.4f}-{float(radius.max()):.4f} of "
+          f"1/sqrt(c)): recall@10 against the exact f64 ranking, kernel "
+          f"path {rec_k:.5f}, f32 surrogate scan {rec_s:.5f}")
+    check(rec_k >= POINCARE_MIN_RECALL, f"Poincaré kernel path recall@10 "
+          f"{rec_k} < {POINCARE_MIN_RECALL}")
+    h.update(model=model, td=td, fig_pos=fig_pos, num_patents=num_patents,
+             engine=got["engine"], feats=feats, q=got["q"])
+
+
+def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
+                     label: str, k: int, pool: int) -> None:
+    """The encoder over z["n_gal"] rows with row 18 against the plain first
+    layer, the label mAP over every figure (its device and host parts),
+    Poincaré top-k QPS through the kernel path against the scan, and rows
+    18, 17 and 4 against their plain versions at the path's shapes."""
+    from patent_tpu_torch.ops import pallas_kernels as pk
+    from patent_tpu_torch.ops import topk_kernel
+    from patent_tpu_torch.retrieval import index as index_mod
+    from patent_tpu_torch.train import evaluate as hyp_eval
+
+    c, n_gal, nq, engine = z["c"], z["n_gal"], z["nq"], h["engine"]
+    first = h["model"].encoder.first_layer
+
+    def encode(kernels):
+        def go():
+            first.kernels = kernels
+            engine.encode_features(h["feats"])
+        return go
+
+    # one pass each, in turns: the engine has just encoded the same rows
+    ms = [cuda_ms(torch, encode(kern), warmup=0, iters=1)
+          for kern in (False, True, True, False)]
+    ep, ek = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+    first.kernels = True
+    print(f"[time] hyperbolic encoder {z['k_in']} -> {z['d_hid']} -> "
+          f"{z['d_emb']} over {n_gal} rows (batches of 512): row 18 "
+          f"{n_gal / ek * 1e3:.0f} rows/s ({ek:.1f} ms), plain first layer "
+          f"{n_gal / ep * 1e3:.0f} rows/s ({ep:.1f} ms) {label}")
+    part = h["feats"][:20 * 512]
+    print_breakdown(torch, "hyperbolic encoder with row 18, 20 batches of "
+                    "512 rows", lambda: engine.encode_features(part))
+    td, fig_pos = h["td"], h["fig_pos"]
+    eval_idx = sorted(fig_pos)
+    t0 = time.perf_counter()
+    for _chunk, _d in hyp_eval.label_distance_batches(
+            h["model"], td.x_figures, eval_idx, h["num_patents"]):
+        pass
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hyp_eval.evaluate_retrieval_map(h["model"], td.x_figures, eval_idx,
+                                    fig_pos, h["num_patents"])
+    t_all = time.perf_counter() - t0
+    print(f"[time] label-retrieval mAP over {len(eval_idx)} figures x "
+          f"{h['num_patents']} patents: {t_all:.2f} s, of which encode + row "
+          f"17 + copy to the host {t_dev:.2f} s and host AP "
+          f"{t_all - t_dev:.2f} s {label}")
+    q, emb = h["q"], engine.index.embeddings
+    psp, psk = in_turns(
+        torch, lambda: index_mod.topk_search(q, emb, k=k,
+                                             similarity="poincare", c=c),
+        lambda: index_mod.topk_search_poincare_fast(
+            q, engine.index.emb_gal, emb, k=k, c=c))
+    print(f"[time] Poincaré top-{k} at {n_gal} x {z['d_emb']}, Q={nq}: "
+          f"kernel path {nq / psk * 1e3:.0f} QPS ({psk:.2f} ms), f32 scan "
+          f"{nq / psp * 1e3:.0f} QPS ({psp:.2f} ms) {label}")
+    print_breakdown(torch, f"Poincaré top-{k} through the kernel path",
+                    lambda: index_mod.topk_search_poincare_fast(
+                        q, engine.index.emb_gal, emb, k=k, c=c))
+    w18, b18, x18 = h["w18"], h["b18"], h["x18"]
+    x17, y17, hq, pgal = h["x17"], h["y17"], h["hq"], h["pgal"]
+    times["mobius_dense_pallas"] = in_turns(
+        torch, lambda: pk.mobius_dense_pallas_plain(x18, w18, b18, c),
+        lambda: pk.mobius_dense_pallas(x18, w18, b18, c))
+    times["pairwise_dist_pallas"] = in_turns(
+        torch, lambda: pk.pairwise_dist_pallas_plain(x17, y17, c),
+        lambda: pk.pairwise_dist_pallas(x17, y17, c))
+    times["bucket_topk_poincare"] = in_turns(
+        torch, lambda: topk_kernel.bucket_topk_poincare_plain(hq, pgal, pool),
+        lambda: topk_kernel.bucket_topk_poincare(hq, pgal, pool))
+    bounds.update(hyperbolic_bounds(z["n_enc"], z["k_in"], z["d_hid"],
+                                    z["n_fig"], z["patents"], z["d_emb"], nq,
+                                    n_gal, pool))
+    h.clear()
+
+
 def main() -> None:
     try:
         import torch
@@ -798,6 +1180,8 @@ def main() -> None:
         del gi8, gscale
     del gal, g
 
+    hyp = hyperbolic_kernel_checks(torch, dev, errs, HYP_SIZES)
+
     tgen = torch.Generator(device="cpu").manual_seed(1234)
     tower = VisionTransformer(VIT_B16, generator=tgen)
     with torch.no_grad():        # init leaves them 0 and 1: make each matter
@@ -866,7 +1250,8 @@ def main() -> None:
         check(all(v > 0 for v in got.values()),
               f"a kernel of the path '{what}' was never launched")
         if record:
-            launches.update(got)
+            for kname, n in got.items():
+                launches[kname] = launches.get(kname, 0) + n
 
     def cli_slice(flags, model):
         check(cli(["encode", "--path", RUN_DIR] + flags) == 0,
@@ -958,6 +1343,8 @@ def main() -> None:
     print(f"[slice] fine-tune train loss {losses[0]:.4f}, val loss "
           f"{val_loss:.4f}; eval served {os.path.basename(npys[0])} "
           f"{emb.shape}: {summary}")
+
+    hyperbolic_slice(torch, dev, HYP_SIZES, hyp, run_path, cli)
 
     # ---- 5. times
     times = {}
@@ -1130,6 +1517,9 @@ def main() -> None:
           f"{256 / sq * 1e3:.0f} QPS ({sq:.2f} ms), plain scan "
           f"{256 / sp * 1e3:.0f} QPS ({sp:.2f} ms; {sp2:.2f} ms in the "
           f"second pair) {label}")
+    del gal, g16, gvalid, gi8, gscale
+
+    hyperbolic_times(torch, HYP_SIZES, hyp, times, bounds, label, k, pool)
     for kname, (pm, km) in times.items():
         print(f"[time] {kname}: kernel {km:.3f} ms, plain {pm:.3f} ms, "
               f"bound {bounds[kname][0]:.3f} ms ({bounds[kname][1]}) "
@@ -1157,7 +1547,13 @@ def main() -> None:
             ("fused_mlp_fwd", "mlp_grad.cu",
              "patent_tpu/ops/bf16_mlp_grad.py:157"),
             ("fused_mlp_bwd", "mlp_grad.cu",
-             "patent_tpu/ops/bf16_mlp_grad.py:182")]
+             "patent_tpu/ops/bf16_mlp_grad.py:182"),
+            ("bucket_topk_poincare", "bucket_topk.cu",
+             "patent_tpu/ops/topk_kernel.py:391"),
+            ("pairwise_dist_pallas", "hyperbolic.cu",
+             "patent_tpu/ops/pallas_kernels.py:93"),
+            ("mobius_dense_pallas", "hyperbolic.cu",
+             "patent_tpu/ops/pallas_kernels.py:167")]
     errs["bucket_topk_bf16"] = err_topk
     # no single PyTorch call computes any of these functions, so there is
     # no library time to set beside them

@@ -1,5 +1,5 @@
-"""Command-line interface of the port (the retrieval actions and the CLIP
-fine-tune of patent_tpu/cli/main.py).
+"""Command-line interface of the port (the retrieval actions, the CLIP
+fine-tune and the hyperbolic serving actions of patent_tpu/cli/main.py).
 
     python -m patent_tpu_torch.cli encode|retrieve|eval --path DIR
         [--device cuda|cpu] [--synthetic] [--k K] [--query IMG]
@@ -7,15 +7,21 @@ fine-tune of patent_tpu/cli/main.py).
         [--quantize] [--profile exact|recommended|turbo]
     python -m patent_tpu_torch.cli finetune --path DIR [--device cuda|cpu]
         [--epochs N] [--keep-tokens K] [key=value ...]
+    python -m patent_tpu_torch.cli test|infer|dist --path DIR
+        [--checkpoint NAME] [--latent_dim 128] [--synthetic]
+        [--device cuda|cpu] [key=value ...]
 
 ``finetune`` trains on ``DIR``/metadata.json + images/ when present, else
 on a generated synthetic corpus, and writes
 ``DIR``/models/clip_finetune_best, which every retrieval action loads.
+``test``, ``infer`` and ``dist`` serve a hyperbolic model that the JAX
+``train_hyp`` (or the port, in its layout) saved under ``DIR``/models, on
+``DIR``/prepared_training_data (train/cli_hyperbolic.py).
 
 ``--device`` defaults to the card; without one the command exits non-zero
-rather than run on the CPU.  The other actions of the JAX CLI and HF
-``--checkpoint`` directories exit non-zero with a message: they are not
-ported yet.
+rather than run on the CPU.  The other actions of the JAX CLI, and HF
+``--checkpoint`` directories for the image tower, exit non-zero with a
+message: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,13 +31,14 @@ import sys
 
 from ..utils.config import SERVING_PROFILES
 
-# the JAX CLI's action set; only RETRIEVAL_ACTIONS and finetune run here
-# so far
+# the JAX CLI's action set; RETRIEVAL_ACTIONS, HYPERBOLIC_ACTIONS and
+# finetune run here so far
 ACTIONS = ["train", "train_gcn", "train_hyp", "train_hyp_con", "train_end",
            "train_end_2", "train_class", "plot", "train_class_pro", "test",
            "infer", "dist", "prep", "encode", "retrieve", "eval", "bench",
            "finetune", "serve"]
 RETRIEVAL_ACTIONS = ("encode", "retrieve", "eval")
+HYPERBOLIC_ACTIONS = ("test", "infer", "dist")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,7 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="query image path (retrieve action)")
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="HF CLIP checkpoint directory (not yet ported)")
+                   help="test/infer/dist: the checkpoint's name under "
+                        "--path/models (default best_retrieval_model_c"
+                        "{curvature}_e{latent_dim}); other actions: an HF "
+                        "CLIP checkpoint directory (not yet ported)")
+    p.add_argument("--latent_dim", type=int, default=128,
+                   help="test/infer/dist: the hyperbolic embedding width")
     p.add_argument("--synthetic", action="store_true",
                    help="force the synthetic corpus")
     p.add_argument("--quantize", action="store_true",
@@ -69,14 +81,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=None,
                    help="fine-tune epochs (default: ClipFinetuneConfig's)")
     p.add_argument("overrides", nargs="*",
-                   help="fine-tune config overrides as key=value")
+                   help="config overrides as key=value (ClipFinetuneConfig "
+                        "for finetune, HypTrainConfig for test/infer/dist)")
     return p
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """The parsed command line, with ``--profile`` resolved into
-    ``quantize`` and ``keep_tokens`` where those were left unset."""
-    args = build_parser().parse_args(argv)
+    ``quantize`` and ``keep_tokens`` where those were left unset.
+    ``key=value`` overrides may stand anywhere, options after them too."""
+    args = build_parser().parse_intermixed_args(argv)
     if args.profile is not None:
         prof = SERVING_PROFILES[args.profile]
         args.quantize = args.quantize or prof["quantize"]
@@ -87,11 +101,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
-    if args.action not in RETRIEVAL_ACTIONS + ("finetune",):
+    if args.action not in RETRIEVAL_ACTIONS + HYPERBOLIC_ACTIONS + (
+            "finetune",):
         print(f"action {args.action!r} is not yet ported to "
               "patent_tpu_torch", file=sys.stderr)
         return 2
-    if args.checkpoint:
+    if args.checkpoint and args.action not in HYPERBOLIC_ACTIONS:
         print(f"--checkpoint {args.checkpoint!r}: loading HF CLIP "
               "checkpoints needs the transformers package and is not yet "
               "ported to patent_tpu_torch (a JAX fine-tune under "
@@ -109,6 +124,10 @@ def main(argv: list[str] | None = None) -> int:
         from ..train.cli_finetune import run_finetune_action
 
         return run_finetune_action(args)
+    if args.action in HYPERBOLIC_ACTIONS:
+        from ..train.cli_hyperbolic import run_hyperbolic_action
+
+        return run_hyperbolic_action(args)
     return run_retrieval_action(args.action, args)
 
 

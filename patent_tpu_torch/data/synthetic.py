@@ -1,10 +1,11 @@
 """Synthetic DeepPatent-like retrieval corpus (the port's copy of the parts
-of patent_tpu/data/synthetic.py that the retrieval and fine-tune actions
-call).
+of patent_tpu/data/synthetic.py that the retrieval, fine-tune and
+hyperbolic actions call).
 
 Records follow the real corpus's naming and CPC hierarchy; figures of one
 patent share a base drawing, so the ground truth is learnable.  For one
-seed the records and PNG bytes equal the JAX package's, byte for byte.
+seed the records, PNG bytes and feature vectors equal the JAX package's,
+byte for byte.
 """
 
 from __future__ import annotations
@@ -49,6 +50,26 @@ def synthetic_records(num_patents: int = 20, figures_per_patent: int = 4,
     return records_from_metadata(
         synthetic_metadata(num_patents, figures_per_patent, seed),
         max_month=max_month)
+
+
+def synthetic_features(records: Sequence[FigureRecord], dim: int = 64,
+                       seed: int = 0, noise: float = 0.15
+                       ) -> dict[str, np.ndarray]:
+    """figure name → feature vector; same-patent figures cluster, and patents
+    sharing a CPC subclass are closer than unrelated ones."""
+    rng = np.random.default_rng(seed)
+    cpc_centers: dict[str, np.ndarray] = {}
+    patent_centers: dict[str, np.ndarray] = {}
+    out = {}
+    for r in records:
+        if r.medium_cpc not in cpc_centers:
+            cpc_centers[r.medium_cpc] = rng.standard_normal(dim)
+        if r.patent_id not in patent_centers:
+            patent_centers[r.patent_id] = (cpc_centers[r.medium_cpc] +
+                                           0.5 * rng.standard_normal(dim))
+        out[r.figure_id] = (patent_centers[r.patent_id] +
+                            noise * rng.standard_normal(dim)).astype(np.float32)
+    return out
 
 
 def _entity_rng(seed: int, kind: str, name: str) -> np.random.Generator:

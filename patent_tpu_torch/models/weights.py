@@ -3,8 +3,13 @@ of the port's towers: ``VisionTransformer`` (and the trainable tower, which
 has its names; ``params_from_jax`` / ``params_to_jax``), the whole
 fine-tune tree ``{"vit": ..., "head": ...}`` of the fine-tune's
 ``FinetuneModel`` (the same two functions: keys ``vit.*`` and ``head.*``)
-and ``Int8VisionTransformer`` (``int8_params_from_jax``, the tree
-``patent_tpu.models.vit_int8.quantize_vit_params`` returns).
+``Int8VisionTransformer`` (``int8_params_from_jax``, the tree
+``patent_tpu.models.vit_int8.quantize_vit_params`` returns), and the
+hyperbolic models of ``models/hyperbolic.py`` (``hyperbolic_params_from_jax``
+/ ``hyperbolic_params_to_jax``: ``label_emb`` and
+``encoder/{first_layer,middle_i,final_layer}/{kernel,hyp_bias}``, whose
+names and [in, out] kernels the port keeps, so each leaf maps to the state
+dict key of its path joined by dots).
 
 The tree is nested dicts of numpy arrays, with or without the
 ``{"params": ...}`` wrapper.  The patch embedding changes layout (Flax conv
@@ -148,4 +153,34 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
     for i in range(n):
         for path, name in _LAYER_LEAVES:
             put(tree, (f"block_{i}",) + path, state_dict[f"blocks.{i}.{name}"])
+    return tree
+
+
+def hyperbolic_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """Flax tree of a hyperbolic model (``HyperbolicEmbeddingModel``,
+    ``FigureOnlyHyperbolicModel``; numpy leaves, with or without the
+    ``{"params": ...}`` wrapper) → its torch state dict (f32)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, prefix + key + ".")
+            else:
+                sd[prefix + key] = torch.from_numpy(
+                    np.array(val, dtype=np.float32))
+
+    walk(tree, "")
+    return sd
+
+
+def hyperbolic_params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """Torch state dict of a hyperbolic model → its Flax param tree of f32
+    numpy arrays (no wrapper), the inverse of
+    ``hyperbolic_params_from_jax``."""
+    tree: dict = {}
+    for name, leaf in state_dict.items():
+        _put(tree, tuple(name.split(".")), leaf)
     return tree

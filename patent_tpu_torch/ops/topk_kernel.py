@@ -1,12 +1,13 @@
-"""Bucketed top-2 cosine candidate stage (port of the bf16 and int8 parts
-of patent_tpu/ops/topk_kernel.py).
+"""Bucketed top-2 candidate stages (port of patent_tpu/ops/topk_kernel.py).
 
 ``bucket_topk_bf16`` streams the L2-normalized bf16 gallery against the
 queries, ``bucket_topk_int8`` the per-row quantized int8 gallery against
-int8 queries; each returns the top ``pool`` of the 2·``buckets``
-per-bucket candidates, and the caller re-ranks them exactly in f32.  On a
-CUDA tensor each launches the hand-written kernel (csrc/bucket_topk.cu);
-on a CPU tensor each runs its plain version below.
+int8 queries, and ``bucket_topk_poincare`` an int8 Poincaré-ball gallery
+against int8 queries, scored by the monotone surrogate of −distance; each
+returns the top ``pool`` of the 2·``buckets`` per-bucket candidates, and
+the caller re-ranks them exactly.  On a CUDA tensor each launches the
+hand-written kernel (csrc/bucket_topk.cu); on a CPU tensor each runs its
+plain version below.
 
 Semantics differ from the TPU kernel in one way, deliberately: for
 n > 2·buckets the TPU kernel keeps one winner per bucket in each 2048-row
@@ -17,6 +18,8 @@ min(n, 2·buckets) at every n.
 
 from __future__ import annotations
 
+import typing
+
 import numpy as np
 import torch
 
@@ -25,7 +28,8 @@ from .common import check_cuda_tensor
 from .quant_matmul import int_mm
 
 _P, _I = _build.P, _build.I
-_SIG = [_P, _I, _P, _P, _I, _I, _I, _I] + [_P] * 8 + [_P]   # both entries
+_SIG = [_P, _I, _P, _P, _I, _I, _I, _I] + [_P] * 8 + [_P]   # bf16 and int8
+_SIG_POINCARE = [_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P] * 9
 _BQ, _BB = 64, 32   # queries and buckets per block (csrc/bucket_topk.cu)
 BUCKETS = 1024      # gallery column j falls in bucket j mod BUCKETS
 
@@ -85,10 +89,7 @@ def bucket_top2_int8_plain(q_i8: torch.Tensor, gal_i8: torch.Tensor,
         s.masked_fill(gal_scale[None, :] <= 0, float("-inf")), buckets)
 
 
-def _bucket_top2_cuda(q, gal, valid, buckets: int = BUCKETS):
-    """The kernel's (v1, i1, v2, i2), as ``bucket_top2_plain`` (bf16 q and
-    gallery, ``valid`` the 0/1 row mask) or ``bucket_top2_int8_plain``
-    (int8, ``valid`` the row scales) returns them."""
+def _check_top2_operands(q, gal, valid, buckets: int) -> None:
     int8 = q.dtype == torch.int8
     dtype = torch.int8 if int8 else torch.bfloat16
     check_cuda_tensor("queries", q, dtype)
@@ -102,7 +103,12 @@ def _bucket_top2_cuda(q, gal, valid, buckets: int = BUCKETS):
                          f"{_BB} == 0")
     if n >= 2 ** 31 or nq * buckets >= 2 ** 31:
         raise ValueError("gallery or query count too large for int32 indices")
-    dev = q.device
+
+
+def _top2_launch(entry: str, argtypes: list, args: list, nq: int, n: int,
+                 d: int, dev, buckets: int):
+    """Launch a bucket top-2 entry (its leading ``args``, then N, D, L,
+    splits and the buffers) and return (v1, i1, v2, i2)."""
     # split the gallery walk until ~4 blocks per SM are in flight
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     steps = -(-n // buckets)
@@ -112,11 +118,24 @@ def _bucket_top2_cuda(q, gal, valid, buckets: int = BUCKETS):
             for dt in (torch.float32, torch.int32) * 2]
     out = [torch.empty(nq, buckets, dtype=dt, device=dev)
            for dt in (torch.float32, torch.int32) * 2]
-    _build.call("ptt_bucket_top2_i8" if int8 else "ptt_bucket_top2", _SIG,
-                _build.ptr(q), nq, _build.ptr(gal), _build.ptr(valid), n, d,
-                buckets, splits, *map(_build.ptr, part),
-                *map(_build.ptr, out), _build.stream(dev))
+    _build.call(entry, argtypes, *args, n, d, buckets, splits,
+                *map(_build.ptr, part), *map(_build.ptr, out),
+                _build.stream(dev))
     return tuple(out)
+
+
+def _bucket_top2_cuda(q, gal, valid, buckets: int = BUCKETS):
+    """The kernel's (v1, i1, v2, i2), as ``bucket_top2_plain`` (bf16 q and
+    gallery, ``valid`` the 0/1 row mask) or ``bucket_top2_int8_plain``
+    (int8, ``valid`` the row scales) returns them."""
+    _check_top2_operands(q, gal, valid, buckets)
+    entry = ("ptt_bucket_top2_i8" if q.dtype == torch.int8
+             else "ptt_bucket_top2")
+    return _top2_launch(entry, _SIG,
+                        [_build.ptr(q), q.shape[0], _build.ptr(gal),
+                         _build.ptr(valid)],
+                        q.shape[0], gal.shape[0], q.shape[1], q.device,
+                        buckets)
 
 
 def _check_pool(n: int, pool: int) -> None:
@@ -229,3 +248,147 @@ def bucket_topk_int8(q_i8: torch.Tensor, q_scale: torch.Tensor,
 
 
 bucket_topk_int8.launches = 0
+
+
+# ---------------------------------------------------------------- Poincaré
+# The hyperbolic candidate stage ranks gallery rows v for a query u by the
+# monotone surrogate of −distance (retrieval/index.py::_scores_block),
+#
+#     s(v) = w·(2·u·v − |u|²) − |v|²·w,   w = 1/(1 − c·|v|²),
+#
+# from an int8 gallery with a per-row symmetric scale: the dot product runs
+# on int8 operands, and the dequantization folds into the row terms as
+# gw2 = 2·scale·w.  The query's scale multiplies only the dot term, and
+# |u|²·w mixes query and row, so the kernel scores the whole surrogate:
+# s = qs·(acc·gw2) − q_sq·w − b.  Near the boundary (w large) every
+# low-precision score loses fine ordering to cancellation, so the caller
+# over-fetches a pool and re-ranks it with the exact distance.
+
+
+class PoincareGallery(typing.NamedTuple):
+    """Prepared operands of one ball gallery (``prepare_poincare_gallery``)."""
+    gal_i8: torch.Tensor   # [N, D] int8, row-scaled ball points
+    gw2: torch.Tensor      # [N] f32, 2 · row_scale · w
+    w: torch.Tensor        # [N] f32, 1/(1−c·|v|²); 0 marks a row never chosen
+    b: torch.Tensor        # [N] f32, |v|²·w
+
+
+def _chunk_width(d: int) -> int:
+    """Width of the chunks that XLA's CPU row reduction sums one after
+    another: 32 where 32 divides the row, else d / p for the fewest p
+    chunks of at most 32 where p divides it.  Measured to match at every
+    multiple of 32 and at d = 16, 24, 40 and 48; at other widths the sums
+    may differ from JAX's in the last bit."""
+    p = -(-d // 32)
+    return d // p if d % p == 0 else 32
+
+
+def row_sq_norms(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Σ x² over the last axis in the JAX package's CPU summation order:
+    each chunk of ``_chunk_width`` columns summed left to right, then the
+    chunk sums left to right.  The Poincaré operands depend on these sums
+    through w, so this order makes them equal to JAX's bit for bit.  The
+    chunks are summed side by side: a 128-wide row takes 34 additions."""
+    width = _chunk_width(x.shape[-1])
+    # a ragged last chunk ends in zeros, which change no sum of squares
+    sq = torch.nn.functional.pad(x * x, (0, -x.shape[-1] % width))
+    chunks = sq.reshape(*sq.shape[:-1], -1, width)      # [..., p, width]
+    s = chunks[..., 0]
+    for k in range(1, width):
+        s = s + chunks[..., k]
+    total = s[..., 0]
+    for j in range(1, s.shape[-1]):
+        total = total + s[..., j]
+    return total.unsqueeze(-1) if keepdim else total
+
+
+def prepare_poincare_gallery(gallery: torch.Tensor,
+                             c: float) -> PoincareGallery:
+    """One-time index-build transform, on the gallery's device: ball
+    points [N, D] → ``PoincareGallery``, row i quantized symmetrically to
+    its own max (scaleᵢ = max|vᵢ|/127, round half to even, no clip), with
+
+        gw2ᵢ = 2 · scaleᵢ · wᵢ,   wᵢ = 1/max(1 − c·|vᵢ|², 1e-12),
+        bᵢ = |vᵢ|²·wᵢ,
+
+    all from the f32 rows; equal to JAX's bit for bit."""
+    g = gallery.float()
+    g_sq = row_sq_norms(g)
+    w = 1.0 / torch.clamp_min(1.0 - c * g_sq, 1e-12)
+    scale = g.abs().amax(dim=-1) / 127.0
+    safe = torch.clamp_min(scale, 1e-30)
+    gal_i8 = torch.round(g / safe[:, None]).to(torch.int8).contiguous()
+    return PoincareGallery(gal_i8, 2.0 * scale * w, w, g_sq * w)
+
+
+def quantize_poincare_queries(queries: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Per-row symmetric int8 quantization of query ball points → (q_i8
+    [Q, D], q_scale [Q, 1] f32, q_sq [Q, 1] f32), q_sq from the f32 rows;
+    equal to JAX's bit for bit."""
+    qf = queries.float()
+    q_sq = row_sq_norms(qf, keepdim=True)
+    qscale = qf.abs().amax(dim=-1, keepdim=True) / 127.0
+    q_i8 = torch.round(qf / torch.clamp_min(qscale, 1e-30)).to(torch.int8)
+    return q_i8.contiguous(), qscale, q_sq
+
+
+def bucket_top2_poincare_plain(q_i8, qs, q_sq, gal: PoincareGallery,
+                               buckets: int = BUCKETS):
+    """The Poincaré kernel's (v1, i1, v2, i2) in plain PyTorch: the
+    surrogate ``qs * (f32(int32 q·g) * gw2) - q_sq * w - b`` in that
+    order, -inf where w <= 0.  Each step rounds once in f32, as the kernel
+    does, so the kernel must equal this."""
+    gal_i8, gw2, w, b = gal
+    s = qs * (int_mm(q_i8, gal_i8) * gw2) - q_sq * w - b
+    return _bucket_top2_of_scores(
+        s.masked_fill(w[None, :] <= 0, float("-inf")), buckets)
+
+
+def _bucket_top2_poincare_cuda(q_i8, qs, q_sq, gal: PoincareGallery,
+                               buckets: int = BUCKETS):
+    """The Poincaré kernel's (v1, i1, v2, i2), as
+    ``bucket_top2_poincare_plain`` returns them."""
+    gal_i8, gw2, w, b = gal
+    _check_top2_operands(q_i8, gal_i8, w, buckets)
+    nq, n = q_i8.shape[0], gal_i8.shape[0]
+    for name, t, shape in (("q_scale", qs, (nq, 1)), ("q_sq", q_sq, (nq, 1)),
+                           ("gw2", gw2, (n,)), ("b", b, (n,))):
+        check_cuda_tensor(name, t, torch.float32, shape)
+    return _top2_launch("ptt_bucket_top2_poincare", _SIG_POINCARE,
+                        [_build.ptr(q_i8), _build.ptr(qs), _build.ptr(q_sq),
+                         nq, _build.ptr(gal_i8), _build.ptr(gw2),
+                         _build.ptr(w), _build.ptr(b)],
+                        nq, n, q_i8.shape[1], q_i8.device, buckets)
+
+
+def bucket_topk_poincare_plain(queries: torch.Tensor, gal: PoincareGallery,
+                               pool: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``bucket_topk_poincare``, on any device."""
+    _check_pool(gal.gal_i8.shape[0], pool)
+    return _select_pool(*bucket_top2_poincare_plain(
+        *quantize_poincare_queries(queries), gal), pool)
+
+
+def bucket_topk_poincare(queries: torch.Tensor, gal: PoincareGallery,
+                         pool: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-``pool`` Poincaré-surrogate candidates over the whole gallery.
+
+    queries [Q, D] f32 ball points (quantized here with
+    ``quantize_poincare_queries``); ``gal`` from
+    ``prepare_poincare_gallery``.  Returns (vals [Q, pool] f32 on the
+    surrogate's scale, idx [Q, pool] int64) best-first, ties to the lower
+    candidate position.  Callers re-rank the pool with the exact
+    distance.  CPU tensors: the plain version; CUDA tensors: the kernel
+    (D % 32 == 0), or an error."""
+    if queries.device.type == "cpu":
+        return bucket_topk_poincare_plain(queries, gal, pool)
+    _check_pool(gal.gal_i8.shape[0], pool)
+    top2 = _bucket_top2_poincare_cuda(*quantize_poincare_queries(queries),
+                                      gal)
+    bucket_topk_poincare.launches += 1
+    return _select_pool(*top2, pool)
+
+
+bucket_topk_poincare.launches = 0

@@ -9,13 +9,16 @@ Named serving profiles (``--profile``):
 
 A profile sets ``--quantize`` and ``--keep-tokens`` where the command line
 left them unset; explicit flags win.  ``ClipFinetuneConfig`` holds the
-fine-tune's defaults (retrieval.ipynb cell 20), and ``apply_overrides``
-applies ``key=value`` command-line overrides to it.
+fine-tune's defaults (retrieval.ipynb cell 20), ``HypTrainConfig`` the
+hyperbolic model's and trainer's (the serving actions test / infer / dist
+read its widths and curvature), and ``apply_overrides`` applies
+``key=value`` command-line overrides to either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Sequence
 
 SERVING_PROFILES: dict[str, dict] = {
@@ -58,10 +61,43 @@ class ClipFinetuneConfig:
     keep_tokens: int | None = None
 
 
+@dataclasses.dataclass
+class HypTrainConfig:
+    """The hyperbolic retrieval model and its trainer (reference
+    train.py:4008-4055): CLIP features of 512, one hidden layer of 256, an
+    embedding of 128, curvature 2.  The training fields wait for the
+    train_hyp slice; the serving actions read the widths and c."""
+
+    feature_dim: int = 512
+    embed_dim: int = 128           # --latent_dim
+    hidden_dims: tuple[int, ...] = (256,)
+    curvature: float = 2.0
+    label_num: int | None = None   # derived from data unless forced
+    epochs: int = 150
+    batch_size: int = 128
+    learning_rate: float = 6e-3
+    num_neg_samples: int = 1
+    margin: float = 0.1
+    temperature: float = 0.07
+    figure_pair_weight: float = 2.0
+    constraint_penalty: float = 3.0
+    retrieval_penalty: float = 2.0
+    reg_penalty: float = 0.01
+    patience: int = 10
+    train_ratio: float = 0.8
+    val_ratio: float = 0.1
+    seed: int = 42
+    data_dir: str = "prepared_training_data"
+    model_dir: str = "models"
+    use_dropout: bool = True
+    validate_with: str = "loss"
+
+
 def apply_overrides(cfg, overrides: Sequence[str]):
     """Apply ``key=value`` CLI overrides to a config dataclass in place:
-    each value takes its field's type (int or float); an Optional field
-    takes an int, or none/null to clear it."""
+    each value takes its field's type (bool from 1/true/yes, int, float, a
+    tuple from a JSON list, str); an Optional field takes an int, or
+    none/null to clear it."""
     types = {f.name: str(f.type) for f in dataclasses.fields(cfg)}
     for ov in overrides:
         if "=" not in ov:
@@ -71,10 +107,17 @@ def apply_overrides(cfg, overrides: Sequence[str]):
             raise ValueError(
                 f"unknown config field {key!r} for {type(cfg).__name__}; "
                 f"valid: {sorted(types)}")
+        current = getattr(cfg, key)
         if "None" in types[key] and val.strip().lower() in ("none", "null"):
             setattr(cfg, key, None)
-        elif isinstance(getattr(cfg, key), float):
+        elif isinstance(current, bool):
+            setattr(cfg, key, val.lower() in ("1", "true", "yes"))
+        elif isinstance(current, float):
             setattr(cfg, key, float(val))
+        elif isinstance(current, tuple):
+            setattr(cfg, key, tuple(json.loads(val)))
+        elif isinstance(current, str):
+            setattr(cfg, key, val)
         else:
             setattr(cfg, key, int(val))
     return cfg

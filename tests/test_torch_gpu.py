@@ -14,16 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from patent_tpu_torch.models.hyperbolic import HyperbolicEmbeddingModel
 from patent_tpu_torch.models.vit import VisionConfig, VisionTransformer
 from patent_tpu_torch.models.vit_int8 import Int8VisionTransformer
 from patent_tpu_torch.ops import bf16_layer
+from patent_tpu_torch.ops import pallas_kernels as pk
 from patent_tpu_torch.ops import bf16_mlp_grad as mm
 from patent_tpu_torch.ops import flash_attention as fa
 from patent_tpu_torch.ops import quant_matmul as qm
 from patent_tpu_torch.ops import topk_kernel
 from patent_tpu_torch.retrieval.cli_actions import select_device
 from patent_tpu_torch.retrieval.index import EmbeddingIndex
-from patent_tpu_torch.train import finetune_clip
+from patent_tpu_torch.train import evaluate, finetune_clip
 from patent_tpu_torch.utils.config import ClipFinetuneConfig
 
 pytestmark = pytest.mark.gpu
@@ -520,3 +522,144 @@ def test_trainable_tower_step_kernels_match_plain_blocks(cuda):
     for name, want in gp.items():
         err = float((gk[name] - want).norm() / (want.norm() + 1e-12))
         assert err <= (2e-2 if want.numel() > 1 else 1e-1), (name, err)
+
+
+# ------------------------------------------------ hyperbolic kernels
+
+# Rows 17 and 18 against their plain versions: both are f32 throughout
+# and differ by the order of their sums (and the kernel's tanh / log
+# against PyTorch's), a few 1e-7 of the largest value; the controls (c off
+# by 1%, the bias dropped) move the output by 1e-3 or more of it.
+HYP_REL_TOL = 1e-4
+
+
+def _ball(g, n, d, c, dev, r_hi=0.95):
+    v = torch.randn(n, d, generator=g, device=dev)
+    r = 0.05 + (r_hi - 0.05) * torch.rand(n, 1, generator=g, device=dev)
+    return (v / v.norm(dim=-1, keepdim=True) * r / math.sqrt(c)).contiguous()
+
+
+def _max_rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("n,m,d", [(70, 150, 40), (256, 1000, 128)],
+                         ids=["ragged", "eval-like"])
+@pytest.mark.parametrize("c", [1.0, 2.0])
+def test_pairwise_dist_kernel_matches_plain(cuda, n, m, d, c):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x, y = _ball(g, n, d, c, cuda), _ball(g, m, d, c, cuda)
+    n0 = pk.pairwise_dist_pallas.launches
+    got = pk.pairwise_dist_pallas(x, y, c)
+    assert pk.pairwise_dist_pallas.launches == n0 + 1
+    ref = pk.pairwise_dist_pallas_plain(x, y, c)
+    control = pk.pairwise_dist_pallas_plain(x, y, 1.01 * c)
+    torch.cuda.synchronize()
+    assert got.shape == (n, m) and bool(torch.isfinite(got).all())
+    assert _max_rel(got, ref) <= HYP_REL_TOL
+    assert _max_rel(control, ref) > HYP_REL_TOL
+
+
+@pytest.mark.parametrize("n,k,dout", [(70, 40, 24), (37, 512, 256),
+                                      (20, 64, 300)],
+                         ids=["ragged", "encoder", "two-groups"])
+def test_mobius_dense_kernel_matches_plain(cuda, n, k, dout):
+    c = 2.0
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn(n, k, generator=g, device=cuda)
+    # small enough that rows stay inside the ball: a row saturated onto
+    # the boundary absorbs any bias Möbius-added to it
+    w = torch.randn(k, dout, generator=g, device=cuda) * (0.05 / math.sqrt(k))
+    bias = _ball(g, 1, dout, c, cuda, r_hi=0.3)[0]
+    n0 = pk.mobius_dense_pallas.launches
+    got = pk.mobius_dense_pallas(x, w, bias, c)
+    assert pk.mobius_dense_pallas.launches == n0 + 1
+    ref = pk.mobius_dense_pallas_plain(x, w, bias, c)
+    control = pk.mobius_dense_pallas_plain(x, w, torch.zeros_like(bias), c)
+    torch.cuda.synchronize()
+    assert got.shape == (n, dout) and bool(torch.isfinite(got).all())
+    assert _max_rel(got, ref) <= HYP_REL_TOL
+    assert _max_rel(control, ref) > HYP_REL_TOL
+    assert float(got.norm(dim=-1).max()) <= (1 - 4e-3) / math.sqrt(c) * (
+        1 + 1e-6)
+
+
+def test_hyperbolic_kernels_reject_what_they_do_not_take(cuda):
+    x = torch.randn(8, 16, device=cuda)
+    with pytest.raises(ValueError):
+        pk.pairwise_dist_pallas(x, torch.randn(4, 8, device=cuda), 1.0)
+    with pytest.raises(ValueError):
+        pk.pairwise_dist_pallas(x.double(), x.double(), 1.0)
+    with pytest.raises(ValueError):
+        pk.mobius_dense_pallas(x, torch.randn(16, 1100, device=cuda),
+                               torch.zeros(1100, device=cuda), 1.0)
+    w = torch.randn(16, 8, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pk.mobius_dense_pallas(x, w, torch.zeros(8, device=cuda), 1.0)
+    gal = topk_kernel.prepare_poincare_gallery(
+        torch.randn(100, 48, device=cuda) * 0.01, 1.0)
+    with pytest.raises(ValueError, match="D % 32"):
+        topk_kernel.bucket_topk_poincare(torch.randn(3, 48, device=cuda),
+                                         gal, 16)
+
+
+def test_poincare_bucket_kernel_equals_plain(cuda):
+    """Several 1,024-row steps, a duplicated row (a tie) and masked rows
+    (w = 0): the kernel's (v1, i1, v2, i2) equal the plain version's."""
+    c = 2.0
+    g = torch.Generator(device=cuda).manual_seed(7)
+    gal = _ball(g, 5000, 64, c, cuda)
+    gal[1976] = gal[952]
+    q = _ball(g, 70, 64, c, cuda)
+    q[0] = gal[952]
+    pg = topk_kernel.prepare_poincare_gallery(gal, c)
+    pg.w[::97] = 0.0
+    terms = topk_kernel.quantize_poincare_queries(q)
+    got = topk_kernel._bucket_top2_poincare_cuda(*terms, pg)
+    want = topk_kernel.bucket_top2_poincare_plain(*terms, pg)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_poincare_index_takes_the_kernel_path_and_equals_the_scan(cuda):
+    c = 2.0
+    g = torch.Generator(device=cuda).manual_seed(8)
+    gal = _ball(g, 5000, 64, c, cuda)
+    q = _ball(g, 16, 64, c, cuda)
+    names = [f"g{i}" for i in range(5000)]
+    n0 = topk_kernel.bucket_topk_poincare.launches
+    v, i = EmbeddingIndex(gal, names, similarity="poincare", c=c,
+                          quantized=True).search(q, k=10)
+    assert topk_kernel.bucket_topk_poincare.launches == n0 + 1
+    cv, ci = EmbeddingIndex(gal.cpu(), names, similarity="poincare",
+                            c=c).search(q.cpu(), k=10)
+    assert (i == ci).all()
+    assert abs(v - cv).max() < 1e-4
+
+
+def test_hyperbolic_model_kernels_match_plain_and_run_the_label_map(cuda):
+    """The encoder with row 18 against its plain first layer, and the
+    label-retrieval mAP through row 17 against the CPU's plain version."""
+    gen = torch.Generator().manual_seed(4)
+    model = HyperbolicEmbeddingModel(feature_dim=64, embed_dim=32,
+                                     label_num=300, hidden_dims=(48,), c=2.0,
+                                     generator=gen)
+    x = torch.randn(100, 64, generator=gen)
+    fig_pos = {i: [i % 250] for i in range(100)}
+    want_map = evaluate.evaluate_retrieval_map(model.eval(), x.numpy(),
+                                               range(100), fig_pos, 250,
+                                               batch_size=32)
+    model = model.to(cuda).eval()
+    with torch.no_grad():
+        got = model(x.to(cuda))
+        model.encoder.first_layer.kernels = False
+        ref = model(x.to(cuda))
+        model.encoder.first_layer.kernels = True
+    assert _max_rel(got, ref) <= HYP_REL_TOL
+    n17, n18 = pk.pairwise_dist_pallas.launches, pk.mobius_dense_pallas.launches
+    got_map = evaluate.evaluate_retrieval_map(model, x.numpy(), range(100),
+                                              fig_pos, 250, batch_size=32)
+    assert pk.pairwise_dist_pallas.launches == n17 + 4
+    assert pk.mobius_dense_pallas.launches == n18 + 4
+    assert got_map == pytest.approx(want_map, abs=1e-4)
