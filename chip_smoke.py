@@ -28,7 +28,12 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    [512, 512] x [512, 256] (control: no bias), the pairwise distance at
    [256, 128] x [16,059, 128] (control: c off by 1%), the Poincaré bucket
    stage at 1M x 128, Q=256, pool 80, equal to its plain version (control:
-   no b term);
+   no b term); the whole int8 layer at B=1 and 3 and its group dispatch at
+   B=2 (whole layer) and 3 (the sub-layers), with the controls of both
+   sub-layers and the other mid-layer residual (rows 5 + 7 chained, bf16,
+   must fail the whole layer's gate); the int8 dense layer at [26,624 x
+   768] x [768 x 2304] and x [768 x 3072] with quick_gelu, and on f32 rows;
+   the int8 MLP at [26,624 x 768], hidden 3072;
 4. the slices end to end through the CLI: encode, retrieve --k 20 and
    eval on a 224 px synthetic corpus (60 patents x 6 figures) with seeded
    ViT-B/16 weights saved as a clip_finetune_best checkpoint, first with
@@ -42,9 +47,16 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    HypTrainConfig model (512 -> 256 -> 128, c = 2) in the JAX layout, and
    a HyperbolicRetrievalEngine(quantized=True) over 1M feature rows
    answering 256 queries at k = 10, held by recall to the exact f64
-   ranking over the whole gallery; every kernel's launch count over its
-   path must be > 0;
+   ranking over the whole gallery; the int8 tower through a
+   RetrievalEngine at batch_size 3 (the whole-layer kernel) over the 224 px
+   gallery, held to the same gallery at batch 32 by min feature cosine
+   beside a pixel-noise yardstick; the int8 family's public entries
+   (quant_layer_group, int8_dense, quant_mlp) on the tower's tokens; every
+   kernel's launch count over its path must be > 0;
 5. times (CUDA events): the bf16 and the int8 tower img/s at batch 128,
+   the int8 tower at batch 1 (ms), 3 and 127 (img/s), one int8 layer at
+   B=1, 3 and 127 through the whole-layer kernel, the rows 5 + 7 kernels
+   and the plain version,
    cosine top-k QPS at 1M x 512, Q=256, k=10 through the bf16 kernel
    path, the quantized path and the f32 scan, every kernel against its
    plain version at the main path's shapes, and one fine-tune step at 64
@@ -183,6 +195,13 @@ TOWER_MIN_COS = 0.9999
 # layer's does, and every control must fail it.
 INT8_REL_TOL = 3e-4
 INT8_MAX_ULPS = 2
+# The whole int8 layer (rows 8, 9): a code flipped in LN1's quantization
+# reaches every row of its image through the attention and then the MLP
+# sub-layer, and at B = 1 nothing averages it out.  Measured on the H100
+# at B = 1: relative error 3.6e-4, max-abs 1 ulp; the nearest control, the
+# rows 5 + 7 chain (bf16 mid residual), at 7.1e-3.  The gate sits ~4x
+# above the one and ~5x below the other.
+INT8_LAYER_REL_TOL = 1.5e-3
 # The int8 tower is far more sensitive than the bf16 one: a perturbation
 # that moves one LayerNorm or hidden value across a rounding boundary flips
 # an int8 code, a step of 1/127 of the row's range, and 12 random layers
@@ -195,6 +214,13 @@ INT8_TOWER_MIN_COS = 0.9995
 # the int8 tower against the bf16 tower: quantization error, printed and
 # held only far from garbage
 INT8_VS_BF16_MIN_COS = 0.9
+# the int8 tower at batch 3 (layers 0..10 as the whole layer, f32 mid
+# residual) against batch 32 (rows 5 + 7, bf16 mid residual): two
+# functions, whose features differ by about what pixel noise of std 1e-3
+# moves (the yardstick printed beside).  Measured on the H100: min cosine
+# 0.999764 against the yardstick's 0.999757; the gate sits ~4x farther
+# from 1.
+INT8_RAGGED_MIN_COS = 0.999
 
 # H100 SXM datasheet peaks (dense) and memory rate, for bound_ms; fp32 is
 # the rate outside the tensor cores (rows 17 and 18 exclude TF32)
@@ -398,6 +424,101 @@ def check_int8(torch, qm, name, x, p, heads, valid) -> float:
         controls[sname + "=mean"] = run(plain, q)
     return gate(torch, f"{name} valid {valid}/{s}", got, ref, controls,
                 INT8_REL_TOL, INT8_MAX_ULPS)
+
+
+def check_int8_layer(torch, qm, name, x, p, heads, valid, **kw) -> float:
+    """Hold the whole int8 layer (``name``: quant_layer_block, or
+    quant_layer_group with ``kw`` its group) to its plain version on the
+    valid rows, with the controls of both sub-layers (the key mask, each
+    bias, each matrix's scales) and the other mid-layer residual: rows 5 +
+    7 chained (bf16) against the whole layer, the whole layer (f32) against
+    the group dispatch's ragged fallback.  Returns the max-abs error."""
+    kernel = getattr(qm, name)
+    plain = getattr(qm, name + "_plain")
+    s = x.shape[1]
+
+    def run(fn, q, v=valid):
+        return fn(x, *q, heads, v, **kw)[:, :valid]
+
+    ref = run(plain, p)
+    got = run(kernel, p)
+    controls = {"no key mask": run(plain, p, s)}
+    for kind, offset in (("attention", 0), ("mlp", 8)):
+        for i, bname in INT8_CONTROLS[kind]:
+            q = list(p)
+            q[offset + i] = torch.zeros_like(q[offset + i])
+            controls[bname + "=0"] = run(plain, q)
+        for i, sname in INT8_CONTROLS[kind + " scales"]:
+            q = list(p)
+            q[offset + i] = torch.full_like(q[offset + i],
+                                            float(q[offset + i].mean()))
+            controls[sname + "=mean"] = run(plain, q)
+    chain = qm.quant_mlp_block_plain(
+        qm.quant_attention_block_plain(x, *p[:8], heads, valid), *p[8:])
+    whole = x.shape[0] % kw.get("group", 1) == 0
+    controls["rows 5 + 7, bf16 mid residual" if whole
+             else "whole layer, f32 mid residual"] = (
+        chain if whole else qm.quant_layer_block_plain(x, *p, heads, valid)
+    )[:, :valid]
+    return gate(torch, f"{name} B {x.shape[0]}, valid {valid}/{s}"
+                + (f", group {kw['group']}" if kw else ""), got, ref,
+                controls, INT8_LAYER_REL_TOL, INT8_MAX_ULPS)
+
+
+def check_int8_dense(torch, qm, tag, x, w, scale, bias, act) -> float:
+    """Hold quant_dense to its plain version, with controls that must fail
+    the same gate: the bias zeroed, the scales replaced by their mean, the
+    other activation.  Returns the max-abs error."""
+    plain = qm.quant_dense_plain
+    other = None if act else "quick_gelu"
+    return gate(torch, f"quant_dense {tag}", qm.quant_dense(x, w, scale,
+                                                            bias, act),
+                plain(x, w, scale, bias, act),
+                {"bias=0": plain(x, w, scale, None, act),
+                 "scale=mean": plain(x, w, torch.full_like(
+                     scale, float(scale.mean())), bias, act),
+                 f"act {other}": plain(x, w, scale, bias, other)},
+                INT8_REL_TOL, INT8_MAX_ULPS)
+
+
+def check_int8_qmlp(torch, qm, tag, x, w) -> float:
+    """Hold quant_mlp to its plain version (w: w1_t, s1, b1, w2_t, s2,
+    b2), with each bias zeroed and each scale vector replaced by its mean
+    as the controls.  Returns the max-abs error."""
+    plain = qm.quant_mlp_plain
+    controls = {}
+    for i, cname in ((2, "b1=0"), (5, "b2=0"), (1, "s1=mean"),
+                     (4, "s2=mean")):
+        q = list(w)
+        q[i] = (torch.zeros_like(q[i]) if cname.endswith("0")
+                else torch.full_like(q[i], float(q[i].mean())))
+        controls[cname] = plain(x, *q)
+    return gate(torch, f"quant_mlp {tag}", qm.quant_mlp(x, *w),
+                plain(x, *w), controls, INT8_REL_TOL, INT8_MAX_ULPS)
+
+
+def int8_family_bounds(b_layer, b_group, s, valid, d, f, m) -> dict:
+    """bound() of rows 8 and 9 (one whole layer at [B, S, D], B = b_layer,
+    b_group), row 10 (bf16 [m, d] x int8 [d, 3d], the QKV projection) and
+    row 11 (bf16 [m, d], hidden f, out d): each input read once and each
+    output written once (activations bf16, matrices int8, vectors f32:
+    LayerNorms, biases and scales of the four matrices), the int8 products
+    and the attention over the valid keys."""
+    vec = 4 * (14 * d + 2 * f)
+
+    def layer(b):
+        mb = b * s
+        return bound(2 * 2 * mb * d + 4 * d * d + 2 * d * f + vec,
+                     {"int8": 2 * mb * d * 4 * d + 4 * mb * d * f,
+                      "bf16": 4 * b * s * valid * d})
+
+    return {"quant_layer_block": layer(b_layer),
+            "quant_layer_group": layer(b_group),
+            "quant_dense": bound(2 * m * d + 3 * d * d + 8 * 3 * d
+                                 + 2 * m * 3 * d,
+                                 {"int8": 2 * m * d * 3 * d}),
+            "quant_mlp": bound(2 * m * d + 2 * d * f + 8 * (f + d)
+                               + 2 * m * d, {"int8": 4 * m * d * f})}
 
 
 # The fine-tune's trainable blocks (rows 12, 13, 15, 16): the kernel and
@@ -1015,7 +1136,9 @@ def main() -> None:
     from patent_tpu_torch import _build
     from patent_tpu_torch.cli.main import main as cli
     from patent_tpu_torch.models.vit import VIT_B16, VisionTransformer
-    from patent_tpu_torch.models.vit_int8 import Int8VisionTransformer
+    from patent_tpu_torch.models.vit_int8 import (Int8VisionTransformer,
+                                                  int8_dense)
+    from patent_tpu_torch.input.pipeline import ImageBatcher, list_images
     from patent_tpu_torch.models.weights import params_to_jax
     from patent_tpu_torch.data.synthetic import write_synthetic_corpus
     from patent_tpu_torch.ops import bf16_layer, topk_kernel
@@ -1026,19 +1149,20 @@ def main() -> None:
                                                       make_finetune_step)
     from patent_tpu_torch.utils.config import ClipFinetuneConfig
     from patent_tpu_torch.retrieval import index as index_mod
-    from patent_tpu_torch.retrieval.engine import device_normalize
+    from patent_tpu_torch.retrieval.engine import (
+        RetrievalEngine, device_normalize, make_device_normalizing_encoder)
     from patent_tpu_torch.retrieval.cli_actions import (select_device,
                                                         write_synthetic_split)
     from patent_tpu_torch.utils import checkpoint
 
     # ---- 1. device
     dev = select_device("cuda")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"[device] {name}; {torch.cuda.device_count()} card(s); "
+    print(f"[device] {device_name}; {torch.cuda.device_count()} card(s); "
           f"torch {torch.__version__} CUDA {torch.version.cuda}")
     print(smi)
     label = f"({smi})"
@@ -1084,6 +1208,32 @@ def main() -> None:
     print("[kernel] fused_layer_cls_bf16 equals row 0 of "
           "fused_layer_block_bf16, and quant_attention_cls row 0 of "
           "quant_attention_block, bit for bit")
+
+    # the whole int8 layer (row 8) at the int8 tower's ragged batches, its
+    # group dispatch (row 9) on both of its paths, the int8 dense layer (row
+    # 10) at a batch of 128's QKV and MLP-in shapes and on f32 rows, and the
+    # int8 MLP (row 11), on a generator of their own
+    igen = torch.Generator(device=dev).manual_seed(8)
+    ip = (*ip_attn, *ip_mlp)
+    for lname, batches, kw in (("quant_layer_block", (1, 3), {}),
+                               ("quant_layer_group", (2, 3), {"group": 2})):
+        for bv in batches:
+            x = layer_input(torch, bv, s, d, valid, igen, dev)
+            errs[lname] = max(errs.get(lname, 0.0), check_int8_layer(
+                torch, qm, lname, x, ip, heads, valid, **kw))
+    x2 = layer_input(torch, 128, s, d, valid, igen, dev).reshape(-1, d)
+    m = x2.shape[0]
+    errs["quant_dense"] = max(
+        check_int8_dense(torch, qm, f"[{m} x {d}] x [{d} x {3 * d}] bf16", x2,
+                         *ip_attn[2:5], None),
+        check_int8_dense(torch, qm, f"[{m} x {d}] x [{d} x {f}] bf16, "
+                         "quick_gelu", x2, *ip_mlp[2:5], "quick_gelu"),
+        check_int8_dense(torch, qm, f"[{3 * valid} x {d}] x [{d} x {f}] f32, "
+                         "quick_gelu", x2[:3 * valid].float(), *ip_mlp[2:5],
+                         "quick_gelu"))
+    errs["quant_mlp"] = check_int8_qmlp(torch, qm, f"[{m} x {d}], H {f}", x2,
+                                        ip_mlp[2:])
+    del x2
 
     # the fine-tune's trainable blocks, on a generator of their own so that
     # the draws above and below stay those of the serving checks: at the
@@ -1299,6 +1449,93 @@ def main() -> None:
     print("[slice] quantized index top-20 over the int8-encoded gallery "
           "equals the f32 scan")
 
+    # the int8 tower at a ragged batch through a normal entry point: a
+    # RetrievalEngine at batch_size 3 pads every batch to 3 images, so
+    # layers 0..10 run the whole int8 layer (row 8); at batch 32 the same
+    # gallery runs rows 5 + 7.  The two compute other functions (an f32
+    # against a bf16 mid-layer residual), so their features are held by
+    # min cosine, beside the yardstick of the int8 tower on 32 decoded
+    # images against the same with pixel noise of std 1e-3.
+    gallery = list_images(os.path.join(RUN_DIR, "test_gallery"))
+    encode8 = make_device_normalizing_encoder(tower8, dev)
+    by_batch = {}
+
+    def engine_encode(bs):
+        with RetrievalEngine(encode8, dev, batch_size=bs) as engine:
+            by_batch[bs] = engine.encode_paths(gallery)[0]
+
+    run_path(f"RetrievalEngine(batch_size=3).encode_paths, int8 tower, "
+             f"{len(gallery)} images", (qm.quant_layer_block,),
+             lambda: engine_encode(3))
+    n_row8 = qm.quant_layer_block.launches
+    engine_encode(32)
+    check(qm.quant_layer_block.launches == n_row8,
+          "the int8 tower at batch 32 ran the whole-layer kernel")
+    for batch, _paths, _n in ImageBatcher(gallery[:32], batch_size=32,
+                                          out_dtype="u8"):
+        px32 = device_normalize(torch.from_numpy(batch).to(dev))
+    with torch.inference_mode():
+        f32_clean = tower8(px32)
+        f32_noisy = tower8(px32 + 1e-3 * torch.randn(
+            px32.shape, generator=igen, device=dev))
+    f3, f32b = (torch.from_numpy(by_batch[bs]) for bs in (3, 32))
+    cos_engine = min_row_cosine(torch, f3, f32b)
+    print(f"[slice] int8 gallery features at batch 3 (whole layer) vs batch "
+          f"32 (rows 5 + 7), {f3.shape[0]} images: min cosine "
+          f"{cos_engine:.6f}, rel err {rel_err(f3, f32b):.3g} (yardstick, "
+          f"batch 32 on 32 images vs the same + 1e-3 pixel noise: min cosine "
+          f"{min_row_cosine(torch, f32_noisy, f32_clean):.6f}, rel err "
+          f"{rel_err(f32_noisy, f32_clean):.3g})")
+    check(f3.shape == (n_gallery, 512) and bool(torch.isfinite(f3).all())
+          and cos_engine >= INT8_RAGGED_MIN_COS,
+          f"int8 features at batch 3 far from batch 32's: min cosine "
+          f"{cos_engine} < {INT8_RAGGED_MIN_COS}")
+
+    # the int8 family's public entries on ViT-B/16 tokens: layers 0..10 as
+    # quant_layer_group(group=2) at batch 2 (row 9: row 8's kernel), then
+    # int8_dense (row 10) and quant_mlp (row 11) with layer 0's weights on
+    # the stack's output
+    px2 = torch.randn(2, 224, 224, 3, generator=igen, device=dev)
+    fam = {}
+
+    def family():
+        with torch.inference_mode():
+            xt, seq = tower8.embed(px2)
+            fam["x0"] = xt
+            for layer in tower8.blocks[:-1]:
+                xt = qm.quant_layer_group(xt, *layer.attn_weights(),
+                                          *layer.mlp_weights(), heads,
+                                          valid_len=seq, group=2)
+            l0 = tower8.blocks[0]
+            fam.update(x=xt, seq=seq, qkv=int8_dense(xt, l0.wqkv_t, l0.sqkv,
+                                                     l0.bqkv),
+                       mlp=qm.quant_mlp(xt, *l0.mlp_weights()[2:]))
+
+    run_path("int8 family entries: 11 x quant_layer_group(group=2) at batch "
+             "2, int8_dense and quant_mlp on its output",
+             (qm.quant_layer_group, qm.quant_dense, qm.quant_mlp), family)
+    with torch.inference_mode():
+        ref = fam["x0"]
+        for layer in tower8.blocks[:-1]:
+            ref = qm.quant_layer_block(ref, *layer.attn_weights(),
+                                       *layer.mlp_weights(), heads,
+                                       valid_len=fam["seq"])
+        l0 = tower8.blocks[0]
+        dense_gap = layer_gap(torch, fam["qkv"], qm.quant_dense_plain(
+            fam["x"], l0.wqkv_t, l0.sqkv, l0.bqkv))
+        mlp_gap = layer_gap(torch, fam["mlp"], qm.quant_mlp_plain(
+            fam["x"], *l0.mlp_weights()[2:]))
+    torch.cuda.synchronize()
+    print(f"[slice] the quant_layer_group stack equals the quant_layer_block "
+          f"stack bit for bit: {bool(torch.equal(ref, fam['x']))}; on its "
+          f"output int8_dense vs plain rel err {dense_gap[0]:.3g}, quant_mlp "
+          f"{mlp_gap[0]:.3g}")
+    check(bool(torch.equal(ref, fam["x"]))
+          and layer_passes(dense_gap, INT8_REL_TOL, INT8_MAX_ULPS)
+          and layer_passes(mlp_gap, INT8_REL_TOL, INT8_MAX_ULPS),
+          "the int8 family's entries disagree on the tower's tokens")
+    del fam, ref
+
     # the fine-tune: ViT-B/16 trained from seeded weights on a 224 px
     # corpus (192 anchors, 19 held out: two steps of 64 pairs and one
     # validation batch), then served by eval through the bf16 kernels
@@ -1373,6 +1610,18 @@ def main() -> None:
               + "; ".join(f"{ms:.2f} ms {100 * ms / tk:.1f}% {kname[:90]}"
                           for kname, ms in rows[:8]))
 
+    # the int8 tower at ragged batches (layers 0..10 through row 8): the
+    # latency of one image, and img/s at 3 and 127
+    for bv in (1, 3, bt - 1):
+        def ragged(pv=pix[:bv]):
+            with torch.inference_mode():
+                tower8(pv)
+
+        ms = cuda_ms(torch, ragged)
+        print(f"[time] ViT-B/16 @224 int8 tower, batch {bv} (whole-layer "
+              f"kernel): {ms:.3f} ms, {bv / ms * 1e3:.1f} img/s {label}")
+        print_breakdown(torch, f"int8 tower, batch {bv}", ragged)
+
     xb = torch.randn(bt, s, d, generator=gen, device=dev).to(torch.bfloat16)
     for kname, module, args in (
             ("fused_layer_block_bf16", bf16_layer, (*p, heads, valid)),
@@ -1384,6 +1633,42 @@ def main() -> None:
         plain = getattr(module, kname + "_plain")
         times[kname] = in_turns(torch, lambda: plain(xb, *args),
                                 lambda: kernel(xb, *args))
+    # one int8 layer at the ragged batches: the whole-layer kernel, the rows
+    # 5 + 7 chain of kernels and row 8's plain version; then rows 9-11
+    # against their plain versions at a batch of 128
+    for bv in (1, 3, bt - 1):
+        xl = xb[:bv]
+        pl, kl = in_turns(
+            torch, lambda: qm.quant_layer_block_plain(xl, *ip, heads, valid),
+            lambda: qm.quant_layer_block(xl, *ip, heads, valid))
+        chain = cuda_ms(torch, lambda: qm.quant_mlp_block(
+            qm.quant_attention_block(xl, *ip_attn, heads, valid), *ip_mlp))
+        print(f"[time] one int8 layer, B {bv}, S {s} ({valid} valid): whole-"
+              f"layer kernel {kl:.3f} ms, rows 5 + 7 kernels {chain:.3f} ms, "
+              f"plain {pl:.3f} ms {label}")
+    times["quant_layer_block"] = (pl, kl)
+    times["quant_layer_group"] = in_turns(
+        torch, lambda: qm.quant_layer_group_plain(xb, *ip, heads, valid),
+        lambda: qm.quant_layer_group(xb, *ip, heads, valid))
+    x2d = xb.reshape(-1, d)
+    m = x2d.shape[0]
+    times["quant_dense"] = in_turns(
+        torch, lambda: qm.quant_dense_plain(x2d, *ip_attn[2:5]),
+        lambda: qm.quant_dense(x2d, *ip_attn[2:5]))
+    times["quant_mlp"] = in_turns(
+        torch, lambda: qm.quant_mlp_plain(x2d, *ip_mlp[2:]),
+        lambda: qm.quant_mlp(x2d, *ip_mlp[2:]))
+    # a yardstick for later work, not the same function (no quantization,
+    # no epilogue): cuBLASLt's int8 products of rows 10 and 11's shapes
+    xq = qm.quant_rows(x2d.float())[0]
+    gq = torch.randint(-127, 128, (m, f), generator=igen, device=dev,
+                       dtype=torch.int8)
+    mm_qkv = cuda_ms(torch, lambda: torch._int_mm(xq, ip_attn[2].T))
+    mm_mlp = cuda_ms(torch, lambda: (torch._int_mm(xq, ip_mlp[2].T),
+                                     torch._int_mm(gq, ip_mlp[5].T)))
+    print(f"[time] note: torch._int_mm alone, [{m} x {d}] x [{d} x {3 * d}] "
+          f"{mm_qkv:.3f} ms; the MLP's two products {mm_mlp:.3f} ms {label}")
+    del xq, gq, x2d
     # the trainable blocks at one training step's shapes: 64 pairs are
     # 128 images, attention on the stream padded to 208, the MLP on the
     # 128 x 197 unpadded rows
@@ -1408,7 +1693,8 @@ def main() -> None:
     del xb, da, x2, do2
     bounds = {**layer_bounds(bt, s, valid, d, f, int8=False),
               **layer_bounds(bt, s, valid, d, f, int8=True),
-              **train_bounds(bt, s, valid, d, f)}
+              **train_bounds(bt, s, valid, d, f),
+              **int8_family_bounds(bt - 1, bt, s, valid, d, f, bt * s)}
 
     # one training step at 64 pairs (ClipFinetuneConfig's defaults), u8
     # batches already on the card: first one step with the kernels against
@@ -1553,7 +1839,15 @@ def main() -> None:
             ("pairwise_dist_pallas", "hyperbolic.cu",
              "patent_tpu/ops/pallas_kernels.py:93"),
             ("mobius_dense_pallas", "hyperbolic.cu",
-             "patent_tpu/ops/pallas_kernels.py:167")]
+             "patent_tpu/ops/pallas_kernels.py:167"),
+            ("quant_layer_block", "int8_layer.cu",
+             "patent_tpu/ops/quant_matmul.py:1165"),
+            ("quant_layer_group", "int8_layer.cu",
+             "patent_tpu/ops/quant_matmul.py:1278"),
+            ("quant_dense", "int8_layer.cu",
+             "patent_tpu/ops/quant_matmul.py:185"),
+            ("quant_mlp", "int8_layer.cu",
+             "patent_tpu/ops/quant_matmul.py:266")]
     errs["bucket_topk_bf16"] = err_topk
     # no single PyTorch call computes any of these functions, so there is
     # no library time to set beside them
@@ -1565,7 +1859,7 @@ def main() -> None:
          "bound_by": bounds[kname][1], "library_ms": None}
         for kname, source, replaces in rows]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
 
 

@@ -42,17 +42,18 @@ inline size_t smem_bytes(int S) {
          + QT * sizeof(float);                           // row sums
 }
 
-// softmax(q k^T) v for one (query tile, head, image).  q, k, v, o are
-// row-major views with their own image and row strides (in elements); the
-// head's 64 columns start at head * 64.  S % 16 == 0.
+// softmax(q k^T) v for one (query tile qt, head h, image b).  q, k, v, o
+// are row-major views with their own image and row strides (in elements);
+// the head's 64 columns start at h * 64.  S % 16 == 0.  Every thread of
+// the block loads; warps 0-3 compute, each owning 16 query rows, and the
+// others return after the loads.  The caller that runs several tiles in
+// one block syncs the block between them.
 template <int SOFTMAX, typename OutT>
-__global__ void __launch_bounds__(THREADS)
-    attention_kernel(const bf16* __restrict__ q, long long q_img, int q_row,
-                     int n_q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, long long kv_img, int kv_row,
-                     OutT* __restrict__ o, long long o_img, int o_row, int S,
-                     int valid_len, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ __forceinline__ void attention_tile(
+    const bf16* __restrict__ q, long long q_img, int q_row, int n_q,
+    const bf16* __restrict__ k, const bf16* __restrict__ v, long long kv_img,
+    int kv_row, OutT* __restrict__ o, long long o_img, int o_row, int S,
+    int valid_len, float scale, int qt, int h, int b, unsigned char* smem) {
   const int sld = s_ld(S);
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + (size_t)S * KV_LD;
@@ -61,20 +62,20 @@ __global__ void __launch_bounds__(THREADS)
   bf16* Ps = reinterpret_cast<bf16*>(Ss + (size_t)QT * sld);
   float* rsum = reinterpret_cast<float*>(Ps + (size_t)QT * sld);
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const bf16* qb = q + b * q_img + h * HD;
   const bf16* kb = k + b * kv_img + h * HD;
   const bf16* vb = v + b * kv_img + h * HD;
 
-  for (int c = tid; c < S * (HD / 8); c += THREADS) {
+  for (int c = tid; c < S * (HD / 8); c += nthreads) {
     const int r = c >> 3, cc = (c & 7) * 8;
     *reinterpret_cast<uint4*>(&Ks[r * KV_LD + cc]) =
         *reinterpret_cast<const uint4*>(&kb[(size_t)r * kv_row + cc]);
     *reinterpret_cast<uint4*>(&Vs[r * KV_LD + cc]) =
         *reinterpret_cast<const uint4*>(&vb[(size_t)r * kv_row + cc]);
   }
-  for (int c = tid; c < QT * (HD / 8); c += THREADS) {
+  for (int c = tid; c < QT * (HD / 8); c += nthreads) {
     const int r = c >> 3, cc = (c & 7) * 8;
     const int qr = qt * QT + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -82,6 +83,7 @@ __global__ void __launch_bounds__(THREADS)
     *reinterpret_cast<uint4*>(&Qs[r * KV_LD + cc]) = val;
   }
   __syncthreads();
+  if (warp >= QT / 16) return;
 
   // scores: each warp owns 16 query rows
   const int r0 = warp * 16;
@@ -159,6 +161,20 @@ __global__ void __launch_bounds__(THREADS)
                      __fdiv_rn(Ss[r * sld + c], rsum[r]));
     }
   }
+}
+
+// One block of THREADS threads per (query tile, head, image).
+template <int SOFTMAX, typename OutT>
+__global__ void __launch_bounds__(THREADS)
+    attention_kernel(const bf16* __restrict__ q, long long q_img, int q_row,
+                     int n_q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, long long kv_img, int kv_row,
+                     OutT* __restrict__ o, long long o_img, int o_row, int S,
+                     int valid_len, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  attention_tile<SOFTMAX, OutT>(q, q_img, q_row, n_q, k, v, kv_img, kv_row,
+                                o, o_img, o_row, S, valid_len, scale,
+                                blockIdx.x, blockIdx.y, blockIdx.z, smem);
 }
 
 // Launch over (query tiles, heads, images); returns cudaGetLastError().

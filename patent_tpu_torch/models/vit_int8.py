@@ -8,11 +8,24 @@ weights) and per-row activation scales (dynamic), through
 softmax and the projection (f32) stay in floating point.
 
 The stack: the token axis padded once to a multiple of 16 (197 → 208,
-``keep_tokens=127`` → 128), layers 0..N-2 as ``quant_attention_block``
-then ``quant_mlp_block`` with ``valid_len``, the last layer as
-``quant_attention_cls`` then ``quant_mlp_block`` on the [B, D] CLS rows,
-then post-LN and the projection in f32.  The residual stream between the
-sub-layers is bf16, as the TPU kernels store it.
+``keep_tokens=127`` → 128), then layers 0..N-2 with ``valid_len``, the
+last layer as ``quant_attention_cls`` then ``quant_mlp_block`` on the
+[B, D] CLS rows, then post-LN and the projection in f32.  Layers 0..N-2
+depend on the batch, as the JAX tower's do
+(patent_tpu/models/vit_int8.py:245):
+
+* B % 4 == 0: ``quant_attention_block`` then ``quant_mlp_block``, with the
+  residual between the two sub-layers stored in bf16;
+* otherwise: ``quant_layer_block``, the whole layer, with that residual
+  kept in f32 (LN2 reads it unrounded).
+
+This split is a numerical contract of the JAX tower, not a tiling dial:
+on a bf16 stream the two compute different functions (a rounded mid
+residual flips LN2's int8 codes; tests/test_torch_int8_layer.py measures
+the gap), so the port makes the same choice although it ports none of the
+TPU kernels' ``group`` tiling.  Pad rows do not matter to it: the JAX
+tower pads 197 tokens to 224 at a ragged batch, the port to 208, and the
+valid rows see the same keys.
 """
 
 from __future__ import annotations
@@ -54,6 +67,14 @@ class Int8Layer(nn.Module):
     def mlp_weights(self) -> tuple[torch.Tensor, ...]:
         return (self.ln2_scale, self.ln2_bias, self.w1_t, self.s1, self.b1,
                 self.w2_t, self.s2, self.b2)
+
+
+def int8_dense(x: torch.Tensor, w_t: torch.Tensor, w_scale: torch.Tensor,
+               bias: torch.Tensor | None) -> torch.Tensor:
+    """Per-row dynamic int8 quantization of x, the int8 product with w_t
+    ([out, in]) and the dequant + bias, in x's dtype
+    (``ops/quant_matmul.quant_dense``)."""
+    return qm.quant_dense(x, w_t, w_scale, bias)
 
 
 def quantize_vit_params(state_dict: dict[str, torch.Tensor]
@@ -108,14 +129,21 @@ class Int8VisionTransformer(TowerBase):
         cfg = self.config
         x, seq = self.embed(pixel_values)
         if self.kernels:
-            attn, attn_cls, mlp = (qm.quant_attention_block,
-                                   qm.quant_attention_cls, qm.quant_mlp_block)
+            attn, attn_cls, mlp, whole = (
+                qm.quant_attention_block, qm.quant_attention_cls,
+                qm.quant_mlp_block, qm.quant_layer_block)
         else:
-            attn, attn_cls, mlp = (qm.quant_attention_block_plain,
-                                   qm.quant_attention_cls_plain,
-                                   qm.quant_mlp_block_plain)
+            attn, attn_cls, mlp, whole = (
+                qm.quant_attention_block_plain, qm.quant_attention_cls_plain,
+                qm.quant_mlp_block_plain, qm.quant_layer_block_plain)
+        ragged = x.shape[0] % 4 != 0
         for i, layer in enumerate(self.blocks):
-            fn = attn_cls if i == cfg.num_layers - 1 else attn
-            x = fn(x, *layer.attn_weights(), cfg.num_heads, valid_len=seq)
-            x = mlp(x, *layer.mlp_weights())
+            last = i == cfg.num_layers - 1
+            if ragged and not last:
+                x = whole(x, *layer.attn_weights(), *layer.mlp_weights(),
+                          cfg.num_heads, valid_len=seq)
+            else:
+                x = (attn_cls if last else attn)(
+                    x, *layer.attn_weights(), cfg.num_heads, valid_len=seq)
+                x = mlp(x, *layer.mlp_weights())
         return self.readout(x)

@@ -4,6 +4,11 @@ points of patent_tpu/ops/quant_matmul.py).
 ``quant_attention_block`` runs the pre-LN attention sub-layer of layers
 0..N-2 of the int8 tower, ``quant_attention_cls`` the last layer's, for the
 CLS row only, and ``quant_mlp_block`` the MLP sub-layer of every layer.
+``quant_layer_block`` runs a whole layer with the residual between its
+two sub-layers kept f32 (the tower's layers at a batch that is not a
+multiple of 4), ``quant_layer_group`` the same behind the JAX package's
+``group`` dispatch, and ``quant_dense`` / ``quant_mlp`` one int8 dense
+layer and a two-layer MLP on their own (no LayerNorm, no residual).
 On a CUDA tensor each launches its hand-written kernel (csrc/int8_layer.cu,
 which says what bounds it on the H100 and how); on a CPU tensor each runs
 its plain PyTorch version below, which is also what the kernel is checked
@@ -20,7 +25,12 @@ against on the card.  Both compute the TPU kernels' exact-division form
   ``p = bf16(exp2(clip(s, -100, 80)))`` without max subtraction, pad keys
   contributing nothing, the denominator the sum of the rounded p; the
   attention output stays f32 and is row-quantized;
-* the residual adds in f32 and the sum is stored in x's dtype (bf16).
+* the residual adds in f32 and the sum is stored in x's dtype (bf16);
+  ``quant_layer_block`` keeps the attention sub-layer's sum in f32, so
+  LN2 and the second residual read it unrounded, and rounds once, at the
+  end.  On a bf16 stream that is another function than the attention
+  sub-layer then the MLP sub-layer: a rounded mid residual can flip LN2's
+  int8 codes.
 
 Layouts: the int8 matrices are held ``[out, in]`` (``*_t``), K-major as the
 tensor cores take them; ``quantize_weight`` returns the JAX ``[in, out]``
@@ -44,6 +54,9 @@ _P, _I = _build.P, _build.I
 _SIG_ATTN = [_P, _P] + [_I] * 5 + [_P] * 8 + [_P] * 4 + [_P]
 _SIG_CLS = [_P, _P] + [_I] * 5 + [_P] * 8 + [_P] * 7 + [_P]
 _SIG_MLP = [_P, _P] + [_I] * 3 + [_P] * 8 + [_P] * 5 + [_P]
+_SIG_LAYER = [_P, _P] + [_I] * 6 + [_P] * 16 + [_P] * 12 + [_P]
+_SIG_DENSE = [_P, _P] + [_I] * 5 + [_P] * 3 + [_P] * 2 + [_P]
+_SIG_QMLP = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P] * 5 + [_P]
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -82,9 +95,16 @@ def fold_q_scale(sqkv: torch.Tensor, bqkv: torch.Tensor,
             torch.cat([bqkv[:d] * f, bqkv[d:]]).contiguous())
 
 
-def _attn_plain(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
-                bout, num_heads: int, valid_len: int,
-                cls_only: bool) -> torch.Tensor:
+def _quick_gelu(g: torch.Tensor) -> torch.Tensor:
+    """``g * sigmoid(1.702 g)`` as ``g / (1 + exp2(-1.702 log2(e) g))``."""
+    return g / (1.0 + torch.exp2(NEG_1702_LOG2E * g))
+
+
+def _attn_f32(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
+              num_heads: int, valid_len: int,
+              cls_only: bool) -> torch.Tensor:
+    """The attention sub-layer with its residual, ``f32(x) + attn(x)``, left
+    in f32: [B, S, D] → [B, S, D] (``cls_only``: [B, 1, D])."""
     b, s, d = x.shape
     hd = d // num_heads
     sq, bq = fold_q_scale(sqkv, bqkv, num_heads)
@@ -107,27 +127,37 @@ def _attn_plain(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
     ao = mm_f32(p, heads(v)) / p.float().sum(dim=-1, keepdim=True)
     ao = ao.reshape(b, num_heads, -1, hd).transpose(1, 2).reshape(b, -1, d)
     aq, a_scale = quant_rows(ao)
-    out = xf[:, rows] + (int_mm(aq, wout_t) * a_scale * sout + bout)
-    out = out.to(x.dtype)
-    return out[:, 0] if cls_only else out
+    return xf[:, rows] + (int_mm(aq, wout_t) * a_scale * sout + bout)
+
+
+def _mlp_f32(h, w1_t, s1, b1, w2_t, s2, b2) -> torch.Tensor:
+    """f32 [..., K] → f32 [..., N]: row quantization, int8 dense, quick_gelu,
+    row quantization of the f32 hidden, int8 dense (no LayerNorm, no
+    residual)."""
+    hq, hs = quant_rows(h)
+    g = _quick_gelu(int_mm(hq, w1_t) * hs * s1 + b1)
+    gq, g_scale = quant_rows(g)
+    return int_mm(gq, w2_t) * g_scale * s2 + b2
 
 
 def quant_attention_block_plain(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv,
                                 wout_t, sout, bout, num_heads: int,
                                 valid_len: int | None = None) -> torch.Tensor:
     """Plain version of ``quant_attention_block``: [B, S, D] → [B, S, D]."""
-    return _attn_plain(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t,
-                       sout, bout, num_heads,
-                       x.shape[1] if valid_len is None else valid_len, False)
+    return _attn_f32(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
+                     bout, num_heads,
+                     x.shape[1] if valid_len is None else valid_len,
+                     False).to(x.dtype)
 
 
 def quant_attention_cls_plain(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv,
                               wout_t, sout, bout, num_heads: int,
                               valid_len: int | None = None) -> torch.Tensor:
     """Plain version of ``quant_attention_cls``: [B, S, D] → [B, D]."""
-    return _attn_plain(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t,
-                       sout, bout, num_heads,
-                       x.shape[1] if valid_len is None else valid_len, True)
+    return _attn_f32(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
+                     bout, num_heads,
+                     x.shape[1] if valid_len is None else valid_len,
+                     True)[:, 0].to(x.dtype)
 
 
 def quant_mlp_block_plain(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
@@ -135,11 +165,45 @@ def quant_mlp_block_plain(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
     """Plain version of ``quant_mlp_block``: [..., D] → [..., D].  The
     hidden is quantized from its f32 values."""
     xf = x.float()
-    hq, hs = quant_rows(layernorm_f32(xf, ln_scale, ln_bias))
-    g = int_mm(hq, w1_t) * hs * s1 + b1
-    g = g / (1.0 + torch.exp2(NEG_1702_LOG2E * g))
-    gq, g_scale = quant_rows(g)
-    return (xf + (int_mm(gq, w2_t) * g_scale * s2 + b2)).to(x.dtype)
+    return (xf + _mlp_f32(layernorm_f32(xf, ln_scale, ln_bias), w1_t, s1,
+                          b1, w2_t, s2, b2)).to(x.dtype)
+
+
+def quant_layer_block_plain(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv,
+                            wout_t, sout, bout, ln2_scale, ln2_bias, w1_t, s1,
+                            b1, w2_t, s2, b2, num_heads: int,
+                            valid_len: int | None = None) -> torch.Tensor:
+    """Plain version of ``quant_layer_block``: [B, S, D] → [B, S, D].  The
+    residual between the two sub-layers stays f32 (LN2 reads it unrounded)
+    and only the layer's output is cast to x's dtype."""
+    x1 = _attn_f32(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
+                   bout, num_heads,
+                   x.shape[1] if valid_len is None else valid_len, False)
+    return (x1 + _mlp_f32(layernorm_f32(x1, ln2_scale, ln2_bias), w1_t, s1,
+                          b1, w2_t, s2, b2)).to(x.dtype)
+
+
+def _check_act(act: str | None) -> None:
+    if act not in (None, "quick_gelu"):
+        raise ValueError(f"unknown activation {act!r}")
+
+
+def quant_dense_plain(x, w_t, scale, bias=None, act: str | None = None
+                      ) -> torch.Tensor:
+    """Plain version of ``quant_dense``: x [..., K] (bf16 or f32), w_t int8
+    [N, K] → ``act(f32(quant(x) @ w) * row_scale * scale + bias)`` in x's
+    dtype; ``bias=None`` adds zeros."""
+    _check_act(act)
+    xq, xs = quant_rows(x.float())
+    out = int_mm(xq, w_t) * xs * scale
+    out = out + (torch.zeros_like(scale) if bias is None else bias)
+    return (_quick_gelu(out) if act else out).to(x.dtype)
+
+
+def quant_mlp_plain(x, w1_t, s1, b1, w2_t, s2, b2) -> torch.Tensor:
+    """Plain version of ``quant_mlp``: x [..., K] → [..., N] in x's dtype,
+    the [..., H] hidden f32."""
+    return _mlp_f32(x.float(), w1_t, s1, b1, w2_t, s2, b2).to(x.dtype)
 
 
 def _check_matrix(name, t, rows, cols):
@@ -233,6 +297,19 @@ def quant_attention_cls(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t,
 quant_attention_cls.launches = 0
 
 
+def _mlp_args(d, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2, b2):
+    """Validate the MLP sub-layer's parameters of a CUDA call at width d;
+    returns the hidden width."""
+    f = w1_t.shape[0]
+    if d % 16 or f % 16:
+        raise ValueError(f"widths {d} and {f} must be multiples of 16")
+    _check_matrix("w1_t", w1_t, f, d)
+    _check_matrix("w2_t", w2_t, d, f)
+    _check_vectors(ln_scale=(ln_scale, d), ln_bias=(ln_bias, d),
+                   s1=(s1, f), b1=(b1, f), s2=(s2, d), b2=(b2, d))
+    return f
+
+
 def quant_mlp_block(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
                     b2) -> torch.Tensor:
     """``x + W2 quant(quick_gelu(W1 quant(LayerNorm(x))))`` with int8
@@ -243,13 +320,7 @@ def quant_mlp_block(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
                                      w2_t, s2, b2)
     check_cuda_tensor("x", x, torch.bfloat16)
     d = x.shape[-1]
-    f = w1_t.shape[0]
-    if d % 16 or f % 16:
-        raise ValueError(f"widths {d} and {f} must be multiples of 16")
-    _check_matrix("w1_t", w1_t, f, d)
-    _check_matrix("w2_t", w2_t, d, f)
-    _check_vectors(ln_scale=(ln_scale, d), ln_bias=(ln_bias, d),
-                   s1=(s1, f), b1=(b1, f), s2=(s2, d), b2=(b2, d))
+    f = _mlp_args(d, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2, b2)
     m, dev = x.numel() // d, x.device
     out = torch.empty_like(x)
     scratch = [torch.empty(m, d, dtype=torch.int8, device=dev),
@@ -266,3 +337,178 @@ def quant_mlp_block(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
 
 
 quant_mlp_block.launches = 0
+
+
+def _layer_kernel(x, params, num_heads: int, valid_len: int) -> torch.Tensor:
+    """Row 8's kernel on a CUDA tensor: validate, allocate the scratch of
+    its nine phases (each buffer written by one phase only), launch."""
+    ws = _attn_args(x, *params[:8], num_heads, valid_len)
+    b, s, d = x.shape
+    f = _mlp_args(d, *params[8:])
+    m, dev = b * s, x.device
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    out = torch.empty_like(x)
+    i8, bf = torch.int8, torch.bfloat16
+    scratch = [empty(m, d, dtype=i8), empty(m), empty(m, 3 * d, dtype=bf),
+               empty(m, d), empty(m, d, dtype=i8), empty(m), empty(m, d),
+               empty(m, d, dtype=i8), empty(m), empty(m, f),
+               empty(m, f, dtype=i8), empty(m)]
+    _build.call("ptt_int8_layer", _SIG_LAYER, _build.ptr(x), _build.ptr(out),
+                b, s, d, num_heads, f, valid_len,
+                *map(_build.ptr, ws + list(params[8:])),
+                *map(_build.ptr, scratch), _build.stream(dev))
+    return out
+
+
+def quant_layer_block(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t,
+                      sout, bout, ln2_scale, ln2_bias, w1_t, s1, b1, w2_t, s2,
+                      b2, num_heads: int,
+                      valid_len: int | None = None) -> torch.Tensor:
+    """One whole pre-LN int8 layer, ``x1 = f32(x) + attn(x)``, then
+    ``x1 + mlp(x1)`` in x's dtype, with the residual between the two
+    sub-layers kept f32: [B, S, D] → [B, S, D].  CPU tensor: the plain
+    version; CUDA tensor (bf16): the kernel (one cooperative launch), or
+    an error."""
+    params = (ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
+              ln2_scale, ln2_bias, w1_t, s1, b1, w2_t, s2, b2)
+    valid_len = x.shape[1] if valid_len is None else valid_len
+    if x.device.type == "cpu":
+        return quant_layer_block_plain(x, *params, num_heads, valid_len)
+    out = _layer_kernel(x, params, num_heads, valid_len)
+    quant_layer_block.launches += 1
+    return out
+
+
+quant_layer_block.launches = 0
+
+
+def _layer_group(x, params, num_heads, valid_len, group, layer, attn, mlp):
+    """The dispatch of the JAX ``quant_layer_group``: the whole layer when
+    B % group == 0 and ``valid_len`` is given, else the attention then the
+    MLP sub-layer."""
+    if x.shape[0] % group == 0 and valid_len is not None:
+        return layer(x, params, num_heads, valid_len)
+    return mlp(attn(x, *params[:8], num_heads, valid_len), *params[8:])
+
+
+def quant_layer_group_plain(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv,
+                            wout_t, sout, bout, ln2_scale, ln2_bias, w1_t, s1,
+                            b1, w2_t, s2, b2, num_heads: int,
+                            valid_len: int | None = None, group: int = 2,
+                            mlp_split: int = 2) -> torch.Tensor:
+    """Plain version of ``quant_layer_group``."""
+    params = (ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
+              ln2_scale, ln2_bias, w1_t, s1, b1, w2_t, s2, b2)
+    return _layer_group(
+        x, params, num_heads, valid_len, group,
+        lambda x, p, h, v: quant_layer_block_plain(x, *p, h, v),
+        quant_attention_block_plain, quant_mlp_block_plain)
+
+
+def quant_layer_group(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t,
+                      sout, bout, ln2_scale, ln2_bias, w1_t, s1, b1, w2_t, s2,
+                      b2, num_heads: int, valid_len: int | None = None,
+                      group: int = 2, mlp_split: int = 2) -> torch.Tensor:
+    """``quant_layer_block`` for ``group`` images at a time, as the JAX
+    package dispatches it: the whole layer (row 8's kernel on a CUDA
+    tensor) when B % group == 0 and ``valid_len`` is given, else
+    ``quant_attention_block`` then ``quant_mlp_block``.  ``group`` and
+    ``mlp_split`` tile the TPU kernel; here ``group`` only picks the path
+    and ``mlp_split`` changes nothing.  CPU tensor: the plain versions."""
+    params = (ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
+              ln2_scale, ln2_bias, w1_t, s1, b1, w2_t, s2, b2)
+    if x.device.type == "cpu":
+        return quant_layer_group_plain(x, *params, num_heads, valid_len,
+                                       group)
+
+    def layer(x, p, h, v):
+        out = _layer_kernel(x, p, h, v)
+        quant_layer_group.launches += 1
+        return out
+
+    return _layer_group(x, params, num_heads, valid_len, group, layer,
+                        quant_attention_block, quant_mlp_block)
+
+
+quant_layer_group.launches = 0
+
+
+def _dense_input(x, widths: dict[str, int]):
+    """Validate x of a CUDA dense call (bf16 or f32, contiguous) and the
+    GEMM's depth constraint; returns (x as [M, K], 1 if f32)."""
+    if x.device.type != "cuda" or x.dtype not in (torch.bfloat16,
+                                                  torch.float32):
+        raise ValueError(f"x: expected a bf16 or f32 CUDA tensor, got "
+                         f"{x.dtype} on {x.device}")
+    check_cuda_tensor("x", x, x.dtype)
+    for name, n in widths.items():
+        if n % 16:
+            raise ValueError(f"{name} = {n}: the int8 GEMM needs its depth "
+                             "(K, and H for quant_mlp) a multiple of 16")
+    return x.reshape(-1, x.shape[-1]), int(x.dtype == torch.float32)
+
+
+def quant_dense(x, w_t, scale, bias=None, act: str | None = None
+                ) -> torch.Tensor:
+    """``act(f32(quant(x) @ w) * row_scale * scale + bias)`` with x's rows
+    quantized on the fly: x [..., K] (bf16 or f32), w_t int8 [N, K], scale
+    and bias f32 [N] (``bias=None``: zeros), ``act`` None or
+    "quick_gelu"; the result in x's dtype.  CPU tensor: the plain version;
+    CUDA tensor: the kernel (K a multiple of 16), or an error."""
+    _check_act(act)
+    if x.device.type == "cpu":
+        return quant_dense_plain(x, w_t, scale, bias, act)
+    k = x.shape[-1]
+    x2, f32 = _dense_input(x, {"K": k})
+    n = w_t.shape[0]
+    if bias is None:
+        bias = torch.zeros(n, dtype=torch.float32, device=x.device)
+    _check_matrix("w_t", w_t, n, k)
+    _check_vectors(scale=(scale, n), bias=(bias, n))
+    m, dev = x2.shape[0], x.device
+    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=dev)
+    scratch = [torch.empty(m, k, dtype=torch.int8, device=dev),
+               torch.empty(m, dtype=torch.float32, device=dev)]
+    _build.call("ptt_int8_dense", _SIG_DENSE, _build.ptr(x2), _build.ptr(out),
+                m, k, n, f32, int(act is not None),
+                *map(_build.ptr, (w_t, scale, bias, *scratch)),
+                _build.stream(dev))
+    quant_dense.launches += 1
+    return out
+
+
+quant_dense.launches = 0
+
+
+def quant_mlp(x, w1_t, s1, b1, w2_t, s2, b2) -> torch.Tensor:
+    """``W2 quant(quick_gelu(W1 quant(x)))`` with int8 matmuls, no
+    LayerNorm and no residual: x [..., K] (bf16 or f32), w1_t int8 [H, K],
+    w2_t int8 [N, H], scales and biases f32 per output channel; the hidden
+    f32, the result in x's dtype.  CPU tensor: the plain version; CUDA
+    tensor: the kernel (K and H multiples of 16), or an error."""
+    if x.device.type == "cpu":
+        return quant_mlp_plain(x, w1_t, s1, b1, w2_t, s2, b2)
+    k, h, n = x.shape[-1], w1_t.shape[0], w2_t.shape[0]
+    x2, f32 = _dense_input(x, {"K": k, "H": h})
+    _check_matrix("w1_t", w1_t, h, k)
+    _check_matrix("w2_t", w2_t, n, h)
+    _check_vectors(s1=(s1, h), b1=(b1, h), s2=(s2, n), b2=(b2, n))
+    m, dev = x2.shape[0], x.device
+    out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=dev)
+    scratch = [torch.empty(m, k, dtype=torch.int8, device=dev),
+               torch.empty(m, dtype=torch.float32, device=dev),
+               torch.empty(m, h, dtype=torch.float32, device=dev),
+               torch.empty(m, h, dtype=torch.int8, device=dev),
+               torch.empty(m, dtype=torch.float32, device=dev)]
+    _build.call("ptt_int8_qmlp", _SIG_QMLP, _build.ptr(x2), _build.ptr(out),
+                m, k, h, n, f32,
+                *map(_build.ptr, (w1_t, s1, b1, w2_t, s2, b2, *scratch)),
+                _build.stream(dev))
+    quant_mlp.launches += 1
+    return out
+
+
+quant_mlp.launches = 0

@@ -10,6 +10,7 @@ PATENT_TPU_FAST_KERNELS=0.  The XLA fallback is the second reference.
 Inputs come from numpy with a fixed seed.
 """
 
+import contextlib
 from unittest import mock
 
 import jax
@@ -213,20 +214,29 @@ GOLDEN64 = dict(image_size=64, patch_size=8, hidden_dim=64, num_layers=2,
                 num_heads=4, mlp_dim=128, projection_dim=64)
 
 
-@pytest.mark.parametrize("name,keep", [("tiny", None), ("golden64", None),
-                                       ("golden64", 40)],
-                         ids=["tiny", "golden64", "golden64-keep40"])
-def test_int8_tower_matches_jax(monkeypatch, name, keep):
+@pytest.mark.parametrize(
+    "name,keep,batch",
+    [("tiny", None, 4), ("golden64", None, 4), ("golden64", 40, 4),
+     ("tiny", None, 3), ("golden64", None, 3), ("golden64", None, 1)],
+    ids=["tiny", "golden64", "golden64-keep40", "tiny-B3", "golden64-B3",
+         "golden64-B1"])
+def test_int8_tower_matches_jax(monkeypatch, name, keep, batch):
     """The int8 tower against JAX's Int8VisionTransformer (Pallas kernels
     in interpret mode, fast=False) with the same quantize_vit_params
     weights: min feature cosine above 0.9999 (measured: 1.0, identical
-    features but for LayerNorm summation order)."""
+    features but for LayerNorm summation order).  At batch 4 both run the
+    attention and MLP sub-layers; at batch 3 and 1 the JAX tower runs its
+    whole-layer kernel (row 8) and the port quant_layer_block: measured
+    1 - cosine 1.8e-5 to 3.1e-5 there (the rows 5 + 7 chain in its place
+    gives 5.6e-5 to 8.5e-5, which this gate cannot tell apart after the
+    post-LN and the projection: tests/test_torch_int8_layer.py does, layer
+    by layer)."""
     jcfg, tcfg = {"tiny": (jax_vit.VIT_TINY, torch_vit.VIT_TINY),
                   "golden64": (jax_vit.VisionConfig(**GOLDEN64),
                                torch_vit.VisionConfig(**GOLDEN64))}[name]
     _params, qparams, tower = _int8_tower(jcfg, tcfg, keep)
     px = np.random.default_rng(1).standard_normal(
-        (4, jcfg.image_size, jcfg.image_size, 3)).astype(np.float32)
+        (batch, jcfg.image_size, jcfg.image_size, 3)).astype(np.float32)
     monkeypatch.setenv("PATENT_TPU_FAST_KERNELS", "0")
     with mock.patch.object(jqm, "_on_tpu", lambda: True):
         want = np.asarray(jax_vit_int8.Int8VisionTransformer(
@@ -234,10 +244,32 @@ def test_int8_tower_matches_jax(monkeypatch, name, keep):
                                           jnp.asarray(px)), np.float32)
     with torch.inference_mode():
         got = tower(_t(px)).numpy()
-    assert got.shape == want.shape == (4, tcfg.projection_dim)
+    assert got.shape == want.shape == (batch, tcfg.projection_dim)
     cos = np.sum(got * want, -1) / (np.linalg.norm(got, axis=-1)
                                     * np.linalg.norm(want, axis=-1))
     assert float(cos.min()) > 0.9999
+
+
+@pytest.mark.parametrize("kernels", [True, False], ids=["kernels", "plain"])
+def test_int8_tower_takes_the_whole_layer_exactly_at_a_ragged_batch(kernels):
+    """Layers 0..N-2 run quant_layer_block when B % 4 != 0 and the two
+    sub-layers when B % 4 == 0, as the JAX tower does; the last layer is
+    the CLS attention and the MLP either way."""
+    _p, _q, tower = _int8_tower(jax_vit.VIT_TINY, torch_vit.VIT_TINY, None)
+    tower.kernels = kernels
+    suffix = "" if kernels else "_plain"
+    names = ("quant_layer_block", "quant_attention_block",
+             "quant_attention_cls", "quant_mlp_block")
+    layers = jax_vit.VIT_TINY.num_layers
+    for batch, want in ((3, (layers - 1, 0, 1, 1)), (1, (layers - 1, 0, 1, 1)),
+                        (4, (0, layers - 1, 1, layers))):
+        spies = {n: mock.patch.object(tqm, n + suffix,
+                                      wraps=getattr(tqm, n + suffix))
+                 for n in names}
+        with contextlib.ExitStack() as stack, torch.inference_mode():
+            calls = {n: stack.enter_context(p) for n, p in spies.items()}
+            tower(torch.zeros(batch, 32, 32, 3))
+        assert tuple(calls[n].call_count for n in names) == want, batch
 
 
 def test_quantize_vit_params_equals_jax_through_the_bridge():
