@@ -13,6 +13,13 @@
 //     valid keys; output O / sum, an exact f32 divide, stored as f32.
 // Keys at or past valid_len take p = 0, which equals the TPU kernels'
 // zeroed V rows and 0/1 valid column: the pad keys add exact zeros.
+//
+// RAW_QKV = false (the layer kernels): the stream is padded, so rows
+// valid_len..S-1 of K and V exist in memory, and q carries its scale.
+// RAW_QKV = true (csrc/flash_attention.cu): only rows below valid_len exist;
+// K and V rows from there to S are zero-filled in shared memory, and q is
+// multiplied by `scale` in f32 on load and rounded to bf16.  The other
+// instances compile as before.
 #pragma once
 
 #include <mma.h>
@@ -48,7 +55,7 @@ inline size_t smem_bytes(int S) {
 // the block loads; warps 0-3 compute, each owning 16 query rows, and the
 // others return after the loads.  The caller that runs several tiles in
 // one block syncs the block between them.
-template <int SOFTMAX, typename OutT>
+template <int SOFTMAX, typename OutT, bool RAW_QKV = false>
 __device__ __forceinline__ void attention_tile(
     const bf16* __restrict__ q, long long q_img, int q_row, int n_q,
     const bf16* __restrict__ k, const bf16* __restrict__ v, long long kv_img,
@@ -70,6 +77,13 @@ __device__ __forceinline__ void attention_tile(
 
   for (int c = tid; c < S * (HD / 8); c += nthreads) {
     const int r = c >> 3, cc = (c & 7) * 8;
+    if constexpr (RAW_QKV) {
+      if (r >= valid_len) {          // past the sequence: nothing to read
+        *reinterpret_cast<uint4*>(&Ks[r * KV_LD + cc]) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(&Vs[r * KV_LD + cc]) = make_uint4(0u, 0u, 0u, 0u);
+        continue;
+      }
+    }
     *reinterpret_cast<uint4*>(&Ks[r * KV_LD + cc]) =
         *reinterpret_cast<const uint4*>(&kb[(size_t)r * kv_row + cc]);
     *reinterpret_cast<uint4*>(&Vs[r * KV_LD + cc]) =
@@ -80,6 +94,12 @@ __device__ __forceinline__ void attention_tile(
     const int qr = qt * QT + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (qr < n_q) val = *reinterpret_cast<const uint4*>(&qb[(size_t)qr * q_row + cc]);
+    if constexpr (RAW_QKV) {         // bf16(f32(q) * scale), the TPU kernel's
+      bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
+    }
     *reinterpret_cast<uint4*>(&Qs[r * KV_LD + cc]) = val;
   }
   __syncthreads();
@@ -164,7 +184,7 @@ __device__ __forceinline__ void attention_tile(
 }
 
 // One block of THREADS threads per (query tile, head, image).
-template <int SOFTMAX, typename OutT>
+template <int SOFTMAX, typename OutT, bool RAW_QKV = false>
 __global__ void __launch_bounds__(THREADS)
     attention_kernel(const bf16* __restrict__ q, long long q_img, int q_row,
                      int n_q, const bf16* __restrict__ k,
@@ -172,24 +192,25 @@ __global__ void __launch_bounds__(THREADS)
                      OutT* __restrict__ o, long long o_img, int o_row, int S,
                      int valid_len, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  attention_tile<SOFTMAX, OutT>(q, q_img, q_row, n_q, k, v, kv_img, kv_row,
-                                o, o_img, o_row, S, valid_len, scale,
-                                blockIdx.x, blockIdx.y, blockIdx.z, smem);
+  attention_tile<SOFTMAX, OutT, RAW_QKV>(q, q_img, q_row, n_q, k, v, kv_img,
+                                         kv_row, o, o_img, o_row, S, valid_len,
+                                         scale, blockIdx.x, blockIdx.y,
+                                         blockIdx.z, smem);
 }
 
 // Launch over (query tiles, heads, images); returns cudaGetLastError().
-template <int SOFTMAX, typename OutT>
+template <int SOFTMAX, typename OutT, bool RAW_QKV = false>
 int attention(const bf16* q, long long q_img, int q_row, int n_q,
               const bf16* k, const bf16* v, long long kv_img, int kv_row,
               OutT* o, long long o_img, int o_row, int B, int H, int S,
               int valid_len, float scale, cudaStream_t st) {
   const size_t smem = smem_bytes(S);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<SOFTMAX, OutT>,
+      attention_kernel<SOFTMAX, OutT, RAW_QKV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n_q + QT - 1) / QT, H, B);
-  attention_kernel<SOFTMAX, OutT><<<grid, THREADS, smem, st>>>(
+  attention_kernel<SOFTMAX, OutT, RAW_QKV><<<grid, THREADS, smem, st>>>(
       q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img, o_row, S,
       valid_len, scale);
   return (int)cudaGetLastError();

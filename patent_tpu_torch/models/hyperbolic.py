@@ -14,8 +14,9 @@ expmap0(1e-3·N(0, 1)).
 ``MobiusDense`` with Euclidean input and a hyperbolic bias, the encoder's
 first layer, runs ``ops/pallas_kernels.py::mobius_dense_pallas`` (the
 CUDA kernel on the card; ``kernels = False`` runs its plain version
-there instead); every other layer is plain PyTorch, as JAX computes it
-outside any kernel.
+there instead) when autograd is not recording, and the plain version,
+which is differentiable, when it is; every other layer is plain PyTorch,
+as JAX computes it outside any kernel.
 """
 
 from __future__ import annotations
@@ -76,7 +77,11 @@ class MobiusDense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.c
         if self._fused():
-            fn = mobius_dense_pallas if self.kernels else \
+            # row 18 has no backward: while autograd records, the plain
+            # chain (differentiable, as JAX's model is) takes the call
+            grad = torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, self.kernel, self.hyp_bias))
+            fn = mobius_dense_pallas if self.kernels and not grad else \
                 mobius_dense_pallas_plain
             return fn(x, self.kernel, self.hyp_bias, c)
         if self.hyperbolic_input:

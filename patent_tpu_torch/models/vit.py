@@ -1,14 +1,20 @@
 """CLIP ViT image towers (port of the image path of
-patent_tpu/models/vit.py): the serving tower (``fused_layer=True``), the
-parts it shares with the int8 tower (models/vit_int8.py), and the
-trainable tower of the fine-tune (``TrainableVisionTransformer``).
+patent_tpu/models/vit.py): the serving tower ``VisionTransformer`` in its
+fused-layer mode and its per-op modes, the parts it shares with the int8
+tower (models/vit_int8.py), and the trainable tower of the fine-tune
+(``TrainableVisionTransformer``).
 
 Layouts follow the JAX package at the public surface: pixels NHWC
 [B, H, W, 3], weights [in, out] as in the Flax tree, activations [B, S, D].
-The patch embedding is a strided convolution (``F.conv2d``); the stack runs
+The patch embedding is a strided convolution (``F.conv2d``).  The
+fused-layer stack (``fused_layer=True``, the port's default) runs
 ``ops/bf16_layer``: the token axis is padded once to a multiple of 16,
 layers 0..N-2 run ``fused_layer_block_bf16`` with ``valid_len``, and the
-last layer runs ``fused_layer_cls_bf16``, which returns [B, D].
+last layer runs ``fused_layer_cls_bf16``, which returns [B, D].  The per-op
+stack (``fused_layer=False``, the JAX module's default) runs
+``transformer_block`` on every layer, with the attention of ``attention``:
+an einsum softmax, ``flash_attention`` (``use_flash``, TPU row 14) or
+``fused_attention_block`` (``fused_block``, row 12's forward).
 """
 
 from __future__ import annotations
@@ -21,11 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import bf16_layer
-from ..ops.common import layernorm_f32
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
+from ..ops import flash_attention as fa
+from ..ops.common import (dense, einsum_attention, layernorm_f32,
+                          quick_gelu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,21 +150,29 @@ class TowerBase(nn.Module):
     def _blocks(self, device, generator) -> nn.ModuleList:
         raise NotImplementedError
 
-    def embed(self, pixel_values: torch.Tensor) -> tuple[torch.Tensor, int]:
-        """pixel_values [B, H, W, 3] (NHWC, normalized) → (token stream
-        [B, S, D] in ``dtype``, the token axis padded to a multiple of 16;
-        the true length S)."""
-        cfg, cdt = self.config, self.dtype
-        p = cfg.patch_size
-        x = F.conv2d(pixel_values.to(cdt).permute(0, 3, 1, 2),
-                     self.patch_embed.to(cdt), stride=p)   # [B, D, gh, gw]
+    def tokens(self, pixel_values: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+        """pixel_values [B, H, W, 3] (NHWC, normalized) → the token stream
+        [B, S, D] in ``dtype`` before pre-LN: patch embeddings, CLS and the
+        position embeddings (``keep_tokens`` applied)."""
+        cfg = self.config
+        x = F.conv2d(pixel_values.to(dtype).permute(0, 3, 1, 2),
+                     self.patch_embed.to(dtype),
+                     stride=cfg.patch_size)                # [B, D, gh, gw]
         b = x.shape[0]
         x = x.flatten(2).transpose(1, 2)                   # [B, P, D]
-        cls_row = self.class_embedding.to(cdt).expand(b, 1, -1)
-        x = assemble_token_stream(x, pixel_values, cfg, cls_row,
-                                  self.position_embedding.to(cdt),
-                                  self.keep_tokens)
-        x = layernorm_f32(x, self.pre_ln_scale, self.pre_ln_bias)
+        cls_row = self.class_embedding.to(dtype).expand(b, 1, -1)
+        return assemble_token_stream(x, pixel_values, cfg, cls_row,
+                                     self.position_embedding.to(dtype),
+                                     self.keep_tokens)
+
+    def embed(self, pixel_values: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """pixel_values [B, H, W, 3] (NHWC, normalized) → (token stream
+        [B, S, D] in ``dtype`` after pre-LN, the token axis padded to a
+        multiple of 16; the true length S)."""
+        cdt = self.dtype
+        x = layernorm_f32(self.tokens(pixel_values, cdt), self.pre_ln_scale,
+                          self.pre_ln_bias)
         seq = x.shape[1]
         x = F.pad(x.to(cdt), (0, 0, 0, bf16_layer.required_seq_pad_bf16(seq)
                               - seq)).contiguous()
@@ -177,20 +189,33 @@ class VisionTransformer(TowerBase):
     """CLIP vision tower → projected image features.
 
     ``dtype``: the compute dtype of the stack (bf16 for serving; the CUDA
-    layer kernels take bf16 only).  ``kernels=False`` runs the layers'
+    kernels take bf16 only).  ``kernels=False`` runs the layers'
     plain PyTorch versions on any device (the card's reference for timing
     and checks); ``kernels=True`` lets each layer call dispatch on the
     tensor's device (kernel on CUDA, plain version on the CPU).
     ``keep_tokens``: serve only the K darkest patches plus CLS.  The
     layers' matrices are held in ``dtype`` and ``load_state_dict`` casts
-    f32 ones on the way in, once."""
+    f32 ones on the way in, once.
+
+    Modes, with the JAX module's flags and precedence: ``fused_layer``
+    (the default here; JAX's default is the per-op stack) beats the
+    per-op stack, and in the per-op attention ``fused_block`` beats
+    ``use_flash``.  The per-op stack keeps the residual stream in f32 (its
+    LayerNorms are Flax's, in f32, and each dense layer returns
+    ``dtype``), runs every layer over every row of the unpadded stream, and
+    reads out CLS after the last.  Every mode has the same parameters."""
 
     def __init__(self, config: VisionConfig = VIT_B16,
                  dtype: torch.dtype = torch.bfloat16,
                  keep_tokens: int | None = None, kernels: bool = True,
-                 device=None, generator: torch.Generator | None = None):
+                 device=None, generator: torch.Generator | None = None,
+                 use_flash: bool = False, fused_block: bool = False,
+                 fused_layer: bool = True):
         super().__init__(config, dtype, keep_tokens, kernels, device,
                          generator)
+        self.use_flash = use_flash
+        self.fused_block = fused_block
+        self.fused_layer = fused_layer
 
     def _blocks(self, device, generator) -> nn.ModuleList:
         cfg = self.config
@@ -201,8 +226,12 @@ class VisionTransformer(TowerBase):
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         """pixel_values [B, H, W, 3] (NHWC, normalized) → [B, projection]."""
+        if not self.fused_layer:
+            return self._per_op(pixel_values)
         cfg = self.config
         x, seq = self.embed(pixel_values)
+        # both pairs dispatch on the batch as JAX does: at an odd batch
+        # every layer is the per-op composition (no kernel)
         if self.kernels:
             block, last = (bf16_layer.fused_layer_block_bf16,
                            bf16_layer.fused_layer_cls_bf16)
@@ -213,6 +242,62 @@ class VisionTransformer(TowerBase):
             fn = last if i == cfg.num_layers - 1 else block
             x = fn(x, *layer.weights(), cfg.num_heads, valid_len=seq)
         return self.readout(x)
+
+    def _per_op(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        x = layernorm_flax(self.tokens(pixel_values, self.dtype),
+                           self.pre_ln_scale, self.pre_ln_bias)
+        for layer in self.blocks:
+            x = transformer_block(x, layer, cfg.num_heads, self.dtype,
+                                  use_flash=self.use_flash,
+                                  fused_block=self.fused_block,
+                                  kernels=self.kernels)
+        x = layernorm_flax(x[:, 0], self.post_ln_scale, self.post_ln_bias)
+        return x @ self.projection.float()
+
+
+def attention(x: torch.Tensor, wqkv, bqkv, wout, bout, num_heads: int,
+              dtype: torch.dtype, mask: torch.Tensor | None = None,
+              use_flash: bool = False, fused_block: bool = False,
+              kernels: bool = True) -> torch.Tensor:
+    """The per-op attention sub-layer (port of the JAX ``Attention``
+    module): x [B, S, D] → [B, S, D] in ``dtype``, pre-residual.  Without
+    a mask, ``fused_block`` runs ``fused_attention_block`` (row 12) and
+    ``use_flash`` runs ``flash_attention`` (row 14) on q, k, v [B, S, H,
+    hd]; otherwise an einsum softmax: scores in f32 (JAX scales q by a
+    numpy scalar, which promotes them), ``mask`` added, an f32 softmax
+    rounded to ``dtype`` before p·v.  ``kernels=False`` takes the kernels'
+    plain versions on any device."""
+    d = x.shape[-1]
+    if fused_block and mask is None:
+        return fa.fused_attention_block(
+            x.to(dtype), wqkv.to(dtype), bqkv.to(dtype), wout.to(dtype),
+            bout.to(dtype), num_heads, kernels=kernels)
+    q, k, v = (t.unflatten(-1, (num_heads, d // num_heads))
+               for t in dense(x, wqkv, bqkv, dtype).split(d, dim=-1))
+    if use_flash and mask is None and q.dim() == 4:
+        out = (fa.flash_attention if kernels else fa.flash_attention_plain)(
+            q, k, v)
+    else:
+        out = einsum_attention(q, k, v, dtype, mask)
+    return dense(out.flatten(-2), wout, bout, dtype)
+
+
+def transformer_block(x: torch.Tensor, layer: EncoderLayer, num_heads: int,
+                      dtype: torch.dtype, mask: torch.Tensor | None = None,
+                      use_flash: bool = False, fused_block: bool = False,
+                      kernels: bool = True) -> torch.Tensor:
+    """One per-op pre-LN layer (port of the JAX ``TransformerBlock``'s
+    default path): ``x + attn(LN1(x))``, then ``· + mlp(LN2(·))``, with
+    Flax's f32 LayerNorms, dense layers in ``dtype`` and quick_gelu in
+    ``dtype``; each residual add promotes to x's dtype or wider."""
+    h = layernorm_flax(x, layer.ln1_scale, layer.ln1_bias)
+    x = x + attention(h, layer.wqkv, layer.bqkv, layer.wout, layer.bout,
+                      num_heads, dtype, mask, use_flash, fused_block,
+                      kernels)
+    h = layernorm_flax(x, layer.ln2_scale, layer.ln2_bias)
+    h = quick_gelu(dense(h, layer.w1, layer.b1, dtype))
+    return x + dense(h, layer.w2, layer.b2, dtype)
 
 
 def layernorm_flax(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -292,22 +377,13 @@ class TrainableVisionTransformer(TowerBase):
         """pixel_values [B, H, W, 3] (NHWC, normalized) → [B, projection]
         (f32)."""
         from ..ops.bf16_mlp_grad import fused_mlp_block_bf16
-        from ..ops.flash_attention import fused_attention_block
 
         cfg, cdt = self.config, self.compute_dtype
-        p = cfg.patch_size
-        x = F.conv2d(pixel_values.to(cdt).permute(0, 3, 1, 2),
-                     self.patch_embed.to(cdt), stride=p)
-        b = x.shape[0]
-        x = x.flatten(2).transpose(1, 2)
-        cls_row = self.class_embedding.to(cdt).expand(b, 1, -1)
-        x = assemble_token_stream(x, pixel_values, cfg, cls_row,
-                                  self.position_embedding.to(cdt),
-                                  self.keep_tokens)
-        x = layernorm_flax(x, self.pre_ln_scale, self.pre_ln_bias)
+        x = layernorm_flax(self.tokens(pixel_values, cdt), self.pre_ln_scale,
+                           self.pre_ln_bias)
         for layer in self.blocks[:-1]:
             h = layernorm_flax(x, layer.ln1_scale, layer.ln1_bias)
-            x = x + fused_attention_block(
+            x = x + fa.fused_attention_block(
                 h.to(cdt), layer.wqkv.to(cdt), layer.bqkv.to(cdt),
                 layer.wout.to(cdt), layer.bout.to(cdt), cfg.num_heads,
                 kernels=self.kernels)

@@ -13,6 +13,13 @@ biases 1-D.  The token axis is padded once before the first layer to a
 multiple of 16 (``required_seq_pad_bf16``) and ``valid_len`` is the true
 length: keys at or past it are masked, and the pad rows' outputs are junk
 that only the CLS read-out discards.
+
+Both entries and their plain versions dispatch on the batch as the JAX
+entries do (``group=2``): at an odd batch the JAX package runs no kernel,
+on the TPU as well, but its per-op composition, another function (the
+mid-layer residual rounded to bf16, the max-subtracted softmax, bf16 bias
+adds one at a time).  There the port runs ``layer_composition``, plain
+PyTorch on any device, and launches no kernel.
 """
 
 from __future__ import annotations
@@ -22,18 +29,50 @@ import math
 import torch
 
 from .. import _build
-from .common import (check_attention_shape, check_cuda_tensor,
-                     layernorm_f32, mm_f32, round_up)
+from .common import (check_attention_shape, check_cuda_tensor, dense,
+                     einsum_attention, layernorm_f32, mm_f32, quick_gelu,
+                     round_up)
 
 _P, _I = _build.P, _build.I
 _SIG_LAYER = [_P, _P] + [_I] * 6 + [_P] * 12 + [_P] * 5 + [_P]
 _SIG_CLS = [_P, _P] + [_I] * 6 + [_P] * 12 + [_P] * 7 + [_P]
+# images per kernel program in the JAX entries: a batch it does not divide
+# runs the composition there
+GROUP = 2
 
 
 def required_seq_pad_bf16(seq: int) -> int:
     """Token-axis padding: a multiple of 16 rows (the tensor-core tile
     height), 197 → 208."""
     return round_up(max(seq, 16), 16)
+
+
+def layer_composition(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
+                      ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads: int,
+                      valid_len: int | None = None) -> torch.Tensor:
+    """The JAX entries' per-op composition (patent_tpu/ops/bf16_layer.py
+    ``fused_layer_block_bf16``'s fallback), which JAX runs at an odd
+    batch: [B, S, D] → [B, S, D] in x's dtype.  LayerNorms in f32 (two-pass
+    variance) rounded to x's dtype; every product and bias add rounded to
+    x's dtype, ``bf16(bf16(h W) + b)``; the scores f32 (JAX scales q by a
+    numpy scalar, which promotes them), keys at or past ``valid_len`` set to
+    -1e30, an f32 softmax rounded before p·v; the residual adds rounded one
+    at a time, ``(x + a Wout) + bout``; quick_gelu in x's dtype."""
+    b, s, d = x.shape
+    cdt = x.dtype
+    h = layernorm_f32(x, ln1_scale, ln1_bias).to(cdt)
+    q, k, v = (t.unflatten(-1, (num_heads, d // num_heads))
+               for t in dense(h, wqkv, bqkv, cdt).split(d, dim=-1))
+    mask = None
+    if valid_len is not None and valid_len < s:
+        # JAX replaces the masked scores by -1e30; adding it gives the same
+        mask = torch.where(torch.arange(s, device=x.device) >= valid_len,
+                           -1e30, 0.0)
+    ao = einsum_attention(q, k, v, cdt, mask).flatten(-2)
+    x1 = x + ao @ wout.to(cdt) + bout.to(cdt)
+    h2 = layernorm_f32(x1, ln2_scale, ln2_bias).to(cdt)
+    a = quick_gelu(dense(h2, w1, b1, cdt))
+    return x1 + a @ w2.to(cdt) + b2.to(cdt)
 
 
 def _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
@@ -78,9 +117,15 @@ def _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
 
 def fused_layer_block_bf16_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout,
                                  bout, ln2_scale, ln2_bias, w1, b1, w2, b2,
-                                 num_heads: int,
-                                 valid_len: int | None = None) -> torch.Tensor:
-    """Plain version of ``fused_layer_block_bf16``: [B, S, D] → [B, S, D]."""
+                                 num_heads: int, valid_len: int | None = None,
+                                 group: int = GROUP) -> torch.Tensor:
+    """Plain version of ``fused_layer_block_bf16``: [B, S, D] → [B, S, D];
+    ``layer_composition`` when ``group`` does not divide B (``group=1``
+    gives the kernel's function at any batch)."""
+    if x.shape[0] % group:
+        return layer_composition(x, ln1_scale, ln1_bias, wqkv, bqkv, wout,
+                                 bout, ln2_scale, ln2_bias, w1, b1, w2, b2,
+                                 num_heads, valid_len)
     return _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
                         ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
                         x.shape[1] if valid_len is None else valid_len, False)
@@ -88,9 +133,14 @@ def fused_layer_block_bf16_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout,
 
 def fused_layer_cls_bf16_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
                                ln2_scale, ln2_bias, w1, b1, w2, b2,
-                               num_heads: int,
-                               valid_len: int | None = None) -> torch.Tensor:
-    """Plain version of ``fused_layer_cls_bf16``: [B, S, D] → [B, D]."""
+                               num_heads: int, valid_len: int | None = None,
+                               group: int = GROUP) -> torch.Tensor:
+    """Plain version of ``fused_layer_cls_bf16``: [B, S, D] → [B, D]; row 0
+    of ``layer_composition`` when ``group`` does not divide B."""
+    if x.shape[0] % group:
+        return layer_composition(x, ln1_scale, ln1_bias, wqkv, bqkv, wout,
+                                 bout, ln2_scale, ln2_bias, w1, b1, w2, b2,
+                                 num_heads, valid_len)[:, 0]
     return _layer_plain(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
                         ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
                         x.shape[1] if valid_len is None else valid_len, True)
@@ -125,16 +175,17 @@ def _kernel_args(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
 
 def fused_layer_block_bf16(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
                            ln2_scale, ln2_bias, w1, b1, w2, b2,
-                           num_heads: int,
-                           valid_len: int | None = None) -> torch.Tensor:
+                           num_heads: int, valid_len: int | None = None,
+                           group: int = GROUP) -> torch.Tensor:
     """One whole pre-LN layer ``x + attn(LN1(x)); · + mlp(LN2(·))``.
-    Inference only.  CPU tensor: the plain version; CUDA tensor (bf16):
+    Inference only.  CPU tensor, or a batch that ``group`` does not divide:
+    the plain version (there ``layer_composition``); CUDA tensor (bf16):
     the kernel, or an error."""
     valid_len = x.shape[1] if valid_len is None else valid_len
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or x.shape[0] % group:
         return fused_layer_block_bf16_plain(
             x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
-            ln2_bias, w1, b1, w2, b2, num_heads, valid_len)
+            ln2_bias, w1, b1, w2, b2, num_heads, valid_len, group)
     ws = _kernel_args(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
                       ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
                       valid_len)
@@ -160,15 +211,17 @@ fused_layer_block_bf16.launches = 0
 
 def fused_layer_cls_bf16(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
                          ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads: int,
-                         valid_len: int | None = None) -> torch.Tensor:
+                         valid_len: int | None = None,
+                         group: int = GROUP) -> torch.Tensor:
     """Row 0 (CLS) of ``fused_layer_block_bf16`` → [B, D]: LN1 and K/V over
-    every row, the rest for the CLS row only.  CPU tensor: the plain
-    version; CUDA tensor (bf16): the kernel, or an error."""
+    every row, the rest for the CLS row only.  CPU tensor, or a batch that
+    ``group`` does not divide: the plain version; CUDA tensor (bf16): the
+    kernel, or an error."""
     valid_len = x.shape[1] if valid_len is None else valid_len
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or x.shape[0] % group:
         return fused_layer_cls_bf16_plain(
             x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout, ln2_scale,
-            ln2_bias, w1, b1, w2, b2, num_heads, valid_len)
+            ln2_bias, w1, b1, w2, b2, num_heads, valid_len, group)
     ws = _kernel_args(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
                       ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
                       valid_len)

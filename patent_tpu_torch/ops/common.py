@@ -21,6 +21,44 @@ def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def weak_scalar(c: float, dtype: torch.dtype) -> float:
+    """The Python scalar c as JAX applies it to an array of ``dtype``:
+    weakly typed, so rounded to that dtype first."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's x·sigmoid(1.702 x) as the JAX package computes it in x's
+    dtype: 1.702 takes x's dtype (1.703125 in bf16), and XLA expands the
+    sigmoid to 1 / (1 + exp(-t)), each step rounded to x's dtype."""
+    t = x * weak_scalar(1.702, x.dtype)
+    return x * (1 / (1 + torch.exp(-t)))
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """Flax ``nn.Dense(dtype=dtype)`` (and the JAX layer composition's
+    ``h @ cast(w) + cast(b)``): input, kernel and bias cast to ``dtype``,
+    then ``(x W) + b``, each rounded to ``dtype``."""
+    return x.to(dtype) @ w.to(dtype) + b.to(dtype)
+
+
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dtype: torch.dtype,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The JAX package's einsum attention on q, k, v [..., S, H, hd]:
+    scores in f32 (q times the numpy scalar 1/√hd, which promotes), the
+    additive ``mask``, ``jax.nn.softmax``'s exp(s − max) / sum in f32
+    rounded to ``dtype``, then p·v in ``dtype``."""
+    attn = torch.einsum("...qhd,...khd->...hqk",
+                        q.float() * (1.0 / math.sqrt(q.shape[-1])), k.float())
+    if mask is not None:
+        attn = attn + mask
+    attn = torch.exp(attn - attn.amax(-1, keepdim=True))
+    attn = (attn / attn.sum(-1, keepdim=True)).to(dtype)
+    return torch.einsum("...hqk,...khd->...qhd", attn, v)
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b (2-D or batched 3-D) with f32 products and sums, the result
     unrounded: bf16 operands are exact in f32, so this is the kernels'
@@ -55,6 +93,15 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record this call: for a kernel that has no
+    backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
+                           "under torch.no_grad() or with tensors that need "
+                           "no gradient")
 
 
 def check_attention_shape(d: int, num_heads: int, s: int,

@@ -1,7 +1,10 @@
 """Attention of the JAX package's patent_tpu/ops/flash_attention.py: the
 exp2-domain score clamp and one-pass softmax·v the serving layers share,
-and the trainable attention sub-layer ``fused_attention_block`` of the
-fine-tune tower with its backward.
+the standalone attention ``flash_attention`` of the ``use_flash`` tower
+(TPU row 14; the kernel of csrc/flash_attention.cu on a CUDA tensor,
+``flash_attention_plain`` on a CPU tensor; inference only, as the TPU
+kernel has no VJP), and the trainable attention sub-layer
+``fused_attention_block`` of the fine-tune tower with its backward.
 
 ``fused_attention_block`` computes ``(x Wqkv + b) → MHA → @ Wout + b``
 (pre-residual) as a ``torch.autograd.Function``.  The fold of
@@ -32,15 +35,17 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .common import (check_attention_shape, check_cuda_tensor, mm_f32,
-                     round_up)
+from .common import (ATTENTION_HEAD_DIM, check_attention_shape,
+                     check_cuda_tensor, mm_f32, refuse_grad, round_up,
+                     weak_scalar)
 
 SCORE_CLAMP_LO = -100.0
 SCORE_CLAMP_HI = 80.0
 _LN2 = math.log(2.0)
-_P, _I = _build.P, _build.I
+_P, _I, _L, _F = _build.P, _build.I, _build.L, _build.F
 _SIG_FWD = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P]
 _SIG_BWD = [_P] * 6 + [_I] * 5 + [_P] * 3 + [_P]
+_SIG_FLASH = [_P] * 4 + [_I] * 3 + [_L, _I, _L, _I, _F, _P]
 
 
 def one_pass_softmax_pv(q: torch.Tensor, k: torch.Tensor, v_ext: torch.Tensor,
@@ -282,10 +287,97 @@ def fused_attention_block(x, wqkv, bqkv, wout, bout, num_heads: int,
     versions on any device (the card's reference)."""
     b, s, d = x.shape
     scale2 = math.log2(math.e) / math.sqrt(d // num_heads)
-    wqkv_f = torch.cat([wqkv[:, :d] * scale2, wqkv[:, d:]], dim=1)
-    bqkv_f = torch.cat([bqkv[:d] * scale2, bqkv[d:]])
+    # JAX's fold multiplies by a Python scalar, which takes the weights' dtype
+    wqkv_f = torch.cat([wqkv[:, :d] * weak_scalar(scale2, wqkv.dtype),
+                        wqkv[:, d:]], dim=1)
+    bqkv_f = torch.cat([bqkv[:d] * weak_scalar(scale2, bqkv.dtype), bqkv[d:]])
     sp = round_up(max(s, 16), 16)
     xp = F.pad(x, (0, 0, 0, sp - s)).contiguous()
     out = _FusedAttentionBlock.apply(xp, wqkv_f.contiguous(), bqkv_f, wout,
                                      bout, num_heads, s, kernels)
     return out[:, :s]
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          head_batch: bool = True, *,
+                          pad_keys_to: int | None = None, scale: bool = True,
+                          clamp: bool = True) -> torch.Tensor:
+    """The row-14 TPU kernel's function in plain PyTorch: q, k, v
+    [B, S, H, D] → [B, S, H, D] in q's dtype.  q times log2(e)/√D in f32,
+    rounded back to q's dtype; f32 scores q kᵀ; p = exp2(clip(s, -100,
+    80)) rounded to v's dtype; f32 sums of the rounded p over the S keys,
+    then an exact f32 divide.  ``head_batch`` picks one of the TPU
+    kernel's two tilings of this same function, so it changes nothing.
+
+    Controls that a check must tell apart from the kernel, each off by
+    default: ``pad_keys_to`` counts zero keys up to that length (the
+    padding without its mask), ``scale=False`` leaves q unscaled,
+    ``clamp=False`` exponentiates the scores unclamped."""
+    del head_batch
+    b, s, h, d = q.shape
+    qs = q
+    if scale:
+        qs = (q.float() * ((1.0 / math.sqrt(d)) * math.log2(math.e))).to(
+            q.dtype)
+    kf, vf = k.float(), v.float()
+    if pad_keys_to is not None:
+        kf, vf = (F.pad(t, (0, 0, 0, 0, 0, pad_keys_to - s)) for t in (kf, vf))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qs.float(), kf)
+    if clamp:
+        sc = sc.clamp(SCORE_CLAMP_LO, SCORE_CLAMP_HI)
+    p = torch.exp2(sc).to(v.dtype).float()
+    num = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return (num / p.sum(-1).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def _flash_check(q, k, v) -> None:
+    """Raise unless the row-14 kernel takes q, k, v: bf16 [B, S, H, 64] on
+    the card with each row's [H, 64] packed (a slice of a wider row, as q,
+    k, v of one qkv tensor are, is read in place), 16-byte aligned, k and
+    v with the same strides, and the sequence within shared memory."""
+    b, s, h, d = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: the row-14 kernel takes bfloat16, got "
+                             f"{t.dtype}")
+        if tuple(t.shape) != (b, s, h, d):
+            raise ValueError(f"{name}: expected shape {(b, s, h, d)}, got "
+                             f"{tuple(t.shape)}")
+        st = t.stride()
+        if (st[3] != 1 or st[2] != d or st[1] % 8 or st[0] % 8
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: each row's [H, D] must be packed and "
+                             f"16-byte aligned, got strides {st}")
+    if k.stride() != v.stride():
+        raise ValueError(f"k and v differ in strides: {k.stride()}, "
+                         f"{v.stride()}")
+    if d != ATTENTION_HEAD_DIM:
+        raise ValueError(f"the row-14 kernel needs head_dim "
+                         f"{ATTENTION_HEAD_DIM}, got {d}")
+    check_attention_shape(h * d, h, round_up(s, 16), s)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    head_batch: bool = True) -> torch.Tensor:
+    """softmax(q kᵀ/√D) v for q, k, v [B, S, H, D] → [B, S, H, D], the
+    TPU kernel's exp2 form (``flash_attention_plain``).  Inference only.
+    CPU tensor: the plain version; CUDA tensor (bf16, head_dim 64): the
+    kernel, or an error."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, head_batch)
+    _flash_check(q, k, v)
+    refuse_grad("flash_attention", q, k, v)
+    b, s, h, d = q.shape
+    out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
+    _build.call("ptt_flash_attention", _SIG_FLASH, _build.ptr(q),
+                _build.ptr(k), _build.ptr(v), _build.ptr(out), b, s, h,
+                q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                (1.0 / math.sqrt(d)) * math.log2(math.e),
+                _build.stream(q.device))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -14,8 +14,8 @@ On a CUDA tensor each launches its hand-written kernel
 version below.  The plain versions are float32 throughout and set
 ``torch.backends.cuda.matmul.allow_tf32 = False`` when they run on the
 card: a TF32 Gram product is not the reference.  Neither kernel has a
-backward yet (training is a later slice), so a CUDA input that requires a
-gradient is refused.
+backward, so a CUDA input that requires a gradient is refused;
+``MobiusDense`` takes the plain version while autograd records.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch
 
 from .. import _build
 from . import poincare
-from .common import check_cuda_tensor
+from .common import check_cuda_tensor, refuse_grad
 
 _P, _I, _F = _build.P, _build.I, _build.F
 MOBIUS_DENSE_MAX_OUT = 1024     # csrc/hyperbolic.cu: four groups of 256
@@ -36,13 +36,6 @@ MOBIUS_DENSE_MAX_OUT = 1024     # csrc/hyperbolic.cu: four groups of 256
 def _full_f32(t: torch.Tensor) -> None:
     if t.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
-
-
-def _refuse_grad(name: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it "
-                           "under torch.no_grad() or with tensors that need "
-                           "no gradient")
 
 
 def pairwise_dist_pallas_plain(x: torch.Tensor, y: torch.Tensor,
@@ -71,7 +64,7 @@ def pairwise_dist_pallas(x: torch.Tensor, y: torch.Tensor,
         return pairwise_dist_pallas_plain(x, y, c)
     check_cuda_tensor("x", x, torch.float32)
     check_cuda_tensor("y", y, torch.float32)
-    _refuse_grad("pairwise_dist_pallas", x, y)
+    refuse_grad("pairwise_dist_pallas", x, y)
     n, d = x.shape
     m = y.shape[0]
     if y.shape[1] != d:
@@ -119,7 +112,7 @@ def mobius_dense_pallas(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     check_cuda_tensor("x", x, torch.float32)
     check_cuda_tensor("w", w, torch.float32, (k, dout))
     check_cuda_tensor("bias", bias, torch.float32, (dout,))
-    _refuse_grad("mobius_dense_pallas", x, w, bias)
+    refuse_grad("mobius_dense_pallas", x, w, bias)
     if dout > MOBIUS_DENSE_MAX_OUT or c <= 0:
         raise ValueError(f"mobius_dense kernel needs 0 < D <= "
                          f"{MOBIUS_DENSE_MAX_OUT} and c > 0 (got D={dout}, "

@@ -85,7 +85,7 @@ def _rel_err(a, b):
 def test_layer_kernel_matches_plain_and_controls_do_not(cuda, name):
     kernel = getattr(bf16_layer, name)
     plain = getattr(bf16_layer, name + "_plain")
-    x, p = _layer_case(cuda)
+    x, p = _layer_case(cuda, b=4)        # an odd batch runs no layer kernel
 
     def rows(t):                     # the valid rows (CLS: [B, D] already)
         return t[:, :VALID] if t.dim() == 3 else t
@@ -107,7 +107,7 @@ def test_layer_kernel_matches_plain_and_controls_do_not(cuda, name):
 
 
 def test_cls_kernel_is_row_0_of_the_layer_kernel(cuda):
-    x, p = _layer_case(cuda)
+    x, p = _layer_case(cuda, b=4)
     got = bf16_layer.fused_layer_block_bf16(x, *p, HEADS, valid_len=VALID)
     cls = bf16_layer.fused_layer_cls_bf16(x, *p, HEADS, valid_len=VALID)
     torch.cuda.synchronize()
@@ -118,7 +118,7 @@ def test_cls_kernel_is_row_0_of_the_layer_kernel(cuda):
 
 
 def test_layer_kernel_rejects_what_it_does_not_take(cuda):
-    x, p = _layer_case(cuda)
+    x, p = _layer_case(cuda, b=4)
     with pytest.raises(ValueError):
         bf16_layer.fused_layer_block_bf16(x.float(), *p, HEADS, valid_len=VALID)
     with pytest.raises(ValueError):      # head_dim 32
@@ -166,27 +166,142 @@ def test_index_takes_the_kernel_path_and_equals_the_scan(cuda):
     assert abs(v - cv).max() < 1e-5
 
 
-def test_tower_kernels_match_plain_layers(cuda):
-    """Three layers compound the per-layer rounding flips: features within
-    4e-3 relative error (8e-4 or less measured on the H100)."""
-    cfg = VisionConfig(image_size=32, patch_size=8, hidden_dim=D,
-                       num_layers=3, num_heads=HEADS, mlp_dim=F,
-                       projection_dim=32)
-    gen = torch.Generator().manual_seed(3)
-    tower = VisionTransformer(cfg, generator=gen)
+TOWER_CFG = VisionConfig(image_size=32, patch_size=8, hidden_dim=D,
+                         num_layers=3, num_heads=HEADS, mlp_dim=F,
+                         projection_dim=32)
+
+
+def _tower(dev, seed=3, **flags):
+    """A 3-layer bf16 tower (head_dim 64) with every parameter mattering."""
+    gen = torch.Generator().manual_seed(seed)
+    tower = VisionTransformer(TOWER_CFG, generator=gen, **flags)
     with torch.no_grad():        # init leaves them 0 and 1: make each matter
         for prm in tower.parameters():
             if prm.dim() == 1:
                 prm.add_(0.05 * torch.randn(prm.shape, generator=gen))
-    tower = tower.to(cuda).eval()
-    px = torch.randn(5, 32, 32, 3, device=cuda)
+    return tower.to(dev).eval()
+
+
+def test_tower_kernels_match_plain_layers(cuda):
+    """Three layers compound the per-layer rounding flips: features within
+    4e-3 relative error (8e-4 or less measured on the H100), at an even
+    batch, where layers 0-1 launch row 1 and the last row 2."""
+    tower = _tower(cuda)
+    px = torch.randn(4, 32, 32, 3, device=cuda)
+    fns = (bf16_layer.fused_layer_block_bf16, bf16_layer.fused_layer_cls_bf16)
+    counts = [fn.launches for fn in fns]
     with torch.inference_mode():
         got = tower(px)
         tower.kernels = False
         want = tower(px)
-    assert got.shape == (5, 32)
+    assert [fn.launches - c for fn, c in zip(fns, counts)] == [2, 1]
+    assert got.shape == (4, 32)
     assert _rel_err(got, want) <= 4e-3
     assert _min_cosine(got, want) > 0.9999
+
+
+def test_tower_at_an_odd_batch_launches_no_layer_kernel(cuda):
+    """At an odd batch every layer is the JAX entries' per-op composition,
+    in PyTorch ops on the card, with and without ``kernels``."""
+    tower = _tower(cuda)
+    px = torch.randn(5, 32, 32, 3, device=cuda)
+    fns = (bf16_layer.fused_layer_block_bf16, bf16_layer.fused_layer_cls_bf16)
+    counts = [fn.launches for fn in fns]
+    with torch.inference_mode():
+        got = tower(px)
+        tower.kernels = False
+        want = tower(px)
+    assert [fn.launches for fn in fns] == counts
+    assert got.shape == (5, 32) and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("flags,kernel", [
+    ({"use_flash": True}, fa.flash_attention),
+    ({"fused_block": True}, fa.fused_attention_fwd)],
+    ids=["use_flash", "fused_block"])
+def test_per_op_tower_kernels_match_plain(cuda, flags, kernel):
+    """The per-op towers launch their attention kernel once a layer; the
+    rest is PyTorch ops.  Features within the fused-layer tower's gate of
+    the same tower with the plain versions."""
+    tower = _tower(cuda, fused_layer=False, **flags)
+    px = torch.randn(5, 32, 32, 3, device=cuda)
+    n0 = kernel.launches
+    with torch.inference_mode():
+        got = tower(px)
+        tower.kernels = False
+        want = tower(px)
+    assert kernel.launches == n0 + TOWER_CFG.num_layers
+    assert got.shape == (5, 32) and torch.isfinite(got).all()
+    assert _rel_err(got, want) <= 4e-3
+    assert _min_cosine(got, want) > 0.9999
+
+
+# Row 14: the kernel and the plain version round the same bf16 q and p and
+# differ by f32 summation order, which now and then flips one output
+# rounding; leaving q unscaled or counting the zero keys up to the next
+# multiple of 16 moves the output by 1e-2 or more.
+FLASH_REL_TOL = 1e-4
+
+
+def _flash_case(dev, b, s, heads=2, gain=1.0, seed=11):
+    """q, k, v [B, S, H, 64] bf16 as the per-op tower passes them: slices
+    of one [B, S, 3·H·64] tensor.  ``gain`` scales q."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * heads * 64, generator=g, device=dev)
+    qkv[..., :heads * 64] *= gain
+    return tuple(t.unflatten(-1, (heads, 64)) for t in
+                 qkv.to(torch.bfloat16).split(heads * 64, dim=-1))
+
+
+@pytest.mark.parametrize("s", [197, 64, 5])
+def test_flash_kernel_matches_plain_and_controls_do_not(cuda, s):
+    q, k, v = _flash_case(cuda, 3, s)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    packed = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n0 + 2
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, packed)          # strided views read in place
+    assert _rel_err(got, want) <= FLASH_REL_TOL
+    controls = {"q unscaled": fa.flash_attention_plain(q, k, v, scale=False)}
+    if s % 16:
+        controls["pad keys counted"] = fa.flash_attention_plain(
+            q, k, v, pad_keys_to=-(-s // 16) * 16)
+    for name, ctrl in controls.items():
+        assert _rel_err(ctrl, want) > FLASH_REL_TOL, name
+
+
+def test_flash_kernel_clamps_scores_past_80(cuda):
+    """q x 40: ~8% of the exp2-domain scores pass +80; the kernel clamps
+    them as the plain version does, and without the clamp the plain
+    version is far off (or not finite)."""
+    q, k, v = _flash_case(cuda, 2, 197, gain=40.0)
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    no_clamp = fa.flash_attention_plain(q, k, v, clamp=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _rel_err(got, want) <= FLASH_REL_TOL
+    assert not _rel_err(no_clamp, want) <= FLASH_REL_TOL
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _flash_case(cuda, 2, 20)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*(t.reshape(2, 20, 4, 32) for t in (q, k, v)))
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention(q, k.contiguous(), v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q.clone().requires_grad_(True), k, v)
+    assert fa.flash_attention_plain(q.cpu(), k.cpu(), v.cpu()).shape == \
+        q.shape
 
 
 # int8 sub-layers: the integer products are exact, so the kernel and the
@@ -813,3 +928,36 @@ def test_hyperbolic_model_kernels_match_plain_and_run_the_label_map(cuda):
     assert pk.pairwise_dist_pallas.launches == n17 + 4
     assert pk.mobius_dense_pallas.launches == n18 + 4
     assert got_map == pytest.approx(want_map, abs=1e-4)
+
+
+def test_hyperbolic_model_trains_on_the_card(cuda):
+    """While autograd records, the encoder's first layer takes the plain
+    chain (row 18 has no backward), as JAX's model is differentiable: the
+    gradients on the card equal the CPU's, and row 18 still launches under
+    no_grad."""
+    gen = torch.Generator().manual_seed(12)
+    model = HyperbolicEmbeddingModel(feature_dim=64, embed_dim=32,
+                                     label_num=50, hidden_dims=(48,), c=2.0,
+                                     generator=gen).eval()
+    x = 0.1 * torch.randn(40, 64, generator=gen)
+
+    def grads(m, xs):
+        m.zero_grad(set_to_none=True)
+        out = m(xs)
+        (out.norm(dim=-1).sum() + m.labels().norm(dim=-1).sum()).backward()
+        return {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+
+    want = grads(model, x)
+    model = model.to(cuda)
+    n18 = pk.mobius_dense_pallas.launches
+    got = grads(model, x.to(cuda))
+    assert pk.mobius_dense_pallas.launches == n18
+    assert set(got) == set(want)
+    for name, g in got.items():
+        assert torch.isfinite(g).all(), name
+        assert float((g - want[name]).norm()) <= 1e-4 * float(
+            want[name].norm()) + 1e-7, name
+    assert float(got["encoder.first_layer.kernel"].norm()) > 0.0
+    with torch.no_grad():
+        model(x.to(cuda))
+    assert pk.mobius_dense_pallas.launches == n18 + 1

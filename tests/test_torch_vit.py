@@ -2,7 +2,9 @@
 patent_tpu on the CPU.
 
 The JAX tower runs ``VisionTransformer(fused_layer=True)``, which on the
-CPU is the XLA per-op fallback; the port runs its layers' plain versions.
+CPU is the XLA per-op fallback at every batch (on the TPU only at an odd
+one); the port runs its layers' plain versions, which compute that
+fallback only at an odd batch and the TPU kernel's function at an even one.
 Weights come from one seeded Flax init (biases and LayerNorms perturbed so
 that every parameter matters) mapped with ``params_from_jax``.
 """
@@ -79,8 +81,11 @@ def test_tower_matches_jax_f32(name, keep):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_tower_matches_jax_bf16(name):
-    """bf16 towers round at different points (the port carries the residual
-    in f32 inside each layer, the JAX fallback in bf16): cosine > 0.999."""
+    """bf16 towers at B 4 round at different points (the port runs the
+    kernel's function, which carries the residual in f32 inside each
+    layer; the JAX fallback on the CPU keeps it in bf16): cosine > 0.999.
+    At an odd batch the port computes the fallback too
+    (tests/test_torch_vit_modes.py)."""
     jcfg, tcfg = CONFIGS[name]
     params = _flax_params(jcfg)
     got, want = _features(jcfg, tcfg, params, _pixels(jcfg), torch.bfloat16)
