@@ -12,7 +12,9 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    MLP sub-layers, at B=16, S=208 with 197 and 96 valid rows and the pad
    rows random, each beside controls that must fail its gate (the plain
    version without the key mask, with each bias zeroed, with each
-   matrix's per-channel scales replaced by their mean); each CLS kernel
+   matrix's per-channel scales replaced by their mean; for the bf16
+   layers the earlier max-subtracted form, with exp gelu); each
+   CLS kernel
    equal to row 0 of its full kernel bit for bit; the bf16 and the int8
    bucket top-k at Q=64 on 1M x 512 and 1,000 x 512 galleries (the int8
    stage equal to its plain version), re-ranked top-10 against the f32
@@ -37,7 +39,10 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    (row 14) on q, k, v [16, 197, 12, 64] and [16, 64, 12, 64] read as
    slices of one qkv tensor (controls: q unscaled, the zero keys up to the
    next multiple of 16 counted) and with q x 40, where ~8% of the scores
-   pass +80 (control: no clamp);
+   pass +80 (control: no clamp), and its f32 instance on f32 q, k, v
+   (control: q unscaled); the bf16 layers' GEMM (csrc/wgmma_gemm.cuh)
+   alone, each of its four epilogues at 26,624 and 416 rows (control: the
+   bias dropped);
 4. the slices end to end through the CLI: encode, retrieve --k 20 and
    eval on a 224 px synthetic corpus (60 patents x 6 figures) with seeded
    ViT-B/16 weights saved as a clip_finetune_best checkpoint, first with
@@ -60,16 +65,20 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    14, and with fused_block, row 12's forward) through a RetrievalEngine
    at batch 32 (encode_dataset, rank_queries, evaluate), each held to the
    same tower with kernels=False and by min cosine to the fused-layer
-   tower; the bf16 fused-layer tower through a RetrievalEngine at
-   batch_size 3, where every layer is JAX's per-op composition and rows 1
-   and 2 must launch 0 times, held to batch 32 by min cosine; a backward
+   tower; the f32 use_flash tower (row 14's f32 instance) through a
+   RetrievalEngine, held to itself with kernels=False and by min cosine
+   to the bf16 fused-layer tower; the bf16 fused-layer tower through a
+   RetrievalEngine at batch_size 3, where every layer is JAX's per-op
+   composition and rows 1 and 2 must launch 0 times, held to batch 32 by min cosine; a backward
    through HyperbolicEmbeddingModel on the card (finite gradients, row 18
    not launched under grad, launched under no_grad); every other kernel's
    launch count over its path must be > 0;
 5. times (CUDA events): the bf16 and the int8 tower img/s at batch 128,
    the three per-op bf16 towers at batch 128, the fused-layer bf16 tower
-   at batch 3 (composition) and 127, row 14 at [128, 197, 12, 64] against
-   its plain version and F.scaled_dot_product_attention,
+   at batch 3 (composition) and 127, row 14 at [128, 197, 12, 64] in bf16
+   and f32 against its plain version and F.scaled_dot_product_attention,
+   rows 1-2 on weights folded once, row 1's four GEMM instances beside
+   torch.matmul of the same bf16 product (a yardstick),
    the int8 tower at batch 1 (ms), 3 and 127 (img/s), one int8 layer at
    B=1, 3 and 127 through the whole-layer kernel, the rows 5 + 7 kernels
    and the plain version,
@@ -186,12 +195,22 @@ def rel_err(a, b) -> float:
 
 # Layer gate: the kernel and the plain version round the same bf16
 # intermediates, so they differ by f32 summation order, which now and then
-# flips one bf16 rounding.  Measured on the H100: relative error 1.7e-4 to
-# 3.8e-4, max-abs 1 ulp (chip_smoke's own output shows it); dropping the
-# key mask or one bias of std 0.02 gives 1.1e-2 or more, and the controls
-# below must fail the gate.
-LAYER_REL_TOL = 1.5e-3
+# flips one bf16 rounding.  Measured on the H100 (rows 1-2 on the wgmma GEMM
+# and the flash tile): relative error 2.1e-4 to 3.4e-4, max-abs 1 ulp
+# (chip_smoke's own output shows it); dropping the key mask or one bias of
+# std 0.02 gives 1.1e-2 or more.  The earlier form of rows 1-2
+# (max-subtracted softmax, exp gelu, unfolded q) sits at 1.49e-3 to 1.69e-3
+# and within 1 ulp, so the relative error alone tells it apart: the gate
+# sits 3.2x above the kernel's largest reading and 1.35x below the earlier
+# form's smallest, and every control must fail it.  The CPU test against JAX's
+# interpreted kernel (tests/test_torch_bf16_layer.py) holds the function
+# with more margin.
+LAYER_REL_TOL = 1.1e-3
 LAYER_MAX_ULPS = 2
+# The layer's GEMM alone against the plain f32 product of the same bf16
+# operands: f32 sums in another order (bf16 outputs flip a rare rounding);
+# the bias dropped must fail.
+GEMM_REL_TOL, GEMM_MAX_ULPS = 1e-4, 1
 BIASES = ((1, "ln1_bias"), (3, "bqkv"), (5, "bout"), (7, "ln2_bias"),
           (9, "b1"), (11, "b2"))
 
@@ -243,6 +262,10 @@ INT8_RAGGED_MIN_COS = 0.999
 # the next multiple of 16 or dropping the clamp where scores pass +80 move
 # the output by 1e-2 or more.
 FLASH_REL_TOL, FLASH_MAX_ULPS = 1e-4, 2
+# Row 14's f32 instance against its plain version in f32 (no TF32): the
+# same products and sums in another order, held to 1e-5 relative (mean and
+# max-abs over the largest |ref|); q unscaled must fail
+FLASH_F32_REL_TOL = 1e-5
 # q x 40 puts ~8% of the exp2-domain scores past +80
 FLASH_SATURATING_GAIN = 40.0
 # The per-op towers against the fused-layer tower, and the fused-layer
@@ -252,6 +275,10 @@ FLASH_SATURATING_GAIN = 40.0
 # pixel-noise yardstick, as the int8 tower at a ragged batch is.
 PER_OP_MIN_COS = 0.999
 BF16_ODD_MIN_COS = 0.999
+
+# the layer's four GEMM instances at ViT-B/16 widths: (N, K)
+GEMM_SHAPES = {"bias": (2304, 768), "bias_gelu": (3072, 768),
+               "res_bias": (768, 768), "bias_res": (768, 3072)}
 
 # H100 SXM datasheet peaks (dense) and memory rate, for bound_ms; fp32 is
 # the rate outside the tensor cores (rows 17 and 18 exclude TF32)
@@ -370,11 +397,48 @@ def layer_input(torch, b, s, d, valid, gen, dev):
     return x.to(torch.bfloat16)
 
 
+def maxsub_layer(torch, x, p, heads, valid, cls_only):
+    """The earlier form of rows 1-2, a control: q
+    unfolded, scores divided by sqrt(hd), the row max subtracted, exp,
+    g * sigmoid(1.702 g), and x + (ao Wout + bout)."""
+    from patent_tpu_torch.ops.common import layernorm_f32, mm_f32
+
+    (ln1s, ln1b, wqkv, bqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2) = p
+    b, s, d = x.shape
+    hd = d // heads
+    cdt = x.dtype
+
+    def dense(a, w, bias):
+        rows = mm_f32(a.reshape(-1, a.shape[-1]).to(cdt), w.to(cdt))
+        return rows.reshape(*a.shape[:-1], -1) + bias.float()
+
+    def split(t):
+        t = t.reshape(b, t.shape[1], heads, hd).transpose(1, 2)
+        return t.reshape(b * heads, -1, hd)
+
+    h = layernorm_f32(x, ln1s, ln1b).to(cdt)
+    kv = dense(h, wqkv[:, d:], bqkv[d:]).to(cdt)
+    q = dense(h[:, :1] if cls_only else h, wqkv[:, :d], bqkv[:d]).to(cdt)
+    k, v = kv.split(d, dim=-1)
+    sc = mm_f32(split(q), split(k).transpose(-1, -2)) / math.sqrt(hd)
+    sc = sc.masked_fill(torch.arange(s, device=x.device) >= valid,
+                        float("-inf"))
+    pr = torch.exp(sc - sc.amax(dim=-1, keepdim=True)).to(cdt)
+    ao = mm_f32(pr, split(v)) / pr.float().sum(-1, keepdim=True)
+    ao = ao.to(cdt).reshape(b, heads, -1, hd).transpose(1, 2)
+    x1 = (x[:, :1] if cls_only else x).float() + dense(
+        ao.reshape(b, -1, d), wout, bout)
+    g = dense(layernorm_f32(x1, ln2s, ln2b).to(cdt), w1, b1)
+    out = (x1 + dense((g * torch.sigmoid(1.702 * g)).to(cdt), w2, b2)).to(cdt)
+    return out[:, 0] if cls_only else out
+
+
 def check_layer(torch, bf16_layer, name, x, p, heads, valid) -> float:
     """Hold one bf16 layer kernel (``name``: the block or the CLS wrapper)
     to its plain version on the valid rows, with controls that must fail
-    the same gate: the plain version without the key mask, and with each
-    bias zeroed.  Returns the max-abs error."""
+    the same gate: the plain version without the key mask, with each bias
+    zeroed, and the earlier max-subtracted form.  Returns the max-abs
+    error."""
     kernel = getattr(bf16_layer, name)
     plain = getattr(bf16_layer, name + "_plain")
     s = x.shape[1]
@@ -390,8 +454,30 @@ def check_layer(torch, bf16_layer, name, x, p, heads, valid) -> float:
         q = list(p)
         q[i] = torch.zeros_like(q[i])
         controls[bname + "=0"] = valid_rows(plain(x, *q, heads, valid))
+    controls["max-subtracted form"] = valid_rows(maxsub_layer(
+        torch, x, p, heads, valid, name.endswith("cls_bf16")))
     return gate(torch, f"{name} valid {valid}/{s}", got, ref, controls,
                 LAYER_REL_TOL, LAYER_MAX_ULPS)
+
+
+def check_layer_gemm(torch, bf16_layer, epilogue, m, n, k, gen, dev) -> float:
+    """Hold one of the layer's GEMM instances (csrc/wgmma_gemm.cuh) alone to
+    the plain f32 product of the same bf16 operands at [m x k] x [k x n];
+    control: the bias dropped.  Returns the max-abs error."""
+    a = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+    w_t = (torch.randn(n, k, generator=gen, device=dev) * k ** -0.5).to(
+        torch.bfloat16)
+    bias = 0.1 * torch.randn(n, generator=gen, device=dev)
+    rdt = bf16_layer.GEMM_EPILOGUES[epilogue][1]
+    res = (None if rdt is None
+           else torch.randn(m, n, generator=gen, device=dev).to(rdt))
+    ref = bf16_layer.layer_gemm_plain(a, w_t, bias, epilogue, res)
+    got = bf16_layer.layer_gemm(a, w_t, bias, epilogue, res)
+    controls = {"bias=0": bf16_layer.layer_gemm_plain(
+        a, w_t, torch.zeros_like(bias), epilogue, res)}
+    return gate(torch, f"layer GEMM {epilogue} [{m} x {k}] x [{k} x {n}] -> "
+                f"{str(got.dtype)[6:]}", got, ref, controls, GEMM_REL_TOL,
+                GEMM_MAX_ULPS)
 
 
 # (index, name) of the biases and the per-channel scales in the int8
@@ -699,6 +785,33 @@ def check_train_mlp(torch, mm, x2, p, gen) -> tuple[float, float]:
                             ref[i], controls, TRAIN_BWD_REL_TOL,
                             TRAIN_BWD_MAX_ULPS))
     return e15, e16
+
+
+def check_flash_f32(torch, fa, b, s, heads, gen, dev) -> float:
+    """Hold row 14's f32 instance to its plain version in f32 on q, k, v
+    [B, S, H, 64] slices of one f32 qkv tensor: within FLASH_F32_REL_TOL
+    (mean and max-abs relative), with q unscaled as a control that must
+    fail.  Returns the max-abs error."""
+    d = heads * 64
+    qkv = torch.randn(b, s, 3 * d, generator=gen, device=dev)
+    q, k, v = (t.unflatten(-1, (heads, 64)) for t in qkv.split(d, dim=-1))
+    ref = fa.flash_attention_plain(q, k, v)
+    got = fa.flash_attention(q, k, v)
+    ctrl = fa.flash_attention_plain(q, k, v, scale=False)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    gaps = (rel_err(got, ref), err / scale)
+    cgap = (rel_err(ctrl, ref), float((ctrl - ref).abs().max()) / scale)
+    print(f"[kernel] flash_attention f32 [{b}, {s}, {heads}, 64] vs plain: "
+          f"rel err {gaps[0]:.3g}, max-abs / max|ref| {gaps[1]:.3g}; control "
+          f"(must fail) q unscaled {cgap[0]:.3g} / {cgap[1]:.3g}")
+    check(bool(torch.isfinite(got).all()) and max(gaps) <= FLASH_F32_REL_TOL,
+          f"flash_attention f32 disagrees with its plain version (gate "
+          f"{FLASH_F32_REL_TOL})")
+    check(max(cgap) > FLASH_F32_REL_TOL, "flash_attention f32: the control "
+          "passes the gate")
+    return err
 
 
 def check_flash(torch, fa, b, s, heads, gen, dev, gain: float = 1.0) -> float:
@@ -1373,6 +1486,16 @@ def main() -> None:
         check_flash(torch, fa, b, 64, heads, agen, dev),
         check_flash(torch, fa, b, valid, heads, agen, dev,
                     gain=FLASH_SATURATING_GAIN))
+    errs["flash_attention_f32"] = max(
+        check_flash_f32(torch, fa, b, valid, heads, agen, dev),
+        check_flash_f32(torch, fa, b, 64, heads, agen, dev))
+
+    # the layer's GEMM alone, each of its four instances at a batch of
+    # 128's rows and at B 2's ragged 416, on a generator of its own
+    ggen = torch.Generator(device=dev).manual_seed(21)
+    for epi, (gn, gk) in GEMM_SHAPES.items():
+        for gm in (128 * s, 2 * s):
+            check_layer_gemm(torch, bf16_layer, epi, gm, gn, gk, ggen, dev)
 
     n_big, dg, nq, k = 1_000_000, 512, 64, 10
     gal = torch.randn(n_big, dg, generator=gen, device=dev)
@@ -1722,6 +1845,32 @@ def main() -> None:
                       if key != "num_missing_rankings"),
               f"the {mode} tower's slice disagrees or is out of range")
 
+    # JAX's VisionTransformer defaults to f32: the f32 use_flash tower from
+    # the same weights runs row 14's f32 instance in every layer
+    f32_tower = VisionTransformer(VIT_B16, dtype=torch.float32,
+                                  fused_layer=False, use_flash=True)
+    f32_tower.load_state_dict(tower.state_dict())
+    f32_tower = f32_tower.to(dev).eval()
+    run_path("RetrievalEngine(batch_size=32).encode_paths, VisionTransformer("
+             "dtype=float32, fused_layer=False, use_flash=True)",
+             (fa.flash_attention_f32,),
+             lambda: encode_bf16(f32_tower, 32, "use_flash f32"))
+    f32_tower.kernels = False
+    encode_bf16(f32_tower, 32, "use_flash f32 plain")
+    del f32_tower
+    e32, p32 = bf16_feats["use_flash f32"], bf16_feats["use_flash f32 plain"]
+    print(f"[slice] use_flash f32 tower over {e32.shape[0]} images: kernels "
+          f"vs plain rel err {rel_err(e32, p32):.3g}, min cosine "
+          f"{min_row_cosine(torch, e32, p32):.7f}; vs the bf16 fused-layer "
+          f"tower min cosine "
+          f"{min_row_cosine(torch, e32, bf16_feats['fused_layer']):.6f}")
+    check(e32.shape == (n_gallery, 512) and bool(torch.isfinite(e32).all())
+          and rel_err(e32, p32) <= FLASH_F32_REL_TOL * 10
+          and min_row_cosine(torch, e32, bf16_feats["fused_layer"])
+          >= PER_OP_MIN_COS,
+          "the f32 use_flash tower disagrees with its plain version or the "
+          "bf16 tower")
+
     # the fused-layer tower at an odd batch: a RetrievalEngine at batch_size
     # 3 pads every batch to 3 images, where JAX runs no layer kernel but its
     # per-op composition in every layer; so must the port (rows 1 and 2
@@ -1861,9 +2010,38 @@ def main() -> None:
         print_breakdown(torch, f"int8 tower, batch {bv}", ragged)
 
     xb = torch.randn(bt, s, d, generator=gen, device=dev).to(torch.bfloat16)
+    # rows 1-2 on weights folded once, as the tower holds them
+    fold_kw = {"folded": bf16_layer.fold_layer(*p, heads)}
+    for kname in ("fused_layer_block_bf16", "fused_layer_cls_bf16"):
+        kernel = getattr(bf16_layer, kname)
+        plain = getattr(bf16_layer, kname + "_plain")
+        times[kname] = in_turns(
+            torch, lambda: plain(xb, *p, heads, valid, **fold_kw),
+            lambda: kernel(xb, *p, heads, valid, **fold_kw))
+    # row 1's four GEMM instances alone, beside torch.matmul of the same
+    # bf16 product (cuBLAS, no epilogue): a yardstick only
+    fw = fold_kw["folded"]
+    m = bt * s
+    ga = {"bias": xb.reshape(m, d), "res_bias": xb.reshape(m, d),
+          "bias_gelu": xb.reshape(m, d),
+          "bias_res": torch.randn(m, f, generator=gen, device=dev).to(
+              torch.bfloat16)}
+    gw = {"bias": (fw.wqkv_t, fw.bqkv), "res_bias": (fw.wout_t, fw.bout),
+          "bias_gelu": (fw.w1_t, fw.b1), "bias_res": (fw.w2_t, fw.b2)}
+    gres = {"res_bias": xb.reshape(m, d),
+            "bias_res": torch.randn(m, d, generator=gen, device=dev)}
+    for epi in GEMM_SHAPES:
+        wt, bias = gw[epi]
+        n_, k_ = wt.shape
+        ms = cuda_ms(torch, lambda: bf16_layer.layer_gemm(
+            ga[epi], wt, bias, epi, gres.get(epi)))
+        lib = cuda_ms(torch, lambda: torch.matmul(ga[epi], wt.T))
+        tf = 2 * m * n_ * k_ / 1e9
+        print(f"[time] layer GEMM {epi} [{m} x {k_}] x [{k_} x {n_}]: "
+              f"{ms:.3f} ms ({tf / ms:.0f} TFLOP/s); torch.matmul of the same "
+              f"bf16 product {lib:.3f} ms ({tf / lib:.0f} TFLOP/s) {label}")
+    del ga, gres
     for kname, module, args in (
-            ("fused_layer_block_bf16", bf16_layer, (*p, heads, valid)),
-            ("fused_layer_cls_bf16", bf16_layer, (*p, heads, valid)),
             ("quant_attention_block", qm, (*ip_attn, heads, valid)),
             ("quant_attention_cls", qm, (*ip_attn, heads, valid)),
             ("quant_mlp_block", qm, ip_mlp)):
@@ -1943,6 +2121,14 @@ def main() -> None:
     library = {"flash_attention": cuda_ms(
         torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             sq, sk_, sv))}
+    # the f32 instance at the same shapes; SDPA on f32 as its yardstick
+    fq, fk, fv, sq, sk_, sv = (t.float() for t in (fq, fk, fv, sq, sk_, sv))
+    times["flash_attention_f32"] = in_turns(
+        torch, lambda: fa.flash_attention_plain(fq, fk, fv),
+        lambda: fa.flash_attention(fq, fk, fv), iters=5)
+    library["flash_attention_f32"] = cuda_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            sq, sk_, sv))
     del qkv, fq, fk, fv, sq, sk_, sv
     bounds = {**layer_bounds(bt, s, valid, d, f, int8=False),
               **layer_bounds(bt, s, valid, d, f, int8=True),
@@ -1950,7 +2136,11 @@ def main() -> None:
               **int8_family_bounds(bt - 1, bt, s, valid, d, f, bt * s),
               # q, k, v read and o written once (bf16); q kᵀ and p v
               "flash_attention": bound(4 * 2 * bt * valid * d,
-                                       {"bf16": 4 * bt * valid * valid * d})}
+                                       {"bf16": 4 * bt * valid * valid * d}),
+              # the f32 instance runs on the FP32 units (no tensor cores)
+              "flash_attention_f32": bound(
+                  4 * 4 * bt * valid * d,
+                  {"fp32": 4 * bt * valid * valid * d})}
 
     # one training step at 64 pairs (ClipFinetuneConfig's defaults), u8
     # batches already on the card: first one step with the kernels against
@@ -2107,10 +2297,12 @@ def main() -> None:
             ("quant_mlp", "int8_layer.cu",
              "patent_tpu/ops/quant_matmul.py:266"),
             ("flash_attention", "flash_attention.cu",
+             "patent_tpu/ops/flash_attention.py:187"),
+            ("flash_attention_f32", "flash_attention.cu",
              "patent_tpu/ops/flash_attention.py:187")]
     errs["bucket_topk_bf16"] = err_topk
-    # one PyTorch call computes row 14's function (up to its exp2 form and
-    # roundings); none computes any of the others
+    # one PyTorch call computes row 14's function in each dtype (up to its
+    # exp2 form and roundings); none computes any of the others
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": src + source,
          "replaces": replaces, "launches": launches[kname],

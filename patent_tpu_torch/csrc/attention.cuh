@@ -1,25 +1,16 @@
 // Multi-head attention over one (query tile, head, image) with K and V of
-// the whole sequence in shared memory, shared by the bf16 layer kernels
-// (csrc/bf16_layer.cu) and the int8 layer kernels (csrc/int8_layer.cu).
+// the whole sequence in shared memory, in the TPU kernels' exp2 form:
+// q carries log2(e)/sqrt(hd) already, so p = bf16(exp2(clip(s, -100, 80)))
+// with no max subtraction; the denominator sums the rounded p over the
+// valid keys; output O / sum, an exact f32 divide.  Keys at or past
+// valid_len take p = 0, which equals the TPU kernels' zeroed V rows and 0/1
+// valid column: the pad keys add exact zeros.  The stream is padded, so
+// rows valid_len..S-1 of K and V exist in memory.
 //
-// Two softmax forms, chosen at compile time:
-//   * SOFTMAX_MAXSUB (bf16 layer): scores times `scale`, the row max
-//     subtracted, exp; p rounded to bf16 for the p.v product and the
-//     denominator summed over the same rounded p; output bf16(O / sum) as
-//     O * (1 / sum).
-//   * SOFTMAX_EXP2_CLAMP (int8 layer, the TPU kernels' form): q carries
-//     log2(e)/sqrt(hd) already, so p = bf16(exp2(clip(s, -100, 80))) with
-//     no max subtraction; the denominator sums the rounded p over the
-//     valid keys; output O / sum, an exact f32 divide, stored as f32.
-// Keys at or past valid_len take p = 0, which equals the TPU kernels'
-// zeroed V rows and 0/1 valid column: the pad keys add exact zeros.
-//
-// RAW_QKV = false (the layer kernels): the stream is padded, so rows
-// valid_len..S-1 of K and V exist in memory, and q carries its scale.
-// RAW_QKV = true (csrc/flash_attention.cu): only rows below valid_len exist;
-// K and V rows from there to S are zero-filled in shared memory, and q is
-// multiplied by `scale` in f32 on load and rounded to bf16.  The other
-// instances compile as before.
+// Shared by the int8 layer kernels (csrc/int8_layer.cu, f32 output) and the
+// trainable attention sub-layer's forward (csrc/fused_attention.cu, bf16
+// output).  The bf16 serving layer and the standalone attention have their
+// own tile, csrc/flash_tile.cuh.
 #pragma once
 
 #include <mma.h>
@@ -30,8 +21,6 @@ namespace ptt_attention {
 
 using namespace nvcuda;
 using ptt::bf16;
-
-enum Softmax { SOFTMAX_MAXSUB = 0, SOFTMAX_EXP2_CLAMP = 1 };
 
 constexpr int HD = 64;   // head width this kernel is written for
 constexpr int QT = 64;   // query rows per block
@@ -55,12 +44,12 @@ inline size_t smem_bytes(int S) {
 // the block loads; warps 0-3 compute, each owning 16 query rows, and the
 // others return after the loads.  The caller that runs several tiles in
 // one block syncs the block between them.
-template <int SOFTMAX, typename OutT, bool RAW_QKV = false>
+template <typename OutT>
 __device__ __forceinline__ void attention_tile(
     const bf16* __restrict__ q, long long q_img, int q_row, int n_q,
     const bf16* __restrict__ k, const bf16* __restrict__ v, long long kv_img,
     int kv_row, OutT* __restrict__ o, long long o_img, int o_row, int S,
-    int valid_len, float scale, int qt, int h, int b, unsigned char* smem) {
+    int valid_len, int qt, int h, int b, unsigned char* smem) {
   const int sld = s_ld(S);
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + (size_t)S * KV_LD;
@@ -77,13 +66,6 @@ __device__ __forceinline__ void attention_tile(
 
   for (int c = tid; c < S * (HD / 8); c += nthreads) {
     const int r = c >> 3, cc = (c & 7) * 8;
-    if constexpr (RAW_QKV) {
-      if (r >= valid_len) {          // past the sequence: nothing to read
-        *reinterpret_cast<uint4*>(&Ks[r * KV_LD + cc]) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(&Vs[r * KV_LD + cc]) = make_uint4(0u, 0u, 0u, 0u);
-        continue;
-      }
-    }
     *reinterpret_cast<uint4*>(&Ks[r * KV_LD + cc]) =
         *reinterpret_cast<const uint4*>(&kb[(size_t)r * kv_row + cc]);
     *reinterpret_cast<uint4*>(&Vs[r * KV_LD + cc]) =
@@ -94,12 +76,6 @@ __device__ __forceinline__ void attention_tile(
     const int qr = qt * QT + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (qr < n_q) val = *reinterpret_cast<const uint4*>(&qb[(size_t)qr * q_row + cc]);
-    if constexpr (RAW_QKV) {         // bf16(f32(q) * scale), the TPU kernel's
-      bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
-    }
     *reinterpret_cast<uint4*>(&Qs[r * KV_LD + cc]) = val;
   }
   __syncthreads();
@@ -126,27 +102,16 @@ __device__ __forceinline__ void attention_tile(
   for (int rr = 0; rr < 16; ++rr) {
     const int r = r0 + rr;
     const float* srow = Ss + (size_t)r * sld;
-    float mx = 0.0f;
-    if constexpr (SOFTMAX == SOFTMAX_MAXSUB) {
-      mx = -INFINITY;
-      for (int c = lane; c < valid_len; c += 32) mx = fmaxf(mx, srow[c] * scale);
-      mx = ptt::warp_max(mx);
-    }
     float sum = 0.0f;
     for (int c = lane; c < S; c += 32) {
       float p = 0.0f;
-      if (c < valid_len) {
-        if constexpr (SOFTMAX == SOFTMAX_MAXSUB)
-          p = expf(srow[c] * scale - mx);
-        else
-          p = exp2f(fminf(fmaxf(srow[c], SCORE_LO), SCORE_HI));
-      }
+      if (c < valid_len) p = exp2f(fminf(fmaxf(srow[c], SCORE_LO), SCORE_HI));
       const bf16 pb = __float2bfloat16(p);
       Ps[r * sld + c] = pb;
       sum += __bfloat162float(pb);
     }
     sum = ptt::warp_sum(sum);
-    if (lane == 0) rsum[r] = SOFTMAX == SOFTMAX_MAXSUB ? 1.0f / sum : sum;
+    if (lane == 0) rsum[r] = sum;
   }
   __syncwarp();
 
@@ -173,46 +138,41 @@ __device__ __forceinline__ void attention_tile(
   for (int e = lane; e < 16 * HD; e += 32) {
     const int r = r0 + e / HD, c = e % HD;
     const int qr = qt * QT + r;
-    if (qr < n_q) {
-      if constexpr (SOFTMAX == SOFTMAX_MAXSUB)
-        ptt::store_f(&ob[(size_t)qr * o_row + c], Ss[r * sld + c] * rsum[r]);
-      else
-        ptt::store_f(&ob[(size_t)qr * o_row + c],
-                     __fdiv_rn(Ss[r * sld + c], rsum[r]));
-    }
+    if (qr < n_q)
+      ptt::store_f(&ob[(size_t)qr * o_row + c],
+                   __fdiv_rn(Ss[r * sld + c], rsum[r]));
   }
 }
 
 // One block of THREADS threads per (query tile, head, image).
-template <int SOFTMAX, typename OutT, bool RAW_QKV = false>
+template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
     attention_kernel(const bf16* __restrict__ q, long long q_img, int q_row,
                      int n_q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, long long kv_img, int kv_row,
                      OutT* __restrict__ o, long long o_img, int o_row, int S,
-                     int valid_len, float scale) {
+                     int valid_len) {
   extern __shared__ __align__(128) unsigned char smem[];
-  attention_tile<SOFTMAX, OutT, RAW_QKV>(q, q_img, q_row, n_q, k, v, kv_img,
-                                         kv_row, o, o_img, o_row, S, valid_len,
-                                         scale, blockIdx.x, blockIdx.y,
-                                         blockIdx.z, smem);
+  attention_tile<OutT>(q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img,
+                       o_row, S, valid_len, blockIdx.x, blockIdx.y, blockIdx.z,
+                       smem);
 }
 
 // Launch over (query tiles, heads, images); returns cudaGetLastError().
-template <int SOFTMAX, typename OutT, bool RAW_QKV = false>
+template <typename OutT>
 int attention(const bf16* q, long long q_img, int q_row, int n_q,
               const bf16* k, const bf16* v, long long kv_img, int kv_row,
               OutT* o, long long o_img, int o_row, int B, int H, int S,
-              int valid_len, float scale, cudaStream_t st) {
+              int valid_len, cudaStream_t st) {
   const size_t smem = smem_bytes(S);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<SOFTMAX, OutT, RAW_QKV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n_q + QT - 1) / QT, H, B);
-  attention_kernel<SOFTMAX, OutT, RAW_QKV><<<grid, THREADS, smem, st>>>(
+  attention_kernel<OutT><<<grid, THREADS, smem, st>>>(
       q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img, o_row, S,
-      valid_len, scale);
+      valid_len);
   return (int)cudaGetLastError();
 }
 

@@ -389,8 +389,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-constexpr auto attention =
-    ptt_attention::attention<ptt_attention::SOFTMAX_EXP2_CLAMP, bf16>;
+constexpr auto attention = ptt_attention::attention<bf16>;
 
 }  // namespace
 
@@ -414,7 +413,7 @@ int ptt_fab_fwd(const void* x, void* out, int B, int S, int D, int H,
   PTT_CHECK();
   int err = attention(qkvb, (long long)S * 3 * D, 3 * D, S, qkvb + D,
                       qkvb + 2 * D, (long long)S * 3 * D, 3 * D, aob,
-                      (long long)S * D, D, B, H, S, valid_len, 1.0f, st);
+                      (long long)S * D, D, B, H, S, valid_len, st);
   if (err) return err;
   ptt_gemm::gemm<ptt_gemm::EPI_BIAS, float, bf16>(
       aob, D, (const bf16*)wout, D, (const float*)bout, nores, 0, (bf16*)out,

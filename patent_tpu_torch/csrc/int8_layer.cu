@@ -303,8 +303,7 @@ int rowquant(const InT* x, int ldx, const float* lns, const float* lnb,
   return (int)cudaGetLastError();
 }
 
-constexpr auto attention =
-    ptt_attention::attention<ptt_attention::SOFTMAX_EXP2_CLAMP, float>;
+constexpr auto attention = ptt_attention::attention<float>;
 
 // ---- the whole layer in one cooperative launch
 
@@ -377,9 +376,9 @@ __global__ void __launch_bounds__(QG_THREADS) int8_layer_kernel(LayerArgs a) {
   const long long img = (long long)S * 3 * D;
   for (int t = blockIdx.x; t < qtiles * a.H * a.B; t += gridDim.x) {
     __syncthreads();          // the last tile's warps are done with smem
-    ptt_attention::attention_tile<ptt_attention::SOFTMAX_EXP2_CLAMP, float>(
+    ptt_attention::attention_tile<float>(
         a.qkv, img, 3 * D, S, a.qkv + D, a.qkv + 2 * D, img, 3 * D, a.ao,
-        (long long)S * D, D, S, a.valid_len, 1.0f, t % qtiles,
+        (long long)S * D, D, S, a.valid_len, t % qtiles,
         t / qtiles % a.H, t / (qtiles * a.H), smem);
   }
   grid.sync();
@@ -477,7 +476,7 @@ int ptt_int8_attn(const void* x, void* out, int B, int S, int D, int H,
                                     nullptr, 0, qkvb, 3 * D, M, 3 * D, D, st)));
   PTT_TRY(attention(qkvb, (long long)S * 3 * D, 3 * D, S, qkvb + D,
                     qkvb + 2 * D, (long long)S * 3 * D, 3 * D, aof,
-                    (long long)S * D, D, B, H, S, valid_len, 1.0f, st));
+                    (long long)S * D, D, B, H, S, valid_len, st));
   PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, hq8, D, hsf, M, D,
                                   st)));
   return gemm_s8<QEPI_RES, bf16>(hq8, D, hsf, 1, (const int8_t*)wout_t, D,
@@ -518,7 +517,7 @@ int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
   PTT_TRY((gemm_s8<QEPI_BIAS, bf16>(hq8, S * D, hsf, S, w, D, sqf, bqf,
                                     nullptr, 0, qcb, D, B, D, D, st)));
   PTT_TRY(attention(qcb, D, D, 1, kvb, kvb + D, (long long)S * 2 * D, 2 * D,
-                    aof, D, D, B, H, S, valid_len, 1.0f, st));
+                    aof, D, D, B, H, S, valid_len, st));
   PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, aq8, D, asf, B, D,
                                   st)));
   return gemm_s8<QEPI_RES, bf16>(aq8, D, asf, 1, (const int8_t*)wout_t, D,

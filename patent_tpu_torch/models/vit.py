@@ -87,31 +87,77 @@ class EncoderLayer(nn.Module):
     """Parameters of one pre-LN layer, in the Flax layout.  The four
     matrices are held in ``dtype`` (what the layer computes with, so the
     kernels take them without a cast); LayerNorm vectors and biases in
-    f32."""
+    f32.
+
+    With ``num_heads`` the layer also holds its matrices in the fused-layer
+    kernels' form (``bf16_layer.fold_layer``: transposed, log2(e)/√hd
+    folded into the q rows) as buffers that the state dict leaves out.
+    They are made from the f32 values, once at init and once in each
+    ``load_state_dict``, since folding the ``dtype`` copy would round
+    twice; edit the matrices through ``load_state_dict``.  The q bias is
+    folded per call from the f32 ``bqkv`` (``folded``)."""
+
+    _MATRICES = ("wqkv_t", "wout_t", "w1_t", "w2_t")
 
     def __init__(self, d: int, mlp: int, dtype: torch.dtype = torch.float32,
-                 device=None, generator=None):
+                 device=None, generator=None, num_heads: int | None = None):
         super().__init__()
+        self.dtype = dtype
+        self.num_heads = num_heads
 
         def dense(fan_in, shape):
-            return nn.Parameter((torch.randn(
-                shape, generator=generator, device=device)
-                / math.sqrt(fan_in)).to(dtype))
+            return torch.randn(shape, generator=generator,
+                               device=device) / math.sqrt(fan_in)
 
         def vec(n, fill):
             return nn.Parameter(torch.full((n,), fill, device=device))
 
+        def mat(w):
+            return nn.Parameter(w.to(dtype))
+
+        wqkv, wout = dense(d, (d, 3 * d)), dense(d, (d, d))
+        w1, w2 = dense(d, (d, mlp)), dense(mlp, (mlp, d))
         self.ln1_scale, self.ln1_bias = vec(d, 1.0), vec(d, 0.0)
-        self.wqkv, self.bqkv = dense(d, (d, 3 * d)), vec(3 * d, 0.0)
-        self.wout, self.bout = dense(d, (d, d)), vec(d, 0.0)
+        self.wqkv, self.bqkv = mat(wqkv), vec(3 * d, 0.0)
+        self.wout, self.bout = mat(wout), vec(d, 0.0)
         self.ln2_scale, self.ln2_bias = vec(d, 1.0), vec(d, 0.0)
-        self.w1, self.b1 = dense(d, (d, mlp)), vec(mlp, 0.0)
-        self.w2, self.b2 = dense(mlp, (mlp, d)), vec(d, 0.0)
+        self.w1, self.b1 = mat(w1), vec(mlp, 0.0)
+        self.w2, self.b2 = mat(w2), vec(d, 0.0)
+        if num_heads is not None:
+            for name, t in zip(self._MATRICES,
+                               self._fold(wqkv, wout, w1, w2)):
+                self.register_buffer(name, t, persistent=False)
+
+    def _fold(self, wqkv, wout, w1, w2) -> tuple[torch.Tensor, ...]:
+        """The kernels' matrices from these (f32) values."""
+        def t(w):
+            return w.detach().to(self.dtype).T.contiguous()
+
+        return (bf16_layer.fold_q_matrix(wqkv.detach(), self.num_heads,
+                                         self.dtype).T.contiguous(),
+                t(wout), t(w1), t(w2))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        mats = [state_dict.get(prefix + n) for n in ("wqkv", "wout", "w1",
+                                                     "w2")]
+        if self.num_heads is not None and all(m is not None for m in mats):
+            with torch.no_grad():
+                for name, t in zip(self._MATRICES, self._fold(*mats)):
+                    getattr(self, name).copy_(t)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def weights(self) -> tuple[torch.Tensor, ...]:
         return (self.ln1_scale, self.ln1_bias, self.wqkv, self.bqkv,
                 self.wout, self.bout, self.ln2_scale, self.ln2_bias,
                 self.w1, self.b1, self.w2, self.b2)
+
+    def folded(self) -> bf16_layer.FoldedLayer:
+        """The weights in the fused-layer kernels' form (``num_heads``)."""
+        return bf16_layer.FoldedLayer(
+            self.ln1_scale, self.ln1_bias, self.wqkv_t,
+            bf16_layer.fold_q_bias(self.bqkv, self.num_heads), self.wout_t,
+            self.bout, self.ln2_scale, self.ln2_bias, self.w1_t, self.b1,
+            self.w2_t, self.b2)
 
 
 class TowerBase(nn.Module):
@@ -195,7 +241,8 @@ class VisionTransformer(TowerBase):
     tensor's device (kernel on CUDA, plain version on the CPU).
     ``keep_tokens``: serve only the K darkest patches plus CLS.  The
     layers' matrices are held in ``dtype`` and ``load_state_dict`` casts
-    f32 ones on the way in, once.
+    f32 ones on the way in, once; the fused-layer stack reads its folded
+    copies (``EncoderLayer.folded``), made from the same f32 values.
 
     Modes, with the JAX module's flags and precedence: ``fused_layer``
     (the default here; JAX's default is the per-op stack) beats the
@@ -221,7 +268,7 @@ class VisionTransformer(TowerBase):
         cfg = self.config
         return nn.ModuleList(
             EncoderLayer(cfg.hidden_dim, cfg.mlp_dim, self.dtype, device,
-                         generator)
+                         generator, num_heads=cfg.num_heads)
             for _ in range(cfg.num_layers))
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
@@ -240,7 +287,8 @@ class VisionTransformer(TowerBase):
                            bf16_layer.fused_layer_cls_bf16_plain)
         for i, layer in enumerate(self.blocks):
             fn = last if i == cfg.num_layers - 1 else block
-            x = fn(x, *layer.weights(), cfg.num_heads, valid_len=seq)
+            x = fn(x, *layer.weights(), cfg.num_heads, valid_len=seq,
+                   folded=layer.folded())
         return self.readout(x)
 
     def _per_op(self, pixel_values: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Attention of the JAX package's patent_tpu/ops/flash_attention.py: the
 exp2-domain score clamp and one-pass softmax·v the serving layers share,
 the standalone attention ``flash_attention`` of the ``use_flash`` tower
-(TPU row 14; the kernel of csrc/flash_attention.cu on a CUDA tensor,
-``flash_attention_plain`` on a CPU tensor; inference only, as the TPU
-kernel has no VJP), and the trainable attention sub-layer
+(TPU row 14; the kernel of csrc/flash_attention.cu, bf16 or f32, on a
+CUDA tensor, ``flash_attention_plain`` on a CPU tensor; inference only, as
+the TPU kernel has no VJP), and the trainable attention sub-layer
 ``fused_attention_block`` of the fine-tune tower with its backward.
 
 ``fused_attention_block`` computes ``(x Wqkv + b) → MHA → @ Wout + b``
@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .common import (ATTENTION_HEAD_DIM, check_attention_shape,
+from .common import (ATTENTION_HEAD_DIM, SMEM_LIMIT, check_attention_shape,
                      check_cuda_tensor, mm_f32, refuse_grad, round_up,
                      weak_scalar)
 
@@ -331,22 +331,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_check(q, k, v) -> None:
-    """Raise unless the row-14 kernel takes q, k, v: bf16 [B, S, H, 64] on
-    the card with each row's [H, 64] packed (a slice of a wider row, as q,
-    k, v of one qkv tensor are, is read in place), 16-byte aligned, k and
-    v with the same strides, and the sequence within shared memory."""
+    """Raise unless the row-14 kernel takes q, k, v: [B, S, H, 64] of one
+    dtype, bf16 or f32, on the card with each row's [H, 64] packed (a
+    slice of a wider row, as q, k, v of one qkv tensor are, is read in
+    place), 16-byte aligned, k and v with the same strides, and the
+    sequence within shared memory."""
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: the row-14 kernel takes bfloat16, got "
-                             f"{t.dtype}")
+        if t.dtype not in (torch.bfloat16, torch.float32) or \
+                t.dtype != q.dtype:
+            raise ValueError(f"{name}: the row-14 kernel takes bfloat16 or "
+                             f"float32, all three alike; got {t.dtype} "
+                             f"(q {q.dtype})")
         if tuple(t.shape) != (b, s, h, d):
             raise ValueError(f"{name}: expected shape {(b, s, h, d)}, got "
                              f"{tuple(t.shape)}")
         st = t.stride()
-        if (st[3] != 1 or st[2] != d or st[1] % 8 or st[0] % 8
+        per16 = 16 // t.element_size()
+        if (st[3] != 1 or st[2] != d or st[1] % per16 or st[0] % per16
                 or t.data_ptr() % 16):
             raise ValueError(f"{name}: each row's [H, D] must be packed and "
                              f"16-byte aligned, got strides {st}")
@@ -356,28 +360,61 @@ def _flash_check(q, k, v) -> None:
     if d != ATTENTION_HEAD_DIM:
         raise ValueError(f"the row-14 kernel needs head_dim "
                          f"{ATTENTION_HEAD_DIM}, got {d}")
-    check_attention_shape(h * d, h, round_up(s, 16), s)
+    if q.dtype == torch.float32:
+        if 2 * s * d * 4 > SMEM_LIMIT:
+            raise ValueError(f"sequence {s} exceeds the f32 row-14 kernel's "
+                             "shared memory")
+    else:
+        check_attention_shape(h * d, h, round_up(s, 16), s)
+
+
+def _launch_flash(name: str, q, k, v) -> torch.Tensor:
+    b, s, h, d = q.shape
+    out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
+    _build.call(name, _SIG_FLASH, _build.ptr(q), _build.ptr(k), _build.ptr(v),
+                _build.ptr(out), b, s, h, q.stride(0), q.stride(1),
+                k.stride(0), k.stride(1),
+                (1.0 / math.sqrt(d)) * math.log2(math.e),
+                _build.stream(q.device))
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     head_batch: bool = True) -> torch.Tensor:
     """softmax(q kᵀ/√D) v for q, k, v [B, S, H, D] → [B, S, H, D], the
-    TPU kernel's exp2 form (``flash_attention_plain``).  Inference only.
-    CPU tensor: the plain version; CUDA tensor (bf16, head_dim 64): the
-    kernel, or an error."""
+    TPU kernel's exp2 form (``flash_attention_plain``) in q's dtype.
+    Inference only.  CPU tensor: the plain version; CUDA tensor (head_dim
+    64): bf16 the kernel, f32 ``flash_attention_f32``, anything else an
+    error."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, head_batch)
+    if q.dtype == torch.float32:
+        return flash_attention_f32(q, k, v)
     _flash_check(q, k, v)
     refuse_grad("flash_attention", q, k, v)
-    b, s, h, d = q.shape
-    out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
-    _build.call("ptt_flash_attention", _SIG_FLASH, _build.ptr(q),
-                _build.ptr(k), _build.ptr(v), _build.ptr(out), b, s, h,
-                q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                (1.0 / math.sqrt(d)) * math.log2(math.e),
-                _build.stream(q.device))
+    out = _launch_flash("ptt_flash_attention", q, k, v)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Row 14's f32 instance (``flash_attention`` on f32 tensors): the
+    plain version's f32 function, products and sums in f32 with no TF32.
+    CPU tensor: the plain version; CUDA tensor (f32): the kernel, or an
+    error."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    _flash_check(q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention_f32 takes float32, got {q.dtype}")
+    refuse_grad("flash_attention", q, k, v)
+    out = _launch_flash("ptt_flash_attention_f32", q, k, v)
+    flash_attention_f32.launches += 1
+    return out
+
+
+flash_attention_f32.launches = 0

@@ -80,12 +80,16 @@ def _rel_err(a, b):
     return float((a - b).abs().mean() / b.abs().mean())
 
 
+@pytest.mark.parametrize("b", [2, 4, 16])
 @pytest.mark.parametrize("name", ["fused_layer_block_bf16",
                                   "fused_layer_cls_bf16"])
-def test_layer_kernel_matches_plain_and_controls_do_not(cuda, name):
+def test_layer_kernel_matches_plain_and_controls_do_not(cuda, name, b):
+    """Rows 1 and 2 against the TPU kernel's function in plain PyTorch
+    (an odd batch runs no layer kernel); M = B·48 rows cut the GEMMs' 128-
+    row tiles raggedly."""
     kernel = getattr(bf16_layer, name)
     plain = getattr(bf16_layer, name + "_plain")
-    x, p = _layer_case(cuda, b=4)        # an odd batch runs no layer kernel
+    x, p = _layer_case(cuda, b=b)
 
     def rows(t):                     # the valid rows (CLS: [B, D] already)
         return t[:, :VALID] if t.dim() == 3 else t
@@ -106,8 +110,9 @@ def test_layer_kernel_matches_plain_and_controls_do_not(cuda, name):
                         want) > REL_TOL, i
 
 
-def test_cls_kernel_is_row_0_of_the_layer_kernel(cuda):
-    x, p = _layer_case(cuda, b=4)
+@pytest.mark.parametrize("b", [2, 4, 16])
+def test_cls_kernel_is_row_0_of_the_layer_kernel(cuda, b):
+    x, p = _layer_case(cuda, b=b)
     got = bf16_layer.fused_layer_block_bf16(x, *p, HEADS, valid_len=VALID)
     cls = bf16_layer.fused_layer_cls_bf16(x, *p, HEADS, valid_len=VALID)
     torch.cuda.synchronize()
@@ -128,7 +133,50 @@ def test_layer_kernel_rejects_what_it_does_not_take(cuda):
                                           valid_len=VALID)
     with pytest.raises(ValueError):      # f32 matrices: the kernel casts none
         bf16_layer.fused_layer_block_bf16(
-            x, *[t.float() for t in p], HEADS, valid_len=VALID)
+            x, *p, HEADS, valid_len=VALID,
+            folded=bf16_layer.fold_layer(*p, HEADS, dtype=torch.float32))
+    # unfolded f32 weights are folded in f32 and rounded once, as JAX does
+    f32 = [t.float() for t in p]
+    assert torch.equal(
+        bf16_layer.fused_layer_block_bf16(x, *f32, HEADS, valid_len=VALID),
+        bf16_layer.fused_layer_block_bf16(
+            x, *p, HEADS, valid_len=VALID,
+            folded=bf16_layer.fold_layer(*f32, HEADS)))
+
+
+# The layer's GEMM (csrc/wgmma_gemm.cuh) against the plain f32 product of
+# the same bf16 operands: f32 sums in another order, so a bf16 output
+# flips a rounding now and then (relative error ~1e-5 or less), an f32 one
+# differs by ~1e-7; the bias dropped moves it by 1e-2 or more.
+GEMM_REL_TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
+GEMM_SHAPES = {"bias": (2304, 768), "bias_gelu": (3072, 768),
+               "res_bias": (768, 768), "bias_res": (768, 3072)}
+
+
+@pytest.mark.parametrize("m", [26624, 416, 208])
+@pytest.mark.parametrize("epilogue", sorted(GEMM_SHAPES))
+def test_layer_gemm_matches_plain(cuda, epilogue, m):
+    n, k = GEMM_SHAPES[epilogue]
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w_t = (torch.randn(n, k, generator=g, device=cuda) * k ** -0.5).to(
+        torch.bfloat16)
+    bias = 0.1 * torch.randn(n, generator=g, device=cuda)
+    rdt = bf16_layer.GEMM_EPILOGUES[epilogue][1]
+    res = (None if rdt is None
+           else torch.randn(m, n, generator=g, device=cuda).to(rdt))
+    n0 = bf16_layer.layer_gemm.launches
+    got = bf16_layer.layer_gemm(a, w_t, bias, epilogue, res)
+    want = bf16_layer.layer_gemm_plain(a, w_t, bias, epilogue, res)
+    no_bias = bf16_layer.layer_gemm_plain(a, w_t, torch.zeros_like(bias),
+                                          epilogue, res)
+    torch.cuda.synchronize()
+    assert bf16_layer.layer_gemm.launches == n0 + 1
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    assert torch.isfinite(got.float()).all()
+    tol = GEMM_REL_TOL[got.dtype]
+    assert _rel_err(got, want) <= tol
+    assert _rel_err(no_bias, want) > tol
 
 
 def test_bucket_kernel_matches_plain(cuda):
@@ -237,6 +285,24 @@ def test_per_op_tower_kernels_match_plain(cuda, flags, kernel):
     assert _min_cosine(got, want) > 0.9999
 
 
+def test_f32_use_flash_tower_launches_the_f32_kernel(cuda):
+    """JAX's tower defaults to f32: the f32 use_flash tower runs row 14's
+    f32 instance once a layer, within f32 noise of its plain version."""
+    gen = torch.Generator().manual_seed(5)
+    tower = VisionTransformer(TOWER_CFG, dtype=torch.float32, generator=gen,
+                              fused_layer=False, use_flash=True)
+    tower = tower.to(cuda).eval()
+    px = torch.randn(3, 32, 32, 3, device=cuda)
+    n0 = fa.flash_attention_f32.launches
+    with torch.inference_mode():
+        got = tower(px)
+        tower.kernels = False
+        want = tower(px)
+    assert fa.flash_attention_f32.launches == n0 + TOWER_CFG.num_layers
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel_err(got, want) <= 1e-4
+
+
 # Row 14: the kernel and the plain version round the same bf16 q and p and
 # differ by f32 summation order, which now and then flips one output
 # rounding; leaving q unscaled or counting the zero keys up to the next
@@ -254,9 +320,10 @@ def _flash_case(dev, b, s, heads=2, gain=1.0, seed=11):
                  qkv.to(torch.bfloat16).split(heads * 64, dim=-1))
 
 
-@pytest.mark.parametrize("s", [197, 64, 5])
-def test_flash_kernel_matches_plain_and_controls_do_not(cuda, s):
-    q, k, v = _flash_case(cuda, 3, s)
+@pytest.mark.parametrize("b,heads", [(3, 2), (1, 12), (3, 1)])
+@pytest.mark.parametrize("s", [197, 64, 16, 5])
+def test_flash_kernel_matches_plain_and_controls_do_not(cuda, s, b, heads):
+    q, k, v = _flash_case(cuda, b, s, heads=heads)
     n0 = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention_plain(q, k, v)
@@ -276,11 +343,12 @@ def test_flash_kernel_matches_plain_and_controls_do_not(cuda, s):
         assert _rel_err(ctrl, want) > FLASH_REL_TOL, name
 
 
-def test_flash_kernel_clamps_scores_past_80(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_clamps_scores_past_80(cuda, dtype):
     """q x 40: ~8% of the exp2-domain scores pass +80; the kernel clamps
     them as the plain version does, and without the clamp the plain
     version is far off (or not finite)."""
-    q, k, v = _flash_case(cuda, 2, 197, gain=40.0)
+    q, k, v = (t.to(dtype) for t in _flash_case(cuda, 2, 197, gain=40.0))
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention_plain(q, k, v)
     no_clamp = fa.flash_attention_plain(q, k, v, clamp=False)
@@ -290,10 +358,32 @@ def test_flash_kernel_clamps_scores_past_80(cuda):
     assert not _rel_err(no_clamp, want) <= FLASH_REL_TOL
 
 
+# Row 14's f32 instance computes the plain version's f32 function: the
+# same products and sums, in another order (no TF32 on either side)
+FLASH_F32_REL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("s,heads", [(197, 12), (64, 2), (5, 1)])
+def test_flash_kernel_f32_matches_plain(cuda, s, heads):
+    q, k, v = (t.float() for t in _flash_case(cuda, 3, s, heads=heads))
+    n0 = fa.flash_attention_f32.launches
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_f32.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert _rel_err(got, want) <= FLASH_F32_REL_TOL
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    ctrl = fa.flash_attention_plain(q, k, v, scale=False)
+    assert _rel_err(ctrl, want) > FLASH_F32_REL_TOL
+
+
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = _flash_case(cuda, 2, 20)
-    with pytest.raises(ValueError, match="bfloat16"):
-        fa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fa.flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(*(t.reshape(2, 20, 4, 32) for t in (q, k, v)))
     with pytest.raises(ValueError, match="strides"):
