@@ -74,7 +74,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    not launched under grad, launched under no_grad); every other kernel's
    launch count over its path must be > 0;
 5. times (CUDA events): the bf16 and the int8 tower img/s at batch 128,
-   the three per-op bf16 towers at batch 128, the fused-layer bf16 tower
+   the three per-op bf16 towers and the f32 use_flash tower (row 14's f32
+   instance) at batch 128, the fused-layer bf16 tower
    at batch 3 (composition) and 127, row 14 at [128, 197, 12, 64] in bf16
    and f32 against its plain version and F.scaled_dot_product_attention,
    rows 1-2 on weights folded once, row 1's four GEMM instances beside
@@ -1857,7 +1858,7 @@ def main() -> None:
              lambda: encode_bf16(f32_tower, 32, "use_flash f32"))
     f32_tower.kernels = False
     encode_bf16(f32_tower, 32, "use_flash f32 plain")
-    del f32_tower
+    f32_tower.kernels = True
     e32, p32 = bf16_feats["use_flash f32"], bf16_feats["use_flash f32 plain"]
     print(f"[slice] use_flash f32 tower over {e32.shape[0]} images: kernels "
           f"vs plain rel err {rel_err(e32, p32):.3g}, min cosine "
@@ -1987,6 +1988,13 @@ def main() -> None:
     print_breakdown(torch, "bf16 per-op tower, use_flash, batch 128",
                     run_tower(per_op_towers["use_flash"], True))
     del per_op_towers
+    # the f32 use_flash tower (row 14's f32 instance in every layer)
+    ms = cuda_ms(torch, run_tower(f32_tower, True), iters=5)
+    print(f"[time] ViT-B/16 @224 f32 per-op tower, use_flash, batch {bt}: "
+          f"{bt / ms * 1e3:.1f} img/s ({ms:.2f} ms) {label}")
+    print_breakdown(torch, "f32 per-op tower, use_flash, batch 128",
+                    run_tower(f32_tower, True))
+    del f32_tower
     for bv in (3, bt - 1):
         def fused_layer_at(pv=pix[:bv]):
             with torch.inference_mode():

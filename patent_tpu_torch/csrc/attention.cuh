@@ -7,10 +7,9 @@
 // valid column: the pad keys add exact zeros.  The stream is padded, so
 // rows valid_len..S-1 of K and V exist in memory.
 //
-// Shared by the int8 layer kernels (csrc/int8_layer.cu, f32 output) and the
-// trainable attention sub-layer's forward (csrc/fused_attention.cu, bf16
-// output).  The bf16 serving layer and the standalone attention have their
-// own tile, csrc/flash_tile.cuh.
+// Used by the int8 layer kernels (csrc/int8_layer.cu, f32 output).  The
+// bf16 serving layer, the standalone attention and the trainable attention
+// sub-layer's forward have their own tile, csrc/flash_tile.cuh.
 #pragma once
 
 #include <mma.h>

@@ -46,12 +46,6 @@ using ptt::bf16;
 using ptt_gemm::layernorm;
 namespace wg = ptt_wgmma;
 
-#define PTT_TRY(call)              \
-  do {                             \
-    const int err_ = (call);       \
-    if (err_ != 0) return err_;    \
-  } while (0)
-
 extern "C" {
 
 // x [B, S, D] bf16 -> out [B, S, D] bf16.  wqkv_t [3D, D], wout_t [D, D],

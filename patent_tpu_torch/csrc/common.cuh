@@ -6,6 +6,13 @@
 #include <math.h>
 #include <stdint.h>
 
+// return a nonzero error code of `call` (a launch helper's) to the caller
+#define PTT_TRY(call)              \
+  do {                             \
+    const int err_ = (call);       \
+    if (err_ != 0) return err_;    \
+  } while (0)
+
 namespace ptt {
 
 typedef __nv_bfloat16 bf16;

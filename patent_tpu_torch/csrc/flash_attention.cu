@@ -20,13 +20,42 @@
 // strides are arguments, so the [B, S, H*64] layout, or slices of one
 // [B, S, 3*H*64] qkv tensor, need no copy or transpose).
 //
-// f32 (JAX's VisionTransformer defaults to f32): a plain kernel on the CUDA
-// cores, products and sums in f32 FMAs, no TF32.  One block of 128 threads
-// per (128 query rows, head, image) with the head's K and V in shared
-// memory as f32; each thread owns one query row, its q' and its 64 output
-// sums in registers, and walks the keys (every thread reads the same K and
-// V row, a broadcast).  Right before fast: it runs at FP32 FMA rate, and
-// at S 197 its 101 KB of shared memory allow two blocks an SM.
+// f32 (JAX's VisionTransformer defaults to f32): products and sums in f32
+// FMAs on the CUDA cores, no TF32.  What bounds it on the H100: at
+// [128, 197, 12, 64] it does 15.3 GFLOP (q.k and p.v) on 310 MB of q, k,
+// v and o, 0.228 ms at the 67 TFLOP/s FP32 rate against 0.093 ms of
+// bytes: the FMA units.  An FMA needs its two operands from registers,
+// and shared memory delivers 128 bytes a clock an SM against 128 FMAs,
+// so each value read from shared memory has to feed several FMAs.  The
+// design is an SGEMM's register tiling, applied to both products:
+//   * one block of 128 threads per (8*TM query rows, head, image); thread
+//     (tx, ty) of a 16 x 8 grid owns query rows ty + 8i (i < TM), and for
+//     q.k^T the keys tx + 16j of a 64-key tile (j < 4), for p.v the head
+//     dims 4tx..4tx+3.  A q' value read from shared memory feeds 4 FMAs
+//     (one per key), a K value TM; a p value 4 (one per dim), a V value
+//     TM.  TM (4 to 8) is chosen per launch so that the last query block
+//     wastes the fewest rows: S 197 takes TM 5, 5 blocks of 40 rows, 200
+//     rows in all;
+//   * with no running max there is nothing to rescale: keys stream
+//     through shared memory in tiles of 64, and only the output
+//     accumulators and the row sums carry from tile to tile.  K is
+//     double-buffered with cp.async (tile t + 1 loads during tile t), V
+//     single-buffered (it loads during the tile's q.k^T); the tile's p
+//     goes over its K once q.k^T is done.  Rows of 68 floats put the 8
+//     rows a quarter-warp reads in 8 different bank groups;
+//   * the last key tile computes q.k^T only for the key groups that hold
+//     a key below S (at S 197 one of four) and p.v over its keys rounded
+//     up to 4;
+//   * 62-69 KB of shared memory a block: three blocks (12 warps) an SM.
+// Each value read from shared memory feeds 2.2 FMAs at TM 5 (2.7 at TM
+// 8), so the shared-memory data path caps it below the FMA rate.  Larger
+// thread tiles feed more FMAs a value but take more registers and leave
+// fewer warps to hide latency: on the H100 they were slower than this
+// design (8 x 8 tiles at 254 registers, TM 9 to 13 at two blocks an SM),
+// as were p exchanged by warp shuffles instead of shared memory, and
+// 64-row blocks with a separate short block for the last rows.
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "flash_tile.cuh"
@@ -36,52 +65,200 @@ using ptt::bf16;
 namespace {
 
 constexpr int HD = ptt_flash::HD;
-constexpr int F32_ROWS = 128;   // query rows (threads) per block
+constexpr int F32_THREADS = 128;
+constexpr int F32_TX = 16;          // thread columns: keys, then head dims
+constexpr int F32_TY = 8;           // thread rows: query rows ty + 8i
+constexpr int F32_KT = 64;          // keys per tile
+constexpr int F32_LD = HD + 4;      // padded row of Q, K and p (floats)
 
-__global__ void __launch_bounds__(F32_ROWS)
+template <int TM>
+constexpr size_t f32_smem_bytes() {
+  return ((size_t)F32_TY * TM * F32_LD        // q'
+          + 2 * (size_t)F32_KT * F32_LD       // K, two stages (then p)
+          + (size_t)F32_KT * HD)              // V
+         * sizeof(float);
+}
+
+// s[i][j] += q'[ty + 8i] . k[tx + 16j] for the tile's first NJ key groups:
+// qs points at row ty, ks at row tx of the tile
+template <int TM, int NJ>
+__device__ __forceinline__ void f32_scores(float (&s)[TM][4],
+                                           const float* __restrict__ qs,
+                                           const float* __restrict__ ks) {
+#pragma unroll
+  for (int c = 0; c < HD; c += 4) {
+    float4 kv[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      kv[j] = *reinterpret_cast<const float4*>(&ks[16 * j * F32_LD + c]);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float4 qv =
+          *reinterpret_cast<const float4*>(&qs[F32_TY * i * F32_LD + c]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+        s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+        s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+        s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+      }
+    }
+  }
+}
+
+template <int TM>
+__global__ void __launch_bounds__(F32_THREADS, 3)
     flash_f32_kernel(const float* __restrict__ q, long long q_img, int q_row,
                      const float* __restrict__ k, const float* __restrict__ v,
                      long long kv_img, int kv_row, float* __restrict__ o,
                      long long o_img, int o_row, int S, float scale) {
-  extern __shared__ __align__(16) float kvs[];
-  float* Ks = kvs;
-  float* Vs = kvs + (size_t)S * HD;
-  const int h = blockIdx.y, b = blockIdx.z;
+  constexpr int BQ = F32_TY * TM;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                                 // [BQ][F32_LD]
+  float* Ks = Qs + BQ * F32_LD;                     // [2][F32_KT][F32_LD]
+  float* Vs = Ks + 2 * F32_KT * F32_LD;             // [F32_KT][HD]
+  const int tid = threadIdx.x, tx = tid % F32_TX, ty = tid / F32_TX;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const float* qb = q + b * q_img + h * HD;
   const float* kb = k + b * kv_img + h * HD;
   const float* vb = v + b * kv_img + h * HD;
-  for (int c = threadIdx.x; c < S * (HD / 4); c += blockDim.x) {
+  const int nt = (S + F32_KT - 1) / F32_KT;
+
+  // rows k0.. of K or V into a tile with row stride ld; rows at or past S
+  // are zero-filled (their source is not read)
+  auto load_rows = [&](float* dst, int ld, const float* src, int k0) {
+    for (int c = tid; c < F32_KT * (HD / 4); c += F32_THREADS) {
+      const int r = c / (HD / 4), cc = (c % (HD / 4)) * 4;
+      const bool ok = k0 + r < S;
+      ptt::cp_async16(&dst[r * ld + cc],
+                      ok ? src + (size_t)(k0 + r) * kv_row + cc : src, ok);
+    }
+    ptt::cp_async_commit();
+  };
+  load_rows(Ks, F32_LD, kb, 0);
+  // q' = f32(q) * scale, rounded once; rows past S are 0.  TM chunks a
+  // thread, unrolled so that their loads are in flight together
+  static_assert(BQ * (HD / 4) == TM * F32_THREADS, "TM chunks a thread");
+#pragma unroll
+  for (int u = 0; u < TM; ++u) {
+    const int c = tid + u * F32_THREADS;
     const int r = c / (HD / 4), cc = (c % (HD / 4)) * 4;
-    *reinterpret_cast<float4*>(&Ks[r * HD + cc]) =
-        *reinterpret_cast<const float4*>(&kb[(size_t)r * kv_row + cc]);
-    *reinterpret_cast<float4*>(&Vs[r * HD + cc]) =
-        *reinterpret_cast<const float4*>(&vb[(size_t)r * kv_row + cc]);
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + r < S) {
+      x = *reinterpret_cast<const float4*>(&qb[(size_t)(q0 + r) * q_row + cc]);
+      x = make_float4(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+                      __fmul_rn(x.z, scale), __fmul_rn(x.w, scale));
+    }
+    *reinterpret_cast<float4*>(&Qs[r * F32_LD + cc]) = x;
   }
-  __syncthreads();
-  const int qr = blockIdx.x * F32_ROWS + threadIdx.x;
-  if (qr >= S) return;
-  const float* qp = q + b * q_img + (size_t)qr * q_row + h * HD;
-  float qs[HD], acc[HD];
+
+  float acc[TM][4], rsum[TM];
 #pragma unroll
-  for (int i = 0; i < HD; ++i) {
-    qs[i] = __fmul_rn(qp[i], scale);
-    acc[i] = 0.0f;
+  for (int i = 0; i < TM; ++i) {
+    rsum[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
   }
-  float sum = 0.0f;
-  for (int j = 0; j < S; ++j) {
-    const float* kr = Ks + j * HD;
-    const float* vr = Vs + j * HD;
-    float s = 0.0f;
+  const float* qs = Qs + ty * F32_LD;
+  for (int t = 0; t < nt; ++t) {
+    float* Kt = Ks + (t & 1) * F32_KT * F32_LD;
+    const int k0 = t * F32_KT;
+    const int nk = min(F32_KT, S - k0);
+    // K(t) has landed; every warp is done with tile t - 1's p and V
+    ptt::cp_async_wait<0>();
+    __syncthreads();
+    load_rows(Vs, HD, vb, k0);
+    if (t + 1 < nt)
+      load_rows(Ks + ((t + 1) & 1) * F32_KT * F32_LD, F32_LD, kb,
+                k0 + F32_KT);
+    else
+      ptt::cp_async_commit();        // an empty group keeps the count
+
+    float s[TM][4];
 #pragma unroll
-    for (int i = 0; i < HD; ++i) s = fmaf(qs[i], kr[i], s);
-    const float p = exp2f(fminf(fmaxf(s, ptt_flash::SCORE_LO),
-                                ptt_flash::SCORE_HI));
-    sum += p;
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int i = 0; i < HD; ++i) acc[i] = fmaf(p, vr[i], acc[i]);
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    const float* ks = Kt + tx * F32_LD;
+    switch ((nk + 15) / 16) {        // key groups with a key below S
+      case 1: f32_scores<TM, 1>(s, qs, ks); break;
+      case 2: f32_scores<TM, 2>(s, qs, ks); break;
+      case 3: f32_scores<TM, 3>(s, qs, ks); break;
+      default: f32_scores<TM, 4>(s, qs, ks); break;
+    }
+    __syncthreads();                 // K(t) read by every warp: p goes over it
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = tx + 16 * j;
+        const float p = key < nk
+                            ? exp2f(fminf(fmaxf(s[i][j], ptt_flash::SCORE_LO),
+                                          ptt_flash::SCORE_HI))
+                            : 0.0f;
+        rsum[i] += p;
+        Kt[(ty + F32_TY * i) * F32_LD + key] = p;
+      }
+    ptt::cp_async_wait<1>();         // V(t); K(t + 1) may still be in flight
+    __syncthreads();
+
+    // o += p v over the tile's keys, 4 at a time (p of keys >= nk is 0 and
+    // V's rows past S are zero)
+    const float* ps = Kt + ty * F32_LD;
+    const float* vs = Vs + 4 * tx;
+    for (int j = 0; j < nk; j += 4) {
+      float4 pv[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(&ps[F32_TY * i * F32_LD + j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 vv = *reinterpret_cast<const float4*>(&vs[(j + e) * HD]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y
+                           : e == 2 ? pv[i].z : pv[i].w;
+          acc[i][0] = fmaf(pe, vv.x, acc[i][0]);
+          acc[i][1] = fmaf(pe, vv.y, acc[i][1]);
+          acc[i][2] = fmaf(pe, vv.z, acc[i][2]);
+          acc[i][3] = fmaf(pe, vv.w, acc[i][3]);
+        }
+      }
+    }
   }
-  float* op = o + b * o_img + (size_t)qr * o_row + h * HD;
+
+  // each row's sum over the 16 threads of its half-warp, then an exact
+  // divide
 #pragma unroll
-  for (int i = 0; i < HD; ++i) op[i] = __fdiv_rn(acc[i], sum);
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = F32_TX / 2; off > 0; off >>= 1)
+      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], off);
+    const int row = q0 + ty + F32_TY * i;
+    if (row < S)
+      *reinterpret_cast<float4*>(&o[b * o_img + (size_t)row * o_row + h * HD +
+                                    4 * tx]) =
+          make_float4(__fdiv_rn(acc[i][0], rsum[i]),
+                      __fdiv_rn(acc[i][1], rsum[i]),
+                      __fdiv_rn(acc[i][2], rsum[i]),
+                      __fdiv_rn(acc[i][3], rsum[i]));
+  }
+}
+
+template <int TM>
+int launch_f32(const float* q, long long q_img, int q_row, const float* k,
+               const float* v, long long kv_img, int kv_row, float* o, int B,
+               int S, int H, float scale, cudaStream_t st) {
+  constexpr size_t smem = f32_smem_bytes<TM>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int bq = F32_TY * TM;
+  flash_f32_kernel<TM><<<dim3((S + bq - 1) / bq, H, B), F32_THREADS, smem,
+                         st>>>(q, q_img, q_row, k, v, kv_img, kv_row, o,
+                               (long long)S * H * HD, H * HD, S, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -103,21 +280,29 @@ int ptt_flash_attention(const void* q, const void* k, const void* v, void* o,
 }
 
 // The same function on f32 q, k, v, o (strides as above; 16-byte aligned
-// rows).
+// rows).  The query block of 8 * TM rows, TM in 4..8, that pads S the
+// least (the larger on a tie).
 int ptt_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* o, int B, int S, int H, long long q_img,
                             int q_row, long long kv_img, int kv_row,
                             float scale, void* stream) {
-  const size_t smem = 2 * (size_t)S * HD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + F32_ROWS - 1) / F32_ROWS, H, B);
-  flash_f32_kernel<<<grid, F32_ROWS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, q_img, q_row, (const float*)k, (const float*)v, kv_img,
-      kv_row, (float*)o, (long long)S * H * HD, H * HD, S, scale);
-  return (int)cudaGetLastError();
+  int tm = 8, padded = (S + 63) / 64 * 64;
+  for (int c = 7; c >= 4; --c) {
+    const int bq = F32_TY * c, p = (S + bq - 1) / bq * bq;
+    if (p < padded) tm = c, padded = p;
+  }
+  auto run = [&](auto tm_c) {
+    return launch_f32<decltype(tm_c)::value>(
+        (const float*)q, q_img, q_row, (const float*)k, (const float*)v,
+        kv_img, kv_row, (float*)o, B, S, H, scale, (cudaStream_t)stream);
+  };
+  switch (tm) {
+    case 4: return run(std::integral_constant<int, 4>());
+    case 5: return run(std::integral_constant<int, 5>());
+    case 6: return run(std::integral_constant<int, 6>());
+    case 7: return run(std::integral_constant<int, 7>());
+    default: return run(std::integral_constant<int, 8>());
+  }
 }
 
 }  // extern "C"

@@ -23,37 +23,40 @@
 // images, S = 208, D = 768) the forward is ~143 GFLOP of tensor-core work
 // (projections 90%) and the backward's attention part ~43 GFLOP against
 // ~330 MB of qkv, da, dqkv and A: the forward is bound by the tensor
-// cores, the backward kernel by both about equally.  Design (right before
-// fast):
-//   * the forward is three launches: the shared bf16 GEMM (csrc/gemm.cuh)
-//     for each projection and csrc/attention.cuh in its exp2-clamp form
-//     reading q, k, v as strided slices of qkv;
-//   * the backward splits the two reductions of attention: kernel 1 runs
-//     one block per (query tile of 64, head, image), recomputes s, p, o
-//     and writes A, dq and the row terms bf16(dn), bf16(dden); kernel 2
-//     runs one block per (key tile of 64, head, image), recomputes s^T and
-//     p^T from q and k, and accumulates dk and dv over every query in
-//     registers.  Nothing [S, S]-sized leaves shared memory, and nothing
-//     is kept from the forward but its inputs.
+// cores, the backward kernel by both about equally.  Design:
+//   * the forward is the serving layer's Hopper parts (rows 1-2), three
+//     launches: the QKV and out-projection GEMMs on csrc/wgmma_gemm.cuh
+//     (TMA and wgmma, bias epilogue, bf16 out; the wrapper passes the
+//     weights transposed, [out, in], as that GEMM reads them) around
+//     csrc/flash_tile.cuh reading q, k, v as strided slices of qkv;
+//   * the backward (right before fast, on csrc/gemm.cuh's wmma GEMM for
+//     its qkv recompute) splits the two reductions of attention: kernel 1
+//     runs one block per (query tile of 64, head, image), recomputes s,
+//     p, o and writes A, dq and the row terms bf16(dn), bf16(dden);
+//     kernel 2 runs one block per (key tile of 64, head, image),
+//     recomputes s^T and p^T from q and k, and accumulates dk and dv over
+//     every query in registers.  Nothing [S, S]-sized leaves shared
+//     memory, and nothing is kept from the forward but its inputs.
 //   * s is recomputed twice (once per kernel), a third of the backward's
 //     products; a fused single pass with dk/dv in shared memory does not
 //     fit 227 KB at S = 208 with 64-row tiles, and is later work.
 
-#include "attention.cuh"
 #include "common.cuh"
+#include "flash_tile.cuh"
 #include "gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 using namespace nvcuda;
 using ptt::bf16;
 
 namespace {
 
-constexpr int HD = ptt_attention::HD;        // 64
+constexpr int HD = ptt_flash::HD;            // 64
 constexpr int T = 64;                        // query or key rows per block
 constexpr int THREADS = 128;                 // 4 warps of 16 rows
 constexpr int LD = HD + 8;
 constexpr float LN2 = 0.69314718055994531f;
-constexpr float LO = ptt_attention::SCORE_LO, HI = ptt_attention::SCORE_HI;
+constexpr float LO = ptt_flash::SCORE_LO, HI = ptt_flash::SCORE_HI;
 
 __host__ __device__ inline int s_ld(int S) { return S + 8; }
 
@@ -389,36 +392,34 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-constexpr auto attention = ptt_attention::attention<bf16>;
-
 }  // namespace
 
 extern "C" {
 
-// x [B, S, D] bf16 -> out [B, S, D] bf16 (pre-residual).  wqkv [D, 3D],
-// wout [D, D] bf16 (q columns of wqkv and bqkv pre-scaled); bqkv [3D],
-// bout [D] f32.  Scratch: qkv [M, 3D] bf16, ao [M, D] bf16 (M = B*S).
+// x [B, S, D] bf16 -> out [B, S, D] bf16 (pre-residual).  wqkv_t [3D, D],
+// wout_t [D, D] bf16, transposed ([out, in]; q rows of wqkv_t and q
+// entries of bqkv pre-scaled); bqkv [3D], bout [D] f32.  Scratch: qkv
+// [M, 3D] bf16, ao [M, D] bf16 (M = B*S).
 int ptt_fab_fwd(const void* x, void* out, int B, int S, int D, int H,
-                int valid_len, const void* wqkv, const void* bqkv,
-                const void* wout, const void* bout, void* qkv, void* ao,
+                int valid_len, const void* wqkv_t, const void* bqkv,
+                const void* wout_t, const void* bout, void* qkv, void* ao,
                 void* stream) {
+  namespace wg = ptt_wgmma;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = B * S;
   bf16* qkvb = (bf16*)qkv;
   bf16* aob = (bf16*)ao;
   const float* nores = nullptr;
-  ptt_gemm::gemm<ptt_gemm::EPI_BIAS, float, bf16>(
-      (const bf16*)x, D, (const bf16*)wqkv, 3 * D, (const float*)bqkv, nores,
-      0, qkvb, 3 * D, M, 3 * D, D, st);
-  PTT_CHECK();
-  int err = attention(qkvb, (long long)S * 3 * D, 3 * D, S, qkvb + D,
-                      qkvb + 2 * D, (long long)S * 3 * D, 3 * D, aob,
-                      (long long)S * D, D, B, H, S, valid_len, st);
-  if (err) return err;
-  ptt_gemm::gemm<ptt_gemm::EPI_BIAS, float, bf16>(
-      aob, D, (const bf16*)wout, D, (const float*)bout, nores, 0, (bf16*)out,
-      D, M, D, D, st);
-  return (int)cudaGetLastError();
+  PTT_TRY((wg::gemm<wg::EPI_BIAS, float, bf16>(
+      (const bf16*)x, D, (const bf16*)wqkv_t, D, (const float*)bqkv, nores,
+      0, qkvb, 3 * D, M, 3 * D, D, st)));
+  PTT_TRY(ptt_flash::attention<false>(
+      qkvb, (long long)S * 3 * D, 3 * D, S, qkvb + D, qkvb + 2 * D,
+      (long long)S * 3 * D, 3 * D, aob, (long long)S * D, D, B, H, S,
+      valid_len, 0.0f, st));
+  return wg::gemm<wg::EPI_BIAS, float, bf16>(
+      aob, D, (const bf16*)wout_t, D, (const float*)bout, nores, 0,
+      (bf16*)out, D, M, D, D, st);
 }
 
 // The attention backward from the saved forward inputs: recompute

@@ -76,12 +76,6 @@
 
 using ptt::bf16;
 
-#define PTT_TRY(call)          \
-  do {                         \
-    const int e_ = (call);     \
-    if (e_ != 0) return e_;    \
-  } while (0)
-
 namespace {
 
 constexpr int QG_BM = 128, QG_BN = 128, QG_BK = 64;

@@ -116,12 +116,6 @@ __global__ void ln_bwd_kernel(const bf16* __restrict__ x,
 
 }  // namespace
 
-#define PTT_TRY(call)          \
-  do {                         \
-    const int e_ = (call);     \
-    if (e_ != 0) return e_;    \
-  } while (0)
-
 extern "C" {
 
 // x [M, D] bf16 -> out [M, D] bf16.  w1 [D, F], w2 [F, D] bf16; lns, lnb,

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .common import (ATTENTION_HEAD_DIM, SMEM_LIMIT, check_attention_shape,
+from .common import (ATTENTION_HEAD_DIM, check_attention_shape,
                      check_cuda_tensor, mm_f32, refuse_grad, round_up,
                      weak_scalar)
 
@@ -179,7 +179,9 @@ def fused_attention_fwd(x, wqkv_f, bqkv_f, wout, bout, num_heads: int,
                         valid_len: int) -> torch.Tensor:
     """Row 12: the attention sub-layer forward on the padded stream.  CPU
     tensor: the plain version; CUDA tensor (bf16 x and matrices, f32
-    biases): the kernel, or an error."""
+    biases): the kernel, or an error.  The kernel's GEMMs read each weight
+    transposed, [out, in]; the fine-tune's weights change every step, so
+    the transposes (4.7 MB a layer at ViT-B/16) are made per call."""
     if x.device.type == "cpu":
         return fused_attention_block_plain(x, wqkv_f, bqkv_f, wout, bout,
                                            num_heads, valid_len)
@@ -189,11 +191,12 @@ def fused_attention_fwd(x, wqkv_f, bqkv_f, wout, bout, num_heads: int,
                   [("bqkv", bqkv_f, 3 * d), ("bout", bout, d)])
     m, dev = b * s, x.device
     out = torch.empty_like(x)
+    wqkv_t, wout_t = wqkv_f.t().contiguous(), wout.t().contiguous()
     scratch = [torch.empty(m, 3 * d, dtype=torch.bfloat16, device=dev),
                torch.empty(m, d, dtype=torch.bfloat16, device=dev)]
     _build.call("ptt_fab_fwd", _SIG_FWD, _build.ptr(x), _build.ptr(out), b, s,
                 d, num_heads, valid_len,
-                *map(_build.ptr, (wqkv_f, bqkv_f, wout, bout, *scratch)),
+                *map(_build.ptr, (wqkv_t, bqkv_f, wout_t, bout, *scratch)),
                 _build.stream(dev))
     fused_attention_fwd.launches += 1
     return out
@@ -334,8 +337,9 @@ def _flash_check(q, k, v) -> None:
     """Raise unless the row-14 kernel takes q, k, v: [B, S, H, 64] of one
     dtype, bf16 or f32, on the card with each row's [H, 64] packed (a
     slice of a wider row, as q, k, v of one qkv tensor are, is read in
-    place), 16-byte aligned, k and v with the same strides, and the
-    sequence within shared memory."""
+    place), 16-byte aligned, k and v with the same strides, and in bf16
+    the sequence within shared memory (the f32 kernel streams the keys
+    in tiles)."""
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -360,11 +364,7 @@ def _flash_check(q, k, v) -> None:
     if d != ATTENTION_HEAD_DIM:
         raise ValueError(f"the row-14 kernel needs head_dim "
                          f"{ATTENTION_HEAD_DIM}, got {d}")
-    if q.dtype == torch.float32:
-        if 2 * s * d * 4 > SMEM_LIMIT:
-            raise ValueError(f"sequence {s} exceeds the f32 row-14 kernel's "
-                             "shared memory")
-    else:
+    if q.dtype == torch.bfloat16:
         check_attention_shape(h * d, h, round_up(s, 16), s)
 
 

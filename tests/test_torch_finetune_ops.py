@@ -84,11 +84,13 @@ def _attention_both(case, heads):
             [t.grad for t in targs])
 
 
-@pytest.mark.parametrize("b,s,d,heads", [(2, 13, 128, 2), (3, 5, 64, 4)],
-                         ids=["S13", "most-keys-pad"])
+@pytest.mark.parametrize("b,s,d,heads", [(2, 13, 128, 2), (3, 5, 64, 4),
+                                         (3, 16, 128, 2)],
+                         ids=["S13", "most-keys-pad", "odd-batch-no-pad"])
 def test_fused_attention_block_matches_jax_pallas(b, s, d, heads):
     """Forward and all five gradients; S = 5 pads to 16, so 11 of 16 keys
-    are pad."""
+    are pad; S = 16 at B 3 pads nothing, and B·S = 48 rows is ragged
+    against the card's 128-row GEMM tiles."""
     jout, jgrads, tout, tgrads = _attention_both(
         _attention_case(b, s, d), heads)
     assert tout.dtype == torch.bfloat16 and tout.shape == (b, s, d)

@@ -4,7 +4,8 @@ patent_tpu's Pallas kernel on the CPU.
 The same numpy q, k, v [B, S, H, D] go to the port's plain version and to
 JAX's ``flash_attention(force=True)`` under TPU interpret mode, both of
 its tilings (``head_batch``), at the tower's S 197 (padded to 200 inside
-JAX) and at S 16, head_dim 64 and 16.  The CUDA kernel is held to the
+JAX) and at S 16, head_dim 64 and 16, and at S 1 and 17, where the f32
+CUDA kernel's key tile and query block have their edges.  The CUDA kernel is held to the
 same plain version on the card (tests/test_torch_gpu.py, chip_smoke.py).
 """
 
@@ -75,7 +76,8 @@ def _bf16_passes(got, want):
 
 
 @pytest.mark.parametrize("head_batch", [True, False], ids=["headbatch", "bh"])
-@pytest.mark.parametrize("s,d", [(197, 64), (197, 16), (16, 64), (16, 16)])
+@pytest.mark.parametrize("s,d", [(197, 64), (197, 16), (16, 64), (16, 16),
+                                 (1, 64), (17, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_plain_matches_pallas_interpret(dtype, s, d, head_batch):

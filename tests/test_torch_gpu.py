@@ -310,14 +310,15 @@ def test_f32_use_flash_tower_launches_the_f32_kernel(cuda):
 FLASH_REL_TOL = 1e-4
 
 
-def _flash_case(dev, b, s, heads=2, gain=1.0, seed=11):
-    """q, k, v [B, S, H, 64] bf16 as the per-op tower passes them: slices
-    of one [B, S, 3·H·64] tensor.  ``gain`` scales q."""
+def _flash_case(dev, b, s, heads=2, gain=1.0, seed=11,
+                dtype=torch.bfloat16):
+    """q, k, v [B, S, H, 64] as the per-op tower passes them: slices of
+    one [B, S, 3·H·64] tensor of ``dtype``.  ``gain`` scales q."""
     g = torch.Generator(device=dev).manual_seed(seed)
     qkv = torch.randn(b, s, 3 * heads * 64, generator=g, device=dev)
     qkv[..., :heads * 64] *= gain
     return tuple(t.unflatten(-1, (heads, 64)) for t in
-                 qkv.to(torch.bfloat16).split(heads * 64, dim=-1))
+                 qkv.to(dtype).split(heads * 64, dim=-1))
 
 
 @pytest.mark.parametrize("b,heads", [(3, 2), (1, 12), (3, 1)])
@@ -359,23 +360,39 @@ def test_flash_kernel_clamps_scores_past_80(cuda, dtype):
 
 
 # Row 14's f32 instance computes the plain version's f32 function: the
-# same products and sums, in another order (no TF32 on either side)
+# same products and sums, in another order (no TF32 on either side).  Its
+# kernel streams the keys in tiles of 64 and picks a query block of 32 to
+# 64 rows by S: S 1, 15, 17, 64, 65 and 197 put the sequence's end at the
+# edges of both.
 FLASH_F32_REL_TOL = 1e-5
 
 
-@pytest.mark.parametrize("s,heads", [(197, 12), (64, 2), (5, 1)])
+@pytest.mark.parametrize("s,heads", [(197, 12), (64, 2), (5, 1), (1, 1),
+                                     (15, 2), (17, 2), (65, 1)])
 def test_flash_kernel_f32_matches_plain(cuda, s, heads):
-    q, k, v = (t.float() for t in _flash_case(cuda, 3, s, heads=heads))
+    q, k, v = _flash_case(cuda, 3, s, heads=heads, dtype=torch.float32)
     n0 = fa.flash_attention_f32.launches
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention_plain(q, k, v)
+    packed = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous())
     torch.cuda.synchronize()
-    assert fa.flash_attention_f32.launches == n0 + 1
+    assert fa.flash_attention_f32.launches == n0 + 2
     assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, packed)          # strided views read in place
     assert _rel_err(got, want) <= FLASH_F32_REL_TOL
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
-    ctrl = fa.flash_attention_plain(q, k, v, scale=False)
-    assert _rel_err(ctrl, want) > FLASH_F32_REL_TOL
+    # controls: q unscaled (one key's softmax ignores q), and the zero keys
+    # up to the end of the last key tile counted
+    controls = {}
+    if s > 1:
+        controls["q unscaled"] = fa.flash_attention_plain(q, k, v,
+                                                          scale=False)
+    if s % 64:
+        controls["pad keys counted"] = fa.flash_attention_plain(
+            q, k, v, pad_keys_to=-(-s // 64) * 64)
+    for name, ctrl in controls.items():
+        assert _rel_err(ctrl, want) > FLASH_F32_REL_TOL, name
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -759,6 +776,46 @@ def test_trainable_attention_kernels_match_plain_and_controls_do_not(cuda):
             ("bqkv=0", fa.attention_bwd_plain(x, wqkv, zb, da, HEADS,
                                               VALID)[0])):
         assert _rel_err(ctrl[:, v], dqkv_p[:, v]) > TRAIN_BWD_REL_TOL, name
+
+
+@pytest.mark.parametrize("d,heads,s,valid", [(768, 12, 208, 197),
+                                              (64, 1, 16, 5)],
+                         ids=["D768", "D64"])
+@pytest.mark.parametrize("b", [1, 2, 3], ids=["B1", "B2", "B3"])
+def test_trainable_attention_fwd_at_ragged_batches(cuda, b, d, heads, s,
+                                                   valid):
+    """Row 12 where B·S is not a multiple of the GEMM's 128-row tile, at
+    ViT-B/16's width and at the narrowest D (one head: the GEMM's rows of
+    64 values, 128 bytes), with most keys pad in the narrow case."""
+    g = torch.Generator(device=cuda).manual_seed(b)
+
+    def r(*shape, std):
+        return std * torch.randn(*shape, generator=g, device=cuda)
+
+    x = r(b, s, d, std=1.0).to(torch.bfloat16)
+    wqkv, bqkv = (r(d, 3 * d, std=d ** -0.5).to(torch.bfloat16),
+                  r(3 * d, std=0.2))
+    col = torch.ones(3 * d, device=cuda)
+    col[:d] = math.log2(math.e) / 8.0
+    wqkv, bqkv = (wqkv.float() * col).to(torch.bfloat16), bqkv * col
+    wout, bout = r(d, d, std=d ** -0.5).to(torch.bfloat16), r(d, std=0.05)
+    n0 = fa.fused_attention_fwd.launches
+    got = fa.fused_attention_fwd(x, wqkv, bqkv, wout, bout, heads, valid)
+    torch.cuda.synchronize()
+    assert fa.fused_attention_fwd.launches == n0 + 1
+    assert got.shape == x.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+
+    def plain(bq=bqkv, bo=bout, v=valid):
+        return fa.fused_attention_block_plain(x, wqkv, bq, wout, bo, heads,
+                                              v)[:, :valid]
+
+    want = plain()
+    assert _rel_err(got[:, :valid], want) <= REL_TOL
+    for name, ctrl in (("no key mask", plain(v=s)),
+                       ("bqkv=0", plain(bq=torch.zeros_like(bqkv))),
+                       ("bout=0", plain(bo=torch.zeros_like(bout)))):
+        assert _rel_err(ctrl, want) > REL_TOL, name
 
 
 def test_trainable_attention_gates_the_clamp_on_the_card(cuda):
