@@ -30,7 +30,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    [512, 512] x [512, 256] (control: no bias), the pairwise distance at
    [256, 128] x [16,059, 128] (control: c off by 1%), the Poincaré bucket
    stage at 1M x 128, Q=256, pool 80, equal to its plain version (control:
-   no b term); the whole int8 layer at B=1 and 3 and its group dispatch at
+   no b term); the whole int8 layer at B=1 and 3 (one cooperative launch)
+   and 127 (a chain of launches) and its group dispatch at
    B=2 (whole layer) and 3 (the sub-layers), with the controls of both
    sub-layers and the other mid-layer residual (rows 5 + 7 chained, bf16,
    must fail the whole layer's gate); the int8 dense layer at [26,624 x
@@ -40,9 +41,11 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    slices of one qkv tensor (controls: q unscaled, the zero keys up to the
    next multiple of 16 counted) and with q x 40, where ~8% of the scores
    pass +80 (control: no clamp), and its f32 instance on f32 q, k, v
-   (control: q unscaled); the bf16 layers' GEMM (csrc/wgmma_gemm.cuh)
-   alone, each of its four epilogues at 26,624 and 416 rows (control: the
-   bias dropped);
+   (control: q unscaled); the int8 layers' GEMM (csrc/wgmma_s8.cuh)
+   alone, each of its five epilogues at 208, 624 and 26,624 rows, equal to
+   its plain epilogue bit for bit (control: the bias dropped); the bf16
+   layers' GEMM (csrc/wgmma_gemm.cuh) alone, each of its four epilogues at
+   26,624 and 416 rows (control: the bias dropped);
 4. the slices end to end through the CLI: encode, retrieve --k 20 and
    eval on a 224 px synthetic corpus (60 patents x 6 figures) with seeded
    ViT-B/16 weights saved as a clip_finetune_best checkpoint, first with
@@ -80,9 +83,12 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    and f32 against its plain version and F.scaled_dot_product_attention,
    rows 1-2 on weights folded once, row 1's four GEMM instances beside
    torch.matmul of the same bf16 product (a yardstick),
-   the int8 tower at batch 1 (ms), 3 and 127 (img/s), one int8 layer at
-   B=1, 3 and 127 through the whole-layer kernel, the rows 5 + 7 kernels
-   and the plain version,
+   the int8 tower at batch 1 (ms), 3 and 127 (img/s), each with its
+   profile, one int8 layer at B=1, 3 and 127 through the whole-layer
+   kernel (with its bound, and at B 1 and 3 the share of each phase of
+   the cooperative launch), the rows 5 + 7 kernels and the plain version,
+   the int8 GEMM's five instances beside torch._int_mm of the same int8
+   product (a yardstick),
    cosine top-k QPS at 1M x 512, Q=256, k=10 through the bf16 kernel
    path, the quantized path and the f32 scan, every kernel against its
    plain version at the main path's shapes, and one fine-tune step at 64
@@ -238,6 +244,10 @@ INT8_MAX_ULPS = 2
 # rows 5 + 7 chain (bf16 mid residual), at 7.1e-3.  The gate sits ~4x
 # above the one and ~5x below the other.
 INT8_LAYER_REL_TOL = 1.5e-3
+# the phases of row 8's cooperative launch (csrc/int8_layer.cu)
+LAYER_PHASES = ("LN1 + quant", "QKV", "attention", "quant(ao)",
+                "out-projection", "x1 + LN2 + quant", "MLP in", "quant(g)",
+                "MLP out", "output")
 # The int8 tower is far more sensitive than the bf16 one: a perturbation
 # that moves one LayerNorm or hidden value across a rounding boundary flips
 # an int8 code, a step of 1/127 of the row's range, and 12 random layers
@@ -281,6 +291,9 @@ BF16_ODD_MIN_COS = 0.999
 GEMM_SHAPES = {"bias": (2304, 768), "bias_gelu": (3072, 768),
                "res_bias": (768, 768), "bias_res": (768, 3072)}
 
+# the s8 GEMM's instances (csrc/wgmma_s8.cuh) at ViT-B/16 widths: (N, K)
+S8_GEMM_SHAPES = {"bias": (2304, 768), "gelu": (3072, 768), "res": (768, 768),
+                  "res_f32_out": (768, 768), "res_f32": (768, 3072)}
 # H100 SXM datasheet peaks (dense) and memory rate, for bound_ms; fp32 is
 # the rate outside the tensor cores (rows 17 and 18 exclude TF32)
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -479,6 +492,43 @@ def check_layer_gemm(torch, bf16_layer, epilogue, m, n, k, gen, dev) -> float:
     return gate(torch, f"layer GEMM {epilogue} [{m} x {k}] x [{k} x {n}] -> "
                 f"{str(got.dtype)[6:]}", got, ref, controls, GEMM_REL_TOL,
                 GEMM_MAX_ULPS)
+
+
+def s8_gemm_case(torch, qm, epilogue, m, n, k, gen, dev):
+    """int8_gemm's operands at [m x k] x [k x n]: random int8 codes, row
+    and column scales of the tower's size, a bias, the residual."""
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    # scales such that the product's part of each output is O(0.1-1), as
+    # large as the bias's
+    rdt = qm.S8_GEMM_EPILOGUES[epilogue][1]
+    return (codes(m, k), 0.1 * torch.rand(m, generator=gen, device=dev),
+            codes(n, k),
+            10 * torch.rand(n, generator=gen, device=dev) / 127 / k ** 0.5,
+            0.1 * torch.randn(n, generator=gen, device=dev),
+            None if rdt is None
+            else torch.randn(m, n, generator=gen, device=dev).to(rdt))
+
+
+def check_s8_gemm(torch, qm, epilogue, m, n, k, gen, dev) -> float:
+    """Hold one of rows 5 and 8's int8 GEMM instances (csrc/wgmma_s8.cuh)
+    alone to its plain epilogue on the same integer product at [m x k] x
+    [k x n] (the products are exact, so they should agree bit for bit);
+    control: the bias dropped.  Returns the max-abs error."""
+    a, a_scale, w_t, scale, bias, res = s8_gemm_case(torch, qm, epilogue, m,
+                                                     n, k, gen, dev)
+    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, res)
+    ref = qm.int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res)
+    controls = {"bias=0": qm.int8_gemm_plain(
+        a, a_scale, w_t, scale, torch.zeros_like(bias), epilogue, res)}
+    err = gate(torch, f"s8 GEMM {epilogue} [{m} x {k}] x [{k} x {n}] -> "
+               f"{str(got.dtype)[6:]}", got, ref, controls, INT8_REL_TOL,
+               INT8_MAX_ULPS)
+    print(f"[kernel] s8 GEMM {epilogue} [{m} x {k}] x [{k} x {n}] equals its "
+          f"plain epilogue bit for bit: {bool(torch.equal(got, ref))}")
+    return err
 
 
 # (index, name) of the biases and the per-channel scales in the int8
@@ -1435,7 +1485,7 @@ def main() -> None:
     # int8 MLP (row 11), on a generator of their own
     igen = torch.Generator(device=dev).manual_seed(8)
     ip = (*ip_attn, *ip_mlp)
-    for lname, batches, kw in (("quant_layer_block", (1, 3), {}),
+    for lname, batches, kw in (("quant_layer_block", (1, 3, 127), {}),
                                ("quant_layer_group", (2, 3), {"group": 2})):
         for bv in batches:
             x = layer_input(torch, bv, s, d, valid, igen, dev)
@@ -1490,6 +1540,14 @@ def main() -> None:
     errs["flash_attention_f32"] = max(
         check_flash_f32(torch, fa, b, valid, heads, agen, dev),
         check_flash_f32(torch, fa, b, 64, heads, agen, dev))
+
+    # rows 5 and 8's int8 GEMM alone, each of its five instances at one
+    # image's rows, three images' and a batch of 128's, on a generator of
+    # its own
+    sgen = torch.Generator(device=dev).manual_seed(22)
+    for epi, (gn, gk) in S8_GEMM_SHAPES.items():
+        for gm in (s, 3 * s, 128 * s):
+            check_s8_gemm(torch, qm, epi, gm, gn, gk, sgen, dev)
 
     # the layer's GEMM alone, each of its four instances at a batch of
     # 128's rows and at B 2's ragged 416, on a generator of its own
@@ -2060,17 +2118,51 @@ def main() -> None:
     # one int8 layer at the ragged batches: the whole-layer kernel, the rows
     # 5 + 7 chain of kernels and row 8's plain version; then rows 9-11
     # against their plain versions at a batch of 128
+    fold8 = qm.fold_q_scale(ip_attn[3], ip_attn[4], heads)
+    layer_times = {}
     for bv in (1, 3, bt - 1):
         xl = xb[:bv]
         pl, kl = in_turns(
             torch, lambda: qm.quant_layer_block_plain(xl, *ip, heads, valid),
             lambda: qm.quant_layer_block(xl, *ip, heads, valid))
+
+        def folded_call(xl=xl):
+            return qm.quant_layer_block(xl, *ip, heads, valid, folded=fold8)
+
+        kf = cuda_ms(torch, folded_call)
+        # the kernels line keeps a call's wall time, on the clock of every
+        # other row and of its plain time; at a query's batch much of it is
+        # the host's, and the device time says how much is the kernel's
+        kd = sum(ms for _k, ms in kernel_breakdown(torch, folded_call, 10))
         chain = cuda_ms(torch, lambda: qm.quant_mlp_block(
             qm.quant_attention_block(xl, *ip_attn, heads, valid), *ip_mlp))
+        layer_times[bv] = (pl, kl)
+        b8 = int8_family_bounds(bv, bt, s, valid, d, f, bt * s)
+        plan = qm.layer_plan(bv * s, d, f, qm.layer_grid())
         print(f"[time] one int8 layer, B {bv}, S {s} ({valid} valid): whole-"
-              f"layer kernel {kl:.3f} ms, rows 5 + 7 kernels {chain:.3f} ms, "
-              f"plain {pl:.3f} ms {label}")
-    times["quant_layer_block"] = (pl, kl)
+              f"layer kernel {kd:.4f} ms of device time "
+              f"({'one cooperative launch, split '
+              f'{plan.split_out} / {plan.split_mlp}' if plan.coop else
+              'a chain of launches'}), a call {kl:.3f} ms of wall time "
+              f"({kf:.3f} ms on folded vectors), rows 5 + 7 kernels "
+              f"{chain:.3f} ms, plain {pl:.3f} ms, bound "
+              f"{b8['quant_layer_block'][0]:.4f} ms "
+              f"({b8['quant_layer_block'][1]}) {label}")
+        if plan.coop:
+            # where the cooperative launch's time goes: block 0's clock at
+            # the end of each phase, over three launches
+            stamps = torch.zeros(11, dtype=torch.int64, device=dev)
+            for _ in range(3):
+                qm._layer_kernel(xl, ip, heads, valid, fold8, stamps=stamps)
+            torch.cuda.synchronize()
+            c = stamps.tolist()
+            print(f"[time] one int8 layer, B {bv}: the cooperative launch's "
+                  "phases (share of block 0's clock): " + ", ".join(
+                      f"{name} {100 * (c[i + 1] - c[i]) / (c[-1] - c[0]):.1f}%"
+                      for i, name in enumerate(LAYER_PHASES)))
+    # row 8's launches on the main path are at B 3 (RetrievalEngine at
+    # batch_size 3)
+    times["quant_layer_block"] = layer_times[3]
     times["quant_layer_group"] = in_turns(
         torch, lambda: qm.quant_layer_group_plain(xb, *ip, heads, valid),
         lambda: qm.quant_layer_group(xb, *ip, heads, valid))
@@ -2082,6 +2174,20 @@ def main() -> None:
     times["quant_mlp"] = in_turns(
         torch, lambda: qm.quant_mlp_plain(x2d, *ip_mlp[2:]),
         lambda: qm.quant_mlp(x2d, *ip_mlp[2:]))
+    # rows 5 and 8's int8 GEMM instances alone at a batch of 128's rows,
+    # beside torch._int_mm of the same int8 product (cuBLASLt, no
+    # epilogue): a yardstick only
+    for epi, (gn, gk) in S8_GEMM_SHAPES.items():
+        a, a_scale, w_t, scale, bias, res = s8_gemm_case(
+            torch, qm, epi, m, gn, gk, igen, dev)
+        ms = cuda_ms(torch, lambda: qm.int8_gemm(a, a_scale, w_t, scale, bias,
+                                                 epi, res))
+        lib = cuda_ms(torch, lambda: torch._int_mm(a, w_t.T))
+        tops = 2 * m * gn * gk / 1e9
+        print(f"[time] s8 GEMM {epi} [{m} x {gk}] x [{gk} x {gn}]: {ms:.3f} ms "
+              f"({tops / ms:.0f} TOP/s); torch._int_mm of the same int8 "
+              f"product {lib:.3f} ms ({tops / lib:.0f} TOP/s) {label}")
+        del a, w_t, res
     # a yardstick for later work, not the same function (no quantization,
     # no epilogue): cuBLASLt's int8 products of rows 10 and 11's shapes
     xq = qm.quant_rows(x2d.float())[0]
@@ -2141,7 +2247,7 @@ def main() -> None:
     bounds = {**layer_bounds(bt, s, valid, d, f, int8=False),
               **layer_bounds(bt, s, valid, d, f, int8=True),
               **train_bounds(bt, s, valid, d, f),
-              **int8_family_bounds(bt - 1, bt, s, valid, d, f, bt * s),
+              **int8_family_bounds(3, bt, s, valid, d, f, bt * s),
               # q, k, v read and o written once (bf16); q kᵀ and p v
               "flash_attention": bound(4 * 2 * bt * valid * d,
                                        {"bf16": 4 * bt * valid * valid * d}),

@@ -114,9 +114,10 @@ def library() -> _Lib:
     return _LIB
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device pointer for a C entry point."""
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's device pointer for a C entry point (ctypes passes an int
+    as a ``c_void_p`` argument)."""
+    return t.data_ptr()
 
 
 def stream(device) -> ctypes.c_void_p:
@@ -126,12 +127,18 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+_FNS: dict[str, ctypes._CFuncPtr] = {}
+
+
 def call(name: str, argtypes: list, *args) -> None:
-    """Call C entry point ``name`` (declared with ``argtypes``); raise if it
-    reports a CUDA error."""
-    fn = getattr(library().cdll, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """Call C entry point ``name`` (declared with ``argtypes`` at its first
+    call); raise if it reports a CUDA error."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(library().cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")

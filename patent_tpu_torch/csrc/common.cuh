@@ -17,6 +17,18 @@ namespace ptt {
 
 typedef __nv_bfloat16 bf16;
 
+// most devices of a process that the wrappers' per-device caches (an SM
+// count, a grid size, a kernel's shared-memory attribute) hold
+constexpr int MAX_DEVICES = 64;
+
+// the current device, the one a launch goes to: the key of those caches
+inline int current_device(int* dev) {
+  cudaError_t e = cudaGetDevice(dev);
+  if (e == cudaSuccess && (*dev < 0 || *dev >= MAX_DEVICES))
+    e = cudaErrorInvalidDevice;
+  return (int)e;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -35,6 +47,13 @@ __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) {
   *p = __float2bfloat16(v);
+}
+// two outputs at p (an even element): rounded to bf16, or kept f32
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
 // 16-byte global -> shared copy that bypasses registers; pred == false

@@ -1,11 +1,15 @@
 // The attention tile of the TPU kernels' exp2 form, kept on chip, shared by
-// the standalone attention (csrc/flash_attention.cu, row 14) and the bf16
-// layer kernels (csrc/bf16_layer.cu, rows 1 and 2).  Per (head, image):
+// the standalone attention (csrc/flash_attention.cu, row 14), the bf16
+// layer kernels (csrc/bf16_layer.cu, rows 1 and 2), the trainable
+// attention sub-layer's forward (csrc/fused_attention.cu, row 12) and, with
+// an f32 output, the int8 layer kernels (csrc/int8_layer.cu, rows 5, 6, 8
+// and 9).  Per (head, image):
 //
 //   q' = q (the layers fold log2(e)/sqrt(64) into Wq; row 14 scales q on
 //        load: bf16(f32(q) * scale), the TPU kernel's order)
 //   p  = bf16(exp2(clip(q'.k, -100, 80))), keys at or past valid_len p = 0
-//   o  = bf16((p v) / sum(p))    f32 sums of the rounded p, an exact divide
+//   o  = (p v) / sum(p)          f32 sums of the rounded p, an exact divide,
+//                                stored bf16 (rounded) or f32
 //
 // With no max subtraction there is no running max to rescale by, so the
 // softmax is one pass over the keys, 16 at a time, with nothing carried
@@ -99,13 +103,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // are row-major views with their own image and row strides (elements,
 // even), the head's 64 columns at h * 64.  K and V hold Sp (a multiple of
 // 16) rows, of which those below valid_len are read.  SCALE_Q: q times
-// `scale` in f32 on load, rounded to bf16.  Every thread of the block
-// (THREADS) takes part.
-template <bool SCALE_Q>
+// `scale` in f32 on load, rounded to bf16.  o is bf16 or f32.  Every
+// thread of the block (NWARPS warps) takes part.  A query row's output
+// depends on that row alone, whatever the others hold.
+template <bool SCALE_Q, typename OutT = bf16, int NWARPS = WARPS>
 __device__ __forceinline__ void flash_tile(
     const bf16* __restrict__ q, long long q_img, int q_row, int n_q,
     const bf16* __restrict__ k, const bf16* __restrict__ v, long long kv_img,
-    int kv_row, bf16* __restrict__ o, long long o_img, int o_row, int Sp,
+    int kv_row, OutT* __restrict__ o, long long o_img, int o_row, int Sp,
     int valid_len, float scale, int h, int b, unsigned char* smem) {
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + (size_t)Sp * HD;
@@ -114,9 +119,9 @@ __device__ __forceinline__ void flash_tile(
   const bf16* qb = q + b * q_img + h * HD;
   const bf16* kb = k + b * kv_img + h * HD;
   const bf16* vb = v + b * kv_img + h * HD;
-  bf16* ob = o + b * o_img + h * HD;
+  OutT* ob = o + b * o_img + h * HD;
 
-  for (int c = tid; c < Sp * (HD / 8); c += THREADS) {
+  for (int c = tid; c < Sp * (HD / 8); c += 32 * NWARPS) {
     const int r = c >> 3, ch = c & 7;
     const bool ok = r < valid_len;
     ptt::cp_async16(&Ks[swz(r, ch)], ok ? kb + (size_t)r * kv_row + ch * 8 : kb,
@@ -128,7 +133,7 @@ __device__ __forceinline__ void flash_tile(
   ptt::cp_async_wait<0>();
   __syncthreads();
 
-  for (int qt = warp; qt * 16 < n_q; qt += WARPS) {
+  for (int qt = warp; qt * 16 < n_q; qt += NWARPS) {
     const int r0 = qt * 16 + g, r1 = r0 + 8;
     // a q word (two values of row r at column c), zero past n_q
     auto q_word = [&](int r, int c) -> uint32_t {
@@ -201,43 +206,43 @@ __device__ __forceinline__ void flash_tile(
     for (int j = 0; j < HD / 8; ++j) {
       const int c = 8 * j + 2 * t;
       if (r0 < n_q)
-        *reinterpret_cast<uint32_t*>(&ob[(size_t)r0 * o_row + c]) =
-            pack_bf16(__fdiv_rn(oacc[j][0], lacc[0]),
-                      __fdiv_rn(oacc[j][1], lacc[0]));
+        ptt::store2(&ob[(size_t)r0 * o_row + c],
+                    __fdiv_rn(oacc[j][0], lacc[0]),
+                    __fdiv_rn(oacc[j][1], lacc[0]));
       if (r1 < n_q)
-        *reinterpret_cast<uint32_t*>(&ob[(size_t)r1 * o_row + c]) =
-            pack_bf16(__fdiv_rn(oacc[j][2], lacc[2]),
-                      __fdiv_rn(oacc[j][3], lacc[2]));
+        ptt::store2(&ob[(size_t)r1 * o_row + c],
+                    __fdiv_rn(oacc[j][2], lacc[2]),
+                    __fdiv_rn(oacc[j][3], lacc[2]));
     }
   }
 }
 
 // One block of THREADS threads per (head, image).
-template <bool SCALE_Q>
+template <bool SCALE_Q, typename OutT>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const bf16* __restrict__ q, long long q_img, int q_row,
                  int n_q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, long long kv_img, int kv_row,
-                 bf16* __restrict__ o, long long o_img, int o_row, int Sp,
+                 OutT* __restrict__ o, long long o_img, int o_row, int Sp,
                  int valid_len, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  flash_tile<SCALE_Q>(q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img,
-                      o_row, Sp, valid_len, scale, blockIdx.x, blockIdx.y,
-                      smem);
+  flash_tile<SCALE_Q, OutT>(q, q_img, q_row, n_q, k, v, kv_img, kv_row, o,
+                            o_img, o_row, Sp, valid_len, scale, blockIdx.x,
+                            blockIdx.y, smem);
 }
 
 // Launch over (heads, images); returns cudaGetLastError().
-template <bool SCALE_Q>
+template <bool SCALE_Q, typename OutT>
 int attention(const bf16* q, long long q_img, int q_row, int n_q,
               const bf16* k, const bf16* v, long long kv_img, int kv_row,
-              bf16* o, long long o_img, int o_row, int B, int H, int Sp,
+              OutT* o, long long o_img, int o_row, int B, int H, int Sp,
               int valid_len, float scale, cudaStream_t st) {
   const size_t smem = smem_bytes(Sp);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<SCALE_Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_kernel<SCALE_Q, OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_kernel<SCALE_Q><<<dim3(H, B), THREADS, smem, st>>>(
+  flash_kernel<SCALE_Q, OutT><<<dim3(H, B), THREADS, smem, st>>>(
       q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img, o_row, Sp,
       valid_len, scale);
   return (int)cudaGetLastError();

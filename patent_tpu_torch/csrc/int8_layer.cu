@@ -41,40 +41,53 @@
 // plus 17 GFLOP of bf16 attention (~0.08 ms at the 1,979 TOP/s int8 and
 // 989 TFLOP/s bf16 peaks) and the MLP 251 GOP (~0.13 ms): tensor-core
 // bound.  At one image (M = 208) a whole layer is 3.1 GOP against 7.1 MB
-// of int8 weights: 2.3 us to read them at 3.35 TB/s, so launches and the
-// weight stream, not arithmetic, set its time.  Design (a first version,
-// right before fast):
-//   * int8 GEMMs C = epi(A[M, K] @ B[N, K]^T) on mma.sync m16n8k32 s8
-//     with int32 accumulation (K * 127^2 < 2^31, exact), B held K-major
-//     ([out, in], from load time), 128x128x64 block tiles in a two-stage
-//     cp.async ring, the dequant / bias / quick_gelu / residual fused into
-//     the epilogue;
+// of int8 weights: 2.3 us to read them at 3.35 TB/s, so the latency of
+// each step, not arithmetic, sets its time.  Design:
+//   * the attention sub-layer (row 5) and the whole layer (rows 8, 9) run
+//     their GEMMs on csrc/wgmma_s8.cuh (TMA and wgmma m64n128k32 s8, int32
+//     accumulation, the dequant / bias / quick_gelu / residual fused into
+//     the epilogue) and their attention on csrc/flash_tile.cuh's tile with
+//     an f32 output (K and V of a (head, image) in shared memory once, the
+//     scores and p in registers, 53 KB at S 208);
+//   * the CLS variant (row 6), the MLP sub-layer (row 7) and the
+//     standalone dense layer and MLP (rows 10, 11) keep the first GEMM
+//     below: mma.sync m16n8k32 s8 from a two-stage cp.async ring of
+//     128x128x64 tiles.  The integer products are exact, so the two GEMMs
+//     give the same bits;
 //   * LayerNorm and the per-row quantization one warp per row;
-//   * attention is csrc/attention.cuh in its exp2-clamp form;
 //   * the TPU kernels keep ao and the [M, 3072] MLP hidden on chip; here
 //     they cross device memory in f32 (a row's quantization needs the
-//     whole row), which is the next thing to fuse;
-//   * the sub-layers are chains of launches of those pieces; the whole
-//     layer is ONE cooperative launch, as the TPU kernel is one program: a
-//     persistent grid of every block that fits on the card at once runs
-//     the nine phases (LN1 + quant, QKV tiles, attention tiles, quant(ao),
-//     out-projection tiles into the f32 x1, LN2 + quant, MLP-in tiles,
-//     quant(g), MLP-out tiles) as grid-stride loops over the same device
-//     bodies, with a grid-wide barrier between phases.
+//     whole row);
+//   * the whole layer at a query's batch (B <= 3 at ViT-B/16: MLP in's
+//     tiles fit one wave) is ONE cooperative launch, as the TPU kernel is
+//     one program: a persistent grid of one block an SM (a four-stage ring,
+//     132 KB, so that no two blocks share an SM) runs ten phases with a
+//     grid-wide barrier between each: LN1 + quant, the QKV tiles, the
+//     attention by (query tiles, head, image) units sized to one round of
+//     the grid, quant(ao), the out-projection split over K into int32
+//     partial sums, x1 = their sum's epilogue (kept f32, staged in shared
+//     memory) with LN2 + quant, the MLP-in tiles, quant(g), MLP out split
+//     over K, and the output from its partial sums.  A GEMM phase's unit
+//     is a tile and a k-range, so the narrow, long-K phases fill the card;
+//     int32 partial sums add exactly in any order; the row phases take a
+//     few rows a block at once;
+//   * at larger batches the whole layer is the same bodies as a chain of
+//     launches with the f32 x1 between the sub-layers: the same bits, each
+//     GEMM on the whole card.
 // The CLS variant runs LN1 + quant and the K/V projections over every row
-// and the rest on row 0 of each image only, through the same kernels and
-// the same per-element operations, so it equals row 0 of ptt_int8_attn
-// bit for bit.
+// and the rest on row 0 of each image only, through the same per-element
+// operations and the same attention tile (row 0 of a query tile depends
+// on row 0 alone), so it equals row 0 of ptt_int8_attn bit for bit.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
 
-#include <algorithm>
-
-#include "attention.cuh"
 #include "common.cuh"
+#include "flash_tile.cuh"
+#include "wgmma_s8.cuh"
 
 using ptt::bf16;
+namespace s8 = ptt_s8;
 
 namespace {
 
@@ -84,10 +97,10 @@ constexpr int QG_LD = QG_BK + 16;     // bytes per shared row (bank skew)
 // the GEMM's shared memory: two stages of the A and the B tile
 constexpr int QG_SMEM = 2 * (QG_BM + QG_BN) * QG_LD;
 constexpr float INV127 = (float)(1.0 / 127.0);
-constexpr float NEG_1702_LOG2E = (float)(-1.702 * 1.4426950408889634);
-
-// epilogues after the dequant + bias: none, quick_gelu, + residual
-enum QEpi { QEPI_BIAS = 0, QEPI_GELU = 1, QEPI_RES = 2 };
+// the epilogues after the dequant + bias (csrc/wgmma_s8.cuh): none,
+// quick_gelu, + residual
+constexpr int QEPI_BIAS = s8::EPI_BIAS, QEPI_GELU = s8::EPI_GELU,
+              QEPI_RES = s8::EPI_RES;
 
 // One 128 x 128 tile at (m0, n0) of C[M, N] = epi(f32(A @ Bt^T) *
 // rs[r * rs_stride] * cs[c] + bias[c]) with A [M, K] and Bt [N, K] int8
@@ -184,14 +197,10 @@ __device__ __forceinline__ void gemm_s8_tile(
       for (int j = 0; j < 4; ++j) {
         const int c = n0 + wn * 32 + j * 8 + 2 * t + (e & 1);
         if (c >= N) continue;
-        float v = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][e]), rsc), cs[c]),
-            bias[c]);
-        if constexpr (EPI == QEPI_GELU)
-          v = __fdiv_rn(v, __fadd_rn(1.0f, exp2f(__fmul_rn(NEG_1702_LOG2E, v))));
-        if constexpr (EPI == QEPI_RES)
-          v = __fadd_rn(ptt::to_f(res[(size_t)r * ldr + c]), v);
-        ptt::store_f(&C[(size_t)r * ldc + c], v);
+        ptt::store_f(&C[(size_t)r * ldc + c],
+                     s8::epi_value<EPI, ResT>(acc[i][j][e], rsc, cs[c],
+                                              bias[c],
+                                              res + (size_t)r * ldr + c));
       }
     }
   }
@@ -297,25 +306,40 @@ int rowquant(const InT* x, int ldx, const float* lns, const float* lnb,
   return (int)cudaGetLastError();
 }
 
-constexpr auto attention = ptt_attention::attention<float>;
+// s8 GEMM of the sub-layers and the chained layer on csrc/wgmma_s8.cuh: A
+// [M, K] and Bt [N, K] dense, C and res [M, N]
+template <int EPI, typename OutT, typename ResT = bf16>
+int gemm_wg(const int8_t* A, const float* rs, const int8_t* Bt,
+            const float* cs, const float* bias,
+            const typename named<ResT>::type* res, OutT* C, int M, int N,
+            int K, cudaStream_t st) {
+  const s8::Gemm g{rs, cs, bias, res, N, C, N, M, N, K, 1};
+  return s8::gemm<EPI, OutT, ResT>(A, K, Bt, K, g, st);
+}
 
-// ---- the whole layer in one cooperative launch
+// attention with an f32 output over (heads, images), q, k, v the strided
+// thirds of qkv [B, S, 3D]
+int attention_f32(const bf16* qkv, float* ao, int B, int S, int D, int H,
+                  int valid_len, cudaStream_t st) {
+  const long long img = (long long)S * 3 * D;
+  return ptt_flash::attention<false, float>(
+      qkv, img, 3 * D, S, qkv + D, qkv + 2 * D, img, 3 * D, ao,
+      (long long)S * D, D, B, H, S, valid_len, 0.0f, st);
+}
 
-// Row 8's operands.  Every scratch buffer is written by one phase only and
-// read only after it, so no block can hold a stale cached line of it.
+// ---- the whole layer
+
+// Row 8's operands.  Every scratch buffer but `part` is written by one
+// phase only and read only after it, so no block can hold a stale cached
+// line of it; `part` is read past L1.
 struct LayerArgs {
   const bf16* x;
   bf16* out;
   int B, S, D, H, F, valid_len;
-  const float *ln1s, *ln1b;
-  const int8_t* wqkv;
-  const float *sq, *bq;
-  const int8_t* wout;
-  const float *sout, *bout, *ln2s, *ln2b;
-  const int8_t* w1;
-  const float *s1, *b1;
-  const int8_t* w2;
-  const float *s2, *b2;
+  int split_out, split_mlp;   // k-ranges a tile: out-projection, MLP out
+  const float *ln1s, *ln1b, *sq, *bq, *sout, *bout;
+  const float *ln2s, *ln2b, *s1, *b1, *s2, *b2;
+  const int8_t *wqkv, *wout, *w1, *w2;
   int8_t* hq;      // LN1's codes [M, D] and scales [M]
   float* hs;
   bf16* qkv;       // [M, 3D]
@@ -328,91 +352,290 @@ struct LayerArgs {
   float* g;        // the MLP hidden [M, F], then its codes and scales
   int8_t* gq;
   float* gs;
+  int* part;       // int32 partial sums [split, M, D] of a split GEMM
+  long long* stamps;   // null, or block 0's clock64 at the start and at
+                       // the end of each of the ten phases
 };
 
-// every tile of C[M, N], dense A [M, K], C and res [M, N], spread over the
-// grid's blocks
-template <int EPI, typename OutT, typename ResT>
-__device__ void gemm_phase(const int8_t* A, const float* rs, const int8_t* Bt,
-                           const float* cs, const float* bias, const ResT* res,
-                           OutT* C, int M, int N, int K,
-                           unsigned char* smem) {
-  const int tn = (N + QG_BN - 1) / QG_BN;
-  const int tiles = (M + QG_BM - 1) / QG_BM * tn;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    gemm_s8_tile<EPI, OutT, ResT>(A, K, rs, 1, Bt, K, cs, bias, res, N, C, N,
-                                  M, N, K, t / tn * QG_BM, t % tn * QG_BN,
-                                  smem);
+// the four GEMMs' operands as TMA reads them
+struct LayerMaps {
+  CUtensorMap hq, wqkv, aq, wout, hq2, w1, gq, w2;
+};
+
+constexpr int LAYER_WARPS = s8::THREADS / 32;
+// the whole layer's ring: four stages, 132 KB of shared memory a block, so
+// that the cooperative grid is one block an SM, spread over every SM (two
+// 98 KB blocks may share an SM and leave another idle), with a deeper ring
+// for the weight stream
+constexpr int LAYER_STAGES = 4;
+constexpr size_t LAYER_SMEM = s8::smem_bytes(LAYER_STAGES);
+constexpr size_t LAYER_RING = s8::ring_bytes(LAYER_STAGES);
+
+// The rows a block takes at once in a row phase: as many as spread M rows
+// over the grid in one round, at most a row a warp.
+__device__ __forceinline__ int rows_per_block(int M) {
+  return max(1, min(LAYER_WARPS, (M + (int)gridDim.x - 1) / (int)gridDim.x));
 }
 
-// every row of x [M, D], one warp per row, spread over the grid's warps
-template <bool LN, typename InT>
-__device__ void rowquant_phase(const InT* x, const float* lns,
-                               const float* lnb, int8_t* q, float* qs, int M,
-                               int D) {
-  const int warps = blockDim.x >> 5;
-  for (int row = blockIdx.x * warps + (threadIdx.x >> 5); row < M;
-       row += gridDim.x * warps)
-    rowquant_row<LN, InT>(x, D, lns, lnb, q, D, qs, row, D, threadIdx.x & 31);
-}
-
-__global__ void __launch_bounds__(QG_THREADS) int8_layer_kernel(LayerArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const int M = a.B * a.S, D = a.D, F = a.F, S = a.S;
-
-  rowquant_phase<true, bf16>(a.x, a.ln1s, a.ln1b, a.hq, a.hs, M, D);
-  grid.sync();
-  gemm_phase<QEPI_BIAS, bf16, bf16>(a.hq, a.hs, a.wqkv, a.sq, a.bq, nullptr,
-                                    a.qkv, M, 3 * D, D, smem);
-  grid.sync();
-  const int qtiles = (S + ptt_attention::QT - 1) / ptt_attention::QT;
-  const long long img = (long long)S * 3 * D;
-  for (int t = blockIdx.x; t < qtiles * a.H * a.B; t += gridDim.x) {
-    __syncthreads();          // the last tile's warps are done with smem
-    ptt_attention::attention_tile<float>(
-        a.qkv, img, 3 * D, S, a.qkv + D, a.qkv + 2 * D, img, 3 * D, a.ao,
-        (long long)S * D, D, S, a.valid_len, t % qtiles,
-        t / qtiles % a.H, t / (qtiles * a.H), smem);
+// The per-row quantization (no LayerNorm) of rows r0..r0+n-1 (n <=
+// LAYER_WARPS) of an [M, D] matrix by every thread of the block: each
+// row's max is exact in any order, so the codes and scales equal
+// rowquant_row's.  val(r, c) gives element c of row r; red holds
+// LAYER_WARPS^2 floats.
+template <typename Val>
+__device__ __forceinline__ void rowquant_rows(Val val, int8_t* __restrict__ q,
+                                              float* __restrict__ qs, int r0,
+                                              int n, int D, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = 0; r < n; ++r) {
+    float amax = 0.0f;
+    for (int c = threadIdx.x; c < D; c += blockDim.x)
+      amax = fmaxf(amax, fabsf(val(r, c)));
+    amax = ptt::warp_max(amax);
+    if (lane == 0) red[r * LAYER_WARPS + warp] = amax;
   }
-  grid.sync();
-  rowquant_phase<false, float>(a.ao, nullptr, nullptr, a.aq, a.as, M, D);
-  grid.sync();
-  gemm_phase<QEPI_RES, float, bf16>(a.aq, a.as, a.wout, a.sout, a.bout, a.x,
-                                    a.x1, M, D, D, smem);
-  grid.sync();
-  rowquant_phase<true, float>(a.x1, a.ln2s, a.ln2b, a.hq2, a.hs2, M, D);
-  grid.sync();
-  gemm_phase<QEPI_GELU, float, bf16>(a.hq2, a.hs2, a.w1, a.s1, a.b1, nullptr,
-                                     a.g, M, F, D, smem);
-  grid.sync();
-  rowquant_phase<false, float>(a.g, nullptr, nullptr, a.gq, a.gs, M, F);
-  grid.sync();
-  gemm_phase<QEPI_RES, bf16, float>(a.gq, a.gs, a.w2, a.s2, a.b2, a.x1, a.out,
-                                    M, D, F, smem);
+  __syncthreads();
+  for (int r = 0; r < n; ++r) {
+    float amax = red[r * LAYER_WARPS];
+    for (int w = 1; w < LAYER_WARPS; ++w)
+      amax = fmaxf(amax, red[r * LAYER_WARPS + w]);
+    const float sc = __fmul_rn(fmaxf(amax, 1e-8f), INV127);
+    int8_t* qr = q + (size_t)(r0 + r) * D;
+    for (int c = threadIdx.x; c < D; c += blockDim.x)
+      qr[c] = (int8_t)__float2int_rn(__fdiv_rn(val(r, c), sc));
+    if (threadIdx.x == 0) qs[r0 + r] = sc;
+  }
+  __syncthreads();                  // red and val's source are the next's
 }
 
-// The cooperative grid: every block that fits on the card at once with
-// `smem` bytes of dynamic shared memory (a barrier across blocks needs
-// them all resident).
-int layer_grid(size_t smem, int* blocks) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(int8_layer_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, int8_layer_kernel, QG_THREADS, smem);
-  if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
-  *blocks = per_sm * sms;
-  return last_error(e);
+// A grid-wide barrier after this thread's generic writes of global memory
+// that TMA (the async proxy) may read after it.
+__device__ __forceinline__ void grid_sync(
+    cooperative_groups::grid_group& grid) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  grid.sync();
+}
+
+// most k-ranges a tile of a split GEMM (the host's plan reads it through
+// ptt_int8_layer_grid)
+constexpr int SPLIT_MAX = 8;
+
+// the sum of the `splits` (<= SPLIT_MAX) int32 partials of element i of an
+// [M, D] product (exact in any order), all loads issued first; read from
+// L2 (the buffer is written again by a later phase, so no block may keep
+// a line of it in L1)
+__device__ __forceinline__ int part_sum(const int* __restrict__ part,
+                                        int splits, size_t MD, size_t i) {
+  int v[SPLIT_MAX];
+#pragma unroll
+  for (int s = 0; s < SPLIT_MAX; ++s)
+    v[s] = s < splits ? __ldcg(part + s * MD + i) : 0;
+  int acc = 0;
+#pragma unroll
+  for (int s = 0; s < SPLIT_MAX; ++s) acc += v[s];
+  return acc;
+}
+
+__global__ void __launch_bounds__(s8::THREADS, 1)
+    int8_layer_kernel(const LayerArgs a,
+                      const __grid_constant__ LayerMaps maps) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float red[LAYER_WARPS * LAYER_WARPS];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  s8::Ring ring = s8::ring_init(smem_raw, LAYER_STAGES);
+  const int M = a.B * a.S, D = a.D, F = a.F, S = a.S;
+  const size_t MD = (size_t)M * D;
+  const int lane = threadIdx.x & 31;
+  const int gwarp = blockIdx.x * LAYER_WARPS + (threadIdx.x >> 5);
+  const int gwarps = gridDim.x * LAYER_WARPS;
+  int phase = 0;
+  auto stamp = [&]() {
+    if (a.stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+      a.stamps[phase++] = clock64();
+  };
+  stamp();
+
+  // 1. LN1 + quantization of x, a warp a row
+  for (int row = gwarp; row < M; row += gwarps)
+    rowquant_row<true, bf16>(a.x, D, a.ln1s, a.ln1b, a.hq, D, a.hs, row, D,
+                             lane);
+  grid_sync(grid);
+  stamp();
+  // 2. qkv = bf16(dequant(hq . Wqkv^T) + bq), the q columns folded
+  s8::gemm_units<s8::EPI_BIAS, bf16, bf16>(
+      &maps.hq, &maps.wqkv,
+      s8::Gemm{a.hs, a.sq, a.bq, nullptr, 0, a.qkv, 3 * D, M, 3 * D, D, 1},
+      blockIdx.x, gridDim.x, ring);
+  grid_sync(grid);
+  stamp();
+  // 3. ao = attention, f32: units of (rows query rows, head, image), a
+  //    16-row tile a warp, as few tiles a unit as let the units run in one
+  //    round of the grid (a warp's tile is a chain of S / 16 dependent key
+  //    steps)
+  const int qtiles = (S + 15) / 16;
+  int per_unit = 1;
+  while (per_unit < LAYER_WARPS &&
+         (qtiles + per_unit - 1) / per_unit * a.H * a.B > (int)gridDim.x)
+    ++per_unit;
+  const int rows = 16 * per_unit;
+  const int chunks = (S + rows - 1) / rows;
+  const long long img = (long long)S * 3 * D;
+  for (int t = blockIdx.x; t < chunks * a.H * a.B; t += gridDim.x) {
+    __syncthreads();          // the last unit's warps are done with smem
+    const int q0 = t % chunks * rows;
+    ptt_flash::flash_tile<false, float, LAYER_WARPS>(
+        a.qkv + (size_t)q0 * 3 * D, img, 3 * D, min(rows, S - q0),
+        a.qkv + D, a.qkv + 2 * D, img, 3 * D, a.ao + (size_t)q0 * D,
+        (long long)S * D, D, S, a.valid_len, 0.0f, t / chunks % a.H,
+        t / (chunks * a.H), ring.tiles);
+  }
+  grid_sync(grid);
+  stamp();
+  // 4. quantization of ao, a block a few rows
+  const int per = rows_per_block(M);
+  for (int r0 = blockIdx.x * per; r0 < M; r0 += gridDim.x * per) {
+    const float* rows = a.ao + (size_t)r0 * D;
+    rowquant_rows([&](int r, int c) { return rows[(size_t)r * D + c]; },
+                  a.aq, a.as, r0, min(per, M - r0), D, red);
+  }
+  grid_sync(grid);
+  stamp();
+  // 5. the out-projection's int32 partial sums, split over K
+  s8::gemm_units<s8::EPI_PART, int, int>(
+      &maps.aq, &maps.wout,
+      s8::Gemm{nullptr, nullptr, nullptr, nullptr, 0, a.part, D, M, D, D,
+               a.split_out},
+      blockIdx.x, gridDim.x, ring);
+  grid_sync(grid);
+  stamp();
+  // 6. x1 = f32(x) + dequant(aq . Wout^T) + bout, kept f32, a block a few
+  //    rows staged in shared memory; then LN2 + quantization of each row
+  //    by a warp from there
+  float* x1s = reinterpret_cast<float*>(ring.tiles);
+  for (int r0 = blockIdx.x * per; r0 < M; r0 += gridDim.x * per) {
+    const int n = min(per, M - r0);
+    for (int e = threadIdx.x; e < n * D; e += blockDim.x) {
+      const int row = r0 + e / D, c = e % D;
+      const size_t i = (size_t)row * D + c;
+      x1s[e] = a.x1[i] = s8::epi_value<s8::EPI_RES, bf16>(
+          part_sum(a.part, a.split_out, MD, i), a.as[row], a.sout[c],
+          a.bout[c], a.x + i);
+    }
+    __syncthreads();
+    const int w = threadIdx.x >> 5;
+    if (w < n)
+      rowquant_row<true, float>(x1s + (size_t)w * D, 0, a.ln2s, a.ln2b,
+                                a.hq2, D, a.hs2, r0 + w, D, lane);
+    __syncthreads();
+  }
+  grid_sync(grid);
+  stamp();
+  // 7. g = quick_gelu(dequant(hq2 . W1^T) + b1), f32
+  s8::gemm_units<s8::EPI_GELU, float, float>(
+      &maps.hq2, &maps.w1,
+      s8::Gemm{a.hs2, a.s1, a.b1, nullptr, 0, a.g, F, M, F, D, 1},
+      blockIdx.x, gridDim.x, ring);
+  grid_sync(grid);
+  stamp();
+  // 8. quantization of g, a block a few rows
+  for (int r0 = blockIdx.x * per; r0 < M; r0 += gridDim.x * per) {
+    const float* rows = a.g + (size_t)r0 * F;
+    rowquant_rows([&](int r, int c) { return rows[(size_t)r * F + c]; },
+                  a.gq, a.gs, r0, min(per, M - r0), F, red);
+  }
+  grid_sync(grid);
+  stamp();
+  // 9. MLP out's int32 partial sums, split over K
+  s8::gemm_units<s8::EPI_PART, int, int>(
+      &maps.gq, &maps.w2,
+      s8::Gemm{nullptr, nullptr, nullptr, nullptr, 0, a.part, D, M, D, F,
+               a.split_mlp},
+      blockIdx.x, gridDim.x, ring);
+  grid_sync(grid);
+  stamp();
+  // 10. out = bf16(x1 + dequant(gq . W2^T) + b2)
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MD;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int row = (int)(i / D), c = (int)(i % D);
+    a.out[i] = __float2bfloat16(s8::epi_value<s8::EPI_RES, float>(
+        part_sum(a.part, a.split_mlp, MD, i), a.gs[row], a.s2[c], a.b2[c],
+        a.x1 + i));
+  }
+  stamp();
+}
+
+// The cooperative grid: every block that fits on the current card at once
+// (a barrier across blocks needs them all resident), asked once a device.
+int layer_grid(int* blocks) {
+  static int n[ptt::MAX_DEVICES] = {};
+  int dev = 0;
+  PTT_TRY(ptt::current_device(&dev));
+  if (n[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaError_t e =
+        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(int8_layer_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)LAYER_SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, int8_layer_kernel, s8::THREADS, LAYER_SMEM);
+    if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
+    if (e != cudaSuccess) return last_error(e);
+    n[dev] = per_sm * sms;
+  }
+  *blocks = n[dev];
+  return 0;
+}
+
+int layer_coop(const LayerArgs& a, cudaStream_t st) {
+  if (ptt_flash::smem_bytes(a.S) > LAYER_RING ||
+      (size_t)LAYER_WARPS * a.D * sizeof(float) > LAYER_RING ||
+      a.split_out > SPLIT_MAX || a.split_mlp > SPLIT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int M = a.B * a.S, D = a.D, F = a.F;
+  LayerMaps maps;
+  if (!s8::tensor_map(&maps.hq, a.hq, M, D, D, s8::BM) ||
+      !s8::tensor_map(&maps.wqkv, a.wqkv, 3 * D, D, D, s8::BN) ||
+      !s8::tensor_map(&maps.aq, a.aq, M, D, D, s8::BM) ||
+      !s8::tensor_map(&maps.wout, a.wout, D, D, D, s8::BN) ||
+      !s8::tensor_map(&maps.hq2, a.hq2, M, D, D, s8::BM) ||
+      !s8::tensor_map(&maps.w1, a.w1, F, D, D, s8::BN) ||
+      !s8::tensor_map(&maps.gq, a.gq, M, F, F, s8::BM) ||
+      !s8::tensor_map(&maps.w2, a.w2, D, F, F, s8::BN))
+    return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  PTT_TRY(layer_grid(&blocks));
+  void* args[] = {const_cast<LayerArgs*>(&a), &maps};
+  return last_error(cudaLaunchCooperativeKernel(
+      (const void*)int8_layer_kernel, dim3(blocks), dim3(s8::THREADS), args,
+      LAYER_SMEM, st));
+}
+
+// the same layer as a chain of launches of the same bodies, x1 f32
+int layer_chain(const LayerArgs& a, cudaStream_t st) {
+  const int M = a.B * a.S, D = a.D, F = a.F;
+  PTT_TRY((rowquant<true, bf16>(a.x, D, a.ln1s, a.ln1b, a.hq, D, a.hs, M, D,
+                                st)));
+  PTT_TRY((gemm_wg<QEPI_BIAS, bf16>(a.hq, a.hs, a.wqkv, a.sq, a.bq, nullptr,
+                                    a.qkv, M, 3 * D, D, st)));
+  PTT_TRY(attention_f32(a.qkv, a.ao, a.B, a.S, D, a.H, a.valid_len, st));
+  PTT_TRY((rowquant<false, float>(a.ao, D, nullptr, nullptr, a.aq, D, a.as,
+                                  M, D, st)));
+  PTT_TRY((gemm_wg<QEPI_RES, float, bf16>(a.aq, a.as, a.wout, a.sout, a.bout,
+                                          a.x, a.x1, M, D, D, st)));
+  PTT_TRY((rowquant<true, float>(a.x1, D, a.ln2s, a.ln2b, a.hq2, D, a.hs2, M,
+                                 D, st)));
+  PTT_TRY((gemm_wg<QEPI_GELU, float>(a.hq2, a.hs2, a.w1, a.s1, a.b1, nullptr,
+                                     a.g, M, F, D, st)));
+  PTT_TRY((rowquant<false, float>(a.g, F, nullptr, nullptr, a.gq, F, a.gs, M,
+                                  F, st)));
+  return gemm_wg<QEPI_RES, bf16, float>(a.gq, a.gs, a.w2, a.s2, a.b2, a.x1,
+                                        a.out, M, D, F, st);
 }
 
 // ---- the standalone dense layer and MLP, T the type of x and of the output
@@ -465,17 +688,15 @@ int ptt_int8_attn(const void* x, void* out, int B, int S, int D, int H,
 
   PTT_TRY((rowquant<true, bf16>(xb, D, (const float*)lns, (const float*)lnb,
                                 hq8, D, hsf, M, D, st)));
-  PTT_TRY((gemm_s8<QEPI_BIAS, bf16>(hq8, D, hsf, 1, (const int8_t*)wqkv_t, D,
+  PTT_TRY((gemm_wg<QEPI_BIAS, bf16>(hq8, hsf, (const int8_t*)wqkv_t,
                                     (const float*)sq, (const float*)bq,
-                                    nullptr, 0, qkvb, 3 * D, M, 3 * D, D, st)));
-  PTT_TRY(attention(qkvb, (long long)S * 3 * D, 3 * D, S, qkvb + D,
-                    qkvb + 2 * D, (long long)S * 3 * D, 3 * D, aof,
-                    (long long)S * D, D, B, H, S, valid_len, st));
+                                    nullptr, qkvb, M, 3 * D, D, st)));
+  PTT_TRY(attention_f32(qkvb, aof, B, S, D, H, valid_len, st));
   PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, hq8, D, hsf, M, D,
                                   st)));
-  return gemm_s8<QEPI_RES, bf16>(hq8, D, hsf, 1, (const int8_t*)wout_t, D,
-                                 (const float*)sout, (const float*)bout,
-                                 xb, D, (bf16*)out, D, M, D, D, st);
+  return gemm_wg<QEPI_RES, bf16>(hq8, hsf, (const int8_t*)wout_t,
+                                 (const float*)sout, (const float*)bout, xb,
+                                 (bf16*)out, M, D, D, st);
 }
 
 // x [B, S, D] bf16 -> out [B, D] bf16, row 0 of ptt_int8_attn.  Scratch:
@@ -510,8 +731,11 @@ int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
   // Q for the CLS rows only: row 0 of each image is every S-th row of hq
   PTT_TRY((gemm_s8<QEPI_BIAS, bf16>(hq8, S * D, hsf, S, w, D, sqf, bqf,
                                     nullptr, 0, qcb, D, B, D, D, st)));
-  PTT_TRY(attention(qcb, D, D, 1, kvb, kvb + D, (long long)S * 2 * D, 2 * D,
-                    aof, D, D, B, H, S, valid_len, st));
+  // the attention tile of ptt_int8_attn, the CLS row in row 0 of its query
+  // tile
+  PTT_TRY((ptt_flash::attention<false, float>(
+      qcb, D, D, 1, kvb, kvb + D, (long long)S * 2 * D, 2 * D, aof, D, D, B,
+      H, S, valid_len, 0.0f, st)));
   PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, aq8, D, asf, B, D,
                                   st)));
   return gemm_s8<QEPI_RES, bf16>(aq8, D, asf, 1, (const int8_t*)wout_t, D,
@@ -549,14 +773,21 @@ int ptt_int8_mlp(const void* x, void* out, int M, int D, int F,
 
 // x [B, S, D] bf16 -> out [B, S, D] bf16, one whole layer: the attention
 // sub-layer of ptt_int8_attn into the f32 x1, then the MLP sub-layer of
-// ptt_int8_mlp on x1, in one cooperative launch.  Weights as those two
-// take them (ln1s, ln1b, wqkv_t, sq, bq, wout_t, sout, bout, then ln2s,
-// ln2b, w1_t, s1, b1, w2_t, s2, b2); scratch in LayerArgs' order: hq
-// [M, D] int8, hs [M] f32, qkv [M, 3D] bf16, ao [M, D] f32, aq [M, D]
-// int8, as [M] f32, x1 [M, D] f32, hq2 [M, D] int8, hs2 [M] f32, g [M, F]
-// f32, gq [M, F] int8, gs [M] f32 (M = B*S).
+// ptt_int8_mlp on x1.  coop != 0: one cooperative launch, the
+// out-projection and MLP out split over K into split_out and split_mlp
+// k-ranges a tile (each at most its K / 128 steps and SPLIT_MAX); coop ==
+// 0: a chain of launches.  Weights as those two take them (ln1s, ln1b, wqkv_t, sq, bq,
+// wout_t, sout, bout, then ln2s, ln2b, w1_t, s1, b1, w2_t, s2, b2);
+// scratch in LayerArgs' order: hq [M, D] int8, hs [M] f32, qkv [M, 3D]
+// bf16, ao [M, D] f32, aq [M, D] int8, as [M] f32, x1 [M, D] f32, hq2
+// [M, D] int8, hs2 [M] f32, g [M, F] f32, gq [M, F] int8, gs [M] f32, and
+// for coop part [max(split_out, split_mlp), M, D] int32 (M = B*S).
+// stamps:
+// null, or 11 int64 for block 0's clock64 at the start and at the end of
+// each of the cooperative launch's ten phases.
 int ptt_int8_layer(const void* x, void* out, int B, int S, int D, int H,
-                   int F, int valid_len, const void* ln1s, const void* ln1b,
+                   int F, int valid_len, int coop, int split_out,
+                   int split_mlp, const void* ln1s, const void* ln1b,
                    const void* wqkv_t, const void* sq, const void* bq,
                    const void* wout_t, const void* sout, const void* bout,
                    const void* ln2s, const void* ln2b, const void* w1_t,
@@ -564,24 +795,63 @@ int ptt_int8_layer(const void* x, void* out, int B, int S, int D, int H,
                    const void* s2, const void* b2, void* hq, void* hs,
                    void* qkv, void* ao, void* aq, void* as, void* x1,
                    void* hq2, void* hs2, void* g, void* gq, void* gs,
-                   void* stream) {
-  LayerArgs a{(const bf16*)x, (bf16*)out, B, S, D, H, F, valid_len,
-              (const float*)ln1s, (const float*)ln1b, (const int8_t*)wqkv_t,
-              (const float*)sq, (const float*)bq, (const int8_t*)wout_t,
-              (const float*)sout, (const float*)bout, (const float*)ln2s,
-              (const float*)ln2b, (const int8_t*)w1_t, (const float*)s1,
-              (const float*)b1, (const int8_t*)w2_t, (const float*)s2,
-              (const float*)b2, (int8_t*)hq, (float*)hs, (bf16*)qkv,
-              (float*)ao, (int8_t*)aq, (float*)as, (float*)x1, (int8_t*)hq2,
-              (float*)hs2, (float*)g, (int8_t*)gq, (float*)gs};
-  const size_t smem =
-      std::max((size_t)QG_SMEM, ptt_attention::smem_bytes(S));
-  int blocks = 0;
-  PTT_TRY(layer_grid(smem, &blocks));
-  void* args[] = {&a};
-  return last_error(cudaLaunchCooperativeKernel(
-      (const void*)int8_layer_kernel, dim3(blocks), dim3(QG_THREADS), args,
-      smem, (cudaStream_t)stream));
+                   void* part, void* stamps, void* stream) {
+  const LayerArgs a{
+      (const bf16*)x, (bf16*)out, B, S, D, H, F, valid_len, split_out,
+      split_mlp, (const float*)ln1s, (const float*)ln1b, (const float*)sq,
+      (const float*)bq, (const float*)sout, (const float*)bout,
+      (const float*)ln2s, (const float*)ln2b, (const float*)s1,
+      (const float*)b1, (const float*)s2, (const float*)b2,
+      (const int8_t*)wqkv_t, (const int8_t*)wout_t, (const int8_t*)w1_t,
+      (const int8_t*)w2_t, (int8_t*)hq, (float*)hs, (bf16*)qkv, (float*)ao,
+      (int8_t*)aq, (float*)as, (float*)x1, (int8_t*)hq2, (float*)hs2,
+      (float*)g, (int8_t*)gq, (float*)gs, (int*)part, (long long*)stamps};
+  cudaStream_t st = (cudaStream_t)stream;
+  return coop ? layer_coop(a, st) : layer_chain(a, st);
+}
+
+// The cooperative grid of ptt_int8_layer on the current card: *blocks,
+// every block that fits on it at once; and *split_max, the most k-ranges
+// a tile its split GEMMs take (the host's plan reads it here).
+int ptt_int8_layer_grid(int* blocks, int* split_max) {
+  *split_max = SPLIT_MAX;
+  return layer_grid(blocks);
+}
+
+// One s8 GEMM of rows 5 and 8 on its own (csrc/wgmma_s8.cuh), for checks
+// and timing: C = epi(f32(A Bt^T) * rs * cs + bias), A [M, K] int8 with row
+// scales rs [M], Bt [N, K] int8 with column scales cs and bias [N] f32,
+// res and C [M, N].  epi: 0 -> bf16 (QKV); 1 quick_gelu -> f32 (MLP in);
+// 2 + bf16 res -> bf16 (row 5's out-projection); 3 + bf16 res -> f32 (row
+// 8's); 4 + f32 res -> bf16 (MLP out).
+int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
+                  const void* cs, const void* bias, const void* res, void* C,
+                  int M, int N, int K, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int8_t* a = (const int8_t*)A;
+  const int8_t* b = (const int8_t*)Bt;
+  const float *r = (const float*)rs, *c = (const float*)cs;
+  const float* bi = (const float*)bias;
+  switch (epi) {
+    case 0:
+      return gemm_wg<QEPI_BIAS, bf16>(a, r, b, c, bi, nullptr, (bf16*)C, M,
+                                      N, K, st);
+    case 1:
+      return gemm_wg<QEPI_GELU, float>(a, r, b, c, bi, nullptr, (float*)C, M,
+                                       N, K, st);
+    case 2:
+      return gemm_wg<QEPI_RES, bf16, bf16>(a, r, b, c, bi, (const bf16*)res,
+                                           (bf16*)C, M, N, K, st);
+    case 3:
+      return gemm_wg<QEPI_RES, float, bf16>(a, r, b, c, bi, (const bf16*)res,
+                                            (float*)C, M, N, K, st);
+    case 4:
+      return gemm_wg<QEPI_RES, bf16, float>(a, r, b, c, bi,
+                                            (const float*)res, (bf16*)C, M, N,
+                                            K, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // x [M, K] -> out [M, N], both bf16 (f32 == 0) or both f32: row

@@ -371,16 +371,16 @@ int gemm(const bf16* A, long long lda, const bf16* Bt, long long ldb,
   if (err != cudaSuccess) return (int)err;
   // persistent: one block an SM (the ring takes most of its shared
   // memory), each walking the tiles blockIdx.x, + gridDim.x, ...
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return (int)err;
-  }
+  // (the SM count asked once a device)
+  static int sms[ptt::MAX_DEVICES] = {};
+  int dev = 0;
+  PTT_TRY(ptt::current_device(&dev));
+  if (sms[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return (int)err;
   const int tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);
-  kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES, st>>>(
+  kernel<<<tiles < sms[dev] ? tiles : sms[dev], THREADS, SMEM_BYTES, st>>>(
       map_a, map_b, bias, res, ldr, C, ldc, M, N, K);
   return (int)cudaGetLastError();
 }

@@ -45,10 +45,17 @@ FLOAT_VECTORS = ("ln1_scale", "ln1_bias", "bqkv", "bout", "ln2_scale",
 
 class Int8Layer(nn.Module):
     """Buffers of one int8 layer: matrices int8 [out, in] (K-major, as the
-    tensor cores take them), scales, biases and LayerNorm vectors f32."""
+    tensor cores take them), scales, biases and LayerNorm vectors f32.
 
-    def __init__(self, d: int, mlp: int, device=None):
+    It also holds the QKV dequant scale and bias with log2(e)/√hd folded
+    into the q columns (``quant_matmul.fold_q_scale``), as buffers that the
+    state dict leaves out: made at init and again in each
+    ``load_state_dict``, so the kernels need not fold per call.  Edit the
+    vectors through ``load_state_dict``."""
+
+    def __init__(self, d: int, mlp: int, num_heads: int, device=None):
         super().__init__()
+        self.num_heads = num_heads
         shapes = {"wqkv_t": (3 * d, d), "wout_t": (d, d), "w1_t": (mlp, d),
                   "w2_t": (d, mlp)}
         for _f, name, scale in QUANTIZED_MATRICES:
@@ -59,6 +66,20 @@ class Int8Layer(nn.Module):
         for name in FLOAT_VECTORS:
             n = {"bqkv": 3 * d, "b1": mlp}.get(name, d)
             self.register_buffer(name, torch.zeros(n, device=device))
+        for name, t in zip(("sq", "bq"), qm.fold_q_scale(
+                self.sqkv, self.bqkv, num_heads)):
+            self.register_buffer(name, t, persistent=False)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        with torch.no_grad():
+            for name, t in zip(("sq", "bq"), qm.fold_q_scale(
+                    self.sqkv, self.bqkv, self.num_heads)):
+                getattr(self, name).copy_(t)
+
+    def folded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The folded QKV scale and bias, for the entries' ``folded``."""
+        return self.sq, self.bq
 
     def attn_weights(self) -> tuple[torch.Tensor, ...]:
         return (self.ln1_scale, self.ln1_bias, self.wqkv_t, self.sqkv,
@@ -110,7 +131,8 @@ class Int8VisionTransformer(TowerBase):
 
     def _blocks(self, device, generator) -> nn.ModuleList:
         cfg = self.config
-        return nn.ModuleList(Int8Layer(cfg.hidden_dim, cfg.mlp_dim, device)
+        return nn.ModuleList(Int8Layer(cfg.hidden_dim, cfg.mlp_dim,
+                                       cfg.num_heads, device)
                              for _ in range(cfg.num_layers))
 
     @classmethod
@@ -141,9 +163,11 @@ class Int8VisionTransformer(TowerBase):
             last = i == cfg.num_layers - 1
             if ragged and not last:
                 x = whole(x, *layer.attn_weights(), *layer.mlp_weights(),
-                          cfg.num_heads, valid_len=seq)
+                          cfg.num_heads, valid_len=seq,
+                          folded=layer.folded())
             else:
                 x = (attn_cls if last else attn)(
-                    x, *layer.attn_weights(), cfg.num_heads, valid_len=seq)
+                    x, *layer.attn_weights(), cfg.num_heads, valid_len=seq,
+                    folded=layer.folded())
                 x = mlp(x, *layer.mlp_weights())
         return self.readout(x)

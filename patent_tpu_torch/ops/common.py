@@ -11,8 +11,8 @@ import torch
 NEG_1702_LOG2E = float(-1.702 * math.log2(math.e))
 
 
-# the head width csrc/attention.cuh is written for, and the shared memory
-# a block may use on the H100
+# the head width the attention tiles are written for, and the shared
+# memory a block may use on the H100
 ATTENTION_HEAD_DIM = 64
 SMEM_LIMIT = 232448
 
@@ -84,6 +84,9 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                       shape: tuple | None = None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
     ``shape``) — what the kernels' C entry points take."""
+    if (t.is_cuda and t.dtype == dtype and t.is_contiguous()
+            and (shape is None or t.shape == tuple(shape))):
+        return
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
@@ -106,9 +109,10 @@ def refuse_grad(name: str, *tensors) -> None:
 
 def check_attention_shape(d: int, num_heads: int, s: int,
                           valid_len: int) -> None:
-    """Raise unless csrc/attention.cuh takes this shape: head_dim 64, the
-    token axis padded to a multiple of 16 with 1 <= valid_len <= S, and K,
-    V and the score tile of one (image, head) within shared memory."""
+    """Raise unless the CUDA attention takes this shape: head_dim 64, the
+    token axis padded to a multiple of 16 with 1 <= valid_len <= S, and
+    K, V and a 64-row score tile of one (image, head) within shared memory
+    (the first attention tile's bound, which every later tile meets)."""
     hd = ATTENTION_HEAD_DIM
     if d % num_heads or d // num_heads != hd:
         raise ValueError(f"CUDA attention needs head_dim {hd}, got D={d} "

@@ -42,6 +42,11 @@ that only the CLS read-out discards.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -54,7 +59,8 @@ _P, _I = _build.P, _build.I
 _SIG_ATTN = [_P, _P] + [_I] * 5 + [_P] * 8 + [_P] * 4 + [_P]
 _SIG_CLS = [_P, _P] + [_I] * 5 + [_P] * 8 + [_P] * 7 + [_P]
 _SIG_MLP = [_P, _P] + [_I] * 3 + [_P] * 8 + [_P] * 5 + [_P]
-_SIG_LAYER = [_P, _P] + [_I] * 6 + [_P] * 16 + [_P] * 12 + [_P]
+_SIG_LAYER = [_P, _P] + [_I] * 9 + [_P] * 16 + [_P] * 14 + [_P]
+_SIG_GEMM = [_I] + [_P] * 7 + [_I] * 3 + [_P]
 _SIG_DENSE = [_P, _P] + [_I] * 5 + [_P] * 3 + [_P] * 2 + [_P]
 _SIG_QMLP = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P] * 5 + [_P]
 
@@ -100,14 +106,21 @@ def _quick_gelu(g: torch.Tensor) -> torch.Tensor:
     return g / (1.0 + torch.exp2(NEG_1702_LOG2E * g))
 
 
+def _folded_q(sqkv, bqkv, num_heads, folded):
+    """``folded`` (``fold_q_scale`` of the same vectors, made once by the
+    caller), else the fold of this call."""
+    return folded if folded is not None else fold_q_scale(sqkv, bqkv,
+                                                          num_heads)
+
+
 def _attn_f32(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
-              num_heads: int, valid_len: int,
-              cls_only: bool) -> torch.Tensor:
+              num_heads: int, valid_len: int, cls_only: bool,
+              folded=None) -> torch.Tensor:
     """The attention sub-layer with its residual, ``f32(x) + attn(x)``, left
     in f32: [B, S, D] → [B, S, D] (``cls_only``: [B, 1, D])."""
     b, s, d = x.shape
     hd = d // num_heads
-    sq, bq = fold_q_scale(sqkv, bqkv, num_heads)
+    sq, bq = _folded_q(sqkv, bqkv, num_heads, folded)
 
     def heads(t):                    # [B, T, D] → [B·H, T, hd]
         t = t.reshape(b, t.shape[1], num_heads, hd).transpose(1, 2)
@@ -142,22 +155,24 @@ def _mlp_f32(h, w1_t, s1, b1, w2_t, s2, b2) -> torch.Tensor:
 
 def quant_attention_block_plain(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv,
                                 wout_t, sout, bout, num_heads: int,
-                                valid_len: int | None = None) -> torch.Tensor:
+                                valid_len: int | None = None,
+                                folded=None) -> torch.Tensor:
     """Plain version of ``quant_attention_block``: [B, S, D] → [B, S, D]."""
     return _attn_f32(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
                      bout, num_heads,
                      x.shape[1] if valid_len is None else valid_len,
-                     False).to(x.dtype)
+                     False, folded).to(x.dtype)
 
 
 def quant_attention_cls_plain(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv,
                               wout_t, sout, bout, num_heads: int,
-                              valid_len: int | None = None) -> torch.Tensor:
+                              valid_len: int | None = None,
+                              folded=None) -> torch.Tensor:
     """Plain version of ``quant_attention_cls``: [B, S, D] → [B, D]."""
     return _attn_f32(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
                      bout, num_heads,
                      x.shape[1] if valid_len is None else valid_len,
-                     True)[:, 0].to(x.dtype)
+                     True, folded)[:, 0].to(x.dtype)
 
 
 def quant_mlp_block_plain(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
@@ -172,13 +187,15 @@ def quant_mlp_block_plain(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
 def quant_layer_block_plain(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv,
                             wout_t, sout, bout, ln2_scale, ln2_bias, w1_t, s1,
                             b1, w2_t, s2, b2, num_heads: int,
-                            valid_len: int | None = None) -> torch.Tensor:
+                            valid_len: int | None = None,
+                            folded=None) -> torch.Tensor:
     """Plain version of ``quant_layer_block``: [B, S, D] → [B, S, D].  The
     residual between the two sub-layers stays f32 (LN2 reads it unrounded)
     and only the layer's output is cast to x's dtype."""
     x1 = _attn_f32(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
                    bout, num_heads,
-                   x.shape[1] if valid_len is None else valid_len, False)
+                   x.shape[1] if valid_len is None else valid_len, False,
+                   folded)
     return (x1 + _mlp_f32(layernorm_f32(x1, ln2_scale, ln2_bias), w1_t, s1,
                           b1, w2_t, s2, b2)).to(x.dtype)
 
@@ -216,9 +233,10 @@ def _check_vectors(**vectors):
 
 
 def _attn_args(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
-               num_heads, valid_len):
+               num_heads, valid_len, folded=None):
     """Validate a CUDA call (x bf16, matrices int8 [out, in], vectors f32,
-    all contiguous on the card) and fold the q scale."""
+    all contiguous on the card) and fold the q scale, unless ``folded``
+    holds it."""
     check_cuda_tensor("x", x, torch.bfloat16)
     b, s, d = x.shape
     check_attention_shape(d, num_heads, s, valid_len)
@@ -229,33 +247,65 @@ def _attn_args(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
     _check_vectors(ln_scale=(ln_scale, d), ln_bias=(ln_bias, d),
                    sqkv=(sqkv, 3 * d), bqkv=(bqkv, 3 * d), sout=(sout, d),
                    bout=(bout, d))
-    sq, bq = fold_q_scale(sqkv, bqkv, num_heads)
+    if folded is not None:
+        _check_vectors(folded_sq=(folded[0], 3 * d),
+                       folded_bq=(folded[1], 3 * d))
+    sq, bq = _folded_q(sqkv, bqkv, num_heads, folded)
     return [ln_scale, ln_bias, wqkv_t, sq, bq, wout_t, sout, bout]
+
+
+# every slice of a call's workspace starts at a multiple of this many bytes
+# (16 would do for the kernels' vector loads and TMA)
+WORKSPACE_ALIGN = 256
+
+
+@functools.lru_cache(maxsize=256)
+def workspace_layout(specs: tuple) -> tuple[tuple[int, ...], int]:
+    """(byte offset of each (shape, dtype) in ``specs``, total bytes): the
+    slices one after another, each at a multiple of WORKSPACE_ALIGN."""
+    offsets, total = [], 0
+    for shape, dtype in specs:
+        offsets.append(total)
+        n = math.prod(shape) * dtype.itemsize
+        total += -(-n // WORKSPACE_ALIGN) * WORKSPACE_ALIGN
+    return tuple(offsets), total
+
+
+def workspace(device, specs: tuple) -> tuple[torch.Tensor, list[int]]:
+    """One allocation for a call's scratch, and the address of each (shape,
+    dtype) slice of ``specs`` in it, for a C entry point.  Keep the buffer
+    until the launch is enqueued."""
+    offsets, total = workspace_layout(specs)
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, [base + off for off in offsets]
 
 
 def quant_attention_block(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t,
                           sout, bout, num_heads: int,
-                          valid_len: int | None = None) -> torch.Tensor:
+                          valid_len: int | None = None,
+                          folded=None) -> torch.Tensor:
     """``x + out_proj(MHA(qkv_proj(LayerNorm(x))))`` with int8 projections:
-    [B, S, D] → [B, S, D].  CPU tensor: the plain version; CUDA tensor
-    (bf16): the kernel, or an error."""
+    [B, S, D] → [B, S, D].  ``folded``: ``fold_q_scale(sqkv, bqkv,
+    num_heads)`` made once by the caller (the tower holds it), else folded
+    here.  CPU tensor: the plain version; CUDA tensor (bf16): the kernel,
+    or an error."""
     valid_len = x.shape[1] if valid_len is None else valid_len
     if x.device.type == "cpu":
         return quant_attention_block_plain(
             x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
-            num_heads, valid_len)
+            num_heads, valid_len, folded)
     ws = _attn_args(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
-                    bout, num_heads, valid_len)
+                    bout, num_heads, valid_len, folded)
     b, s, d = x.shape
     m, dev = b * s, x.device
     out = torch.empty_like(x)
-    scratch = [torch.empty(m, d, dtype=torch.int8, device=dev),
-               torch.empty(m, dtype=torch.float32, device=dev),
-               torch.empty(m, 3 * d, dtype=torch.bfloat16, device=dev),
-               torch.empty(m, d, dtype=torch.float32, device=dev)]
+    _buf, scratch = workspace(dev, (
+        ((m, d), torch.int8), ((m,), torch.float32),
+        ((m, 3 * d), torch.bfloat16), ((m, d), torch.float32)))
     _build.call("ptt_int8_attn", _SIG_ATTN, _build.ptr(x), _build.ptr(out),
                 b, s, d, num_heads, valid_len, *map(_build.ptr, ws),
-                *map(_build.ptr, scratch), _build.stream(dev))
+                *scratch, _build.stream(dev))
     quant_attention_block.launches += 1
     return out
 
@@ -265,31 +315,29 @@ quant_attention_block.launches = 0
 
 def quant_attention_cls(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t,
                         sout, bout, num_heads: int,
-                        valid_len: int | None = None) -> torch.Tensor:
+                        valid_len: int | None = None,
+                        folded=None) -> torch.Tensor:
     """Row 0 (CLS) of ``quant_attention_block`` → [B, D]: LN1, quant and
-    K/V over every row, the rest for the CLS row only.  CPU tensor: the
-    plain version; CUDA tensor (bf16): the kernel, or an error."""
+    K/V over every row, the rest for the CLS row only.  ``folded`` as
+    there.  CPU tensor: the plain version; CUDA tensor (bf16): the kernel,
+    or an error."""
     valid_len = x.shape[1] if valid_len is None else valid_len
     if x.device.type == "cpu":
         return quant_attention_cls_plain(
             x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
-            num_heads, valid_len)
+            num_heads, valid_len, folded)
     ws = _attn_args(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t, sout,
-                    bout, num_heads, valid_len)
+                    bout, num_heads, valid_len, folded)
     b, s, d = x.shape
     m, dev = b * s, x.device
     out = torch.empty(b, d, dtype=x.dtype, device=dev)
-    scratch = [torch.empty(m, d, dtype=torch.int8, device=dev),
-               torch.empty(m, dtype=torch.float32, device=dev),
-               torch.empty(m, 2 * d, dtype=torch.bfloat16, device=dev),
-               torch.empty(b, d, dtype=torch.bfloat16, device=dev),
-               torch.empty(b, d, dtype=torch.float32, device=dev),
-               torch.empty(b, d, dtype=torch.int8, device=dev),
-               torch.empty(b, dtype=torch.float32, device=dev)]
+    _buf, scratch = workspace(dev, (
+        ((m, d), torch.int8), ((m,), torch.float32),
+        ((m, 2 * d), torch.bfloat16), ((b, d), torch.bfloat16),
+        ((b, d), torch.float32), ((b, d), torch.int8), ((b,), torch.float32)))
     _build.call("ptt_int8_attn_cls", _SIG_CLS, _build.ptr(x),
                 _build.ptr(out), b, s, d, num_heads, valid_len,
-                *map(_build.ptr, ws), *map(_build.ptr, scratch),
-                _build.stream(dev))
+                *map(_build.ptr, ws), *scratch, _build.stream(dev))
     quant_attention_cls.launches += 1
     return out
 
@@ -323,15 +371,12 @@ def quant_mlp_block(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
     f = _mlp_args(d, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2, b2)
     m, dev = x.numel() // d, x.device
     out = torch.empty_like(x)
-    scratch = [torch.empty(m, d, dtype=torch.int8, device=dev),
-               torch.empty(m, dtype=torch.float32, device=dev),
-               torch.empty(m, f, dtype=torch.float32, device=dev),
-               torch.empty(m, f, dtype=torch.int8, device=dev),
-               torch.empty(m, dtype=torch.float32, device=dev)]
+    _buf, scratch = workspace(dev, (
+        ((m, d), torch.int8), ((m,), torch.float32), ((m, f), torch.float32),
+        ((m, f), torch.int8), ((m,), torch.float32)))
     ws = [ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2, b2]
     _build.call("ptt_int8_mlp", _SIG_MLP, _build.ptr(x), _build.ptr(out), m,
-                d, f, *map(_build.ptr, ws), *map(_build.ptr, scratch),
-                _build.stream(dev))
+                d, f, *map(_build.ptr, ws), *scratch, _build.stream(dev))
     quant_mlp_block.launches += 1
     return out
 
@@ -339,45 +384,115 @@ def quant_mlp_block(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
 quant_mlp_block.launches = 0
 
 
-def _layer_kernel(x, params, num_heads: int, valid_len: int) -> torch.Tensor:
-    """Row 8's kernel on a CUDA tensor: validate, allocate the scratch of
-    its nine phases (each buffer written by one phase only), launch."""
-    ws = _attn_args(x, *params[:8], num_heads, valid_len)
+# csrc/wgmma_s8.cuh's tile: 128 rows of A, 128 rows of Bt (output
+# columns), K in steps of 128
+S8_TILE = 128
+
+
+class LayerGrid(NamedTuple):
+    """What row 8's plan needs of the library: the blocks of its
+    cooperative grid (all that fit on the card at once), and the most
+    k-ranges a tile its split GEMMs take (each adds an [M, D] int32 slice
+    that the next phase reads)."""
+    blocks: int
+    split_max: int
+
+
+class LayerPlan(NamedTuple):
+    """How row 8's kernel runs a layer: one cooperative launch (``coop``)
+    with the out-projection and MLP out split over K into ``split_out`` and
+    ``split_mlp`` k-ranges a tile, or (not ``coop``) a chain of launches."""
+    coop: bool
+    split_out: int
+    split_mlp: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=64)
+def layer_plan(m: int, d: int, f: int, grid: LayerGrid) -> LayerPlan:
+    """The plan for M = B·S rows at width d, MLP f, on ``grid``: one
+    launch while the widest phase (MLP in, M/128 x f/128 tiles) fits in one
+    wave of the grid, its narrow, long-K phases (N = d) cut into as many
+    k-ranges as fill the grid; else the chain, each GEMM on the whole
+    card."""
+    tiles_m = _cdiv(m, S8_TILE)
+    if tiles_m * _cdiv(f, S8_TILE) > grid.blocks:
+        return LayerPlan(False, 1, 1)
+
+    def split(n, k):
+        return max(1, min(_cdiv(k, S8_TILE), grid.split_max,
+                          grid.blocks // (tiles_m * _cdiv(n, S8_TILE))))
+
+    return LayerPlan(True, split(d, d), split(d, f))
+
+
+_LAYER_GRID: dict[int, LayerGrid] = {}
+
+
+def layer_grid() -> LayerGrid:
+    """Row 8's grid on the current card (the one a launch goes to), asked
+    of the library once a device."""
+    dev = torch.cuda.current_device()
+    grid = _LAYER_GRID.get(dev)
+    if grid is None:
+        blocks, split_max = ctypes.c_int(0), ctypes.c_int(0)
+        _build.call("ptt_int8_layer_grid", [_P, _P], ctypes.byref(blocks),
+                    ctypes.byref(split_max))
+        grid = _LAYER_GRID[dev] = LayerGrid(blocks.value, split_max.value)
+    return grid
+
+
+def _layer_kernel(x, params, num_heads: int, valid_len: int, folded=None,
+                  stamps: torch.Tensor | None = None) -> torch.Tensor:
+    """Row 8's kernel on a CUDA tensor: validate, plan, allocate the
+    scratch of its phases (each buffer written by one phase only, in one
+    workspace), launch.  ``stamps``: None, or 11 int64 on the card for the
+    cooperative launch's clock at its start and after each phase."""
+    ws = _attn_args(x, *params[:8], num_heads, valid_len, folded)
     b, s, d = x.shape
     f = _mlp_args(d, *params[8:])
     m, dev = b * s, x.device
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(*shape, dtype=dtype, device=dev)
-
+    plan = layer_plan(m, d, f, layer_grid())
     out = torch.empty_like(x)
-    i8, bf = torch.int8, torch.bfloat16
-    scratch = [empty(m, d, dtype=i8), empty(m), empty(m, 3 * d, dtype=bf),
-               empty(m, d), empty(m, d, dtype=i8), empty(m), empty(m, d),
-               empty(m, d, dtype=i8), empty(m), empty(m, f),
-               empty(m, f, dtype=i8), empty(m)]
+    i8, bf, f32 = torch.int8, torch.bfloat16, torch.float32
+    specs = (((m, d), i8), ((m,), f32), ((m, 3 * d), bf), ((m, d), f32),
+             ((m, d), i8), ((m,), f32), ((m, d), f32), ((m, d), i8),
+             ((m,), f32), ((m, f), f32), ((m, f), i8), ((m,), f32))
+    if plan.coop:
+        specs += (((max(plan.split_out, plan.split_mlp), m, d),
+                   torch.int32),)
+    _buf, scratch = workspace(dev, specs)
     _build.call("ptt_int8_layer", _SIG_LAYER, _build.ptr(x), _build.ptr(out),
-                b, s, d, num_heads, f, valid_len,
-                *map(_build.ptr, ws + list(params[8:])),
-                *map(_build.ptr, scratch), _build.stream(dev))
+                b, s, d, num_heads, f, valid_len, int(plan.coop),
+                plan.split_out, plan.split_mlp,
+                *map(_build.ptr, ws + list(params[8:])), *scratch,
+                *([] if plan.coop else [None]),
+                None if stamps is None else _build.ptr(stamps),
+                _build.stream(dev))
     return out
 
 
 def quant_layer_block(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t,
                       sout, bout, ln2_scale, ln2_bias, w1_t, s1, b1, w2_t, s2,
-                      b2, num_heads: int,
-                      valid_len: int | None = None) -> torch.Tensor:
+                      b2, num_heads: int, valid_len: int | None = None,
+                      folded=None) -> torch.Tensor:
     """One whole pre-LN int8 layer, ``x1 = f32(x) + attn(x)``, then
     ``x1 + mlp(x1)`` in x's dtype, with the residual between the two
-    sub-layers kept f32: [B, S, D] → [B, S, D].  CPU tensor: the plain
-    version; CUDA tensor (bf16): the kernel (one cooperative launch), or
-    an error."""
+    sub-layers kept f32: [B, S, D] → [B, S, D].  ``folded`` as
+    ``quant_attention_block`` takes it.  CPU tensor: the plain version;
+    CUDA tensor (bf16): the kernel (one cooperative launch at a query's
+    batch, a chain of launches of the same bodies at a larger one), or an
+    error."""
     params = (ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t, sout, bout,
               ln2_scale, ln2_bias, w1_t, s1, b1, w2_t, s2, b2)
     valid_len = x.shape[1] if valid_len is None else valid_len
     if x.device.type == "cpu":
-        return quant_layer_block_plain(x, *params, num_heads, valid_len)
-    out = _layer_kernel(x, params, num_heads, valid_len)
+        return quant_layer_block_plain(x, *params, num_heads, valid_len,
+                                       folded)
+    out = _layer_kernel(x, params, num_heads, valid_len, folded)
     quant_layer_block.launches += 1
     return out
 
@@ -434,6 +549,64 @@ def quant_layer_group(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t,
 
 
 quant_layer_group.launches = 0
+
+
+# The s8 GEMM of rows 5 and 8 (csrc/wgmma_s8.cuh) on its own, by the
+# index its C entry takes: the epilogue, the residual's dtype, the output's
+# dtype.  "bias": QKV; "gelu": MLP in; "res": row 5's out-projection;
+# "res_f32_out": row 8's (x1 kept f32); "res_f32": MLP out on x1.
+S8_GEMM_EPILOGUES = {"bias": (0, None, torch.bfloat16),
+                     "gelu": (1, None, torch.float32),
+                     "res": (2, torch.bfloat16, torch.bfloat16),
+                     "res_f32_out": (3, torch.bfloat16, torch.float32),
+                     "res_f32": (4, torch.float32, torch.bfloat16)}
+
+
+def int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
+                    res: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``int8_gemm``: ``f32(a · w_tᵀ) * a_scale * scale +
+    bias`` (exact integer products), then the epilogue, in the instance's
+    output dtype."""
+    _idx, _rdt, odt = S8_GEMM_EPILOGUES[epilogue]
+    v = int_mm(a, w_t) * a_scale[:, None] * scale + bias
+    if epilogue == "gelu":
+        v = _quick_gelu(v)
+    elif res is not None:
+        v = res.float() + v
+    return v.to(odt)
+
+
+def int8_gemm(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
+              res: torch.Tensor | None = None) -> torch.Tensor:
+    """One of rows 5 and 8's int8 GEMMs on its own (for checks and timing):
+    a [M, K] int8 with row scales a_scale [M], w_t [N, K] int8 with scale
+    and bias [N] f32, res [M, N] in the instance's residual dtype;
+    ``epilogue`` one of ``S8_GEMM_EPILOGUES``.  CPU tensor: the plain
+    version; CUDA tensor: the kernel (K and N multiples of 16), or an
+    error."""
+    if a.device.type == "cpu":
+        return int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res)
+    idx, rdt, odt = S8_GEMM_EPILOGUES[epilogue]
+    m, k = a.shape
+    n = w_t.shape[0]
+    if n % 16 or k % 16:
+        raise ValueError(f"N ({n}) and K ({k}) must be multiples of 16")
+    _check_matrix("a", a, m, k)
+    _check_matrix("w_t", w_t, n, k)
+    _check_vectors(a_scale=(a_scale, m), scale=(scale, n), bias=(bias, n))
+    if rdt is not None:
+        check_cuda_tensor("res", res, rdt, (m, n))
+    out = torch.empty(m, n, dtype=odt, device=a.device)
+    _build.call("ptt_int8_gemm", _SIG_GEMM, idx, _build.ptr(a),
+                _build.ptr(a_scale), _build.ptr(w_t), _build.ptr(scale),
+                _build.ptr(bias),
+                _build.ptr(res) if rdt is not None else None,
+                _build.ptr(out), m, n, k, _build.stream(a.device))
+    int8_gemm.launches += 1
+    return out
+
+
+int8_gemm.launches = 0
 
 
 def _dense_input(x, widths: dict[str, int]):

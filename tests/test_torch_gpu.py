@@ -579,7 +579,7 @@ INT8_LAYER_REL_TOL = 1.5e-3
 LAYER_CONTROLS = {"bias": (1, 4, 7, 9, 12, 15), "scale": (3, 6, 11, 14)}
 
 
-@pytest.mark.parametrize("b", [1, 3], ids=["B1", "B3"])
+@pytest.mark.parametrize("b", [1, 3, 127], ids=["B1", "B3", "B127"])
 def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b):
     x, attn, mlp = _int8_case(cuda, b=b)
     params = (*attn, *mlp)
@@ -608,6 +608,69 @@ def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b):
             controls[f"{kind} {i}"] = run(qm.quant_layer_block_plain, q)
     for name, ctrl in controls.items():
         assert _rel_err(ctrl, want) > INT8_LAYER_REL_TOL, name
+
+
+@pytest.mark.parametrize("b", [1, 3, 127], ids=["B1", "B3", "B127"])
+def test_int8_layer_cooperative_launch_equals_the_chain(cuda, b, monkeypatch):
+    """Row 8 runs one cooperative launch at a query's batch and a chain of
+    launches of the same bodies at a larger one: the integer products are
+    exact and every other operation the same, so the two give the same
+    bits (both forced here at every batch), and the folded vectors change
+    nothing."""
+    x, attn, mlp = _int8_case(cuda, b=b)
+    params = (*attn, *mlp)
+    folded = qm.fold_q_scale(attn[3], attn[4], HEADS)
+    outs = {}
+    for coop in (True, False):
+        def plan(m, d, f, blocks, coop=coop):
+            return qm.LayerPlan(coop, 1, 2) if coop else qm.LayerPlan(
+                False, 1, 1)
+
+        monkeypatch.setattr(qm, "layer_plan", plan)
+        outs[coop] = qm.quant_layer_block(x, *params, HEADS, valid_len=VALID)
+        outs[coop, "folded"] = qm.quant_layer_block(
+            x, *params, HEADS, valid_len=VALID, folded=folded)
+    torch.cuda.synchronize()
+    for key, got in outs.items():
+        assert torch.equal(got, outs[True]), key
+
+
+# the s8 GEMM's instances (csrc/wgmma_s8.cuh) at ViT-B/16 widths: (N, K)
+S8_GEMM_SHAPES = {"bias": (2304, 768), "gelu": (3072, 768), "res": (768, 768),
+                  "res_f32_out": (768, 768), "res_f32": (768, 3072)}
+
+
+@pytest.mark.parametrize("m", [208, 624, 26624])
+@pytest.mark.parametrize("epilogue", sorted(S8_GEMM_SHAPES))
+def test_s8_gemm_matches_plain(cuda, epilogue, m):
+    """Rows 5 and 8's int8 GEMM alone equals its plain epilogue bit for bit
+    (the integer products are exact, the epilogue the same operations in
+    the same order) at one image's rows, three images' and a batch of
+    128's; dropping the bias must show."""
+    n, k = S8_GEMM_SHAPES[epilogue]
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=cuda,
+                             dtype=torch.int8)
+
+    a, w_t = codes(m, k), codes(n, k)
+    a_scale = 0.1 * torch.rand(m, generator=g, device=cuda)
+    scale = 10 * torch.rand(n, generator=g, device=cuda) / 127 / k ** 0.5
+    bias = 0.1 * torch.randn(n, generator=g, device=cuda)
+    rdt = qm.S8_GEMM_EPILOGUES[epilogue][1]
+    res = (None if rdt is None
+           else torch.randn(m, n, generator=g, device=cuda).to(rdt))
+    n0 = qm.int8_gemm.launches
+    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, res)
+    want = qm.int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res)
+    torch.cuda.synchronize()
+    assert qm.int8_gemm.launches == n0 + 1
+    assert got.dtype == qm.S8_GEMM_EPILOGUES[epilogue][2]
+    assert torch.equal(got, want)
+    no_bias = qm.int8_gemm_plain(a, a_scale, w_t, scale,
+                                 torch.zeros_like(bias), epilogue, res)
+    assert _rel_err(no_bias, want) > INT8_REL_TOL
 
 
 def test_int8_layer_group_dispatches_as_jax(cuda):
