@@ -36,7 +36,11 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    sub-layers and the other mid-layer residual (rows 5 + 7 chained, bf16,
    must fail the whole layer's gate); the int8 dense layer at [26,624 x
    768] x [768 x 2304] and x [768 x 3072] with quick_gelu, and on f32 rows;
-   the int8 MLP at [26,624 x 768], hidden 3072; the standalone attention
+   the int8 MLP at [26,624 x 768], hidden 3072; the int8 MLP sub-layer
+   (row 7) at the CLS call's 1, 3, 4 and 128 rows and at 26,624, and its
+   MLP in alone, whose hidden, row maxima (taken in the GEMM's epilogue)
+   and one-pass codes must equal the plain epilogue's and quant_rows' of
+   its own hidden bit for bit; the standalone attention
    (row 14) on q, k, v [16, 197, 12, 64] and [16, 64, 12, 64] read as
    slices of one qkv tensor (controls: q unscaled, the zero keys up to the
    next multiple of 16 counted) and with q x 40, where ~8% of the scores
@@ -83,6 +87,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    and f32 against its plain version and F.scaled_dot_product_attention,
    rows 1-2 on weights folded once, row 1's four GEMM instances beside
    torch.matmul of the same bf16 product (a yardstick),
+   row 7's device time by kernel at batch 128 (LN2 + quantization, MLP
+   in, the hidden's quantization, MLP out),
    the int8 tower at batch 1 (ms), 3 and 127 (img/s), each with its
    profile, one int8 layer at B=1, 3 and 127 through the whole-layer
    kernel (with its bound, and at B 1 and 3 the share of each phase of
@@ -95,7 +101,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    pairs with kernels against plain blocks (first held to them: metrics
    and every trainable gradient, from the same seeded weights), with its
    profile; the hyperbolic encoder over 1M rows with row 18 against its
-   plain first layer, the label-retrieval mAP over the 32k figures (device
+   plain first layer, row 18's launch (CTAs, cluster shape) and device
+   time, the label-retrieval mAP over the 32k figures (device
    and host parts), and Poincaré top-10 QPS at 1M x 128 through the kernel
    path against the scan.
 
@@ -175,6 +182,24 @@ def kernel_breakdown(torch, fn, iters: int = 3) -> list[tuple[str, float]]:
     rows = [(e.key, e.self_device_time_total / iters / 1e3)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     return sorted(rows, key=lambda r: -r[1])
+
+
+def launch_times(torch, fn, iters: int = 30) -> list[tuple[str, float, int]]:
+    """(kernel name, mean device ms a launch, launches the profiler saw) of
+    every kernel ``fn`` launches, over ``iters`` calls after one warm-up
+    call.  A mean over the launches seen, so a launch the trace dropped
+    does not shrink it; for a ``fn`` that launches each kernel once, the
+    device time a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total / e.count / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
 
 
 def print_breakdown(torch, what: str, fn) -> None:
@@ -567,8 +592,9 @@ def int8_params(torch, qm, d, f, gen, dev):
 def check_int8(torch, qm, name, x, p, heads, valid) -> float:
     """Hold one int8 kernel (``name``: quant_attention_block,
     quant_attention_cls or quant_mlp_block) to its plain version on the
-    valid rows (every row for the MLP, which is row-independent), with
-    controls that must fail the same gate.  Returns the max-abs error."""
+    valid rows (every row for the MLP, which is row-independent and takes
+    x [..., D] of any row count), with controls that must fail the same
+    gate.  Returns the max-abs error."""
     kernel = getattr(qm, name)
     plain = getattr(qm, name + "_plain")
     s = x.shape[1]
@@ -590,8 +616,46 @@ def check_int8(torch, qm, name, x, p, heads, valid) -> float:
         q = list(p)
         q[i] = torch.full_like(q[i], float(q[i].mean()))
         controls[sname + "=mean"] = run(plain, q)
-    return gate(torch, f"{name} valid {valid}/{s}", got, ref, controls,
-                INT8_REL_TOL, INT8_MAX_ULPS)
+    rows = (f"valid {valid}/{s}" if attention
+            else f"[{x.numel() // x.shape[-1]} x {x.shape[-1]}]")
+    return gate(torch, f"{name} {rows}", got, ref, controls, INT8_REL_TOL,
+                INT8_MAX_ULPS)
+
+
+def check_gelu_quant(torch, qm, x, p) -> None:
+    """Row 7's MLP in alone on the row codes of x [M, D]: its hidden g
+    equal to the plain epilogue's, the row maxima its epilogue takes equal
+    to max |g| of its own g, and the one-pass quantization equal to
+    quant_rows(g), each bit for bit."""
+    a, a_scale = qm.quant_rows(x.float())
+    a_scale = a_scale[:, 0].contiguous()
+    g, g_max, gq, gs = qm.int8_gelu_quant(a, a_scale, *p[2:5])
+    want_q, want_s = qm.quant_rows(g)
+    torch.cuda.synchronize()
+    same = {"hidden": torch.equal(g, qm.int8_gemm_plain(a, a_scale, *p[2:5],
+                                                        "gelu")),
+            "row maxima": torch.equal(g_max, g.abs().amax(dim=-1)),
+            "codes": torch.equal(gq, want_q),
+            "scales": torch.equal(gs, want_s[:, 0])}
+    print(f"[kernel] row 7's MLP in alone, [{x.shape[0]} x {x.shape[1]}] x "
+          f"[{x.shape[1]} x {p[2].shape[0]}]: equal bit for bit to the plain "
+          "epilogue and to quant_rows of its own hidden: "
+          + ", ".join(f"{key} {v}" for key, v in same.items()))
+    check(all(same.values()), "row 7's MLP in or the hidden's one-pass "
+          "quantization differs from its plain version")
+
+
+# the kernels row 7 launches, named by the phase each runs
+ROW7_PHASES = (("rowquant_amax", "the hidden's quantization"),
+               ("rowquant_kernel", "LN2 + quantization"),
+               ("gemm_kernel<1", "MLP in + row maxima"),
+               ("gemm_kernel<2", "MLP out"),
+               ("emset", "row maxima zeroed"))
+
+
+def row7_phase(kname: str) -> str:
+    return next((phase for key, phase in ROW7_PHASES if key in kname),
+                kname[:60])
 
 
 def check_int8_layer(torch, qm, name, x, p, heads, valid, **kw) -> float:
@@ -1377,6 +1441,17 @@ def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
     times["mobius_dense_pallas"] = in_turns(
         torch, lambda: pk.mobius_dense_pallas_plain(x18, w18, b18, c),
         lambda: pk.mobius_dense_pallas(x18, w18, b18, c))
+    shape = pk.mobius_dense_launch(z["n_enc"], z["d_hid"])
+    dev18 = launch_times(
+        torch, lambda: pk.mobius_dense_pallas(x18, w18, b18, c), 100)
+    print(f"[time] row 18 (mobius_dense_pallas) at [{z['n_enc']}, "
+          f"{z['k_in']}] x [{z['k_in']}, {z['d_hid']}]: "
+          f"{times['mobius_dense_pallas'][1]:.4f} ms a call (wall); device "
+          "time a launch (torch.profiler, 100 calls) "
+          + ", ".join(f"{ms:.4f} ms ({n} launches seen) {kname[:40]}"
+                      for kname, ms, n in dev18)
+          + f"; {shape['ctas']} CTAs in thread-block clusters of "
+          f"{shape['cluster']}, {shape['cols']} columns a CTA {label}")
     times["pairwise_dist_pallas"] = in_turns(
         torch, lambda: pk.pairwise_dist_pallas_plain(x17, y17, c),
         lambda: pk.pairwise_dist_pallas(x17, y17, c))
@@ -1503,6 +1578,15 @@ def main() -> None:
                          "quick_gelu"))
     errs["quant_mlp"] = check_int8_qmlp(torch, qm, f"[{m} x {d}], H {f}", x2,
                                         ip_mlp[2:])
+    # row 7 at the other rows the main path gives it: the CLS call at M = B
+    # (1 and 3 at a ragged batch, 4 and 128 at B % 4 = 0) and a batch of
+    # 128's tokens (the cases above hold B 16's 3,328); and its MLP in
+    # alone, whose epilogue takes the hidden's row maxima
+    for mv in (1, 3, 4, 128, m):
+        errs["quant_mlp_block"] = max(errs["quant_mlp_block"], check_int8(
+            torch, qm, "quant_mlp_block", x2[:mv], ip_mlp, heads, valid))
+    for mv in (4, m):
+        check_gelu_quant(torch, qm, x2[:mv], ip_mlp)
     del x2
 
     # the fine-tune's trainable blocks, on a generator of their own so that
@@ -2115,6 +2199,16 @@ def main() -> None:
         plain = getattr(module, kname + "_plain")
         times[kname] = in_turns(torch, lambda: plain(xb, *args),
                                 lambda: kernel(xb, *args))
+    # row 7 at a batch of 128: where its device time goes (each of its
+    # kernels launches once a call)
+    rows7 = sorted(launch_times(torch,
+                                lambda: qm.quant_mlp_block(xb, *ip_mlp)),
+                   key=lambda row: -row[1])
+    print(f"[time] row 7 (quant_mlp_block) at [{bt}, {s}, {d}], hidden {f}: "
+          f"device time by kernel (torch.profiler, 30 calls) "
+          f"{sum(ms for _k, ms, _n in rows7):.4f} ms a call; "
+          + "; ".join(f"{row7_phase(kname)} {ms:.4f} ms ({n} launches seen)"
+                      for kname, ms, n in rows7) + f" {label}")
     # one int8 layer at the ragged batches: the whole-layer kernel, the rows
     # 5 + 7 chain of kernels and row 8's plain version; then rows 9-11
     # against their plain versions at a batch of 128

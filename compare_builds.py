@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Compare two checkouts of patent_tpu_torch on one CUDA card: the bits and
+the times of the int8 MLP sub-layer (row 7), the Möbius dense layer (row
+18) and the int8 ViT-B/16 tower.
+
+    python3 compare_builds.py run ROOT OUT.pt
+    python3 compare_builds.py compare A.pt B.pt [C.pt ...]
+
+``run`` imports patent_tpu_torch from the checkout at ROOT (its kernels
+build there, under ROOT/build), makes every input from a seed, and saves
+to OUT.pt the outputs and the wall time a call (``chip_smoke.cuda_ms``:
+CUDA events, 20 calls after 3 of warm-up) of:
+
+* row 7, ``quant_mlp_block``, on the tokens of a batch of 128 ([128, 208,
+  768]) and on the CLS rows of batches of 4 and 1 ([4, 768], [1, 768]);
+* row 18, ``mobius_dense_pallas``, at the hyperbolic encoder's [512, 512] x
+  [512, 256] (c = 2), on unit features and on features x 0.02; row 17,
+  ``pairwise_dist_pallas``, at [256, 128] x [16,059, 128] (the same
+  source file, unchanged); the hyperbolic encoder (512 -> 256 -> 128, row
+  18 its first layer) over 20 batches of 512 rows, with its device busy
+  share (torch.profiler);
+* the int8 tower (seeded ViT-B/16 weights) at B 128 (rows 5 + 7), 127, 3
+  and 1 (row 8, then rows 6 + 7 on the CLS rows);
+
+with the card's name and power limit.  Run each checkout in its own
+process: two builds of the kernel library cannot share one.  ``compare``
+prints, for each output, whether the first two files hold the same bits
+(else the largest difference relative to the largest value), then every
+file's times side by side.  To compare a parent commit with a change,
+run parent, change, change, parent one after another on the same card,
+each from a ``git archive`` of its commit, and compare the four files.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+from chip_smoke import cuda_ms
+
+
+def busy_share(torch, fn, wall_ms: float, iters: int = 3) -> float:
+    """Device time (torch.profiler, the sum over kernels) of ``iters`` calls
+    of ``fn`` over their wall time, ``wall_ms`` a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages())
+    return device / 1e3 / iters / wall_ms
+
+
+def run(root: str, out_path: str) -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("compare_builds.py run needs a CUDA card")
+    sys.path.insert(0, os.path.abspath(root))
+    from patent_tpu_torch.models.hyperbolic import HyperbolicEmbeddingModel
+    from patent_tpu_torch.models.vit import VIT_B16, VisionTransformer
+    from patent_tpu_torch.models.vit_int8 import Int8VisionTransformer
+    from patent_tpu_torch.ops import pallas_kernels as pk
+    from patent_tpu_torch.ops import poincare
+    from patent_tpu_torch.ops import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    d, f, s, bt = 768, 3072, 208, 128
+
+    def randn(*shape, std=1.0):
+        return std * torch.randn(*shape, generator=gen, device=dev)
+
+    def mat(rows, cols):
+        q, scale = qm.quantize_weight(randn(rows, cols, std=rows ** -0.5))
+        return q.T.contiguous(), scale
+
+    w1, s1 = mat(d, f)
+    w2, s2 = mat(f, d)
+    mlp = (1 + randn(d, std=0.1), randn(d, std=0.1), w1, s1,
+           randn(f, std=0.02), w2, s2, randn(d, std=0.02))
+    xb = randn(bt, s, d).to(torch.bfloat16)
+    outs, times, busy = {}, {}, {}
+    for name, x in (("row 7, [128, 208, 768]", xb),
+                    ("row 7, CLS rows [4, 768]", xb[:4, 0].contiguous()),
+                    ("row 7, CLS rows [1, 768]", xb[:1, 0].contiguous())):
+        outs[name] = qm.quant_mlp_block(x, *mlp)
+        times[name] = cuda_ms(torch, lambda x=x: qm.quant_mlp_block(x, *mlp))
+
+    c, n, k, dh = 2.0, 512, 512, 256
+    lim = (6.0 / (k + dh)) ** 0.5
+    w18 = (2.0 * torch.rand(k, dh, generator=gen, device=dev) - 1.0) * lim
+    b18 = poincare.expmap0(randn(dh, std=1e-3), c).contiguous()
+    x18 = randn(n, k)
+    for name, x in (("row 18, unit features", x18),
+                    ("row 18, features x 0.02", 0.02 * x18)):
+        outs[name] = pk.mobius_dense_pallas(x, w18, b18, c)
+        times[name] = cuda_ms(
+            torch, lambda x=x: pk.mobius_dense_pallas(x, w18, b18, c))
+    # ball points, radii up to 0.95 of the ball's
+    x17, y17 = (randn(m, 128) for m in (256, 16059))
+    x17, y17 = (v / v.norm(dim=-1, keepdim=True) * 0.95 / c ** 0.5
+                * torch.rand(v.shape[0], 1, generator=gen, device=dev)
+                for v in (x17, y17))
+    outs["row 17"] = pk.pairwise_dist_pallas(x17, y17, c)
+    times["row 17"] = cuda_ms(torch,
+                              lambda: pk.pairwise_dist_pallas(x17, y17, c))
+    model = HyperbolicEmbeddingModel(
+        feature_dim=k, embed_dim=128, hidden_dims=(dh,), c=c,
+        generator=torch.Generator().manual_seed(2018)).to(dev).eval()
+    feats = randn(20 * n, k)
+
+    def encode():
+        with torch.no_grad():
+            return torch.cat([model(feats[i:i + n])
+                              for i in range(0, feats.shape[0], n)])
+
+    name = "hyperbolic encoder, 20 batches of 512 rows"
+    outs[name] = encode()
+    times[name] = cuda_ms(torch, encode, iters=10)
+    busy[name] = busy_share(torch, encode, times[name])
+
+    tower = VisionTransformer(VIT_B16, generator=torch.Generator()
+                              .manual_seed(2018)).to(dev).eval()
+    tower8 = Int8VisionTransformer.from_float(tower).eval()
+    del tower
+    pix = randn(bt, 224, 224, 3)
+    for b in (bt, bt - 1, 3, 1):
+        name = f"int8 tower, B {b}"
+
+        def tower_at(pv=pix[:b]):
+            with torch.inference_mode():
+                return tower8(pv)
+
+        outs[name] = tower_at()
+        times[name] = cuda_ms(torch, tower_at)
+    torch.cuda.synchronize()
+    torch.save({"root": os.path.abspath(root), "card": smi,
+                "outputs": {key: v.cpu() for key, v in outs.items()},
+                "times": times, "busy": busy}, out_path)
+    print(f"{root}: {smi}; " + "; ".join(f"{key} {ms:.4f} ms"
+                                         for key, ms in times.items()))
+
+
+def compare(paths: list[str]) -> None:
+    import torch
+
+    runs = [torch.load(p) for p in paths]
+    a, b = runs[0]["outputs"], runs[1]["outputs"]
+    print(f"[compare] {paths[0]} against {paths[1]} ({runs[0]['card']})")
+    for key in a:
+        x, y = a[key].float(), b[key].float()
+        if torch.equal(a[key], b[key]):
+            print(f"[compare] {key}: equal bit for bit")
+        else:
+            gap = float((x - y).abs().max() / y.abs().max())
+            print(f"[compare] {key}: differs, max |a - b| / max |b| "
+                  f"{gap:.3g}")
+    for key in runs[0]["times"]:
+        print(f"[compare] {key} ms a call: " + ", ".join(
+            f"{os.path.basename(p)} {r['times'][key]:.4f}"
+            for p, r in zip(paths, runs)))
+    for key in runs[0]["busy"]:
+        print(f"[compare] {key}, device busy share: " + ", ".join(
+            f"{os.path.basename(p)} {100 * r['busy'][key]:.1f}%"
+            for p, r in zip(paths, runs)))
+
+
+def main() -> None:
+    if len(sys.argv) == 4 and sys.argv[1] == "run":
+        run(sys.argv[2], sys.argv[3])
+    elif len(sys.argv) >= 4 and sys.argv[1] == "compare":
+        compare(sys.argv[2:])
+    else:
+        sys.exit(__doc__)
+
+
+if __name__ == "__main__":
+    main()

@@ -65,6 +65,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
 }
+// the same for one 4-byte value (through L1: .cg takes 16 bytes only)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -43,21 +43,24 @@
 // bound.  At one image (M = 208) a whole layer is 3.1 GOP against 7.1 MB
 // of int8 weights: 2.3 us to read them at 3.35 TB/s, so the latency of
 // each step, not arithmetic, sets its time.  Design:
-//   * the attention sub-layer (row 5) and the whole layer (rows 8, 9) run
-//     their GEMMs on csrc/wgmma_s8.cuh (TMA and wgmma m64n128k32 s8, int32
-//     accumulation, the dequant / bias / quick_gelu / residual fused into
-//     the epilogue) and their attention on csrc/flash_tile.cuh's tile with
-//     an f32 output (K and V of a (head, image) in shared memory once, the
-//     scores and p in registers, 53 KB at S 208);
-//   * the CLS variant (row 6), the MLP sub-layer (row 7) and the
-//     standalone dense layer and MLP (rows 10, 11) keep the first GEMM
-//     below: mma.sync m16n8k32 s8 from a two-stage cp.async ring of
-//     128x128x64 tiles.  The integer products are exact, so the two GEMMs
-//     give the same bits;
+//   * the attention sub-layer (row 5), the MLP sub-layer (row 7) and the
+//     whole layer (rows 8, 9) run their GEMMs on csrc/wgmma_s8.cuh (TMA
+//     and wgmma m64n128k32 s8, int32 accumulation, the dequant / bias /
+//     quick_gelu / residual fused into the epilogue) and their attention
+//     on csrc/flash_tile.cuh's tile with an f32 output (K and V of a
+//     (head, image) in shared memory once, the scores and p in registers,
+//     53 KB at S 208);
+//   * the CLS variant (row 6) and the standalone dense layer and MLP
+//     (rows 10, 11) keep the first GEMM below: mma.sync m16n8k32 s8 from a
+//     two-stage cp.async ring of 128x128x64 tiles.  The integer products
+//     are exact, so the two GEMMs give the same bits;
 //   * LayerNorm and the per-row quantization one warp per row;
 //   * the TPU kernels keep ao and the [M, 3072] MLP hidden on chip; here
 //     they cross device memory in f32 (a row's quantization needs the
-//     whole row);
+//     whole row).  Row 7's MLP in takes each hidden row's max |g| in its
+//     epilogue (csrc/wgmma_s8.cuh's AMAX instance), so the hidden's
+//     quantization is one streaming pass: 409 MB a layer at a batch of
+//     128, ~0.12 ms at 3.35 TB/s;
 //   * the whole layer at a query's batch (B <= 3 at ViT-B/16: MLP in's
 //     tiles fit one wave) is ONE cooperative launch, as the TPU kernel is
 //     one program: a persistent grid of one block an SM (a four-stage ring,
@@ -306,15 +309,59 @@ int rowquant(const InT* x, int ldx, const float* lns, const float* lnb,
   return (int)cudaGetLastError();
 }
 
+// The per-row quantization of g [M, F] f32 (F % 4 == 0, rows 16-byte
+// aligned) given each row's max |g| in amax [M]: one streaming pass, a
+// block a row, four values a thread at a time; the scale and codes are
+// rowquant_row's, bit for bit (the max is exact in any order).
+__global__ void __launch_bounds__(256)
+    rowquant_amax_kernel(const float* __restrict__ g,
+                         const float* __restrict__ amax,
+                         int8_t* __restrict__ q, float* __restrict__ qs,
+                         int F) {
+  const size_t row = blockIdx.x;
+  const float sc = __fmul_rn(fmaxf(amax[row], 1e-8f), INV127);
+  const float4* gr = reinterpret_cast<const float4*>(g + row * F);
+  char4* qr = reinterpret_cast<char4*>(q + row * F);
+  auto code = [&](float v) {
+    return (signed char)__float2int_rn(__fdiv_rn(v, sc));
+  };
+#pragma unroll 4
+  for (int c = threadIdx.x; c < F / 4; c += blockDim.x) {
+    const float4 v = __ldcs(gr + c);     // read once
+    qr[c] = make_char4(code(v.x), code(v.y), code(v.z), code(v.w));
+  }
+  if (threadIdx.x == 0) qs[row] = sc;
+}
+
+int rowquant_amax(const float* g, const float* amax, int8_t* q, float* qs,
+                  int M, int F, cudaStream_t st) {
+  rowquant_amax_kernel<<<M, 256, 0, st>>>(g, amax, q, qs, F);
+  return (int)cudaGetLastError();
+}
+
 // s8 GEMM of the sub-layers and the chained layer on csrc/wgmma_s8.cuh: A
-// [M, K] and Bt [N, K] dense, C and res [M, N]
-template <int EPI, typename OutT, typename ResT = bf16>
+// [M, K] and Bt [N, K] dense, C and res [M, N]; AMAX: each row's max |C|
+// into amax [M], zeroed by the caller
+template <int EPI, typename OutT, typename ResT = bf16, bool AMAX = false>
 int gemm_wg(const int8_t* A, const float* rs, const int8_t* Bt,
             const float* cs, const float* bias,
             const typename named<ResT>::type* res, OutT* C, int M, int N,
-            int K, cudaStream_t st) {
-  const s8::Gemm g{rs, cs, bias, res, N, C, N, M, N, K, 1};
-  return s8::gemm<EPI, OutT, ResT>(A, K, Bt, K, g, st);
+            int K, cudaStream_t st, float* amax = nullptr) {
+  const s8::Gemm g{rs, cs, bias, res, N, C, N, M, N, K, 1, amax};
+  return s8::gemm<EPI, OutT, ResT, AMAX>(A, K, Bt, K, g, st);
+}
+
+// MLP in with its row maxima, then the hidden's one-pass quantization:
+// g = quick_gelu(dequant(A . Bt^T) + bias) [M, N] f32, amax [M] its rows'
+// max |g|, gq [M, N] and gs [M] their codes and scales
+int gelu_quant(const int8_t* A, const float* rs, const int8_t* Bt,
+               const float* cs, const float* bias, float* g, float* amax,
+               int8_t* gq, float* gs, int M, int N, int K, cudaStream_t st) {
+  PTT_TRY(last_error(cudaMemsetAsync(amax, 0, sizeof(float) * M, st)));
+  PTT_TRY((gemm_wg<QEPI_GELU, float, bf16, true>(A, rs, Bt, cs, bias,
+                                                 nullptr, g, M, N, K, st,
+                                                 amax)));
+  return rowquant_amax(g, amax, gq, gs, M, N, st);
 }
 
 // attention with an f32 output over (heads, images), q, k, v the strided
@@ -745,30 +792,31 @@ int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
 
 // x [M, D] bf16 -> out [M, D] bf16.  w1_t [F, D], w2_t [D, F] int8
 // ([out, in]); s1, b1 [F], s2, b2, lns, lnb [D] f32.  Scratch: hq [M, D]
-// int8, hs [M] f32, g [M, F] f32, gq [M, F] int8, gs [M] f32.
+// int8, hs [M] f32, g [M, F] f32, gq [M, F] int8, gs [M] f32, gmax [M]
+// f32.  Five steps on the stream: gmax zeroed; LN2 + quantization; MLP in
+// on csrc/wgmma_s8.cuh with the hidden's row maxima in its epilogue; the
+// hidden's one-pass quantization; MLP out with the residual, on the same
+// GEMM.
 int ptt_int8_mlp(const void* x, void* out, int M, int D, int F,
                  const void* lns, const void* lnb, const void* w1_t,
                  const void* s1, const void* b1, const void* w2_t,
                  const void* s2, const void* b2, void* hq, void* hs, void* g,
-                 void* gq, void* gs, void* stream) {
+                 void* gq, void* gs, void* gmax, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bf16* xb = (const bf16*)x;
   int8_t* hq8 = (int8_t*)hq;
   float* hsf = (float*)hs;
-  float* gf = (float*)g;
   int8_t* gq8 = (int8_t*)gq;
   float* gsf = (float*)gs;
 
   PTT_TRY((rowquant<true, bf16>(xb, D, (const float*)lns, (const float*)lnb,
                                 hq8, D, hsf, M, D, st)));
-  PTT_TRY((gemm_s8<QEPI_GELU, float>(hq8, D, hsf, 1, (const int8_t*)w1_t,
-                                     D, (const float*)s1, (const float*)b1,
-                                     nullptr, 0, gf, F, M, F, D, st)));
-  PTT_TRY((rowquant<false, float>(gf, F, nullptr, nullptr, gq8, F, gsf, M, F,
-                                  st)));
-  return gemm_s8<QEPI_RES, bf16>(gq8, F, gsf, 1, (const int8_t*)w2_t, F,
+  PTT_TRY(gelu_quant(hq8, hsf, (const int8_t*)w1_t, (const float*)s1,
+                     (const float*)b1, (float*)g, (float*)gmax, gq8, gsf, M,
+                     F, D, st));
+  return gemm_wg<QEPI_RES, bf16>(gq8, gsf, (const int8_t*)w2_t,
                                  (const float*)s2, (const float*)b2, xb,
-                                 D, (bf16*)out, D, M, D, F, st);
+                                 (bf16*)out, M, D, F, st);
 }
 
 // x [B, S, D] bf16 -> out [B, S, D] bf16, one whole layer: the attention
@@ -818,12 +866,13 @@ int ptt_int8_layer_grid(int* blocks, int* split_max) {
   return layer_grid(blocks);
 }
 
-// One s8 GEMM of rows 5 and 8 on its own (csrc/wgmma_s8.cuh), for checks
+// One s8 GEMM of rows 5, 7 and 8 on its own (csrc/wgmma_s8.cuh), for checks
 // and timing: C = epi(f32(A Bt^T) * rs * cs + bias), A [M, K] int8 with row
 // scales rs [M], Bt [N, K] int8 with column scales cs and bias [N] f32,
 // res and C [M, N].  epi: 0 -> bf16 (QKV); 1 quick_gelu -> f32 (MLP in);
-// 2 + bf16 res -> bf16 (row 5's out-projection); 3 + bf16 res -> f32 (row
-// 8's); 4 + f32 res -> bf16 (MLP out).
+// 2 + bf16 res -> bf16 (row 5's out-projection, row 7's MLP out); 3 + bf16
+// res -> f32 (row 8's out-projection); 4 + f32 res -> bf16 (row 8's MLP
+// out).
 int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
                   const void* cs, const void* bias, const void* res, void* C,
                   int M, int N, int K, void* stream) {
@@ -852,6 +901,20 @@ int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Row 7's MLP in on its own, for checks and timing: g = quick_gelu(f32(A
+// Bt^T) * rs * cs + bias) [M, N] f32 with each row's max |g| in amax [M]
+// taken in the GEMM's epilogue, then the one-pass quantization of g into
+// gq [M, N] int8 and gs [M] f32.
+int ptt_int8_gelu_quant(const void* A, const void* rs, const void* Bt,
+                        const void* cs, const void* bias, void* g, void* amax,
+                        void* gq, void* gs, int M, int N, int K,
+                        void* stream) {
+  return gelu_quant((const int8_t*)A, (const float*)rs, (const int8_t*)Bt,
+                    (const float*)cs, (const float*)bias, (float*)g,
+                    (float*)amax, (int8_t*)gq, (float*)gs, M, N, K,
+                    (cudaStream_t)stream);
 }
 
 // x [M, K] -> out [M, N], both bf16 (f32 == 0) or both f32: row

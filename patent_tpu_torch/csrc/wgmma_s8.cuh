@@ -3,13 +3,13 @@
 //   C[M, N] = epi(f32(A[M, K] . Bt[N, K]^T) * rs[row] * cs[col] + bias[col])
 //
 // int8 operands, int32 accumulation, shared by the int8 layer kernels
-// (csrc/int8_layer.cu: the attention sub-layer, row 5, and the whole
-// layer, rows 8 and 9).  Both operands are K-major, as the tensor cores
-// take int8: A is the row-quantized activations [M, K] and Bt the weights
-// held [out, in] from load time.  The TMA, mbarrier and wgmma helpers are
-// csrc/wgmma_gemm.cuh's (the bf16 GEMM); the 128-byte swizzle that holds
-// 64 bf16 there holds 128 int8 values of K here, so the descriptors are
-// the same in bytes.
+// (csrc/int8_layer.cu: the attention sub-layer, row 5, the MLP sub-layer,
+// row 7, and the whole layer, rows 8 and 9).  Both operands are K-major,
+// as the tensor cores take int8: A is the row-quantized activations [M, K]
+// and Bt the weights held [out, in] from load time.  The TMA, mbarrier and
+// wgmma helpers are csrc/wgmma_gemm.cuh's (the bf16 GEMM); the 128-byte
+// swizzle that holds 64 bf16 there holds 128 int8 values of K here, so the
+// descriptors are the same in bytes.
 //
 // The integer products are exact (K * 127^2 < 2^31), so the output bits
 // do not depend on the tile shape, the MMA instruction or how K is split.
@@ -19,6 +19,11 @@
 // the residual (bf16 or f32), stored bf16 or f32; or, split over K, the
 // int32 partial sums of one k-range are stored for a later pass to add in
 // a fixed order (exact, deterministic) and finish with the same epilogue.
+// The AMAX instance (MLP in of row 7) also takes each output row's max |v|
+// over the tile, across the four lanes that hold the row, and merges it
+// into a [M] f32 buffer with atomicMax on the bits (a max of non-negative
+// floats, exact in any order), so that the hidden's row quantization
+// needs no pass of its own for the maximum.
 //
 // What bounds it on the H100: at the int8 tower's batch of 128 (M = 26,624,
 // K 768 or 3072, N 768 to 3072) a product does 2*M*N*K operations on
@@ -102,6 +107,7 @@ struct Gemm {
   long long ldc;
   int M, N, K;
   int splits;           // k-ranges a tile, 1 <= splits <= ceil(K / BK)
+  float* amax = nullptr;   // [M] max |C| of each row, zeroed (AMAX)
 };
 
 // The units of a GEMM: unit u is k-range u % splits of tile u / splits;
@@ -198,8 +204,9 @@ __device__ __forceinline__ void wgmma_m64n128k32(int* d, uint64_t desc_a,
 // The units u0, u0 + du, ... of GEMM g, by every thread of the block
 // (THREADS), A and Bt read through the tensor maps.  On return the ring
 // is empty and every thread of the block has passed a block barrier since
-// its last read of shared memory.
-template <int EPI, typename OutT, typename ResT>
+// its last read of shared memory.  AMAX: also merge each row's max |C|
+// into g.amax.
+template <int EPI, typename OutT, typename ResT, bool AMAX = false>
 __device__ void gemm_units(const CUtensorMap* map_a, const CUtensorMap* map_b,
                            const Gemm& g, int u0, int du, Ring& ring) {
   const int tid = threadIdx.x, wgi = tid >> 7;
@@ -253,39 +260,53 @@ __device__ void gemm_units(const CUtensorMap* map_a, const CUtensorMap* map_b,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
-      if (row >= g.M) continue;
-      float rsc = 0.0f;
-      if constexpr (EPI != EPI_PART) rsc = g.rs[row];
+      [[maybe_unused]] float vmax = 0.0f;   // AMAX: this lane's max |v|
+      if (row < g.M) {
+        float rsc = 0.0f;
+        if constexpr (EPI != EPI_PART) rsc = g.rs[row];
 #pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-        const int col = n0 + 8 * i + 2 * (lane & 3);
-        if (col >= g.N) continue;        // N % 8 == 0: col + 1 < N too
-        const int a0 = d[4 * i + 2 * h], a1 = d[4 * i + 2 * h + 1];
-        if constexpr (EPI == EPI_PART) {
-          int* cp = static_cast<int*>(g.C) +
-                    ((size_t)s * g.M + row) * g.ldc + col;
-          *reinterpret_cast<int2*>(cp) = make_int2(a0, a1);
-        } else {
-          const ResT* rp =
-              static_cast<const ResT*>(g.res) + (size_t)row * g.ldr + col;
-          ptt::store2(static_cast<OutT*>(g.C) + (size_t)row * g.ldc + col,
-                 epi_value<EPI, ResT>(a0, rsc, g.cs[col], g.bias[col], rp),
-                 epi_value<EPI, ResT>(a1, rsc, g.cs[col + 1], g.bias[col + 1],
-                                      rp + 1));
+        for (int i = 0; i < BN / 8; ++i) {
+          const int col = n0 + 8 * i + 2 * (lane & 3);
+          if (col >= g.N) continue;      // N % 8 == 0: col + 1 < N too
+          const int a0 = d[4 * i + 2 * h], a1 = d[4 * i + 2 * h + 1];
+          if constexpr (EPI == EPI_PART) {
+            int* cp = static_cast<int*>(g.C) +
+                      ((size_t)s * g.M + row) * g.ldc + col;
+            *reinterpret_cast<int2*>(cp) = make_int2(a0, a1);
+          } else {
+            const ResT* rp =
+                static_cast<const ResT*>(g.res) + (size_t)row * g.ldr + col;
+            const float v0 = epi_value<EPI, ResT>(a0, rsc, g.cs[col],
+                                                  g.bias[col], rp);
+            const float v1 = epi_value<EPI, ResT>(
+                a1, rsc, g.cs[col + 1], g.bias[col + 1], rp + 1);
+            ptt::store2(static_cast<OutT*>(g.C) + (size_t)row * g.ldc + col,
+                        v0, v1);
+            if constexpr (AMAX)
+              vmax = fmaxf(vmax, fmaxf(fabsf(v0), fabsf(v1)));
+          }
         }
+      }
+      if constexpr (AMAX) {
+        // the row's four lanes (every lane of the warp takes part)
+        vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, 1));
+        vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, 2));
+        if (row < g.M && (lane & 3) == 0)
+          atomicMax(reinterpret_cast<int*>(g.amax) + row,
+                    __float_as_int(vmax));
       }
     }
   }
 }
 
-template <int EPI, typename OutT, typename ResT>
+template <int EPI, typename OutT, typename ResT, bool AMAX>
 __global__ void __launch_bounds__(THREADS, 2)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b, const Gemm g) {
   extern __shared__ unsigned char smem_raw[];
   Ring ring = ring_init(smem_raw, STAGES);
-  gemm_units<EPI, OutT, ResT>(&map_a, &map_b, g, blockIdx.x, gridDim.x,
-                              ring);
+  gemm_units<EPI, OutT, ResT, AMAX>(&map_a, &map_b, g, blockIdx.x,
+                                    gridDim.x, ring);
 }
 
 // an int8 [rows, cols] matrix with row stride ld (bytes), read in boxes of
@@ -322,15 +343,19 @@ inline int sm_count(int* sms) {
 // (bytes); K, N, lda, ldb, ldr, ldc multiples of 16 and A, Bt 16-byte
 // aligned (the tensor-map encode rejects a misaligned A or Bt, and the
 // wrapper raises).  A persistent grid of up to two
-// blocks an SM walks the units.  Returns a CUDA error code, 0 on success.
-template <int EPI, typename OutT, typename ResT>
+// blocks an SM walks the units.  AMAX (f32 C only): also each row's max
+// |C| into g.amax, which the caller has zeroed.  Returns a CUDA error
+// code, 0 on success.
+template <int EPI, typename OutT, typename ResT, bool AMAX = false>
 int gemm(const int8_t* A, long long lda, const int8_t* Bt, long long ldb,
          const Gemm& g, cudaStream_t st) {
+  static_assert(!AMAX || (EPI != EPI_PART && sizeof(OutT) == 4),
+                "the row maxima are of an f32 output's values");
   CUtensorMap map_a, map_b;
   if (!tensor_map(&map_a, A, g.M, g.K, lda, BM) ||
       !tensor_map(&map_b, Bt, g.N, g.K, ldb, BN))
     return (int)cudaErrorInvalidValue;
-  auto kernel = gemm_kernel<EPI, OutT, ResT>;
+  auto kernel = gemm_kernel<EPI, OutT, ResT, AMAX>;
   // the attribute, once an instance and device
   static bool ready[ptt::MAX_DEVICES] = {};
   int dev = 0;

@@ -20,6 +20,8 @@ backward, so a CUDA input that requires a gradient is refused;
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -30,7 +32,8 @@ from . import poincare
 from .common import check_cuda_tensor, refuse_grad
 
 _P, _I, _F = _build.P, _build.I, _build.F
-MOBIUS_DENSE_MAX_OUT = 1024     # csrc/hyperbolic.cu: four groups of 256
+# csrc/hyperbolic.cu: a cluster of at most 8 CTAs of 128 columns
+MOBIUS_DENSE_MAX_OUT = 1024
 
 
 def _full_f32(t: torch.Tensor) -> None:
@@ -117,19 +120,36 @@ def mobius_dense_pallas(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"mobius_dense kernel needs 0 < D <= "
                          f"{MOBIUS_DENSE_MAX_OUT} and c > 0 (got D={dout}, "
                          f"c={c})")
-    # the plain version's curvature terms, each rounded to f32 as there
-    c32 = np.float32(c)
-    sqrt_c = np.sqrt(np.maximum(c32, np.float32(poincare.MIN_NORM)))
-    maxnorm = np.float32(1.0 - poincare.ball_eps(torch.float32)) / sqrt_c
     out = torch.empty(n, dout, dtype=torch.float32, device=x.device)
     _build.call("ptt_mobius_dense",
                 [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
                 _build.ptr(x), _build.ptr(w), _build.ptr(bias), n, k, dout,
-                float(c32), float(c32 * np.float32(2.0)), float(c32 * c32),
-                float(sqrt_c), float(maxnorm), _build.ptr(out),
+                *_curvature_terms(c), _build.ptr(out),
                 _build.stream(x.device))
     mobius_dense_pallas.launches += 1
     return out
 
 
 mobius_dense_pallas.launches = 0
+
+
+@functools.lru_cache(maxsize=16)
+def _curvature_terms(c: float) -> tuple[float, ...]:
+    """The plain version's curvature terms, each rounded to f32 as there:
+    c, 2c, c², √max(c, MIN_NORM) and the projection radius (1 − ball_eps)
+    / √c, made once a curvature."""
+    c32 = np.float32(c)
+    sqrt_c = np.sqrt(np.maximum(c32, np.float32(poincare.MIN_NORM)))
+    maxnorm = np.float32(1.0 - poincare.ball_eps(torch.float32)) / sqrt_c
+    return (float(c32), float(c32 * np.float32(2.0)), float(c32 * c32),
+            float(sqrt_c), float(maxnorm))
+
+
+def mobius_dense_launch(n: int, dout: int) -> dict[str, int]:
+    """The launch ``mobius_dense_pallas`` makes on the card for n rows of
+    dout columns: its CTAs, the CTAs of a thread-block cluster and the
+    columns of a CTA (asked of the kernel library, which builds it)."""
+    ctas, cluster, cols = (ctypes.c_int(0) for _ in range(3))
+    _build.call("ptt_mobius_dense_shape", [_I, _I, _P, _P, _P], n, dout,
+                ctypes.byref(ctas), ctypes.byref(cluster), ctypes.byref(cols))
+    return {"ctas": ctas.value, "cluster": cluster.value, "cols": cols.value}

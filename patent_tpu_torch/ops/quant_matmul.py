@@ -58,9 +58,10 @@ from .flash_attention import SCORE_CLAMP_HI, SCORE_CLAMP_LO
 _P, _I = _build.P, _build.I
 _SIG_ATTN = [_P, _P] + [_I] * 5 + [_P] * 8 + [_P] * 4 + [_P]
 _SIG_CLS = [_P, _P] + [_I] * 5 + [_P] * 8 + [_P] * 7 + [_P]
-_SIG_MLP = [_P, _P] + [_I] * 3 + [_P] * 8 + [_P] * 5 + [_P]
+_SIG_MLP = [_P, _P] + [_I] * 3 + [_P] * 8 + [_P] * 6 + [_P]
 _SIG_LAYER = [_P, _P] + [_I] * 9 + [_P] * 16 + [_P] * 14 + [_P]
 _SIG_GEMM = [_I] + [_P] * 7 + [_I] * 3 + [_P]
+_SIG_GELU_QUANT = [_P] * 9 + [_I] * 3 + [_P]
 _SIG_DENSE = [_P, _P] + [_I] * 5 + [_P] * 3 + [_P] * 2 + [_P]
 _SIG_QMLP = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P] * 5 + [_P]
 
@@ -371,9 +372,10 @@ def quant_mlp_block(x, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2,
     f = _mlp_args(d, ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2, b2)
     m, dev = x.numel() // d, x.device
     out = torch.empty_like(x)
+    # LN2's codes and scales; the hidden, its codes, scales and row maxima
     _buf, scratch = workspace(dev, (
         ((m, d), torch.int8), ((m,), torch.float32), ((m, f), torch.float32),
-        ((m, f), torch.int8), ((m,), torch.float32)))
+        ((m, f), torch.int8), ((m,), torch.float32), ((m,), torch.float32)))
     ws = [ln_scale, ln_bias, w1_t, s1, b1, w2_t, s2, b2]
     _build.call("ptt_int8_mlp", _SIG_MLP, _build.ptr(x), _build.ptr(out), m,
                 d, f, *map(_build.ptr, ws), *scratch, _build.stream(dev))
@@ -551,10 +553,11 @@ def quant_layer_group(x, ln1_scale, ln1_bias, wqkv_t, sqkv, bqkv, wout_t,
 quant_layer_group.launches = 0
 
 
-# The s8 GEMM of rows 5 and 8 (csrc/wgmma_s8.cuh) on its own, by the
+# The s8 GEMM of rows 5, 7 and 8 (csrc/wgmma_s8.cuh) on its own, by the
 # index its C entry takes: the epilogue, the residual's dtype, the output's
-# dtype.  "bias": QKV; "gelu": MLP in; "res": row 5's out-projection;
-# "res_f32_out": row 8's (x1 kept f32); "res_f32": MLP out on x1.
+# dtype.  "bias": QKV; "gelu": MLP in; "res": row 5's out-projection and
+# row 7's MLP out; "res_f32_out": row 8's out-projection (x1 kept f32);
+# "res_f32": row 8's MLP out on x1.
 S8_GEMM_EPILOGUES = {"bias": (0, None, torch.bfloat16),
                      "gelu": (1, None, torch.float32),
                      "res": (2, torch.bfloat16, torch.bfloat16),
@@ -578,12 +581,12 @@ def int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
 
 def int8_gemm(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
               res: torch.Tensor | None = None) -> torch.Tensor:
-    """One of rows 5 and 8's int8 GEMMs on its own (for checks and timing):
-    a [M, K] int8 with row scales a_scale [M], w_t [N, K] int8 with scale
-    and bias [N] f32, res [M, N] in the instance's residual dtype;
-    ``epilogue`` one of ``S8_GEMM_EPILOGUES``.  CPU tensor: the plain
-    version; CUDA tensor: the kernel (K and N multiples of 16), or an
-    error."""
+    """One of rows 5, 7 and 8's int8 GEMMs on its own (for checks and
+    timing): a [M, K] int8 with row scales a_scale [M], w_t [N, K] int8
+    with scale and bias [N] f32, res [M, N] in the instance's residual
+    dtype; ``epilogue`` one of ``S8_GEMM_EPILOGUES``.  CPU tensor: the
+    plain version; CUDA tensor: the kernel (K and N multiples of 16), or
+    an error."""
     if a.device.type == "cpu":
         return int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res)
     idx, rdt, odt = S8_GEMM_EPILOGUES[epilogue]
@@ -607,6 +610,47 @@ def int8_gemm(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
 
 
 int8_gemm.launches = 0
+
+
+def int8_gelu_quant_plain(a, a_scale, w_t, scale, bias):
+    """Plain version of ``int8_gelu_quant``: the "gelu" instance of
+    ``int8_gemm_plain``, its rows' max |g|, and ``quant_rows`` of it."""
+    g = int8_gemm_plain(a, a_scale, w_t, scale, bias, "gelu")
+    gq, gs = quant_rows(g)
+    return g, g.abs().amax(dim=-1), gq, gs[:, 0]
+
+
+def int8_gelu_quant(a, a_scale, w_t, scale, bias):
+    """Row 7's MLP in and the hidden's quantization on their own (for
+    checks and timing): a [M, K] int8 with row scales a_scale [M], w_t
+    [N, K] int8, scale and bias [N] f32 → (g [M, N] f32, quick_gelu of the
+    dequantized product; its rows' max |g| [M], as the GEMM's epilogue
+    takes them; g's int8 codes [M, N] and row scales [M], from the
+    one-pass quantization that reads those maxima).  CPU tensor: the plain
+    version; CUDA tensor: the kernels (K and N multiples of 16), or an
+    error."""
+    if a.device.type == "cpu":
+        return int8_gelu_quant_plain(a, a_scale, w_t, scale, bias)
+    m, k = a.shape
+    n = w_t.shape[0]
+    if n % 16 or k % 16:
+        raise ValueError(f"N ({n}) and K ({k}) must be multiples of 16")
+    _check_matrix("a", a, m, k)
+    _check_matrix("w_t", w_t, n, k)
+    _check_vectors(a_scale=(a_scale, m), scale=(scale, n), bias=(bias, n))
+    dev = a.device
+    g = torch.empty(m, n, dtype=torch.float32, device=dev)
+    gq = torch.empty(m, n, dtype=torch.int8, device=dev)
+    g_max, gs = torch.empty(2, m, dtype=torch.float32, device=dev)
+    _build.call("ptt_int8_gelu_quant", _SIG_GELU_QUANT,
+                *map(_build.ptr, (a, a_scale, w_t, scale, bias, g, g_max, gq,
+                                  gs)),
+                m, n, k, _build.stream(dev))
+    int8_gelu_quant.launches += 1
+    return g, g_max, gq, gs
+
+
+int8_gelu_quant.launches = 0
 
 
 def _dense_input(x, widths: dict[str, int]):

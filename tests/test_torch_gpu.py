@@ -673,6 +673,74 @@ def test_s8_gemm_matches_plain(cuda, epilogue, m):
     assert _rel_err(no_bias, want) > INT8_REL_TOL
 
 
+# Row 7 (the MLP sub-layer) at the rows the main path gives it: the CLS
+# call at M = B (1, 4, a batch of 128's 128) and the tower's 11 layers at
+# RetrievalEngine's batch 32 (6,656 rows) and at 128 (26,624), ViT-B/16
+# widths.  Its GEMMs are exact and its epilogues the plain version's
+# operations, so only an LN2 code flipped by f32 summation order moves it.
+@pytest.mark.parametrize("m", [1, 4, 128, 6656, 26624])
+def test_int8_mlp_kernel_at_the_main_path_rows(cuda, m):
+    d, f = 768, 3072
+    g = torch.Generator(device=cuda).manual_seed(m)
+
+    def r(*shape, std):
+        return std * torch.randn(*shape, generator=g, device=cuda)
+
+    def mat(rows, cols):
+        q, scale = qm.quantize_weight(r(rows, cols, std=rows ** -0.5))
+        return q.T.contiguous(), scale
+
+    w1, s1 = mat(d, f)
+    w2, s2 = mat(f, d)
+    params = (1 + r(d, std=0.1), r(d, std=0.1), w1, s1, r(f, std=0.02), w2,
+              s2, r(d, std=0.02))
+    x = r(m, d, std=1.0).to(torch.bfloat16)
+    n0 = qm.quant_mlp_block.launches
+    got = qm.quant_mlp_block(x, *params)
+    want = qm.quant_mlp_block_plain(x, *params)
+    torch.cuda.synchronize()
+    assert qm.quant_mlp_block.launches == n0 + 1
+    assert got.shape == x.shape and torch.isfinite(got.float()).all()
+    assert _rel_err(got, want) <= INT8_REL_TOL
+    for i in INT8_BIASES["mlp"]:
+        q = list(params)
+        q[i] = torch.zeros_like(q[i])
+        assert _rel_err(qm.quant_mlp_block_plain(x, *q), want) > \
+            INT8_REL_TOL, i
+    for i in INT8_SCALES["mlp"]:
+        q = list(params)
+        q[i] = torch.full_like(q[i], float(q[i].mean()))
+        assert _rel_err(qm.quant_mlp_block_plain(x, *q), want) > \
+            INT8_REL_TOL, i
+
+
+@pytest.mark.parametrize("m", [4, 208, 26624])
+def test_int8_gelu_quant_row_maxima_and_codes(cuda, m):
+    """Row 7's MLP in alone: its hidden equals the plain epilogue bit for
+    bit, the row maxima its epilogue takes equal max |g| of its own hidden
+    bit for bit, and the one-pass quantization equals quant_rows(g) bit for
+    bit."""
+    n, k = 3072, 768
+    g = torch.Generator(device=cuda).manual_seed(m + 1)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w_t = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                        dtype=torch.int8)
+    a_scale = 0.1 * torch.rand(m, generator=g, device=cuda)
+    scale = 10 * torch.rand(n, generator=g, device=cuda) / 127 / k ** 0.5
+    bias = 0.1 * torch.randn(n, generator=g, device=cuda)
+    n0 = qm.int8_gelu_quant.launches
+    hid, hid_max, hq, hs = qm.int8_gelu_quant(a, a_scale, w_t, scale, bias)
+    torch.cuda.synchronize()
+    assert qm.int8_gelu_quant.launches == n0 + 1
+    assert torch.equal(hid, qm.int8_gemm_plain(a, a_scale, w_t, scale, bias,
+                                               "gelu"))
+    assert torch.equal(hid_max, hid.abs().amax(dim=-1))
+    want_q, want_s = qm.quant_rows(hid)
+    assert torch.equal(hq, want_q)
+    assert torch.equal(hs, want_s[:, 0])
+
+
 def test_int8_layer_group_dispatches_as_jax(cuda):
     """Row 9: at B % group == 0 it launches row 8's kernel and equals
     quant_layer_block bit for bit; at a ragged batch, or without
@@ -1057,6 +1125,54 @@ def test_mobius_dense_kernel_matches_plain(cuda, n, k, dout):
     assert _max_rel(control, ref) > HYP_REL_TOL
     assert float(got.norm(dim=-1).max()) <= (1 - 4e-3) / math.sqrt(c) * (
         1 + 1e-6)
+
+
+# Row 18 as thread-block clusters: one CTA (D 24), 4 and 5 CTAs of 64
+# columns (D 256, 300) and 8 of 128 (D 1024); one row, a ragged last
+# cluster of rows (37, 513) and the engine's batch (512).  The three row
+# reductions are summed in another order than the plain version's.
+@pytest.mark.parametrize("dout", [24, 256, 300, 1024])
+@pytest.mark.parametrize("n", [1, 37, 512, 513])
+def test_mobius_dense_cluster_kernel_matches_plain(cuda, n, dout):
+    c, k = 2.0, 512
+    g = torch.Generator(device=cuda).manual_seed(n * 7 + dout)
+    x = torch.randn(n, k, generator=g, device=cuda)
+    w = torch.randn(k, dout, generator=g, device=cuda) * (0.05 / math.sqrt(k))
+    bias = _ball(g, 1, dout, c, cuda, r_hi=0.3)[0]
+    got = pk.mobius_dense_pallas(x, w, bias, c)
+    ref = pk.mobius_dense_pallas_plain(x, w, bias, c)
+    control = pk.mobius_dense_pallas_plain(x, w, torch.zeros_like(bias), c)
+    torch.cuda.synchronize()
+    assert got.shape == (n, dout) and bool(torch.isfinite(got).all())
+    assert _max_rel(got, ref) <= HYP_REL_TOL
+    assert _max_rel(control, ref) > HYP_REL_TOL
+
+
+def test_mobius_dense_unaligned_rows_and_saturated_rows(cuda):
+    """K and D not multiples of 4 (the ring fills by 4-byte copies), and
+    rows pushed past the projection radius (scaled onto it)."""
+    c = 1.0
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(45, 37, generator=g, device=cuda)
+    w = torch.randn(37, 27, generator=g, device=cuda)
+    bias = _ball(g, 1, 27, c, cuda, r_hi=0.3)[0]
+    got = pk.mobius_dense_pallas(x, w, bias, c)
+    ref = pk.mobius_dense_pallas_plain(x, w, bias, c)
+    torch.cuda.synchronize()
+    assert _max_rel(got, ref) <= HYP_REL_TOL
+    assert float(got.norm(dim=-1).max()) <= (1 - 4e-3) / math.sqrt(c) * (
+        1 + 1e-6)
+
+
+def test_mobius_dense_launches_clusters(cuda):
+    """The encoder's 512 x 256 launches 128 CTAs in clusters of 4 (one
+    wave on the H100's 132 SMs); D 1024 takes 8 CTAs of 128 columns."""
+    assert pk.mobius_dense_launch(512, 256) == {"ctas": 128, "cluster": 4,
+                                                "cols": 64}
+    assert pk.mobius_dense_launch(513, 1024) == {"ctas": 33 * 8,
+                                                 "cluster": 8, "cols": 128}
+    assert pk.mobius_dense_launch(1, 24) == {"ctas": 1, "cluster": 1,
+                                             "cols": 64}
 
 
 def test_hyperbolic_kernels_reject_what_they_do_not_take(cuda):
