@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare two checkouts of patent_tpu_torch on one CUDA card: the bits and
 the times of the int8 MLP sub-layer (row 7), the Möbius dense layer (row
-18) and the int8 ViT-B/16 tower.
+18), the int8 ViT-B/16 tower, the fine-tune's backward kernels (rows 16
+and 13) and its training step.
 
     python3 compare_builds.py run ROOT OUT.pt
     python3 compare_builds.py compare A.pt B.pt [C.pt ...]
@@ -21,6 +22,14 @@ CUDA events, 20 calls after 3 of warm-up) of:
   share (torch.profiler);
 * the int8 tower (seeded ViT-B/16 weights) at B 128 (rows 5 + 7), 127, 3
   and 1 (row 8, then rows 6 + 7 on the CLS rows);
+* row 16, ``fused_mlp_bwd``, on the 128 x 197 unpadded rows of a
+  fine-tune step at 64 pairs (M 25,216, D 768, F 3072), and row 13,
+  ``fused_attention_bwd``, on its padded stream [128, 208, 768] (12
+  heads, 197 valid keys), each output apart, with the device time a call
+  (torch.profiler, the sum over kernels);
+* one fine-tune step at 64 pairs (ClipFinetuneConfig's defaults, seeded
+  ViT-B/16 weights, u8 batches on the card): its first step's metrics, the
+  wall time of a step (10 after 2 of warm-up) and its device time;
 
 with the card's name and power limit.  Run each checkout in its own
 process: two builds of the kernel library cannot share one.  ``compare``
@@ -37,7 +46,7 @@ import os
 import subprocess
 import sys
 
-from chip_smoke import cuda_ms
+from chip_smoke import cuda_ms, kernel_breakdown
 
 
 def busy_share(torch, fn, wall_ms: float, iters: int = 3) -> float:
@@ -140,12 +149,85 @@ def run(root: str, out_path: str) -> None:
 
         outs[name] = tower_at()
         times[name] = cuda_ms(torch, tower_at)
+    del tower8, pix
+    device = fine_tune(torch, dev, randn, outs, times)
     torch.cuda.synchronize()
     torch.save({"root": os.path.abspath(root), "card": smi,
                 "outputs": {key: v.cpu() for key, v in outs.items()},
-                "times": times, "busy": busy}, out_path)
+                "times": times, "busy": busy, "device": device}, out_path)
     print(f"{root}: {smi}; " + "; ".join(f"{key} {ms:.4f} ms"
                                          for key, ms in times.items()))
+
+
+def fine_tune(torch, dev, randn, outs: dict, times: dict) -> dict:
+    """Rows 16 and 13 at a fine-tune step's shapes, then the step: their
+    outputs and wall times into ``outs`` and ``times``; returns the device
+    time a call of each (torch.profiler)."""
+    import math
+
+    import numpy as np
+
+    from patent_tpu_torch.models.vit import VIT_B16
+    from patent_tpu_torch.ops import bf16_mlp_grad as mm
+    from patent_tpu_torch.ops import flash_attention as fa
+    from patent_tpu_torch.train.finetune_clip import (init_finetune_state,
+                                                      make_finetune_step)
+    from patent_tpu_torch.utils.config import ClipFinetuneConfig
+
+    bf = torch.bfloat16
+    d, f, s, bt, valid, heads = 768, 3072, 208, 128, 197, 12
+    device = {}
+    x2 = randn(bt * valid, d).to(bf)
+    do2 = randn(bt * valid, d).to(bf)
+    mlp = (1 + randn(d, std=0.1), randn(d, std=0.1),
+           randn(d, f, std=d ** -0.5).to(bf), randn(f, std=0.02),
+           randn(f, d, std=f ** -0.5).to(bf))
+    names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
+    for key, v in zip(names, mm.fused_mlp_bwd(x2, do2, *mlp)):
+        outs[f"row 16, {key}"] = v
+    name = "row 16, M 25,216"
+    times[name] = cuda_ms(torch, lambda: mm.fused_mlp_bwd(x2, do2, *mlp))
+    device[name] = sum(ms for _k, ms in kernel_breakdown(
+        torch, lambda: mm.fused_mlp_bwd(x2, do2, *mlp)))
+    del x2, do2
+    col = torch.ones(3 * d, device=dev)
+    col[:d] = math.log2(math.e) / 8.0        # the fold of log2(e)/sqrt(64)
+    wqkv = (randn(d, 3 * d, std=d ** -0.5) * col).to(bf)
+    bqkv = randn(3 * d, std=0.2) * col
+    xa = randn(bt, s, d).to(bf)
+    da = randn(bt, s, d)
+    da[:, valid:] = 0.0
+    da = da.to(bf)
+    for key, v in zip(("dqkv", "A"), fa.fused_attention_bwd(
+            xa, wqkv, bqkv, da, heads, valid)):
+        outs[f"row 13, {key}"] = v
+    name = "row 13, [128, 208, 768]"
+    times[name] = cuda_ms(torch, lambda: fa.fused_attention_bwd(
+        xa, wqkv, bqkv, da, heads, valid))
+    device[name] = sum(ms for _k, ms in kernel_breakdown(
+        torch, lambda: fa.fused_attention_bwd(xa, wqkv, bqkv, da, heads,
+                                              valid)))
+    del xa, da
+    cfg = ClipFinetuneConfig()
+    table = np.random.default_rng(0).standard_normal((192, 128)).astype(
+        np.float32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randint(0, 256, (2 * cfg.batch_size, 224, 224, 3),
+                           generator=gen, device=dev, dtype=torch.uint8)
+    nodes = torch.randint(0, 192, (cfg.batch_size,), generator=gen,
+                          device=dev)
+    model, opt = init_finetune_state(VIT_B16, cfg, table, seed=0,
+                                     device=dev)
+    step, _eval_step = make_finetune_step(model, opt)
+    metrics = step(images, nodes, cfg.alpha_max)
+    outs["fine-tune step, first step's metrics"] = torch.tensor(
+        [float(metrics[key]) for key in sorted(metrics)])
+    name = f"fine-tune step, {cfg.batch_size} pairs"
+    times[name] = cuda_ms(torch, lambda: step(images, nodes, cfg.alpha_max),
+                          warmup=2, iters=10)
+    device[name] = sum(ms for _k, ms in kernel_breakdown(
+        torch, lambda: step(images, nodes, cfg.alpha_max)))
+    return device
 
 
 def compare(paths: list[str]) -> None:
@@ -165,6 +247,10 @@ def compare(paths: list[str]) -> None:
     for key in runs[0]["times"]:
         print(f"[compare] {key} ms a call: " + ", ".join(
             f"{os.path.basename(p)} {r['times'][key]:.4f}"
+            for p, r in zip(paths, runs)))
+    for key in runs[0].get("device", {}):
+        print(f"[compare] {key} device ms a call: " + ", ".join(
+            f"{os.path.basename(p)} {r['device'][key]:.4f}"
             for p, r in zip(paths, runs)))
     for key in runs[0]["busy"]:
         print(f"[compare] {key}, device busy share: " + ", ".join(

@@ -6,7 +6,7 @@
 // (fused_layer_cls_bf16).  Both compute the TPU kernel's function:
 //
 //   h   = bf16(LN1(x))                       (f32 statistics, eps 1e-5)
-//   qkv = bf16(h Wqkv' + bqkv')              Wqkv' has log2(e)/sqrt(64)
+//   qkv = bf16(h Wqkv' + bqkv')              Wqkv' has log2(e)/sqrt(hd)
 //                                            folded into its q columns
 //   ao  = bf16((p v) / sum p), p = bf16(exp2(clip(q k^T, -100, 80))),
 //         keys at or past valid_len p = 0
@@ -76,8 +76,8 @@ int ptt_bf16_layer(const void* x, void* out, int B, int S, int D, int H, int F,
       M, 3 * D, D, st)));
   PTT_TRY(ptt_flash::attention<false>(
       qkvb, (long long)S * 3 * D, 3 * D, S, qkvb + D, qkvb + 2 * D,
-      (long long)S * 3 * D, 3 * D, aob, (long long)S * D, D, B, H, S,
-      valid_len, 0.0f, st));
+      (long long)S * 3 * D, 3 * D, aob, (long long)S * D, D, B, H, D / H,
+      S, valid_len, 0.0f, st));
   PTT_TRY((wg::gemm<wg::EPI_RES_BIAS, bf16, float>(
       aob, D, (const bf16*)wout_t, D, (const float*)bout, xb, D, x1f, D, M, D,
       D, st)));
@@ -129,7 +129,7 @@ int ptt_bf16_layer_cls(const void* x, void* out, int B, int S, int D, int H,
       hb, (long long)S * D, w, D, bq, nores, 0, qb, D, B, D, D, st)));
   PTT_TRY(ptt_flash::attention<false>(
       qb, D, D, 1, kvb, kvb + D, (long long)S * 2 * D, 2 * D, aob, D, D, B, H,
-      S, valid_len, 0.0f, st));
+      D / H, S, valid_len, 0.0f, st));
   PTT_TRY((wg::gemm<wg::EPI_RES_BIAS, bf16, float>(
       aob, D, (const bf16*)wout_t, D, (const float*)bout, xb, (long long)S * D,
       x1f, D, B, D, D, st)));

@@ -1,6 +1,6 @@
 // Standalone multi-head attention softmax(q k^T / sqrt(d)) v on projected
-// q, k, v [B, S, H, 64] -> [B, S, H, 64] in q's dtype, the `use_flash`
-// tower's attention.
+// q, k, v [B, S, H, hd] -> [B, S, H, hd] in q's dtype, the `use_flash`
+// tower's attention, at head width hd 64 (ViT-B/16), 32 or 16.
 //
 // Replaces the TPU kernels of patent_tpu/ops/flash_attention.py
 // _attn_kernel (_flash_impl) and _attn_kernel_headbatch
@@ -9,7 +9,7 @@
 // ptt_flash_attention_f32.
 //
 // The TPU kernel's function, per (image, head), in q's dtype T:
-//   q' = T(f32(q) * scale)              (scale = log2(e)/sqrt(64), f32)
+//   q' = T(f32(q) * scale)              (scale = log2(e)/sqrt(hd), f32)
 //   p  = T(exp2(clip(q'.k, -100, 80))), keys >= S p = 0
 //   o  = T((p v) / sum(p))              (f32 sums, an exact divide)
 //
@@ -31,7 +31,8 @@
 //   * one block of 128 threads per (8*TM query rows, head, image); thread
 //     (tx, ty) of a 16 x 8 grid owns query rows ty + 8i (i < TM), and for
 //     q.k^T the keys tx + 16j of a 64-key tile (j < 4), for p.v the head
-//     dims 4tx..4tx+3.  A q' value read from shared memory feeds 4 FMAs
+//     dims 4tx..4tx+3 (at hd 32 and 16, 2 and 1 of them: the numbers here
+//     are hd 64's).  A q' value read from shared memory feeds 4 FMAs
 //     (one per key), a K value TM; a p value 4 (one per dim), a V value
 //     TM.  TM (4 to 8) is chosen per launch so that the last query block
 //     wastes the fewest rows: S 197 takes TM 5, 5 blocks of 40 rows, 200
@@ -64,14 +65,14 @@ using ptt::bf16;
 
 namespace {
 
-constexpr int HD = ptt_flash::HD;
 constexpr int F32_THREADS = 128;
 constexpr int F32_TX = 16;          // thread columns: keys, then head dims
 constexpr int F32_TY = 8;           // thread rows: query rows ty + 8i
 constexpr int F32_KT = 64;          // keys per tile
-constexpr int F32_LD = HD + 4;      // padded row of Q, K and p (floats)
+constexpr int F32_LD = F32_KT + 4;  // padded row of Q, K and p (floats):
+                                    // a p row holds the tile's 64 keys
 
-template <int TM>
+template <int TM, int HD>
 constexpr size_t f32_smem_bytes() {
   return ((size_t)F32_TY * TM * F32_LD        // q'
           + 2 * (size_t)F32_KT * F32_LD       // K, two stages (then p)
@@ -79,9 +80,33 @@ constexpr size_t f32_smem_bytes() {
          * sizeof(float);
 }
 
+// N (4, 2 or 1) consecutive floats between registers and memory
+template <int N>
+__device__ __forceinline__ void load_vec(float (&r)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x, r[1] = v.y;
+  } else {
+    r[0] = p[0];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_vec(float* p, const float (&r)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  else if constexpr (N == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  else
+    p[0] = r[0];
+}
+
 // s[i][j] += q'[ty + 8i] . k[tx + 16j] for the tile's first NJ key groups:
 // qs points at row ty, ks at row tx of the tile
-template <int TM, int NJ>
+template <int TM, int NJ, int HD>
 __device__ __forceinline__ void f32_scores(float (&s)[TM][4],
                                            const float* __restrict__ qs,
                                            const float* __restrict__ ks) {
@@ -106,13 +131,14 @@ __device__ __forceinline__ void f32_scores(float (&s)[TM][4],
   }
 }
 
-template <int TM>
+template <int TM, int HD>
 __global__ void __launch_bounds__(F32_THREADS, 3)
     flash_f32_kernel(const float* __restrict__ q, long long q_img, int q_row,
                      const float* __restrict__ k, const float* __restrict__ v,
                      long long kv_img, int kv_row, float* __restrict__ o,
                      long long o_img, int o_row, int S, float scale) {
   constexpr int BQ = F32_TY * TM;
+  constexpr int DV = HD / F32_TX;       // head dims a thread in p.v
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                                 // [BQ][F32_LD]
   float* Ks = Qs + BQ * F32_LD;                     // [2][F32_KT][F32_LD]
@@ -136,12 +162,13 @@ __global__ void __launch_bounds__(F32_THREADS, 3)
     ptt::cp_async_commit();
   };
   load_rows(Ks, F32_LD, kb, 0);
-  // q' = f32(q) * scale, rounded once; rows past S are 0.  TM chunks a
-  // thread, unrolled so that their loads are in flight together
-  static_assert(BQ * (HD / 4) == TM * F32_THREADS, "TM chunks a thread");
+  // q' = f32(q) * scale, rounded once; rows past S are 0.  TM * HD / 64
+  // chunks a thread, unrolled so that their loads are in flight together
+  constexpr int QCH = BQ * (HD / 4);
 #pragma unroll
-  for (int u = 0; u < TM; ++u) {
+  for (int u = 0; u < (QCH + F32_THREADS - 1) / F32_THREADS; ++u) {
     const int c = tid + u * F32_THREADS;
+    if (QCH % F32_THREADS && c >= QCH) break;
     const int r = c / (HD / 4), cc = (c % (HD / 4)) * 4;
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (q0 + r < S) {
@@ -152,12 +179,12 @@ __global__ void __launch_bounds__(F32_THREADS, 3)
     *reinterpret_cast<float4*>(&Qs[r * F32_LD + cc]) = x;
   }
 
-  float acc[TM][4], rsum[TM];
+  float acc[TM][DV], rsum[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     rsum[i] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+    for (int e = 0; e < DV; ++e) acc[i][e] = 0.0f;
   }
   const float* qs = Qs + ty * F32_LD;
   for (int t = 0; t < nt; ++t) {
@@ -181,10 +208,10 @@ __global__ void __launch_bounds__(F32_THREADS, 3)
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
     const float* ks = Kt + tx * F32_LD;
     switch ((nk + 15) / 16) {        // key groups with a key below S
-      case 1: f32_scores<TM, 1>(s, qs, ks); break;
-      case 2: f32_scores<TM, 2>(s, qs, ks); break;
-      case 3: f32_scores<TM, 3>(s, qs, ks); break;
-      default: f32_scores<TM, 4>(s, qs, ks); break;
+      case 1: f32_scores<TM, 1, HD>(s, qs, ks); break;
+      case 2: f32_scores<TM, 2, HD>(s, qs, ks); break;
+      case 3: f32_scores<TM, 3, HD>(s, qs, ks); break;
+      default: f32_scores<TM, 4, HD>(s, qs, ks); break;
     }
     __syncthreads();                 // K(t) read by every warp: p goes over it
 #pragma unroll
@@ -205,7 +232,7 @@ __global__ void __launch_bounds__(F32_THREADS, 3)
     // o += p v over the tile's keys, 4 at a time (p of keys >= nk is 0 and
     // V's rows past S are zero)
     const float* ps = Kt + ty * F32_LD;
-    const float* vs = Vs + 4 * tx;
+    const float* vs = Vs + DV * tx;
     for (int j = 0; j < nk; j += 4) {
       float4 pv[TM];
 #pragma unroll
@@ -213,15 +240,14 @@ __global__ void __launch_bounds__(F32_THREADS, 3)
         pv[i] = *reinterpret_cast<const float4*>(&ps[F32_TY * i * F32_LD + j]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[(j + e) * HD]);
+        float vv[DV];
+        load_vec<DV>(vv, &vs[(j + e) * HD]);
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y
                            : e == 2 ? pv[i].z : pv[i].w;
-          acc[i][0] = fmaf(pe, vv.x, acc[i][0]);
-          acc[i][1] = fmaf(pe, vv.y, acc[i][1]);
-          acc[i][2] = fmaf(pe, vv.z, acc[i][2]);
-          acc[i][3] = fmaf(pe, vv.w, acc[i][3]);
+#pragma unroll
+          for (int d = 0; d < DV; ++d) acc[i][d] = fmaf(pe, vv[d], acc[i][d]);
         }
       }
     }
@@ -235,29 +261,29 @@ __global__ void __launch_bounds__(F32_THREADS, 3)
     for (int off = F32_TX / 2; off > 0; off >>= 1)
       rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], off);
     const int row = q0 + ty + F32_TY * i;
+    float out[DV];
+#pragma unroll
+    for (int d = 0; d < DV; ++d) out[d] = __fdiv_rn(acc[i][d], rsum[i]);
     if (row < S)
-      *reinterpret_cast<float4*>(&o[b * o_img + (size_t)row * o_row + h * HD +
-                                    4 * tx]) =
-          make_float4(__fdiv_rn(acc[i][0], rsum[i]),
-                      __fdiv_rn(acc[i][1], rsum[i]),
-                      __fdiv_rn(acc[i][2], rsum[i]),
-                      __fdiv_rn(acc[i][3], rsum[i]));
+      store_vec<DV>(&o[b * o_img + (size_t)row * o_row + h * HD + DV * tx],
+                    out);
   }
 }
 
-template <int TM>
+template <int TM, int HD>
 int launch_f32(const float* q, long long q_img, int q_row, const float* k,
                const float* v, long long kv_img, int kv_row, float* o, int B,
                int S, int H, float scale, cudaStream_t st) {
-  constexpr size_t smem = f32_smem_bytes<TM>();
+  constexpr size_t smem = f32_smem_bytes<TM, HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<TM, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int bq = F32_TY * TM;
-  flash_f32_kernel<TM><<<dim3((S + bq - 1) / bq, H, B), F32_THREADS, smem,
-                         st>>>(q, q_img, q_row, k, v, kv_img, kv_row, o,
-                               (long long)S * H * HD, H * HD, S, scale);
+  flash_f32_kernel<TM, HD><<<dim3((S + bq - 1) / bq, H, B), F32_THREADS,
+                             smem, st>>>(q, q_img, q_row, k, v, kv_img,
+                                         kv_row, o, (long long)S * H * HD,
+                                         H * HD, S, scale);
   return (int)cudaGetLastError();
 }
 
@@ -265,43 +291,52 @@ int launch_f32(const float* q, long long q_img, int q_row, const float* k,
 
 extern "C" {
 
-// q [B, S, H, 64] bf16 with image stride q_img and row stride q_row
+// q [B, S, H, hd] bf16 with image stride q_img and row stride q_row
 // (elements), k and v with kv_img and kv_row, the last two axes packed; o
-// [B, S, H, 64] contiguous.  scale = log2(e)/sqrt(64) in f32.
+// [B, S, H, hd] contiguous.  hd 16, 32 or 64; scale = log2(e)/sqrt(hd) in
+// f32.
 int ptt_flash_attention(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, long long q_img, int q_row,
-                        long long kv_img, int kv_row, float scale,
+                        int B, int S, int H, int hd, long long q_img,
+                        int q_row, long long kv_img, int kv_row, float scale,
                         void* stream) {
   const int Sp = (S + 15) / 16 * 16;
   return ptt_flash::attention<true>(
       (const bf16*)q, q_img, q_row, S, (const bf16*)k, (const bf16*)v, kv_img,
-      kv_row, (bf16*)o, (long long)S * H * HD, H * HD, B, H, Sp, S, scale,
-      (cudaStream_t)stream);
+      kv_row, (bf16*)o, (long long)S * H * hd, H * hd, B, H, hd, Sp, S,
+      scale, (cudaStream_t)stream);
 }
 
 // The same function on f32 q, k, v, o (strides as above; 16-byte aligned
 // rows).  The query block of 8 * TM rows, TM in 4..8, that pads S the
 // least (the larger on a tie).
 int ptt_flash_attention_f32(const void* q, const void* k, const void* v,
-                            void* o, int B, int S, int H, long long q_img,
-                            int q_row, long long kv_img, int kv_row,
-                            float scale, void* stream) {
+                            void* o, int B, int S, int H, int hd,
+                            long long q_img, int q_row, long long kv_img,
+                            int kv_row, float scale, void* stream) {
+  if (!ptt_flash::head_dim_ok(hd)) return (int)cudaErrorInvalidValue;
   int tm = 8, padded = (S + 63) / 64 * 64;
   for (int c = 7; c >= 4; --c) {
     const int bq = F32_TY * c, p = (S + bq - 1) / bq * bq;
     if (p < padded) tm = c, padded = p;
   }
-  auto run = [&](auto tm_c) {
-    return launch_f32<decltype(tm_c)::value>(
-        (const float*)q, q_img, q_row, (const float*)k, (const float*)v,
-        kv_img, kv_row, (float*)o, B, S, H, scale, (cudaStream_t)stream);
+  auto at_hd = [&](auto hd_c) {
+    auto run = [&](auto tm_c) {
+      return launch_f32<decltype(tm_c)::value, decltype(hd_c)::value>(
+          (const float*)q, q_img, q_row, (const float*)k, (const float*)v,
+          kv_img, kv_row, (float*)o, B, S, H, scale, (cudaStream_t)stream);
+    };
+    switch (tm) {
+      case 4: return run(std::integral_constant<int, 4>());
+      case 5: return run(std::integral_constant<int, 5>());
+      case 6: return run(std::integral_constant<int, 6>());
+      case 7: return run(std::integral_constant<int, 7>());
+      default: return run(std::integral_constant<int, 8>());
+    }
   };
-  switch (tm) {
-    case 4: return run(std::integral_constant<int, 4>());
-    case 5: return run(std::integral_constant<int, 5>());
-    case 6: return run(std::integral_constant<int, 6>());
-    case 7: return run(std::integral_constant<int, 7>());
-    default: return run(std::integral_constant<int, 8>());
+  switch (hd) {
+    case 16: return at_hd(std::integral_constant<int, 16>());
+    case 32: return at_hd(std::integral_constant<int, 32>());
+    default: return at_hd(std::integral_constant<int, 64>());
   }
 }
 

@@ -5,7 +5,7 @@
 // an f32 output, the int8 layer kernels (csrc/int8_layer.cu, rows 5, 6, 8
 // and 9).  Per (head, image):
 //
-//   q' = q (the layers fold log2(e)/sqrt(64) into Wq; row 14 scales q on
+//   q' = q (the layers fold log2(e)/sqrt(hd) into Wq; row 14 scales q on
 //        load: bf16(f32(q) * scale), the TPU kernel's order)
 //   p  = bf16(exp2(clip(q'.k, -100, 80))), keys at or past valid_len p = 0
 //   o  = (p v) / sum(p)          f32 sums of the rounded p, an exact divide,
@@ -20,7 +20,9 @@
 // 15.3 GFLOP of products (15 us at the bf16 peak): bytes.  So the design
 // reads every K and V row from device memory once per (head, image), and
 // keeps enough blocks on an SM that one block's loads overlap the others'
-// products:
+// products.  The head width HD is a template argument: 64 (ViT-B/16), 32
+// and 16 (the CLIs' small tower, D 64 over 4 heads); the words below are
+// for 64:
 //   * one block of 4 warps per (head, image) loads the head's K and V
 //     (2 x S x 64 bf16, 53 KB at S 208) into shared memory once with
 //     16-byte cp.async from the strided q/k/v views (no copy or transpose);
@@ -49,19 +51,25 @@ namespace ptt_flash {
 
 using ptt::bf16;
 
-constexpr int HD = 64;        // head width
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr float SCORE_LO = -100.0f, SCORE_HI = 80.0f;
 constexpr uint32_t BF16_ONES = 0x3F803F80u;   // two bf16 1.0
 
-// K and V of Sp rows
-inline size_t smem_bytes(int Sp) { return 2 * (size_t)Sp * HD * sizeof(bf16); }
+// K and V of Sp rows of hd columns
+inline size_t smem_bytes(int Sp, int hd) {
+  return 2 * (size_t)Sp * hd * sizeof(bf16);
+}
 
-// element offset of the 16-byte chunk c (0..7) of row r: chunks swizzled
-// by the row, so rows r..r+7 put any one chunk in 8 different bank groups
+// the head widths the tiles are instantiated for
+inline bool head_dim_ok(int hd) { return hd == 16 || hd == 32 || hd == 64; }
+
+// element offset of the 16-byte chunk c (0 .. HD/8 - 1) of a row r of HD
+// columns: chunks swizzled by the row, so that at HD 64 rows r..r+7 put
+// any one chunk in 8 different bank groups (at 32 and 16, 4 and 2)
+template <int HD>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * HD + ((c ^ (r & 7)) << 3);
+  return r * HD + ((c ^ (r & (HD / 8 - 1))) << 3);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
@@ -101,12 +109,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // softmax(q' k^T) v for one (head h, image b): n_q query rows; q, k, v, o
 // are row-major views with their own image and row strides (elements,
-// even), the head's 64 columns at h * 64.  K and V hold Sp (a multiple of
+// even), the head's HD columns at h * HD.  K and V hold Sp (a multiple of
 // 16) rows, of which those below valid_len are read.  SCALE_Q: q times
 // `scale` in f32 on load, rounded to bf16.  o is bf16 or f32.  Every
 // thread of the block (NWARPS warps) takes part.  A query row's output
 // depends on that row alone, whatever the others hold.
-template <bool SCALE_Q, typename OutT = bf16, int NWARPS = WARPS>
+template <int HD, bool SCALE_Q, typename OutT = bf16, int NWARPS = WARPS>
 __device__ __forceinline__ void flash_tile(
     const bf16* __restrict__ q, long long q_img, int q_row, int n_q,
     const bf16* __restrict__ k, const bf16* __restrict__ v, long long kv_img,
@@ -121,13 +129,14 @@ __device__ __forceinline__ void flash_tile(
   const bf16* vb = v + b * kv_img + h * HD;
   OutT* ob = o + b * o_img + h * HD;
 
-  for (int c = tid; c < Sp * (HD / 8); c += 32 * NWARPS) {
-    const int r = c >> 3, ch = c & 7;
+  constexpr int CH = HD / 8;             // 16-byte chunks a row
+  for (int c = tid; c < Sp * CH; c += 32 * NWARPS) {
+    const int r = c / CH, ch = c % CH;
     const bool ok = r < valid_len;
-    ptt::cp_async16(&Ks[swz(r, ch)], ok ? kb + (size_t)r * kv_row + ch * 8 : kb,
-                    ok);
-    ptt::cp_async16(&Vs[swz(r, ch)], ok ? vb + (size_t)r * kv_row + ch * 8 : vb,
-                    ok);
+    ptt::cp_async16(&Ks[swz<HD>(r, ch)],
+                    ok ? kb + (size_t)r * kv_row + ch * 8 : kb, ok);
+    ptt::cp_async16(&Vs[swz<HD>(r, ch)],
+                    ok ? vb + (size_t)r * kv_row + ch * 8 : vb, ok);
   }
   ptt::cp_async_commit();
   ptt::cp_async_wait<0>();
@@ -169,8 +178,8 @@ __device__ __forceinline__ void flash_tile(
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, &Ks[swz(n + (lane & 7) + ((lane >> 4) << 3),
-                               kk * 2 + ((lane >> 3) & 1))]);
+        ldmatrix_x4(kf, &Ks[swz<HD>(n + (lane & 7) + ((lane >> 4) << 3),
+                                   kk * 2 + ((lane >> 3) & 1))]);
         mma_bf16(sacc[0], qa[kk], kf[0], kf[1]);
         mma_bf16(sacc[1], qa[kk], kf[2], kf[3]);
       }
@@ -194,8 +203,9 @@ __device__ __forceinline__ void flash_tile(
 #pragma unroll
       for (int jj = 0; jj < HD / 16; ++jj) {
         uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &Vs[swz(n + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                     jj * 2 + (lane >> 4))]);
+        ldmatrix_x4_trans(
+            vf, &Vs[swz<HD>(n + (lane & 7) + (((lane >> 3) & 1) << 3),
+                            jj * 2 + (lane >> 4))]);
         mma_bf16(oacc[2 * jj], pa, vf[0], vf[1]);
         mma_bf16(oacc[2 * jj + 1], pa, vf[2], vf[3]);
       }
@@ -218,7 +228,7 @@ __device__ __forceinline__ void flash_tile(
 }
 
 // One block of THREADS threads per (head, image).
-template <bool SCALE_Q, typename OutT>
+template <int HD, bool SCALE_Q, typename OutT>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const bf16* __restrict__ q, long long q_img, int q_row,
                  int n_q, const bf16* __restrict__ k,
@@ -226,26 +236,50 @@ __global__ void __launch_bounds__(THREADS)
                  OutT* __restrict__ o, long long o_img, int o_row, int Sp,
                  int valid_len, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  flash_tile<SCALE_Q, OutT>(q, q_img, q_row, n_q, k, v, kv_img, kv_row, o,
-                            o_img, o_row, Sp, valid_len, scale, blockIdx.x,
-                            blockIdx.y, smem);
+  flash_tile<HD, SCALE_Q, OutT>(q, q_img, q_row, n_q, k, v, kv_img, kv_row,
+                                o, o_img, o_row, Sp, valid_len, scale,
+                                blockIdx.x, blockIdx.y, smem);
 }
 
-// Launch over (heads, images); returns cudaGetLastError().
-template <bool SCALE_Q, typename OutT>
-int attention(const bf16* q, long long q_img, int q_row, int n_q,
-              const bf16* k, const bf16* v, long long kv_img, int kv_row,
-              OutT* o, long long o_img, int o_row, int B, int H, int Sp,
-              int valid_len, float scale, cudaStream_t st) {
-  const size_t smem = smem_bytes(Sp);
+template <int HD, bool SCALE_Q, typename OutT>
+int launch(const bf16* q, long long q_img, int q_row, int n_q, const bf16* k,
+           const bf16* v, long long kv_img, int kv_row, OutT* o,
+           long long o_img, int o_row, int B, int H, int Sp, int valid_len,
+           float scale, cudaStream_t st) {
+  const size_t smem = smem_bytes(Sp, HD);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<SCALE_Q, OutT>,
+      flash_kernel<HD, SCALE_Q, OutT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_kernel<SCALE_Q, OutT><<<dim3(H, B), THREADS, smem, st>>>(
+  flash_kernel<HD, SCALE_Q, OutT><<<dim3(H, B), THREADS, smem, st>>>(
       q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img, o_row, Sp,
       valid_len, scale);
   return (int)cudaGetLastError();
+}
+
+// Launch over (heads, images) at head width hd (16, 32 or 64); returns
+// cudaGetLastError().
+template <bool SCALE_Q, typename OutT = bf16>
+int attention(const bf16* q, long long q_img, int q_row, int n_q,
+              const bf16* k, const bf16* v, long long kv_img, int kv_row,
+              OutT* o, long long o_img, int o_row, int B, int H, int hd,
+              int Sp, int valid_len, float scale, cudaStream_t st) {
+  switch (hd) {
+    case 16:
+      return launch<16, SCALE_Q, OutT>(q, q_img, q_row, n_q, k, v, kv_img,
+                                       kv_row, o, o_img, o_row, B, H, Sp,
+                                       valid_len, scale, st);
+    case 32:
+      return launch<32, SCALE_Q, OutT>(q, q_img, q_row, n_q, k, v, kv_img,
+                                       kv_row, o, o_img, o_row, B, H, Sp,
+                                       valid_len, scale, st);
+    case 64:
+      return launch<64, SCALE_Q, OutT>(q, q_img, q_row, n_q, k, v, kv_img,
+                                       kv_row, o, o_img, o_row, B, H, Sp,
+                                       valid_len, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace ptt_flash

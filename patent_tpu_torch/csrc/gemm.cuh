@@ -1,15 +1,11 @@
-// The bf16 tensor-core GEMM with fused epilogues and the warp-per-row
-// LayerNorm, shared by the serving layer (csrc/bf16_layer.cu) and the
-// trainable blocks (csrc/fused_attention.cu, csrc/mlp_grad.cu).
+// The bf16 tensor-core GEMM of the trainable MLP block's forward (row 15,
+// csrc/mlp_grad.cu) and the warp-per-row LayerNorm, shared by the serving
+// layer (csrc/bf16_layer.cu) and the trainable MLP block.
 //
-//   C[M, N] = epi(op(A) @ op(B) + bias)      bf16 operands, f32 accumulation
+//   C[M, N] = epi(A[M, K] @ B[K, N] + bias)  bf16 operands, f32 accumulation
 //
-// op(A) is A [M, K] row-major, or with TA the transpose of A stored [K, M];
-// op(B) is B [K, N] row-major, or with TB the transpose of B stored [N, K].
-// The transposed forms give the backward's weight gradients (Aᵀ·dY, a
-// reduction over the rows) and its input gradients (dY·Wᵀ) without a copy.
-// 128x128x32 block tiles, 8 warps of 64x32 on nvcuda::wmma, a two-stage
-// cp.async ring; the NN instance is the serving layer's kernel unchanged.
+// A and B row-major.  128x128x32 block tiles, 8 warps of 64x32 on
+// nvcuda::wmma, a two-stage cp.async ring.
 #pragma once
 
 #include <mma.h>
@@ -26,37 +22,25 @@ using ptt::bf16;
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int THREADS = 256;
 constexpr int A_LD = BK + 8;       // A tile [BM][BK]
-constexpr int AT_LD = BM + 8;      // A tile stored transposed [BK][BM]
 constexpr int B_LD = BN + 8;       // B tile [BK][BN]
-constexpr int BT_LD = BK + 8;      // B tile stored transposed [BN][BK]
 constexpr float NEG_1702_LOG2E = (float)(-1.702 * 1.4426950408889634);
 
 enum Epi {
-  EPI_BIAS = 0,        // v + bias
-  EPI_BIAS_GELU = 1,   // quick_gelu(v + bias), exp form (serving layer)
   EPI_BIAS_RES = 2,    // v + bias + res
-  EPI_BIAS_GELU2 = 3,  // g = v + bias -> aux (f32, when given);
-                       // C = g * sigmoid(1.702 g), exp2 form (trainable MLP)
-  EPI_ACC = 4,         // C += v (f32 C: weight gradients summed over chunks)
-  EPI_DGELU = 5,       // g = aux; s = sigmoid(1.702 g);
-                       // dg = v * (s * (1 + 1.702 g (1 - s))) -> C, aux
-  EPI_NONE = 6,        // v
+  EPI_BIAS_GELU2 = 3,  // g = v + bias; C = g * sigmoid(1.702 g), exp2 form
 };
 
-// K, N, lda, ldb multiples of 8 (M too with TA) and A, B 16-byte aligned
-// (checked by the host code).  aux [M, N] f32 row-major, ld = ldc.
-template <int EPI, bool TA, bool TB, typename ResT, typename OutT>
+// K, N, lda, ldb multiples of 8 and A, B 16-byte aligned (checked by the
+// host code).
+template <int EPI, typename ResT, typename OutT>
 __global__ void __launch_bounds__(THREADS)
     gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
                      const bf16* __restrict__ B, int ldb,
                      const float* __restrict__ bias,
                      const ResT* __restrict__ res, int ldr,
-                     OutT* __restrict__ C, int ldc, int M, int N, int K,
-                     float* __restrict__ aux) {
-  constexpr int A_TILE = TA ? BK * AT_LD : BM * A_LD;
-  constexpr int B_TILE = TB ? BN * BT_LD : BK * B_LD;
-  __shared__ __align__(128) bf16 As[2][A_TILE];
-  __shared__ __align__(128) bf16 Bs[2][B_TILE];
+                     OutT* __restrict__ C, int ldc, int M, int N, int K) {
+  __shared__ __align__(128) bf16 As[2][BM * A_LD];
+  __shared__ __align__(128) bf16 Bs[2][BK * B_LD];
   __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -65,48 +49,26 @@ __global__ void __launch_bounds__(THREADS)
 
   auto load_tile = [&](int kt, int stage) {
     const int k0 = kt * BK;
-    if constexpr (!TA) {
-      for (int c = tid; c < BM * BK / 8; c += THREADS) {
-        const int r = c >> 2, kc = (c & 3) * 8;
-        const int gr = m0 + r, gk = k0 + kc;
-        const bool ok = gr < M && gk < K;
-        ptt::cp_async16(&As[stage][r * A_LD + kc],
-                        ok ? A + (size_t)gr * lda + gk : A, ok);
-      }
-    } else {
-      for (int c = tid; c < BK * BM / 8; c += THREADS) {
-        const int r = c >> 4, mc = (c & 15) * 8;
-        const int gk = k0 + r, gm = m0 + mc;
-        const bool ok = gk < K && gm < M;
-        ptt::cp_async16(&As[stage][r * AT_LD + mc],
-                        ok ? A + (size_t)gk * lda + gm : A, ok);
-      }
+    for (int c = tid; c < BM * BK / 8; c += THREADS) {
+      const int r = c >> 2, kc = (c & 3) * 8;
+      const int gr = m0 + r, gk = k0 + kc;
+      const bool ok = gr < M && gk < K;
+      ptt::cp_async16(&As[stage][r * A_LD + kc],
+                      ok ? A + (size_t)gr * lda + gk : A, ok);
     }
-    if constexpr (!TB) {
-      for (int c = tid; c < BK * BN / 8; c += THREADS) {
-        const int r = c >> 4, nc = (c & 15) * 8;
-        const int gk = k0 + r, gn = n0 + nc;
-        const bool ok = gk < K && gn < N;
-        ptt::cp_async16(&Bs[stage][r * B_LD + nc],
-                        ok ? B + (size_t)gk * ldb + gn : B, ok);
-      }
-    } else {
-      for (int c = tid; c < BN * BK / 8; c += THREADS) {
-        const int r = c >> 2, kc = (c & 3) * 8;
-        const int gn = n0 + r, gk = k0 + kc;
-        const bool ok = gn < N && gk < K;
-        ptt::cp_async16(&Bs[stage][r * BT_LD + kc],
-                        ok ? B + (size_t)gn * ldb + gk : B, ok);
-      }
+    for (int c = tid; c < BK * BN / 8; c += THREADS) {
+      const int r = c >> 4, nc = (c & 15) * 8;
+      const int gk = k0 + r, gn = n0 + nc;
+      const bool ok = gk < K && gn < N;
+      ptt::cp_async16(&Bs[stage][r * B_LD + nc],
+                      ok ? B + (size_t)gk * ldb + gn : B, ok);
     }
   };
 
   using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                               typename std::conditional<TA, wmma::col_major,
-                                                         wmma::row_major>::type>;
+                               wmma::row_major>;
   using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                               typename std::conditional<TB, wmma::col_major,
-                                                         wmma::row_major>::type>;
+                               wmma::row_major>;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -127,21 +89,13 @@ __global__ void __launch_bounds__(THREADS)
       FragA a[4];
       FragB b[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = wm * 64 + i * 16;
-        if constexpr (TA)
-          wmma::load_matrix_sync(a[i], &As[st][kk * AT_LD + m], AT_LD);
-        else
-          wmma::load_matrix_sync(a[i], &As[st][m * A_LD + kk], A_LD);
-      }
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(a[i], &As[st][(wm * 64 + i * 16) * A_LD + kk],
+                               A_LD);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = wn * 32 + j * 16;
-        if constexpr (TB)
-          wmma::load_matrix_sync(b[j], &Bs[st][n * BT_LD + kk], BT_LD);
-        else
-          wmma::load_matrix_sync(b[j], &Bs[st][kk * B_LD + n], B_LD);
-      }
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], &Bs[st][kk * B_LD + wn * 32 + j * 16],
+                               B_LD);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -168,23 +122,12 @@ __global__ void __launch_bounds__(THREADS)
         for (int e = 0; e < 8; ++e) {
           const int gc = gc0 + e;
           if (gc < N) {
-            float v = cs[r * 16 + c0 + e];
-            const size_t o = (size_t)gr * ldc + gc;
-            if constexpr (EPI <= EPI_BIAS_GELU2) v += bias[gc];
-            if constexpr (EPI == EPI_BIAS_GELU) v = v / (1.0f + expf(-1.702f * v));
-            if constexpr (EPI == EPI_BIAS_RES) v += ptt::to_f(res[(size_t)gr * ldr + gc]);
-            if constexpr (EPI == EPI_BIAS_GELU2) {
-              if (aux != nullptr) aux[o] = v;
+            float v = cs[r * 16 + c0 + e] + bias[gc];
+            if constexpr (EPI == EPI_BIAS_RES)
+              v += ptt::to_f(res[(size_t)gr * ldr + gc]);
+            else
               v = v * (1.0f / (1.0f + exp2f(NEG_1702_LOG2E * v)));
-            }
-            if constexpr (EPI == EPI_ACC) v += ptt::to_f(C[o]);
-            if constexpr (EPI == EPI_DGELU) {
-              const float g = aux[o];
-              const float s = 1.0f / (1.0f + exp2f(NEG_1702_LOG2E * g));
-              v = v * (s * (1.0f + 1.702f * g * (1.0f - s)));
-              aux[o] = v;
-            }
-            ptt::store_f(&C[o], v);
+            ptt::store_f(&C[(size_t)gr * ldc + gc], v);
           }
         }
       }
@@ -217,14 +160,13 @@ __global__ void layernorm_kernel(const InT* __restrict__ x, int ldx,
     orow[c] = __float2bfloat16((ptt::to_f(xr[c]) - mu) * rstd * scale[c] + bias[c]);
 }
 
-template <int EPI, typename ResT, typename OutT, bool TA = false,
-          bool TB = false>
+template <int EPI, typename ResT, typename OutT>
 void gemm(const bf16* A, int lda, const bf16* B, int ldb, const float* bias,
           const ResT* res, int ldr, OutT* C, int ldc, int M, int N, int K,
-          cudaStream_t st, float* aux = nullptr) {
+          cudaStream_t st) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bf16_kernel<EPI, TA, TB, ResT, OutT><<<grid, THREADS, 0, st>>>(
-      A, lda, B, ldb, bias, res, ldr, C, ldc, M, N, K, aux);
+  gemm_bf16_kernel<EPI, ResT, OutT><<<grid, THREADS, 0, st>>>(
+      A, lda, B, ldb, bias, res, ldr, C, ldc, M, N, K);
 }
 
 template <typename InT>

@@ -33,10 +33,12 @@
 // <h, b> and the projection each need a whole output row, but 512 rows
 // of whole rows fill only 32 SMs, so a thread-block cluster owns 16 rows
 // and its CTAs split their columns (at D 256, 4 CTAs of 64 columns: 128
-// CTAs at n 512, one wave on 132 SMs); each of the three row reductions
-// (|u|^2; |h|^2 and <h, b> with |b|^2; |out|^2) is summed over the row's
-// threads by shuffles, then over the cluster's CTAs through distributed
-// shared memory, in rank order, so every CTA of a row gets the same bits.
+// CTAs at n 512, one wave on 132 SMs; past D 1024, 8 CTAs each take a
+// 128-column slice of every 1024-column group); each of the three row
+// reductions (|u|^2; |h|^2 and <h, b> with |b|^2; |out|^2) is summed over
+// the row's threads by shuffles, then over the cluster's CTAs through
+// distributed shared memory, in rank order, so every CTA of a row gets the
+// same bits.
 // W's and x's K-slices stream through a four-stage cp.async ring (three
 // 64-deep slices in flight during the FMAs).  In the K loop a thread holds a
 // register tile of 4 rows x 4 or 8 columns over an eighth of each slice
@@ -145,7 +147,10 @@ __global__ void __launch_bounds__(256)
 // The cluster shape of each D class: a cluster of CTAs owns MD_BM rows and
 // splits their D columns, `cols` a CTA.  D <= 64: one CTA of 64 columns;
 // D 65-512: 2-8 CTAs of 64; D 513-1024: 5-8 CTAs of 128 (a portable
-// cluster holds at most 8 CTAs, so the slice widens instead).
+// cluster holds at most 8 CTAs, so the slice widens instead); past 1024,
+// 8 CTAs of 128 columns in each of `groups` column groups of 1024, up to
+// MD_GROUPS: a CTA runs the K loop once a group and keeps every group's
+// columns in registers for the row reductions.
 constexpr int MD_BM = 16;       // rows a cluster owns
 constexpr int MD_KT = 64;       // depth of a K-slice
 constexpr int MD_STAGES = 4;    // K-slices in the ring, 3 in flight
@@ -155,10 +160,14 @@ constexpr int MD_THREADS = 512; // MD_KG x (4 x 16 threads of 4 x TN); a
 constexpr int MD_XLD = MD_KT + 4;   // x's shared row: float4 reads of rows
                                     // 4 apart fall in different banks
 constexpr int MD_CLUSTER_MAX = 8;
+constexpr int MD_GROUPS = 8;    // column groups a CTA at most
+constexpr int MD_MAX_OUT = MD_GROUPS * MD_CLUSTER_MAX * 128;   // 8192
 
-void mobius_plan(int D, int* cols, int* cluster) {
+void mobius_plan(int D, int* cols, int* cluster, int* groups) {
   *cols = D <= MD_CLUSTER_MAX * 64 ? 64 : 128;
   *cluster = (D + *cols - 1) / *cols;
+  if (*cluster > MD_CLUSTER_MAX) *cluster = MD_CLUSTER_MAX;
+  *groups = (D + *cluster * *cols - 1) / (*cluster * *cols);
 }
 
 // The cluster's total of red[i] over its CTAs, in rank order, so that
@@ -180,7 +189,8 @@ __device__ __forceinline__ float cluster_total(
 }
 
 // One CTA: rows row0 .. row0 + 15 (blockIdx.x) by columns col0 .. col0 +
-// BN - 1 (col0 = BN x its rank in the cluster).  In the K loop, thread
+// BN - 1 (col0 = BN x its rank in the cluster) of each of `groups` (<= G)
+// column groups of cluster x BN columns.  In the K loop, thread
 // (kg, ty, tx) holds a register tile of rows ty*4 .. ty*4 + 3 by columns
 // tx*4 .. tx*4 + 3 (+ 64 when BN is 128) over k-group kg's 8 k of each
 // K-slice: per 4 k, 4 float4 of x and TN / 4 x 4 of W from shared memory
@@ -192,14 +202,15 @@ __device__ __forceinline__ float cluster_total(
 // 64 two CTAs fit on an SM (64 registers a thread, 83 KB), so that a
 // cluster the GPC cannot place one CTA an SM shares an SM rather than
 // waiting for a second wave.
-template <int BN>
+template <int BN, int G>
 __global__ void __launch_bounds__(MD_THREADS, BN == 64 ? 2 : 1)
     mobius_dense_kernel(const float* __restrict__ x,
                         const float* __restrict__ w,
                         const float* __restrict__ bias, int n, int K, int D,
-                        int vec, float c, float two_c, float c2, float sqrt_c,
-                        float maxnorm, float* __restrict__ out) {
+                        int groups, int vec, float c, float two_c, float c2,
+                        float sqrt_c, float maxnorm, float* __restrict__ out) {
   constexpr int TN = BN / 16, EC = BN / 32;
+  constexpr int EV = G * EC;        // the epilogue's values a thread
   constexpr int XS = MD_BM * MD_XLD, WS = MD_KT * BN;  // floats a stage
   constexpr int WCH = WS / 4 / MD_THREADS;  // W's 16-byte chunks a thread
   static_assert(MD_KT % (4 * MD_KG) == 0 && MD_THREADS == 32 * MD_BM &&
@@ -214,12 +225,15 @@ __global__ void __launch_bounds__(MD_THREADS, BN == 64 ? 2 : 1)
       cooperative_groups::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, r = tid >> 5;
   const int row0 = blockIdx.x * MD_BM;
-  const int col0 = (int)cluster.block_rank() * BN;
-  const int cbase = col0 + lane * EC;       // the epilogue's columns
-  float bv[EC];
+  const int gstride = (int)cluster.num_blocks() * BN;   // a group's columns
+  const int cbase = (int)cluster.block_rank() * BN + lane * EC;
+  // the column of the epilogue's value j: group j / EC, EC a lane
+  auto col = [&](int j) { return j / EC * gstride + cbase + j % EC; };
+  float bv[EV];
 #pragma unroll
-  for (int j = 0; j < EC; ++j)
-    bv[j] = cbase + j < D ? bias[cbase + j] : 0.0f;  // u = h = 0 there
+  for (int j = 0; j < EV; ++j)
+    bv[j] = col(j) < D ? bias[col(j)] : 0.0f;   // u = h = 0 there
+  int col0 = (int)cluster.block_rank() * BN;    // this group's first column
 
   // vec: this thread's chunks, the x one (threads < 128) and WCH of W
   const int xr = tid / (MD_KT / 4), xk = tid % (MD_KT / 4) * 4;
@@ -264,80 +278,87 @@ __global__ void __launch_bounds__(MD_THREADS, BN == 64 ? 2 : 1)
     }
   };
 
-  // u = x W: K-slices through a ring of MD_STAGES, MD_STAGES - 1 in flight
-  // while the FMAs run on the oldest
+  // u = x W, a column group at a time: K-slices through a ring of
+  // MD_STAGES, MD_STAGES - 1 in flight while the FMAs run on the oldest
   const int tx = tid & 15, ty = (tid >> 4) & 3, kg = tid >> 6;
-  float tile[4][TN];
+  float acc[EV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < EV; ++j) acc[j] = 0.0f;
+  for (int grp = 0; grp < groups; ++grp, col0 += gstride) {
+    float tile[4][TN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) tile[i][j] = 0.0f;
-  const int kts = (K + MD_KT - 1) / MD_KT;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-  for (int st = 0; st < MD_STAGES - 1; ++st) {
-    if (st < kts) load(st, st);
-    ptt::cp_async_commit();
-  }
-  for (int kt = 0; kt < kts; ++kt) {
-    ptt::cp_async_wait<MD_STAGES - 2>();
-    __syncthreads();      // slice kt is in; slice kt - 1's stage is free
-    if (kt + MD_STAGES - 1 < kts)
-      load(kt + MD_STAGES - 1, (kt + MD_STAGES - 1) % MD_STAGES);
-    ptt::cp_async_commit();
-    const float* Xs = smem + kt % MD_STAGES * (XS + WS);
-    const float* Ws = Xs + XS;
+      for (int j = 0; j < TN; ++j) tile[i][j] = 0.0f;
+    const int kts = (K + MD_KT - 1) / MD_KT;
 #pragma unroll
-    for (int k4 = 0; k4 < MD_KT / MD_KG; k4 += 4) {
-      const int kk = kg * (MD_KT / MD_KG) + k4;
-      float xv[4][4];                    // rows ty*4 + i, k kk + q
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 x4 = *reinterpret_cast<const float4*>(
-            &Xs[(ty * 4 + i) * MD_XLD + kk]);
-        xv[i][0] = x4.x;
-        xv[i][1] = x4.y;
-        xv[i][2] = x4.z;
-        xv[i][3] = x4.w;
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int h = 0; h < TN / 4; ++h) {
-          const float4 w4 = *reinterpret_cast<const float4*>(
-              &Ws[(kk + q) * BN + h * 64 + tx * 4]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            tile[i][4 * h] = fmaf(xv[i][q], w4.x, tile[i][4 * h]);
-            tile[i][4 * h + 1] = fmaf(xv[i][q], w4.y, tile[i][4 * h + 1]);
-            tile[i][4 * h + 2] = fmaf(xv[i][q], w4.z, tile[i][4 * h + 2]);
-            tile[i][4 * h + 3] = fmaf(xv[i][q], w4.w, tile[i][4 * h + 3]);
-          }
-        }
+    for (int st = 0; st < MD_STAGES - 1; ++st) {
+      if (st < kts) load(st, st);
+      ptt::cp_async_commit();
     }
-  }
-  ptt::cp_async_wait<0>();
-  __syncthreads();                  // every thread is done with the ring
+    for (int kt = 0; kt < kts; ++kt) {
+      ptt::cp_async_wait<MD_STAGES - 2>();
+      __syncthreads();      // slice kt is in; slice kt - 1's stage is free
+      if (kt + MD_STAGES - 1 < kts)
+        load(kt + MD_STAGES - 1, (kt + MD_STAGES - 1) % MD_STAGES);
+      ptt::cp_async_commit();
+      const float* Xs = smem + kt % MD_STAGES * (XS + WS);
+      const float* Ws = Xs + XS;
+#pragma unroll
+      for (int k4 = 0; k4 < MD_KT / MD_KG; k4 += 4) {
+        const int kk = kg * (MD_KT / MD_KG) + k4;
+        float xv[4][4];                    // rows ty*4 + i, k kk + q
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 x4 = *reinterpret_cast<const float4*>(
+              &Xs[(ty * 4 + i) * MD_XLD + kk]);
+          xv[i][0] = x4.x;
+          xv[i][1] = x4.y;
+          xv[i][2] = x4.z;
+          xv[i][3] = x4.w;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int h = 0; h < TN / 4; ++h) {
+            const float4 w4 = *reinterpret_cast<const float4*>(
+                &Ws[(kk + q) * BN + h * 64 + tx * 4]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              tile[i][4 * h] = fmaf(xv[i][q], w4.x, tile[i][4 * h]);
+              tile[i][4 * h + 1] = fmaf(xv[i][q], w4.y, tile[i][4 * h + 1]);
+              tile[i][4 * h + 2] = fmaf(xv[i][q], w4.z, tile[i][4 * h + 2]);
+              tile[i][4 * h + 3] = fmaf(xv[i][q], w4.w, tile[i][4 * h + 3]);
+            }
+          }
+      }
+    }
+    ptt::cp_async_wait<0>();
+    __syncthreads();                  // every thread is done with the ring
 
-  // the k-groups' partial sums [MD_KG][MD_BM][BN] over the ring, then row
-  // r's columns lane*EC .. lane*EC + EC - 1 summed in group order
-  float* part = smem;
+    // the k-groups' partial sums [MD_KG][MD_BM][BN] over the ring, then row
+    // r's columns lane*EC .. lane*EC + EC - 1 summed in group order
+    float* part = smem;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int h = 0; h < TN / 4; ++h)
-      *reinterpret_cast<float4*>(
-          &part[(kg * MD_BM + ty * 4 + i) * BN + h * 64 + tx * 4]) =
-          make_float4(tile[i][4 * h], tile[i][4 * h + 1], tile[i][4 * h + 2],
-                      tile[i][4 * h + 3]);
-  __syncthreads();
-  float acc[EC];
+      for (int h = 0; h < TN / 4; ++h)
+        *reinterpret_cast<float4*>(
+            &part[(kg * MD_BM + ty * 4 + i) * BN + h * 64 + tx * 4]) =
+            make_float4(tile[i][4 * h], tile[i][4 * h + 1], tile[i][4 * h + 2],
+                        tile[i][4 * h + 3]);
+    __syncthreads();
 #pragma unroll
-  for (int j = 0; j < EC; ++j) {
-    const float* pc = &part[r * BN + lane * EC + j];
-    acc[j] = pc[0];
+    for (int j = 0; j < EC; ++j) {
+      const float* pc = &part[r * BN + lane * EC + j];
+      float u = pc[0];
 #pragma unroll
-    for (int g = 1; g < MD_KG; ++g)
-      acc[j] = __fadd_rn(acc[j], pc[g * MD_BM * BN]);
+      for (int g = 1; g < MD_KG; ++g) u = __fadd_rn(u, pc[g * MD_BM * BN]);
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg)  // static indices keep acc in registers
+        if (gg == grp) acc[gg * EC + j] = u;
+    }
+    __syncthreads();                // part is read: the ring is free again
   }
 
 
@@ -346,7 +367,7 @@ __global__ void __launch_bounds__(MD_THREADS, BN == 64 ? 2 : 1)
   // distributed shared memory
   float s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < EC; ++j) s = fmaf(acc[j], acc[j], s);
+  for (int j = 0; j < EV; ++j) s = fmaf(acc[j], acc[j], s);
   s = ptt::warp_sum(s);
   if (lane == 0) red_u[r] = s;
   cluster.sync();
@@ -355,13 +376,13 @@ __global__ void __launch_bounds__(MD_THREADS, BN == 64 ? 2 : 1)
   const float th = tanhf(__fmul_rn(sqrt_c, un));
   const float den_u = __fmul_rn(sqrt_c, un);
 #pragma unroll
-  for (int j = 0; j < EC; ++j)
+  for (int j = 0; j < EV; ++j)
     acc[j] = __fdiv_rn(__fmul_rn(th, acc[j]), den_u);
 
   // mobius_add(h, b): |h|^2, <h, b> per row and |b|^2
   float h2 = 0.0f, hb = 0.0f, bb = 0.0f;
 #pragma unroll
-  for (int j = 0; j < EC; ++j) {
+  for (int j = 0; j < EV; ++j) {
     h2 = fmaf(acc[j], acc[j], h2);
     hb = fmaf(acc[j], bv[j], hb);
     bb = fmaf(bv[j], bv[j], bb);
@@ -384,14 +405,14 @@ __global__ void __launch_bounds__(MD_THREADS, BN == 64 ? 2 : 1)
   const float den =
       fmaxf(__fadd_rn(one_hb, __fmul_rn(__fmul_rn(c2, h2), b2)), MIN_NORM);
 #pragma unroll
-  for (int j = 0; j < EC; ++j)
+  for (int j = 0; j < EV; ++j)
     acc[j] = __fdiv_rn(__fadd_rn(__fmul_rn(a, acc[j]), __fmul_rn(bc, bv[j])),
                        den);
 
   // project: rows whose smoothed norm passes maxnorm are scaled onto it
   s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < EC; ++j) s = fmaf(acc[j], acc[j], s);
+  for (int j = 0; j < EV; ++j) s = fmaf(acc[j], acc[j], s);
   s = ptt::warp_sum(s);
   if (lane == 0) red_o[r] = s;
   cluster.sync();
@@ -401,17 +422,17 @@ __global__ void __launch_bounds__(MD_THREADS, BN == 64 ? 2 : 1)
   const int row = row0 + r;
   if (row < n) {
 #pragma unroll
-    for (int j = 0; j < EC; ++j)
-      if (cbase + j < D)
-        out[(size_t)row * D + cbase + j] =
+    for (int j = 0; j < EV; ++j)
+      if (col(j) < D)
+        out[(size_t)row * D + col(j)] =
             clip ? __fmul_rn(__fdiv_rn(acc[j], norm), maxnorm) : acc[j];
   }
   cluster.sync();     // no CTA leaves while another still reads its red_o
 }
 
-template <int BN>
+template <int BN, int G>
 int launch_mobius_dense(const float* x, const float* w, const float* bias,
-                        int n, int K, int D, int cluster, float c,
+                        int n, int K, int D, int cluster, int groups, float c,
                         float two_c, float c2, float sqrt_c, float maxnorm,
                         float* out, cudaStream_t st) {
   const size_t smem =
@@ -421,7 +442,8 @@ int launch_mobius_dense(const float* x, const float* w, const float* bias,
   PTT_TRY(ptt::current_device(&dev));
   if (!ready[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mobius_dense_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mobius_dense_kernel<BN, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     ready[dev] = true;
@@ -441,8 +463,8 @@ int launch_mobius_dense(const float* x, const float* w, const float* bias,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, mobius_dense_kernel<BN>, x, w, bias, n, K, D,
-                         vec, c, two_c, c2, sqrt_c, maxnorm, out);
+      cudaLaunchKernelEx(&cfg, mobius_dense_kernel<BN, G>, x, w, bias, n, K,
+                         D, groups, vec, c, two_c, c2, sqrt_c, maxnorm, out);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }
@@ -470,32 +492,37 @@ int ptt_pairwise_dist(const void* x, const void* y, int n, int m, int d,
   return (int)cudaGetLastError();
 }
 
-// x [n, K], w [K, D], bias [D] f32 -> out [n, D] f32, D <= 1024.
+// x [n, K], w [K, D], bias [D] f32 -> out [n, D] f32, n >= 1, D <= 8192.
 // two_c = f32(2 c), c2 = f32(c) * f32(c), sqrt_c = sqrt(max(f32(c),
 // MIN_NORM)) and maxnorm = f32(0.996) / sqrt_c, all in f32 by the caller.
 int ptt_mobius_dense(const void* x, const void* w, const void* bias, int n,
                      int K, int D, float c, float two_c, float c2,
                      float sqrt_c, float maxnorm, void* out, void* stream) {
-  if (n < 1 || D > MD_CLUSTER_MAX * 128) return (int)cudaErrorInvalidValue;
+  if (n < 1 || D > MD_MAX_OUT) return (int)cudaErrorInvalidValue;
   if (D < 1) return 0;                      // nothing to write
   cudaStream_t st = (cudaStream_t)stream;
   const float* xf = (const float*)x;
   const float* wf = (const float*)w;
   const float* bf = (const float*)bias;
   float* of = (float*)out;
-  int cols = 0, cluster = 0;
-  mobius_plan(D, &cols, &cluster);
-  return cols == 64
-             ? launch_mobius_dense<64>(xf, wf, bf, n, K, D, cluster, c, two_c,
-                                       c2, sqrt_c, maxnorm, of, st)
-             : launch_mobius_dense<128>(xf, wf, bf, n, K, D, cluster, c,
-                                        two_c, c2, sqrt_c, maxnorm, of, st);
+  int cols = 0, cluster = 0, groups = 0;
+  mobius_plan(D, &cols, &cluster, &groups);
+  if (cols == 64)
+    return launch_mobius_dense<64, 1>(xf, wf, bf, n, K, D, cluster, 1, c,
+                                      two_c, c2, sqrt_c, maxnorm, of, st);
+  if (groups == 1)
+    return launch_mobius_dense<128, 1>(xf, wf, bf, n, K, D, cluster, 1, c,
+                                       two_c, c2, sqrt_c, maxnorm, of, st);
+  return launch_mobius_dense<128, MD_GROUPS>(xf, wf, bf, n, K, D, cluster,
+                                             groups, c, two_c, c2, sqrt_c,
+                                             maxnorm, of, st);
 }
 
 // The launch ptt_mobius_dense makes for n rows of D columns: *ctas CTAs in
-// clusters of *cluster, *cols columns a CTA.
+// clusters of *cluster, *cols columns a CTA in each of its column groups.
 int ptt_mobius_dense_shape(int n, int D, int* ctas, int* cluster, int* cols) {
-  mobius_plan(D, cols, cluster);
+  int groups = 0;
+  mobius_plan(D, cols, cluster, &groups);
   *ctas = (n + MD_BM - 1) / MD_BM * *cluster;
   return 0;
 }

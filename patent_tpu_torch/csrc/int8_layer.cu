@@ -85,6 +85,8 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "flash_tile.cuh"
 #include "wgmma_s8.cuh"
@@ -371,7 +373,7 @@ int attention_f32(const bf16* qkv, float* ao, int B, int S, int D, int H,
   const long long img = (long long)S * 3 * D;
   return ptt_flash::attention<false, float>(
       qkv, img, 3 * D, S, qkv + D, qkv + 2 * D, img, 3 * D, ao,
-      (long long)S * D, D, B, H, S, valid_len, 0.0f, st);
+      (long long)S * D, D, B, H, D / H, S, valid_len, 0.0f, st);
 }
 
 // ---- the whole layer
@@ -527,14 +529,21 @@ __global__ void __launch_bounds__(s8::THREADS, 1)
   const int rows = 16 * per_unit;
   const int chunks = (S + rows - 1) / rows;
   const long long img = (long long)S * 3 * D;
-  for (int t = blockIdx.x; t < chunks * a.H * a.B; t += gridDim.x) {
-    __syncthreads();          // the last unit's warps are done with smem
-    const int q0 = t % chunks * rows;
-    ptt_flash::flash_tile<false, float, LAYER_WARPS>(
-        a.qkv + (size_t)q0 * 3 * D, img, 3 * D, min(rows, S - q0),
-        a.qkv + D, a.qkv + 2 * D, img, 3 * D, a.ao + (size_t)q0 * D,
-        (long long)S * D, D, S, a.valid_len, 0.0f, t / chunks % a.H,
-        t / (chunks * a.H), ring.tiles);
+  auto tile = [&](auto hd) {
+    for (int t = blockIdx.x; t < chunks * a.H * a.B; t += gridDim.x) {
+      __syncthreads();        // the last unit's warps are done with smem
+      const int q0 = t % chunks * rows;
+      ptt_flash::flash_tile<decltype(hd)::value, false, float, LAYER_WARPS>(
+          a.qkv + (size_t)q0 * 3 * D, img, 3 * D, min(rows, S - q0),
+          a.qkv + D, a.qkv + 2 * D, img, 3 * D, a.ao + (size_t)q0 * D,
+          (long long)S * D, D, S, a.valid_len, 0.0f, t / chunks % a.H,
+          t / (chunks * a.H), ring.tiles);
+    }
+  };
+  switch (D / a.H) {          // the head width: 16, 32 or 64 (layer_coop)
+    case 16: tile(std::integral_constant<int, 16>()); break;
+    case 32: tile(std::integral_constant<int, 32>()); break;
+    default: tile(std::integral_constant<int, 64>()); break;
   }
   grid_sync(grid);
   stamp();
@@ -640,7 +649,8 @@ int layer_grid(int* blocks) {
 }
 
 int layer_coop(const LayerArgs& a, cudaStream_t st) {
-  if (ptt_flash::smem_bytes(a.S) > LAYER_RING ||
+  if (a.D % a.H || !ptt_flash::head_dim_ok(a.D / a.H) ||
+      ptt_flash::smem_bytes(a.S, a.D / a.H) > LAYER_RING ||
       (size_t)LAYER_WARPS * a.D * sizeof(float) > LAYER_RING ||
       a.split_out > SPLIT_MAX || a.split_mlp > SPLIT_MAX)
     return (int)cudaErrorInvalidValue;
@@ -782,7 +792,7 @@ int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
   // tile
   PTT_TRY((ptt_flash::attention<false, float>(
       qcb, D, D, 1, kvb, kvb + D, (long long)S * 2 * D, 2 * D, aof, D, D, B,
-      H, S, valid_len, 0.0f, st)));
+      H, D / H, S, valid_len, 0.0f, st)));
   PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, aq8, D, asf, B, D,
                                   st)));
   return gemm_s8<QEPI_RES, bf16>(aq8, D, asf, 1, (const int8_t*)wout_t, D,

@@ -2,7 +2,10 @@
 //
 //   C[M, N] = epi(A[M, K] . B[K, N] + bias)   bf16 operands, f32 accumulation
 //
-// shared by the bf16 layer kernels (csrc/bf16_layer.cu: rows 1 and 2).
+// shared by the bf16 layer kernels (csrc/bf16_layer.cu: rows 1 and 2), the
+// trainable attention block (csrc/fused_attention.cu: rows 12 and 13) and
+// the trainable MLP block's backward (csrc/mlp_grad.cu: row 16), which
+// also takes its MN-major form below (gemm_tn: the weight gradients).
 // A is row-major with row stride lda (a strided view, such as every S-th
 // row of a token stream, is read in place); B is taken as its transpose
 // Bt [N, K], row-major, so that both operands are K-major, the layout the
@@ -61,6 +64,13 @@ enum Epi {
   EPI_BIAS_GELU = 1,  // g / (1 + exp2(NEG_1702_LOG2E g)), g = v + bias (MLP in)
   EPI_RES_BIAS = 2,   // (res + v) + bias              (out-projection)
   EPI_BIAS_RES = 3,   // res + (v + bias)              (MLP out)
+  // the trainable MLP block's backward (row 16), the TPU kernel's forms:
+  EPI_BIAS_GELU_AUX = 4,  // g = v + bias -> aux (f32);
+                          // g * (1 / (1 + exp2(NEG_1702_LOG2E g)))
+  EPI_DGELU = 5,      // g = aux; s = 1 / (1 + exp2(NEG_1702_LOG2E g));
+                      // dg = v * (s * (1 + 1.702 g (1 - s))), and each
+                      // warp's 16-row column sums of the f32 dg -> part
+  EPI_NONE = 6,       // v
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -125,6 +135,17 @@ __device__ __forceinline__ uint64_t desc_k_sw128(const void* tile) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// wgmma descriptor of an MN-major tile written by TMA with the 128-byte
+// swizzle as boxes of BK rows (along K) by 64 values (along M or N, 128
+// bytes): K rows 128 bytes apart, 8-row groups 1024 bytes apart (SBO), one
+// box to the next along M or N BK * 128 bytes apart (LBO).  Stepping 16
+// values along K adds 16 rows, 2048 bytes (128 in the >> 4 field).
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) |
+         ((uint64_t)((BK * 128) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -143,9 +164,12 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 256] += A[64 x 16] . Bt[256 x 16]^T, both from shared memory.
-// Lane l of warp w (of the warpgroup) holds, for i = 0..31, d[4i + e] at
-// row 16w + l/4 + 8(e/2), column 8i + 2(l%4) + e%2.
+// d[64 x 256] += A[64 x 16] . Bt[256 x 16]^T, both from shared memory,
+// K-major, or with TRANS_A / TRANS_B the MN-major tiles of A stored
+// [16, 64] and B stored [16, 256] (wgmma's transpose bits).  Lane l of warp
+// w (of the warpgroup) holds, for i = 0..31, d[4i + e] at row 16w + l/4 +
+// 8(e/2), column 8i + 2(l%4) + e%2.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a,
                                                  uint64_t desc_b,
                                                  int scale_d) {
@@ -162,7 +186,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -186,7 +210,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 
 }
 
@@ -196,7 +220,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                 const __grid_constant__ CUtensorMap map_b,
                 const float* __restrict__ bias, const ResT* __restrict__ res,
                 long long ldr, OutT* __restrict__ C, long long ldc, int M,
-                int N, int K) {
+                int N, int K, float* __restrict__ aux,
+                float* __restrict__ part) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
@@ -268,11 +293,68 @@ __global__ void __launch_bounds__(THREADS, 1)
 
       const int warp = tid / 32, lane = tid % 32;
       const int r0 = m0 + cw * 64 + warp * 16 + lane / 4;
+      if constexpr (EPI == EPI_DGELU) {
+        // aux and C share C's row stride; the warp's 16 rows are one slab
+        // of part ([M rounded up to BM, / 16][N]), rows past M adding 0.
+        // The g of G column groups is loaded before any is used, so that
+        // their loads are in flight together
+        constexpr int G = 8;
+        const size_t slab = (size_t)(m0 + cw * 64 + warp * 16) / 16;
+#pragma unroll
+        for (int i0 = 0; i0 < BN / 8; i0 += G) {
+          float2 gv[G][2];
+#pragma unroll
+          for (int ii = 0; ii < G; ++ii) {
+            const int col = n0 + 8 * (i0 + ii) + 2 * (lane % 4);
+#pragma unroll
+            for (int hlf = 0; hlf < 2; ++hlf) {
+              const int row = r0 + 8 * hlf;
+              gv[ii][hlf] =
+                  row < M && col < N
+                      ? *reinterpret_cast<const float2*>(
+                            &aux[(size_t)row * ldc + col])
+                      : make_float2(0.0f, 0.0f);
+            }
+          }
+#pragma unroll
+          for (int ii = 0; ii < G; ++ii) {
+            const int i = i0 + ii;
+            const int col = n0 + 8 * i + 2 * (lane % 4);
+            float c0 = 0.0f, c1 = 0.0f;
+#pragma unroll
+            for (int hlf = 0; hlf < 2; ++hlf) {
+              const int row = r0 + 8 * hlf;
+              if (row >= M || col >= N) continue;
+              const float2 g = gv[ii][hlf];
+              const float s0 = 1.0f / (1.0f + exp2f(NEG_1702_LOG2E * g.x));
+              const float s1 = 1.0f / (1.0f + exp2f(NEG_1702_LOG2E * g.y));
+              const float v0 = d[4 * i + 2 * hlf] *
+                               (s0 * (1.0f + 1.702f * g.x * (1.0f - s0)));
+              const float v1 = d[4 * i + 2 * hlf + 1] *
+                               (s1 * (1.0f + 1.702f * g.y * (1.0f - s1)));
+              ptt::store2(C + (size_t)row * ldc + col, v0, v1);
+              c0 += v0;
+              c1 += v1;
+            }
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {
+              c0 += __shfl_xor_sync(0xffffffffu, c0, off);
+              c1 += __shfl_xor_sync(0xffffffffu, c1, off);
+            }
+            if (lane < 4 && col < N)
+              *reinterpret_cast<float2*>(&part[slab * N + col]) =
+                  make_float2(c0, c1);
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
         const int col = n0 + 8 * i + 2 * (lane % 4);
         if (col >= N) continue;           // N % 8 == 0: col + 1 < N too
-        const float2 bb = *reinterpret_cast<const float2*>(&bias[col]);
+        float2 bb = make_float2(0.0f, 0.0f);
+        if constexpr (EPI != EPI_NONE)
+          bb = *reinterpret_cast<const float2*>(&bias[col]);
 #pragma unroll
         for (int hlf = 0; hlf < 2; ++hlf) {
           const int row = r0 + 8 * hlf;
@@ -286,7 +368,14 @@ __global__ void __launch_bounds__(THREADS, 1)
             v1 += bb.y;
             v0 = v0 / (1.0f + exp2f(NEG_1702_LOG2E * v0));
             v1 = v1 / (1.0f + exp2f(NEG_1702_LOG2E * v1));
-          } else {
+          } else if constexpr (EPI == EPI_BIAS_GELU_AUX) {
+            v0 += bb.x;
+            v1 += bb.y;
+            *reinterpret_cast<float2*>(&aux[(size_t)row * ldc + col]) =
+                make_float2(v0, v1);
+            v0 = v0 * (1.0f / (1.0f + exp2f(NEG_1702_LOG2E * v0)));
+            v1 = v1 * (1.0f / (1.0f + exp2f(NEG_1702_LOG2E * v1)));
+          } else if constexpr (EPI == EPI_RES_BIAS || EPI == EPI_BIAS_RES) {
             float r0v, r1v;
             const ResT* rp = res + (size_t)row * ldr + col;
             if constexpr (std::is_same<ResT, float>::value) {
@@ -307,11 +396,119 @@ __global__ void __launch_bounds__(THREADS, 1)
               v1 = r1v + (v1 + bb.y);
             }
           }
-          OutT* cp = C + (size_t)row * ldc + col;
-          if constexpr (std::is_same<OutT, float>::value)
-            *reinterpret_cast<float2*>(cp) = make_float2(v0, v1);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(cp) = __floats2bfloat162_rn(v0, v1);
+          ptt::store2(C + (size_t)row * ldc + col, v0, v1);
+        }
+      }
+    }
+  }
+}
+
+// The MN-major form for the weight gradients, split over K:
+//
+//   part[s] = (A^T B)[M, N] over K rows [s kper BK, (s + 1) kper BK)
+//
+// A [K, M] and B [K, N] row-major bf16 (the activations and the output
+// cotangent as they lie: a reduction over their rows), f32 partials, part
+// s at part + s M N.  The TMA boxes are BK rows by 64 columns, two of A
+// and four of B a stage, and wgmma reads them with its transpose bits.
+// The work units are (output tile, split) pairs, so that the 72 tiles of a
+// [3072 x 768] gradient fill the card; each unit's sum runs over its rows
+// in one order, and the caller adds the partials in split order, so two
+// runs give the same bits.
+static __global__ void __launch_bounds__(THREADS, 1)
+    gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   float* __restrict__ part, int M, int N, int K, int splits,
+                   int kper) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  bf16* As = reinterpret_cast<bf16*>(base);
+  bf16* Bs = As + STAGES * A_TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + STAGES * B_TILE);
+  uint64_t* empty = full + STAGES;
+  constexpr int BOX = 64 * BK;               // one box, elements
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int ntn = (N + BN - 1) / BN;
+  const int tiles = (M + BM - 1) / BM * ntn;
+  const int units = tiles * splits;
+  const int ktiles = (K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int u = blockIdx.x, it = 0; u < units; u += gridDim.x) {
+        const int tile = u % tiles, k0 = u / tiles * kper;
+        const int k1 = min(k0 + kper, ktiles);
+        const int m0 = tile / ntn * BM, n0 = tile % ntn * BN;
+        for (int kt = k0; kt < k1; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          mbar_expect_tx(&full[s], STAGE_BYTES);
+#pragma unroll
+          for (int j = 0; j < BM / 64; ++j)
+            tma_load(As + s * A_TILE + j * BOX, &map_a, &full[s],
+                     m0 + 64 * j, kt * BK);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load(Bs + s * B_TILE + j * BOX, &map_b, &full[s],
+                     n0 + 64 * j, kt * BK);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1;
+    float d[128];
+    for (int u = blockIdx.x, it = 0; u < units; u += gridDim.x) {
+      const int tile = u % tiles, split = u / tiles, k0 = split * kper;
+      const int k1 = min(k0 + kper, ktiles);
+      const int m0 = tile / ntn * BM, n0 = tile % ntn * BN;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+      for (int kt = k0; kt < k1; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint64_t da = desc_mn_sw128(As + s * A_TILE + cw * BOX);
+        const uint64_t db = desc_mn_sw128(Bs + s * B_TILE);
+        fence_acc(d);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_m64n256k16<1, 1>(d, da + 128 * kk, db + 128 * kk, 1);
+        wgmma_commit();
+        fence_acc(d);
+        wgmma_wait<1>();
+        fence_acc(d);
+        if (kt > k0 && tid == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (tid == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      float* out = part + (size_t)split * M * N;
+      const int warp = tid / 32, lane = tid % 32;
+      const int r0 = m0 + cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int col = n0 + 8 * i + 2 * (lane % 4);
+        if (col >= N) continue;
+#pragma unroll
+        for (int hlf = 0; hlf < 2; ++hlf) {
+          const int row = r0 + 8 * hlf;
+          if (row < M)
+            *reinterpret_cast<float2*>(&out[(size_t)row * N + col]) =
+                make_float2(d[4 * i + 2 * hlf], d[4 * i + 2 * hlf + 1]);
         }
       }
     }
@@ -353,14 +550,31 @@ inline bool tensor_map(CUtensorMap* map, const bf16* p, long long rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the SM count of the current device, asked once a device
+inline int sm_count(int* n) {
+  static int sms[ptt::MAX_DEVICES] = {};
+  int dev = 0;
+  PTT_TRY(ptt::current_device(&dev));
+  if (sms[dev] == 0) {
+    const cudaError_t err = cudaDeviceGetAttribute(
+        &sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *n = sms[dev];
+  return 0;
+}
+
 // C = epi(A . Bt^T + bias).  A [M, K] row stride lda, Bt [N, K] row stride
 // ldb, res and C [M, N] with ldr, ldc (elements); K, N, lda, ldb, ldr,
 // ldc multiples of 8 and A, Bt 16-byte aligned (checked by the host
-// code).  Returns a CUDA error code, 0 on success.
+// code).  aux: the f32 [M, N] of EPI_BIAS_GELU_AUX and EPI_DGELU (row
+// stride ldc); part: EPI_DGELU's column sums, [ceil(M / BM) * BM / 16, N]
+// f32.  Returns a CUDA error code, 0 on success.
 template <int EPI, typename ResT, typename OutT>
 int gemm(const bf16* A, long long lda, const bf16* Bt, long long ldb,
          const float* bias, const ResT* res, long long ldr, OutT* C,
-         long long ldc, int M, int N, int K, cudaStream_t st) {
+         long long ldc, int M, int N, int K, cudaStream_t st,
+         float* aux = nullptr, float* part = nullptr) {
   CUtensorMap map_a, map_b;
   if (!tensor_map(&map_a, A, M, K, lda, BM) ||
       !tensor_map(&map_b, Bt, N, K, ldb, BN))
@@ -371,17 +585,63 @@ int gemm(const bf16* A, long long lda, const bf16* Bt, long long ldb,
   if (err != cudaSuccess) return (int)err;
   // persistent: one block an SM (the ring takes most of its shared
   // memory), each walking the tiles blockIdx.x, + gridDim.x, ...
-  // (the SM count asked once a device)
-  static int sms[ptt::MAX_DEVICES] = {};
-  int dev = 0;
-  PTT_TRY(ptt::current_device(&dev));
-  if (sms[dev] == 0 &&
-      (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
+  int sms = 0;
+  PTT_TRY(sm_count(&sms));
   const int tiles = (M + BM - 1) / BM * ((N + BN - 1) / BN);
-  kernel<<<tiles < sms[dev] ? tiles : sms[dev], THREADS, SMEM_BYTES, st>>>(
-      map_a, map_b, bias, res, ldr, C, ldc, M, N, K);
+  kernel<<<tiles < sms ? tiles : sms, THREADS, SMEM_BYTES, st>>>(
+      map_a, map_b, bias, res, ldr, C, ldc, M, N, K, aux, part);
+  return (int)cudaGetLastError();
+}
+
+// most ranges of k-steps that gemm_tn splits K into
+constexpr int TN_MAX_SPLITS = 16;
+
+// gemm_tn's plan for an [M, N] output over K rows on the current device:
+// of the counts up to TN_MAX_SPLITS of ranges of whole k-steps, every
+// range non-empty, the one whose units (output tiles x ranges), in waves
+// of one an SM, take the fewest k-steps end to end (waves x k-steps a
+// unit); ties to fewer ranges.
+inline int tn_splits(int M, int N, int K, int* splits) {
+  int sms = 0;
+  PTT_TRY(sm_count(&sms));
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int ktiles = (K + BK - 1) / BK;
+  long long best = -1;
+  *splits = 1;
+  for (int s = 1; s <= TN_MAX_SPLITS && s <= ktiles; ++s) {
+    const int kper = (ktiles + s - 1) / s;
+    const int n = (ktiles + kper - 1) / kper;
+    const long long cost = (tiles * n + sms - 1) / sms * kper;
+    if (best < 0 || cost < best) best = cost, *splits = n;
+  }
+  return 0;
+}
+
+// part[s] = (A^T B) over the K rows of split s (gemm_tn_kernel): A [K, M]
+// row stride lda, B [K, N] row stride ldb, bf16, M, N, lda, ldb multiples
+// of 8; kper = ceil(ceil(K / BK) / splits) k-steps a split, every split
+// non-empty (tn_splits' plan); part [splits, M, N] f32.
+inline int gemm_tn(const bf16* A, long long lda, const bf16* B, long long ldb,
+                   float* part, int M, int N, int K, int splits,
+                   cudaStream_t st) {
+  static_assert(BK == 64, "the MN-major boxes are BK rows of 64 values");
+  const int ktiles = (K + BK - 1) / BK;
+  const int kper = (ktiles + splits - 1) / splits;
+  if (splits < 1 || (long long)(splits - 1) * kper >= ktiles)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!tensor_map(&map_a, A, K, M, lda, BK) ||
+      !tensor_map(&map_b, B, K, N, ldb, BK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_tn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  PTT_TRY(sm_count(&sms));
+  const int units = (M + BM - 1) / BM * ((N + BN - 1) / BN) * splits;
+  gemm_tn_kernel<<<units < sms ? units : sms, THREADS, SMEM_BYTES, st>>>(
+      map_a, map_b, part, M, N, K, splits, kper);
   return (int)cudaGetLastError();
 }
 

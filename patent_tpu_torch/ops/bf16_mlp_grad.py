@@ -9,13 +9,17 @@ with a kernel forward and a kernel backward.
   holds no [M, 3072] tensor) and returns dx and the six parameter
   cotangents, summed in f32 over all rows.
 
-On a CUDA tensor each launches its kernel (csrc/mlp_grad.cu) or raises;
+On a CUDA tensor each launches its kernel (csrc/mlp_grad.cu: the
+backward's products on the Hopper GEMM of csrc/wgmma_gemm.cuh, the weight
+gradients through its MN-major form, ``weight_grad``) or raises;
 on a CPU tensor each runs its plain version below, which rounds where the
 kernels do.  Cotangents come back in the dtypes passed in: the caller's
 casts (f32 masters to bf16 matrices) are differentiated by autograd.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,9 +28,21 @@ from .common import NEG_1702_LOG2E, check_cuda_tensor, layernorm_f32, mm_f32
 
 _P, _I = _build.P, _build.I
 _SIG_FWD = [_P, _P] + [_I] * 3 + [_P] * 8 + [_P]
-_SIG_BWD = [_P] * 14 + [_I] * 4 + [_P] * 5 + [_P]
-# rows of the backward's transient hidden ([CHUNK, F] bf16 and f32)
-CHUNK_ROWS = 8192
+_SIG_BWD = [_P] * 15 + [_I] * 4 + [_P] * 6 + [_P]
+_SIG_WGRAD = [_P] * 3 + [_I] * 3 + [_P, _P]
+# rows of the backward's transient hidden ([CHUNK, F] bf16 and f32): the
+# fine-tune's 64 pairs (25,216 rows) are one chunk
+CHUNK_ROWS = 32768
+
+
+def weight_grad_plan(rows: int, m: int, n: int) -> int:
+    """The ranges of whole 64-row k-steps into which ``weight_grad`` splits
+    an [m, n] gradient over ``rows`` rows on the current card
+    (csrc/wgmma_gemm.cuh ``tn_splits``)."""
+    out = ctypes.c_int(0)
+    _build.call("ptt_weight_grad_plan", [_I] * 3 + [_P], m, n, rows,
+                ctypes.byref(out))
+    return out.value
 
 
 def _ln_stats(xf, eps: float = 1e-5):
@@ -136,19 +152,59 @@ def fused_mlp_bwd(x2, do2, lns, lnb, w1, b1, w2):
     grads = [zeros(d), zeros(d), zeros(d, f), zeros(f), zeros(f, d),
              zeros(d)]
     c = min(m, CHUNK_ROWS)
-    scratch = [torch.empty(c, d, dtype=torch.bfloat16, device=dev),
-               torch.empty(c, f, dtype=torch.bfloat16, device=dev),
+    part = ctypes.c_longlong(0)           # the partials' f32 values
+    _build.call("ptt_mlp_bwd_part", [_I] * 4 + [_P], m, c, d, f,
+                ctypes.byref(part))
+    bf = torch.bfloat16
+    w1t = w1.t().contiguous()
+    scratch = [torch.empty(c, d, dtype=bf, device=dev),
+               torch.empty(c, f, dtype=bf, device=dev),
                torch.empty(c, f, dtype=torch.float32, device=dev),
-               torch.empty(c, f, dtype=torch.bfloat16, device=dev),
-               torch.empty(c, d, dtype=torch.float32, device=dev)]
+               torch.empty(c, f, dtype=bf, device=dev),
+               torch.empty(c, d, dtype=torch.float32, device=dev),
+               torch.empty(part.value, dtype=torch.float32, device=dev)]
     _build.call("ptt_mlp_bwd", _SIG_BWD,
-                *map(_build.ptr, (x2, do2, lns, lnb, w1, b1, w2, dx, *grads)),
+                *map(_build.ptr, (x2, do2, lns, lnb, w1, w1t, b1, w2, dx,
+                                  *grads)),
                 m, d, f, c, *map(_build.ptr, scratch), _build.stream(dev))
     fused_mlp_bwd.launches += 1
     return (dx, *grads)
 
 
 fused_mlp_bwd.launches = 0
+
+
+def weight_grad_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``weight_grad``: f32 aᵀ b of the bf16 values."""
+    return mm_f32(a.T, b)
+
+
+def weight_grad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row 16's weight-gradient GEMM alone (for checks and timing): aᵀ b
+    [M, N] in f32 of a [K, M] and b [K, N] bf16, row-major, a reduction
+    over their K rows split as the backward splits it
+    (``weight_grad_plan``).  CPU tensor: the plain version; CUDA tensor:
+    the kernel, or an error."""
+    if a.device.type == "cpu":
+        return weight_grad_plain(a, b)
+    check_cuda_tensor("a", a, torch.bfloat16)
+    k, m = a.shape
+    n = b.shape[1]
+    check_cuda_tensor("b", b, torch.bfloat16, (k, n))
+    if m % 8 or n % 8:
+        raise ValueError(f"widths M={m}, N={n} must be multiples of 8")
+    dev = a.device
+    out = torch.zeros(m, n, dtype=torch.float32, device=dev)
+    part = torch.empty(weight_grad_plan(k, m, n), m, n, dtype=torch.float32,
+                       device=dev)
+    _build.call("ptt_weight_grad", _SIG_WGRAD, _build.ptr(a), _build.ptr(b),
+                _build.ptr(out), m, n, k, _build.ptr(part),
+                _build.stream(dev))
+    weight_grad.launches += 1
+    return out
+
+
+weight_grad.launches = 0
 
 
 class _FusedMLPBlock(torch.autograd.Function):

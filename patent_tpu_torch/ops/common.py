@@ -11,9 +11,9 @@ import torch
 NEG_1702_LOG2E = float(-1.702 * math.log2(math.e))
 
 
-# the head width the attention tiles are written for, and the shared
+# the head widths the attention tiles are instantiated for, and the shared
 # memory a block may use on the H100
-ATTENTION_HEAD_DIM = 64
+ATTENTION_HEAD_DIMS = (16, 32, 64)
 SMEM_LIMIT = 232448
 
 
@@ -107,20 +107,32 @@ def refuse_grad(name: str, *tensors) -> None:
                            "no gradient")
 
 
+def attention_kernel_takes(d: int, num_heads: int, s: int,
+                           valid_len: int) -> bool:
+    """Whether the CUDA attention kernels take this shape: head_dim 16, 32
+    or 64, the token axis padded to a multiple of 16 with 1 <= valid_len
+    <= S, and one (image, head)'s q, dn, K, V and row terms within shared
+    memory (the attention backward's block, csrc/fused_attention.cu, the
+    largest of the attention kernels' needs)."""
+    if d % num_heads:
+        return False
+    hd = d // num_heads
+    return (hd in ATTENTION_HEAD_DIMS and s % 16 == 0
+            and 1 <= valid_len <= s and s * (8 * hd + 4) <= SMEM_LIMIT)
+
+
 def check_attention_shape(d: int, num_heads: int, s: int,
                           valid_len: int) -> None:
-    """Raise unless the CUDA attention takes this shape: head_dim 64, the
-    token axis padded to a multiple of 16 with 1 <= valid_len <= S, and
-    K, V and a 64-row score tile of one (image, head) within shared memory
-    (the first attention tile's bound, which every later tile meets)."""
-    hd = ATTENTION_HEAD_DIM
-    if d % num_heads or d // num_heads != hd:
-        raise ValueError(f"CUDA attention needs head_dim {hd}, got D={d} "
-                         f"with {num_heads} heads")
+    """Raise unless ``attention_kernel_takes`` this shape, saying why: what
+    every CUDA attention entry asks before it launches."""
+    if attention_kernel_takes(d, num_heads, s, valid_len):
+        return
+    if d % num_heads or d // num_heads not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"CUDA attention needs head_dim in "
+                         f"{ATTENTION_HEAD_DIMS}, got D={d} with "
+                         f"{num_heads} heads")
     if s % 16 or not 1 <= valid_len <= s:
         raise ValueError(f"token axis {s} must be padded to a multiple of "
                          f"16 with 1 <= valid_len ({valid_len}) <= {s}")
-    sld = max(s, hd) + 8
-    if (2 * s + 64) * (hd + 8) * 2 + 64 * sld * 6 + 64 * 4 > SMEM_LIMIT:
-        raise ValueError(f"sequence {s} exceeds the attention kernel's "
-                         f"shared memory")
+    raise ValueError(f"sequence {s} exceeds the attention kernel's shared "
+                     "memory")

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .common import (ATTENTION_HEAD_DIM, check_attention_shape,
+from .common import (ATTENTION_HEAD_DIMS, check_attention_shape,
                      check_cuda_tensor, mm_f32, refuse_grad, round_up,
                      weak_scalar)
 
@@ -44,8 +44,8 @@ SCORE_CLAMP_HI = 80.0
 _LN2 = math.log(2.0)
 _P, _I, _L, _F = _build.P, _build.I, _build.L, _build.F
 _SIG_FWD = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P]
-_SIG_BWD = [_P] * 6 + [_I] * 5 + [_P] * 3 + [_P]
-_SIG_FLASH = [_P] * 4 + [_I] * 3 + [_L, _I, _L, _I, _F, _P]
+_SIG_BWD = [_P] * 6 + [_I] * 5 + [_P] + [_P]
+_SIG_FLASH = [_P] * 4 + [_I] * 4 + [_L, _I, _L, _I, _F, _P]
 
 
 def one_pass_softmax_pv(q: torch.Tensor, k: torch.Tensor, v_ext: torch.Tensor,
@@ -208,7 +208,9 @@ fused_attention_fwd.launches = 0
 def fused_attention_bwd(x, wqkv_f, bqkv_f, da, num_heads: int,
                         valid_len: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Row 13: (dqkv, A) from the saved inputs and da.  CPU tensor: the
-    plain version; CUDA tensor (bf16): the kernel, or an error."""
+    plain version; CUDA tensor (bf16): the kernel, or an error; the
+    kernel's qkv recompute reads Wqkv′ transposed, made per call as in
+    ``fused_attention_fwd``."""
     if x.device.type == "cpu":
         return attention_bwd_plain(x, wqkv_f, bqkv_f, da, num_heads,
                                    valid_len)
@@ -219,13 +221,11 @@ def fused_attention_bwd(x, wqkv_f, bqkv_f, da, num_heads: int,
     dev = x.device
     dqkv = torch.empty(b, s, 3 * d, dtype=torch.bfloat16, device=dev)
     a = torch.empty_like(x)
-    scratch = [torch.empty(b * s, 3 * d, dtype=torch.bfloat16, device=dev),
-               torch.empty(b * s, d, dtype=torch.bfloat16, device=dev),
-               torch.empty(b, num_heads, s, dtype=torch.float32, device=dev)]
+    qkv = torch.empty(b * s, 3 * d, dtype=torch.bfloat16, device=dev)
     _build.call("ptt_fab_bwd", _SIG_BWD,
-                *map(_build.ptr, (x, wqkv_f, bqkv_f, da, dqkv, a)), b, s, d,
-                num_heads, valid_len, *map(_build.ptr, scratch),
-                _build.stream(dev))
+                *map(_build.ptr, (x, wqkv_f.t().contiguous(), bqkv_f, da, dqkv,
+                                  a)), b, s, d, num_heads, valid_len,
+                _build.ptr(qkv), _build.stream(dev))
     fused_attention_bwd.launches += 1
     return dqkv, a
 
@@ -334,10 +334,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_check(q, k, v) -> None:
-    """Raise unless the row-14 kernel takes q, k, v: [B, S, H, 64] of one
-    dtype, bf16 or f32, on the card with each row's [H, 64] packed (a
-    slice of a wider row, as q, k, v of one qkv tensor are, is read in
-    place), 16-byte aligned, k and v with the same strides, and in bf16
+    """Raise unless the row-14 kernel takes q, k, v: [B, S, H, D] (D 16,
+    32 or 64) of one dtype, bf16 or f32, on the card with each row's
+    [H, D] packed (a slice of a wider row, as q, k, v of one qkv tensor
+    are, is read in place), 16-byte aligned, k and v with the same strides, and in bf16
     the sequence within shared memory (the f32 kernel streams the keys
     in tiles)."""
     b, s, h, d = q.shape
@@ -361,9 +361,9 @@ def _flash_check(q, k, v) -> None:
     if k.stride() != v.stride():
         raise ValueError(f"k and v differ in strides: {k.stride()}, "
                          f"{v.stride()}")
-    if d != ATTENTION_HEAD_DIM:
-        raise ValueError(f"the row-14 kernel needs head_dim "
-                         f"{ATTENTION_HEAD_DIM}, got {d}")
+    if d not in ATTENTION_HEAD_DIMS:
+        raise ValueError(f"the row-14 kernel needs head_dim in "
+                         f"{ATTENTION_HEAD_DIMS}, got {d}")
     if q.dtype == torch.bfloat16:
         check_attention_shape(h * d, h, round_up(s, 16), s)
 
@@ -372,7 +372,7 @@ def _launch_flash(name: str, q, k, v) -> torch.Tensor:
     b, s, h, d = q.shape
     out = torch.empty(b, s, h, d, dtype=q.dtype, device=q.device)
     _build.call(name, _SIG_FLASH, _build.ptr(q), _build.ptr(k), _build.ptr(v),
-                _build.ptr(out), b, s, h, q.stride(0), q.stride(1),
+                _build.ptr(out), b, s, h, d, q.stride(0), q.stride(1),
                 k.stride(0), k.stride(1),
                 (1.0 / math.sqrt(d)) * math.log2(math.e),
                 _build.stream(q.device))
@@ -384,8 +384,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q kᵀ/√D) v for q, k, v [B, S, H, D] → [B, S, H, D], the
     TPU kernel's exp2 form (``flash_attention_plain``) in q's dtype.
     Inference only.  CPU tensor: the plain version; CUDA tensor (head_dim
-    64): bf16 the kernel, f32 ``flash_attention_f32``, anything else an
-    error."""
+    16, 32 or 64): bf16 the kernel, f32 ``flash_attention_f32``, anything
+    else an error."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, head_batch)
     if q.dtype == torch.float32:

@@ -32,8 +32,9 @@ from . import poincare
 from .common import check_cuda_tensor, refuse_grad
 
 _P, _I, _F = _build.P, _build.I, _build.F
-# csrc/hyperbolic.cu: a cluster of at most 8 CTAs of 128 columns
-MOBIUS_DENSE_MAX_OUT = 1024
+# csrc/hyperbolic.cu: a cluster of at most 8 CTAs of 128 columns, in at
+# most 8 column groups
+MOBIUS_DENSE_MAX_OUT = 8192
 
 
 def _full_f32(t: torch.Tensor) -> None:
@@ -107,7 +108,8 @@ def mobius_dense_pallas(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """The Euclidean-input hyperbolic dense layer project(expmap0(x W) ⊕
     bias) of x [n, K], w [K, D] (the Flax kernel layout), bias [D]
     (a point on the ball), f32.  CPU tensors: the plain version; CUDA
-    tensors: the kernel (contiguous f32, D <= 1024), or an error."""
+    tensors: the kernel (contiguous f32, D <= MOBIUS_DENSE_MAX_OUT; no
+    launch at n = 0), or an error."""
     if x.device.type == "cpu":
         return mobius_dense_pallas_plain(x, w, bias, c)
     n, k = x.shape
@@ -121,6 +123,8 @@ def mobius_dense_pallas(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          f"{MOBIUS_DENSE_MAX_OUT} and c > 0 (got D={dout}, "
                          f"c={c})")
     out = torch.empty(n, dout, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
     _build.call("ptt_mobius_dense",
                 [_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P],
                 _build.ptr(x), _build.ptr(w), _build.ptr(bias), n, k, dout,

@@ -34,6 +34,25 @@ _BQ, _BB = 64, 32   # queries and buckets per block (csrc/bucket_topk.cu)
 BUCKETS = 1024      # gallery column j falls in bucket j mod BUCKETS
 
 
+# the gallery and query widths the kernels take a multiple of, by operand
+# dtype (the Poincaré stage's operands are int8 too)
+KERNEL_COLUMNS = {torch.bfloat16: 16, torch.int8: 32}
+
+
+def pad_columns(t: torch.Tensor, width: int | None = None) -> torch.Tensor:
+    """t [N, D] with zero columns appended up to ``width`` (by default the
+    next multiple of ``KERNEL_COLUMNS`` for t's dtype), as the JAX wrappers
+    pad D.  Exact: a zero column adds 0 to every dot product, so the
+    kernels' scores, row terms and rankings are those of the unpadded rows.
+    A tensor already that wide is returned as it is."""
+    if width is None:
+        width = -(-t.shape[1] // KERNEL_COLUMNS[t.dtype]) * \
+            KERNEL_COLUMNS[t.dtype]
+    extra = width - t.shape[1]
+    return torch.nn.functional.pad(t, (0, extra)).contiguous() if extra \
+        else t
+
+
 def prepare_cosine_gallery_bf16(embeddings: torch.Tensor
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One-time index-build transform: gallery [N, D] → (L2-normalized
@@ -171,7 +190,8 @@ def bucket_topk_bf16_plain(queries: torch.Tensor, gal_bf16: torch.Tensor,
                            valid: torch.Tensor, pool: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``bucket_topk_bf16``, on any device."""
-    q16 = _query_bf16(queries, gal_bf16.shape[0], pool)
+    q16 = pad_columns(_query_bf16(queries, gal_bf16.shape[0], pool),
+                      gal_bf16.shape[1])
     return _select_pool(*bucket_top2_plain(q16, gal_bf16, valid), pool)
 
 
@@ -183,11 +203,15 @@ def bucket_topk_bf16(queries: torch.Tensor, gal_bf16: torch.Tensor,
     queries [Q, D] (normalized in f32 here, then cast to bf16); ``gal_bf16``
     / ``valid`` from ``prepare_cosine_gallery_bf16``.  Returns (vals
     [Q, pool] f32 on the bf16-score scale, idx [Q, pool] int64) best-first,
-    ties to the lower candidate position.  Callers re-rank in f32.
-    CPU tensors: the plain version; CUDA tensors: the kernel, or an error."""
+    ties to the lower candidate position.  Callers re-rank in f32.  A
+    gallery wider than the queries (``pad_columns``, as ``EmbeddingIndex``
+    builds it) takes the normalized queries zero-padded to its width.
+    CPU tensors: the plain version; CUDA tensors: the kernel (D % 16 == 0),
+    or an error."""
     if queries.device.type == "cpu":
         return bucket_topk_bf16_plain(queries, gal_bf16, valid, pool)
-    q16 = _query_bf16(queries, gal_bf16.shape[0], pool)
+    q16 = pad_columns(_query_bf16(queries, gal_bf16.shape[0], pool),
+                      gal_bf16.shape[1])
     top2 = _bucket_top2_cuda(q16, gal_bf16, valid)
     bucket_topk_bf16.launches += 1
     return _select_pool(*top2, pool)
@@ -224,6 +248,7 @@ def bucket_topk_int8_plain(q_i8: torch.Tensor, q_scale: torch.Tensor,
                            pool: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``bucket_topk_int8``, on any device."""
     _check_pool(gal_i8.shape[0], pool)
+    q_i8 = pad_columns(q_i8, gal_i8.shape[1])
     return _select_pool(*bucket_top2_int8_plain(q_i8, gal_i8, gal_scale),
                         pool, q_scale)
 
@@ -237,12 +262,15 @@ def bucket_topk_int8(q_i8: torch.Tensor, q_scale: torch.Tensor,
     [N, D] int8 and gal_scale [N] f32 (``quantize_gallery``; a row with a
     scale <= 0 is never chosen).  Returns (vals [Q, pool] f32 on the
     ``acc · q_scale · gal_scale`` scale, idx [Q, pool] int64) best-first,
-    ties to the lower candidate position.  Callers re-rank in f32.  CPU
-    tensors: the plain version; CUDA tensors: the kernel, or an error."""
+    ties to the lower candidate position.  Callers re-rank in f32.  A
+    gallery wider than the queries (``pad_columns``) takes q_i8
+    zero-padded to its width.  CPU tensors: the plain version; CUDA
+    tensors: the kernel (D % 32 == 0), or an error."""
     if q_i8.device.type == "cpu":
         return bucket_topk_int8_plain(q_i8, q_scale, gal_i8, gal_scale, pool)
     _check_pool(gal_i8.shape[0], pool)
-    top2 = _bucket_top2_cuda(q_i8, gal_i8, gal_scale)
+    top2 = _bucket_top2_cuda(pad_columns(q_i8, gal_i8.shape[1]), gal_i8,
+                             gal_scale)
     bucket_topk_int8.launches += 1
     return _select_pool(*top2, pool, q_scale)
 
@@ -363,12 +391,19 @@ def _bucket_top2_poincare_cuda(q_i8, qs, q_sq, gal: PoincareGallery,
                         nq, n, q_i8.shape[1], q_i8.device, buckets)
 
 
+def _poincare_queries(queries: torch.Tensor, gal: PoincareGallery):
+    """``quantize_poincare_queries`` of the unpadded rows, the codes then
+    zero-padded to the gallery's width."""
+    q_i8, qscale, q_sq = quantize_poincare_queries(queries)
+    return pad_columns(q_i8, gal.gal_i8.shape[1]), qscale, q_sq
+
+
 def bucket_topk_poincare_plain(queries: torch.Tensor, gal: PoincareGallery,
                                pool: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``bucket_topk_poincare``, on any device."""
     _check_pool(gal.gal_i8.shape[0], pool)
     return _select_pool(*bucket_top2_poincare_plain(
-        *quantize_poincare_queries(queries), gal), pool)
+        *_poincare_queries(queries, gal), gal), pool)
 
 
 def bucket_topk_poincare(queries: torch.Tensor, gal: PoincareGallery,
@@ -380,13 +415,14 @@ def bucket_topk_poincare(queries: torch.Tensor, gal: PoincareGallery,
     ``prepare_poincare_gallery``.  Returns (vals [Q, pool] f32 on the
     surrogate's scale, idx [Q, pool] int64) best-first, ties to the lower
     candidate position.  Callers re-rank the pool with the exact
-    distance.  CPU tensors: the plain version; CUDA tensors: the kernel
-    (D % 32 == 0), or an error."""
+    distance.  A gallery wider than the queries (``gal_i8`` through
+    ``pad_columns``) takes the codes zero-padded to its width, the row
+    terms from the unpadded rows.  CPU tensors: the plain version; CUDA
+    tensors: the kernel (D % 32 == 0), or an error."""
     if queries.device.type == "cpu":
         return bucket_topk_poincare_plain(queries, gal, pool)
     _check_pool(gal.gal_i8.shape[0], pool)
-    top2 = _bucket_top2_poincare_cuda(*quantize_poincare_queries(queries),
-                                      gal)
+    top2 = _bucket_top2_poincare_cuda(*_poincare_queries(queries, gal), gal)
     bucket_topk_poincare.launches += 1
     return _select_pool(*top2, pool)
 

@@ -14,7 +14,9 @@ boundary orders more exactly than the scan's f32 surrogate.
 ``EmbeddingIndex`` takes a candidate path whenever the pool is smaller
 than the gallery (the bf16 one on a CUDA device only; the int8 ones,
 ``quantized=True``, on any device), and the scan otherwise; it reads and
-writes the JAX index's ``.npy`` + ``.json`` files.
+writes the JAX index's ``.npy`` + ``.json`` files.  Its candidate copies
+are zero-padded to the kernels' multiple of columns, as JAX pads D, so
+every width reaches the kernels.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 from ..ops import poincare
 from ..ops.topk_kernel import (PoincareGallery, bucket_topk_bf16,
                                bucket_topk_int8, bucket_topk_poincare,
-                               bucket_topk_supported,
+                               bucket_topk_supported, pad_columns,
                                prepare_cosine_gallery_bf16,
                                prepare_poincare_gallery, quantize_gallery,
                                quantize_queries)
@@ -261,11 +263,15 @@ class EmbeddingIndex:
         self.embeddings = torch.as_tensor(embeddings, dtype=torch.float32,
                                           device=self.device)
         self.quantized = quantized
+        # the candidate copies are zero-padded to the kernels' multiple of
+        # columns (topk_kernel.pad_columns) once, here; searches pad the
+        # queries after normalizing or quantizing them
         if quantized and similarity == "poincare":
-            self.emb_gal = prepare_poincare_gallery(self.embeddings, c)
+            gal = prepare_poincare_gallery(self.embeddings, c)
+            self.emb_gal = gal._replace(gal_i8=pad_columns(gal.gal_i8))
         elif quantized:
             i8, scale = quantize_gallery(self.embeddings.cpu().numpy())
-            self.emb_i8 = torch.from_numpy(i8).to(self.device)
+            self.emb_i8 = pad_columns(torch.from_numpy(i8).to(self.device))
             self.emb_scale = torch.from_numpy(scale).to(self.device)
         # bf16 candidate copy for the kernel path, built on the first
         # search that takes it (full-ranking callers never pay for it)
@@ -295,8 +301,9 @@ class EmbeddingIndex:
                 block_size=block_size)
         elif fused_cosine_eligible(len(self.names), k, self.device):
             if self._gal16 is None:
-                self._gal16, self._gal16_valid = \
+                gal16, self._gal16_valid = \
                     prepare_cosine_gallery_bf16(self.embeddings)
+                self._gal16 = pad_columns(gal16)
             vals, idx = topk_search_cosine_fast(
                 q, self._gal16, self._gal16_valid, self.embeddings, k=k,
                 block_size=block_size)

@@ -85,8 +85,10 @@ def _attention_both(case, heads):
 
 
 @pytest.mark.parametrize("b,s,d,heads", [(2, 13, 128, 2), (3, 5, 64, 4),
-                                         (3, 16, 128, 2)],
-                         ids=["S13", "most-keys-pad", "odd-batch-no-pad"])
+                                         (3, 16, 128, 2), (2, 13, 128, 4),
+                                         (2, 65, 64, 4)],
+                         ids=["S13", "most-keys-pad", "odd-batch-no-pad",
+                              "hd32", "small-tower"])
 def test_fused_attention_block_matches_jax_pallas(b, s, d, heads):
     """Forward and all five gradients; S = 5 pads to 16, so 11 of 16 keys
     are pad; S = 16 at B 3 pads nothing, and B·S = 48 rows is ragged

@@ -8,7 +8,9 @@ This file imports no JAX module of its own, so it runs where only PyTorch
 is installed.  ``chip_smoke.py`` repeats the checks at ViT-B/16 shapes.
 """
 
+import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -40,6 +42,8 @@ D, HEADS, F, S, VALID = 128, 2, 256, 48, 20
 # more.
 REL_TOL = 1e-3
 BIASES = (1, 3, 5, 7, 9, 11)
+# the head widths the attention kernels are instantiated for, at D 128
+HEAD_WIDTHS = {"hd64": HEADS, "hd32": 4, "hd16": 8}
 
 
 @pytest.fixture()
@@ -49,7 +53,7 @@ def cuda():
     return select_device("cuda")
 
 
-def _layer_case(dev, b=3, seed=0):
+def _layer_case(dev, b=3, seed=0, s=S, d=D, f=F, valid=VALID):
     """Matrices bf16, LayerNorm vectors and biases f32 (what the kernel
     takes); pad rows of random content, not a constant, which LN1 would
     turn into exactly ln1_bias."""
@@ -61,12 +65,12 @@ def _layer_case(dev, b=3, seed=0):
     def m(*shape):
         return r(*shape, std=shape[0] ** -0.5).to(torch.bfloat16)
 
-    params = (1 + r(D, std=0.1), r(D, std=0.1), m(D, 3 * D),
-              r(3 * D, std=0.2), m(D, D), r(D, std=0.02),
-              1 + r(D, std=0.1), r(D, std=0.1), m(D, F),
-              r(F, std=0.02), m(F, D), r(D, std=0.02))
-    x = r(b, S, D, std=1.0)
-    x[:, VALID:] = 3.0 * x[:, VALID:] + 1.0
+    params = (1 + r(d, std=0.1), r(d, std=0.1), m(d, 3 * d),
+              r(3 * d, std=0.2), m(d, d), r(d, std=0.02),
+              1 + r(d, std=0.1), r(d, std=0.1), m(d, f),
+              r(f, std=0.02), m(f, d), r(d, std=0.02))
+    x = r(b, s, d, std=1.0)
+    x[:, valid:] = 3.0 * x[:, valid:] + 1.0
     return x.to(torch.bfloat16), params
 
 
@@ -80,33 +84,35 @@ def _rel_err(a, b):
     return float((a - b).abs().mean() / b.abs().mean())
 
 
+@pytest.mark.parametrize("hw", sorted(HEAD_WIDTHS))
 @pytest.mark.parametrize("b", [2, 4, 16])
 @pytest.mark.parametrize("name", ["fused_layer_block_bf16",
                                   "fused_layer_cls_bf16"])
-def test_layer_kernel_matches_plain_and_controls_do_not(cuda, name, b):
+def test_layer_kernel_matches_plain_and_controls_do_not(cuda, name, b, hw):
     """Rows 1 and 2 against the TPU kernel's function in plain PyTorch
     (an odd batch runs no layer kernel); M = B·48 rows cut the GEMMs' 128-
     row tiles raggedly."""
     kernel = getattr(bf16_layer, name)
     plain = getattr(bf16_layer, name + "_plain")
     x, p = _layer_case(cuda, b=b)
+    heads = HEAD_WIDTHS[hw]
 
     def rows(t):                     # the valid rows (CLS: [B, D] already)
         return t[:, :VALID] if t.dim() == 3 else t
 
     n0 = kernel.launches
-    got = rows(kernel(x, *p, HEADS, valid_len=VALID))
-    want = rows(plain(x, *p, HEADS, valid_len=VALID))
+    got = rows(kernel(x, *p, heads, valid_len=VALID))
+    want = rows(plain(x, *p, heads, valid_len=VALID))
     torch.cuda.synchronize()
     assert kernel.launches == n0 + 1
     assert torch.isfinite(got.float()).all()
     assert _rel_err(got, want) <= REL_TOL
     assert _min_cosine(got, want) > 0.9999
-    assert _rel_err(rows(plain(x, *p, HEADS, valid_len=S)), want) > REL_TOL
+    assert _rel_err(rows(plain(x, *p, heads, valid_len=S)), want) > REL_TOL
     for i in BIASES:
         q = list(p)
         q[i] = torch.zeros_like(q[i])
-        assert _rel_err(rows(plain(x, *q, HEADS, valid_len=VALID)),
+        assert _rel_err(rows(plain(x, *q, heads, valid_len=VALID)),
                         want) > REL_TOL, i
 
 
@@ -126,8 +132,8 @@ def test_layer_kernel_rejects_what_it_does_not_take(cuda):
     x, p = _layer_case(cuda, b=4)
     with pytest.raises(ValueError):
         bf16_layer.fused_layer_block_bf16(x.float(), *p, HEADS, valid_len=VALID)
-    with pytest.raises(ValueError):      # head_dim 32
-        bf16_layer.fused_layer_block_bf16(x, *p, 4, valid_len=VALID)
+    with pytest.raises(ValueError, match="head_dim"):    # head_dim 128
+        bf16_layer.fused_layer_block_bf16(x, *p, 1, valid_len=VALID)
     with pytest.raises(ValueError):      # token axis not padded to 16
         bf16_layer.fused_layer_block_bf16(x[:, :40].contiguous(), *p, HEADS,
                                           valid_len=VALID)
@@ -311,20 +317,22 @@ FLASH_REL_TOL = 1e-4
 
 
 def _flash_case(dev, b, s, heads=2, gain=1.0, seed=11,
-                dtype=torch.bfloat16):
-    """q, k, v [B, S, H, 64] as the per-op tower passes them: slices of
-    one [B, S, 3·H·64] tensor of ``dtype``.  ``gain`` scales q."""
+                dtype=torch.bfloat16, hd=64):
+    """q, k, v [B, S, H, hd] as the per-op tower passes them: slices of
+    one [B, S, 3·H·hd] tensor of ``dtype``.  ``gain`` scales q."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn(b, s, 3 * heads * 64, generator=g, device=dev)
-    qkv[..., :heads * 64] *= gain
-    return tuple(t.unflatten(-1, (heads, 64)) for t in
-                 qkv.to(dtype).split(heads * 64, dim=-1))
+    qkv = torch.randn(b, s, 3 * heads * hd, generator=g, device=dev)
+    qkv[..., :heads * hd] *= gain
+    return tuple(t.unflatten(-1, (heads, hd)) for t in
+                 qkv.to(dtype).split(heads * hd, dim=-1))
 
 
+@pytest.mark.parametrize("hd", [64, 32, 16])
 @pytest.mark.parametrize("b,heads", [(3, 2), (1, 12), (3, 1)])
 @pytest.mark.parametrize("s", [197, 64, 16, 5])
-def test_flash_kernel_matches_plain_and_controls_do_not(cuda, s, b, heads):
-    q, k, v = _flash_case(cuda, b, s, heads=heads)
+def test_flash_kernel_matches_plain_and_controls_do_not(cuda, s, b, heads,
+                                                        hd):
+    q, k, v = _flash_case(cuda, b, s, heads=heads, hd=hd)
     n0 = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention_plain(q, k, v)
@@ -367,10 +375,12 @@ def test_flash_kernel_clamps_scores_past_80(cuda, dtype):
 FLASH_F32_REL_TOL = 1e-5
 
 
+@pytest.mark.parametrize("hd", [64, 32, 16])
 @pytest.mark.parametrize("s,heads", [(197, 12), (64, 2), (5, 1), (1, 1),
                                      (15, 2), (17, 2), (65, 1)])
-def test_flash_kernel_f32_matches_plain(cuda, s, heads):
-    q, k, v = _flash_case(cuda, 3, s, heads=heads, dtype=torch.float32)
+def test_flash_kernel_f32_matches_plain(cuda, s, heads, hd):
+    q, k, v = _flash_case(cuda, 3, s, heads=heads, dtype=torch.float32,
+                          hd=hd)
     n0 = fa.flash_attention_f32.launches
     got = fa.flash_attention(q, k, v)
     want = fa.flash_attention_plain(q, k, v)
@@ -402,7 +412,10 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(*(t.reshape(2, 20, 4, 32) for t in (q, k, v)))
+        fa.flash_attention(*(t.reshape(2, 20, 16, 8) for t in (q, k, v)))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*(t.float().reshape(2, 20, 1, 128)
+                             for t in (q, k, v)))
     with pytest.raises(ValueError, match="strides"):
         fa.flash_attention(q, k.contiguous(), v)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -445,18 +458,20 @@ def _int8_case(dev, b=3, seed=0):
     return x, attn, mlp
 
 
+@pytest.mark.parametrize("hw", sorted(HEAD_WIDTHS))
 @pytest.mark.parametrize("name", ["quant_attention_block",
                                   "quant_attention_cls", "quant_mlp_block"])
-def test_int8_kernel_matches_plain_and_controls_do_not(cuda, name):
+def test_int8_kernel_matches_plain_and_controls_do_not(cuda, name, hw):
     kernel = getattr(qm, name)
     plain = getattr(qm, name + "_plain")
     x, attn, mlp = _int8_case(cuda)
+    heads = HEAD_WIDTHS[hw]
     attention = name != "quant_mlp_block"
     kind = "attention" if attention else "mlp"
     params = attn if attention else mlp
 
     def run(fn, p, valid=VALID):
-        out = fn(x, *p, HEADS, valid_len=valid) if attention else fn(x, *p)
+        out = fn(x, *p, heads, valid_len=valid) if attention else fn(x, *p)
         return out[:, :VALID] if name == "quant_attention_block" else out
 
     n0 = kernel.launches
@@ -493,8 +508,10 @@ def test_int8_kernels_reject_what_they_do_not_take(cuda):
     x, attn, mlp = _int8_case(cuda)
     with pytest.raises(ValueError):      # f32 tokens
         qm.quant_attention_block(x.float(), *attn, HEADS, valid_len=VALID)
-    with pytest.raises(ValueError):      # head_dim 32
-        qm.quant_attention_block(x, *attn, 4, valid_len=VALID)
+    with pytest.raises(ValueError, match="head_dim"):    # head_dim 128
+        qm.quant_attention_block(x, *attn, 1, valid_len=VALID)
+    with pytest.raises(ValueError, match="head_dim"):
+        qm.quant_layer_block(x, *attn, *mlp, 1, valid_len=VALID)
     with pytest.raises(ValueError):      # weights in the [in, out] layout
         qm.quant_attention_block(x, *attn[:2], attn[2].T, *attn[3:], HEADS,
                                  valid_len=VALID)
@@ -579,13 +596,15 @@ INT8_LAYER_REL_TOL = 1.5e-3
 LAYER_CONTROLS = {"bias": (1, 4, 7, 9, 12, 15), "scale": (3, 6, 11, 14)}
 
 
+@pytest.mark.parametrize("hw", sorted(HEAD_WIDTHS))
 @pytest.mark.parametrize("b", [1, 3, 127], ids=["B1", "B3", "B127"])
-def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b):
+def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b, hw):
     x, attn, mlp = _int8_case(cuda, b=b)
     params = (*attn, *mlp)
+    heads = HEAD_WIDTHS[hw]
 
     def run(fn, p=params, valid=VALID):
-        return fn(x, *p, HEADS, valid_len=valid)[:, :VALID]
+        return fn(x, *p, heads, valid_len=valid)[:, :VALID]
 
     n0 = qm.quant_layer_block.launches
     got = run(qm.quant_layer_block)
@@ -596,7 +615,7 @@ def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b):
     assert _rel_err(got, want) <= INT8_LAYER_REL_TOL
     assert _min_cosine(got, want) > 0.9999
     chain = qm.quant_mlp_block_plain(
-        qm.quant_attention_block_plain(x, *attn, HEADS, valid_len=VALID),
+        qm.quant_attention_block_plain(x, *attn, heads, valid_len=VALID),
         *mlp)[:, :VALID]
     controls = {"no key mask": run(qm.quant_layer_block_plain, valid=S),
                 "bf16 mid residual": chain}
@@ -610,8 +629,10 @@ def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b):
         assert _rel_err(ctrl, want) > INT8_LAYER_REL_TOL, name
 
 
+@pytest.mark.parametrize("hw", sorted(HEAD_WIDTHS))
 @pytest.mark.parametrize("b", [1, 3, 127], ids=["B1", "B3", "B127"])
-def test_int8_layer_cooperative_launch_equals_the_chain(cuda, b, monkeypatch):
+def test_int8_layer_cooperative_launch_equals_the_chain(cuda, b, hw,
+                                                        monkeypatch):
     """Row 8 runs one cooperative launch at a query's batch and a chain of
     launches of the same bodies at a larger one: the integer products are
     exact and every other operation the same, so the two give the same
@@ -619,7 +640,8 @@ def test_int8_layer_cooperative_launch_equals_the_chain(cuda, b, monkeypatch):
     nothing."""
     x, attn, mlp = _int8_case(cuda, b=b)
     params = (*attn, *mlp)
-    folded = qm.fold_q_scale(attn[3], attn[4], HEADS)
+    heads = HEAD_WIDTHS[hw]
+    folded = qm.fold_q_scale(attn[3], attn[4], heads)
     outs = {}
     for coop in (True, False):
         def plan(m, d, f, blocks, coop=coop):
@@ -627,9 +649,9 @@ def test_int8_layer_cooperative_launch_equals_the_chain(cuda, b, monkeypatch):
                 False, 1, 1)
 
         monkeypatch.setattr(qm, "layer_plan", plan)
-        outs[coop] = qm.quant_layer_block(x, *params, HEADS, valid_len=VALID)
+        outs[coop] = qm.quant_layer_block(x, *params, heads, valid_len=VALID)
         outs[coop, "folded"] = qm.quant_layer_block(
-            x, *params, HEADS, valid_len=VALID, folded=folded)
+            x, *params, heads, valid_len=VALID, folded=folded)
     torch.cuda.synchronize()
     for key, got in outs.items():
         assert torch.equal(got, outs[True]), key
@@ -859,53 +881,74 @@ def test_int8_dense_kernels_reject_what_they_do_not_take(cuda):
 TRAIN_BWD_REL_TOL = 4e-3
 
 
-def _fold(wqkv, bqkv, gain=1.0):
+def _fold(wqkv, bqkv, gain=1.0, d=D, heads=HEADS):
     """(wqkv, bqkv) as the row-12/13 kernels take them: the q columns
     scaled by log2(e)/sqrt(hd), as fused_attention_block folds them, and
     those of head 0 by ``gain`` besides."""
-    col = torch.ones(3 * D, device=wqkv.device)
-    col[:D] = math.log2(math.e) / math.sqrt(D // HEADS)
-    col[:D // HEADS] *= gain
+    col = torch.ones(3 * d, device=wqkv.device)
+    col[:d] = math.log2(math.e) / math.sqrt(d // heads)
+    col[:d // heads] *= gain
     return ((wqkv.float() * col).to(torch.bfloat16).contiguous(),
             (bqkv.float() * col).contiguous())
 
 
-def test_trainable_attention_kernels_match_plain_and_controls_do_not(cuda):
-    x, p = _layer_case(cuda)
-    wqkv, bqkv = _fold(p[2], p[3])
-    wout, bout = p[4], p[5]
+# (B, S, D, heads, valid): the narrow layer with most keys pad, at head
+# widths 64, 32 and 16; the CLIs' small tower (D 64 over 4 heads, 64 px
+# images of 8 px patches: 65 tokens padded to 80); the fine-tune's step at
+# 64 pairs (128 images of ViT-B/16, the token axis padded to 208); a
+# ragged batch at ViT-B/16's widths
+ATTN_CASES = {"narrow": (3, S, D, HEADS, VALID),
+              "narrow-hd32": (3, S, D, 4, VALID),
+              "narrow-hd16": (3, S, D, 8, VALID),
+              "small-tower": (8, 80, 64, 4, 65),
+              "vit-b16-B128": (128, 208, 768, 12, 197),
+              "vit-b16-B3": (3, 208, 768, 12, 197)}
+
+
+def _attn_case(dev, b, s, d, heads, valid, seed=0):
+    """x, the folded (wqkv, bqkv), wout, bout and a cotangent da whose
+    pad rows are 0 (as the tower's slice gives it)."""
+    x, p = _layer_case(dev, b=b, seed=seed, s=s, d=d, f=8, valid=valid)
+    wqkv, bqkv = _fold(p[2], p[3], d=d, heads=heads)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    da = torch.randn(x.shape, generator=g, device=dev)
+    da[:, valid:] = 0.0
+    return x, wqkv, bqkv, p[4], p[5], da.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_trainable_attention_kernels_match_plain_and_controls_do_not(cuda,
+                                                                     case):
+    b, s, d, heads, valid = ATTN_CASES[case]
+    x, wqkv, bqkv, wout, bout, da = _attn_case(cuda, b, s, d, heads, valid)
     n12, n13 = fa.fused_attention_fwd.launches, fa.fused_attention_bwd.launches
-    got = fa.fused_attention_fwd(x, wqkv, bqkv, wout, bout, HEADS, VALID)
-    want = fa.fused_attention_block_plain(x, wqkv, bqkv, wout, bout, HEADS,
-                                          VALID)
-    g = torch.Generator(device=cuda).manual_seed(7)
-    da = torch.randn(x.shape, generator=g, device=cuda)
-    da[:, VALID:] = 0.0
-    da = da.to(torch.bfloat16)
-    dqkv, a = fa.fused_attention_bwd(x, wqkv, bqkv, da, HEADS, VALID)
-    dqkv_p, a_p = fa.attention_bwd_plain(x, wqkv, bqkv, da, HEADS, VALID)
+    got = fa.fused_attention_fwd(x, wqkv, bqkv, wout, bout, heads, valid)
+    want = fa.fused_attention_block_plain(x, wqkv, bqkv, wout, bout, heads,
+                                          valid)
+    dqkv, a = fa.fused_attention_bwd(x, wqkv, bqkv, da, heads, valid)
+    dqkv_p, a_p = fa.attention_bwd_plain(x, wqkv, bqkv, da, heads, valid)
     torch.cuda.synchronize()
     assert (fa.fused_attention_fwd.launches, fa.fused_attention_bwd.launches) \
         == (n12 + 1, n13 + 1)
-    v = slice(0, VALID)
+    v = slice(0, valid)
     assert _rel_err(got[:, v], want[:, v]) <= REL_TOL
     assert _rel_err(a[:, v], a_p[:, v]) <= REL_TOL
     assert _rel_err(dqkv[:, v], dqkv_p[:, v]) <= TRAIN_BWD_REL_TOL
-    assert not dqkv[:, VALID:].any()         # pad queries and pad keys
+    assert not dqkv[:, valid:].any()         # pad queries and pad keys
     zb = torch.zeros_like(bqkv)
     for name, ctrl in (
             ("no key mask", fa.fused_attention_block_plain(
-                x, wqkv, bqkv, wout, bout, HEADS, S)),
+                x, wqkv, bqkv, wout, bout, heads, s)),
             ("bqkv=0", fa.fused_attention_block_plain(
-                x, wqkv, zb, wout, bout, HEADS, VALID)),
+                x, wqkv, zb, wout, bout, heads, valid)),
             ("bout=0", fa.fused_attention_block_plain(
-                x, wqkv, bqkv, wout, torch.zeros_like(bout), HEADS, VALID))):
+                x, wqkv, bqkv, wout, torch.zeros_like(bout), heads, valid))):
         assert _rel_err(ctrl[:, v], want[:, v]) > REL_TOL, name
     for name, ctrl in (
-            ("no key mask", fa.attention_bwd_plain(x, wqkv, bqkv, da, HEADS,
-                                                   S)[0]),
-            ("bqkv=0", fa.attention_bwd_plain(x, wqkv, zb, da, HEADS,
-                                              VALID)[0])):
+            ("no key mask", fa.attention_bwd_plain(x, wqkv, bqkv, da, heads,
+                                                   s)[0]),
+            ("bqkv=0", fa.attention_bwd_plain(x, wqkv, zb, da, heads,
+                                              valid)[0])):
         assert _rel_err(ctrl[:, v], dqkv_p[:, v]) > TRAIN_BWD_REL_TOL, name
 
 
@@ -986,12 +1029,15 @@ def test_trainable_attention_gates_the_clamp_on_the_card(cuda):
     assert _rel_err(ungated, gated) > 10 * TRAIN_BWD_REL_TOL
 
 
-@pytest.mark.parametrize("m", [64, 77, 2 * mm.CHUNK_ROWS + 77],
-                         ids=["M64", "M77-ragged", "three-chunks-ragged"])
+@pytest.mark.parametrize("m", [64, 77, 25216, 2 * mm.CHUNK_ROWS + 77],
+                         ids=["M64", "M77-ragged", "M25216-fine-tune",
+                              "three-chunks-ragged"])
 def test_trainable_mlp_kernels_match_plain_and_controls_do_not(cuda, m):
-    """Rows 15 and 16 against their plain versions; the third case runs
-    the backward's chunk loop (row offsets, the f32 accumulation of dW1 and
-    dW2 across chunks, the column sums) with a ragged last chunk."""
+    """Rows 15 and 16 against their plain versions; M 25,216 is the
+    fine-tune's 64 pairs in one chunk (the weight gradients split over
+    their rows, the last split ragged); the last case runs the backward's
+    chunk loop (row offsets, the f32 accumulation of dW1 and dW2 across
+    chunks, the column sums) with a ragged last chunk."""
     x, p = _layer_case(cuda, b=-(-m // S))
     x2 = x.reshape(-1, D)[:m].contiguous()
     lns, lnb, w1, b1, w2, b2 = p[6:12]
@@ -1022,6 +1068,64 @@ def test_trainable_mlp_kernels_match_plain_and_controls_do_not(cuda, m):
     assert _rel_err(do2, grads_p[0]) > TRAIN_BWD_REL_TOL   # dLN dropped
     for i in range(6):
         assert _rel_err(no_b1[i], grads_p[i]) > TRAIN_BWD_REL_TOL, i
+
+
+# row 16's MN-major GEMM against torch.matmul in f32 of the same bf16
+# values: f32 sums of 25,216 exact products in another order, a few 1e-7
+# of the sums' scale; dropping the last 64 rows moves them by ~5e-2
+WGRAD_REL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("k", [25216, 25216 + 40], ids=["K25216",
+                                                        "K-ragged"])
+@pytest.mark.parametrize("m,n", [(3072, 768), (768, 3072)],
+                         ids=["dW2", "dW1"])
+def test_weight_grad_gemm_matches_matmul(cuda, m, n, k):
+    """The weight-gradient GEMM alone (``mm.weight_grad``: aᵀ b over the
+    rows, as the backward's dW2 = aᵀ do and dW1 = hᵀ dg) at the
+    fine-tune's shapes, split as the backward splits them (on the H100,
+    11 ways), the last split ragged."""
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    a = torch.randn(k, m, generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn(k, n, generator=g, device=cuda).to(torch.bfloat16)
+    ktiles, splits = -(-k // 64), mm.weight_grad_plan(k, m, n)
+    assert splits > 1 and ktiles % -(-ktiles // splits)   # ragged last split
+    n0 = mm.weight_grad.launches
+    got = mm.weight_grad(a, b)
+    want = torch.matmul(a.float().T, b.float())
+    short = torch.matmul(a[:-64].float().T, b[:-64].float())
+    torch.cuda.synchronize()
+    assert mm.weight_grad.launches == n0 + 1
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= WGRAD_REL_TOL * scale
+    assert _rel_err(got, want) <= WGRAD_REL_TOL
+    assert _rel_err(short, want) > WGRAD_REL_TOL
+
+
+def test_redesigned_backward_kernels_give_equal_bits_twice(cuda):
+    """Rows 16 and 13 (and row 16's weight-gradient GEMM) sum their
+    partials in a fixed order, with no atomics: two runs give the same
+    bits."""
+    x, p = _layer_case(cuda, b=526)
+    x2 = x.reshape(-1, D)[:25216].contiguous()
+    lns, lnb, w1, b1, w2, _b2 = p[6:12]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    do2 = torch.randn(x2.shape, generator=g, device=cuda).to(torch.bfloat16)
+    runs = [mm.fused_mlp_bwd(x2, do2, lns, lnb, w1, b1, w2)
+            for _ in range(2)]
+    for i, (u, w) in enumerate(zip(*runs)):
+        assert torch.equal(u, w), i
+    b, s, d, heads, valid = ATTN_CASES["vit-b16-B128"]
+    xa, wqkv, bqkv, _wo, _bo, da = _attn_case(cuda, b, s, d, heads, valid)
+    runs = [fa.fused_attention_bwd(xa, wqkv, bqkv, da, heads, valid)
+            for _ in range(2)]
+    for u, w in zip(*runs):
+        assert torch.equal(u, w)
+    a = torch.randn(25216, 768, generator=g, device=cuda).to(torch.bfloat16)
+    bm = torch.randn(25216, 3072, generator=g, device=cuda).to(
+        torch.bfloat16)
+    assert torch.equal(mm.weight_grad(a, bm), mm.weight_grad(a, bm))
 
 
 def test_trainable_tower_step_kernels_match_plain_blocks(cuda):
@@ -1128,10 +1232,12 @@ def test_mobius_dense_kernel_matches_plain(cuda, n, k, dout):
 
 
 # Row 18 as thread-block clusters: one CTA (D 24), 4 and 5 CTAs of 64
-# columns (D 256, 300) and 8 of 128 (D 1024); one row, a ragged last
-# cluster of rows (37, 513) and the engine's batch (512).  The three row
-# reductions are summed in another order than the plain version's.
-@pytest.mark.parametrize("dout", [24, 256, 300, 1024])
+# columns (D 256, 300), 8 of 128 (D 1024), and 8 of 128 in each of two
+# and three column groups (D 2048 as hidden_dims=[2048] gives it; D 3000,
+# the last group ragged); one row, a ragged last cluster of rows (37, 513)
+# and the engine's batch (512).  The three row reductions are summed in
+# another order than the plain version's.
+@pytest.mark.parametrize("dout", [24, 256, 300, 1024, 2048, 3000])
 @pytest.mark.parametrize("n", [1, 37, 512, 513])
 def test_mobius_dense_cluster_kernel_matches_plain(cuda, n, dout):
     c, k = 2.0, 512
@@ -1166,13 +1272,16 @@ def test_mobius_dense_unaligned_rows_and_saturated_rows(cuda):
 
 def test_mobius_dense_launches_clusters(cuda):
     """The encoder's 512 x 256 launches 128 CTAs in clusters of 4 (one
-    wave on the H100's 132 SMs); D 1024 takes 8 CTAs of 128 columns."""
+    wave on the H100's 132 SMs); D 1024 takes 8 CTAs of 128 columns, and
+    D 2048 the same clusters over two column groups."""
     assert pk.mobius_dense_launch(512, 256) == {"ctas": 128, "cluster": 4,
                                                 "cols": 64}
     assert pk.mobius_dense_launch(513, 1024) == {"ctas": 33 * 8,
                                                  "cluster": 8, "cols": 128}
     assert pk.mobius_dense_launch(1, 24) == {"ctas": 1, "cluster": 1,
                                              "cols": 64}
+    assert pk.mobius_dense_launch(37, 2048) == {"ctas": 3 * 8, "cluster": 8,
+                                                "cols": 128}
 
 
 def test_hyperbolic_kernels_reject_what_they_do_not_take(cuda):
@@ -1182,8 +1291,8 @@ def test_hyperbolic_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         pk.pairwise_dist_pallas(x.double(), x.double(), 1.0)
     with pytest.raises(ValueError):
-        pk.mobius_dense_pallas(x, torch.randn(16, 1100, device=cuda),
-                               torch.zeros(1100, device=cuda), 1.0)
+        pk.mobius_dense_pallas(x, torch.randn(16, 8200, device=cuda),
+                               torch.zeros(8200, device=cuda), 1.0)
     w = torch.randn(16, 8, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         pk.mobius_dense_pallas(x, w, torch.zeros(8, device=cuda), 1.0)
@@ -1287,3 +1396,154 @@ def test_hyperbolic_model_trains_on_the_card(cuda):
     with torch.no_grad():
         model(x.to(cuda))
     assert pk.mobius_dense_pallas.launches == n18 + 1
+
+
+# ------------------------------- the CLIs' small tower and narrow widths
+#
+# The JAX package serves these calls; so does the port, on its kernels:
+# the attention kernels' head_dim-16 instances run the CLIs' small tower
+# (D 64 over 4 heads), the index pads its candidate copies to the bucket
+# kernels' multiple of columns, and row 18 takes wide layers in column
+# groups.
+
+# the metric battery on the card and on the CPU: the same weights, features
+# summed in another order (tests/test_torch_pipeline.py holds the port to
+# JAX within METRIC_ATOL).  The int8 tower flips an int8 code under such a
+# perturbation and carries it on: in one H100 run, gallery features
+# 0.99993 apart (min cosine) moved MRR@5 by 0.0108 over the corpus's 80
+# queries (one reciprocal-rank step of a query is 0.5 / 80), so the int8
+# run is held by its features alone
+METRIC_ATOL = 0.01
+FEATURE_MIN_COS = 0.9999
+
+
+def _battery(path):
+    with open(os.path.join(path, "results",
+                           "evaluation_results_GE.json")) as f:
+        summary = json.load(f)["summary_metrics"]
+    (npy,) = [f for f in os.listdir(os.path.join(path, "embeddings"))
+              if f.endswith(".npy")]
+    return summary, torch.from_numpy(np.load(os.path.join(
+        path, "embeddings", npy)))
+
+
+@pytest.mark.parametrize("flags", [[], ["--quantize"]], ids=["bf16", "int8"])
+def test_cli_eval_synthetic_runs_on_the_card(cuda, tmp_path, flags):
+    """``eval --synthetic`` builds the CLI's small tower (D 64, 4 heads:
+    head_dim 16) through build_engine on a fresh 64 px corpus.  On the
+    default device its attention kernels launch, and the gallery features
+    (and, in bf16, the battery) equal the CPU run's."""
+    from patent_tpu_torch.cli.main import main as cli
+    entries = ((qm.quant_attention_block, qm.quant_attention_cls,
+                qm.quant_mlp_block) if flags else
+               (bf16_layer.fused_layer_block_bf16,
+                bf16_layer.fused_layer_cls_bf16))
+    launched = [e.launches for e in entries]
+    card, cpu = str(tmp_path / "card"), str(tmp_path / "cpu")
+    assert cli(["eval", "--path", card, "--synthetic"] + flags) == 0
+    assert all(e.launches > n for e, n in zip(entries, launched))
+    assert cli(["eval", "--path", cpu, "--synthetic", "--device", "cpu"]
+               + flags) == 0
+    (want, want_emb), (got, got_emb) = _battery(cpu), _battery(card)
+    assert got_emb.shape == want_emb.shape == (160, 64)
+    assert _min_cosine(got_emb, want_emb) >= FEATURE_MIN_COS
+    assert set(got) == set(want)
+    if not flags:
+        for key, w in want.items():
+            assert got[key] == pytest.approx(w, abs=METRIC_ATOL), key
+
+
+def test_cli_finetune_runs_on_the_card(cuda, tmp_path):
+    """A bare ``finetune --epochs 1`` trains the small tower (head_dim 16)
+    on its synthetic corpus: the attention and MLP blocks' kernels, finite
+    losses and a checkpoint."""
+    from patent_tpu_torch.cli.main import main as cli
+    entries = (fa.fused_attention_fwd, fa.fused_attention_bwd,
+               mm.fused_mlp_fwd, mm.fused_mlp_bwd)
+    launched = [e.launches for e in entries]
+    assert cli(["finetune", "--path", str(tmp_path), "--epochs", "1"]) == 0
+    assert all(e.launches > n for e, n in zip(entries, launched))
+    ckpt = tmp_path / "models" / "clip_finetune_best"
+    with open(ckpt / "metadata.json") as f:
+        assert math.isfinite(json.load(f)["val_loss"])
+
+
+@pytest.mark.parametrize("d", [10, 100])
+def test_index_bucket_paths_take_any_width(cuda, d):
+    """The bf16, int8 and Poincaré candidate stages at widths their kernels
+    take only zero-padded: each launches and equals the exact ranking
+    index for index (cosine: the f32 scan; Poincaré: the f64 distance)."""
+    from patent_tpu_torch.retrieval import index as index_mod
+    g = torch.Generator(device=cuda).manual_seed(d)
+    n = 3000
+    gal = torch.randn(n, d, generator=g, device=cuda)
+    q = gal[:16] + 0.3 * torch.randn(16, d, generator=g, device=cuda)
+    names = [f"g{i}" for i in range(n)]
+    _sv, want = index_mod.topk_search(q, gal, k=10)
+    want = want.cpu().numpy()
+    for entry, kw in ((topk_kernel.bucket_topk_bf16, {}),
+                      (topk_kernel.bucket_topk_int8, {"quantized": True})):
+        n0 = entry.launches
+        _v, got = EmbeddingIndex(gal, names, device=cuda, **kw).search(q,
+                                                                       k=10)
+        torch.cuda.synchronize()
+        assert entry.launches == n0 + 1, entry.__name__
+        assert np.array_equal(got, want), entry.__name__
+    c = 2.0
+    ball, qb = _ball(g, n, d, c, cuda), _ball(g, 16, d, c, cuda)
+    n0 = topk_kernel.bucket_topk_poincare.launches
+    _v, got = EmbeddingIndex(ball, names, similarity="poincare", c=c,
+                             quantized=True).search(qb, k=10)
+    torch.cuda.synchronize()
+    assert topk_kernel.bucket_topk_poincare.launches == n0 + 1
+    dist = index_mod.poincare_dist_f64(qb, ball.expand(16, -1, -1), c)
+    want = torch.sort(dist, dim=1, stable=True).indices[:, :10]
+    assert np.array_equal(got, want.cpu().numpy())
+
+
+def test_mobius_dense_layer_at_2048_columns_and_no_rows(cuda):
+    """hidden_dims=[2048] (which both CLIs accept): the first layer runs
+    row 18 over two column groups, as close to the plain chain as at any
+    width; an empty batch launches nothing and returns [0, 2048]."""
+    from patent_tpu_torch.models.hyperbolic import MobiusDense
+    gen = torch.Generator().manual_seed(5)
+    layer = MobiusDense(64, 2048, c=2.0, hyperbolic_input=False,
+                        generator=gen).to(cuda)
+    x = 0.02 * torch.randn(37, 64, generator=gen).to(cuda)
+    n18 = pk.mobius_dense_pallas.launches
+    with torch.no_grad():
+        got = layer(x)
+        empty = layer(x[:0])
+        want = pk.mobius_dense_pallas_plain(x, layer.kernel, layer.hyp_bias,
+                                            2.0)
+    torch.cuda.synchronize()
+    assert pk.mobius_dense_pallas.launches == n18 + 1
+    assert got.shape == (37, 2048) and empty.shape == (0, 2048)
+    assert _max_rel(got, want) <= HYP_REL_TOL
+
+
+def test_vit_b16_towers_launch_their_kernels(cuda):
+    """At ViT-B/16's shapes every attention entry launches its kernel:
+    the counts of each tower are those of its layers."""
+    from patent_tpu_torch.models.vit import VIT_B16
+    tower = VisionTransformer(VIT_B16, generator=torch.Generator()
+                              .manual_seed(0)).to(cuda).eval()
+    tower8 = Int8VisionTransformer.from_float(tower).eval()
+    flash = VisionTransformer(VIT_B16, fused_layer=False, use_flash=True)
+    flash.load_state_dict(tower.state_dict())
+    flash = flash.to(cuda).eval()
+    entries = (bf16_layer.fused_layer_block_bf16,
+               bf16_layer.fused_layer_cls_bf16, qm.quant_attention_block,
+               qm.quant_attention_cls, qm.quant_layer_block,
+               fa.flash_attention, fa.fused_attention_fwd,
+               fa.fused_attention_bwd)
+    for e in entries:
+        e.launches = 0
+    pix = torch.randn(4, 224, 224, 3, device=cuda)
+    with torch.inference_mode():
+        tower(pix[:2])
+        tower8(pix)
+        tower8(pix[:3])
+        flash(pix[:2])
+    torch.cuda.synchronize()
+    assert [e.launches for e in entries] == [11, 1, 11, 2, 11, 12, 0, 0]
