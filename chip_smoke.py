@@ -26,11 +26,15 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    most keys pad, with their controls (no key mask, a bias zeroed, no
    clamp gate where scores pass +80, the LayerNorm's term of dx dropped,
    the ragged last rows or the last chunk's rows dropped; row 16 on the
-   25,216 rows in one chunk, its weight gradients split over the rows);
+   25,216 rows in one chunk, its weight gradients split over the rows;
+   row 15 also at 64 and 77 rows and at the CLIs' small tower's D 64,
+   F 128);
    the hyperbolic
    kernels at the Poincaré path's shapes: the Möbius dense layer at
    [512, 512] x [512, 256] (control: no bias), the pairwise distance at
-   [256, 128] x [16,059, 128] (control: c off by 1%), the Poincaré bucket
+   [256, 128] x [16,059, 128] (control: c off by 1%), there at n 1 and at
+   d 5 (rows not 16-byte aligned), and on points at radius 0.999/sqrt(c)
+   held to the f64 distance, the Poincaré bucket
    stage at 1M x 128, Q=256, pool 80, equal to its plain version (control:
    no b term); the whole int8 layer at B=1 and 3 (one cooperative launch)
    and 127 (a chain of launches) and its group dispatch at
@@ -104,8 +108,9 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    the cooperative launch), the rows 5 + 7 kernels and the plain version,
    the int8 GEMM's five instances beside torch._int_mm of the same int8
    product (a yardstick),
-   rows 13 and 16 at a training step's shapes, their device time by
-   kernel and the launches the trace saw,
+   rows 13, 15 and 16 at a training step's shapes and row 17 at the
+   label evaluation's, their device time by kernel and the launches the
+   trace saw,
    cosine top-k QPS at 1M x 512, Q=256, k=10 through the bf16 kernel
    path, the quantized path and the f32 scan, every kernel against its
    plain version at the main path's shapes, and one fine-tune step at 64
@@ -877,6 +882,27 @@ def check_train_attention(torch, fa, x, p, heads, valid, gen,
     return e12, e13
 
 
+def check_mlp_fwd(torch, mm, x2, p) -> float:
+    """Hold row 15 to its plain version on x2 [M, D] with the MLP
+    parameters p[6:12], each bias zeroed as a control that must fail the
+    same gate.  Returns the max-abs error."""
+    m, d = x2.shape
+    args = list(p[6:12])
+
+    def with_zero(i):
+        q = list(args)
+        q[i] = torch.zeros_like(q[i])
+        return q
+
+    plain = mm.fused_mlp_block_bf16_plain
+    return gate(torch, f"fused_mlp_fwd M {m}, D {d}, F {args[2].shape[1]}",
+                mm.fused_mlp_fwd(x2, *args), plain(x2, *args),
+                {"ln2_bias=0": plain(x2, *with_zero(1)),
+                 "b1=0": plain(x2, *with_zero(3)),
+                 "b2=0": plain(x2, *with_zero(5))},
+                TRAIN_FWD_REL_TOL, TRAIN_FWD_MAX_ULPS)
+
+
 def check_train_mlp(torch, mm, x2, p, gen) -> tuple[float, float]:
     """Hold rows 15 and 16 to their plain versions on x2 [M, D] (the
     unpadded rows of a token stream), with controls that must fail the
@@ -894,13 +920,7 @@ def check_train_mlp(torch, mm, x2, p, gen) -> tuple[float, float]:
         q[i] = torch.zeros_like(q[i])
         return q
 
-    plain = mm.fused_mlp_block_bf16_plain
-    e15 = gate(torch, f"fused_mlp_fwd M {m}", mm.fused_mlp_fwd(x2, *args),
-               plain(x2, *args),
-               {"ln2_bias=0": plain(x2, *with_zero(1)),
-                "b1=0": plain(x2, *with_zero(3)),
-                "b2=0": plain(x2, *with_zero(5))},
-               TRAIN_FWD_REL_TOL, TRAIN_FWD_MAX_ULPS)
+    e15 = check_mlp_fwd(torch, mm, x2, p)
     do2 = torch.randn(x2.shape, generator=gen, device=x2.device).to(
         torch.bfloat16)
     got = mm.fused_mlp_bwd(x2, do2, *args[:5])
@@ -1159,12 +1179,62 @@ def hyp_gate(torch, kname, tag, got, ref, controls: dict) -> float:
     return float((got - ref).abs().max())
 
 
-def ball_points(torch, n, d, c, gen, dev, r_hi=0.95):
-    """n points of the ball of curvature c: uniform directions, radii up
-    to r_hi of its radius."""
+def ball_points(torch, n, d, c, gen, dev, r_hi=0.95, r_lo=0.05):
+    """n points of the ball of curvature c: uniform directions, radii
+    from r_lo to r_hi of its radius."""
     v = torch.randn(n, d, generator=gen, device=dev)
-    r = 0.05 + (r_hi - 0.05) * torch.rand(n, 1, generator=gen, device=dev)
+    r = r_lo + (r_hi - r_lo) * torch.rand(n, 1, generator=gen, device=dev)
     return (v / v.norm(dim=-1, keepdim=True) * r / math.sqrt(c)).contiguous()
+
+
+def pairwise_dist_f64(x, y, c: float):
+    """Row 17's function in float64 on the same float32 points: the
+    exact distance that the kernel and its plain version both round."""
+    x, y = x.double(), y.double()
+    x2 = (x * x).sum(1, keepdim=True)
+    y2 = (y * y).sum(1, keepdim=True)
+    sq = (x2 - 2.0 * (x @ y.T) + y2.T).clamp_min(0.0)
+    gamma = (1.0 + 2.0 * c * sq / ((1.0 - c * x2).clamp_min(1e-15)
+                                  * (1.0 - c * y2.T).clamp_min(1e-15))
+             ).clamp_min(1.0 + 1e-7)
+    return (gamma + (gamma * gamma - 1.0).sqrt()).log() / math.sqrt(c)
+
+
+# Row 17 near the boundary (radius 0.999/sqrt(c)): 1 - c|x|^2 is ~2e-3
+# there, so an ulp of |x|^2 moves the distance by ~1e-5 of its largest
+# value, and any two f32 sums of the squares (the plain version's and the
+# kernel's) differ by more than HYP_REL_TOL.  The gate there is the exact
+# f64 distance of the same points: the kernel's max rel error against it
+# within NEAR_BOUNDARY_FACTOR times the plain version's own.
+NEAR_BOUNDARY_FACTOR = 2.0
+
+
+def check_pairwise_near_boundary(torch, pk, x, y, c: float) -> float:
+    """Hold row 17 on near-boundary points to the f64 distance of the
+    same points, within NEAR_BOUNDARY_FACTOR times the plain version's
+    error, with c off by 1% as the control.  Returns the max-abs error
+    against the plain version."""
+    got = pk.pairwise_dist_pallas(x, y, c)
+    ref = pk.pairwise_dist_pallas_plain(x, y, c)
+    exact = pairwise_dist_f64(x, y, c)
+    control = pk.pairwise_dist_pallas_plain(x, y, 1.01 * c)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "pairwise_dist_pallas near the "
+          "boundary: non-finite")
+    e_got, e_ref = max_rel(got.double(), exact), max_rel(ref.double(), exact)
+    e_ctl = max_rel(control.double(), exact)
+    tol = NEAR_BOUNDARY_FACTOR * e_ref
+    print(f"[kernel] pairwise_dist_pallas [{x.shape[0]}, {x.shape[1]}] x "
+          f"[{y.shape[0]}, {y.shape[1]}], radius 0.999/sqrt(c): max rel err "
+          f"vs the f64 distance {e_got:.3g} (plain version {e_ref:.3g}; gate "
+          f"{tol:.3g}); vs plain {max_rel(got, ref):.3g}; control (must "
+          f"fail): c x 1.01 {e_ctl:.3g}")
+    check(e_got <= tol, "pairwise_dist_pallas near the boundary is farther "
+          f"from the f64 distance than {NEAR_BOUNDARY_FACTOR}x the plain "
+          "version")
+    check(e_ctl > tol, "pairwise_dist_pallas near the boundary: control "
+          "'c x 1.01' passes the gate")
+    return float((got - ref).abs().max())
 
 
 def hyperbolic_bounds(n_enc, k_in, d_hid, n_fig, n_pat, d_emb, nq, n_gal,
@@ -1250,6 +1320,25 @@ def hyperbolic_kernel_checks(torch, dev, errs: dict, z: dict) -> dict:
         pk.pairwise_dist_pallas(x17, y17, c),
         pk.pairwise_dist_pallas_plain(x17, y17, c),
         {"c x 1.01": pk.pairwise_dist_pallas_plain(x17, y17, 1.01 * c)})
+    # the last evaluation batch can hold one figure; rows of 5 floats are
+    # not 16-byte aligned (the kernel's 4-byte copies)
+    x5 = ball_points(torch, z["n_fig"], 5, c, gen, dev)
+    y5 = ball_points(torch, z["patents"], 5, c, gen, dev)
+    for tag, xs, ys in (("n 1", x17[:1], y17), ("d 5", x5, y5)):
+        errs["pairwise_dist_pallas"] = max(
+            errs["pairwise_dist_pallas"],
+            hyp_gate(torch, "pairwise_dist_pallas",
+                     f"[{xs.shape[0]}, {xs.shape[1]}] x [{ys.shape[0]}, "
+                     f"{ys.shape[1]}], {tag}", pk.pairwise_dist_pallas(
+                         xs, ys, c), pk.pairwise_dist_pallas_plain(xs, ys, c),
+                     {"c x 1.01": pk.pairwise_dist_pallas_plain(
+                         xs, ys, 1.01 * c)}))
+    errs["pairwise_dist_pallas"] = max(
+        errs["pairwise_dist_pallas"], check_pairwise_near_boundary(
+            torch, pk, ball_points(torch, z["n_fig"], d_emb, c, gen, dev,
+                                   0.999, 0.999),
+            ball_points(torch, z["patents"], d_emb, c, gen, dev, 0.999,
+                        0.999), c))
     nq = z["nq"]
     gal = ball_points(torch, z["n_gal"], d_emb, c, gen, dev)
     hq = torch.cat([gal[:nq // 2] * 0.999,
@@ -1478,6 +1567,14 @@ def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
     times["pairwise_dist_pallas"] = in_turns(
         torch, lambda: pk.pairwise_dist_pallas_plain(x17, y17, c),
         lambda: pk.pairwise_dist_pallas(x17, y17, c))
+    dev17 = launch_times(torch, lambda: pk.pairwise_dist_pallas(x17, y17, c),
+                         100)
+    print(f"[time] row 17 (pairwise_dist_pallas) at [{z['n_fig']}, "
+          f"{z['d_emb']}] x [{z['patents']}, {z['d_emb']}]: "
+          f"{times['pairwise_dist_pallas'][1]:.4f} ms a call (wall); device "
+          "time a launch (torch.profiler, 100 calls) "
+          + ", ".join(f"{ms:.4f} ms ({n} launches seen) {kname[:40]}"
+                      for kname, ms, n in dev17) + f" {label}")
     times["bucket_topk_poincare"] = in_turns(
         torch, lambda: topk_kernel.bucket_topk_poincare_plain(hq, pgal, pool),
         lambda: topk_kernel.bucket_topk_poincare(hq, pgal, pool))
@@ -1631,9 +1728,18 @@ def main() -> None:
                                     saturate=True)
     errs["fused_attention_bwd"] = max(errs["fused_attention_bwd"], e13)
     x = layer_input(torch, bt, s, d, valid, fgen, dev)
+    x2 = x[:, :valid].reshape(-1, d).contiguous()
     errs["fused_mlp_fwd"], errs["fused_mlp_bwd"] = check_train_mlp(
-        torch, mm, x[:, :valid].reshape(-1, d).contiguous(), p, fgen)
-    del x
+        torch, mm, x2, p, fgen)
+    # row 15 at ragged row counts and at the CLIs' small tower's widths
+    # (D 64, F 128: three images of 65 tokens), on a generator of its own
+    mgen = torch.Generator(device=dev).manual_seed(15)
+    small = (layer_input(torch, 3, 65, 64, 65, mgen, dev).reshape(-1, 64),
+             layer_params(torch, 64, 128, mgen, dev))
+    for xm, pm in ((x2[:64], p), (x2[:77], p), small):
+        errs["fused_mlp_fwd"] = max(errs["fused_mlp_fwd"],
+                                    check_mlp_fwd(torch, mm, xm, pm))
+    del x, x2, small
 
     # row 14, the use_flash tower's attention, on a generator of its own:
     # the per-op stream's unpadded 197 tokens, 64 tokens, and scores past
@@ -2420,11 +2526,12 @@ def main() -> None:
              (x2, do2, *p[6:11]))):
         times[kname] = in_turns(torch, lambda: plain(*args),
                                 lambda: kernel(*args))
-    # the redesigned backward kernels: device time by kernel a call, and
-    # the launches the trace saw (30 calls)
+    # the redesigned kernels: device time by kernel a call, and the
+    # launches the trace saw (30 calls)
     for kname, kernel, args in (
             ("fused_attention_bwd", fa.fused_attention_bwd,
              (xb, wqkv_f, bqkv_f, da, heads, valid)),
+            ("fused_mlp_fwd", mm.fused_mlp_fwd, (x2, *p[6:12])),
             ("fused_mlp_bwd", mm.fused_mlp_bwd, (x2, do2, *p[6:11]))):
         rows_k = sorted(launch_times(torch, lambda: kernel(*args)),
                         key=lambda row: -row[1] * row[2])

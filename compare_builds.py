@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Compare two checkouts of patent_tpu_torch on one CUDA card: the bits and
 the times of the int8 MLP sub-layer (row 7), the Möbius dense layer (row
-18), the int8 ViT-B/16 tower, the fine-tune's backward kernels (rows 16
-and 13) and its training step.
+18), the pairwise distance (row 17), the bf16 and int8 ViT-B/16 towers,
+the fine-tune's MLP block forward and backward (rows 15 and 16) and
+attention backward (row 13), and its training step.
 
     python3 compare_builds.py run ROOT OUT.pt
     python3 compare_builds.py compare A.pt B.pt [C.pt ...]
@@ -16,14 +17,16 @@ CUDA events, 20 calls after 3 of warm-up) of:
   768]) and on the CLS rows of batches of 4 and 1 ([4, 768], [1, 768]);
 * row 18, ``mobius_dense_pallas``, at the hyperbolic encoder's [512, 512] x
   [512, 256] (c = 2), on unit features and on features x 0.02; row 17,
-  ``pairwise_dist_pallas``, at [256, 128] x [16,059, 128] (the same
-  source file, unchanged); the hyperbolic encoder (512 -> 256 -> 128, row
-  18 its first layer) over 20 batches of 512 rows, with its device busy
-  share (torch.profiler);
-* the int8 tower (seeded ViT-B/16 weights) at B 128 (rows 5 + 7), 127, 3
-  and 1 (row 8, then rows 6 + 7 on the CLS rows);
-* row 16, ``fused_mlp_bwd``, on the 128 x 197 unpadded rows of a
-  fine-tune step at 64 pairs (M 25,216, D 768, F 3072), and row 13,
+  ``pairwise_dist_pallas``, at [256, 128] x [16,059, 128], with its
+  device time; the hyperbolic encoder (512 -> 256 -> 128, row 18 its
+  first layer) over 20 batches of 512 rows, with its device busy share
+  (torch.profiler);
+* the bf16 fused-layer tower (seeded ViT-B/16 weights) at B 128 (rows 1
+  and 2), then the int8 tower from the same weights at B 128 (rows 5 +
+  7), 127, 3 and 1 (row 8, then rows 6 + 7 on the CLS rows);
+* rows 15 and 16, ``fused_mlp_fwd`` and ``fused_mlp_bwd``, on the 128 x
+  197 unpadded rows of a fine-tune step at 64 pairs (M 25,216, D 768, F
+  3072), and row 13,
   ``fused_attention_bwd``, on its padded stream [128, 208, 768] (12
   heads, 197 valid keys), each output apart, with the device time a call
   (torch.profiler, the sum over kernels);
@@ -117,9 +120,11 @@ def run(root: str, out_path: str) -> None:
     x17, y17 = (v / v.norm(dim=-1, keepdim=True) * 0.95 / c ** 0.5
                 * torch.rand(v.shape[0], 1, generator=gen, device=dev)
                 for v in (x17, y17))
-    outs["row 17"] = pk.pairwise_dist_pallas(x17, y17, c)
-    times["row 17"] = cuda_ms(torch,
-                              lambda: pk.pairwise_dist_pallas(x17, y17, c))
+    name = "row 17"
+    outs[name] = pk.pairwise_dist_pallas(x17, y17, c)
+    times[name] = cuda_ms(torch, lambda: pk.pairwise_dist_pallas(x17, y17, c))
+    device = {name: sum(ms for _k, ms in kernel_breakdown(
+        torch, lambda: pk.pairwise_dist_pallas(x17, y17, c), 30))}
     model = HyperbolicEmbeddingModel(
         feature_dim=k, embed_dim=128, hidden_dims=(dh,), c=c,
         generator=torch.Generator().manual_seed(2018)).to(dev).eval()
@@ -137,9 +142,17 @@ def run(root: str, out_path: str) -> None:
 
     tower = VisionTransformer(VIT_B16, generator=torch.Generator()
                               .manual_seed(2018)).to(dev).eval()
+    pix = randn(bt, 224, 224, 3)
+    name = f"bf16 tower, B {bt}"
+
+    def bf16_tower():
+        with torch.inference_mode():
+            return tower(pix)
+
+    outs[name] = bf16_tower()
+    times[name] = cuda_ms(torch, bf16_tower)
     tower8 = Int8VisionTransformer.from_float(tower).eval()
     del tower
-    pix = randn(bt, 224, 224, 3)
     for b in (bt, bt - 1, 3, 1):
         name = f"int8 tower, B {b}"
 
@@ -150,7 +163,7 @@ def run(root: str, out_path: str) -> None:
         outs[name] = tower_at()
         times[name] = cuda_ms(torch, tower_at)
     del tower8, pix
-    device = fine_tune(torch, dev, randn, outs, times)
+    device.update(fine_tune(torch, dev, randn, outs, times))
     torch.cuda.synchronize()
     torch.save({"root": os.path.abspath(root), "card": smi,
                 "outputs": {key: v.cpu() for key, v in outs.items()},
@@ -160,7 +173,7 @@ def run(root: str, out_path: str) -> None:
 
 
 def fine_tune(torch, dev, randn, outs: dict, times: dict) -> dict:
-    """Rows 16 and 13 at a fine-tune step's shapes, then the step: their
+    """Rows 15, 16 and 13 at a fine-tune step's shapes, then the step: their
     outputs and wall times into ``outs`` and ``times``; returns the device
     time a call of each (torch.profiler)."""
     import math
@@ -182,6 +195,12 @@ def fine_tune(torch, dev, randn, outs: dict, times: dict) -> dict:
     mlp = (1 + randn(d, std=0.1), randn(d, std=0.1),
            randn(d, f, std=d ** -0.5).to(bf), randn(f, std=0.02),
            randn(f, d, std=f ** -0.5).to(bf))
+    b2 = randn(d, std=0.02)
+    name = "row 15, M 25,216"
+    outs[name] = mm.fused_mlp_fwd(x2, *mlp, b2)
+    times[name] = cuda_ms(torch, lambda: mm.fused_mlp_fwd(x2, *mlp, b2))
+    device[name] = sum(ms for _k, ms in kernel_breakdown(
+        torch, lambda: mm.fused_mlp_fwd(x2, *mlp, b2)))
     names = ("dx", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2")
     for key, v in zip(names, mm.fused_mlp_bwd(x2, do2, *mlp)):
         outs[f"row 16, {key}"] = v

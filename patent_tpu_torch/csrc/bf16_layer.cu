@@ -39,11 +39,11 @@
 
 #include "common.cuh"
 #include "flash_tile.cuh"
-#include "gemm.cuh"
+#include "layernorm.cuh"
 #include "wgmma_gemm.cuh"
 
 using ptt::bf16;
-using ptt_gemm::layernorm;
+using ptt::layernorm;
 namespace wg = ptt_wgmma;
 
 extern "C" {

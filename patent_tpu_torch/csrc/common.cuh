@@ -13,6 +13,13 @@
     if (err_ != 0) return err_;    \
   } while (0)
 
+// return the error of the last launch, if any, to the caller
+#define PTT_CHECK()                              \
+  do {                                           \
+    cudaError_t e_ = cudaGetLastError();         \
+    if (e_ != cudaSuccess) return (int)e_;       \
+  } while (0)
+
 namespace ptt {
 
 typedef __nv_bfloat16 bf16;

@@ -14,12 +14,25 @@
 // asks for full precision.  What bounds it on the H100: at the label
 // evaluation's n 256 x m 16,059 x d 128 the product is 1.05 GFLOP, 16 us
 // at the 67 TFLOP/s of FP32 outside the tensor cores, against 25 MB of
-// traffic (7 us), so operations.  Design: a block owns a 64 x 64 output
-// tile, 256 threads of 4 x 4 outputs each; the K loop stages 16-wide
-// slices of both operands in shared memory (transposed, so a thread reads
-// its four rows and four columns as two float4 loads); the squared row
-// norms come from a one-warp-per-row pre-pass; the tail is elementwise in
-// registers and the [n, m] result is written once.
+// traffic (7 us), so operations.  Design (Hopper), one launch a call:
+//   * a block of 256 threads owns a 128 x 128 output tile, a thread 8 x 8
+//     outputs (rows ty + 16i, columns tx + 16j), so that each float4 read
+//     from shared memory feeds 32 FMAs; at n 256 the grid is 2 x 126
+//     blocks, two blocks an SM: one wave on 132 SMs;
+//   * the K loop streams 32-deep slices of both operands through a
+//     double-buffered cp.async ring (16-byte copies where d % 4 == 0 and
+//     the operands are 16-byte aligned, else 4-byte ones), rows kept
+//     K-contiguous with a 4-float pad, so the float4 reads of a quarter
+//     warp fall in distinct banks;
+//   * each block sums the squares of its own 128 x rows and 128 y rows as
+//     their slices pass (a thread a row; a slice's 32 squares in a
+//     pairwise tree, the slices in order), so every block that holds a
+//     row gets the same bits and no pre-pass or norm buffer is needed;
+//   * the tail is elementwise in registers, and the [n, m] result is
+//     written once.
+// The elementwise steps use __f*_rn intrinsics in the plain version's
+// operation order, so no product is contracted into an FMA behind its
+// back.
 //
 // Row 18, ptt_mobius_dense, replaces
 // patent_tpu/ops/pallas_kernels.py::_mobius_dense_kernel (via
@@ -61,79 +74,133 @@ constexpr float MIN_NORM_SQ = 1e-30f;
 
 // ------------------------------------------------------------ row 17
 
-constexpr int PD_T = 64;        // rows of x and of y per tile
-constexpr int PD_K = 16;        // depth of a shared-memory slice
-constexpr int PD_LD = PD_T + 4; // keeps float4 rows 16-byte aligned
+constexpr int PD_BM = 128;        // x rows (output rows) a block
+constexpr int PD_BN = 128;        // y rows (output columns) a block
+constexpr int PD_BK = 32;         // depth of a K-slice
+constexpr int PD_LD = PD_BK + 4;  // a row's floats in shared memory
+constexpr int PD_THREADS = 256;   // 16 x 16 threads of 8 x 8 outputs
+constexpr int PD_STAGE = (PD_BM + PD_BN) * PD_LD;   // floats a stage
+constexpr size_t PD_SMEM = 2 * PD_STAGE * sizeof(float);
+static_assert(PD_BM + PD_BN == PD_THREADS, "a thread a row for the norms");
 
-// out[r] = sum_k x[r, k]^2, one warp per row
-__global__ void row_sq_norms(const float* __restrict__ x, int n, int d,
-                             float* __restrict__ out) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= n) return;
-  float s = 0.0f;
-  for (int k = lane; k < d; k += 32) {
-    const float v = x[(size_t)row * d + k];
-    s = fmaf(v, v, s);
+// the sum of the squares of row[0 .. PD_BK - 1] (16-byte aligned, in
+// shared memory): squares rounded, then a pairwise tree
+__device__ __forceinline__ float slice_sq_sum(const float* row) {
+  float v[PD_BK];
+#pragma unroll
+  for (int k = 0; k < PD_BK; k += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(row + k);
+    v[k] = __fmul_rn(q.x, q.x);
+    v[k + 1] = __fmul_rn(q.y, q.y);
+    v[k + 2] = __fmul_rn(q.z, q.z);
+    v[k + 3] = __fmul_rn(q.w, q.w);
   }
-  s = ptt::warp_sum(s);
-  if (lane == 0) out[row] = s;
+#pragma unroll
+  for (int w = 1; w < PD_BK; w *= 2)
+#pragma unroll
+    for (int k = 0; k < PD_BK; k += 2 * w) v[k] = __fadd_rn(v[k], v[k + w]);
+  return v[0];
 }
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(PD_THREADS, 2)
     pairwise_dist_kernel(const float* __restrict__ x,
-                         const float* __restrict__ y,
-                         const float* __restrict__ x2,
-                         const float* __restrict__ y2, int n, int m, int d,
-                         float c, float two_c, float sqrt_c,
+                         const float* __restrict__ y, int n, int m, int d,
+                         int vec, float c, float two_c, float sqrt_c,
                          float* __restrict__ out) {
-  __shared__ __align__(16) float Xs[PD_K][PD_LD];
-  __shared__ __align__(16) float Ys[PD_K][PD_LD];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = blockIdx.y * PD_T, c0 = blockIdx.x * PD_T;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  extern __shared__ __align__(16) float pd_smem[];
+  __shared__ float x2s[PD_BM], y2s[PD_BN];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int r0 = blockIdx.y * PD_BM, c0 = blockIdx.x * PD_BN;
 
-  for (int k0 = 0; k0 < d; k0 += PD_K) {
-    for (int e = threadIdx.x; e < PD_T * PD_K; e += blockDim.x) {
-      const int r = e / PD_K, kk = e % PD_K, k = k0 + kk;
-      const int xr = r0 + r, yr = c0 + r;
-      Xs[kk][r] = (xr < n && k < d) ? x[(size_t)xr * d + k] : 0.0f;
-      Ys[kk][r] = (yr < m && k < d) ? y[(size_t)yr * d + k] : 0.0f;
+  // a stage holds the x slice's PD_BM rows, then the y slice's PD_BN
+  auto load = [&](int kt, int stage) {
+    float* st = pd_smem + stage * PD_STAGE;
+    const int k0 = kt * PD_BK;
+    if (vec) {
+#pragma unroll
+      for (int e = tid; e < (PD_BM + PD_BN) * PD_BK / 4; e += PD_THREADS) {
+        const int r = e / (PD_BK / 4), kk = e % (PD_BK / 4) * 4;
+        const bool is_x = r < PD_BM;
+        const int gr = is_x ? r0 + r : c0 + r - PD_BM;
+        const bool ok = gr < (is_x ? n : m) && k0 + kk < d;
+        const float* src = is_x ? x : y;
+        ptt::cp_async16(&st[r * PD_LD + kk],
+                        ok ? src + (size_t)gr * d + k0 + kk : src, ok);
+      }
+    } else {
+      for (int e = tid; e < (PD_BM + PD_BN) * PD_BK; e += PD_THREADS) {
+        const int r = e / PD_BK, kk = e % PD_BK;
+        const bool is_x = r < PD_BM;
+        const int gr = is_x ? r0 + r : c0 + r - PD_BM;
+        const bool ok = gr < (is_x ? n : m) && k0 + kk < d;
+        const float* src = is_x ? x : y;
+        ptt::cp_async4(&st[r * PD_LD + kk],
+                       ok ? src + (size_t)gr * d + k0 + kk : src, ok);
+      }
     }
-    __syncthreads();
+  };
+
+  float acc[8][8];
 #pragma unroll
-    for (int kk = 0; kk < PD_K; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&Xs[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Ys[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  float sq = 0.0f;   // thread t's row: x row t (t < PD_BM), else y row
+
+  const int kts = (d + PD_BK - 1) / PD_BK;
+  if (kts > 0) load(0, 0);
+  ptt::cp_async_commit();
+  for (int kt = 0; kt < kts; ++kt) {
+    if (kt + 1 < kts) load(kt + 1, (kt + 1) & 1);
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<1>();
+    __syncthreads();                 // slice kt is in
+    const float* Xs = pd_smem + (kt & 1) * PD_STAGE;
+    const float* Ys = Xs + PD_BM * PD_LD;
+    sq = __fadd_rn(sq, slice_sq_sum(Xs + tid * PD_LD));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int k = 0; k < PD_BK; k += 4) {
+      float4 yv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        yv[j] = *reinterpret_cast<const float4*>(
+            &Ys[(tx + 16 * j) * PD_LD + k]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 xv = *reinterpret_cast<const float4*>(
+            &Xs[(ty + 16 * i) * PD_LD + k]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(xv.x, yv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(xv.y, yv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(xv.z, yv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(xv.w, yv[j].w, acc[i][j]);
+        }
+      }
     }
-    __syncthreads();
+    __syncthreads();                 // the stage is free for slice kt + 2
   }
+  if (tid < PD_BM)
+    x2s[tid] = sq;
+  else
+    y2s[tid - PD_BM] = sq;
+  __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + ty + 16 * i;
     if (row >= n) continue;
-    const float xs = x2[row];
+    const float xs = x2s[ty + 16 * i];
     const float alpha = fmaxf(__fsub_rn(1.0f, __fmul_rn(c, xs)), MIN_NORM);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx * 4 + j;
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + tx + 16 * j;
       if (col >= m) continue;
-      const float ys = y2[col];
+      const float ys = y2s[tx + 16 * j];
       const float beta = fmaxf(__fsub_rn(1.0f, __fmul_rn(c, ys)), MIN_NORM);
-      const float sq = fmaxf(
+      const float sqd = fmaxf(
           __fadd_rn(__fsub_rn(xs, __fmul_rn(2.0f, acc[i][j])), ys), 0.0f);
-      float g = __fadd_rn(1.0f, __fdiv_rn(__fmul_rn(two_c, sq),
+      float g = __fadd_rn(1.0f, __fdiv_rn(__fmul_rn(two_c, sqd),
                                           __fmul_rn(alpha, beta)));
       g = fmaxf(g, 1.0f + 1e-7f);
       const float t = __fsqrt_rn(__fsub_rn(__fmul_rn(g, g), 1.0f));
@@ -473,22 +540,27 @@ int launch_mobius_dense(const float* x, const float* w, const float* bias,
 
 extern "C" {
 
-// x [n, d], y [m, d] f32 -> out [n, m] f32; scratch x2 [n], y2 [m].
+// x [n, d], y [m, d] f32 -> out [n, m] f32, n, m >= 1, one launch.
 // two_c = f32(2 c), sqrt_c = f32(sqrt(c)), both computed by the caller.
 int ptt_pairwise_dist(const void* x, const void* y, int n, int m, int d,
-                      float c, float two_c, float sqrt_c, void* x2, void* y2,
-                      void* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  row_sq_norms<<<(n * 32 + 255) / 256, 256, 0, st>>>((const float*)x, n, d,
-                                                     (float*)x2);
-  row_sq_norms<<<(m * 32 + 255) / 256, 256, 0, st>>>((const float*)y, m, d,
-                                                     (float*)y2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((m + PD_T - 1) / PD_T, (n + PD_T - 1) / PD_T);
-  pairwise_dist_kernel<<<grid, 256, 0, st>>>(
-      (const float*)x, (const float*)y, (const float*)x2, (const float*)y2, n,
-      m, d, c, two_c, sqrt_c, (float*)out);
+                      float c, float two_c, float sqrt_c, void* out,
+                      void* stream) {
+  if (n < 1 || m < 1 || d < 0) return (int)cudaErrorInvalidValue;
+  static bool ready[ptt::MAX_DEVICES] = {};   // the attribute, once a device
+  int dev = 0;
+  PTT_TRY(ptt::current_device(&dev));
+  if (!ready[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pairwise_dist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)PD_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    ready[dev] = true;
+  }
+  const int vec = d % 4 == 0 && ((uintptr_t)x | (uintptr_t)y) % 16 == 0;
+  dim3 grid((m + PD_BN - 1) / PD_BN, (n + PD_BM - 1) / PD_BM);
+  pairwise_dist_kernel<<<grid, PD_THREADS, PD_SMEM, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)y, n, m, d, vec, c, two_c, sqrt_c,
+      (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -19,13 +19,16 @@
 // What bounds it on the H100: at 64 pairs (M = 128 x 197 = 25,216 rows,
 // D = 768, F = 3072) the forward is 238 GFLOP and the backward 595 GFLOP
 // of tensor-core work against well under 1 GB of traffic: both are bound
-// by the tensor cores.  Design:
-//   * the forward is the MLP half of the serving layer's first port: the
-//     shared LayerNorm, then csrc/gemm.cuh's GEMM with +bias and the exp2
-//     quick_gelu, then with +bias and the bf16 residual;
-//   * the backward runs its five products on csrc/wgmma_gemm.cuh (TMA and
-//     wgmma, 128 x 256 tiles, a persistent block an SM): the recompute
-//     g = h W1 + b1 (W1^T made by the caller, [F, D]) writes the f32 g and
+// by the tensor cores.  Design: every product runs on csrc/wgmma_gemm.cuh
+// (TMA and wgmma, 128 x 256 tiles, a persistent block an SM, the
+// epilogue on the accumulator registers), which takes B as its transpose
+// [N, K]: the caller passes W1^T [F, D] and W2^T [D, F] where a product
+// needs them.
+//   * the forward: the shared LayerNorm (csrc/layernorm.cuh), then
+//     g = h W1 + b1 with the exp2 quick_gelu in its epilogue (the backward
+//     recompute's epilogue without the f32 g: the same bits of a), then
+//     a W2 + b2 with the bf16 residual added as x + (a W2 + b2);
+//   * the backward's recompute g = h W1 + b1 writes the f32 g and
 //     a = bf16(quick_gelu(g)) from its accumulators; da = do W2^T runs
 //     dgelu in its epilogue, reading g, writing bf16(dg) and each warp's
 //     16-row column sums of dg (db1's partials); dh = bf16(dg) W1^T stores
@@ -38,18 +41,17 @@
 //   * every partial is added in a fixed order (split, slab, block), so two
 //     runs give the same bits, with no atomics; the three kinds of
 //     partials are never live at once and share one buffer;
-//   * the rows go in chunks (the caller's, up to 32,768: the fine-tune's
-//     25,216 rows are one), the f32 g of a chunk in device memory (310 MB
-//     at the fine-tune's shape).
+//   * the backward's rows go in chunks (the caller's, up to 32,768: the
+//     fine-tune's 25,216 rows are one), the f32 g of a chunk in device
+//     memory (310 MB at the fine-tune's shape).
 
 #include <initializer_list>
 
 #include "common.cuh"
-#include "gemm.cuh"
+#include "layernorm.cuh"
 #include "wgmma_gemm.cuh"
 
 using ptt::bf16;
-using ptt_gemm::gemm;
 
 namespace {
 
@@ -188,28 +190,30 @@ __global__ void __launch_bounds__(LN_WARPS * 32)
 
 extern "C" {
 
-// x [M, D] bf16 -> out [M, D] bf16.  w1 [D, F], w2 [F, D] bf16; lns, lnb,
-// b2 [D], b1 [F] f32.  Scratch: h [M, D] bf16, a [M, F] bf16.
+// x [M, D] bf16 -> out [M, D] bf16.  w1t = W1^T [F, D], w2t = W2^T
+// [D, F] bf16; lns, lnb, b2 [D], b1 [F] f32.  Scratch: h [M, D] bf16,
+// a [M, F] bf16.
 int ptt_mlp_fwd(const void* x, void* out, int M, int D, int F,
-                const void* lns, const void* lnb, const void* w1,
-                const void* b1, const void* w2, const void* b2, void* h,
+                const void* lns, const void* lnb, const void* w1t,
+                const void* b1, const void* w2t, const void* b2, void* h,
                 void* a, void* stream) {
+  namespace wg = ptt_wgmma;
   cudaStream_t st = (cudaStream_t)stream;
   const bf16* xb = (const bf16*)x;
   bf16* hb = (bf16*)h;
   bf16* ab = (bf16*)a;
   const float* nores = nullptr;
-  ptt_gemm::layernorm<bf16>(xb, D, (const float*)lns, (const float*)lnb, hb,
-                            M, D, st);
+  ptt::layernorm<bf16>(xb, D, (const float*)lns, (const float*)lnb, hb, M, D,
+                       st);
   PTT_CHECK();
-  gemm<ptt_gemm::EPI_BIAS_GELU2, float, bf16>(hb, D, (const bf16*)w1, F,
-                                              (const float*)b1, nores, 0, ab,
-                                              F, M, F, D, st);
-  PTT_CHECK();
-  gemm<ptt_gemm::EPI_BIAS_RES, bf16, bf16>(ab, F, (const bf16*)w2, D,
-                                           (const float*)b2, xb, D,
-                                           (bf16*)out, D, M, D, F, st);
-  return (int)cudaGetLastError();
+  // a = bf16(quick_gelu(h W1 + b1))
+  PTT_TRY((wg::gemm<wg::EPI_BIAS_QGELU, float, bf16>(
+      hb, D, (const bf16*)w1t, D, (const float*)b1, nores, 0, ab, F, M, F, D,
+      st)));
+  // out = bf16(x + (a W2 + b2))
+  return wg::gemm<wg::EPI_BIAS_RES, bf16, bf16>(
+      ab, F, (const bf16*)w2t, F, (const float*)b2, xb, D, (bf16*)out, D, M,
+      D, F, st);
 }
 
 // The f32 values of ptt_mlp_bwd's partials buffer for M rows in chunks of
@@ -264,8 +268,8 @@ int ptt_mlp_bwd(const void* x, const void* dout, const void* lns,
     const int mc = M - r0 < chunk ? M - r0 : chunk;
     const bf16* xc = (const bf16*)x + (size_t)r0 * D;
     const bf16* dc = (const bf16*)dout + (size_t)r0 * D;
-    ptt_gemm::layernorm<bf16>(xc, D, (const float*)lns, (const float*)lnb,
-                              hb, mc, D, st);
+    ptt::layernorm<bf16>(xc, D, (const float*)lns, (const float*)lnb, hb,
+                         mc, D, st);
     PTT_CHECK();
     // g (f32) and a = bf16(quick_gelu(g))
     PTT_TRY((wg::gemm<wg::EPI_BIAS_GELU_AUX, float, bf16>(

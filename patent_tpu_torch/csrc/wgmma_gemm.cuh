@@ -4,8 +4,9 @@
 //
 // shared by the bf16 layer kernels (csrc/bf16_layer.cu: rows 1 and 2), the
 // trainable attention block (csrc/fused_attention.cu: rows 12 and 13) and
-// the trainable MLP block's backward (csrc/mlp_grad.cu: row 16), which
-// also takes its MN-major form below (gemm_tn: the weight gradients).
+// the trainable MLP block (csrc/mlp_grad.cu: rows 15 and 16), whose
+// backward also takes its MN-major form below (gemm_tn: the weight
+// gradients).
 // A is row-major with row stride lda (a strided view, such as every S-th
 // row of a token stream, is read in place); B is taken as its transpose
 // Bt [N, K], row-major, so that both operands are K-major, the layout the
@@ -32,8 +33,9 @@
 //     masks its stores, so M is ragged (B*208 is not a multiple of 128 at
 //     every batch) and N, K need only be multiples of 8 (16-byte rows);
 //   * the epilogue runs on the accumulator registers: + bias (f32), then
-//     the exp2 quick_gelu, or a residual (bf16 or f32) added in either of
-//     the TPU kernel's two orders, and stores bf16 or f32 pairs.
+//     the exp2 quick_gelu in either of the TPU kernels' two forms, or a
+//     residual (bf16 or f32) added in either of their two orders, and
+//     stores bf16 or f32 pairs.
 // Not yet: clusters with the Bt tile multicast to two blocks (a third
 // less L2 traffic per product), TMA stores, an epilogue that overlaps the
 // next tile's products.
@@ -64,13 +66,15 @@ enum Epi {
   EPI_BIAS_GELU = 1,  // g / (1 + exp2(NEG_1702_LOG2E g)), g = v + bias (MLP in)
   EPI_RES_BIAS = 2,   // (res + v) + bias              (out-projection)
   EPI_BIAS_RES = 3,   // res + (v + bias)              (MLP out)
-  // the trainable MLP block's backward (row 16), the TPU kernel's forms:
+  // the trainable MLP block (rows 15 and 16), the TPU kernel's forms:
   EPI_BIAS_GELU_AUX = 4,  // g = v + bias -> aux (f32);
                           // g * (1 / (1 + exp2(NEG_1702_LOG2E g)))
   EPI_DGELU = 5,      // g = aux; s = 1 / (1 + exp2(NEG_1702_LOG2E g));
                       // dg = v * (s * (1 + 1.702 g (1 - s))), and each
                       // warp's 16-row column sums of the f32 dg -> part
   EPI_NONE = 6,       // v
+  EPI_BIAS_QGELU = 7, // EPI_BIAS_GELU_AUX without the aux store (MLP in
+                      // of row 15: the same bits as row 16's recompute)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -368,11 +372,13 @@ __global__ void __launch_bounds__(THREADS, 1)
             v1 += bb.y;
             v0 = v0 / (1.0f + exp2f(NEG_1702_LOG2E * v0));
             v1 = v1 / (1.0f + exp2f(NEG_1702_LOG2E * v1));
-          } else if constexpr (EPI == EPI_BIAS_GELU_AUX) {
+          } else if constexpr (EPI == EPI_BIAS_GELU_AUX ||
+                               EPI == EPI_BIAS_QGELU) {
             v0 += bb.x;
             v1 += bb.y;
-            *reinterpret_cast<float2*>(&aux[(size_t)row * ldc + col]) =
-                make_float2(v0, v1);
+            if constexpr (EPI == EPI_BIAS_GELU_AUX)
+              *reinterpret_cast<float2*>(&aux[(size_t)row * ldc + col]) =
+                  make_float2(v0, v1);
             v0 = v0 * (1.0f / (1.0f + exp2f(NEG_1702_LOG2E * v0)));
             v1 = v1 * (1.0f / (1.0f + exp2f(NEG_1702_LOG2E * v1)));
           } else if constexpr (EPI == EPI_RES_BIAS || EPI == EPI_BIAS_RES) {

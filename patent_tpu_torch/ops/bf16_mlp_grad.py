@@ -9,8 +9,8 @@ with a kernel forward and a kernel backward.
   holds no [M, 3072] tensor) and returns dx and the six parameter
   cotangents, summed in f32 over all rows.
 
-On a CUDA tensor each launches its kernel (csrc/mlp_grad.cu: the
-backward's products on the Hopper GEMM of csrc/wgmma_gemm.cuh, the weight
+On a CUDA tensor each launches its kernel (csrc/mlp_grad.cu: every
+product on the Hopper GEMM of csrc/wgmma_gemm.cuh, the backward's weight
 gradients through its MN-major form, ``weight_grad``) or raises;
 on a CPU tensor each runs its plain version below, which rounds where the
 kernels do.  Cotangents come back in the dtypes passed in: the caller's
@@ -124,10 +124,13 @@ def fused_mlp_fwd(x2, lns, lnb, w1, b1, w2, b2) -> torch.Tensor:
     m, d, f = _check(x2, lns, lnb, w1, b1, w2, b2)
     dev = x2.device
     out = torch.empty_like(x2)
+    # the GEMM reads its second operand as [N, K]: W1ᵀ [F, D], W2ᵀ [D, F]
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     scratch = [torch.empty(m, d, dtype=torch.bfloat16, device=dev),
                torch.empty(m, f, dtype=torch.bfloat16, device=dev)]
     _build.call("ptt_mlp_fwd", _SIG_FWD, _build.ptr(x2), _build.ptr(out), m,
-                d, f, *map(_build.ptr, (lns, lnb, w1, b1, w2, b2, *scratch)),
+                d, f, *map(_build.ptr, (lns, lnb, w1t, b1, w2t, b2,
+                                        *scratch)),
                 _build.stream(dev))
     fused_mlp_fwd.launches += 1
     return out

@@ -63,7 +63,7 @@ def pairwise_dist_pallas(x: torch.Tensor, y: torch.Tensor,
                          c: float = 1.0) -> torch.Tensor:
     """All-pairs Poincaré distance [n, m] of x [n, d] and y [m, d], f32.
     CPU tensors: the plain version; CUDA tensors: the kernel (contiguous
-    f32 operands), or an error."""
+    f32 operands; one launch, none when n or m is 0), or an error."""
     if x.device.type == "cpu":
         return pairwise_dist_pallas_plain(x, y, c)
     check_cuda_tensor("x", x, torch.float32)
@@ -77,13 +77,13 @@ def pairwise_dist_pallas(x: torch.Tensor, y: torch.Tensor,
     if c <= 0:
         raise ValueError(f"curvature must be positive, got {c}")
     out = torch.empty(n, m, dtype=torch.float32, device=x.device)
-    norms = torch.empty(n + m, dtype=torch.float32, device=x.device)
+    if n == 0 or m == 0:
+        return out
     _build.call("ptt_pairwise_dist",
-                [_P, _P, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P],
+                [_P, _P, _I, _I, _I, _F, _F, _F, _P, _P],
                 _build.ptr(x), _build.ptr(y), n, m, d, float(np.float32(c)),
                 float(np.float32(2.0 * c)), float(np.float32(math.sqrt(c))),
-                _build.ptr(norms), _build.ptr(norms[n:]), _build.ptr(out),
-                _build.stream(x.device))
+                _build.ptr(out), _build.stream(x.device))
     pairwise_dist_pallas.launches += 1
     return out
 

@@ -168,10 +168,13 @@ def _mlp_case(m, d, f, seed=0):
             rng.standard_normal((m, d))]
 
 
-@pytest.mark.parametrize("m", [64, 77], ids=["M64", "M77-ragged"])
+@pytest.mark.parametrize("m", [64, 77, 3 * 65],
+                         ids=["M64", "M77-ragged", "M195-small-tower"])
 def test_fused_mlp_block_matches_jax_pallas(m):
-    """Output and all seven cotangents; 77 rows is no multiple of the JAX
-    kernel's 16-row tile (it pads; the port takes any M)."""
+    """Output and all seven cotangents at the CLIs' small tower's widths
+    (D 64, F 128); 77 rows is no multiple of the JAX kernel's 16-row tile
+    (it pads; the port takes any M), and 195 is three images of 65
+    tokens."""
     d, f = 64, 128
     case = _mlp_case(m, d, f)
     x = _bf16(case[0])

@@ -1029,17 +1029,22 @@ def test_trainable_attention_gates_the_clamp_on_the_card(cuda):
     assert _rel_err(ungated, gated) > 10 * TRAIN_BWD_REL_TOL
 
 
-@pytest.mark.parametrize("m", [64, 77, 25216, 2 * mm.CHUNK_ROWS + 77],
-                         ids=["M64", "M77-ragged", "M25216-fine-tune",
-                              "three-chunks-ragged"])
-def test_trainable_mlp_kernels_match_plain_and_controls_do_not(cuda, m):
+@pytest.mark.parametrize(
+    "m,d,f", [(64, D, F), (77, D, F), (25216, D, F),
+              (2 * mm.CHUNK_ROWS + 77, D, F), (3 * 65, 64, 128)],
+    ids=["M64", "M77-ragged", "M25216-fine-tune", "three-chunks-ragged",
+         "small-tower-M195-ragged"])
+def test_trainable_mlp_kernels_match_plain_and_controls_do_not(cuda, m, d,
+                                                                f):
     """Rows 15 and 16 against their plain versions; M 25,216 is the
     fine-tune's 64 pairs in one chunk (the weight gradients split over
-    their rows, the last split ragged); the last case runs the backward's
-    chunk loop (row offsets, the f32 accumulation of dW1 and dW2 across
-    chunks, the column sums) with a ragged last chunk."""
-    x, p = _layer_case(cuda, b=-(-m // S))
-    x2 = x.reshape(-1, D)[:m].contiguous()
+    their rows, the last split ragged); the fourth case runs the
+    backward's chunk loop (row offsets, the f32 accumulation of dW1 and
+    dW2 across chunks, the column sums) with a ragged last chunk; the last
+    is the CLIs' small tower (D 64, F 128: N narrower than the GEMM's
+    256-wide tile, K 64 one k-step) at B 3 of 65 tokens."""
+    x, p = _layer_case(cuda, b=-(-m // S), d=d, f=f)
+    x2 = x.reshape(-1, d)[:m].contiguous()
     lns, lnb, w1, b1, w2, b2 = p[6:12]
     n15, n16 = mm.fused_mlp_fwd.launches, mm.fused_mlp_bwd.launches
     got = mm.fused_mlp_fwd(x2, lns, lnb, w1, b1, w2, b2)
@@ -1180,9 +1185,9 @@ def test_trainable_tower_step_kernels_match_plain_blocks(cuda):
 HYP_REL_TOL = 1e-4
 
 
-def _ball(g, n, d, c, dev, r_hi=0.95):
+def _ball(g, n, d, c, dev, r_hi=0.95, r_lo=0.05):
     v = torch.randn(n, d, generator=g, device=dev)
-    r = 0.05 + (r_hi - 0.05) * torch.rand(n, 1, generator=g, device=dev)
+    r = r_lo + (r_hi - r_lo) * torch.rand(n, 1, generator=g, device=dev)
     return (v / v.norm(dim=-1, keepdim=True) * r / math.sqrt(c)).contiguous()
 
 
@@ -1190,10 +1195,16 @@ def _max_rel(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
-@pytest.mark.parametrize("n,m,d", [(70, 150, 40), (256, 1000, 128)],
-                         ids=["ragged", "eval-like"])
+@pytest.mark.parametrize(
+    "n,m,d", [(70, 150, 40), (256, 1000, 128), (256, 16059, 128),
+              (1, 300, 128), (70, 1000, 5), (33, 500, 3)],
+    ids=["ragged", "eval-like", "label-eval", "n1", "d5-unaligned",
+         "d3-unaligned"])
 @pytest.mark.parametrize("c", [1.0, 2.0])
 def test_pairwise_dist_kernel_matches_plain(cuda, n, m, d, c):
+    """Row 17 at the label evaluation's [256, 128] x [16,059, 128], a
+    one-figure batch, and widths whose rows are not 16-byte aligned (the
+    kernel's 4-byte copies)."""
     g = torch.Generator(device=cuda).manual_seed(n)
     x, y = _ball(g, n, d, c, cuda), _ball(g, m, d, c, cuda)
     n0 = pk.pairwise_dist_pallas.launches
@@ -1205,6 +1216,44 @@ def test_pairwise_dist_kernel_matches_plain(cuda, n, m, d, c):
     assert got.shape == (n, m) and bool(torch.isfinite(got).all())
     assert _max_rel(got, ref) <= HYP_REL_TOL
     assert _max_rel(control, ref) > HYP_REL_TOL
+
+
+@pytest.mark.parametrize("c", [1.0, 2.0])
+def test_pairwise_dist_kernel_near_the_boundary(cuda, c):
+    """Row 17 on points at radius 0.999/sqrt(c), where 1 - c|x|^2 is ~2e-3
+    and the f32 sums of the squares set the error: any two orders differ
+    by ~1e-5 of the largest distance there."""
+    g = torch.Generator(device=cuda).manual_seed(99)
+    x = _ball(g, 256, 128, c, cuda, 0.999, 0.999)
+    y = _ball(g, 3000, 128, c, cuda, 0.999, 0.999)
+    got = pk.pairwise_dist_pallas(x, y, c)
+    ref = pk.pairwise_dist_pallas_plain(x, y, c)
+    control = pk.pairwise_dist_pallas_plain(x, y, 1.01 * c)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel(got, ref) <= HYP_REL_TOL
+    assert _max_rel(control, ref) > HYP_REL_TOL
+
+
+def test_pairwise_dist_is_one_launch_a_call(cuda):
+    """Row 17 takes its squared norms inside its one kernel: the profiler
+    sees one kernel, launched once a call; n 0 launches nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x, y = _ball(g, 256, 128, 2.0, cuda), _ball(g, 2000, 128, 2.0, cuda)
+    pk.pairwise_dist_pallas(x, y, 2.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            pk.pairwise_dist_pallas(x, y, 2.0)
+        torch.cuda.synchronize()
+    seen = [(e.key, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    assert len(seen) == 1 and seen[0][1] == 3, seen
+    n0 = pk.pairwise_dist_pallas.launches
+    assert pk.pairwise_dist_pallas(x[:0], y, 2.0).shape == (0, 2000)
+    assert pk.pairwise_dist_pallas.launches == n0
 
 
 @pytest.mark.parametrize("n,k,dout", [(70, 40, 24), (37, 512, 256),

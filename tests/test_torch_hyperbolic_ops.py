@@ -134,8 +134,12 @@ def interpret():
 
 @pytest.mark.parametrize("c", [1.0, 2.0])
 @pytest.mark.parametrize("shape", [(40, 30, 16), (100, 300, 64),
-                                   (64, 260, 128)])
+                                   (64, 260, 128), (1, 130, 128),
+                                   (20, 40, 5)])
 def test_pairwise_dist_plain_matches_pallas(interpret, c, shape):
+    """Row 17's plain version against the TPU kernel, with a one-figure
+    batch and a width whose rows are not 16-byte aligned among the
+    shapes (the CUDA kernel's edge cases)."""
     n, m, d = shape
     rng = np.random.default_rng(n + m)
     x, y = _ball(rng, n, d, c), _ball(rng, m, d, c)
