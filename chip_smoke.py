@@ -15,10 +15,16 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    matrix's per-channel scales replaced by their mean; for the bf16
    layers the earlier max-subtracted form, with exp gelu); each
    CLS kernel
-   equal to row 0 of its full kernel bit for bit; the bf16 and the int8
+   equal to row 0 of its full kernel bit for bit (the int8 one also at B 4
+   and 128); the bf16 and the int8
    bucket top-k at Q=64 on 1M x 512 and 1,000 x 512 galleries (the int8
    stage equal to its plain version), re-ranked top-10 against the f32
-   scan; the bf16 and the int8 towers with kernels against the same
+   scan, then both stages at Q = 1, 3, 65, 256 and 300 on the same two
+   galleries with masked rows and planted ties (int8 equal to its plain
+   version; bf16 values within 1e-5, columns equal but at ties within it;
+   the capacity; the tie to the earlier copy; top-10 at Q 256 against the
+   scan), with a fold with '>=' and one that drops a step as controls that
+   must fail the tie and the pool checks; the bf16 and the int8 towers with kernels against the same
    towers with plain layers, and the int8 tower against the bf16 tower;
    the fine-tune's trainable attention sub-layer and MLP block, forward
    and backward (given the same cotangent), at a training step's shapes
@@ -112,7 +118,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    label evaluation's, their device time by kernel and the launches the
    trace saw,
    cosine top-k QPS at 1M x 512, Q=256, k=10 through the bf16 kernel
-   path, the quantized path and the f32 scan, every kernel against its
+   path, the quantized path and the f32 scan, rows 3 and 3′ at Q = 1 and
+   16 beside their plain versions and bounds, every kernel against its
    plain version at the main path's shapes, and one fine-tune step at 64
    pairs with kernels against plain blocks (first held to them: metrics
    and every trainable gradient, from the same seeded weights), with its
@@ -1584,6 +1591,135 @@ def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
     h.clear()
 
 
+# The bucket stage at the query counts its tiles take: one query, a ragged
+# tile, past one tile of 128 (a bucket group's later tiles reading its
+# slices from L2), the serving batch and three tiles
+TOPK_QUERY_COUNTS = (1, 3, 65, 256, 300)
+# exact copies of row TIE_ROW in its bucket, 1 and 300 steps of 1,024 rows
+# later: the earlier copy must win, then the next
+TIE_ROW, TIE_STEPS = 1976, (1, 300)
+
+
+def near_tie_columns(torch, got, want, scores) -> tuple[int, bool]:
+    """(columns of ``got`` that differ from ``want``'s, whether each such
+    column's score under the plain version's ``scores`` [Q, N] lies within
+    TOPK_VALUE_TOL of the value ``want`` holds there: a tie within the
+    noise of two f32 summation orders, which either column answers)."""
+    n_diff, ok = 0, True
+    for gi, wi, wv in ((got[1], want[1], want[0]), (got[3], want[3],
+                                                    want[2])):
+        diff = gi != wi
+        n_diff += int(diff.sum())
+        if diff.any():
+            alt = scores.gather(1, gi.long())[diff]
+            ok = ok and float((alt - wv[diff]).abs().max()) <= TOPK_VALUE_TOL
+    return n_diff, ok
+
+
+def live_candidates(torch, top2) -> int:
+    """The fewest (query's) candidates that the top-2 lists hold."""
+    return int(((top2[0] > float("-inf")).sum(1)
+                + (top2[2] > float("-inf")).sum(1)).min())
+
+
+def check_bucket_shapes(torch, tk, index_mod, gal, dev, k: int) -> float:
+    """Rows 3 and 3′ at every count of TOPK_QUERY_COUNTS over the first
+    1,000 rows of ``gal`` and over all of it, with rows masked out (bf16:
+    valid 0; int8: scale 0 or negative) and planted ties: int8 (v1, i1,
+    v2, i2) equal to the plain version's; bf16 values within
+    TOPK_VALUE_TOL and columns equal but at ties within it; the capacity
+    min(valid rows, 2L); the planted tie to the earlier copy; at Q 256 the
+    re-ranked top-k equal to the scan.  Then the controls on the int8
+    scores, which must fail: a fold with '>=' (the tie check) and one that
+    drops a step (the check of the 2L-deep pool).  Returns the bf16 stage's
+    max-abs value error."""
+    bgen = torch.Generator(device=dev).manual_seed(13)
+    L, err16 = tk.BUCKETS, 0.0
+    for m in TIE_STEPS:
+        gal[TIE_ROW + m * L] = gal[TIE_ROW]
+    for n in (1000, gal.shape[0]):
+        g = gal[:n]
+        tie = min(TIE_ROW, n - 1)
+        g16, gvalid = tk.prepare_cosine_gallery_bf16(g)
+        gi8, gscale = (torch.from_numpy(a).to(dev) for a in
+                       tk.quantize_gallery(g.cpu().numpy()))
+        clean = (gvalid.clone(), gscale.clone())
+        gvalid[::97] = 0.0
+        gscale[::97] = 0.0
+        gscale[5::101] = -1.0
+        n_live = (int((gvalid > 0).sum()), int((gscale > 0).sum()))
+        for nq in TOPK_QUERY_COUNTS:
+            q = torch.randn(nq, g.shape[1], generator=bgen, device=dev)
+            q[0] = g[tie]
+            q16 = (q / q.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+            top2 = tk._bucket_top2_cuda(q16.contiguous(), g16, gvalid)
+            want = tk.bucket_top2_plain(q16, g16, gvalid)
+            qi8, _qs = tk.quantize_queries(q)
+            top8 = tk._bucket_top2_cuda(qi8, gi8, gscale)
+            want8 = tk.bucket_top2_int8_plain(qi8, gi8, gscale)
+            torch.cuda.synchronize()
+            # empty slots (-inf) in the same places, values alike elsewhere
+            err = max(float(torch.where(torch.isfinite(b), a - b, 0.0)
+                            .abs().max())
+                      if bool(torch.equal(torch.isinf(a), torch.isinf(b)))
+                      else float("inf")
+                      for a, b in zip(top2[::2], want[::2]))
+            err16 = max(err16, err)
+            scores = (q16.float() @ g16.float().T).masked_fill(
+                gvalid <= 0, float("-inf"))
+            n_diff, ties_ok = near_tie_columns(torch, top2, want, scores)
+            equal8 = all(bool(torch.equal(a, b)) for a, b in zip(top8, want8))
+            cap = (live_candidates(torch, top2), live_candidates(torch, top8))
+            tied = [int(t[1][0, tie % L]) for t in (top2, top8)]
+            print(f"[kernel] bucket stage n={n}, Q={nq}: bf16 values vs "
+                  f"plain max_abs_err {err:.3g}, {n_diff} columns differ "
+                  f"(each a tie within {TOPK_VALUE_TOL}: {ties_ok}); int8 "
+                  f"(v1, i1, v2, i2) equal to plain: {equal8}; candidates "
+                  f"a query {cap} (capacities "
+                  f"{[min(c, 2 * L) for c in n_live]}); planted "
+                  f"tie to column {tied} (want {tie})")
+            check(err <= TOPK_VALUE_TOL and ties_ok and equal8
+                  and list(cap) == [min(c, 2 * L) for c in n_live]
+                  and tied == [tie, tie],
+                  f"bucket stage check failed at n={n}, Q={nq}")
+        # the re-ranked top-k of both paths against the scan, at the
+        # serving batch, on the unmasked gallery
+        q = torch.randn(256, g.shape[1], generator=bgen, device=dev)
+        sv, si = index_mod.topk_search(q, g, k=k)
+        fv, fi = index_mod.topk_search_cosine_fast(q, g16, clean[0], g, k=k)
+        qv, qi = index_mod.topk_search_quantized(q, gi8, clean[1], g, k=k)
+        torch.cuda.synchronize()
+        exact = (bool(torch.equal(fi, si)), bool(torch.equal(qi, si)))
+        print(f"[kernel] bucket stage n={n}, Q=256: re-ranked top-{k} == "
+              f"scan (bf16, int8): {exact}")
+        check(all(exact), f"re-ranked top-{k} differs from the scan at "
+              f"n={n}")
+    # the controls, on the int8 scores over the whole gallery: '>=' keeps
+    # the later copy of the planted tie; a dropped step loses candidates
+    q = torch.randn(65, gal.shape[1], generator=bgen, device=dev)
+    q[0] = gal[TIE_ROW]
+    qi8, _qs = tk.quantize_queries(q)
+    scores = (tk.int_mm(qi8, gi8) * gscale).masked_fill(
+        gscale <= 0, float("-inf"))
+    got = tk._bucket_top2_cuda(qi8, gi8, gscale)
+    ties = tk.bucket_top2_walk(scores, L, strict=False)
+    dropped = tk.bucket_top2_walk(scores, L, skip=TIE_STEPS[1])
+
+    def pool(top2):
+        return tk._select_pool(*top2, 2 * L)[1].sort(dim=1).values
+
+    tie_ok = [int(t[1][0, TIE_ROW % L]) == TIE_ROW for t in (got, ties)]
+    pool_ok = [bool(torch.equal(pool(t), pool(tk.bucket_top2_int8_plain(
+        qi8, gi8, gscale)))) for t in (got, dropped)]
+    print(f"[kernel] bucket stage controls at n={gal.shape[0]}, Q=65: tie "
+          f"check (kernel, '>=' fold) {tie_ok}; 2L pool check (kernel, "
+          f"step {TIE_STEPS[1]} dropped) {pool_ok}")
+    check(tie_ok == [True, False] and pool_ok == [True, False],
+          "the bucket stage's checks cannot tell a wrong fold from a right "
+          "one")
+    return err16
+
+
 def main() -> None:
     try:
         import torch
@@ -1670,9 +1806,19 @@ def main() -> None:
             check(got_c.shape == (b, d) and bool(torch.equal(got_c, got[:, 0])),
                   f"{cls.__name__} differs from row 0 of {full.__name__} "
                   f"(valid {v})")
+    # row 6 at the CLS call's batches of the int8 tower (B % 4 == 0): 4 and
+    # a batch of 128's, on a generator of its own
+    cgen = torch.Generator(device=dev).manual_seed(6)
+    for bv in (4, 128):
+        x = layer_input(torch, bv, s, d, valid, cgen, dev)
+        got = qm.quant_attention_block(x, *ip_attn, heads, valid)
+        got_c = qm.quant_attention_cls(x, *ip_attn, heads, valid)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got_c, got[:, 0])), "quant_attention_cls "
+              f"differs from row 0 of quant_attention_block at B {bv}")
     print("[kernel] fused_layer_cls_bf16 equals row 0 of "
           "fused_layer_block_bf16, and quant_attention_cls row 0 of "
-          "quant_attention_block, bit for bit")
+          "quant_attention_block (also at B 4 and 128), bit for bit")
 
     # the whole int8 layer (row 8) at the int8 tower's ragged batches, its
     # group dispatch (row 9) on both of its paths, the int8 dense layer (row
@@ -1839,6 +1985,8 @@ def main() -> None:
               and val_err <= TOPK_VALUE_TOL,
               f"int8 bucket kernel check failed at n={n}")
         del gi8, gscale
+    err_topk = max(err_topk, check_bucket_shapes(torch, topk_kernel,
+                                                 index_mod, gal, dev, k))
     del gal, g
 
     hyp = hyperbolic_kernel_checks(torch, dev, errs, HYP_SIZES)
@@ -2674,6 +2822,28 @@ def main() -> None:
         lambda: topk_kernel.bucket_topk_int8(qi8, qscale, gi8, gscale, pool))
     bounds["bucket_topk_bf16"] = topk_bound(256, n_big, dg, pool, int8=False)
     bounds["bucket_topk_int8"] = topk_bound(256, n_big, dg, pool, int8=True)
+    # rows 3 and 3′ at a single query and at 16 (the kernels line keeps the
+    # serving batch of 256)
+    for nq in (1, 16):
+        qn = q256[:nq]
+        qn8, qnscale = topk_kernel.quantize_queries(qn)
+        for kname, plain, kernel, int8 in (
+                ("bucket_topk_bf16",
+                 lambda: topk_kernel.bucket_topk_bf16_plain(qn, g16, gvalid,
+                                                            pool),
+                 lambda: topk_kernel.bucket_topk_bf16(qn, g16, gvalid, pool),
+                 False),
+                ("bucket_topk_int8",
+                 lambda: topk_kernel.bucket_topk_int8_plain(
+                     qn8, qnscale, gi8, gscale, pool),
+                 lambda: topk_kernel.bucket_topk_int8(qn8, qnscale, gi8,
+                                                      gscale, pool),
+                 True)):
+            pm, km = in_turns(torch, plain, kernel)
+            bq = topk_bound(nq, n_big, dg, pool, int8)
+            print(f"[time] {kname} at {n_big} x {dg}, Q={nq}: kernel "
+                  f"{km:.3f} ms, plain {pm:.3f} ms, bound {bq[0]:.3f} ms "
+                  f"({bq[1]}) {label}")
     sp, sk = in_turns(
         torch, lambda: index_mod.topk_search(q256, gal, k=k),
         lambda: index_mod.topk_search_cosine_fast(q256, g16, gvalid, gal, k=k))

@@ -2,8 +2,11 @@
 """Compare two checkouts of patent_tpu_torch on one CUDA card: the bits and
 the times of the int8 MLP sub-layer (row 7), the Möbius dense layer (row
 18), the pairwise distance (row 17), the bf16 and int8 ViT-B/16 towers,
-the fine-tune's MLP block forward and backward (rows 15 and 16) and
-attention backward (row 13), and its training step.
+the int8 attention sub-layer and its CLS variant (rows 5 and 6), the int8
+layer group, dense layer and MLP (rows 9-11), the bucketed candidate
+stages (rows 3, 3′ and 4) and both cosine top-10 paths, the fine-tune's
+MLP block forward and backward (rows 15 and 16) and attention backward
+(row 13), and its training step.
 
     python3 compare_builds.py run ROOT OUT.pt
     python3 compare_builds.py compare A.pt B.pt [C.pt ...]
@@ -24,6 +27,14 @@ CUDA events, 20 calls after 3 of warm-up) of:
 * the bf16 fused-layer tower (seeded ViT-B/16 weights) at B 128 (rows 1
   and 2), then the int8 tower from the same weights at B 128 (rows 5 +
   7), 127, 3 and 1 (row 8, then rows 6 + 7 on the CLS rows);
+* rows 5 and 6 on [128, 208, 768] (197 valid keys) and row 6 on [4, 208,
+  768]; row 9, ``quant_layer_group``, at B 128; rows 10 and 11,
+  ``quant_dense`` (x [26,624 x 768] x [768 x 2,304]) and ``quant_mlp``
+  (hidden 3,072), each with its device time;
+* on a seeded 1M x 512 gallery (bf16 and int8 copies): rows 3 and 3′'s
+  candidate pools (80 deep) at Q 1, 16 and 256, and the bf16 and the
+  quantized top-10 paths at Q 256, each with its device time; row 4's
+  pool at 1M x 128 ball points, Q 256 (c = 2);
 * rows 15 and 16, ``fused_mlp_fwd`` and ``fused_mlp_bwd``, on the 128 x
   197 unpadded rows of a fine-tune step at 64 pairs (M 25,216, D 768, F
   3072), and row 13,
@@ -50,6 +61,8 @@ import subprocess
 import sys
 
 from chip_smoke import cuda_ms, kernel_breakdown
+
+SEARCH_ROWS = 1_000_000     # the galleries of rows 3, 3′ and 4
 
 
 def busy_share(torch, fn, wall_ms: float, iters: int = 3) -> float:
@@ -163,6 +176,8 @@ def run(root: str, out_path: str) -> None:
         outs[name] = tower_at()
         times[name] = cuda_ms(torch, tower_at)
     del tower8, pix
+    device.update(int8_family(torch, randn, mat, outs, times))
+    device.update(search(torch, dev, gen, outs, times))
     device.update(fine_tune(torch, dev, randn, outs, times))
     torch.cuda.synchronize()
     torch.save({"root": os.path.abspath(root), "card": smi,
@@ -170,6 +185,98 @@ def run(root: str, out_path: str) -> None:
                 "times": times, "busy": busy, "device": device}, out_path)
     print(f"{root}: {smi}; " + "; ".join(f"{key} {ms:.4f} ms"
                                          for key, ms in times.items()))
+
+
+def timed(torch, name: str, fn, outs: dict, times: dict, device: dict,
+          iters: int = 20) -> None:
+    """``fn``'s output (or outputs) into ``outs``, its wall time a call into
+    ``times`` and its device time a call (torch.profiler, the sum over
+    kernels) into ``device``."""
+    got = fn()
+    for i, v in enumerate(got if isinstance(got, tuple) else (got,)):
+        outs[name if not isinstance(got, tuple) else f"{name} [{i}]"] = v
+    times[name] = cuda_ms(torch, fn, iters=iters)
+    device[name] = sum(ms for _k, ms in kernel_breakdown(torch, fn))
+
+
+def int8_family(torch, randn, mat, outs: dict, times: dict) -> dict:
+    """Rows 5, 6, 9, 10 and 11 at a batch of 128's shapes: their outputs
+    and wall times into ``outs`` and ``times``; returns the device time a
+    call of each."""
+    from patent_tpu_torch.ops import quant_matmul as qm
+
+    d, f, s, bt, valid, heads = 768, 3072, 208, 128, 197, 12
+    device = {}
+    wqkv, sqkv = mat(d, 3 * d)
+    wout, sout = mat(d, d)
+    w1, s1 = mat(d, f)
+    w2, s2 = mat(f, d)
+    attn = (1 + randn(d, std=0.1), randn(d, std=0.1), wqkv, sqkv,
+            randn(3 * d, std=0.2), wout, sout, randn(d, std=0.02))
+    mlp = (1 + randn(d, std=0.1), randn(d, std=0.1), w1, s1,
+           randn(f, std=0.02), w2, s2, randn(d, std=0.02))
+    x = randn(bt, s, d).to(torch.bfloat16)
+    timed(torch, "row 5, [128, 208, 768]",
+          lambda: qm.quant_attention_block(x, *attn, heads, valid), outs,
+          times, device)
+    for b in (bt, 4):
+        timed(torch, f"row 6, [{b}, 208, 768]",
+              lambda b=b: qm.quant_attention_cls(x[:b], *attn, heads, valid),
+              outs, times, device)
+    timed(torch, "row 9, B 128",
+          lambda: qm.quant_layer_group(x, *attn, *mlp, heads, valid), outs,
+          times, device)
+    x2 = x.reshape(-1, d)
+    timed(torch, "row 10, [26,624 x 768] x [768 x 2,304]",
+          lambda: qm.quant_dense(x2, wqkv, sqkv, attn[4]), outs, times,
+          device)
+    timed(torch, "row 11, [26,624 x 768], hidden 3,072",
+          lambda: qm.quant_mlp(x2, w1, s1, mlp[4], w2, s2, mlp[7]), outs,
+          times, device)
+    return device
+
+
+def search(torch, dev, gen, outs: dict, times: dict) -> dict:
+    """Rows 3, 3′ and 4 and the two cosine top-10 paths on seeded
+    galleries: outputs and wall times into ``outs`` and ``times``; returns
+    the device time a call of each."""
+    from patent_tpu_torch.ops import topk_kernel as tk
+    from patent_tpu_torch.retrieval import index as index_mod
+
+    n, dg, pool, k = SEARCH_ROWS, 512, 80, 10
+    device = {}
+    gal = torch.randn(n, dg, generator=gen, device=dev)
+    g16, gvalid = tk.prepare_cosine_gallery_bf16(gal)
+    gi8, gscale = (torch.from_numpy(a).to(dev) for a in
+                   tk.quantize_gallery(gal.cpu().numpy()))
+    q256 = torch.randn(256, dg, generator=gen, device=dev)
+    for nq in (256, 16, 1):
+        q = q256[:nq]
+        qi8, qscale = tk.quantize_queries(q)
+        timed(torch, f"row 3, Q {nq}",
+              lambda q=q: tk.bucket_topk_bf16(q, g16, gvalid, pool), outs,
+              times, device)
+        timed(torch, f"row 3′, Q {nq}",
+              lambda qi8=qi8, qscale=qscale: tk.bucket_topk_int8(
+                  qi8, qscale, gi8, gscale, pool), outs, times, device)
+    timed(torch, "bf16 top-10 path, Q 256",
+          lambda: index_mod.topk_search_cosine_fast(q256, g16, gvalid, gal,
+                                                    k=k), outs, times,
+          device)
+    timed(torch, "quantized top-10 path, Q 256",
+          lambda: index_mod.topk_search_quantized(q256, gi8, gscale, gal,
+                                                  k=k), outs, times, device)
+    del gal, g16, gvalid, gi8, gscale
+    c, dh = 2.0, 128
+    ball = torch.randn(n, dh, generator=gen, device=dev)
+    ball = (ball / ball.norm(dim=-1, keepdim=True) * 0.95 / c ** 0.5
+            * torch.rand(n, 1, generator=gen, device=dev))
+    qb = ball[:256] * 0.99
+    pgal = tk.prepare_poincare_gallery(ball, c)
+    timed(torch, "row 4, 1M x 128, Q 256",
+          lambda: tk.bucket_topk_poincare(qb, pgal, pool), outs, times,
+          device)
+    return device
 
 
 def fine_tune(torch, dev, randn, outs: dict, times: dict) -> dict:

@@ -50,10 +50,17 @@
 //     on csrc/flash_tile.cuh's tile with an f32 output (K and V of a
 //     (head, image) in shared memory once, the scores and p in registers,
 //     53 KB at S 208);
-//   * the CLS variant (row 6) and the standalone dense layer and MLP
-//     (rows 10, 11) keep the first GEMM below: mma.sync m16n8k32 s8 from a
-//     two-stage cp.async ring of 128x128x64 tiles.  The integer products
-//     are exact, so the two GEMMs give the same bits;
+//   * the CLS variant (row 6) runs its three GEMMs on the same wgmma
+//     GEMM: the K/V product over every row, the q product over row 0 of
+//     each image only (A read as every S-th row of the LN1 codes, its
+//     scales at stride S: csrc/wgmma_s8.cuh's row-scale stride) and the
+//     out-projection with the residual read at stride S.  At a batch of
+//     128 its K/V product ([26,624 x 768] . [768 x 1,536], 63 GOP) is
+//     nearly all of its work and of its ~0.03 ms bound;
+//   * the standalone dense layer and MLP (rows 10, 11) keep the first GEMM
+//     below: mma.sync m16n8k32 s8 from a two-stage cp.async ring of
+//     128x128x64 tiles.  The integer products are exact, so the two GEMMs
+//     give the same bits;
 //   * LayerNorm and the per-row quantization one warp per row;
 //   * the TPU kernels keep ao and the [M, 3072] MLP hidden on chip; here
 //     they cross device memory in f32 (a row's quantization needs the
@@ -78,9 +85,10 @@
 //     launches with the f32 x1 between the sub-layers: the same bits, each
 //     GEMM on the whole card.
 // The CLS variant runs LN1 + quant and the K/V projections over every row
-// and the rest on row 0 of each image only, through the same per-element
-// operations and the same attention tile (row 0 of a query tile depends
-// on row 0 alone), so it equals row 0 of ptt_int8_attn bit for bit.
+// and the rest on row 0 of each image only, through the same GEMM, the
+// same per-element operations and the same attention tile (row 0 of a
+// query tile depends on row 0 alone), so it equals row 0 of ptt_int8_attn
+// bit for bit.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -108,7 +116,7 @@ constexpr int QEPI_BIAS = s8::EPI_BIAS, QEPI_GELU = s8::EPI_GELU,
               QEPI_RES = s8::EPI_RES;
 
 // One 128 x 128 tile at (m0, n0) of C[M, N] = epi(f32(A @ Bt^T) *
-// rs[r * rs_stride] * cs[c] + bias[c]) with A [M, K] and Bt [N, K] int8
+// rs[r] * cs[c] + bias[c]) with A [M, K] and Bt [N, K] int8
 // row-major, the residual (QEPI_RES) read from res [M, ldr] (bf16 or f32)
 // and C stored as OutT (bf16 or f32).  K, lda, ldb are multiples of 16
 // and A, Bt 16-byte aligned (checked by the host code).  8 warps, 2 x 4,
@@ -117,7 +125,7 @@ constexpr int QEPI_BIAS = s8::EPI_BIAS, QEPI_GELU = s8::EPI_GELU,
 template <int EPI, typename OutT, typename ResT>
 __device__ __forceinline__ void gemm_s8_tile(
     const int8_t* __restrict__ A, int lda, const float* __restrict__ rs,
-    int rs_stride, const int8_t* __restrict__ Bt, int ldb,
+    const int8_t* __restrict__ Bt, int ldb,
     const float* __restrict__ cs, const float* __restrict__ bias,
     const ResT* __restrict__ res, int ldr, OutT* __restrict__ C, int ldc,
     int M, int N, int K, int m0, int n0, unsigned char* smem) {
@@ -197,7 +205,7 @@ __device__ __forceinline__ void gemm_s8_tile(
     for (int e = 0; e < 4; ++e) {
       const int r = m0 + wm * 64 + i * 16 + g + 8 * (e >> 1);
       if (r >= M) continue;
-      const float rsc = rs[(size_t)r * rs_stride];
+      const float rsc = rs[r];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = n0 + wn * 32 + j * 8 + 2 * t + (e & 1);
@@ -214,15 +222,15 @@ __device__ __forceinline__ void gemm_s8_tile(
 template <int EPI, typename OutT, typename ResT>
 __global__ void __launch_bounds__(QG_THREADS)
     gemm_s8_kernel(const int8_t* __restrict__ A, int lda,
-                   const float* __restrict__ rs, int rs_stride,
+                   const float* __restrict__ rs,
                    const int8_t* __restrict__ Bt, int ldb,
                    const float* __restrict__ cs,
                    const float* __restrict__ bias,
                    const ResT* __restrict__ res, int ldr,
                    OutT* __restrict__ C, int ldc, int M, int N, int K) {
   __shared__ __align__(128) unsigned char smem[QG_SMEM];
-  gemm_s8_tile<EPI, OutT, ResT>(A, lda, rs, rs_stride, Bt, ldb, cs, bias,
-                                res, ldr, C, ldc, M, N, K, blockIdx.y * QG_BM,
+  gemm_s8_tile<EPI, OutT, ResT>(A, lda, rs, Bt, ldb, cs, bias, res, ldr, C,
+                                ldc, M, N, K, blockIdx.y * QG_BM,
                                 blockIdx.x * QG_BN, smem);
 }
 
@@ -293,13 +301,13 @@ struct named {
 };
 
 template <int EPI, typename OutT, typename ResT = bf16>
-int gemm_s8(const int8_t* A, int lda, const float* rs, int rs_stride,
-            const int8_t* Bt, int ldb, const float* cs, const float* bias,
+int gemm_s8(const int8_t* A, int lda, const float* rs, const int8_t* Bt,
+            int ldb, const float* cs, const float* bias,
             const typename named<ResT>::type* res, int ldr, OutT* C, int ldc,
             int M, int N, int K, cudaStream_t st) {
   dim3 grid((N + QG_BN - 1) / QG_BN, (M + QG_BM - 1) / QG_BM);
   gemm_s8_kernel<EPI, OutT, ResT><<<grid, QG_THREADS, 0, st>>>(
-      A, lda, rs, rs_stride, Bt, ldb, cs, bias, res, ldr, C, ldc, M, N, K);
+      A, lda, rs, Bt, ldb, cs, bias, res, ldr, C, ldc, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -702,10 +710,10 @@ int dense(const T* x, T* out, int M, int K, int N, int gelu, const int8_t* w,
           const float* scale, const float* bias, int8_t* xq, float* xs,
           cudaStream_t st) {
   PTT_TRY((rowquant<false, T>(x, K, nullptr, nullptr, xq, K, xs, M, K, st)));
-  return gelu ? gemm_s8<QEPI_GELU, T>(xq, K, xs, 1, w, K, scale, bias,
-                                      nullptr, 0, out, N, M, N, K, st)
-              : gemm_s8<QEPI_BIAS, T>(xq, K, xs, 1, w, K, scale, bias,
-                                      nullptr, 0, out, N, M, N, K, st);
+  return gelu ? gemm_s8<QEPI_GELU, T>(xq, K, xs, w, K, scale, bias, nullptr,
+                                      0, out, N, M, N, K, st)
+              : gemm_s8<QEPI_BIAS, T>(xq, K, xs, w, K, scale, bias, nullptr,
+                                      0, out, N, M, N, K, st);
 }
 
 template <typename T>
@@ -714,12 +722,12 @@ int qmlp(const T* x, T* out, int M, int K, int H, int N, const int8_t* w1,
          const float* b2, int8_t* xq, float* xs, float* g, int8_t* gq,
          float* gs, cudaStream_t st) {
   PTT_TRY((rowquant<false, T>(x, K, nullptr, nullptr, xq, K, xs, M, K, st)));
-  PTT_TRY((gemm_s8<QEPI_GELU, float>(xq, K, xs, 1, w1, K, s1, b1, nullptr, 0,
-                                     g, H, M, H, K, st)));
+  PTT_TRY((gemm_s8<QEPI_GELU, float>(xq, K, xs, w1, K, s1, b1, nullptr, 0, g,
+                                     H, M, H, K, st)));
   PTT_TRY((rowquant<false, float>(g, H, nullptr, nullptr, gq, H, gs, M, H,
                                   st)));
-  return gemm_s8<QEPI_BIAS, T>(gq, H, gs, 1, w2, H, s2, b2, nullptr, 0, out,
-                               N, M, N, H, st);
+  return gemm_s8<QEPI_BIAS, T>(gq, H, gs, w2, H, s2, b2, nullptr, 0, out, N,
+                               M, N, H, st);
 }
 
 }  // namespace
@@ -782,12 +790,16 @@ int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
   PTT_TRY((rowquant<true, bf16>(xb, D, (const float*)lns, (const float*)lnb,
                                 hq8, D, hsf, M, D, st)));
   // K and V over every row: rows D..3D of wqkv_t
-  PTT_TRY((gemm_s8<QEPI_BIAS, bf16>(hq8, D, hsf, 1, w + (size_t)D * D, D,
-                                    sqf + D, bqf + D, nullptr, 0, kvb, 2 * D,
-                                    M, 2 * D, D, st)));
-  // Q for the CLS rows only: row 0 of each image is every S-th row of hq
-  PTT_TRY((gemm_s8<QEPI_BIAS, bf16>(hq8, S * D, hsf, S, w, D, sqf, bqf,
-                                    nullptr, 0, qcb, D, B, D, D, st)));
+  PTT_TRY((s8::gemm<s8::EPI_BIAS, bf16, bf16>(
+      hq8, D, w + (size_t)D * D, D,
+      s8::Gemm{hsf, sqf + D, bqf + D, nullptr, 0, kvb, 2 * D, M, 2 * D, D, 1},
+      st)));
+  // Q for the CLS rows only: row 0 of each image is every S-th row of hq,
+  // its scale every S-th of hs
+  PTT_TRY((s8::gemm<s8::EPI_BIAS, bf16, bf16>(
+      hq8, (long long)S * D, w, D,
+      s8::Gemm{hsf, sqf, bqf, nullptr, 0, qcb, D, B, D, D, 1, nullptr, S},
+      st)));
   // the attention tile of ptt_int8_attn, the CLS row in row 0 of its query
   // tile
   PTT_TRY((ptt_flash::attention<false, float>(
@@ -795,9 +807,12 @@ int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
       H, D / H, S, valid_len, 0.0f, st)));
   PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, aq8, D, asf, B, D,
                                   st)));
-  return gemm_s8<QEPI_RES, bf16>(aq8, D, asf, 1, (const int8_t*)wout_t, D,
-                                 (const float*)sout, (const float*)bout,
-                                 xb, S * D, (bf16*)out, D, B, D, D, st);
+  // the out-projection, the residual row 0 of each image
+  return s8::gemm<s8::EPI_RES, bf16, bf16>(
+      aq8, D, (const int8_t*)wout_t, D,
+      s8::Gemm{asf, (const float*)sout, (const float*)bout, xb,
+               (long long)S * D, out, D, B, D, D, 1},
+      st);
 }
 
 // x [M, D] bf16 -> out [M, D] bf16.  w1_t [F, D], w2_t [D, F] int8
@@ -876,38 +891,34 @@ int ptt_int8_layer_grid(int* blocks, int* split_max) {
   return layer_grid(blocks);
 }
 
-// One s8 GEMM of rows 5, 7 and 8 on its own (csrc/wgmma_s8.cuh), for checks
-// and timing: C = epi(f32(A Bt^T) * rs * cs + bias), A [M, K] int8 with row
-// scales rs [M], Bt [N, K] int8 with column scales cs and bias [N] f32,
-// res and C [M, N].  epi: 0 -> bf16 (QKV); 1 quick_gelu -> f32 (MLP in);
-// 2 + bf16 res -> bf16 (row 5's out-projection, row 7's MLP out); 3 + bf16
-// res -> f32 (row 8's out-projection); 4 + f32 res -> bf16 (row 8's MLP
-// out).
+// One s8 GEMM of rows 5, 6, 7 and 8 on its own (csrc/wgmma_s8.cuh), for
+// checks and timing: C = epi(f32(A Bt^T) * rs * cs + bias), A [M, K] int8
+// read as rows 0, every, 2 every, ... of its buffer with row scales rs at
+// the same stride (every 1: dense; row 6's CLS q product: every S), Bt
+// [N, K] int8 with column scales cs and bias [N] f32, res and C [M, N]
+// dense.  epi: 0 -> bf16 (QKV); 1 quick_gelu -> f32 (MLP in); 2 + bf16 res
+// -> bf16 (row 5's out-projection, row 7's MLP out); 3 + bf16 res -> f32
+// (row 8's out-projection); 4 + f32 res -> bf16 (row 8's MLP out).
 int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
                   const void* cs, const void* bias, const void* res, void* C,
-                  int M, int N, int K, void* stream) {
+                  int M, int N, int K, int every, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* a = (const int8_t*)A;
   const int8_t* b = (const int8_t*)Bt;
-  const float *r = (const float*)rs, *c = (const float*)cs;
-  const float* bi = (const float*)bias;
+  const long long lda = (long long)every * K;
+  const s8::Gemm g{(const float*)rs, (const float*)cs, (const float*)bias,
+                   res, N, C, N, M, N, K, 1, nullptr, every};
   switch (epi) {
     case 0:
-      return gemm_wg<QEPI_BIAS, bf16>(a, r, b, c, bi, nullptr, (bf16*)C, M,
-                                      N, K, st);
+      return s8::gemm<s8::EPI_BIAS, bf16, bf16>(a, lda, b, K, g, st);
     case 1:
-      return gemm_wg<QEPI_GELU, float>(a, r, b, c, bi, nullptr, (float*)C, M,
-                                       N, K, st);
+      return s8::gemm<s8::EPI_GELU, float, bf16>(a, lda, b, K, g, st);
     case 2:
-      return gemm_wg<QEPI_RES, bf16, bf16>(a, r, b, c, bi, (const bf16*)res,
-                                           (bf16*)C, M, N, K, st);
+      return s8::gemm<s8::EPI_RES, bf16, bf16>(a, lda, b, K, g, st);
     case 3:
-      return gemm_wg<QEPI_RES, float, bf16>(a, r, b, c, bi, (const bf16*)res,
-                                            (float*)C, M, N, K, st);
+      return s8::gemm<s8::EPI_RES, float, bf16>(a, lda, b, K, g, st);
     case 4:
-      return gemm_wg<QEPI_RES, bf16, float>(a, r, b, c, bi,
-                                            (const float*)res, (bf16*)C, M, N,
-                                            K, st);
+      return s8::gemm<s8::EPI_RES, bf16, float>(a, lda, b, K, g, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

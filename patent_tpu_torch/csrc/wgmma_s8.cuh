@@ -1,10 +1,14 @@
 // The int8 GEMM for Hopper, with the int8 serving layer's fused epilogues:
 //
-//   C[M, N] = epi(f32(A[M, K] . Bt[N, K]^T) * rs[row] * cs[col] + bias[col])
+//   C[M, N] = epi(f32(A[M, K] . Bt[N, K]^T) * rs[row * rs_stride] * cs[col]
+//                 + bias[col])
 //
 // int8 operands, int32 accumulation, shared by the int8 layer kernels
-// (csrc/int8_layer.cu: the attention sub-layer, row 5, the MLP sub-layer,
-// row 7, and the whole layer, rows 8 and 9).  Both operands are K-major,
+// (csrc/int8_layer.cu: the attention sub-layer, row 5, its CLS variant,
+// row 6, the MLP sub-layer, row 7, and the whole layer, rows 8 and 9).
+// A may be a strided view (row stride lda, a valid TMA stride) with its
+// row scales at the same stride: row 6's CLS q product reads row 0 of
+// every image, every S-th row of the LN1 codes and of their scales.  Both operands are K-major,
 // as the tensor cores take int8: A is the row-quantized activations [M, K]
 // and Bt the weights held [out, in] from load time.  The TMA, mbarrier and
 // wgmma helpers are csrc/wgmma_gemm.cuh's (the bf16 GEMM); the 128-byte
@@ -108,6 +112,7 @@ struct Gemm {
   int M, N, K;
   int splits;           // k-ranges a tile, 1 <= splits <= ceil(K / BK)
   float* amax = nullptr;   // [M] max |C| of each row, zeroed (AMAX)
+  int rs_stride = 1;       // row r's scale is rs[r * rs_stride]
 };
 
 // The units of a GEMM: unit u is k-range u % splits of tile u / splits;
@@ -263,7 +268,7 @@ __device__ void gemm_units(const CUtensorMap* map_a, const CUtensorMap* map_b,
       [[maybe_unused]] float vmax = 0.0f;   // AMAX: this lane's max |v|
       if (row < g.M) {
         float rsc = 0.0f;
-        if constexpr (EPI != EPI_PART) rsc = g.rs[row];
+        if constexpr (EPI != EPI_PART) rsc = g.rs[(size_t)row * g.rs_stride];
 #pragma unroll
         for (int i = 0; i < BN / 8; ++i) {
           const int col = n0 + 8 * i + 2 * (lane & 3);

@@ -60,7 +60,7 @@ _SIG_ATTN = [_P, _P] + [_I] * 5 + [_P] * 8 + [_P] * 4 + [_P]
 _SIG_CLS = [_P, _P] + [_I] * 5 + [_P] * 8 + [_P] * 7 + [_P]
 _SIG_MLP = [_P, _P] + [_I] * 3 + [_P] * 8 + [_P] * 6 + [_P]
 _SIG_LAYER = [_P, _P] + [_I] * 9 + [_P] * 16 + [_P] * 14 + [_P]
-_SIG_GEMM = [_I] + [_P] * 7 + [_I] * 3 + [_P]
+_SIG_GEMM = [_I] + [_P] * 7 + [_I] * 4 + [_P]
 _SIG_GELU_QUANT = [_P] * 9 + [_I] * 3 + [_P]
 _SIG_DENSE = [_P, _P] + [_I] * 5 + [_P] * 3 + [_P] * 2 + [_P]
 _SIG_QMLP = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P] * 5 + [_P]
@@ -566,11 +566,13 @@ S8_GEMM_EPILOGUES = {"bias": (0, None, torch.bfloat16),
 
 
 def int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
-                    res: torch.Tensor | None = None) -> torch.Tensor:
+                    res: torch.Tensor | None = None,
+                    every: int = 1) -> torch.Tensor:
     """Plain version of ``int8_gemm``: ``f32(a · w_tᵀ) * a_scale * scale +
-    bias`` (exact integer products), then the epilogue, in the instance's
-    output dtype."""
+    bias`` (exact integer products) over rows 0, every, 2·every, ... of a
+    and a_scale, then the epilogue, in the instance's output dtype."""
     _idx, _rdt, odt = S8_GEMM_EPILOGUES[epilogue]
+    a, a_scale = a[::every], a_scale[::every]
     v = int_mm(a, w_t) * a_scale[:, None] * scale + bias
     if epilogue == "gelu":
         v = _quick_gelu(v)
@@ -580,23 +582,28 @@ def int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
 
 
 def int8_gemm(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
-              res: torch.Tensor | None = None) -> torch.Tensor:
-    """One of rows 5, 7 and 8's int8 GEMMs on its own (for checks and
-    timing): a [M, K] int8 with row scales a_scale [M], w_t [N, K] int8
-    with scale and bias [N] f32, res [M, N] in the instance's residual
-    dtype; ``epilogue`` one of ``S8_GEMM_EPILOGUES``.  CPU tensor: the
-    plain version; CUDA tensor: the kernel (K and N multiples of 16), or
-    an error."""
+              res: torch.Tensor | None = None,
+              every: int = 1) -> torch.Tensor:
+    """One of rows 5, 6, 7 and 8's int8 GEMMs on its own (for checks and
+    timing): a [R, K] int8 with row scales a_scale [R], of which rows 0,
+    every, 2·every, ... (M = ceil(R / every) rows: row 6's CLS rows at
+    every = S) are read in place, w_t [N, K] int8 with scale and bias [N]
+    f32, res [M, N] in the instance's residual dtype; ``epilogue`` one of
+    ``S8_GEMM_EPILOGUES``.  CPU tensor: the plain version; CUDA tensor: the
+    kernel (K and N multiples of 16), or an error."""
     if a.device.type == "cpu":
-        return int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res)
+        return int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res,
+                               every)
     idx, rdt, odt = S8_GEMM_EPILOGUES[epilogue]
-    m, k = a.shape
+    r, k = a.shape
     n = w_t.shape[0]
-    if n % 16 or k % 16:
-        raise ValueError(f"N ({n}) and K ({k}) must be multiples of 16")
-    _check_matrix("a", a, m, k)
+    if n % 16 or k % 16 or every < 1:
+        raise ValueError(f"N ({n}) and K ({k}) must be multiples of 16 and "
+                         f"every ({every}) at least 1")
+    m = -(-r // every)
+    _check_matrix("a", a, r, k)
     _check_matrix("w_t", w_t, n, k)
-    _check_vectors(a_scale=(a_scale, m), scale=(scale, n), bias=(bias, n))
+    _check_vectors(a_scale=(a_scale, r), scale=(scale, n), bias=(bias, n))
     if rdt is not None:
         check_cuda_tensor("res", res, rdt, (m, n))
     out = torch.empty(m, n, dtype=odt, device=a.device)
@@ -604,7 +611,7 @@ def int8_gemm(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
                 _build.ptr(a_scale), _build.ptr(w_t), _build.ptr(scale),
                 _build.ptr(bias),
                 _build.ptr(res) if rdt is not None else None,
-                _build.ptr(out), m, n, k, _build.stream(a.device))
+                _build.ptr(out), m, n, k, every, _build.stream(a.device))
     int8_gemm.launches += 1
     return out
 

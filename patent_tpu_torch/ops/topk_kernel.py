@@ -18,6 +18,7 @@ min(n, 2·buckets) at every n.
 
 from __future__ import annotations
 
+import ctypes
 import typing
 
 import numpy as np
@@ -30,7 +31,11 @@ from .quant_matmul import int_mm
 _P, _I = _build.P, _build.I
 _SIG = [_P, _I, _P, _P, _I, _I, _I, _I] + [_P] * 8 + [_P]   # bf16 and int8
 _SIG_POINCARE = [_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P] * 9
-_BQ, _BB = 64, 32   # queries and buckets per block (csrc/bucket_topk.cu)
+_SIG_PLAN = [_I] * 5 + [_P]
+# buckets a block of the cosine stages; queries and buckets a block of the
+# Poincaré stage (csrc/bucket_topk.cu)
+_COS_BB = 64
+_BQ, _BB = 64, 32
 BUCKETS = 1024      # gallery column j falls in bucket j mod BUCKETS
 
 
@@ -98,6 +103,51 @@ def bucket_top2_plain(q16: torch.Tensor, gal16: torch.Tensor,
         s.masked_fill(valid[None, :] <= 0, float("-inf")), buckets)
 
 
+def bucket_top2_walk(s: torch.Tensor, buckets: int = BUCKETS,
+                     splits: int = 1, strict: bool = True,
+                     skip: int | None = None):
+    """The cosine kernels' walk over a [Q, N] score matrix (-inf: never
+    chosen), step by step: split z folds steps [z·T/splits, (z+1)·T/splits)
+    of the T = ceil(N / buckets) steps into each (query, bucket)'s (v1,
+    step1, v2, step2) with a strict '>' (``strict=False``: '>=', ties to
+    the later column), leaving out step ``skip``; then the splits' lists
+    are merged in (score desc, column asc) order.  Returns (v1, i1, v2,
+    i2) as ``_bucket_top2_of_scores`` does, which it equals when strict and
+    nothing is skipped, at any split count: the model of the kernel that
+    the tests hold to the plain version, and its controls."""
+    nq, n = s.shape
+    steps = -(-n // buckets)
+    ninf = float("-inf")
+    s = torch.nn.functional.pad(s, (0, steps * buckets - n),
+                                value=ninf).view(nq, steps, buckets)
+    base = torch.arange(buckets, device=s.device)
+    vals, cols = [], []
+    for z in range(splits):
+        v1 = torch.full((nq, buckets), ninf, device=s.device)
+        v2 = v1.clone()
+        t1 = torch.zeros(nq, buckets, dtype=torch.int64, device=s.device)
+        t2 = t1.clone()
+        for t in range(z * steps // splits, (z + 1) * steps // splits):
+            if t == skip:
+                continue
+            v = s[:, t]
+            up1 = v > v1 if strict else v >= v1
+            up2 = ~up1 & (v > v2 if strict else v >= v2)
+            v2 = torch.where(up1, v1, torch.where(up2, v, v2))
+            t2 = torch.where(up1, t1, torch.where(up2, t, t2))
+            v1 = torch.where(up1, v, v1)
+            t1 = torch.where(up1, t, t1)
+        vals += [v1, v2]
+        cols += [t1 * buckets + base, t2 * buckets + base]
+    vals, cols = torch.stack(vals, -1), torch.stack(cols, -1)
+    order = torch.argsort(cols, dim=-1, stable=True)
+    vals, cols = vals.gather(-1, order), cols.gather(-1, order)
+    order = torch.argsort(vals, dim=-1, descending=True, stable=True)[..., :2]
+    vals, cols = vals.gather(-1, order), cols.gather(-1, order)
+    cols = torch.where(vals == ninf, 0, cols).to(torch.int32)
+    return vals[..., 0], cols[..., 0], vals[..., 1], cols[..., 1]
+
+
 def bucket_top2_int8_plain(q_i8: torch.Tensor, gal_i8: torch.Tensor,
                            gal_scale: torch.Tensor, buckets: int = BUCKETS):
     """The int8 kernel's (v1, i1, v2, i2) in plain PyTorch: scores
@@ -108,7 +158,8 @@ def bucket_top2_int8_plain(q_i8: torch.Tensor, gal_i8: torch.Tensor,
         s.masked_fill(gal_scale[None, :] <= 0, float("-inf")), buckets)
 
 
-def _check_top2_operands(q, gal, valid, buckets: int) -> None:
+def _check_top2_operands(q, gal, valid, buckets: int,
+                         block_buckets: int) -> None:
     int8 = q.dtype == torch.int8
     dtype = torch.int8 if int8 else torch.bfloat16
     check_cuda_tensor("queries", q, dtype)
@@ -116,23 +167,19 @@ def _check_top2_operands(q, gal, valid, buckets: int) -> None:
     check_cuda_tensor("valid", valid, torch.float32, (gal.shape[0],))
     nq, d = q.shape
     n = gal.shape[0]
-    if d % (32 if int8 else 16) or d != gal.shape[1] or buckets % _BB:
-        raise ValueError(f"bucket kernel needs D % {32 if int8 else 16} == 0 "
-                         f"(got {d}, gallery {gal.shape[1]}) and buckets % "
-                         f"{_BB} == 0")
-    if n >= 2 ** 31 or nq * buckets >= 2 ** 31:
+    if (d % KERNEL_COLUMNS[dtype] or d != gal.shape[1]
+            or buckets % block_buckets):
+        raise ValueError(f"bucket kernel needs D % {KERNEL_COLUMNS[dtype]} "
+                         f"== 0 (got {d}, gallery {gal.shape[1]}) and "
+                         f"buckets % {block_buckets} == 0")
+    if n + buckets >= 2 ** 31 or nq * buckets >= 2 ** 31:
         raise ValueError("gallery or query count too large for int32 indices")
 
 
 def _top2_launch(entry: str, argtypes: list, args: list, nq: int, n: int,
-                 d: int, dev, buckets: int):
+                 d: int, dev, buckets: int, splits: int):
     """Launch a bucket top-2 entry (its leading ``args``, then N, D, L,
     splits and the buffers) and return (v1, i1, v2, i2)."""
-    # split the gallery walk until ~4 blocks per SM are in flight
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    steps = -(-n // buckets)
-    blocks = (buckets // _BB) * (-(-nq // _BQ))
-    splits = max(1, min(steps, -(-4 * sms // blocks)))
     part = [torch.empty(splits, nq, buckets, dtype=dt, device=dev)
             for dt in (torch.float32, torch.int32) * 2]
     out = [torch.empty(nq, buckets, dtype=dt, device=dev)
@@ -147,14 +194,17 @@ def _bucket_top2_cuda(q, gal, valid, buckets: int = BUCKETS):
     """The kernel's (v1, i1, v2, i2), as ``bucket_top2_plain`` (bf16 q and
     gallery, ``valid`` the 0/1 row mask) or ``bucket_top2_int8_plain``
     (int8, ``valid`` the row scales) returns them."""
-    _check_top2_operands(q, gal, valid, buckets)
-    entry = ("ptt_bucket_top2_i8" if q.dtype == torch.int8
-             else "ptt_bucket_top2")
+    _check_top2_operands(q, gal, valid, buckets, _COS_BB)
+    int8 = q.dtype == torch.int8
+    (nq, d), n = q.shape, gal.shape[0]
+    splits = ctypes.c_int(0)       # the kernel's plan on the current card
+    _build.call("ptt_bucket_top2_plan", _SIG_PLAN, nq, n, d, buckets,
+                int(int8), ctypes.byref(splits))
+    entry = "ptt_bucket_top2_i8" if int8 else "ptt_bucket_top2"
     return _top2_launch(entry, _SIG,
-                        [_build.ptr(q), q.shape[0], _build.ptr(gal),
-                         _build.ptr(valid)],
-                        q.shape[0], gal.shape[0], q.shape[1], q.device,
-                        buckets)
+                        [_build.ptr(q), nq, _build.ptr(gal),
+                         _build.ptr(valid)], nq, n, d, q.device, buckets,
+                        splits.value)
 
 
 def _check_pool(n: int, pool: int) -> None:
@@ -379,16 +429,20 @@ def _bucket_top2_poincare_cuda(q_i8, qs, q_sq, gal: PoincareGallery,
     """The Poincaré kernel's (v1, i1, v2, i2), as
     ``bucket_top2_poincare_plain`` returns them."""
     gal_i8, gw2, w, b = gal
-    _check_top2_operands(q_i8, gal_i8, w, buckets)
+    _check_top2_operands(q_i8, gal_i8, w, buckets, _BB)
     nq, n = q_i8.shape[0], gal_i8.shape[0]
     for name, t, shape in (("q_scale", qs, (nq, 1)), ("q_sq", q_sq, (nq, 1)),
                            ("gw2", gw2, (n,)), ("b", b, (n,))):
         check_cuda_tensor(name, t, torch.float32, shape)
+    # split the gallery walk until ~4 blocks per SM are in flight
+    sms = torch.cuda.get_device_properties(q_i8.device).multi_processor_count
+    blocks = (buckets // _BB) * (-(-nq // _BQ))
+    splits = max(1, min(-(-n // buckets), -(-4 * sms // blocks)))
     return _top2_launch("ptt_bucket_top2_poincare", _SIG_POINCARE,
                         [_build.ptr(q_i8), _build.ptr(qs), _build.ptr(q_sq),
                          nq, _build.ptr(gal_i8), _build.ptr(gw2),
                          _build.ptr(w), _build.ptr(b)],
-                        nq, n, q_i8.shape[1], q_i8.device, buckets)
+                        nq, n, q_i8.shape[1], q_i8.device, buckets, splits)
 
 
 def _poincare_queries(queries: torch.Tensor, gal: PoincareGallery):

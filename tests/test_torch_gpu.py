@@ -554,6 +554,186 @@ def test_quantized_index_takes_the_kernel_path_and_equals_the_scan(cuda):
     assert abs(v - cv).max() < 1e-5
 
 
+# The cosine bucket kernels at the shapes their tiles and plan take: one
+# query (8 a warpgroup), a ragged tile, past one tile of 128 and three
+# tiles; fewer rows than buckets, a few steps and many; the widths the
+# index sends (the narrowest, a small tower's, CLIP's: D 512 takes four
+# K-slices a TMA request, the others one).  bf16 sums run in another order
+# than the plain f32 product (~1e-7 apart), so a column may differ only
+# where the plain version's scores of the two columns agree within
+# TOPK_VALUE_TOL: a tie within that noise, which either column answers.
+TOPK_VALUE_TOL = 1e-5
+
+
+def _bucket_case(dev, nq, n, d, seed):
+    """Gallery rows with exact duplicates in one bucket across steps (a tie
+    that must go to the lower column), queries of which the first is the
+    duplicated row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gal = torch.randn(n, d, generator=g, device=dev)
+    for j, m in ((1976, 1), (1976, 40), (100, 3)):
+        if j + 1024 * m < n:
+            gal[j + 1024 * m] = gal[j]
+    q = torch.randn(nq, d, generator=g, device=dev)
+    q[0] = gal[min(1976, n - 1)]
+    return gal, q
+
+
+def _near_tie_columns(got, want, scores) -> bool:
+    """Every column of ``got`` that differs from ``want``'s scores, under the
+    plain version's ``scores`` [Q, N], within TOPK_VALUE_TOL of the value
+    ``want`` holds there."""
+    for gi, wi, wv in ((got[1], want[1], want[0]), (got[3], want[3],
+                                                    want[2])):
+        diff = gi != wi
+        if diff.any():
+            alt = scores.gather(1, gi.long())[diff]
+            if (alt - wv[diff]).abs().max() > TOPK_VALUE_TOL:
+                return False
+    return True
+
+
+@pytest.mark.parametrize("n", [700, 5000, 70000])
+@pytest.mark.parametrize("nq", [1, 3, 65, 300])
+@pytest.mark.parametrize("dtype,d", [("bf16", 16), ("bf16", 64),
+                                     ("bf16", 512), ("int8", 32),
+                                     ("int8", 512)])
+def test_bucket_kernels_match_plain_at_every_tile_shape(cuda, dtype, d, nq,
+                                                         n):
+    """int8: the integer products are exact, so (v1, i1, v2, i2) equal the
+    plain version's; bf16: values within TOPK_VALUE_TOL and columns equal
+    but at ties within it.  Invalid rows (mask 0, scale 0 or negative)
+    never appear."""
+    gal, q = _bucket_case(cuda, nq, n, d, seed=nq + n + d)
+    if dtype == "int8":
+        gi8, gscale = (torch.from_numpy(a).to(cuda) for a in
+                       topk_kernel.quantize_gallery(gal.cpu().numpy()))
+        gscale[::97] = 0.0
+        gscale[5::101] = -1.0
+        qi8, _qscale = topk_kernel.quantize_queries(q)
+        got = topk_kernel._bucket_top2_cuda(qi8, gi8, gscale)
+        want = topk_kernel.bucket_top2_int8_plain(qi8, gi8, gscale)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        bad = (gscale <= 0).nonzero()[:, 0].to(torch.int32)
+    else:
+        g16, valid = topk_kernel.prepare_cosine_gallery_bf16(gal)
+        valid[::97] = 0.0
+        q16 = (q / q.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+        got = topk_kernel._bucket_top2_cuda(q16.contiguous(), g16, valid)
+        want = topk_kernel.bucket_top2_plain(q16, g16, valid)
+        torch.cuda.synchronize()
+        for a, b in zip(got[::2], want[::2]):
+            torch.testing.assert_close(a, b, atol=TOPK_VALUE_TOL, rtol=0)
+        scores = (q16.float() @ g16.float().T).masked_fill(
+            valid <= 0, float("-inf"))
+        assert _near_tie_columns(got, want, scores)
+        bad = (valid <= 0).nonzero()[:, 0].to(torch.int32)
+    # the duplicated row's earlier copy wins the tie for query 0
+    b1976 = min(1976, n - 1) % 1024
+    assert int(got[1][0, b1976]) == min(1976, n - 1)
+    for i, v in ((got[1], got[0]), (got[3], got[2])):
+        live = v > float("-inf")
+        assert not torch.isin(i[live], bad).any()
+        assert (i[~live] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_bucket_pool_of_two_per_bucket_equals_plain(cuda, dtype):
+    """A pool as deep as the capacity, 2L: every candidate of every bucket
+    comes back, as the plain version's."""
+    gal, q = _bucket_case(cuda, 65, 5000, 64, seed=9)
+    pool = 2 * topk_kernel.BUCKETS
+    if dtype == "int8":
+        gi8, gscale = (torch.from_numpy(a).to(cuda) for a in
+                       topk_kernel.quantize_gallery(gal.cpu().numpy()))
+        qi8, qscale = topk_kernel.quantize_queries(q)
+        got = topk_kernel.bucket_topk_int8(qi8, qscale, gi8, gscale, pool)
+        want = topk_kernel.bucket_topk_int8_plain(qi8, qscale, gi8, gscale,
+                                                  pool)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        g16, valid = topk_kernel.prepare_cosine_gallery_bf16(gal)
+        got = topk_kernel.bucket_topk_bf16(q, g16, valid, pool)
+        want = topk_kernel.bucket_topk_bf16_plain(q, g16, valid, pool)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], atol=TOPK_VALUE_TOL,
+                                   rtol=0)
+        assert torch.equal(got[1].sort(dim=1).values,
+                           want[1].sort(dim=1).values)
+
+
+def _int8_attention(dev, b, s, d, seed=0):
+    """x [B, S, D] bf16 with random pad content and the attention
+    sub-layer's int8 parameters, matrices [out, in]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, std):
+        return std * torch.randn(*shape, generator=g, device=dev)
+
+    def m(rows, cols):
+        q, scale = qm.quantize_weight(r(rows, cols, std=rows ** -0.5))
+        return q.T.contiguous(), scale
+
+    wqkv, sqkv = m(d, 3 * d)
+    wout, sout = m(d, d)
+    attn = (1 + r(d, std=0.1), r(d, std=0.1), wqkv, sqkv, r(3 * d, std=0.2),
+            wout, sout, r(d, std=0.02))
+    return r(b, s, d, std=1.0).to(torch.bfloat16), attn
+
+
+# Row 6 at the CLS call's batches (4 and a batch of 128) and at each head
+# width, on the 224 px stream (S 208) and the CLIs' small tower's (S 80)
+@pytest.mark.parametrize("b", [4, 128])
+@pytest.mark.parametrize("d,heads,s,valid", [
+    (768, 12, 208, 197), (128, 8, 80, 65), (128, 4, 80, 65),
+    (128, 2, 80, 65), (128, 8, 208, 197), (128, 4, 208, 197),
+    (128, 2, 208, 197)])
+def test_int8_cls_kernel_is_row_0_at_every_head_width(cuda, b, d, heads, s,
+                                                      valid):
+    """The CLS sub-layer runs row 0's operations of the attention sub-layer
+    on the same GEMM and tile: equal bits."""
+    x, attn = _int8_attention(cuda, b, s, d, seed=b + s + heads)
+    n0 = qm.quant_attention_cls.launches
+    cls = qm.quant_attention_cls(x, *attn, heads, valid_len=valid)
+    full = qm.quant_attention_block(x, *attn, heads, valid_len=valid)
+    torch.cuda.synchronize()
+    assert qm.quant_attention_cls.launches == n0 + 1
+    assert torch.equal(cls, full[:, 0])
+
+
+@pytest.mark.parametrize("epilogue", ["bias", "gelu"])
+@pytest.mark.parametrize("m,every", [(4, 80), (4, 208), (128, 208)])
+def test_s8_gemm_with_a_row_stride_equals_the_gathered_rows(cuda, epilogue,
+                                                            m, every):
+    """Row 6's CLS q product: A read in place as every S-th row, its row
+    scales at the same stride, equals the product of the gathered rows bit
+    for bit; reading the first M rows instead must show."""
+    n, k = 768, 768
+    g = torch.Generator(device=cuda).manual_seed(m + every)
+    a = torch.randint(-127, 128, (m * every, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w_t = torch.randint(-127, 128, (n, k), generator=g, device=cuda,
+                        dtype=torch.int8)
+    a_scale = 0.1 * torch.rand(m * every, generator=g, device=cuda)
+    scale = 10 * torch.rand(n, generator=g, device=cuda) / 127 / k ** 0.5
+    bias = 0.1 * torch.randn(n, generator=g, device=cuda)
+    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, every=every)
+    gathered = qm.int8_gemm(a[::every].contiguous(),
+                            a_scale[::every].contiguous(), w_t, scale, bias,
+                            epilogue)
+    want = qm.int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue,
+                              every=every)
+    first = qm.int8_gemm(a[:m].contiguous(), a_scale[:m].contiguous(), w_t,
+                         scale, bias, epilogue)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n)
+    assert torch.equal(got, gathered) and torch.equal(got, want)
+    assert _rel_err(first, want) > INT8_REL_TOL
+
+
 def test_int8_tower_kernels_match_plain_layers(cuda):
     """Each int8 layer agrees with its plain version to an ulp, but an
     int8 code flipped by a rounding difference is a step of 1/127 of its
@@ -1517,7 +1697,7 @@ def test_cli_finetune_runs_on_the_card(cuda, tmp_path):
         assert math.isfinite(json.load(f)["val_loss"])
 
 
-@pytest.mark.parametrize("d", [10, 100])
+@pytest.mark.parametrize("d", [10, 48, 100])
 def test_index_bucket_paths_take_any_width(cuda, d):
     """The bf16, int8 and Poincaré candidate stages at widths their kernels
     take only zero-padded: each launches and equals the exact ranking
