@@ -42,13 +42,17 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    d 5 (rows not 16-byte aligned), and on points at radius 0.999/sqrt(c)
    held to the f64 distance, the Poincaré bucket
    stage at 1M x 128, Q=256, pool 80, equal to its plain version (control:
-   no b term); the whole int8 layer at B=1 and 3 (one cooperative launch)
+   no b term), and at Q = 1, 3, 65, 256 and 300 over 1,000 and 1M rows
+   with masked rows (w = 0) and a planted tie, equal to its plain version
+   with the capacity and the tie to the earliest copy (control: a fold
+   with '>='); the whole int8 layer at B=1 and 3 (one cooperative launch)
    and 127 (a chain of launches) and its group dispatch at
    B=2 (whole layer) and 3 (the sub-layers), with the controls of both
    sub-layers and the other mid-layer residual (rows 5 + 7 chained, bf16,
    must fail the whole layer's gate); the int8 dense layer at [26,624 x
    768] x [768 x 2304] and x [768 x 3072] with quick_gelu, and on f32 rows;
-   the int8 MLP at [26,624 x 768], hidden 3072; the int8 MLP sub-layer
+   the int8 MLP at [26,624 x 768], hidden 3072, and at one row and an
+   output width of 13; the int8 MLP sub-layer
    (row 7) at the CLS call's 1, 3, 4 and 128 rows and at 26,624, and its
    MLP in alone, whose hidden, row maxima (taken in the GEMM's epilogue)
    and one-pass codes must equal the plain epilogue's and quant_rows' of
@@ -108,6 +112,7 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    torch.matmul of the same bf16 product (a yardstick),
    row 7's device time by kernel at batch 128 (LN2 + quantization, MLP
    in, the hidden's quantization, MLP out),
+   rows 11 and 4's device time by kernel at their main-path shapes,
    the int8 tower at batch 1 (ms), 3 and 127 (img/s), each with its
    profile, one int8 layer at B=1, 3 and 127 through the whole-layer
    kernel (with its bound, and at B 1 and 3 the share of each phase of
@@ -1348,9 +1353,12 @@ def hyperbolic_kernel_checks(torch, dev, errs: dict, z: dict) -> dict:
                         0.999), c))
     nq = z["nq"]
     gal = ball_points(torch, z["n_gal"], d_emb, c, gen, dev)
+    for m in TIE_STEPS:
+        gal[TIE_ROW + m * topk_kernel.BUCKETS] = gal[TIE_ROW]
     hq = torch.cat([gal[:nq // 2] * 0.999,
                     ball_points(torch, nq - nq // 2, d_emb, c, gen, dev)])
     pgal = topk_kernel.prepare_poincare_gallery(gal, c)
+    check_poincare_shapes(torch, topk_kernel, pgal, gal, c, gen, dev)
     terms = topk_kernel.quantize_poincare_queries(hq)
     top2 = topk_kernel._bucket_top2_poincare_cuda(*terms, pgal)
     top2_plain = topk_kernel.bucket_top2_poincare_plain(*terms, pgal)
@@ -1366,6 +1374,61 @@ def hyperbolic_kernel_checks(torch, dev, errs: dict, z: dict) -> dict:
     errs["bucket_topk_poincare"] = 0.0
     return {"gen": gen, "w18": w18, "b18": b18, "x18": x18, "x17": x17,
             "y17": y17, "hq": hq, "pgal": pgal}
+
+
+def check_poincare_shapes(torch, tk, pgal, gal, c, gen, dev) -> None:
+    """Row 4 at every count of TOPK_QUERY_COUNTS over the first 1,000 rows
+    of the prepared ball gallery ``pgal`` (of ``gal``) and over all of it,
+    every 97th row masked (w = 0), with query 0 a copy of TIE_ROW, which
+    the gallery repeats TIE_STEPS steps later in its bucket: (v1, i1, v2,
+    i2) equal to the plain version's, the capacity min(live rows, 2L), no
+    masked row, the tie to the earliest copy.  Then a fold with '>=' on
+    the surrogate's scores (topk_kernel.bucket_top2_walk) as a control,
+    which must fail the tie check."""
+    L = tk.BUCKETS
+    w = pgal.w.clone()
+    w[::97] = 0.0
+    masked = pgal._replace(w=w)
+    for n in (1000, gal.shape[0]):
+        g = tk.PoincareGallery(*(t[:n] for t in masked))
+        tie = min(TIE_ROW, n - 1)
+        n_live = int((g.w > 0).sum())
+        bad = (g.w <= 0).nonzero()[:, 0].to(torch.int32)
+        for nq in TOPK_QUERY_COUNTS:
+            q = ball_points(torch, nq, gal.shape[1], c, gen, dev)
+            q[0] = gal[tie]
+            terms = tk.quantize_poincare_queries(q)
+            top2 = tk._bucket_top2_poincare_cuda(*terms, g)
+            want = tk.bucket_top2_poincare_plain(*terms, g)
+            torch.cuda.synchronize()
+            equal = all(bool(torch.equal(a, b)) for a, b in zip(top2, want))
+            cap = live_candidates(torch, top2)
+            clean = not any(bool(torch.isin(i[v > float("-inf")], bad).any())
+                            for i, v in ((top2[1], top2[0]),
+                                         (top2[3], top2[2])))
+            tied = int(top2[1][0, tie % L])
+            print(f"[kernel] Poincaré bucket stage n={n}, Q={nq}: (v1, i1, "
+                  f"v2, i2) equal to plain: {equal}; candidates a query "
+                  f"{cap} (capacity {min(n_live, 2 * L)}); masked rows "
+                  f"absent: {clean}; planted tie to column {tied} (want "
+                  f"{tie})")
+            check(equal and cap == min(n_live, 2 * L) and clean
+                  and tied == tie,
+                  f"Poincaré bucket stage check failed at n={n}, Q={nq}")
+    # the control: '>=' keeps the latest copy of the planted tie
+    q = ball_points(torch, 65, gal.shape[1], c, gen, dev)
+    q[0] = gal[TIE_ROW]
+    q_i8, qs, q_sq = tk.quantize_poincare_queries(q)
+    scores = (qs * (tk.int_mm(q_i8, masked.gal_i8) * masked.gw2)
+              - q_sq * masked.w - masked.b).masked_fill(
+                  masked.w[None, :] <= 0, float("-inf"))
+    got = tk._bucket_top2_poincare_cuda(q_i8, qs, q_sq, masked)
+    ties = tk.bucket_top2_walk(scores, L, strict=False)
+    tie_ok = [int(t[1][0, TIE_ROW % L]) == TIE_ROW for t in (got, ties)]
+    print(f"[kernel] Poincaré bucket stage control at n={gal.shape[0]}, "
+          f"Q=65: tie check (kernel, '>=' fold) {tie_ok}")
+    check(tie_ok == [True, False], "the Poincaré stage's tie check cannot "
+          "tell a '>=' fold from the kernel's")
 
 
 def hyperbolic_slice(torch, dev, z: dict, h: dict, run_path, cli) -> None:
@@ -1585,6 +1648,16 @@ def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
     times["bucket_topk_poincare"] = in_turns(
         torch, lambda: topk_kernel.bucket_topk_poincare_plain(hq, pgal, pool),
         lambda: topk_kernel.bucket_topk_poincare(hq, pgal, pool))
+    dev4 = launch_times(
+        torch, lambda: topk_kernel.bucket_topk_poincare(hq, pgal, pool), 30)
+    print(f"[time] row 4 (bucket_topk_poincare) at {n_gal} x {z['d_emb']}, "
+          f"Q={nq}, pool {pool}: {times['bucket_topk_poincare'][1]:.4f} ms a "
+          "call (wall); device time by kernel (torch.profiler, 30 calls) "
+          + ", ".join(f"{ms:.4f} ms a launch ({n} launches seen) "
+                      f"{kname[:60]}" for kname, ms, n in
+                      sorted(dev4, key=lambda r: -r[1] * r[2])[:6])
+          + f"; {sum(ms * n for _k, ms, n in dev4) / 30:.4f} ms a call "
+          f"{label}")
     bounds.update(hyperbolic_bounds(z["n_enc"], z["k_in"], z["d_hid"],
                                     z["n_fig"], z["patents"], z["d_emb"], nq,
                                     n_gal, pool))
@@ -1844,6 +1917,14 @@ def main() -> None:
                          "quick_gelu"))
     errs["quant_mlp"] = check_int8_qmlp(torch, qm, f"[{m} x {d}], H {f}", x2,
                                         ip_mlp[2:])
+    # and at one row, and at an odd output width (the wgmma epilogue
+    # stores the last column alone): MLP out's first 13 channels
+    w13 = (*ip_mlp[2:5], *(t[:13].contiguous() for t in ip_mlp[5:]))
+    for tag, xv, wv in ((f"[1 x {d}], H {f}", x2[:1], ip_mlp[2:]),
+                        (f"[{m} x {d}], H {f}, N 13", x2, w13),
+                        (f"[1 x {d}], H {f}, N 13", x2[:1], w13)):
+        errs["quant_mlp"] = max(errs["quant_mlp"],
+                                check_int8_qmlp(torch, qm, tag, xv, wv))
     # row 7 at the other rows the main path gives it: the CLS call at M = B
     # (1 and 3 at a ragged batch, 4 and 128 at B % 4 = 0) and a batch of
     # 128's tokens (the cases above hold B 16's 3,328); and its MLP in
@@ -2628,6 +2709,15 @@ def main() -> None:
     times["quant_mlp"] = in_turns(
         torch, lambda: qm.quant_mlp_plain(x2d, *ip_mlp[2:]),
         lambda: qm.quant_mlp(x2d, *ip_mlp[2:]))
+    dev11 = launch_times(torch, lambda: qm.quant_mlp(x2d, *ip_mlp[2:]), 10)
+    print(f"[time] row 11 (quant_mlp) at [{m} x {d}], H {f}: "
+          f"{times['quant_mlp'][1]:.4f} ms a call (wall); device time by "
+          "kernel (torch.profiler, 10 calls) "
+          + ", ".join(f"{ms:.4f} ms a launch ({n} launches seen) "
+                      f"{kname[:60]}" for kname, ms, n in
+                      sorted(dev11, key=lambda r: -r[1] * r[2]))
+          + f"; {sum(ms * n for _k, ms, n in dev11) / 10:.4f} ms a call "
+          f"{label}")
     # rows 5 and 8's int8 GEMM instances alone at a batch of 128's rows,
     # beside torch._int_mm of the same int8 product (cuBLASLt, no
     # epilogue): a yardstick only
@@ -2900,7 +2990,7 @@ def main() -> None:
              "patent_tpu/ops/quant_matmul.py:1278"),
             ("quant_dense", "int8_layer.cu",
              "patent_tpu/ops/quant_matmul.py:185"),
-            ("quant_mlp", "int8_layer.cu",
+            ("quant_mlp", "wgmma_s8.cuh",
              "patent_tpu/ops/quant_matmul.py:266"),
             ("flash_attention", "flash_attention.cu",
              "patent_tpu/ops/flash_attention.py:187"),

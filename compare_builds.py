@@ -34,7 +34,8 @@ CUDA events, 20 calls after 3 of warm-up) of:
 * on a seeded 1M x 512 gallery (bf16 and int8 copies): rows 3 and 3′'s
   candidate pools (80 deep) at Q 1, 16 and 256, and the bf16 and the
   quantized top-10 paths at Q 256, each with its device time; row 4's
-  pool at 1M x 128 ball points, Q 256 (c = 2);
+  pool, its stage's (v1, i1, v2, i2) and the Poincaré top-10 path at 1M x
+  128 ball points, Q 256 (c = 2), each with its device time;
 * rows 15 and 16, ``fused_mlp_fwd`` and ``fused_mlp_bwd``, on the 128 x
   197 unpadded rows of a fine-tune step at 64 pairs (M 25,216, D 768, F
   3072), and row 13,
@@ -48,8 +49,9 @@ CUDA events, 20 calls after 3 of warm-up) of:
 with the card's name and power limit.  Run each checkout in its own
 process: two builds of the kernel library cannot share one.  ``compare``
 prints, for each output, whether the first two files hold the same bits
-(else the largest difference relative to the largest value), then every
-file's times side by side.  To compare a parent commit with a change,
+(else the largest difference relative to the largest value) and how many
+of the outputs both hold are equal, then every file's times side by
+side.  A run of the parent lacks the outputs this checkout added.  To compare a parent commit with a change,
 run parent, change, change, parent one after another on the same card,
 each from a ``git archive`` of its commit, and compare the four files.
 """
@@ -60,7 +62,7 @@ import os
 import subprocess
 import sys
 
-from chip_smoke import cuda_ms, kernel_breakdown
+from chip_smoke import cuda_ms, kernel_breakdown, launch_times
 
 SEARCH_ROWS = 1_000_000     # the galleries of rows 3, 3′ and 4
 
@@ -276,6 +278,20 @@ def search(torch, dev, gen, outs: dict, times: dict) -> dict:
     timed(torch, "row 4, 1M x 128, Q 256",
           lambda: tk.bucket_topk_poincare(qb, pgal, pool), outs, times,
           device)
+    terms = tk.quantize_poincare_queries(qb)
+    name = "row 4's stage (v1, i1, v2, i2), 1M x 128, Q 256"
+    timed(torch, name, lambda: tk._bucket_top2_poincare_cuda(*terms, pgal),
+          outs, times, device)
+    # the stage kernel's mean over the launches the trace saw (a sum over
+    # calls undercounts when the trace drops a launch)
+    device[f"{name}, the stage kernel a launch"] = next(
+        ms for kname, ms, _n in launch_times(
+            torch, lambda: tk._bucket_top2_poincare_cuda(*terms, pgal), 30)
+        if "bucket_top2" in kname and "merge" not in kname)
+    timed(torch, "Poincaré top-10 path, Q 256",
+          lambda: index_mod.topk_search_poincare_fast(qb, pgal, ball, k=k,
+                                                      c=c), outs, times,
+          device)
     return device
 
 
@@ -362,22 +378,30 @@ def compare(paths: list[str]) -> None:
     runs = [torch.load(p) for p in paths]
     a, b = runs[0]["outputs"], runs[1]["outputs"]
     print(f"[compare] {paths[0]} against {paths[1]} ({runs[0]['card']})")
+    differ = []
     for key in a:
+        if key not in b:
+            print(f"[compare] {key}: only in {paths[0]}")
+            continue
         x, y = a[key].float(), b[key].float()
         if torch.equal(a[key], b[key]):
             print(f"[compare] {key}: equal bit for bit")
         else:
+            differ.append(key)
             gap = float((x - y).abs().max() / y.abs().max())
             print(f"[compare] {key}: differs, max |a - b| / max |b| "
                   f"{gap:.3g}")
+    shared = sum(key in b for key in a)
+    print(f"[compare] {shared - len(differ)} of {shared} shared outputs "
+          f"equal bit for bit" + (f"; differ: {differ}" if differ else ""))
     for key in runs[0]["times"]:
         print(f"[compare] {key} ms a call: " + ", ".join(
             f"{os.path.basename(p)} {r['times'][key]:.4f}"
-            for p, r in zip(paths, runs)))
+            for p, r in zip(paths, runs) if key in r["times"]))
     for key in runs[0].get("device", {}):
         print(f"[compare] {key} device ms a call: " + ", ".join(
             f"{os.path.basename(p)} {r['device'][key]:.4f}"
-            for p, r in zip(paths, runs)))
+            for p, r in zip(paths, runs) if key in r["device"]))
     for key in runs[0]["busy"]:
         print(f"[compare] {key}, device busy share: " + ", ".join(
             f"{os.path.basename(p)} {100 * r['busy'][key]:.1f}%"

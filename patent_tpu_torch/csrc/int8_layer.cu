@@ -57,10 +57,13 @@
 //     out-projection with the residual read at stride S.  At a batch of
 //     128 its K/V product ([26,624 x 768] . [768 x 1,536], 63 GOP) is
 //     nearly all of its work and of its ~0.03 ms bound;
-//   * the standalone dense layer and MLP (rows 10, 11) keep the first GEMM
-//     below: mma.sync m16n8k32 s8 from a two-stage cp.async ring of
-//     128x128x64 tiles.  The integer products are exact, so the two GEMMs
-//     give the same bits;
+//   * the standalone MLP (row 11) is row 7's pieces without LayerNorm or
+//     residual: MLP in on the wgmma GEMM with the hidden's row maxima in
+//     its epilogue, the one-pass quantization, MLP out with the bias
+//     epilogue (an odd output width stores its last column alone).  The
+//     standalone dense layer (row 10) keeps the first GEMM below: mma.sync
+//     m16n8k32 s8 from a two-stage cp.async ring of 128x128x64 tiles.  The
+//     integer products are exact, so the two GEMMs give the same bits;
 //   * LayerNorm and the per-row quantization one warp per row;
 //   * the TPU kernels keep ao and the [M, 3072] MLP hidden on chip; here
 //     they cross device memory in f32 (a row's quantization needs the
@@ -351,14 +354,15 @@ int rowquant_amax(const float* g, const float* amax, int8_t* q, float* qs,
 
 // s8 GEMM of the sub-layers and the chained layer on csrc/wgmma_s8.cuh: A
 // [M, K] and Bt [N, K] dense, C and res [M, N]; AMAX: each row's max |C|
-// into amax [M], zeroed by the caller
-template <int EPI, typename OutT, typename ResT = bf16, bool AMAX = false>
+// into amax [M], zeroed by the caller; TAIL: any N
+template <int EPI, typename OutT, typename ResT = bf16, bool AMAX = false,
+          bool TAIL = false>
 int gemm_wg(const int8_t* A, const float* rs, const int8_t* Bt,
             const float* cs, const float* bias,
             const typename named<ResT>::type* res, OutT* C, int M, int N,
             int K, cudaStream_t st, float* amax = nullptr) {
   const s8::Gemm g{rs, cs, bias, res, N, C, N, M, N, K, 1, amax};
-  return s8::gemm<EPI, OutT, ResT, AMAX>(A, K, Bt, K, g, st);
+  return s8::gemm<EPI, OutT, ResT, AMAX, TAIL>(A, K, Bt, K, g, st);
 }
 
 // MLP in with its row maxima, then the hidden's one-pass quantization:
@@ -716,18 +720,19 @@ int dense(const T* x, T* out, int M, int K, int N, int gelu, const int8_t* w,
                                       0, out, N, M, N, K, st);
 }
 
+// Row 7's pieces without LayerNorm or residual: x's row quantization, MLP
+// in with the hidden's row maxima and its one-pass quantization
+// (gelu_quant), MLP out with the bias epilogue, both GEMMs on
+// csrc/wgmma_s8.cuh
 template <typename T>
 int qmlp(const T* x, T* out, int M, int K, int H, int N, const int8_t* w1,
          const float* s1, const float* b1, const int8_t* w2, const float* s2,
          const float* b2, int8_t* xq, float* xs, float* g, int8_t* gq,
-         float* gs, cudaStream_t st) {
+         float* gs, float* gmax, cudaStream_t st) {
   PTT_TRY((rowquant<false, T>(x, K, nullptr, nullptr, xq, K, xs, M, K, st)));
-  PTT_TRY((gemm_s8<QEPI_GELU, float>(xq, K, xs, w1, K, s1, b1, nullptr, 0, g,
-                                     H, M, H, K, st)));
-  PTT_TRY((rowquant<false, float>(g, H, nullptr, nullptr, gq, H, gs, M, H,
-                                  st)));
-  return gemm_s8<QEPI_BIAS, T>(gq, H, gs, w2, H, s2, b2, nullptr, 0, out, N,
-                               M, N, H, st);
+  PTT_TRY(gelu_quant(xq, xs, w1, s1, b1, g, gmax, gq, gs, M, H, K, st));
+  return gemm_wg<QEPI_BIAS, T, bf16, false, true>(gq, gs, w2, s2, b2, nullptr,
+                                                  out, M, N, H, st);
 }
 
 }  // namespace
@@ -957,13 +962,16 @@ int ptt_int8_dense(const void* x, void* out, int M, int K, int N, int f32,
 }
 
 // x [M, K] -> out [M, N], both bf16 (f32 == 0) or both f32: dense with
-// quick_gelu into the f32 hidden g [M, H], its row quantization, dense.
-// w1_t [H, K], w2_t [N, H] int8; s1, b1 [H], s2, b2 [N] f32.  Scratch:
-// xq [M, K] int8, xs [M] f32, g [M, H] f32, gq [M, H] int8, gs [M] f32.
+// quick_gelu into the f32 hidden g [M, H] with its rows' max |g|, their
+// one-pass quantization, dense.  w1_t [H, K], w2_t [N, H] int8; s1, b1
+// [H], s2, b2 [N] f32; K % 16 == 0, H % 16 == 0, any N.  Scratch: xq
+// [M, K] int8, xs [M] f32, g [M, H] f32, gq [M, H] int8, gs [M] f32, gmax
+// [M] f32.  Four kernels and a memset on the stream.
 int ptt_int8_qmlp(const void* x, void* out, int M, int K, int H, int N,
                   int f32, const void* w1_t, const void* s1, const void* b1,
                   const void* w2_t, const void* s2, const void* b2, void* xq,
-                  void* xs, void* g, void* gq, void* gs, void* stream) {
+                  void* xs, void* g, void* gq, void* gs, void* gmax,
+                  void* stream) {
   const int8_t *w1 = (const int8_t*)w1_t, *w2 = (const int8_t*)w2_t;
   const float *s1f = (const float*)s1, *b1f = (const float*)b1;
   const float *s2f = (const float*)s2, *b2f = (const float*)b2;
@@ -971,10 +979,10 @@ int ptt_int8_qmlp(const void* x, void* out, int M, int K, int H, int N,
   if (f32)
     return qmlp<float>((const float*)x, (float*)out, M, K, H, N, w1, s1f, b1f,
                        w2, s2f, b2f, (int8_t*)xq, (float*)xs, (float*)g,
-                       (int8_t*)gq, (float*)gs, st);
+                       (int8_t*)gq, (float*)gs, (float*)gmax, st);
   return qmlp<bf16>((const bf16*)x, (bf16*)out, M, K, H, N, w1, s1f, b1f, w2,
                     s2f, b2f, (int8_t*)xq, (float*)xs, (float*)g, (int8_t*)gq,
-                    (float*)gs, st);
+                    (float*)gs, (float*)gmax, st);
 }
 
 }  // extern "C"

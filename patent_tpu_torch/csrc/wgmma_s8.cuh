@@ -5,7 +5,8 @@
 //
 // int8 operands, int32 accumulation, shared by the int8 layer kernels
 // (csrc/int8_layer.cu: the attention sub-layer, row 5, its CLS variant,
-// row 6, the MLP sub-layer, row 7, and the whole layer, rows 8 and 9).
+// row 6, the MLP sub-layer, row 7, the whole layer, rows 8 and 9, and the
+// standalone MLP, row 11, whose output width may be odd).
 // A may be a strided view (row stride lda, a valid TMA stride) with its
 // row scales at the same stride: row 6's CLS q product reads row 0 of
 // every image, every S-th row of the LN1 codes and of their scales.  Both operands are K-major,
@@ -210,8 +211,11 @@ __device__ __forceinline__ void wgmma_m64n128k32(int* d, uint64_t desc_a,
 // (THREADS), A and Bt read through the tensor maps.  On return the ring
 // is empty and every thread of the block has passed a block barrier since
 // its last read of shared memory.  AMAX: also merge each row's max |C|
-// into g.amax.
-template <int EPI, typename OutT, typename ResT, bool AMAX = false>
+// into g.amax.  TAIL: any N (row 11's output width), an odd N's last
+// column and the columns of rows of an odd width stored one at a time;
+// else N % 8 == 0, every column stored in pairs.
+template <int EPI, typename OutT, typename ResT, bool AMAX = false,
+          bool TAIL = false>
 __device__ void gemm_units(const CUtensorMap* map_a, const CUtensorMap* map_b,
                            const Gemm& g, int u0, int du, Ring& ring) {
   const int tid = threadIdx.x, wgi = tid >> 7;
@@ -272,7 +276,7 @@ __device__ void gemm_units(const CUtensorMap* map_a, const CUtensorMap* map_b,
 #pragma unroll
         for (int i = 0; i < BN / 8; ++i) {
           const int col = n0 + 8 * i + 2 * (lane & 3);
-          if (col >= g.N) continue;      // N % 8 == 0: col + 1 < N too
+          if (col >= g.N) continue;    // !TAIL: N % 8 == 0, col + 1 < N too
           const int a0 = d[4 * i + 2 * h], a1 = d[4 * i + 2 * h + 1];
           if constexpr (EPI == EPI_PART) {
             int* cp = static_cast<int*>(g.C) +
@@ -281,12 +285,24 @@ __device__ void gemm_units(const CUtensorMap* map_a, const CUtensorMap* map_b,
           } else {
             const ResT* rp =
                 static_cast<const ResT*>(g.res) + (size_t)row * g.ldr + col;
+            OutT* cp = static_cast<OutT*>(g.C) + (size_t)row * g.ldc + col;
             const float v0 = epi_value<EPI, ResT>(a0, rsc, g.cs[col],
                                                   g.bias[col], rp);
+            if constexpr (TAIL) {
+              if (col + 1 == g.N) {    // an odd N's last column, alone
+                ptt::store_f(cp, v0);
+                if constexpr (AMAX) vmax = fmaxf(vmax, fabsf(v0));
+                continue;
+              }
+            }
             const float v1 = epi_value<EPI, ResT>(
                 a1, rsc, g.cs[col + 1], g.bias[col + 1], rp + 1);
-            ptt::store2(static_cast<OutT*>(g.C) + (size_t)row * g.ldc + col,
-                        v0, v1);
+            if (TAIL && (g.ldc & 1)) {   // rows of an odd width: unaligned
+              ptt::store_f(cp, v0);
+              ptt::store_f(cp + 1, v1);
+            } else {
+              ptt::store2(cp, v0, v1);
+            }
             if constexpr (AMAX)
               vmax = fmaxf(vmax, fmaxf(fabsf(v0), fabsf(v1)));
           }
@@ -304,14 +320,14 @@ __device__ void gemm_units(const CUtensorMap* map_a, const CUtensorMap* map_b,
   }
 }
 
-template <int EPI, typename OutT, typename ResT, bool AMAX>
+template <int EPI, typename OutT, typename ResT, bool AMAX, bool TAIL>
 __global__ void __launch_bounds__(THREADS, 2)
     gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b, const Gemm g) {
   extern __shared__ unsigned char smem_raw[];
   Ring ring = ring_init(smem_raw, STAGES);
-  gemm_units<EPI, OutT, ResT, AMAX>(&map_a, &map_b, g, blockIdx.x,
-                                    gridDim.x, ring);
+  gemm_units<EPI, OutT, ResT, AMAX, TAIL>(&map_a, &map_b, g, blockIdx.x,
+                                          gridDim.x, ring);
 }
 
 // an int8 [rows, cols] matrix with row stride ld (bytes), read in boxes of
@@ -345,22 +361,24 @@ inline int sm_count(int* sms) {
 }
 
 // C = epi(...) of g, A [M, K] with row stride lda and Bt [N, K] with ldb
-// (bytes); K, N, lda, ldb, ldr, ldc multiples of 16 and A, Bt 16-byte
-// aligned (the tensor-map encode rejects a misaligned A or Bt, and the
-// wrapper raises).  A persistent grid of up to two
+// (bytes); K, N, lda, ldb, ldr, ldc multiples of 16 (TAIL: any N, ldr and
+// ldc) and A, Bt 16-byte aligned (the tensor-map encode rejects a
+// misaligned A or Bt, and the wrapper raises).  A persistent grid of up to two
 // blocks an SM walks the units.  AMAX (f32 C only): also each row's max
 // |C| into g.amax, which the caller has zeroed.  Returns a CUDA error
 // code, 0 on success.
-template <int EPI, typename OutT, typename ResT, bool AMAX = false>
+template <int EPI, typename OutT, typename ResT, bool AMAX = false,
+          bool TAIL = false>
 int gemm(const int8_t* A, long long lda, const int8_t* Bt, long long ldb,
          const Gemm& g, cudaStream_t st) {
   static_assert(!AMAX || (EPI != EPI_PART && sizeof(OutT) == 4),
                 "the row maxima are of an f32 output's values");
+  static_assert(!TAIL || EPI != EPI_PART, "split-K sums take N % 8 == 0");
   CUtensorMap map_a, map_b;
   if (!tensor_map(&map_a, A, g.M, g.K, lda, BM) ||
       !tensor_map(&map_b, Bt, g.N, g.K, ldb, BN))
     return (int)cudaErrorInvalidValue;
-  auto kernel = gemm_kernel<EPI, OutT, ResT, AMAX>;
+  auto kernel = gemm_kernel<EPI, OutT, ResT, AMAX, TAIL>;
   // the attribute, once an instance and device
   static bool ready[ptt::MAX_DEVICES] = {};
   int dev = 0;

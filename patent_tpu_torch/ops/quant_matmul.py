@@ -63,7 +63,7 @@ _SIG_LAYER = [_P, _P] + [_I] * 9 + [_P] * 16 + [_P] * 14 + [_P]
 _SIG_GEMM = [_I] + [_P] * 7 + [_I] * 4 + [_P]
 _SIG_GELU_QUANT = [_P] * 9 + [_I] * 3 + [_P]
 _SIG_DENSE = [_P, _P] + [_I] * 5 + [_P] * 3 + [_P] * 2 + [_P]
-_SIG_QMLP = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P] * 5 + [_P]
+_SIG_QMLP = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P] * 6 + [_P]
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -712,7 +712,7 @@ def quant_mlp(x, w1_t, s1, b1, w2_t, s2, b2) -> torch.Tensor:
     LayerNorm and no residual: x [..., K] (bf16 or f32), w1_t int8 [H, K],
     w2_t int8 [N, H], scales and biases f32 per output channel; the hidden
     f32, the result in x's dtype.  CPU tensor: the plain version; CUDA
-    tensor: the kernel (K and H multiples of 16), or an error."""
+    tensor: the kernels (K and H multiples of 16, any N), or an error."""
     if x.device.type == "cpu":
         return quant_mlp_plain(x, w1_t, s1, b1, w2_t, s2, b2)
     k, h, n = x.shape[-1], w1_t.shape[0], w2_t.shape[0]
@@ -722,11 +722,12 @@ def quant_mlp(x, w1_t, s1, b1, w2_t, s2, b2) -> torch.Tensor:
     _check_vectors(s1=(s1, h), b1=(b1, h), s2=(s2, n), b2=(b2, n))
     m, dev = x2.shape[0], x.device
     out = torch.empty(*x.shape[:-1], n, dtype=x.dtype, device=dev)
+    # xq, xs, the hidden g, its codes gq, scales gs and row maxima gmax
     scratch = [torch.empty(m, k, dtype=torch.int8, device=dev),
                torch.empty(m, dtype=torch.float32, device=dev),
                torch.empty(m, h, dtype=torch.float32, device=dev),
                torch.empty(m, h, dtype=torch.int8, device=dev),
-               torch.empty(m, dtype=torch.float32, device=dev)]
+               *torch.empty(2, m, dtype=torch.float32, device=dev)]
     _build.call("ptt_int8_qmlp", _SIG_QMLP, _build.ptr(x2), _build.ptr(out),
                 m, k, h, n, f32,
                 *map(_build.ptr, (w1_t, s1, b1, w2_t, s2, b2, *scratch)),

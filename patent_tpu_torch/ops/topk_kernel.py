@@ -32,10 +32,10 @@ _P, _I = _build.P, _build.I
 _SIG = [_P, _I, _P, _P, _I, _I, _I, _I] + [_P] * 8 + [_P]   # bf16 and int8
 _SIG_POINCARE = [_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P] * 9
 _SIG_PLAN = [_I] * 5 + [_P]
-# buckets a block of the cosine stages; queries and buckets a block of the
-# Poincaré stage (csrc/bucket_topk.cu)
-_COS_BB = 64
-_BQ, _BB = 64, 32
+# buckets a block of the stages (csrc/bucket_topk.cu)
+_BLOCK_BUCKETS = 64
+# the operand modes of the kernel's split plan (ptt_bucket_top2_plan)
+_PLAN_MODES = {"bf16": 0, "int8": 1, "poincare": 2}
 BUCKETS = 1024      # gallery column j falls in bucket j mod BUCKETS
 
 
@@ -103,18 +103,40 @@ def bucket_top2_plain(q16: torch.Tensor, gal16: torch.Tensor,
         s.masked_fill(valid[None, :] <= 0, float("-inf")), buckets)
 
 
+def step_requests(t0: int, t1: int, whole: int,
+                  group: int) -> list[tuple[int, int, bool]]:
+    """The gallery requests of one split of the bucket kernels' walk over
+    steps [t0, t1), in the order the producer sends them, where a request
+    of a row of one K-slice brings up to ``group`` steps of a bucket group
+    (csrc/bucket_topk.cu): (first step, steps, grouped).  A group of
+    ``group`` steps that lies within the ``whole`` steps of N // L comes
+    as one request of the [steps][L][D] view (grouped); a short group (the
+    end of the range) or one that holds the partial last step comes one
+    step a request of the [N][D] view."""
+    out = []
+    for t in range(t0, t1, group):
+        n = min(group, t1 - t)
+        if group > 1 and n == group and t + group <= whole:
+            out.append((t, n, True))
+        else:
+            out += [(t + i, 1, False) for i in range(n)]
+    return out
+
+
 def bucket_top2_walk(s: torch.Tensor, buckets: int = BUCKETS,
                      splits: int = 1, strict: bool = True,
-                     skip: int | None = None):
-    """The cosine kernels' walk over a [Q, N] score matrix (-inf: never
+                     skip: int | None = None, group: int = 1):
+    """The bucket kernels' walk over a [Q, N] score matrix (-inf: never
     chosen), step by step: split z folds steps [z·T/splits, (z+1)·T/splits)
-    of the T = ceil(N / buckets) steps into each (query, bucket)'s (v1,
-    step1, v2, step2) with a strict '>' (``strict=False``: '>=', ties to
-    the later column), leaving out step ``skip``; then the splits' lists
-    are merged in (score desc, column asc) order.  Returns (v1, i1, v2,
-    i2) as ``_bucket_top2_of_scores`` does, which it equals when strict and
-    nothing is skipped, at any split count: the model of the kernel that
-    the tests hold to the plain version, and its controls."""
+    of the T = ceil(N / buckets) steps, in the order its requests
+    (``step_requests`` with ``group`` steps a request) bring them, into
+    each (query, bucket)'s (v1, step1, v2, step2) with a strict '>'
+    (``strict=False``: '>=', ties to the later column), leaving out step
+    ``skip``; then the splits' lists are merged in (score desc, column asc)
+    order.  Returns (v1, i1, v2, i2) as ``_bucket_top2_of_scores`` does,
+    which it equals when strict and nothing is skipped, at any split count
+    and grouping: the model of the kernel that the tests hold to the plain
+    version, and its controls."""
     nq, n = s.shape
     steps = -(-n // buckets)
     ninf = float("-inf")
@@ -127,7 +149,10 @@ def bucket_top2_walk(s: torch.Tensor, buckets: int = BUCKETS,
         v2 = v1.clone()
         t1 = torch.zeros(nq, buckets, dtype=torch.int64, device=s.device)
         t2 = t1.clone()
-        for t in range(z * steps // splits, (z + 1) * steps // splits):
+        requests = step_requests(z * steps // splits,
+                                 (z + 1) * steps // splits, n // buckets,
+                                 group)
+        for t in (f + i for f, k, _grouped in requests for i in range(k)):
             if t == skip:
                 continue
             v = s[:, t]
@@ -176,6 +201,15 @@ def _check_top2_operands(q, gal, valid, buckets: int,
         raise ValueError("gallery or query count too large for int32 indices")
 
 
+def _splits(mode: str, nq: int, n: int, d: int, buckets: int) -> int:
+    """The kernel's split count for a call on the current card (its plan,
+    one rule for the three operand modes)."""
+    splits = ctypes.c_int(0)
+    _build.call("ptt_bucket_top2_plan", _SIG_PLAN, nq, n, d, buckets,
+                _PLAN_MODES[mode], ctypes.byref(splits))
+    return splits.value
+
+
 def _top2_launch(entry: str, argtypes: list, args: list, nq: int, n: int,
                  d: int, dev, buckets: int, splits: int):
     """Launch a bucket top-2 entry (its leading ``args``, then N, D, L,
@@ -194,17 +228,15 @@ def _bucket_top2_cuda(q, gal, valid, buckets: int = BUCKETS):
     """The kernel's (v1, i1, v2, i2), as ``bucket_top2_plain`` (bf16 q and
     gallery, ``valid`` the 0/1 row mask) or ``bucket_top2_int8_plain``
     (int8, ``valid`` the row scales) returns them."""
-    _check_top2_operands(q, gal, valid, buckets, _COS_BB)
+    _check_top2_operands(q, gal, valid, buckets, _BLOCK_BUCKETS)
     int8 = q.dtype == torch.int8
     (nq, d), n = q.shape, gal.shape[0]
-    splits = ctypes.c_int(0)       # the kernel's plan on the current card
-    _build.call("ptt_bucket_top2_plan", _SIG_PLAN, nq, n, d, buckets,
-                int(int8), ctypes.byref(splits))
     entry = "ptt_bucket_top2_i8" if int8 else "ptt_bucket_top2"
     return _top2_launch(entry, _SIG,
                         [_build.ptr(q), nq, _build.ptr(gal),
                          _build.ptr(valid)], nq, n, d, q.device, buckets,
-                        splits.value)
+                        _splits("int8" if int8 else "bf16", nq, n, d,
+                                buckets))
 
 
 def _check_pool(n: int, pool: int) -> None:
@@ -429,20 +461,17 @@ def _bucket_top2_poincare_cuda(q_i8, qs, q_sq, gal: PoincareGallery,
     """The Poincaré kernel's (v1, i1, v2, i2), as
     ``bucket_top2_poincare_plain`` returns them."""
     gal_i8, gw2, w, b = gal
-    _check_top2_operands(q_i8, gal_i8, w, buckets, _BB)
-    nq, n = q_i8.shape[0], gal_i8.shape[0]
+    _check_top2_operands(q_i8, gal_i8, w, buckets, _BLOCK_BUCKETS)
+    (nq, d), n = q_i8.shape, gal_i8.shape[0]
     for name, t, shape in (("q_scale", qs, (nq, 1)), ("q_sq", q_sq, (nq, 1)),
                            ("gw2", gw2, (n,)), ("b", b, (n,))):
         check_cuda_tensor(name, t, torch.float32, shape)
-    # split the gallery walk until ~4 blocks per SM are in flight
-    sms = torch.cuda.get_device_properties(q_i8.device).multi_processor_count
-    blocks = (buckets // _BB) * (-(-nq // _BQ))
-    splits = max(1, min(-(-n // buckets), -(-4 * sms // blocks)))
     return _top2_launch("ptt_bucket_top2_poincare", _SIG_POINCARE,
                         [_build.ptr(q_i8), _build.ptr(qs), _build.ptr(q_sq),
                          nq, _build.ptr(gal_i8), _build.ptr(gw2),
                          _build.ptr(w), _build.ptr(b)],
-                        nq, n, q_i8.shape[1], q_i8.device, buckets, splits)
+                        nq, n, d, q_i8.device, buckets,
+                        _splits("poincare", nq, n, d, buckets))
 
 
 def _poincare_queries(queries: torch.Tensor, gal: PoincareGallery):

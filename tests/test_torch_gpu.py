@@ -639,12 +639,19 @@ def test_bucket_kernels_match_plain_at_every_tile_shape(cuda, dtype, d, nq,
         assert (i[~live] == 0).all()
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "poincare"])
 def test_bucket_pool_of_two_per_bucket_equals_plain(cuda, dtype):
     """A pool as deep as the capacity, 2L: every candidate of every bucket
     comes back, as the plain version's."""
-    gal, q = _bucket_case(cuda, 65, 5000, 64, seed=9)
     pool = 2 * topk_kernel.BUCKETS
+    if dtype == "poincare":
+        qb, pg, _tie = _poincare_case(cuda, 65, 5000, 128, seed=9)
+        got = topk_kernel.bucket_topk_poincare(qb, pg, pool)
+        want = topk_kernel.bucket_topk_poincare_plain(qb, pg, pool)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        return
+    gal, q = _bucket_case(cuda, 65, 5000, 64, seed=9)
     if dtype == "int8":
         gi8, gscale = (torch.from_numpy(a).to(cuda) for a in
                        topk_kernel.quantize_gallery(gal.cpu().numpy()))
@@ -1010,18 +1017,47 @@ def test_int8_dense_kernel_matches_plain_and_controls_do_not(cuda, act,
         assert _rel_err(ctrl, want) > DENSE_REL_TOL, name
 
 
+def _qmlp_case(dev, m, n, k=768, h=3072, seed=11):
+    """x [m, k] and quant_mlp's weights (w1_t [h, k], s1, b1, w2_t [n, h],
+    s2, b2) at the tower's widths, any output width n."""
+    g = torch.Generator(device=dev).manual_seed(seed + m + n)
+
+    def r(*shape, std):
+        return std * torch.randn(*shape, generator=g, device=dev)
+
+    def mat(rows, cols):
+        q, scale = qm.quantize_weight(r(rows, cols, std=rows ** -0.5))
+        return q.T.contiguous(), scale
+
+    w1, s1 = mat(k, h)
+    w2, s2 = mat(h, n)
+    return r(m, k, std=1.0), (w1, s1, r(h, std=0.02), w2, s2,
+                              r(n, std=0.02))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-def test_int8_qmlp_kernel_matches_plain_and_controls_do_not(cuda, dtype):
-    x, _attn, mlp = _int8_case(cuda)
+@pytest.mark.parametrize("m,n", [(None, None), (1, 8), (1, 13), (1, 768),
+                                 (77, 8), (77, 13), (77, 768), (26624, 8),
+                                 (26624, 13), (26624, 768)])
+def test_int8_qmlp_kernel_matches_plain_and_controls_do_not(cuda, dtype, m,
+                                                            n):
+    """The int8 case's small MLP (m None), then one row, a ragged 77 and a
+    batch of 128's 26,624 rows at output widths 8, 13 (odd: the wgmma
+    epilogue stores its last column alone) and 768, K 768 and H 3072."""
+    if m is None:
+        x, _attn, mlp = _int8_case(cuda)
+        w = mlp[2:]                   # w1_t, s1, b1, w2_t, s2, b2
+    else:
+        x, w = _qmlp_case(cuda, m, n)
     x = x.to(dtype)
-    w = mlp[2:]                       # w1_t, s1, b1, w2_t, s2, b2
     n0 = qm.quant_mlp.launches
     got = qm.quant_mlp(x, *w)
     want = qm.quant_mlp_plain(x, *w)
     torch.cuda.synchronize()
     assert qm.quant_mlp.launches == n0 + 1
-    assert got.dtype == dtype and got.shape == x.shape
+    assert got.dtype == dtype
+    assert got.shape == (*x.shape[:-1], w[3].shape[0])
     assert _rel_err(got, want) <= DENSE_REL_TOL
     for i in (2, 5):                  # b1, b2
         q = list(w)
@@ -1031,6 +1067,26 @@ def test_int8_qmlp_kernel_matches_plain_and_controls_do_not(cuda, dtype):
         q = list(w)
         q[i] = torch.full_like(q[i], float(q[i].mean()))
         assert _rel_err(qm.quant_mlp_plain(x, *q), want) > DENSE_REL_TOL, i
+
+
+def test_int8_qmlp_runs_both_gemms_on_the_wgmma_kernel(cuda):
+    """Row 11's route: the wgmma s8 GEMM (MLP in with its row maxima, MLP
+    out), the one-pass quantization of the hidden, and no launch of the
+    earlier mma.sync GEMM; the same bits twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w = _qmlp_case(cuda, 77, 13)
+    first = qm.quant_mlp(x, *w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = qm.quant_mlp(x, *w)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.self_device_time_total > 0]
+    assert sum("ptt_s8::gemm_kernel" in k for k in names) == 2, names
+    assert any("rowquant_amax_kernel" in k for k in names), names
+    assert not any("gemm_s8_kernel" in k for k in names), names
+    assert torch.equal(first, again)
 
 
 def test_int8_dense_kernels_reject_what_they_do_not_take(cuda):
@@ -1532,23 +1588,68 @@ def test_hyperbolic_kernels_reject_what_they_do_not_take(cuda):
                                          gal, 16)
 
 
-def test_poincare_bucket_kernel_equals_plain(cuda):
-    """Several 1,024-row steps, a duplicated row (a tie) and masked rows
-    (w = 0): the kernel's (v1, i1, v2, i2) equal the plain version's."""
-    c = 2.0
-    g = torch.Generator(device=cuda).manual_seed(7)
-    gal = _ball(g, 5000, 64, c, cuda)
-    gal[1976] = gal[952]
-    q = _ball(g, 70, 64, c, cuda)
-    q[0] = gal[952]
+def _poincare_case(dev, nq, n, d, c=2.0, seed=7):
+    """A ball gallery with copies of row 952 one and two steps later in its
+    bucket (a tie that must go to the earliest copy), every 97th row masked
+    (w = 0), and queries of which the first is row 952."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gal = _ball(g, n, d, c, dev)
+    tie = min(952, n - 1)
+    for m in (1, 2):
+        if tie + 1024 * m < n:
+            gal[tie + 1024 * m] = gal[tie]
+    q = _ball(g, nq, d, c, dev)
+    q[0] = gal[tie]
     pg = topk_kernel.prepare_poincare_gallery(gal, c)
     pg.w[::97] = 0.0
+    return q, pg, tie
+
+
+@pytest.mark.parametrize("d", [32, 128, 512])
+@pytest.mark.parametrize("n", [700, 5000, 70000])
+@pytest.mark.parametrize("nq", [1, 3, 65, 256, 300])
+def test_poincare_bucket_kernel_equals_plain(cuda, nq, n, d):
+    """Every tile width, one step and many (each N ends in a partial
+    step; at D 32 and 128 a request brings four steps, so split ranges end
+    in short groups), the planted tie and masked rows: the kernel's (v1,
+    i1, v2, i2) equal the plain version's bit for bit, the tie goes to the
+    earliest copy, no masked row appears and empty slots are (-inf, 0)."""
+    q, pg, tie = _poincare_case(cuda, nq, n, d, seed=nq + n + d)
     terms = topk_kernel.quantize_poincare_queries(q)
     got = topk_kernel._bucket_top2_poincare_cuda(*terms, pg)
     want = topk_kernel.bucket_top2_poincare_plain(*terms, pg)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert int(got[1][0, tie % 1024]) == tie
+    bad = (pg.w <= 0).nonzero()[:, 0].to(torch.int32)
+    for i, v in ((got[1], got[0]), (got[3], got[2])):
+        live = v > float("-inf")
+        assert not torch.isin(i[live], bad).any()
+        assert (i[~live] == 0).all()
+
+
+def test_poincare_stage_is_one_launch_and_the_merge(cuda):
+    """Row 4 runs the bucket template's Poincaré instance: the profiler
+    sees one stage launch and one merge a call (Q 256 over 70,000 rows
+    takes several splits), and no other kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, pg, _tie = _poincare_case(cuda, 256, 70000, 128)
+    terms = topk_kernel.quantize_poincare_queries(q)
+    topk_kernel._bucket_top2_poincare_cuda(*terms, pg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            topk_kernel._bucket_top2_poincare_cuda(*terms, pg)
+        torch.cuda.synchronize()
+    seen = {e.key: e.count for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+    stage = [k for k in seen if "bucket_top2_wg<2," in k]
+    merge = [k for k in seen if "bucket_top2_merge" in k]
+    assert len(stage) == 1 and seen[stage[0]] == 3, seen
+    assert len(merge) == 1 and seen[merge[0]] == 3, seen
+    assert len(seen) == 2, seen
 
 
 def test_poincare_index_takes_the_kernel_path_and_equals_the_scan(cuda):

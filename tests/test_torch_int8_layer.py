@@ -188,20 +188,24 @@ def test_quant_dense_refuses_an_unknown_activation(rng):
             fn(x, wt, ts, tb, act="gelu")
 
 
-@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32],
-                         ids=["bf16", "f32"])
-def test_quant_mlp_plain_matches_jax_kernel(rng, dtype):
+@pytest.mark.parametrize(
+    "dtype,lead,n",
+    [(jnp.bfloat16, (3, 40), 96), (jnp.float32, (3, 40), 96),
+     (jnp.bfloat16, (77,), 13), (jnp.float32, (77,), 13)],
+    ids=["bf16", "f32", "bf16-m77-n13", "f32-m77-n13"])
+def test_quant_mlp_plain_matches_jax_kernel(rng, dtype, lead, n):
     """Row 11 against the Pallas kernel: dense, quick_gelu, row quantization
-    of the f32 hidden, dense.  Measured (seeds 0, 1, 2, 42): identical in
-    bf16; on an f32 output 4 in 10 elements differ in their last bit (XLA
-    rounds the dequant's multiply-add once), at most 2.5e-7 of the largest
-    |y|."""
-    x = jnp.asarray(rng.standard_normal((3, 40, D)) * 0.5, dtype)
-    (j1, t1), (j2, t2) = _weights(rng, D, F), _weights(rng, F, 96)
+    of the f32 hidden, dense; also at a ragged M (77) and an odd output
+    width (13), which the card's epilogue stores a column at a time.
+    Measured (seeds 0, 1, 2, 42, at [3, 40] x 96): identical in bf16; on
+    an f32 output 4 in 10 elements differ in their last bit (XLA rounds the
+    dequant's multiply-add once), at most 2.5e-7 of the largest |y|."""
+    x = jnp.asarray(rng.standard_normal((*lead, D)) * 0.5, dtype)
+    (j1, t1), (j2, t2) = _weights(rng, D, F), _weights(rng, F, n)
     want = np.asarray(jqm.quant_mlp(x, *j1, *j2, m_tile=64, force=True,
                                     fast=False), np.float32)
     got = tqm.quant_mlp(_stream(x), *t1, *t2)
-    assert got.dtype == _stream(x).dtype and got.shape == (3, 40, 96)
+    assert got.dtype == _stream(x).dtype and got.shape == (*lead, n)
     assert _gaps(_np(got), want)[1] <= (0 if dtype == jnp.bfloat16 else 1e-6)
 
 
