@@ -50,7 +50,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    B=2 (whole layer) and 3 (the sub-layers), with the controls of both
    sub-layers and the other mid-layer residual (rows 5 + 7 chained, bf16,
    must fail the whole layer's gate); the int8 dense layer at [26,624 x
-   768] x [768 x 2304] and x [768 x 3072] with quick_gelu, and on f32 rows;
+   768] x [768 x 2304] and x [768 x 3072] with quick_gelu, and on f32
+   rows, at one row, and at an output width of 13;
    the int8 MLP at [26,624 x 768], hidden 3072, and at one row and an
    output width of 13; the int8 MLP sub-layer
    (row 7) at the CLS call's 1, 3, 4 and 128 rows and at 26,624, and its
@@ -77,7 +78,15 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    the same run on the CPU by gallery features (bf16: and the battery),
    and an EmbeddingIndex at D 100 over 200,000 rows (bf16, int8,
    Poincaré; the candidate copies zero-padded to the kernels' widths)
-   equal to the exact rankings; then
+   equal to the exact rankings; the serve action over the 224 px corpus,
+   bf16 and then --quantize, in this process through the helper the CLI
+   calls: /healthz and /stats, features of three gallery rows (each top-1
+   itself, equal to EmbeddingIndex.search), a name and an image_path
+   query of a gallery file (each top-1 itself), 8 concurrent clients x 8
+   requests (each answer equal to the same request alone, fewer
+   dispatches than requests), a malformed body (400); then the CLI's
+   serve as a process of its own, which must answer /healthz and a
+   search; then
    finetune --epochs 1, ViT-B/16 on a 224 px corpus (48 patents x 4
    figures: two steps of 64 pairs), and eval serving the checkpoint it
    wrote; then the hyperbolic serving path: infer and dist on a
@@ -124,7 +133,11 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    trace saw,
    cosine top-k QPS at 1M x 512, Q=256, k=10 through the bf16 kernel
    path, the quantized path and the f32 scan, rows 3 and 3′ at Q = 1 and
-   16 beside their plain versions and bounds, every kernel against its
+   16 beside their plain versions and bounds, served top-10 QPS at 1M x
+   512 (16 client threads x 32 single-row requests, in this process and
+   through HTTP, beside a serialized index.search loop; the dispatches,
+   the rows a dispatch coalesced, sampled answers held to index.search),
+   every kernel against its
    plain version at the main path's shapes, and one fine-tune step at 64
    pairs with kernels against plain blocks (first held to them: metrics
    and every trainable gradient, from the same seeded weights), with its
@@ -1673,6 +1686,287 @@ TOPK_QUERY_COUNTS = (1, 3, 65, 256, 300)
 TIE_ROW, TIE_STEPS = 1976, (1, 300)
 
 
+# ---- the retrieval server (patent_tpu_torch/retrieval/server.py)
+
+# the service answers a request from a padded batch (rows and k to powers
+# of two, others' rows beside it), index.search from the request alone:
+# the same candidates, f32 re-rank dots over other batch shapes, so the
+# scores may differ in their last bits
+SERVE_SCORE_TOL = 1e-6
+# a gallery image served by image_path against its own stored row: the
+# same tower on a batch of 32 either way
+SERVE_SELF_MIN_COS = 0.999
+
+
+def http_json(url: str, payload=None, timeout: float = 120.0):
+    """(status, JSON body) of a GET (payload None) or of a POST of payload
+    (JSON, or raw bytes)."""
+    import urllib.error
+    import urllib.request
+
+    data = (None if payload is None else payload
+            if isinstance(payload, bytes) else json.dumps(payload).encode())
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ranked(index, q, k: int) -> list:
+    """index.search's answer as the server names it: per query row, the
+    gallery basenames and the scores."""
+    vals, idx = index.search(q, k=k)
+    return [([os.path.basename(index.names[j]) for j in ri], rv.tolist())
+            for ri, rv in zip(idx, vals)]
+
+
+def answers(body: dict) -> list:
+    """A /search answer as ranked() gives one."""
+    return [([r["name"] for r in row], [r["score"] for r in row])
+            for row in body["results"]]
+
+
+def answer_gap(got: list, want: list) -> float:
+    """The largest score difference of two answers with the same names in
+    the same order; inf when a name or the count differs."""
+    if len(got) != len(want):
+        return math.inf
+    gap = 0.0
+    for (gn, gs), (wn, ws) in zip(got, want):
+        if gn != wn:
+            return math.inf
+        gap = max(gap, max(abs(a - b) for a, b in zip(gs, ws)))
+    return gap
+
+
+def clients(n_threads: int, per_thread: int, ask) -> tuple[list, float]:
+    """``ask(i)`` for requests 0 .. n_threads * per_thread - 1, thread t
+    asking t * per_thread + r in turn: (the answers in request order, the
+    seconds the whole run took)."""
+    import threading
+
+    got: list = [None] * (n_threads * per_thread)
+    errs: list = []
+
+    def client(t):
+        try:
+            for r in range(per_thread):
+                i = t * per_thread + r
+                got[i] = ask(i)
+        except Exception as e:
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    seconds = time.perf_counter() - t0
+    check(not errs and all(g is not None for g in got),
+          f"a client failed or stalled: {errs[:1]}")
+    return got, seconds
+
+
+def serve_slice(np, run_serve_action, parse_args, flags: list[str],
+                tag: str) -> None:
+    """The serve action over the slice's corpus, in this process through the
+    helper the CLI calls (block=False): /healthz and /stats; features of
+    three gallery rows, each top-1 itself, equal to index.search; a name
+    and an image_path query of gallery files, each top-1 itself; 8
+    concurrent clients x 8 requests, each answer equal to the same request
+    served alone; a malformed body gets 400."""
+    server = run_serve_action(parse_args(["serve", "--path", RUN_DIR,
+                                          "--port", "0"] + flags),
+                              block=False)
+    service = server.RequestHandlerClass.service
+    index = service.engine.index
+    host, port = server.server_address
+    base = f"http://{host}:{port}"
+    try:
+        n = len(index)
+        st, health = http_json(base + "/healthz")
+        st2, stats = http_json(base + "/stats")
+        check(st == st2 == 200 and health == {"status": "ok",
+                                              "gallery_size": n}
+              and stats["gallery_size"] == n and stats["dim"] == 512
+              and stats["sharded"] is False and stats["image_size"] == 224,
+              f"serve {tag}: /healthz {health} or /stats {stats}")
+        rows = [0, n // 2, n - 1]
+        q = index.embeddings[rows].cpu().numpy()
+        st, body = http_json(base + "/search", {"features": q.tolist(),
+                                                "k": 10})
+        got = answers(body) if st == 200 else []
+        # the server's own dispatch: 3 rows padded to 4, k to 16
+        padded = np.concatenate([q, np.zeros((1, q.shape[1]), np.float32)])
+        exact = [(names[:10], scores[:10]) for names, scores in
+                 ranked(index, padded, 16)[:3]]
+        alone_gap = answer_gap(got, ranked(index, q, 10))
+        selves = [os.path.basename(index.names[r]) for r in rows]
+        check(st == 200 and got == exact and alone_gap <= SERVE_SCORE_TOL
+              and [names[0] for names, _s in got] == selves,
+              f"serve {tag}: features of gallery rows {rows} answered "
+              f"{got[:1]}, not index.search's (gap {alone_gap})")
+        name = os.path.basename(index.names[7])
+        st, body = http_json(base + "/search", {"name": name, "k": 10})
+        by_name = answers(body)[0] if st == 200 else ([], [])
+        st2, body = http_json(base + "/search", {"image_path": name,
+                                                 "k": 10})
+        by_path = answers(body)[0] if st2 == 200 else ([], [])
+        check(st == st2 == 200 and by_name[0][:1] == by_path[0][:1] == [name]
+              and by_name[1][0] > SERVE_SELF_MIN_COS
+              and by_path[1][0] > SERVE_SELF_MIN_COS,
+              f"serve {tag}: {name} by name {by_name} or by image_path "
+              f"{by_path} is not top-1 itself")
+        rng = np.random.default_rng(15)
+        qs = index.embeddings[rng.choice(n, 64, replace=False)].cpu().numpy()
+        qs = qs + 0.05 * rng.standard_normal(qs.shape).astype(np.float32)
+
+        def ask(i):
+            st, body = http_json(base + "/search",
+                                 {"features": [qs[i].tolist()], "k": 10})
+            check(st == 200, f"serve {tag}: request {i} got {st}: {body}")
+            return answers(body)
+
+        alone = [ask(i) for i in range(64)]
+        d0, r0 = service.batcher.dispatches, service.batcher.requests
+        together, _s = clients(8, 8, ask)
+        dispatches = service.batcher.dispatches - d0
+        gap = max(answer_gap(a, b) for a, b in zip(together, alone))
+        bad = [http_json(base + "/search", b"not json")[0],
+               http_json(base + "/search", {"features": [[0.0] * 8]})[0],
+               http_json(base + "/search", {"k": "x", "name": name})[0]]
+        print(f"[slice] serve {tag} over {n} gallery rows: /healthz and "
+              f"/stats; features of rows {rows} top-1 themselves, equal to "
+              f"index.search (score gap {alone_gap:.3g}); "
+              f"{name} by name and by image_path top-1 at {by_name[1][0]:.6f}"
+              f" / {by_path[1][0]:.6f}; 8 clients x 8 requests in "
+              f"{dispatches} dispatches ({service.batcher.requests - r0} "
+              f"requests), each equal to itself alone (score gap {gap:.3g}); "
+              f"malformed bodies {bad}")
+        check(gap <= SERVE_SCORE_TOL and dispatches < 64
+              and bad == [400, 400, 400],
+              f"serve {tag}: concurrent answers differ from alone ({gap}), "
+              f"no coalescing ({dispatches} dispatches) or a malformed body "
+              f"not refused ({bad})")
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.engine.close()
+
+
+def cli_server() -> None:
+    """``python -m patent_tpu_torch.cli serve`` as a process of its own on a
+    free port over the slice's corpus: it must answer /healthz and a search
+    by a stored name; it is terminated in any case."""
+    port = free_port()
+    log = os.path.join(ROOT, "build", "chip_smoke_serve.log")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "patent_tpu_torch.cli", "serve", "--path",
+             RUN_DIR, "--port", str(port)], cwd=ROOT, stdout=fh,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=ROOT))
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    try:
+        health = None
+        while health is None and time.perf_counter() - t0 < 300:
+            check(proc.poll() is None, f"the serve process exited "
+                  f"({proc.returncode}): {open(log).read()[-2000:]}")
+            try:
+                health = http_json(base + "/healthz", timeout=5)
+            except OSError:
+                time.sleep(1.0)
+        check(health is not None and health[0] == 200,
+              f"the serve process did not answer /healthz: {health}")
+        up = time.perf_counter() - t0
+        name = sorted(os.listdir(os.path.join(RUN_DIR, "test_gallery")))[0]
+        st, body = http_json(base + "/search", {"name": name, "k": 5})
+        top = answers(body)[0][0] if st == 200 else body
+        print(f"[slice] python -m patent_tpu_torch.cli serve --port {port}: "
+              f"/healthz {health[1]} after {up:.1f} s; a search by name "
+              f"{name} answered {st}: {top}")
+        check(st == 200 and top[0] == name and len(top) == 5,
+              "the serve process did not answer a search")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def served_qps(torch, np, dev, gen, serve, RetrievalEngine, EmbeddingIndex,
+               label: str, n: int, d: int, k: int) -> None:
+    """Served top-k QPS on an n x d bf16-path index: 16 client threads x 32
+    single-row requests in this process (RetrievalService.search) and
+    through HTTP, beside a serialized loop of index.search, a dispatch a
+    request; the dispatches and the mean rows a dispatch coalesced; a
+    sample of answers held to index.search."""
+    gal = torch.randn(n, d, generator=gen, device=dev)
+    engine = RetrievalEngine(lambda b: b, dev, batch_size=32, image_size=224)
+    engine.index = index = EmbeddingIndex(gal, [f"g{i}.png"
+                                                for i in range(n)], device=dev)
+    rng = np.random.default_rng(5)
+    pick = rng.choice(n, 512, replace=False)
+    qs = (gal[torch.from_numpy(pick).to(dev)].cpu().numpy()
+          + 0.3 * rng.standard_normal((512, d)).astype(np.float32))
+    del gal
+    index.search(qs[:1], k=k)          # the bf16 candidate copy, once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = [index.search(qs[i:i + 1], k=k) for i in range(512)]
+    serial_s = time.perf_counter() - t0
+    server = serve(engine, port=0, block=False)
+    service = server.RequestHandlerClass.service
+    base = "http://{}:{}".format(*server.server_address)
+    runs = {}
+    try:
+        for how, ask in (
+                ("in-process", lambda i: answers(service.search(
+                    {"features": [qs[i].tolist()], "k": k}))),
+                ("HTTP", lambda i: answers(http_json(
+                    base + "/search",
+                    {"features": [qs[i].tolist()], "k": k})[1]))):
+            ask(0)                    # warm-up
+            d0, r0 = service.batcher.dispatches, service.batcher.requests
+            got, seconds = clients(16, 32, ask)
+            runs[how] = (got, seconds, service.batcher.dispatches - d0,
+                         service.batcher.requests - r0)
+    finally:
+        server.shutdown()
+        server.server_close()
+    sample = range(0, 512, 37)
+    want = {i: [([f"g{j}.png" for j in serial[i][1][0]],
+                 serial[i][0][0].tolist())] for i in sample}
+    gaps = {how: max(answer_gap(run[0][i], want[i]) for i in sample)
+            for how, run in runs.items()}
+    print(f"[time] served top-{k} QPS at {n} x {d} (bf16 candidate path), "
+          "16 client threads x 32 single-row requests: " + "; ".join(
+              f"{how} {512 / s:.0f} QPS ({s:.3f} s, {disp} dispatches for "
+              f"{req} requests, {req / disp:.2f} rows a dispatch)"
+              for how, (_g, s, disp, req) in runs.items())
+          + f"; serialized index.search loop {512 / serial_s:.0f} QPS "
+          f"({serial_s:.3f} s, 512 dispatches); {len(sample)} sampled "
+          f"answers vs index.search: score gap {gaps} {label}")
+    check(all(g <= SERVE_SCORE_TOL for g in gaps.values()),
+          f"served answers differ from index.search: {gaps}")
+
+
 def near_tie_columns(torch, got, want, scores) -> tuple[int, bool]:
     """(columns of ``got`` that differ from ``want``'s, whether each such
     column's score under the plain version's ``scores`` [Q, N] lies within
@@ -1809,6 +2103,7 @@ def main() -> None:
 
     from patent_tpu_torch import _build
     from patent_tpu_torch.cli.main import main as cli
+    from patent_tpu_torch.cli.main import parse_args
     from patent_tpu_torch.models.vit import VIT_B16, VisionTransformer
     from patent_tpu_torch.models.vit_int8 import (Int8VisionTransformer,
                                                   int8_dense)
@@ -1825,8 +2120,10 @@ def main() -> None:
     from patent_tpu_torch.retrieval import index as index_mod
     from patent_tpu_torch.retrieval.engine import (
         RetrievalEngine, device_normalize, make_device_normalizing_encoder)
-    from patent_tpu_torch.retrieval.cli_actions import (select_device,
+    from patent_tpu_torch.retrieval.cli_actions import (run_serve_action,
+                                                        select_device,
                                                         write_synthetic_split)
+    from patent_tpu_torch.retrieval.server import serve
     from patent_tpu_torch.utils import checkpoint
 
     # ---- 1. device
@@ -1915,6 +2212,16 @@ def main() -> None:
         check_int8_dense(torch, qm, f"[{3 * valid} x {d}] x [{d} x {f}] f32, "
                          "quick_gelu", x2[:3 * valid].float(), *ip_mlp[2:5],
                          "quick_gelu"))
+    # row 10 at one row, and at an odd output width (the wgmma epilogue
+    # stores the last column alone): QKV's first 13 channels
+    q13 = tuple(t[:13].contiguous() for t in ip_attn[2:5])
+    for tag, xv, wv, act in (
+            (f"[1 x {d}] x [{d} x {3 * d}] bf16", x2[:1], ip_attn[2:5], None),
+            (f"[{m} x {d}] x [{d} x 13] bf16, quick_gelu", x2, q13,
+             "quick_gelu"),
+            (f"[1 x {d}] x [{d} x 13] f32", x2[:1].float(), q13, None)):
+        errs["quant_dense"] = max(errs["quant_dense"], check_int8_dense(
+            torch, qm, tag, xv, *wv, act))
     errs["quant_mlp"] = check_int8_qmlp(torch, qm, f"[{m} x {d}], H {f}", x2,
                                         ip_mlp[2:])
     # and at one row, and at an odd output width (the wgmma epilogue
@@ -2188,6 +2495,25 @@ def main() -> None:
           "quantized index top-20 differs from the f32 scan")
     print("[slice] quantized index top-20 over the int8-encoded gallery "
           "equals the f32 scan")
+
+    # the serve action over the same corpus and the indexes encode saved:
+    # in this process through the helper the CLI calls, bf16 then
+    # --quantize (image_path queries encode at the engine's batch of 32:
+    # rows 1-2, or 5-7; every search takes row 3), then the CLI itself as a
+    # process of its own
+    for flags, tag, counters in (
+            ([], "bf16", (bf16_layer.fused_layer_block_bf16,
+                          bf16_layer.fused_layer_cls_bf16,
+                          topk_kernel.bucket_topk_bf16)),
+            (["--quantize"], "--quantize", (qm.quant_attention_block,
+                                            qm.quant_attention_cls,
+                                            qm.quant_mlp_block,
+                                            topk_kernel.bucket_topk_bf16))):
+        run_path(f"serve {tag}: /healthz, /stats, /search by features, name "
+                 "and image_path, 8 clients x 8 requests", counters,
+                 lambda flags=flags, tag=tag: serve_slice(
+                     np, run_serve_action, parse_args, flags, tag))
+    cli_server()
 
     # the CLI's small tower, which the JAX package serves: eval
     # --synthetic writes a 64 px corpus, for which the CLI builds a tower
@@ -2946,6 +3272,8 @@ def main() -> None:
           f"{256 / sp * 1e3:.0f} QPS ({sp:.2f} ms; {sp2:.2f} ms in the "
           f"second pair) {label}")
     del gal, g16, gvalid, gi8, gscale
+    served_qps(torch, np, dev, gen, serve, RetrievalEngine,
+               index_mod.EmbeddingIndex, label, n_big, dg, k)
 
     hyperbolic_times(torch, HYP_SIZES, hyp, times, bounds, label, k, pool)
     for kname, (pm, km) in times.items():
@@ -2988,7 +3316,7 @@ def main() -> None:
              "patent_tpu/ops/quant_matmul.py:1165"),
             ("quant_layer_group", "int8_layer.cu",
              "patent_tpu/ops/quant_matmul.py:1278"),
-            ("quant_dense", "int8_layer.cu",
+            ("quant_dense", "wgmma_s8.cuh",
              "patent_tpu/ops/quant_matmul.py:185"),
             ("quant_mlp", "wgmma_s8.cuh",
              "patent_tpu/ops/quant_matmul.py:266"),

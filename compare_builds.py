@@ -29,8 +29,13 @@ CUDA events, 20 calls after 3 of warm-up) of:
   7), 127, 3 and 1 (row 8, then rows 6 + 7 on the CLS rows);
 * rows 5 and 6 on [128, 208, 768] (197 valid keys) and row 6 on [4, 208,
   768]; row 9, ``quant_layer_group``, at B 128; rows 10 and 11,
-  ``quant_dense`` (x [26,624 x 768] x [768 x 2,304]) and ``quant_mlp``
-  (hidden 3,072), each with its device time;
+  ``quant_dense`` (x [26,624 x 768] x [768 x 2,304]; also x [768 x
+  3,072] with quick_gelu, and on f32 rows) and ``quant_mlp`` (hidden
+  3,072), each with its device time; row 10's s8 GEMM alone at [26,624 x
+  768] x [768 x 2,304] in its instance for N % 16 == 0 and its TAIL
+  instance (where the checkout has both); row 10 at M 1, 77 and 26,624,
+  N 8, 13, 768 and 2,304, bf16 and f32, with and without quick_gelu, its
+  outputs saved as SHA-256 digests of their bytes;
 * on a seeded 1M x 512 gallery (bf16 and int8 copies): rows 3 and 3′'s
   candidate pools (80 deep) at Q 1, 16 and 256, and the bf16 and the
   quantized top-10 paths at Q 256, each with its device time; row 4's
@@ -201,6 +206,15 @@ def timed(torch, name: str, fn, outs: dict, times: dict, device: dict,
     device[name] = sum(ms for _k, ms in kernel_breakdown(torch, fn))
 
 
+def sha256(torch, t):
+    """The SHA-256 digest of a tensor's bytes, as 32 uint8."""
+    import hashlib
+
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return torch.frombuffer(bytearray(hashlib.sha256(raw).digest()),
+                            dtype=torch.uint8)
+
+
 def int8_family(torch, randn, mat, outs: dict, times: dict) -> dict:
     """Rows 5, 6, 9, 10 and 11 at a batch of 128's shapes: their outputs
     and wall times into ``outs`` and ``times``; returns the device time a
@@ -232,6 +246,44 @@ def int8_family(torch, randn, mat, outs: dict, times: dict) -> dict:
     timed(torch, "row 10, [26,624 x 768] x [768 x 2,304]",
           lambda: qm.quant_dense(x2, wqkv, sqkv, attn[4]), outs, times,
           device)
+    # the larger outputs below are kept as digests (see sha256)
+    x2f = x2.float()
+    for name, fn in (
+            ("row 10, [26,624 x 768] x [768 x 3,072], quick_gelu",
+             lambda: qm.quant_dense(x2, w1, s1, mlp[4], "quick_gelu")),
+            ("row 10, f32 rows [26,624 x 768] x [768 x 2,304]",
+             lambda: qm.quant_dense(x2f, wqkv, sqkv, attn[4]))):
+        timed(torch, name, fn, outs, times, device)
+        outs[f"{name} (sha256)"] = sha256(torch, outs.pop(name))
+    del x2f
+    # the GEMM alone at row 10's main shape: the instance for N % 16 == 0
+    # and the TAIL instance (any N), on the same codes
+    if "bias_tail" in qm.S8_GEMM_EPILOGUES:
+        xq, xs = qm.quant_rows(x2.float())
+        xs = xs.reshape(-1)
+        for epi in ("bias", "bias_tail"):
+            name = f"s8 GEMM {epi}, [26,624 x 768] x [768 x 2,304]"
+            timed(torch, name, lambda epi=epi: qm.int8_gemm(
+                xq, xs, wqkv, sqkv, attn[4], epi), outs, times, device)
+            outs[f"{name} (sha256)"] = sha256(torch, outs.pop(name))
+        print("s8 GEMM at row 10's main shape: the TAIL instance's output "
+              "equals the N % 16 == 0 instance's bit for bit: " + str(
+                  torch.equal(*(outs[f"s8 GEMM {epi}, [26,624 x 768] x "
+                                     "[768 x 2,304] (sha256)"]
+                                for epi in ("bias", "bias_tail")))))
+        del xq, xs
+    # row 10 at every shape of the card tests, its outputs as SHA-256
+    # digests of their bytes (equal digests: equal bits)
+    for m in (1, 77, 26624):
+        for n in (8, 13, 768, 2304):
+            w, ws = wqkv[:n].contiguous(), sqkv[:n].contiguous()
+            b = attn[4][:n].contiguous()
+            for dname, dtype in (("bf16", torch.bfloat16),
+                                 ("f32", torch.float32)):
+                for act in (None, "quick_gelu"):
+                    out = qm.quant_dense(x2[:m].to(dtype), w, ws, b, act)
+                    outs[f"row 10, M {m}, N {n}, {dname}, {act} (sha256)"] = \
+                        sha256(torch, out)
     timed(torch, "row 11, [26,624 x 768], hidden 3,072",
           lambda: qm.quant_mlp(x2, w1, s1, mlp[4], w2, s2, mlp[7]), outs,
           times, device)
@@ -386,6 +438,9 @@ def compare(paths: list[str]) -> None:
         x, y = a[key].float(), b[key].float()
         if torch.equal(a[key], b[key]):
             print(f"[compare] {key}: equal bit for bit")
+        elif key.endswith("(sha256)"):
+            differ.append(key)
+            print(f"[compare] {key}: differs")
         else:
             differ.append(key)
             gap = float((x - y).abs().max() / y.abs().max())

@@ -1,17 +1,25 @@
-"""Command-line interface of the port (the retrieval actions, the CLIP
-fine-tune and the hyperbolic serving actions of patent_tpu/cli/main.py).
+"""Command-line interface of the port (the retrieval actions, the
+retrieval server, the CLIP fine-tune and the hyperbolic serving actions of
+patent_tpu/cli/main.py).
 
     python -m patent_tpu_torch.cli encode|retrieve|eval --path DIR
         [--device cuda|cpu] [--synthetic] [--k K] [--query IMG]
         [--model NAME] [--positives patent|cpc] [--keep-tokens K]
         [--quantize] [--profile exact|recommended|turbo]
+    python -m patent_tpu_torch.cli serve --path DIR [--port 8777]
+        [--device cuda|cpu] [--synthetic] [--quantize]
+        [--profile exact|recommended|turbo] [--keep-tokens K]
     python -m patent_tpu_torch.cli finetune --path DIR [--device cuda|cpu]
         [--epochs N] [--keep-tokens K] [key=value ...]
     python -m patent_tpu_torch.cli test|infer|dist --path DIR
         [--checkpoint NAME] [--latent_dim 128] [--synthetic]
         [--device cuda|cpu] [key=value ...]
 
-``finetune`` trains on ``DIR``/metadata.json + images/ when present, else
+``serve`` loads the index that ``encode`` saved for the same corpus and
+tower (or encodes the gallery and saves it), then answers HTTP on
+127.0.0.1:``--port`` (retrieval/server.py: /healthz, /stats, /search by
+features, name or an image under the gallery directory).  ``finetune``
+trains on ``DIR``/metadata.json + images/ when present, else
 on a generated synthetic corpus, and writes
 ``DIR``/models/clip_finetune_best, which every retrieval action loads.
 ``test``, ``infer`` and ``dist`` serve a hyperbolic model that the JAX
@@ -31,8 +39,8 @@ import sys
 
 from ..utils.config import SERVING_PROFILES
 
-# the JAX CLI's action set; RETRIEVAL_ACTIONS, HYPERBOLIC_ACTIONS and
-# finetune run here so far
+# the JAX CLI's action set; RETRIEVAL_ACTIONS, HYPERBOLIC_ACTIONS,
+# finetune and serve run here so far
 ACTIONS = ["train", "train_gcn", "train_hyp", "train_hyp_con", "train_end",
            "train_end_2", "train_class", "plot", "train_class_pro", "test",
            "infer", "dist", "prep", "encode", "retrieve", "eval", "bench",
@@ -74,6 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="named serving profile: exact = int8, all tokens; "
                         "recommended = int8 + keep-tokens 175; turbo = "
                         "int8 + keep-tokens 127.  Explicit flags win")
+    p.add_argument("--port", type=int, default=8777,
+                   help="retrieval server port (serve action)")
     p.add_argument("--positives", choices=["patent", "cpc"],
                    default="patent",
                    help="ground-truth positives for eval: same patent or "
@@ -102,7 +112,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
     if args.action not in RETRIEVAL_ACTIONS + HYPERBOLIC_ACTIONS + (
-            "finetune",):
+            "finetune", "serve"):
         print(f"action {args.action!r} is not yet ported to "
               "patent_tpu_torch", file=sys.stderr)
         return 2
@@ -113,7 +123,8 @@ def main(argv: list[str] | None = None) -> int:
               "<path>/models/clip_finetune_best is loaded automatically)",
               file=sys.stderr)
         return 2
-    from ..retrieval.cli_actions import run_retrieval_action, select_device
+    from ..retrieval.cli_actions import (run_retrieval_action,
+                                         run_serve_action, select_device)
 
     try:
         select_device(args.device)
@@ -128,6 +139,9 @@ def main(argv: list[str] | None = None) -> int:
         from ..train.cli_hyperbolic import run_hyperbolic_action
 
         return run_hyperbolic_action(args)
+    if args.action == "serve":
+        run_serve_action(args, block=True)
+        return 0
     return run_retrieval_action(args.action, args)
 
 

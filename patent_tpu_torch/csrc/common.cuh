@@ -88,23 +88,4 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// D += A(16x32, row) * B(32x8, col) on the tensor cores, s8 inputs and s32
-// accumulation (mma.sync m16n8k32).  Lane l holds, with g = l / 4 and
-// t = l % 4: a[0..3] = A[g][4t..], A[g+8][4t..], A[g][16+4t..],
-// A[g+8][16+4t..] (4 bytes each); b[0..1] = B^T[g][4t..], B^T[g][16+4t..];
-// d[e] = D[g + 8 (e / 2)][2t + e % 2].
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four int8 values from a 4-byte aligned address, as one register
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 }  // namespace ptt

@@ -61,9 +61,13 @@
 //     residual: MLP in on the wgmma GEMM with the hidden's row maxima in
 //     its epilogue, the one-pass quantization, MLP out with the bias
 //     epilogue (an odd output width stores its last column alone).  The
-//     standalone dense layer (row 10) keeps the first GEMM below: mma.sync
-//     m16n8k32 s8 from a two-stage cp.async ring of 128x128x64 tiles.  The
-//     integer products are exact, so the two GEMMs give the same bits;
+//     standalone dense layer (row 10) is x's row quantization and one
+//     GEMM with the bias or quick_gelu epilogue; both rows take the TAIL
+//     instance only for an output width that is not a multiple of 16
+//     (gemm_any_n).  At a batch of 128 (26,624 x 768 x 2,304) its
+//     165 MB of x, weights and output take 0.049 ms at 3.35 TB/s, about
+//     as long as its 94 GOP at the int8 peak.  Every int8 product of this
+//     file runs on that one GEMM;
 //   * LayerNorm and the per-row quantization one warp per row;
 //   * the TPU kernels keep ao and the [M, 3072] MLP hidden on chip; here
 //     they cross device memory in f32 (a row's quantization needs the
@@ -107,135 +111,7 @@ namespace s8 = ptt_s8;
 
 namespace {
 
-constexpr int QG_BM = 128, QG_BN = 128, QG_BK = 64;
-constexpr int QG_THREADS = 256;
-constexpr int QG_LD = QG_BK + 16;     // bytes per shared row (bank skew)
-// the GEMM's shared memory: two stages of the A and the B tile
-constexpr int QG_SMEM = 2 * (QG_BM + QG_BN) * QG_LD;
 constexpr float INV127 = (float)(1.0 / 127.0);
-// the epilogues after the dequant + bias (csrc/wgmma_s8.cuh): none,
-// quick_gelu, + residual
-constexpr int QEPI_BIAS = s8::EPI_BIAS, QEPI_GELU = s8::EPI_GELU,
-              QEPI_RES = s8::EPI_RES;
-
-// One 128 x 128 tile at (m0, n0) of C[M, N] = epi(f32(A @ Bt^T) *
-// rs[r] * cs[c] + bias[c]) with A [M, K] and Bt [N, K] int8
-// row-major, the residual (QEPI_RES) read from res [M, ldr] (bf16 or f32)
-// and C stored as OutT (bf16 or f32).  K, lda, ldb are multiples of 16
-// and A, Bt 16-byte aligned (checked by the host code).  8 warps, 2 x 4,
-// each 64 x 32 of the tile; smem holds QG_SMEM bytes.  The k-loop ends
-// with a block barrier, so a caller may run the next tile at once.
-template <int EPI, typename OutT, typename ResT>
-__device__ __forceinline__ void gemm_s8_tile(
-    const int8_t* __restrict__ A, int lda, const float* __restrict__ rs,
-    const int8_t* __restrict__ Bt, int ldb,
-    const float* __restrict__ cs, const float* __restrict__ bias,
-    const ResT* __restrict__ res, int ldr, OutT* __restrict__ C, int ldc,
-    int M, int N, int K, int m0, int n0, unsigned char* smem) {
-  auto As = reinterpret_cast<int8_t(*)[QG_BM][QG_LD]>(smem);
-  auto Bs = reinterpret_cast<int8_t(*)[QG_BN][QG_LD]>(
-      smem + 2 * QG_BM * QG_LD);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  auto load_tile = [&](int kt, int stage) {
-    const int k0 = kt * QG_BK;
-    for (int c = tid; c < QG_BM * QG_BK / 16; c += QG_THREADS) {
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const int gr = m0 + r, gk = k0 + kc;
-      const bool ok = gr < M && gk < K;
-      ptt::cp_async16(&As[stage][r][kc], ok ? A + (size_t)gr * lda + gk : A,
-                      ok);
-    }
-    for (int c = tid; c < QG_BN * QG_BK / 16; c += QG_THREADS) {
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const int gn = n0 + r, gk = k0 + kc;
-      const bool ok = gn < N && gk < K;
-      ptt::cp_async16(&Bs[stage][r][kc], ok ? Bt + (size_t)gn * ldb + gk : Bt,
-                      ok);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int ktiles = (K + QG_BK - 1) / QG_BK;
-  load_tile(0, 0);
-  ptt::cp_async_commit();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    if (kt + 1 < ktiles) load_tile(kt + 1, (kt + 1) & 1);
-    ptt::cp_async_commit();
-    ptt::cp_async_wait<1>();
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < QG_BK; kk += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16 + g;
-        a[i][0] = ptt::ld32(&As[st][r][kk + t * 4]);
-        a[i][1] = ptt::ld32(&As[st][r + 8][kk + t * 4]);
-        a[i][2] = ptt::ld32(&As[st][r][kk + 16 + t * 4]);
-        a[i][3] = ptt::ld32(&As[st][r + 8][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn * 32 + j * 8 + g;
-        b[j][0] = ptt::ld32(&Bs[st][n][kk + t * 4]);
-        b[j][1] = ptt::ld32(&Bs[st][n][kk + 16 + t * 4]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ptt::mma_s8(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue from registers: element e of tile (i, j) sits at row
-  // g + 8 * (e >> 1), column 2 * t + (e & 1)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = m0 + wm * 64 + i * 16 + g + 8 * (e >> 1);
-      if (r >= M) continue;
-      const float rsc = rs[r];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = n0 + wn * 32 + j * 8 + 2 * t + (e & 1);
-        if (c >= N) continue;
-        ptt::store_f(&C[(size_t)r * ldc + c],
-                     s8::epi_value<EPI, ResT>(acc[i][j][e], rsc, cs[c],
-                                              bias[c],
-                                              res + (size_t)r * ldr + c));
-      }
-    }
-  }
-}
-
-template <int EPI, typename OutT, typename ResT>
-__global__ void __launch_bounds__(QG_THREADS)
-    gemm_s8_kernel(const int8_t* __restrict__ A, int lda,
-                   const float* __restrict__ rs,
-                   const int8_t* __restrict__ Bt, int ldb,
-                   const float* __restrict__ cs,
-                   const float* __restrict__ bias,
-                   const ResT* __restrict__ res, int ldr,
-                   OutT* __restrict__ C, int ldc, int M, int N, int K) {
-  __shared__ __align__(128) unsigned char smem[QG_SMEM];
-  gemm_s8_tile<EPI, OutT, ResT>(A, lda, rs, Bt, ldb, cs, bias, res, ldr, C,
-                                ldc, M, N, K, blockIdx.y * QG_BM,
-                                blockIdx.x * QG_BN, smem);
-}
 
 // One row, by one warp: [LayerNorm (f32 statistics, eps 1e-5), then] the
 // per-row int8 quantization.  Writes q[row] int8 and its scale qs[row].
@@ -303,17 +179,6 @@ struct named {
   using type = T;
 };
 
-template <int EPI, typename OutT, typename ResT = bf16>
-int gemm_s8(const int8_t* A, int lda, const float* rs, const int8_t* Bt,
-            int ldb, const float* cs, const float* bias,
-            const typename named<ResT>::type* res, int ldr, OutT* C, int ldc,
-            int M, int N, int K, cudaStream_t st) {
-  dim3 grid((N + QG_BN - 1) / QG_BN, (M + QG_BM - 1) / QG_BM);
-  gemm_s8_kernel<EPI, OutT, ResT><<<grid, QG_THREADS, 0, st>>>(
-      A, lda, rs, Bt, ldb, cs, bias, res, ldr, C, ldc, M, N, K);
-  return (int)cudaGetLastError();
-}
-
 template <bool LN, typename InT>
 int rowquant(const InT* x, int ldx, const float* lns, const float* lnb,
              int8_t* q, int ldq, float* qs, int M, int D, cudaStream_t st) {
@@ -372,9 +237,8 @@ int gelu_quant(const int8_t* A, const float* rs, const int8_t* Bt,
                const float* cs, const float* bias, float* g, float* amax,
                int8_t* gq, float* gs, int M, int N, int K, cudaStream_t st) {
   PTT_TRY(last_error(cudaMemsetAsync(amax, 0, sizeof(float) * M, st)));
-  PTT_TRY((gemm_wg<QEPI_GELU, float, bf16, true>(A, rs, Bt, cs, bias,
-                                                 nullptr, g, M, N, K, st,
-                                                 amax)));
+  PTT_TRY((gemm_wg<s8::EPI_GELU, float, bf16, true>(
+      A, rs, Bt, cs, bias, nullptr, g, M, N, K, st, amax)));
   return rowquant_amax(g, amax, gq, gs, M, N, st);
 }
 
@@ -690,34 +554,49 @@ int layer_chain(const LayerArgs& a, cudaStream_t st) {
   const int M = a.B * a.S, D = a.D, F = a.F;
   PTT_TRY((rowquant<true, bf16>(a.x, D, a.ln1s, a.ln1b, a.hq, D, a.hs, M, D,
                                 st)));
-  PTT_TRY((gemm_wg<QEPI_BIAS, bf16>(a.hq, a.hs, a.wqkv, a.sq, a.bq, nullptr,
-                                    a.qkv, M, 3 * D, D, st)));
+  PTT_TRY((gemm_wg<s8::EPI_BIAS, bf16>(a.hq, a.hs, a.wqkv, a.sq, a.bq,
+                                       nullptr, a.qkv, M, 3 * D, D, st)));
   PTT_TRY(attention_f32(a.qkv, a.ao, a.B, a.S, D, a.H, a.valid_len, st));
   PTT_TRY((rowquant<false, float>(a.ao, D, nullptr, nullptr, a.aq, D, a.as,
                                   M, D, st)));
-  PTT_TRY((gemm_wg<QEPI_RES, float, bf16>(a.aq, a.as, a.wout, a.sout, a.bout,
-                                          a.x, a.x1, M, D, D, st)));
+  PTT_TRY((gemm_wg<s8::EPI_RES, float, bf16>(a.aq, a.as, a.wout, a.sout,
+                                             a.bout, a.x, a.x1, M, D, D,
+                                             st)));
   PTT_TRY((rowquant<true, float>(a.x1, D, a.ln2s, a.ln2b, a.hq2, D, a.hs2, M,
                                  D, st)));
-  PTT_TRY((gemm_wg<QEPI_GELU, float>(a.hq2, a.hs2, a.w1, a.s1, a.b1, nullptr,
-                                     a.g, M, F, D, st)));
+  PTT_TRY((gemm_wg<s8::EPI_GELU, float>(a.hq2, a.hs2, a.w1, a.s1, a.b1,
+                                        nullptr, a.g, M, F, D, st)));
   PTT_TRY((rowquant<false, float>(a.g, F, nullptr, nullptr, a.gq, F, a.gs, M,
                                   F, st)));
-  return gemm_wg<QEPI_RES, bf16, float>(a.gq, a.gs, a.w2, a.s2, a.b2, a.x1,
-                                        a.out, M, D, F, st);
+  return gemm_wg<s8::EPI_RES, bf16, float>(a.gq, a.gs, a.w2, a.s2, a.b2,
+                                           a.x1, a.out, M, D, F, st);
 }
 
 // ---- the standalone dense layer and MLP, T the type of x and of the output
+
+// C [M, N] = epi(dequant(A . Bt^T) + bias) for any N: the TAIL instance
+// only where N is not a multiple of 16: its per-column checks cost 7% of
+// the GEMM at 26,624 x 768 x 2,304 on the H100 (compare_builds.py's "s8
+// GEMM bias" against "bias_tail")
+template <int EPI, typename T>
+int gemm_any_n(const int8_t* A, const float* rs, const int8_t* Bt,
+               const float* cs, const float* bias, T* C, int M, int N, int K,
+               cudaStream_t st) {
+  return N % 16 ? gemm_wg<EPI, T, bf16, false, true>(A, rs, Bt, cs, bias,
+                                                     nullptr, C, M, N, K, st)
+                : gemm_wg<EPI, T>(A, rs, Bt, cs, bias, nullptr, C, M, N, K,
+                                  st);
+}
 
 template <typename T>
 int dense(const T* x, T* out, int M, int K, int N, int gelu, const int8_t* w,
           const float* scale, const float* bias, int8_t* xq, float* xs,
           cudaStream_t st) {
   PTT_TRY((rowquant<false, T>(x, K, nullptr, nullptr, xq, K, xs, M, K, st)));
-  return gelu ? gemm_s8<QEPI_GELU, T>(xq, K, xs, w, K, scale, bias, nullptr,
-                                      0, out, N, M, N, K, st)
-              : gemm_s8<QEPI_BIAS, T>(xq, K, xs, w, K, scale, bias, nullptr,
-                                      0, out, N, M, N, K, st);
+  return gelu ? gemm_any_n<s8::EPI_GELU, T>(xq, xs, w, scale, bias, out, M, N,
+                                            K, st)
+              : gemm_any_n<s8::EPI_BIAS, T>(xq, xs, w, scale, bias, out, M, N,
+                                            K, st);
 }
 
 // Row 7's pieces without LayerNorm or residual: x's row quantization, MLP
@@ -731,8 +610,7 @@ int qmlp(const T* x, T* out, int M, int K, int H, int N, const int8_t* w1,
          float* gs, float* gmax, cudaStream_t st) {
   PTT_TRY((rowquant<false, T>(x, K, nullptr, nullptr, xq, K, xs, M, K, st)));
   PTT_TRY(gelu_quant(xq, xs, w1, s1, b1, g, gmax, gq, gs, M, H, K, st));
-  return gemm_wg<QEPI_BIAS, T, bf16, false, true>(gq, gs, w2, s2, b2, nullptr,
-                                                  out, M, N, H, st);
+  return gemm_any_n<s8::EPI_BIAS, T>(gq, gs, w2, s2, b2, out, M, N, H, st);
 }
 
 }  // namespace
@@ -758,15 +636,15 @@ int ptt_int8_attn(const void* x, void* out, int B, int S, int D, int H,
 
   PTT_TRY((rowquant<true, bf16>(xb, D, (const float*)lns, (const float*)lnb,
                                 hq8, D, hsf, M, D, st)));
-  PTT_TRY((gemm_wg<QEPI_BIAS, bf16>(hq8, hsf, (const int8_t*)wqkv_t,
-                                    (const float*)sq, (const float*)bq,
-                                    nullptr, qkvb, M, 3 * D, D, st)));
+  PTT_TRY((gemm_wg<s8::EPI_BIAS, bf16>(hq8, hsf, (const int8_t*)wqkv_t,
+                                       (const float*)sq, (const float*)bq,
+                                       nullptr, qkvb, M, 3 * D, D, st)));
   PTT_TRY(attention_f32(qkvb, aof, B, S, D, H, valid_len, st));
   PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, hq8, D, hsf, M, D,
                                   st)));
-  return gemm_wg<QEPI_RES, bf16>(hq8, hsf, (const int8_t*)wout_t,
-                                 (const float*)sout, (const float*)bout, xb,
-                                 (bf16*)out, M, D, D, st);
+  return gemm_wg<s8::EPI_RES, bf16>(hq8, hsf, (const int8_t*)wout_t,
+                                    (const float*)sout, (const float*)bout,
+                                    xb, (bf16*)out, M, D, D, st);
 }
 
 // x [B, S, D] bf16 -> out [B, D] bf16, row 0 of ptt_int8_attn.  Scratch:
@@ -844,9 +722,9 @@ int ptt_int8_mlp(const void* x, void* out, int M, int D, int F,
   PTT_TRY(gelu_quant(hq8, hsf, (const int8_t*)w1_t, (const float*)s1,
                      (const float*)b1, (float*)g, (float*)gmax, gq8, gsf, M,
                      F, D, st));
-  return gemm_wg<QEPI_RES, bf16>(gq8, gsf, (const int8_t*)w2_t,
-                                 (const float*)s2, (const float*)b2, xb,
-                                 (bf16*)out, M, D, F, st);
+  return gemm_wg<s8::EPI_RES, bf16>(gq8, gsf, (const int8_t*)w2_t,
+                                    (const float*)s2, (const float*)b2, xb,
+                                    (bf16*)out, M, D, F, st);
 }
 
 // x [B, S, D] bf16 -> out [B, S, D] bf16, one whole layer: the attention
@@ -903,7 +781,9 @@ int ptt_int8_layer_grid(int* blocks, int* split_max) {
 // [N, K] int8 with column scales cs and bias [N] f32, res and C [M, N]
 // dense.  epi: 0 -> bf16 (QKV); 1 quick_gelu -> f32 (MLP in); 2 + bf16 res
 // -> bf16 (row 5's out-projection, row 7's MLP out); 3 + bf16 res -> f32
-// (row 8's out-projection); 4 + f32 res -> bf16 (row 8's MLP out).
+// (row 8's out-projection); 4 + f32 res -> bf16 (row 8's MLP out); 5 ->
+// bf16, any N (0's TAIL instance, which rows 10 and 11 take where N is not
+// a multiple of 16).
 int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
                   const void* cs, const void* bias, const void* res, void* C,
                   int M, int N, int K, int every, void* stream) {
@@ -924,6 +804,9 @@ int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
       return s8::gemm<s8::EPI_RES, float, bf16>(a, lda, b, K, g, st);
     case 4:
       return s8::gemm<s8::EPI_RES, bf16, float>(a, lda, b, K, g, st);
+    case 5:
+      return s8::gemm<s8::EPI_BIAS, bf16, bf16, false, true>(a, lda, b, K, g,
+                                                             st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -944,9 +827,9 @@ int ptt_int8_gelu_quant(const void* A, const void* rs, const void* Bt,
 }
 
 // x [M, K] -> out [M, N], both bf16 (f32 == 0) or both f32: row
-// quantization of x, then the int8 product with w_t [N, K], dequant, bias
-// [+ quick_gelu].  scale, bias [N] f32.  Scratch: xq [M, K] int8, xs [M]
-// f32.
+// quantization of x, then the int8 product with w_t [N, K] on
+// csrc/wgmma_s8.cuh, dequant, bias [+ quick_gelu].  scale, bias [N] f32;
+// K % 16 == 0, any N.  Scratch: xq [M, K] int8, xs [M] f32.
 int ptt_int8_dense(const void* x, void* out, int M, int K, int N, int f32,
                    int gelu, const void* w_t, const void* scale,
                    const void* bias, void* xq, void* xs, void* stream) {

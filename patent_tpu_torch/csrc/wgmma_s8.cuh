@@ -6,7 +6,8 @@
 // int8 operands, int32 accumulation, shared by the int8 layer kernels
 // (csrc/int8_layer.cu: the attention sub-layer, row 5, its CLS variant,
 // row 6, the MLP sub-layer, row 7, the whole layer, rows 8 and 9, and the
-// standalone MLP, row 11, whose output width may be odd).
+// standalone dense layer and MLP, rows 10 and 11, whose output width may
+// be odd).
 // A may be a strided view (row stride lda, a valid TMA stride) with its
 // row scales at the same stride: row 6's CLS q product reads row 0 of
 // every image, every S-th row of the LN1 codes and of their scales.  Both operands are K-major,
@@ -211,7 +212,7 @@ __device__ __forceinline__ void wgmma_m64n128k32(int* d, uint64_t desc_a,
 // (THREADS), A and Bt read through the tensor maps.  On return the ring
 // is empty and every thread of the block has passed a block barrier since
 // its last read of shared memory.  AMAX: also merge each row's max |C|
-// into g.amax.  TAIL: any N (row 11's output width), an odd N's last
+// into g.amax.  TAIL: any N (rows 10 and 11), an odd N's last
 // column and the columns of rows of an odd width stored one at a time;
 // else N % 8 == 0, every column stored in pairs.
 template <int EPI, typename OutT, typename ResT, bool AMAX = false,

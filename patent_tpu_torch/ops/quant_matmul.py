@@ -557,12 +557,15 @@ quant_layer_group.launches = 0
 # index its C entry takes: the epilogue, the residual's dtype, the output's
 # dtype.  "bias": QKV; "gelu": MLP in; "res": row 5's out-projection and
 # row 7's MLP out; "res_f32_out": row 8's out-projection (x1 kept f32);
-# "res_f32": row 8's MLP out on x1.
+# "res_f32": row 8's MLP out on x1; "bias_tail": "bias" for any N (the
+# TAIL instance, which rows 10 and 11 take where N is not a multiple of
+# 16).
 S8_GEMM_EPILOGUES = {"bias": (0, None, torch.bfloat16),
                      "gelu": (1, None, torch.float32),
                      "res": (2, torch.bfloat16, torch.bfloat16),
                      "res_f32_out": (3, torch.bfloat16, torch.float32),
-                     "res_f32": (4, torch.float32, torch.bfloat16)}
+                     "res_f32": (4, torch.float32, torch.bfloat16),
+                     "bias_tail": (5, None, torch.bfloat16)}
 
 
 def int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
@@ -590,14 +593,14 @@ def int8_gemm(a, a_scale, w_t, scale, bias, epilogue: str = "bias",
     every = S) are read in place, w_t [N, K] int8 with scale and bias [N]
     f32, res [M, N] in the instance's residual dtype; ``epilogue`` one of
     ``S8_GEMM_EPILOGUES``.  CPU tensor: the plain version; CUDA tensor: the
-    kernel (K and N multiples of 16), or an error."""
+    kernel (K a multiple of 16, N too but for "bias_tail"), or an error."""
     if a.device.type == "cpu":
         return int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res,
                                every)
     idx, rdt, odt = S8_GEMM_EPILOGUES[epilogue]
     r, k = a.shape
     n = w_t.shape[0]
-    if n % 16 or k % 16 or every < 1:
+    if (n % 16 and epilogue != "bias_tail") or k % 16 or every < 1:
         raise ValueError(f"N ({n}) and K ({k}) must be multiples of 16 and "
                          f"every ({every}) at least 1")
     m = -(-r // every)

@@ -1,5 +1,6 @@
-"""CLI glue for the retrieval actions encode / retrieve / eval (port of
-patent_tpu/retrieval/cli_actions.py).
+"""CLI glue for the retrieval actions encode / retrieve / eval and the
+retrieval server, serve (port of patent_tpu/retrieval/cli_actions.py and
+of the serve action of patent_tpu/cli/main.py).
 
 Three differences from the JAX package: the device is named by the caller
 (``--device``, the card by default) and a missing card is an error, not a
@@ -230,6 +231,15 @@ def build_engine(args):
     return gallery_dir, query_dir, gt_path, engine, prefix
 
 
+def _load_or_encode(engine, gallery_dir: str, prefix: str) -> None:
+    """The index saved under ``prefix``, else the gallery encoded and saved
+    there."""
+    if os.path.exists(prefix + ".npy"):
+        engine.load_embeddings(prefix)
+    else:
+        engine.encode_dataset(gallery_dir, save_prefix=prefix)
+
+
 def run_retrieval_action(action: str, args) -> int:
     gallery_dir, query_dir, gt_path, engine, prefix = build_engine(args)
     with engine:
@@ -238,10 +248,7 @@ def run_retrieval_action(action: str, args) -> int:
             print(f"encoded {len(index)} gallery images -> {prefix}.npy")
             return 0
 
-        if os.path.exists(prefix + ".npy"):
-            engine.load_embeddings(prefix)
-        else:
-            engine.encode_dataset(gallery_dir, save_prefix=prefix)
+        _load_or_encode(engine, gallery_dir, prefix)
 
         if action == "retrieve":
             qpath = args.query
@@ -269,3 +276,27 @@ def run_retrieval_action(action: str, args) -> int:
             print(f"detailed results -> {results_path}")
             return 0
     return 1
+
+
+def run_serve_action(args, block: bool = True):
+    """The serve action: the engine of ``build_engine``, its saved index
+    (or the gallery encoded and saved under the same prefix), then the
+    HTTP retrieval server on ``args.port`` (0: a free port), whose
+    image_path queries are confined to the gallery directory.  Returns
+    the server; ``block=True`` serves until the process ends, else the
+    server runs on a daemon thread and the caller ends it with
+    ``shutdown()`` and ``server_close()`` and closes its engine
+    (``server.RequestHandlerClass.service.engine``)."""
+    from .server import serve
+
+    gallery_dir, _query_dir, _gt_path, engine, prefix = build_engine(args)
+    try:
+        _load_or_encode(engine, gallery_dir, prefix)
+        server = serve(engine, port=args.port, block=block,
+                       data_root=gallery_dir)
+    except BaseException:
+        engine.close()
+        raise
+    if block:
+        engine.close()
+    return server

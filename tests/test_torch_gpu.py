@@ -1017,6 +1017,60 @@ def test_int8_dense_kernel_matches_plain_and_controls_do_not(cuda, act,
         assert _rel_err(ctrl, want) > DENSE_REL_TOL, name
 
 
+def _dense_case(dev, m, n, k=768, seed=10):
+    """x [m, k] and quant_dense's weights (w_t [n, k] int8, scale, bias)
+    at the tower's width, any output width n."""
+    g = torch.Generator(device=dev).manual_seed(seed + m + n)
+    w, scale = qm.quantize_weight(
+        torch.randn(k, n, generator=g, device=dev) * k ** -0.5)
+    return (torch.randn(m, k, generator=g, device=dev),
+            (w.T.contiguous(), scale,
+             0.05 * torch.randn(n, generator=g, device=dev)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("act", [None, "quick_gelu"], ids=["none", "gelu"])
+@pytest.mark.parametrize("n", [8, 13, 768, 2304])
+@pytest.mark.parametrize("m", [1, 77, 26624])
+def test_int8_dense_kernel_at_the_main_path_widths(cuda, m, n, act, dtype):
+    """Row 10 at one row, a ragged 77 and a batch of 128's 26,624 rows, at
+    output widths 8, 13 (odd: the wgmma epilogue stores its last column
+    alone), 768 and QKV's 2,304, K 768."""
+    x, w = _dense_case(cuda, m, n)
+    x = x.to(dtype)
+    n0 = qm.quant_dense.launches
+    got = qm.quant_dense(x, *w, act)
+    want = qm.quant_dense_plain(x, *w, act)
+    torch.cuda.synchronize()
+    assert qm.quant_dense.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert _rel_err(got, want) <= DENSE_REL_TOL
+
+
+def test_int8_dense_runs_on_the_wgmma_kernel(cuda):
+    """Row 10's route: its row quantization and the wgmma s8 GEMM, the same
+    bits twice; the earlier mma.sync GEMM (gemm_s8) is gone from the built
+    library."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from patent_tpu_torch import _build
+
+    x, w = _dense_case(cuda, 77, 13)
+    first = qm.quant_dense(x, *w, "quick_gelu")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = qm.quant_dense(x, *w, "quick_gelu")
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.self_device_time_total > 0]
+    assert sum("ptt_s8::gemm_kernel" in k for k in names) == 1, names
+    assert any("rowquant_kernel" in k for k in names), names
+    assert torch.equal(first, again)
+    with open(_build.library().path, "rb") as fh:
+        assert b"gemm_s8" not in fh.read()
+
+
 def _qmlp_case(dev, m, n, k=768, h=3072, seed=11):
     """x [m, k] and quant_mlp's weights (w1_t [h, k], s1, b1, w2_t [n, h],
     s2, b2) at the tower's widths, any output width n."""
@@ -1877,3 +1931,102 @@ def test_vit_b16_towers_launch_their_kernels(cuda):
         flash(pix[:2])
     torch.cuda.synchronize()
     assert [e.launches for e in entries] == [11, 1, 11, 2, 11, 12, 0, 0]
+
+
+# ---- the retrieval server over a CUDA index
+
+
+def _served_index(dev, n=5000, d=64, seed=40):
+    """A RetrievalService over a CUDA EmbeddingIndex of n random rows, with
+    an engine that only holds it (no tower)."""
+    from patent_tpu_torch.retrieval.engine import RetrievalEngine
+    from patent_tpu_torch.retrieval.server import RetrievalService
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gal = torch.randn(n, d, generator=g, device=dev)
+    names = [f"figs/g{i}.png" for i in range(n)]
+    engine = RetrievalEngine(lambda b: b, dev, batch_size=32, image_size=224)
+    engine.index = EmbeddingIndex(gal, names, device=dev)
+    return RetrievalService(engine), gal
+
+
+def _ranked(index, q, k):
+    """index.search's answer as the service names it: (basenames, scores)
+    a query row."""
+    vals, idx = index.search(q, k=k)
+    return [([os.path.basename(index.names[j]) for j in ri], rv.tolist())
+            for ri, rv in zip(idx, vals)]
+
+
+def _answers(out):
+    return [([r["name"] for r in row], [r["score"] for r in row])
+            for row in out["results"]]
+
+
+def _same_answers(got, want, tol=1e-6):
+    return all(gn == wn and np.allclose(gs, ws, rtol=0, atol=tol)
+               for (gn, gs), (wn, ws) in zip(got, want, strict=True))
+
+
+def test_retrieval_service_on_a_cuda_index_equals_index_search(cuda):
+    """features (three rows, noisy copies of gallery rows) and name queries
+    through the service launch row 3 (the 16-deep k bucket's pool of 128 is
+    smaller than the 5,000-row gallery) and answer what index.search
+    answers on the card: the same names, scores within 1e-6 (the re-rank's
+    f32 dots over another batch); /stats names the index."""
+    service, gal = _served_index(cuda)
+    index = service.engine.index
+    g = torch.Generator(device=cuda).manual_seed(41)
+    q = (gal[[3, 700, 4999]] + 0.3 * torch.randn(3, gal.shape[1], generator=g,
+                                                 device=cuda)).cpu().numpy()
+    n0 = topk_kernel.bucket_topk_bf16.launches
+    out = service.search({"features": q.tolist(), "k": 10})
+    assert topk_kernel.bucket_topk_bf16.launches > n0
+    assert _same_answers(_answers(out), _ranked(index, q, 10))
+    assert [row[0][0] for row in _answers(out)] == \
+        ["g3.png", "g700.png", "g4999.png"]
+    for name, row in (("figs/g17.png", 17), ("g42.png", 42)):
+        out = service.search({"name": name, "k": 5})
+        want = _ranked(index, gal[row:row + 1].cpu().numpy(), 5)
+        assert _same_answers(_answers(out), want)
+        assert _answers(out)[0][0][0] == f"g{row}.png"
+    assert service.stats() == {
+        "gallery_size": 5000, "dim": 64, "similarity": "cosine",
+        "curvature": 1.0, "sharded": False, "batch_size": 32,
+        "image_size": 224}
+
+
+def test_retrieval_service_on_a_cuda_index_under_concurrency(cuda):
+    """8 threads x 8 single-row requests: every answer equals the same
+    request served alone, and the batcher coalesced (fewer dispatches than
+    requests)."""
+    import threading
+
+    service, gal = _served_index(cuda)
+    g = torch.Generator(device=cuda).manual_seed(42)
+    q = (gal[:64] + 0.3 * torch.randn(64, gal.shape[1], generator=g,
+                                      device=cuda)).cpu().numpy()
+    alone = [_answers(service.search({"features": [row.tolist()], "k": 10}))
+             for row in q]
+    d0, r0 = service.batcher.dispatches, service.batcher.requests
+    got: list = [None] * 64
+    errs: list = []
+
+    def client(c):
+        try:
+            for r in range(8):
+                i = 8 * c + r
+                got[i] = _answers(service.search(
+                    {"features": [q[i].tolist()], "k": 10}))
+        except Exception as e:  # pragma: no cover
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errs
+    assert all(_same_answers(a, b) for a, b in zip(got, alone, strict=True))
+    assert service.batcher.requests - r0 == 64
+    assert service.batcher.dispatches - d0 < 64

@@ -153,20 +153,31 @@ def test_quant_layer_group_plain_matches_jax(rng, b):
     assert mean <= LAYER_MEAN_REL and mx <= LAYER_MAX_REL
 
 
-@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32],
-                         ids=["bf16", "f32"])
-@pytest.mark.parametrize("act", [None, "quick_gelu"], ids=["none", "gelu"])
-def test_quant_dense_plain_matches_jax_kernel(rng, act, dtype):
-    """Row 10 against the Pallas kernel, lead dims (3, 5), no bias: the
-    same int8 codes and the same f32 operations in the same order.
-    Measured: identical, but for quick_gelu's exp2 on an f32 output
-    (XLA's and PyTorch's differ in the last bit: 1.8e-7 relative)."""
-    x = jnp.asarray(rng.standard_normal((3, 5, D)) * 0.5, dtype)
-    (wq, s, _b), (wt, ts, _tb) = _weights(rng, D, 192)
+# (id, act, dtype, lead, n); the first four keep their earlier ids
+_DENSE_CASES = [(f"{tag}{aname}-{dname}", act, dtype, lead, n)
+                for tag, lead, n in (("", (3, 5), 192),
+                                     ("m77-n13-", (77,), 13))
+                for aname, act in (("none", None), ("gelu", "quick_gelu"))
+                for dname, dtype in (("bf16", jnp.bfloat16),
+                                     ("f32", jnp.float32))]
+
+
+@pytest.mark.parametrize("act,dtype,lead,n",
+                         [case[1:] for case in _DENSE_CASES],
+                         ids=[case[0] for case in _DENSE_CASES])
+def test_quant_dense_plain_matches_jax_kernel(rng, act, dtype, lead, n):
+    """Row 10 against the Pallas kernel, no bias: lead dims (3, 5) at N
+    192, and a ragged M (77) at an odd N (13), which the card's epilogue
+    stores a column at a time.  The same int8 codes and the same f32
+    operations in the same order.  Measured: identical, but for
+    quick_gelu's exp2 on an f32 output (XLA's and PyTorch's differ in the
+    last bit: 1.8e-7 relative)."""
+    x = jnp.asarray(rng.standard_normal((*lead, D)) * 0.5, dtype)
+    (wq, s, _b), (wt, ts, _tb) = _weights(rng, D, n)
     want = np.asarray(jqm.quant_dense(x, wq, s, act=act, m_tile=64,
                                       force=True, fast=False), np.float32)
     got = tqm.quant_dense(_stream(x), wt, ts, act=act)
-    assert got.dtype == _stream(x).dtype and got.shape == (3, 5, 192)
+    assert got.dtype == _stream(x).dtype and got.shape == (*lead, n)
     np.testing.assert_allclose(_np(got), want, rtol=1e-6, atol=0)
 
 

@@ -170,27 +170,29 @@ def test_cli_never_imports_jax(runs):
 
 
 @pytest.mark.parametrize("argv", [
-    ["finetune", "--checkpoint", "/nonexistent/hf_clip"], ["serve"],
+    ["finetune", "--checkpoint", "/nonexistent/hf_clip"], ["train_hyp"],
     ["train_gcn"],
     ["eval", "--checkpoint", "/nonexistent/hf_clip"]],
-    ids=["finetune", "serve", "train_gcn", "hf-checkpoint"])
+    ids=["finetune", "train_hyp", "train_gcn", "hf-checkpoint"])
 def test_unported_surface_exits_nonzero(argv, tmp_path, capsys):
     assert torch_main(argv + ["--path", str(tmp_path)]) == 2
     assert "not yet ported to patent_tpu_torch" in capsys.readouterr().err
     assert not os.listdir(tmp_path)          # nothing was written
 
 
-@pytest.mark.parametrize("flags", [[], ["--quantize"]],
-                         ids=["bf16", "int8"])
-def test_device_cuda_without_a_card_exits_nonzero(flags, tmp_path, capsys,
-                                                  monkeypatch):
+@pytest.mark.parametrize("action,flags", [("eval", []),
+                                          ("eval", ["--quantize"]),
+                                          ("serve", ["--port", "0"])],
+                         ids=["bf16", "int8", "serve"])
+def test_device_cuda_without_a_card_exits_nonzero(action, flags, tmp_path,
+                                                  capsys, monkeypatch):
     """``--device cuda`` (the default) with no card fails with a message
     and writes nothing: there is no silent CPU run."""
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for device in ([], ["--device", "cuda"]):
-        rc = torch_main(["eval", "--path", str(tmp_path), "--synthetic"]
+        rc = torch_main([action, "--path", str(tmp_path), "--synthetic"]
                         + device + flags)
         assert rc != 0
         assert "no CUDA card" in capsys.readouterr().err
