@@ -1,6 +1,6 @@
 """Command-line interface of the port (the retrieval actions, the
-retrieval server, the CLIP fine-tune and the hyperbolic serving actions of
-patent_tpu/cli/main.py).
+retrieval server, the CLIP fine-tune, the hyperbolic trainers and serving
+actions, and ``prep`` of patent_tpu/cli/main.py).
 
     python -m patent_tpu_torch.cli encode|retrieve|eval --path DIR
         [--device cuda|cpu] [--synthetic] [--k K] [--query IMG]
@@ -11,6 +11,12 @@ patent_tpu/cli/main.py).
         [--profile exact|recommended|turbo] [--keep-tokens K]
     python -m patent_tpu_torch.cli finetune --path DIR [--device cuda|cpu]
         [--epochs N] [--keep-tokens K] [key=value ...]
+    python -m patent_tpu_torch.cli train_hyp --path DIR [--device cuda|cpu]
+        [--epochs N] [--learning_rate LR] [--resume] [--latent_dim 128]
+        [--synthetic] [key=value ...]
+    python -m patent_tpu_torch.cli train_hyp_con --path DIR
+        [--device cuda|cpu] [--epochs N] [--learning_rate LR] [key=value ...]
+    python -m patent_tpu_torch.cli prep --path DIR
     python -m patent_tpu_torch.cli test|infer|dist --path DIR
         [--checkpoint NAME] [--latent_dim 128] [--synthetic]
         [--device cuda|cpu] [key=value ...]
@@ -22,14 +28,18 @@ features, name or an image under the gallery directory).  ``finetune``
 trains on ``DIR``/metadata.json + images/ when present, else
 on a generated synthetic corpus, and writes
 ``DIR``/models/clip_finetune_best, which every retrieval action loads.
-``test``, ``infer`` and ``dist`` serve a hyperbolic model that the JAX
-``train_hyp`` (or the port, in its layout) saved under ``DIR``/models, on
-``DIR``/prepared_training_data (train/cli_hyperbolic.py).
+``train_hyp`` trains the hyperbolic model on ``DIR``/prepared_training_data
+(or the synthetic corpus, which ``prep`` writes there), keeping ``latest``
+and ``best_retrieval_model_c{c}_e{d}`` under ``DIR``/models in the JAX
+layout, so ``--resume`` continues a run of either package; ``train_hyp_con``
+trains the figure-only model by InfoNCE.  ``test``, ``infer`` and ``dist``
+serve a ``train_hyp`` checkpoint of either package
+(train/cli_hyperbolic.py).
 
 ``--device`` defaults to the card; without one the command exits non-zero
-rather than run on the CPU.  The other actions of the JAX CLI, and HF
-``--checkpoint`` directories for the image tower, exit non-zero with a
-message: they are not ported yet.
+rather than run on the CPU (``prep`` runs on the host only).  The other
+actions of the JAX CLI, and HF ``--checkpoint`` directories for the image
+tower, exit non-zero with a message: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,13 +50,14 @@ import sys
 from ..utils.config import SERVING_PROFILES
 
 # the JAX CLI's action set; RETRIEVAL_ACTIONS, HYPERBOLIC_ACTIONS,
-# finetune and serve run here so far
+# TRAIN_ACTIONS, finetune, serve and prep run here so far
 ACTIONS = ["train", "train_gcn", "train_hyp", "train_hyp_con", "train_end",
            "train_end_2", "train_class", "plot", "train_class_pro", "test",
            "infer", "dist", "prep", "encode", "retrieve", "eval", "bench",
            "finetune", "serve"]
 RETRIEVAL_ACTIONS = ("encode", "retrieve", "eval")
 HYPERBOLIC_ACTIONS = ("test", "infer", "dist")
+TRAIN_ACTIONS = ("train_hyp", "train_hyp_con")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "{curvature}_e{latent_dim}); other actions: an HF "
                         "CLIP checkpoint directory (not yet ported)")
     p.add_argument("--latent_dim", type=int, default=128,
-                   help="test/infer/dist: the hyperbolic embedding width")
+                   help="train_hyp/test/infer/dist: the hyperbolic "
+                        "embedding width")
     p.add_argument("--synthetic", action="store_true",
                    help="force the synthetic corpus")
     p.add_argument("--quantize", action="store_true",
@@ -89,10 +101,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ground-truth positives for eval: same patent or "
                         "same medium CPC")
     p.add_argument("--epochs", type=int, default=None,
-                   help="fine-tune epochs (default: ClipFinetuneConfig's)")
+                   help="training epochs (default: the action's config)")
+    p.add_argument("--learning_rate", type=float, default=None,
+                   help="train_hyp/train_hyp_con: the learning rate "
+                        "(default: the action's config)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue train_hyp from the 'latest' checkpoint "
+                        "under --path/models (params, optimizer state, "
+                        "epoch, the batch and dropout streams): epoch k+1 "
+                        "after the resume equals epoch k+1 of an "
+                        "uninterrupted run")
     p.add_argument("overrides", nargs="*",
                    help="config overrides as key=value (ClipFinetuneConfig "
-                        "for finetune, HypTrainConfig for test/infer/dist)")
+                        "for finetune, HypTrainConfig for train_hyp and "
+                        "test/infer/dist, HypConTrainConfig for "
+                        "train_hyp_con)")
     return p
 
 
@@ -111,11 +134,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
-    if args.action not in RETRIEVAL_ACTIONS + HYPERBOLIC_ACTIONS + (
-            "finetune", "serve"):
+    if args.action not in RETRIEVAL_ACTIONS + HYPERBOLIC_ACTIONS + \
+            TRAIN_ACTIONS + ("finetune", "serve", "prep"):
         print(f"action {args.action!r} is not yet ported to "
               "patent_tpu_torch", file=sys.stderr)
         return 2
+    if args.action == "prep":
+        from ..train.cli_hyperbolic import run_prep_action
+
+        return run_prep_action(args)
     if args.checkpoint and args.action not in HYPERBOLIC_ACTIONS:
         print(f"--checkpoint {args.checkpoint!r}: loading HF CLIP "
               "checkpoints needs the transformers package and is not yet "
@@ -139,6 +166,14 @@ def main(argv: list[str] | None = None) -> int:
         from ..train.cli_hyperbolic import run_hyperbolic_action
 
         return run_hyperbolic_action(args)
+    if args.action == "train_hyp":
+        from ..train.cli_hyperbolic import run_train_hyp_action
+
+        return run_train_hyp_action(args)
+    if args.action == "train_hyp_con":
+        from ..train.cli_hyperbolic import run_train_hyp_con_action
+
+        return run_train_hyp_con_action(args)
     if args.action == "serve":
         run_serve_action(args, block=True)
         return 0

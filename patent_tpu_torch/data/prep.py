@@ -1,7 +1,8 @@
 """Hyperbolic training-data preparation: Y_pos / Y_neg / implication /
 figure-pairs with the reference's exact index conventions (the port's copy
 of ``TrainingData`` and ``prepare_training_data`` in
-patent_tpu/data/prep.py; ``figure_pair_maps`` comes with the trainer).
+patent_tpu/data/prep.py, with ``figure_pair_maps``, the train_hyp
+batcher's per-figure lookups).
 
 Framework-module re-implementation of ``prepare_training_data`` (graph
 generation (1).ipynb cell 69, with the hierarchical-exclusivity negative
@@ -207,3 +208,25 @@ def prepare_training_data(graph: HeteroGraph, features: np.ndarray,
         exclusion=np.empty((0, 2), np.int32),
         positive_figure_pairs=pos_fig, negative_figure_pairs=neg_fig,
         label_offsets=offsets, num_labels=num_labels)
+
+
+def figure_pair_maps(td: TrainingData) -> tuple[dict, dict, dict, dict]:
+    """The train_hyp batcher's per-figure lookups: figure → positive patent
+    (the first), figure → negative patents, figure → positive figures,
+    figure → negative figures (pairs counted both ways)."""
+    fig_to_pos_patent: dict[int, int] = {}
+    for f, p in td.y_pos:
+        fig_to_pos_patent.setdefault(int(f), int(p))
+    fig_to_neg_patents: dict[int, list[int]] = defaultdict(list)
+    for f, p in td.y_neg:
+        fig_to_neg_patents[int(f)].append(int(p))
+    fig_to_pos_figures: dict[int, list[int]] = defaultdict(list)
+    for a, b in td.positive_figure_pairs:
+        fig_to_pos_figures[int(a)].append(int(b))
+        fig_to_pos_figures[int(b)].append(int(a))
+    fig_to_neg_figures: dict[int, list[int]] = defaultdict(list)
+    for a, b in td.negative_figure_pairs:
+        fig_to_neg_figures[int(a)].append(int(b))
+        fig_to_neg_figures[int(b)].append(int(a))
+    return (fig_to_pos_patent, dict(fig_to_neg_patents),
+            dict(fig_to_pos_figures), dict(fig_to_neg_figures))

@@ -6,7 +6,10 @@ Parameter names and layouts are the Flax tree's, so the weight bridge
 (``models/weights.py``) maps leaf to leaf: ``label_emb`` [L, D],
 ``encoder.{first_layer, middle_i, final_layer}.kernel`` [in, out] and
 ``.hyp_bias`` [out] (``.bias`` without a hyperbolic bias).  Dropout acts
-in train mode only, as ``deterministic=False`` does in Flax.  Initialisers
+in train mode only, as ``deterministic=False`` does in Flax, and draws its
+masks (the input, the encoder's and the hyperbolic layers' weight dropout)
+from the ``generator`` passed to ``forward``, so a seeded generator gives
+the same masks run to run and across a resumed run.  Initialisers
 draw the JAX distributions from an explicit ``torch.Generator``: kernels
 Xavier-uniform, the label table expmap0(0.1·N(0, 1)), hyperbolic biases
 expmap0(1e-3·N(0, 1)).
@@ -35,6 +38,18 @@ DROPOUT_RATE = 0.1
 
 def _normal(shape, std: float, generator) -> torch.Tensor:
     return std * torch.randn(*shape, generator=generator)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: keep each element with probability 1 − rate
+    (a mask drawn from ``generator``, which lives on ``x``'s device) and
+    scale the kept ones by 1 / (1 − rate); the identity outside training."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class MobiusDense(nn.Module):
@@ -74,7 +89,8 @@ class MobiusDense(nn.Module):
         return (not self.hyperbolic_input and self.use_bias
                 and self.hyperbolic_bias and self.nonlin is None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         c = self.c
         if self._fused():
             # row 18 has no backward: while autograd records, the plain
@@ -85,11 +101,8 @@ class MobiusDense(nn.Module):
                 mobius_dense_pallas_plain
             return fn(x, self.kernel, self.hyp_bias, c)
         if self.hyperbolic_input:
-            w = self.kernel
-            if self.training and self.weight_dropout_rate > 0.0:
-                keep = 1.0 - self.weight_dropout_rate
-                mask = torch.rand(w.shape, device=w.device) < keep
-                w = torch.where(mask, w / keep, torch.zeros_like(w))
+            w = dropout(self.kernel, self.weight_dropout_rate, self.training,
+                        generator)
             out = poincare.mobius_matvec(w.T, x, c)
         else:
             out = poincare.expmap0(x @ self.kernel, c)
@@ -114,7 +127,7 @@ class HyperbolicEncoder(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.c = c
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.first_layer = MobiusDense(feature_dim, hidden_dims[0], c=c,
                                        hyperbolic_input=False,
                                        generator=generator)
@@ -125,14 +138,16 @@ class HyperbolicEncoder(nn.Module):
         self.final_layer = MobiusDense(hidden_dims[-1], output_dim, c=c,
                                        generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.c
-        x = self.first_layer(self.dropout(x))
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        c, rate, train = self.c, self.dropout_rate, self.training
+        x = self.first_layer(dropout(x, rate, train, generator))
         x = poincare.mobius_fn_apply(torch.tanh, x, c)
         for i in range(self.num_middle):
-            x = getattr(self, f"middle_{i}")(self.dropout(x))
+            x = getattr(self, f"middle_{i}")(
+                dropout(x, rate, train, generator), generator)
             x = poincare.mobius_fn_apply(torch.tanh, x, c)
-        x = self.final_layer(self.dropout(x))
+        x = self.final_layer(dropout(x, rate, train, generator), generator)
         return poincare.project(x, c)
 
 
@@ -152,13 +167,17 @@ class HyperbolicEmbeddingModel(nn.Module):
         self.encoder = HyperbolicEncoder(feature_dim, hidden_dims, embed_dim,
                                          c=c, dropout_rate=0.3,
                                          generator=generator)
-        self.input_dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
-        return self.encode_figures(features)
+    def forward(self, features: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.encode_figures(features, generator)
 
-    def encode_figures(self, features: torch.Tensor) -> torch.Tensor:
-        return self.encoder(self.input_dropout(features))
+    def encode_figures(self, features: torch.Tensor,
+                       generator: torch.Generator | None = None
+                       ) -> torch.Tensor:
+        x = dropout(features, self.dropout_rate, self.training, generator)
+        return self.encoder(x, generator)
 
     def labels(self) -> torch.Tensor:
         return self.label_emb
@@ -173,10 +192,12 @@ class FigureOnlyHyperbolicModel(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.c = c
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.encoder = HyperbolicEncoder(feature_dim, hidden_dims, embed_dim,
                                          c=c, dropout_rate=dropout_rate,
                                          generator=generator)
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
-        return self.encoder(self.dropout(features))
+    def forward(self, features: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = dropout(features, self.dropout_rate, self.training, generator)
+        return self.encoder(x, generator)

@@ -1,5 +1,6 @@
-"""Poincaré-ball geometry in plain PyTorch (port of the manifold operations
-of patent_tpu/ops/poincare.py that the hyperbolic serving path uses).
+"""Poincaré-ball geometry in plain PyTorch (port of
+patent_tpu/ops/poincare.py: the manifold operations and the Riemannian
+calculus that Riemannian Adam uses).
 
 Curvature is ``c > 0`` (a ball of radius 1/√c); every operation works on
 the last axis and broadcasts over the leading ones.  The formulas, their
@@ -13,9 +14,6 @@ package, so the two agree to rounding on the same inputs:
 * ``pairwise_dist`` is the arcosh closed form, one Gram product plus an
   elementwise tail; the product runs in full float32 (no TF32), since
   1 − c‖x‖² is small near the boundary and x² − 2xy + y² cancels.
-
-The Riemannian calculus (egrad2rgrad, gyration, parallel transport) waits
-for the training slice.
 """
 
 from __future__ import annotations
@@ -69,6 +67,12 @@ def project(x: torch.Tensor, c=1.0) -> torch.Tensor:
     return torch.where(norm > maxnorm, x / norm * maxnorm, x)
 
 
+def lambda_x(x: torch.Tensor, c=1.0, *, keepdim: bool = True) -> torch.Tensor:
+    """Conformal factor λ_x = 2 / (1 − c‖x‖²)."""
+    c = _c(c, x)
+    return 2.0 / torch.clamp_min(1.0 - c * _sq_norm(x, keepdim), MIN_NORM)
+
+
 def mobius_add(x: torch.Tensor, y: torch.Tensor, c=1.0) -> torch.Tensor:
     """Möbius addition x ⊕_c y."""
     c = _c(c, x)
@@ -78,6 +82,10 @@ def mobius_add(x: torch.Tensor, y: torch.Tensor, c=1.0) -> torch.Tensor:
     num = (1.0 + 2.0 * c * xy + c * y2) * x + (1.0 - c * x2) * y
     denom = 1.0 + 2.0 * c * xy + c * c * x2 * y2
     return num / torch.clamp_min(denom, MIN_NORM)
+
+
+def mobius_neg(x: torch.Tensor) -> torch.Tensor:
+    return -x
 
 
 def expmap0(u: torch.Tensor, c=1.0) -> torch.Tensor:
@@ -92,6 +100,15 @@ def logmap0(y: torch.Tensor, c=1.0) -> torch.Tensor:
     sqrt_c = _sqrt_c(_c(c, y))
     y_norm = _norm(y)
     return y / y_norm / sqrt_c * artanh(sqrt_c * y_norm)
+
+
+def expmap(x: torch.Tensor, u: torch.Tensor, c=1.0) -> torch.Tensor:
+    """Exponential map at x: x ⊕ tanh(√c λ_x ‖u‖ / 2) u / (√c ‖u‖)."""
+    sqrt_c = _sqrt_c(_c(c, x))
+    u_norm = _norm(u)
+    second = (torch.tanh(sqrt_c / 2.0 * lambda_x(x, c) * u_norm) * u
+              / (sqrt_c * u_norm))
+    return mobius_add(x, second, c)
 
 
 def dist(x: torch.Tensor, y: torch.Tensor, c=1.0, *,
@@ -140,3 +157,56 @@ def mobius_fn_apply(fn: Callable[[torch.Tensor], torch.Tensor],
                     x: torch.Tensor, c=1.0) -> torch.Tensor:
     """Apply a Euclidean function in the tangent space at the origin."""
     return project(expmap0(fn(logmap0(x, c)), c), c)
+
+
+def mobius_scalar_mul(r, x: torch.Tensor, c=1.0) -> torch.Tensor:
+    """Möbius scalar multiplication r ⊗_c x."""
+    sqrt_c = _sqrt_c(_c(c, x))
+    x_norm = _norm(x)
+    return torch.tanh(r * artanh(sqrt_c * x_norm)) * x / (x_norm * sqrt_c)
+
+
+# ---------------------------------------------------------------------------
+# Riemannian calculus (for Riemannian Adam, train/optim.py)
+# ---------------------------------------------------------------------------
+
+def egrad2rgrad(x: torch.Tensor, grad: torch.Tensor, c=1.0) -> torch.Tensor:
+    """Euclidean → Riemannian gradient: g / λ_x²."""
+    lam = lambda_x(x, c)
+    return grad / torch.clamp_min(lam * lam, MIN_NORM)
+
+
+def gyration(u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+             c=1.0) -> torch.Tensor:
+    """Gyration gyr[u, v]w in Ungar's closed form, equal to
+    ⊖(u ⊕ v) ⊕ (u ⊕ (v ⊕ w))."""
+    c = _c(c, u)
+    u2 = _sq_norm(u)
+    v2 = _sq_norm(v)
+    uv = (u * v).sum(dim=-1, keepdim=True)
+    uw = (u * w).sum(dim=-1, keepdim=True)
+    vw = (v * w).sum(dim=-1, keepdim=True)
+    c2 = c * c
+    a = -c2 * uw * v2 + c * vw + 2.0 * c2 * uv * vw
+    b = -c2 * vw * u2 - c * uw
+    d = 1.0 + 2.0 * c * uv + c2 * u2 * v2
+    return w + 2.0 * (a * u + b * v) / torch.clamp_min(d, MIN_NORM)
+
+
+def ptransp(x: torch.Tensor, y: torch.Tensor, v: torch.Tensor,
+            c=1.0) -> torch.Tensor:
+    """Parallel transport of the tangent vector v from x to y."""
+    lam_x = lambda_x(x, c)
+    lam_y = lambda_x(y, c)
+    return gyration(y, -x, v, c) * (lam_x / lam_y)
+
+
+def inner(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor | None = None,
+          c=1.0, *, keepdim: bool = False) -> torch.Tensor:
+    """Riemannian inner product λ_x² ⟨u, v⟩ at x (λ_x keeps its last axis,
+    as in the JAX function, so it broadcasts the same way)."""
+    if v is None:
+        v = u
+    lam = lambda_x(x, c)
+    return lam * lam * (u * v).sum(dim=-1, keepdim=keepdim)
+

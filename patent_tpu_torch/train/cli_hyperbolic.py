@@ -1,16 +1,23 @@
-"""The hyperbolic serving actions ``test``, ``infer`` and ``dist`` of the
-port's CLI (port of their branch of patent_tpu/cli/main.py).
+"""The hyperbolic actions of the port's CLI (port of their branches of
+patent_tpu/cli/main.py): ``train_hyp`` (train/train_hyp.py, with
+``--learning_rate``, ``--epochs``, ``--resume`` and the final test mAP),
+``train_hyp_con`` (train/train_hyp_con.py), ``prep`` (the synthetic
+prepared_training_data), and the serving actions ``test``, ``infer`` and
+``dist``.
 
 Data: ``--path``/prepared_training_data (``training_data.npz`` +
 ``label_offsets.json``) when present and ``--synthetic`` is not given;
 else the synthetic one of the JAX CLI (40 patents × 4 figures, features of
 64), built and saved there.  Weights: the checkpoint ``--checkpoint`` or
 ``best_retrieval_model_c{curvature}_e{embed_dim}`` under ``--path``/models,
-as the JAX ``train_hyp`` writes it ({"params", "step", "epoch"}); without
-it the action exits 1.  ``test`` and ``infer`` print the label-retrieval
-mAP over every figure with a positive patent; ``dist`` prints the
-distance analysis as JSON and the files it wrote under ``--path``/analysis.
-``key=value`` overrides set ``HypTrainConfig`` fields (widths, curvature).
+as ``train_hyp`` (either package's) writes it ({"params", "step",
+"epoch"}); without it the action exits 1. ``test`` and ``infer`` print the
+label-retrieval mAP over every figure with a positive patent; ``dist``
+prints the distance analysis as JSON and the files it wrote under
+``--path``/analysis. ``key=value`` overrides set ``HypTrainConfig`` fields
+(widths, curvature; ``HypConTrainConfig``'s for train_hyp_con). The
+training actions log to ``--path``/logs/<action>.jsonl and keep their
+checkpoints under ``--path``/models.
 """
 
 from __future__ import annotations
@@ -40,6 +47,76 @@ def ensure_training_data(path: str, synthetic: bool):
     td = prepare_training_data(graph, x, neg_ratio=5, fig_pair_ratio=3, seed=0)
     td.save(prep_dir)
     return td
+
+
+def _train_config(cfg, args):
+    """--learning_rate and --epochs where given (the overrides follow)."""
+    if args.learning_rate:
+        cfg.learning_rate = args.learning_rate
+    if args.epochs:
+        cfg.epochs = args.epochs
+    return cfg
+
+
+def _logger(args):
+    from ..utils.logging import MetricsLogger
+
+    return MetricsLogger(log_dir=os.path.join(args.path, "logs"),
+                         run_name=args.action)
+
+
+def run_train_hyp_action(args) -> int:
+    """train_hyp, then the test split's label-retrieval mAP of the best
+    params."""
+    from ..retrieval.cli_actions import select_device
+    from ..utils.checkpoint import CheckpointManager
+    from ..utils.config import HypTrainConfig, apply_overrides
+    from .evaluate import evaluate_retrieval_map
+    from .train_hyp import build_model, train_hyperbolic_retrieval
+
+    device = select_device(args.device)
+    cfg = _train_config(HypTrainConfig(), args)
+    cfg.embed_dim = args.latent_dim
+    apply_overrides(cfg, args.overrides)
+    td = ensure_training_data(args.path, args.synthetic)
+    ckpt = CheckpointManager(os.path.join(args.path, "models"))
+    best_params, history = train_hyperbolic_retrieval(
+        td, cfg, logger=_logger(args), ckpt=ckpt, resume=args.resume,
+        device=device)
+    fig_pos: dict[int, list[int]] = {}
+    for f, p in td.y_pos.tolist():
+        fig_pos.setdefault(f, []).append(p)
+    model = build_model(td, cfg, device)
+    model.load_state_dict(best_params)
+    num_patents = (td.label_offsets["medium_cpcs"]
+                   - td.label_offsets["patents"])
+    test_map = evaluate_retrieval_map(model, td.x_figures,
+                                      history["test_indices"], fig_pos,
+                                      num_patents)
+    print(f"test mAP (label retrieval): {test_map:.4f}")
+    return 0
+
+
+def run_train_hyp_con_action(args) -> int:
+    from ..retrieval.cli_actions import select_device
+    from ..utils.config import HypConTrainConfig, apply_overrides
+    from .train_hyp_con import train_hyperbolic_contrastive
+
+    device = select_device(args.device)
+    cfg = _train_config(HypConTrainConfig(), args)
+    apply_overrides(cfg, args.overrides)
+    td = ensure_training_data(args.path, args.synthetic)
+    train_hyperbolic_contrastive(td, cfg, logger=_logger(args),
+                                 device=device)
+    return 0
+
+
+def run_prep_action(args) -> int:
+    """Build and save the synthetic prepared_training_data (host only)."""
+    td = ensure_training_data(args.path, synthetic=True)
+    print(f"prepared: {len(td.y_pos)} Y_pos, {len(td.y_neg)} Y_neg, "
+          f"{len(td.implication)} implications, {td.num_labels} labels")
+    return 0
 
 
 def run_hyperbolic_action(args) -> int:

@@ -1,23 +1,28 @@
 """Read and write the JAX package's npz checkpoint layout without JAX
-(port of patent_tpu/utils/checkpoint.py, ``CheckpointManager`` npz format).
+(port of patent_tpu/utils/checkpoint.py: its npz format,
+``CheckpointManager`` and the reference's name-encoded checkpoint names).
 
 A checkpoint ``<directory>/<name>/`` holds
 
     state.npz       leaf arrays keyed L00000, L00001, ... in pytree
-                    flatten order (dict keys sorted)
+                    flatten order (dict keys sorted, a NamedTuple's
+                    fields in their order)
     manifest.json   {"paths": [path spec per leaf], "n": count}
-    metadata.json   what the writer says of it (e.g. the validation loss);
-                    the JAX manager writes it as <name>.meta.json beside
-                    the directory
 
 where a path spec is a list of ["d", key] (dict) / ["s", index] (sequence)
-/ ["a", name] (attribute) segments.  No pickle: loading never runs code.
+/ ["a", name] (attribute: a NamedTuple field) segments.  What the writer
+says of it (e.g. the validation loss) goes to ``<name>.meta.json`` beside
+the directory (``CheckpointManager.save``, the JAX manager's layout) or to
+``metadata.json`` inside it (the module's ``save``, the fine-tune's
+layout); ``CheckpointManager.metadata`` reads either.  No pickle: loading
+never runs code.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any
 
 import numpy as np
@@ -69,7 +74,10 @@ def restore(directory: str, name: str) -> dict:
 
 
 def _flatten(node: Any, prefix: list, out: list) -> None:
-    if isinstance(node, dict):
+    if hasattr(node, "_fields"):          # a NamedTuple, as JAX flattens it
+        for name in node._fields:
+            _flatten(getattr(node, name), prefix + [["a", name]], out)
+    elif isinstance(node, dict):
         for k in sorted(node):
             _flatten(node[k], prefix + [["d", str(k)]], out)
     elif isinstance(node, (list, tuple)):
@@ -79,12 +87,7 @@ def _flatten(node: Any, prefix: list, out: list) -> None:
         out.append((prefix, np.asarray(node)))
 
 
-def save(directory: str, name: str, state: dict,
-         metadata: dict | None = None) -> str:
-    """Write ``state`` (nested dicts/lists of arrays and numbers) as
-    checkpoint ``name`` in the layout above, with ``metadata`` (default {})
-    in metadata.json; returns its directory."""
-    path = os.path.join(directory, name)
+def _write(path: str, state: dict) -> None:
     os.makedirs(path, exist_ok=True)
     flat: list = []
     _flatten(state, [], flat)
@@ -92,6 +95,83 @@ def save(directory: str, name: str, state: dict,
                         **{f"L{i:05d}": leaf for i, (_, leaf) in enumerate(flat)})
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump({"paths": [p for p, _ in flat], "n": len(flat)}, f)
+
+
+def save(directory: str, name: str, state: dict,
+         metadata: dict | None = None) -> str:
+    """Write ``state`` (nested dicts/lists/NamedTuples of arrays and
+    numbers) as checkpoint ``name`` in the layout above, with ``metadata``
+    (default {}) in metadata.json inside it; returns its directory."""
+    path = os.path.join(directory, name)
+    _write(path, state)
     with open(os.path.join(path, "metadata.json"), "w") as f:
         json.dump(metadata or {}, f, indent=2)
     return path
+
+
+class CheckpointManager:
+    """Checkpoints under one directory in the JAX ``CheckpointManager``'s
+    npz layout, so either package resumes or serves what the other
+    wrote: ``save`` writes ``<name>/`` and, given metadata,
+    ``<name>.meta.json`` beside it."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+
+    def save(self, name: str, state: dict,
+             metadata: dict | None = None) -> str:
+        path = os.path.join(self.directory, name)
+        _write(path, state)
+        if metadata is not None:
+            with open(os.path.join(self.directory, f"{name}.meta.json"),
+                      "w") as f:
+                json.dump(metadata, f, indent=2)
+        return path
+
+    def restore(self, name: str) -> dict:
+        """Nested dicts of numpy arrays; a NamedTuple group (an optimizer
+        state) comes back as the flat list of its leaves in order."""
+        return restore(self.directory, name)
+
+    def metadata(self, name: str) -> dict | None:
+        """What the writer said of checkpoint ``name``: its
+        ``<name>.meta.json`` beside it, else its ``metadata.json``, else
+        None."""
+        for path in (os.path.join(self.directory, f"{name}.meta.json"),
+                     os.path.join(self.directory, name, "metadata.json")):
+            if os.path.exists(path):
+                with open(path) as f:
+                    return json.load(f)
+        return None
+
+    def exists(self, name: str) -> bool:
+        return os.path.exists(os.path.join(self.directory, name))
+
+    def latest_step(self) -> int | None:
+        steps = []
+        for d in os.listdir(self.directory):
+            if d.startswith("step_"):
+                try:
+                    steps.append(int(d.split("_")[1]))
+                except ValueError:
+                    pass
+        return max(steps) if steps else None
+
+
+def reference_checkpoint_name(name: str, hidden_dim: int, latent_dim: int,
+                              lr: float, epochs: int) -> str:
+    """The reference's name-encoded hyperparameters,
+    ``{name}_{hidden}_d{latent}_l{lr}_{epochs}``."""
+    return f"{name}_{hidden_dim}_d{latent_dim}_l{lr}_{epochs}"
+
+
+def parse_checkpoint_name(encoded: str) -> dict:
+    """The inverse of ``reference_checkpoint_name``."""
+    m = re.match(r"^(?P<name>.+)_(?P<hidden>\d+)_d(?P<latent>\d+)"
+                 r"_l(?P<lr>[\d.e-]+)_(?P<epochs>\d+)$", encoded)
+    if not m:
+        raise ValueError(f"not a reference-encoded checkpoint name: {encoded}")
+    return {"name": m.group("name"), "hidden_dim": int(m.group("hidden")),
+            "latent_dim": int(m.group("latent")), "lr": float(m.group("lr")),
+            "epochs": int(m.group("epochs"))}

@@ -10,9 +10,10 @@ Named serving profiles (``--profile``):
 A profile sets ``--quantize`` and ``--keep-tokens`` where the command line
 left them unset; explicit flags win.  ``ClipFinetuneConfig`` holds the
 fine-tune's defaults (retrieval.ipynb cell 20), ``HypTrainConfig`` the
-hyperbolic model's and trainer's (the serving actions test / infer / dist
-read its widths and curvature), and ``apply_overrides`` applies
-``key=value`` command-line overrides to either.
+hyperbolic model's and train_hyp's (the serving actions test / infer / dist
+read its widths and curvature), ``HypConTrainConfig`` train_hyp_con's, and
+``apply_overrides`` applies ``key=value`` command-line overrides to any of
+them.
 """
 
 from __future__ import annotations
@@ -63,10 +64,12 @@ class ClipFinetuneConfig:
 
 @dataclasses.dataclass
 class HypTrainConfig:
-    """The hyperbolic retrieval model and its trainer (reference
+    """The hyperbolic retrieval model and train_hyp (reference
     train.py:4008-4055): CLIP features of 512, one hidden layer of 256, an
-    embedding of 128, curvature 2.  The training fields wait for the
-    train_hyp slice; the serving actions read the widths and c."""
+    embedding of 128, curvature 2.  ``retrieval_penalty`` multiplies the
+    retrieval loss (the reference adds it as a constant by mistake);
+    ``validate_with`` selects the best epoch by validation "loss" or by the
+    label-retrieval "map"."""
 
     feature_dim: int = 512
     embed_dim: int = 128           # --latent_dim
@@ -91,6 +94,25 @@ class HypTrainConfig:
     model_dir: str = "models"
     use_dropout: bool = True
     validate_with: str = "loss"
+
+
+@dataclasses.dataclass
+class HypConTrainConfig:
+    """train_hyp_con: hyperbolic InfoNCE training of the figure-only model
+    (reference train.py:1792-1910)."""
+
+    feature_dim: int = 512
+    embed_dim: int = 128
+    hidden_dims: tuple[int, ...] = (256,)
+    curvature: float = 1.0
+    epochs: int = 100
+    batch_size: int = 128
+    learning_rate: float = 1e-3
+    temperature: float = 0.07
+    patience: int = 7
+    seed: int = 42
+    data_dir: str = "prepared_training_data"
+    model_dir: str = "models"
 
 
 def apply_overrides(cfg, overrides: Sequence[str]):

@@ -2030,3 +2030,248 @@ def test_retrieval_service_on_a_cuda_index_under_concurrency(cuda):
     assert all(_same_answers(a, b) for a, b in zip(got, alone, strict=True))
     assert service.batcher.requests - r0 == 64
     assert service.batcher.dispatches - d0 < 64
+
+
+# ------------------------------------------ keep-token serving profiles
+
+# The `recommended` and `turbo` serving profiles keep the 175 / 127
+# darkest patches of a 224 px image (S 176 / 128 with CLS), at narrow
+# widths (head_dim 64)
+KT_CFG = VisionConfig(image_size=224, patch_size=16, hidden_dim=D,
+                      num_layers=3, num_heads=HEADS, mlp_dim=F,
+                      projection_dim=32)
+
+
+def _kt_pixels(dev, b=4, seed=12):
+    """Drawings: a light page with dark strokes, so the ink ranking that
+    selects the kept patches varies by patch."""
+    g = torch.Generator().manual_seed(seed)
+    px = 0.9 + 0.1 * torch.rand(b, 224, 224, 3, generator=g)
+    strokes = torch.rand(b, 224, 224, 1, generator=g) < 0.2
+    return torch.where(strokes, 0.1 * px, px).to(dev)
+
+
+def _kt_tower(dev, keep, dtype=torch.bfloat16, cls=VisionTransformer):
+    gen = torch.Generator().manual_seed(13)
+    kw = {} if cls is not VisionTransformer else {"dtype": dtype}
+    tower = cls(KT_CFG, keep_tokens=keep, generator=gen, **kw)
+    with torch.no_grad():        # init leaves them 0 and 1: make each matter
+        for prm in tower.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.05 * torch.randn(prm.shape, generator=gen))
+    return tower.to(dev)
+
+
+@pytest.mark.parametrize("keep", [175, 127], ids=["recommended", "turbo"])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_serving_towers_at_keep_tokens_match_plain(cuda, kind, keep):
+    """Both serving towers at the profiles' keep-tokens, kernels against
+    the plain layers (the bf16 gates of the fused-layer tower; the int8
+    tower's, whose flipped codes compound), and the kept tokens matter:
+    the same tower with every token is farther from the plain keep-token
+    tower than the bf16 gate (1e-2 to 2.4e-2 on the CPU)."""
+    if kind == "bf16":
+        tower = _kt_tower(cuda, keep).eval()
+        full = _kt_tower(cuda, None).eval()
+        fns = (bf16_layer.fused_layer_block_bf16,
+               bf16_layer.fused_layer_cls_bf16)
+        rel, cos = 4e-3, 0.9999
+    else:
+        tower = Int8VisionTransformer.from_float(
+            _kt_tower(cuda, keep, torch.float32)).eval()
+        full = Int8VisionTransformer.from_float(
+            _kt_tower(cuda, None, torch.float32)).eval()
+        fns = (qm.quant_attention_block, qm.quant_attention_cls,
+               qm.quant_mlp_block)
+        rel, cos = 2e-2, 0.999
+    px = _kt_pixels(cuda)
+    counts = [fn.launches for fn in fns]
+    with torch.inference_mode():
+        got = tower(px)
+        every = full(px)
+        tower.kernels = False
+        want = tower(px)
+    assert all(fn.launches > c for fn, c in zip(fns, counts))
+    assert got.shape == (4, 32) and torch.isfinite(got).all()
+    assert _rel_err(got, want) <= rel
+    assert _min_cosine(got, want) > cos
+    assert _rel_err(every, want) > 4e-3
+
+
+@pytest.mark.parametrize("keep", [175, 127], ids=["recommended", "turbo"])
+def test_trainable_tower_at_keep_tokens_matches_plain(cuda, keep):
+    """The fine-tune tower at the profiles' keep-tokens, forward and
+    backward, with the kernels (rows 12, 13, 15, 16) against the plain
+    blocks: features within 4e-3 relative, every gradient within 2e-2 in
+    norm (the step test's gate)."""
+    from patent_tpu_torch.models.vit import TrainableVisionTransformer
+
+    px = _kt_pixels(cuda)
+    fns = (fa.fused_attention_fwd, fa.fused_attention_bwd, mm.fused_mlp_fwd,
+           mm.fused_mlp_bwd)
+    runs = []
+    for kernels in (True, False):
+        tower = _kt_tower(cuda, keep, cls=TrainableVisionTransformer)
+        tower.kernels = kernels
+        counts = [fn.launches for fn in fns]
+        out = tower(px)
+        (out.float() ** 2).sum().backward()
+        runs.append((out.detach().float(),
+                     {n: p.grad.clone() for n, p in tower.named_parameters()
+                      if p.grad is not None},
+                     [fn.launches - c for fn, c in zip(fns, counts)]))
+    (ok, gk, nk), (op, gp, np_) = runs
+    assert all(n > 0 for n in nk) and np_ == [0, 0, 0, 0]
+    assert _rel_err(ok, op) <= 4e-3 and _min_cosine(ok, op) > 0.9999
+    assert set(gk) == set(gp)
+    for name, want in gp.items():
+        err = float((gk[name] - want).norm() / (want.norm() + 1e-12))
+        assert err <= 2e-2, (name, err)
+
+
+# ------------------------------------------------ the hyperbolic trainer
+
+def _distinct_pairs(rng, n, count):
+    a = rng.integers(0, n, count)
+    return np.stack([a, (a + rng.integers(1, n, count)) % n], 1)
+
+
+def test_train_hyp_loss_and_step_on_the_card_match_the_cpu(cuda):
+    """One train_hyp step (the loss with a hand-made exclusion set, whose
+    disjointedness branch the card's prepared data never reaches, its
+    gradients and the Riemannian Adam update) on the card against the same
+    step on the CPU: metrics within 1e-4 relative, gradients within 1e-3
+    of each leaf's largest entry, the updated params within 1e-6 (the
+    card contracts multiply-adds and divides by scalars through their
+    reciprocals).  Features x 0.1 keep the first layer inside the ball,
+    where its bias's gradient is not f32 noise."""
+    from patent_tpu_torch.losses.hierarchy import hierarchical_margin_losses
+    from patent_tpu_torch.train import optim
+    from patent_tpu_torch.train import train_hyp as th
+    from patent_tpu_torch.utils.config import HypTrainConfig
+
+    cfg = HypTrainConfig(embed_dim=16, hidden_dims=(32,), use_dropout=False)
+    rng = np.random.default_rng(0)
+    n_lab, n_fig, b = 60, 200, 24
+    x = torch.from_numpy((0.1 * rng.standard_normal((n_fig, 32))).astype(
+        np.float32))
+    impl = torch.from_numpy(_distinct_pairs(rng, n_lab, 40))
+    excl = torch.from_numpy(_distinct_pairs(rng, n_lab, 25))
+    valid = np.ones(b, np.float32)
+    valid[-4:] = 0.0
+    batch = (rng.integers(0, n_fig, b), rng.integers(0, n_lab, b),
+             rng.integers(0, n_lab, (b, 2)), rng.integers(0, n_fig, b),
+             (rng.random(b) < 0.5).astype(np.float32), valid)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = HyperbolicEmbeddingModel(
+            feature_dim=32, embed_dim=16, label_num=n_lab, hidden_dims=(32,),
+            c=2.0, generator=torch.Generator().manual_seed(3)).to(dev)
+        if dev == "cpu":
+            _ins, disjoint = hierarchical_margin_losses(model.label_emb,
+                                                        impl, excl, 2.0)
+            assert float(disjoint.detach()) > 0.0     # the branch is live
+        opt = optim.RiemannianAdam(dict(model.named_parameters()),
+                                   cfg.learning_rate, c=2.0)
+        tb = tuple(torch.as_tensor(a).to(dev) for a in batch)
+        metrics = th.train_step(model, opt, th.make_loss_fn(model, cfg), tb,
+                                x.to(dev), impl.to(dev), excl.to(dev))
+        out[str(dev)] = (metrics.cpu(),
+                         {n: p.grad.cpu() for n, p in model.named_parameters()},
+                         {n: p.detach().cpu()
+                          for n, p in model.named_parameters()})
+    (mc, gc, pc), (mg, gg, pg) = out["cpu"], out[str(cuda)]
+    assert torch.allclose(mg, mc, rtol=1e-4, atol=0)
+    for n in gc:
+        assert float((gg[n] - gc[n]).abs().max()) <= \
+            1e-3 * float(gc[n].abs().max()), n
+        assert float((pg[n] - pc[n]).abs().max()) <= 1e-6, n
+
+
+def _hyp_td(tmp_path):
+    from patent_tpu_torch.train.cli_hyperbolic import ensure_training_data
+
+    return ensure_training_data(str(tmp_path / "data"), True)
+
+
+def test_train_hyp_on_the_card_is_deterministic_and_resumes(cuda, tmp_path):
+    """Dropout on: two runs of three epochs give the same history and best
+    params in bits, and so does a run of two epochs resumed to three (the
+    label table's and the features' gathers sum their gradients by a
+    sorted, ordered reduction on the card)."""
+    from patent_tpu_torch.train import train_hyp as th
+    from patent_tpu_torch.utils.checkpoint import CheckpointManager
+    from patent_tpu_torch.utils.config import HypTrainConfig
+    from patent_tpu_torch.utils.logging import MetricsLogger
+
+    td = _hyp_td(tmp_path)
+
+    def run(name, epochs, resume=False):
+        cfg = HypTrainConfig(embed_dim=16, hidden_dims=(32,), batch_size=32,
+                             epochs=epochs)
+        return th.train_hyperbolic_retrieval(
+            td, cfg, logger=MetricsLogger(print_every=0),
+            ckpt=CheckpointManager(str(tmp_path / name)), resume=resume,
+            device=cuda)
+
+    best_a, hist_a = run("a", 3)
+    best_b, hist_b = run("b", 3)
+    run("c", 2)
+    best_c, hist_c = run("c", 3, resume=True)
+    for best, hist in ((best_b, hist_b), (best_c, hist_c)):
+        assert hist["train_loss"] == hist_a["train_loss"]
+        assert hist["val_loss"] == hist_a["val_loss"]
+        for k in best_a:
+            assert torch.equal(best[k], best_a[k]), k
+
+
+def test_train_hyp_map_validation_launches_rows_17_and_18(cuda, tmp_path):
+    from patent_tpu_torch.train import train_hyp as th
+    from patent_tpu_torch.utils.config import HypTrainConfig
+    from patent_tpu_torch.utils.logging import MetricsLogger
+
+    td = _hyp_td(tmp_path)
+    n17, n18 = pk.pairwise_dist_pallas.launches, pk.mobius_dense_pallas.launches
+    _best, hist = th.train_hyperbolic_retrieval(
+        td, HypTrainConfig(embed_dim=16, hidden_dims=(32,), batch_size=32,
+                           epochs=1, validate_with="map"),
+        logger=MetricsLogger(print_every=0), device=cuda)
+    assert pk.pairwise_dist_pallas.launches > n17
+    assert pk.mobius_dense_pallas.launches > n18
+    assert len(hist["val_map"]) == 1 and 0.0 <= hist["val_map"][0] <= 1.0
+
+
+def test_poincare_index_on_a_crowded_gallery_matches_the_cpu(cuda):
+    """A gallery on a narrow band at the projection radius (what a model
+    trained on the synthetic corpus encodes): row 4's stage equals its
+    plain version in bits there, the quantized index launches it once a
+    search, and its answers match the same index on the CPU (scores
+    within 1e-6 relative: the f64 re-rank in another summation order)."""
+    from patent_tpu_torch.retrieval import index as ix
+
+    rng = np.random.default_rng(0)
+    n, d, c = 20000, 32, 2.0
+    basis = np.linalg.qr(rng.standard_normal((d, d)))[0][:, :3]
+    t = rng.uniform(0.0, 0.3, n)
+    pts = np.stack([np.cos(t), np.sin(t), 1e-4 * rng.standard_normal(n)],
+                   1) @ basis.T
+    radius = (1.0 - 4e-3) / math.sqrt(c)
+    gal = torch.from_numpy((pts / np.linalg.norm(pts, axis=1, keepdims=True)
+                            * radius).astype(np.float32)).to(cuda)
+    q = gal[torch.arange(0, n, 997, device=cuda)] * 0.9999
+    names = [str(i) for i in range(n)]
+    index = ix.EmbeddingIndex(gal, names, similarity="poincare", c=c,
+                              quantized=True)
+    terms = topk_kernel._poincare_queries(q, index.emb_gal)
+    got = topk_kernel._bucket_top2_poincare_cuda(*terms, index.emb_gal)
+    want = topk_kernel.bucket_top2_poincare_plain(*terms, index.emb_gal)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    n4 = topk_kernel.bucket_topk_poincare.launches
+    vals, idx = index.search(q, k=10)
+    assert topk_kernel.bucket_topk_poincare.launches == n4 + 1
+    cv, ci = ix.EmbeddingIndex(gal.cpu(), names, similarity="poincare", c=c,
+                               device="cpu", quantized=True).search(
+                                   q.cpu(), k=10)
+    np.testing.assert_allclose(vals, cv, rtol=1e-6)
+    assert np.mean(idx == ci) >= 0.99

@@ -170,10 +170,10 @@ def test_cli_never_imports_jax(runs):
 
 
 @pytest.mark.parametrize("argv", [
-    ["finetune", "--checkpoint", "/nonexistent/hf_clip"], ["train_hyp"],
+    ["finetune", "--checkpoint", "/nonexistent/hf_clip"], ["train_end"],
     ["train_gcn"],
     ["eval", "--checkpoint", "/nonexistent/hf_clip"]],
-    ids=["finetune", "train_hyp", "train_gcn", "hf-checkpoint"])
+    ids=["finetune", "train_end", "train_gcn", "hf-checkpoint"])
 def test_unported_surface_exits_nonzero(argv, tmp_path, capsys):
     assert torch_main(argv + ["--path", str(tmp_path)]) == 2
     assert "not yet ported to patent_tpu_torch" in capsys.readouterr().err
