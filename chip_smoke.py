@@ -87,10 +87,12 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    requests (each answer equal to the same request alone, fewer
    dispatches than requests), a malformed body (400); then the CLI's
    serve as a process of its own, which must answer /healthz and a
-   search; then
-   finetune --epochs 1, ViT-B/16 on a 224 px corpus (48 patents x 4
-   figures: two steps of 64 pairs), and eval serving the checkpoint it
-   wrote; then the hyperbolic serving path: infer and dist on a
+   search; then the composed pipeline on the port alone:
+   train_class_pro --epochs 3 on the CLI's graph, exporting its figures'
+   graph embeddings, finetune --epochs 1, ViT-B/16 on a 224 px corpus
+   (48 patents x 4 figures: two steps of 64 pairs) aligned to that
+   export, and eval serving the checkpoint it wrote; then the hyperbolic
+   serving path: infer and dist on a
    DeepPatent-2018-scale prepared_training_data (16,059 patents x 2
    figures, CLIP-width features of 512) with a seeded checkpoint of the
    HypTrainConfig model (512 -> 256 -> 128, c = 2) in the JAX layout, and
@@ -104,7 +106,24 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    the trained label table against the f64 distance, infer and a
    quantized HyperbolicRetrievalEngine over the trained checkpoint
    (recall@10 against the exact f64 ranking beside the seeded model's),
-   and train_hyp_con --epochs 2 (its loss finite and falling); the int8
+   and train_hyp_con --epochs 2 (its loss finite and falling); then the
+   joint CLIP + hyperbolic trainer at EndToEndConfig's defaults (ViT-B/16
+   @224, 32 pairs, the last 9 blocks, a head of 256 over the 16,074
+   labels): one step with the kernels (rows 12, 13, 15, 16) against one
+   with the plain blocks from the same weights and dropout generator
+   (metrics within 2e-3, the tower's gradients given one cotangent
+   within 2e-2 beside a pixel-noise yardstick, blocks 0-2 equal in bits
+   after the step, every label row inside the ball), train_end --epochs
+   2 through the CLI (its 32 px tower: S 17, head_dim 16), train_hmi on
+   the hyperbolic data's graph (3 epochs: the loss finite and falling;
+   label scores), the same graph (48,192 nodes): train_class_pro's
+   trainer for 2 epochs at GCNTrainConfig's widths (the sparse path) and
+   its export, evaluate_embeddings of the exported rows on the card held
+   to the host's (cosine ratios within 1e-4 relative, Hit@k within 1e-2),
+   spmm against the dense product of 8,192 rows and equal in bits twice,
+   train_vgae_link_prediction on the sampled objective; train --model
+   VGAE through the CLI on the CLI's graph, and plot on a train_hyp
+   checkpoint (without matplotlib it says no figure was written); the int8
    tower through a
    RetrievalEngine at batch_size 3 (the whole-layer kernel) over the 224 px
    gallery, held to the same gallery at batch 32 by min feature cosine
@@ -157,7 +176,10 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    and host parts), and Poincaré top-10 QPS at 1M x 128 through the kernel
    path against the scan; train_hyp's step (ms, steps/s), an epoch as the
    trainer runs it, its profile (busy share, top kernels, launches a
-   step) and a map validation with rows 17 and 18's share of it.
+   step) and a map validation with rows 17 and 18's share of it; the
+   train_end step at 32 pairs (ms, img/s, its profile: busy share, rows
+   12, 13, 15 and 16's kernels' share, launches a step), a
+   train_class_pro epoch at the 2018 scale and a train_hmi epoch.
 
 The line before the last is a JSON object with one entry per kernel
 (its launches on the main path, error against the plain version, times
@@ -1111,7 +1133,8 @@ def grad_gaps(gk: dict, gp: dict) -> dict[str, float]:
     return {n: rel_gap(gk[n], g) for n, g in gp.items()}
 
 
-def check_train_step(torch, metrics, tower, step, dz, yardstick) -> None:
+def check_train_step(torch, metrics, tower, step, dz, yardstick,
+                     what: str = "fine-tune step, ViT-B/16") -> None:
     """Hold one training step with the kernels to one with the plain
     blocks; each of the first four arguments is a (kernels, plain) pair:
     the step's metrics, the tower's gradients given one cotangent, the
@@ -1129,7 +1152,7 @@ def check_train_step(torch, metrics, tower, step, dz, yardstick) -> None:
         return ", ".join(f"{n} {g:.3g}" for n, g in sorted(
             gaps.items(), key=lambda kv: -kv[1])[:3])
 
-    print("[kernel] fine-tune step, ViT-B/16, kernels vs plain blocks: "
+    print(f"[kernel] {what}, kernels vs plain blocks: "
           + ", ".join(f"{key} {mk[key]:.6f} vs {mp[key]:.6f}"
                       for key in mp)
           + f"; tower gradients given one cotangent, {len(tp)} trainable "
@@ -1582,7 +1605,7 @@ def hyperbolic_slice(torch, dev, z: dict, h: dict, run_path, cli) -> None:
           f"{rec_k} < {POINCARE_MIN_RECALL}")
     h.update(model=model, td=td, fig_pos=fig_pos, num_patents=num_patents,
              engine=got["engine"], feats=feats, q=got["q"], qfeat=qfeat,
-             recall=rec_k)
+             recall=rec_k, records=records, graph=graph, xf=xf)
 
 
 def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
@@ -1983,6 +2006,418 @@ def hyperbolic_train_times(torch, dev, z: dict, h: dict, label: str) -> None:
           f"{label}")
     check(own["row 17"] > 0 and own["row 18"] > 0,
           "the map validation's trace shows no row 17 or 18 launch")
+
+
+# ---- the joint trainer (train/train_end.py), HMI (train/train_hmi.py) and
+# the graph family (train/train_gcn.py, train/train_vgae.py, models/gcn.py)
+TE_DIR = os.path.join(ROOT, "build", "chip_smoke_train_end")
+GRAPH_DIR = os.path.join(ROOT, "build", "chip_smoke_graph")
+# the kernels of rows 12, 13, 15 and 16 in a profile: the wgmma GEMMs,
+# the flash tile, the attention backward, the LayerNorms and the MLP
+# backward's reductions (csrc/fused_attention.cu, mlp_grad.cu and the
+# headers they include)
+TRAIN_KERNELS_RE = re.compile(
+    r"gemm_kernel|gemm_tn_kernel|flash_kernel|attn_bwd_kernel|"
+    r"layernorm_kernel|ln_bwd_kernel|colsum_parts_kernel|sum_splits_kernel")
+# spmm on the card against the dense product of a block of rows (in f64,
+# rounded to f32): f32 sums of a few products a row
+SPMM_REL_TOL = 1e-5
+# the DeepPatent-2018-scale graph trainers' widths and cuts
+GRAPH_EPOCHS, VGAE_EPOCHS, HMI_EPOCHS = 2, 5, 3
+# evaluate_embeddings on the card against the host on the exported rows:
+# the first EVAL_PAIRS same-patent and same-CPC pairs; the cosine ratios
+# are f32 means summed in another order, Hit@k may move where two
+# neighbours of a child tie at the k-th place (a share of a pair each)
+EVAL_PAIRS = 2048
+EVAL_RATIO_RTOL, EVAL_HIT_ATOL = 1e-4, 1e-2
+
+
+def end_to_end_setup(torch, dev, h: dict) -> dict:
+    """train_end at EndToEndConfig's defaults (ViT-B/16 @224, 32 pairs, the
+    last 9 blocks trained, the head of 256 at c 2) on the hyperbolic
+    slice's label table (h["td"]): seeded pixels, patents, negatives, the
+    table's implication pairs, a cotangent of the features and the pixels
+    with noise of std 1e-3 (the yardstick)."""
+    from patent_tpu_torch.models.vit import VIT_B16
+    from patent_tpu_torch.utils.config import EndToEndConfig
+
+    cfg = EndToEndConfig()
+    td = h["td"]
+    n_pat = td.label_offsets["medium_cpcs"] - td.label_offsets["patents"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, px = cfg.batch_size, VIT_B16.image_size
+    images = torch.randn(2 * b, px, px, 3, generator=gen, device=dev)
+    return {"cfg": cfg, "label_num": td.num_labels, "images": images,
+            "pos": torch.randint(0, n_pat, (b,), generator=gen, device=dev),
+            "neg": torch.randint(0, n_pat, (b, 2), generator=gen, device=dev),
+            "impl": torch.as_tensor(td.implication, dtype=torch.long,
+                                    device=dev),
+            "cot": torch.randn(2 * b, VIT_B16.projection_dim, generator=gen,
+                               device=dev),
+            "noisy": images + 1e-3 * torch.randn(images.shape, generator=gen,
+                                                 device=dev)}
+
+
+def end_to_end_step_check(torch, dev, run_path, e: dict) -> None:
+    """One train_end step at full width with the kernels (the main path:
+    its launches recorded) against one with the plain blocks, from the
+    same seeded weights and dropout generator: check_train_step's gates;
+    blocks 0-2 (frozen) equal in bits after the step and every label row
+    inside the ball."""
+    from patent_tpu_torch.models.vit import VIT_B16
+    from patent_tpu_torch.ops import bf16_mlp_grad as mm
+    from patent_tpu_torch.ops import flash_attention as fa
+    from patent_tpu_torch.train import train_end as te
+
+    cfg = e["cfg"]
+    counters = (fa.fused_attention_fwd, fa.fused_attention_bwd,
+                mm.fused_mlp_fwd, mm.fused_mlp_bwd)
+
+    def tower_grads(vit, x):
+        vit.zero_grad(set_to_none=True)
+        vit(x).backward(e["cot"])
+        return {n: t.grad.clone() for n, t in vit.named_parameters()
+                if t.grad is not None}
+
+    runs = []
+    for kernels in (True, False):
+        model, opt = te.init_end_to_end(VIT_B16, cfg, e["label_num"], seed=0,
+                                        device=dev)
+        model.vit.kernels = kernels
+        step, _loss = te.make_end_to_end_step(model, opt, cfg)
+        tower = tower_grads(model.vit, e["images"])
+        if not kernels:
+            yardstick = grad_gaps(tower_grads(model.vit, e["noisy"]), tower)
+        kept, out = {}, {}
+
+        def keep_dz(_module, _inputs, feats):
+            feats.register_hook(lambda g: kept.update(dz=g.clone()))
+
+        frozen = {n: p.detach().clone() for n, p in
+                  model.vit.named_parameters() if not p.requires_grad}
+        hook = model.vit.register_forward_hook(keep_dz)
+        dgen = torch.Generator(device=dev).manual_seed(3)
+
+        def go():
+            out.update(step(e["images"], e["pos"], e["neg"], e["impl"],
+                            dgen))
+
+        if kernels:
+            run_path(f"train_end step, ViT-B/16 @224, {cfg.batch_size} pairs "
+                     "(EndToEndConfig's defaults)", counters, go)
+        else:
+            go()
+        hook.remove()
+        torch.cuda.synchronize()
+        params = dict(model.vit.named_parameters())
+        check({f"blocks.{i}.wqkv" for i in range(3)} <= set(frozen)
+              and all(torch.equal(params[n], t) for n, t in frozen.items()),
+              "a frozen leaf of the train_end tower moved in a step")
+        radius = float(model.hyp.label_emb.detach().norm(dim=1).max()) \
+            * math.sqrt(cfg.curvature)
+        check(radius < 1.0, f"a label row left the ball: radius {radius}")
+        runs.append(({k: float(v) for k, v in out.items()}, tower,
+                     {n: t.grad for n, t in model.named_parameters()
+                      if t.grad is not None}, kept["dz"]))
+        del model, opt
+    check_train_step(torch, *zip(*runs), yardstick,
+                     what="train_end step, ViT-B/16")
+    print(f"[slice] train_end step: the {len(frozen)} frozen tower leaves "
+          f"(blocks 0-{VIT_B16.num_layers - cfg.trainable_blocks - 1}, the "
+          f"embeddings, pre-LN) equal in bits after it; label rows inside "
+          f"the ball (largest radius {radius:.6f} of 1/sqrt(c))")
+
+
+def end_to_end_slice(torch, dev, run_path, cli, h: dict) -> None:
+    """train_end --epochs 2 through the CLI (its 32 px tower: S 17, D 64
+    over 4 heads, 16 images a step); train_hmi on the hyperbolic slice's
+    graph (h["graph"]: DeepPatent-2018 scale) with its 512-wide figure
+    features, HMI_EPOCHS epochs (the loss finite and falling) and its
+    label scores on the card; then the graph family at the same scale:
+    train_class_pro's trainer, GRAPH_EPOCHS epochs at GCNTrainConfig's
+    widths (512 → 512 → 256, 512 pairs a step; the sparse path above
+    16,384 nodes), and its export, evaluate_embeddings of the exported
+    rows on the card held to the host's, spmm against the dense product
+    of a block of rows and equal in bits twice (forward and backward),
+    the VGAE on the sampled objective; train --model VGAE through the CLI
+    on the CLI's graph, and plot on a train_hyp checkpoint."""
+    import numpy as np
+
+    from patent_tpu_torch.data.hmi_inputs import generate_hmi_inputs
+    from patent_tpu_torch.data.pairs import sample_figure_pairs
+    from patent_tpu_torch.models import gcn
+    from patent_tpu_torch.ops import bf16_mlp_grad as mm
+    from patent_tpu_torch.ops import flash_attention as fa
+    from patent_tpu_torch.metrics.embedding_quality import \
+        evaluate_embeddings
+    from patent_tpu_torch.train.train_gcn import (export_graph_embeddings,
+                                                  train_pair_classification)
+    from patent_tpu_torch.train.train_hmi import hmi_label_scores, train_hmi
+    from patent_tpu_torch.train.train_vgae import train_vgae_link_prediction
+    from patent_tpu_torch.utils.config import GCNTrainConfig
+    from patent_tpu_torch.utils.logging import MetricsLogger
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TE_DIR, ignore_errors=True)
+    log = io.StringIO()
+
+    def cli_train_end():
+        with contextlib.redirect_stdout(log):
+            rc = cli(["train_end", "--path", TE_DIR, "--epochs", "2"])
+        check(rc == 0, "train_end failed")
+
+    run_path("train_end --epochs 2 (the CLI's tower: 32 px, S 17, head_dim "
+             "16, 8 pairs a step)",
+             (fa.fused_attention_fwd, fa.fused_attention_bwd,
+              mm.fused_mlp_fwd, mm.fused_mlp_bwd), cli_train_end)
+    losses = [float(v) for v in re.findall(r"total_loss=(\S+)",
+                                           log.getvalue())]
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"train_end losses not finite: {losses}")
+    print(f"[slice] train_end --epochs 2: total_loss {losses[-1]:.4f} after "
+          f"6 steps")
+
+    graph, td = h["graph"], h["td"]
+    nf = graph.counts["figures"]
+    num_labels = graph.num_nodes - nf
+    t0 = time.perf_counter()
+    inputs = generate_hmi_inputs(graph, seed=42)
+    t_inputs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hmi_params, hist = train_hmi(td.x_figures, inputs, num_labels,
+                                 epochs=HMI_EPOCHS, device=dev,
+                                 logger=MetricsLogger(print_every=0))
+    torch.cuda.synchronize()
+    t_hmi = time.perf_counter() - t0
+    scores = hmi_label_scores(hmi_params, td.x_figures[:64], 64, num_labels,
+                              batch_size=16, device=dev)
+    loss = hist["train_loss"]
+    print(f"[slice] train_hmi on {nf} figures x {num_labels} labels "
+          f"({len(inputs.y_pos)} Y_pos + {len(inputs.y_neg)} Y_neg pairs, "
+          f"{len(inputs.implication)} implications, {len(inputs.exclusion)} "
+          f"exclusions; inputs built in {t_inputs:.1f} s): {HMI_EPOCHS} "
+          f"epochs in {t_hmi:.1f} s, loss {' -> '.join(f'{v:.4f}' for v in loss)}"
+          f"; label scores {scores.shape} on the card")
+    check(all(math.isfinite(v) for v in loss) and loss[-1] < loss[0]
+          and scores.shape == (64, num_labels)
+          and bool(np.isfinite(scores).all()),
+          f"train_hmi loss not finite and falling, or scores bad: {loss}")
+    h.update(hmi_inputs=inputs, hmi_params=hmi_params)
+
+    # the graph at the same scale: train_class_pro's trainer and export
+    t0 = time.perf_counter()
+    pair_data = sample_figure_pairs(h["records"], num_samples=100_000,
+                                    seed=0)
+    print(f"[slice] graph: {graph.num_nodes} nodes, {graph.adjacency.nnz} "
+          f"edges, features {h['xf'].shape}, {len(pair_data['pairs'])} "
+          f"figure pairs {pair_data['level_counts']}, sampled in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(graph.num_nodes > 16384, "the graph is too small for the sparse "
+          "path")
+    gcfg = GCNTrainConfig(epochs=GRAPH_EPOCHS, latent_dim=256)
+    pairs = np.asarray(pair_data["pairs"], np.int32)
+    t0 = time.perf_counter()
+    variables, ghist, report = train_pair_classification(
+        h["xf"], graph.adjacency, pairs,
+        np.asarray(pair_data["labels"], np.int32) - 1, gcfg, device=dev,
+        logger=MetricsLogger(print_every=0))
+    emb = export_graph_embeddings(
+        variables, h["xf"], graph.adjacency, gcfg.hidden_dim,
+        gcfg.latent_dim, gcfg.num_layers, graph.figure_index,
+        adjacency_mode=gcfg.adjacency, device=dev)
+    torch.cuda.synchronize()
+    t_gcn = time.perf_counter() - t0
+    rows = np.stack(list(emb.values()))
+    check(len(emb) == nf and rows.shape[1] == 256
+          and all(type(v) is np.ndarray for v in emb.values())
+          and bool(np.isfinite(rows).all())
+          and all(math.isfinite(v) for v in ghist["train_loss"])
+          and math.isfinite(report["test_loss"])
+          and 0.0 <= report["test_acc"] <= 1.0,
+          f"train_class_pro report or export bad: {report}, {rows.shape}")
+    print(f"[slice] train_class_pro's trainer, {GRAPH_EPOCHS} epochs "
+          f"(GCNTrainConfig widths 512 -> 512 -> 256, {gcfg.batch_size} "
+          f"pairs a step, sparse adjacency) and its export in {t_gcn:.1f} s: "
+          f"train_loss {' -> '.join(f'{v:.4f}' for v in ghist['train_loss'])}"
+          f", test_loss {report['test_loss']:.4f}, test_acc "
+          f"{report['test_acc']:.4f}; {len(emb)} figure embeddings of 256 "
+          f"exported, norms {float(np.linalg.norm(rows, axis=1).min()):.6f}-"
+          f"{float(np.linalg.norm(rows, axis=1).max()):.6f}")
+    h["gcn_pairs"] = pair_data
+
+    # evaluate_embeddings on the exported rows, on the card and on the host
+    z = np.zeros((nf, rows.shape[1]), np.float32)
+    for name, vec in emb.items():
+        z[graph.figure_index[name]] = vec
+    levels = np.asarray(pair_data["labels"])
+    same_patent = pairs[levels == 1][:EVAL_PAIRS]
+    same_cpc = pairs[levels == 2][:EVAL_PAIRS]
+    t0 = time.perf_counter()
+    on_card = evaluate_embeddings(z, same_patent, same_cpc, device="cuda")
+    t_eval = time.perf_counter() - t0
+    on_host = evaluate_embeddings(z, same_patent, same_cpc, device="cpu")
+    cos_gap = max(abs(on_card[k] - v) / max(abs(v), 1e-12)
+                  for k, v in on_host.items() if k != "hierarchical_hit_at_k")
+    hit_gap = max(abs(on_card["hierarchical_hit_at_k"][k] - v)
+                  for k, v in on_host["hierarchical_hit_at_k"].items())
+    print(f"[slice] evaluate_embeddings on the card ({len(same_patent)} "
+          f"same-patent and {len(same_cpc)} same-CPC pairs over {nf} "
+          f"figures) in {t_eval:.2f} s: {json.dumps(on_card)}; against the "
+          f"host's: ratios rel {cos_gap:.3g} (gate {EVAL_RATIO_RTOL}), "
+          f"Hit@k abs {hit_gap:.3g} (gate {EVAL_HIT_ATOL})")
+    check(set(on_card) == set(on_host) and cos_gap <= EVAL_RATIO_RTOL
+          and hit_gap <= EVAL_HIT_ATOL,
+          "evaluate_embeddings on the card differs from the host's")
+
+    # spmm against the dense product of the first rows, and its bits
+    adj = gcn.normalize_adjacency_sparse(graph.adjacency).to(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    y = torch.randn(graph.num_nodes, 256, generator=g, device=dev)
+    cot = torch.randn(graph.num_nodes, 256, generator=g, device=dev)
+    runs = []
+    for _ in range(2):
+        yy = y.clone().requires_grad_(True)
+        prod = gcn.spmm(adj, yy)
+        prod.backward(cot)
+        runs.append((prod.detach(), yy.grad))
+    torch.cuda.synchronize()
+    m = 8192
+    sel = adj.rows < m
+    block = torch.zeros(m, graph.num_nodes, device=dev)
+    block[adj.rows[sel], adj.cols[sel]] = adj.vals[sel]
+    want = (block.double() @ y.double()).float()
+    err = rel_err(runs[0][0][:m], want)
+    # the backward's first rows get the cotangents of every row, so its
+    # reference is the transposed block's rows among the first m only
+    sel_t = adj.cols < m
+    back_want = torch.zeros(m, 256, device=dev)
+    back_want.index_add_(0, adj.cols[sel_t], adj.vals[sel_t, None]
+                         * cot[adj.rows[sel_t]])
+    err_g = rel_err(runs[0][1][:m], back_want)
+    del block
+    bits = (torch.equal(runs[0][0], runs[1][0])
+            and torch.equal(runs[0][1], runs[1][1]))
+    print(f"[kernel] spmm on the {graph.num_nodes}-node graph ({len(adj.vals)}"
+          f" edges) x 256: rows 0-{m - 1} vs the dense product, rel err "
+          f"{err:.3g} (gate {SPMM_REL_TOL}), backward {err_g:.3g}; two runs "
+          f"equal in bits (forward and backward): {bits}")
+    check(err <= SPMM_REL_TOL and err_g <= SPMM_REL_TOL and bits,
+          "spmm on the card differs from the dense product or between runs")
+    del adj, y, cot, runs, want, back_want
+
+    t0 = time.perf_counter()
+    _v, _split, vrep = train_vgae_link_prediction(
+        h["xf"], graph.adjacency, hidden_dim=512, latent_dim=128,
+        epochs=VGAE_EPOCHS, mode="sampled", device=dev,
+        logger=MetricsLogger(print_every=0))
+    print(f"[slice] train_vgae_link_prediction, {VGAE_EPOCHS} epochs (the "
+          f"sampled objective, {graph.num_nodes} nodes, 512 -> 128) in "
+          f"{time.perf_counter() - t0:.1f} s: {vrep}")
+    check(0.0 <= vrep["roc_auc"] <= 1.0 and math.isfinite(
+        vrep["average_precision"]), f"VGAE report out of range: {vrep}")
+    # the CLI's graph actions on the CLI's own graph (the composed
+    # pipeline's phase runs train_class_pro)
+    shutil.rmtree(GRAPH_DIR, ignore_errors=True)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli(["train", "--model", "VGAE", "--path", GRAPH_DIR,
+                  "--epochs", str(VGAE_EPOCHS)])
+    out = log.getvalue()
+    check(rc == 0, f"train --model VGAE failed: {out[-2000:]}")
+    vrep = json.loads(out[out.rindex("{\n"):out.rindex("}") + 1])
+    print(f"[slice] train --model VGAE --epochs {VGAE_EPOCHS} (the CLI's "
+          f"graph) in {time.perf_counter() - t0:.1f} s: {vrep}")
+    check(0.0 <= vrep["roc_auc"] <= 1.0 and math.isfinite(
+        vrep["average_precision"]), f"VGAE report out of range: {vrep}")
+
+    # plot: on a box without matplotlib or scikit-learn it writes nothing
+    # and says so
+    err_log = io.StringIO()
+    plot_dir = os.path.join(TRAIN_DIR, "fresh")
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err_log):
+        rc = cli(["plot", "--path", plot_dir])
+    pngs = glob.glob(os.path.join(plot_dir, "plots", "*.png"))
+    said = err_log.getvalue().strip()
+    check(rc == 0 and (bool(pngs) or "were not written" in said),
+          f"plot failed: rc {rc}, {said}")
+    print(f"[slice] plot: {len(pngs)} figures written"
+          + (f"; {said}" if said else ""))
+    print(f"[slice] joint trainer, HMI and graph phase: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def end_to_end_times(torch, dev, e: dict, h: dict, label: str) -> None:
+    """train_end's step at 32 pairs with the kernels: ms a step and img/s
+    (CUDA events), its profile (busy share, rows 12, 13, 15 and 16's
+    kernels' share, launches a step); a train_class_pro epoch at the 2018
+    scale (its trainer's own loop, in seconds) and a train_hmi epoch."""
+    from patent_tpu_torch.models.vit import VIT_B16
+    from patent_tpu_torch.train import train_end as te
+    from patent_tpu_torch.train.train_gcn import train_pair_classification
+    from patent_tpu_torch.train.train_hmi import train_hmi
+    from patent_tpu_torch.utils.config import GCNTrainConfig
+    from patent_tpu_torch.utils.logging import MetricsLogger
+
+    import numpy as np
+
+    cfg = e["cfg"]
+    model, opt = te.init_end_to_end(VIT_B16, cfg, e["label_num"], seed=0,
+                                    device=dev)
+    step, _loss = te.make_end_to_end_step(model, opt, cfg)
+    dgen = torch.Generator(device=dev).manual_seed(3)
+
+    def one_step():
+        step(e["images"], e["pos"], e["neg"], e["impl"], dgen)
+
+    ms = cuda_ms(torch, one_step, warmup=2, iters=10)
+    n_img = 2 * cfg.batch_size
+    rows = launch_times(torch, one_step, iters=3)
+    busy = sum(t * n for _k, t, n in rows) / 3
+    ours = sum(t * n for k, t, n in rows if TRAIN_KERNELS_RE.search(k)) / 3
+    launches = sum(n for _k, _t, n in rows) / 3
+    top = sorted(rows, key=lambda r: -r[1] * r[2])[:8]
+    print(f"[time] train_end step, ViT-B/16 @224, {cfg.batch_size} pairs "
+          f"({n_img} images, last {cfg.trainable_blocks} blocks trained, "
+          f"head of {cfg.embed_dim} over {e['label_num']} labels): "
+          f"{ms:.2f} ms/step, {n_img / ms * 1e3:.1f} img/s forward + "
+          f"backward {label}")
+    print(f"[time] train_end step profile (torch.profiler, 3 steps): "
+          f"{busy:.2f} ms busy of {ms:.2f} ms wall ({100 * busy / ms:.1f}%)"
+          f", rows 12, 13, 15 and 16's kernels {ours:.2f} ms "
+          f"({100 * ours / ms:.1f}% of the step), {launches:.0f} launches a "
+          f"step; top kernels: " + "; ".join(
+              f"{t * n / 3:.2f} ms ({n // 3} a step) {k[:60]}"
+              for k, t, n in top) + f" {label}")
+    del model, opt
+
+    graph, x, pair_data = h["graph"], h["xf"], h["gcn_pairs"]
+    pairs = np.asarray(pair_data["pairs"], np.int32)
+    labels = np.asarray(pair_data["labels"], np.int32) - 1
+    gcfg = GCNTrainConfig(epochs=1, latent_dim=256)
+    t0 = time.perf_counter()
+    _v, hist, _r = train_pair_classification(
+        x, graph.adjacency, pairs, labels, gcfg, device=dev,
+        logger=MetricsLogger(print_every=0))
+    torch.cuda.synchronize()
+    t_gcn = time.perf_counter() - t0
+    n_steps = -(-int(len(pairs) * gcfg.train_ratio) // gcfg.batch_size)
+    print(f"[time] train_class_pro, one epoch at the 2018 scale "
+          f"({graph.adjacency.shape[0]} nodes, {n_steps} steps of "
+          f"{gcfg.batch_size} pairs at 512 -> 512 -> 256, the validation and "
+          f"test passes and the adjacency's preparation included): "
+          f"{t_gcn:.2f} s {label}")
+    td, inputs = h["td"], h["hmi_inputs"]
+    nf = graph.adjacency.shape[0] - (td.num_labels)
+    t0 = time.perf_counter()
+    train_hmi(td.x_figures, inputs, td.num_labels, epochs=1, device=dev,
+              logger=MetricsLogger(print_every=0))
+    torch.cuda.synchronize()
+    t_hmi = time.perf_counter() - t0
+    n_pairs = len(inputs.y_pos) + len(inputs.y_neg)
+    print(f"[time] train_hmi, one epoch ({n_pairs} pairs, {n_pairs // 256} "
+          f"steps of 256; {nf} figures): {t_hmi:.2f} s {label}")
 
 
 # The bucket stage at the query counts its tiles take: one query, a ragged
@@ -3144,12 +3579,28 @@ def main() -> None:
           f"bf16 features at batch 3 far from batch 32's: min cosine "
           f"{cos_odd} < {BF16_ODD_MIN_COS}")
 
-    # the fine-tune: ViT-B/16 trained from seeded weights on a 224 px
-    # corpus (192 anchors, 19 held out: two steps of 64 pairs and one
-    # validation batch), then served by eval through the bf16 kernels
+    # the composed pipeline, the port alone: train_class_pro exports the
+    # CLI graph's figure embeddings into the fine-tune's directory; the
+    # fine-tune (ViT-B/16 trained from seeded weights on a 224 px corpus:
+    # 192 anchors, 19 held out, two steps of 64 pairs and one validation
+    # batch) aligns to that export; eval serves its checkpoint through the
+    # bf16 kernels
     shutil.rmtree(FT_DIR, ignore_errors=True)
     write_synthetic_corpus(FT_DIR, num_patents=48, figures_per_patent=4,
                            image_size=224)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = cli(["train_class_pro", "--path", FT_DIR, "--epochs", "3"])
+    check(rc == 0 and os.path.isfile(os.path.join(
+        FT_DIR, "graph_embeddings", "image_ge_embeddings_GE.pkl")),
+        f"train_class_pro failed: {log.getvalue()[-2000:]}")
+    gcn_report = json.loads(log.getvalue()[log.getvalue().index("{\n"):
+                                           log.getvalue().rindex("}") + 1])
+    print(f"[slice] train_class_pro --epochs 3 (the CLI's graph) in "
+          f"{time.perf_counter() - t0:.1f} s: test_acc "
+          f"{gcn_report['test_acc']:.4f}; graph embeddings exported for the "
+          "fine-tune")
     log = io.StringIO()
 
     def finetune():
@@ -3163,6 +3614,10 @@ def main() -> None:
               mm.fused_mlp_fwd, mm.fused_mlp_bwd), finetune)
     losses = [float(t) for t in re.findall(r"train_loss=(\S+)",
                                            log.getvalue())]
+    aligned = re.search(r"aligned to (\d+) exported graph embeddings",
+                        log.getvalue())
+    check(aligned is not None, "the fine-tune did not read the graph "
+          "embeddings train_class_pro exported")
     ckpt = os.path.join(FT_DIR, "models", "clip_finetune_best")
     with open(os.path.join(ckpt, "metadata.json")) as fh:
         val_loss = json.load(fh)["val_loss"]
@@ -3185,13 +3640,17 @@ def main() -> None:
           and all(0.0 <= float(v) <= 1.0 for key, v in summary.items()
                   if key != "num_missing_rankings"),
           f"fine-tuned index {emb.shape} or metrics out of range: {summary}")
-    print(f"[slice] fine-tune train loss {losses[0]:.4f}, val loss "
+    print(f"[slice] fine-tune aligned to {aligned.group(1)} exported graph "
+          f"embeddings; train loss {losses[0]:.4f}, val loss "
           f"{val_loss:.4f}; eval served {os.path.basename(npys[0])} "
           f"{emb.shape}: {summary}")
 
     hyperbolic_slice(torch, dev, HYP_SIZES, hyp, run_path, cli)
     hyperbolic_backward(torch, dev, HYP_SIZES)
     hyperbolic_training(torch, dev, HYP_SIZES, hyp, run_path, cli, errs)
+    e2e = end_to_end_setup(torch, dev, hyp)
+    end_to_end_step_check(torch, dev, run_path, e2e)
+    end_to_end_slice(torch, dev, run_path, cli, hyp)
 
     # ---- 5. times
     times = {}
@@ -3614,6 +4073,8 @@ def main() -> None:
                index_mod.EmbeddingIndex, label, n_big, dg, k)
 
     hyperbolic_train_times(torch, dev, HYP_SIZES, hyp, label)
+    # before hyperbolic_times, which releases what hyp holds
+    end_to_end_times(torch, dev, e2e, hyp, label)
     hyperbolic_times(torch, HYP_SIZES, hyp, times, bounds, label, k, pool)
     for kname, (pm, km) in times.items():
         lib = (f", one PyTorch call {library[kname]:.3f} ms"

@@ -1,6 +1,8 @@
-"""Command-line interface of the port (the retrieval actions, the
-retrieval server, the CLIP fine-tune, the hyperbolic trainers and serving
-actions, and ``prep`` of patent_tpu/cli/main.py).
+"""Command-line interface of the port (every action of
+patent_tpu/cli/main.py but ``bench``: the retrieval actions, the retrieval
+server, the CLIP fine-tune, the hyperbolic trainers and serving actions,
+``prep``, the joint CLIP + hyperbolic trainer, ``plot`` and the graph
+trainers).
 
     python -m patent_tpu_torch.cli encode|retrieve|eval --path DIR
         [--device cuda|cpu] [--synthetic] [--k K] [--query IMG]
@@ -20,6 +22,12 @@ actions, and ``prep`` of patent_tpu/cli/main.py).
     python -m patent_tpu_torch.cli test|infer|dist --path DIR
         [--checkpoint NAME] [--latent_dim 128] [--synthetic]
         [--device cuda|cpu] [key=value ...]
+    python -m patent_tpu_torch.cli train_end|train_end_2 --path DIR
+        [--device cuda|cpu] [--epochs 2]
+    python -m patent_tpu_torch.cli plot --path DIR [--checkpoint NAME]
+    python -m patent_tpu_torch.cli train_class_pro|train_class|train_gcn|train
+        --path DIR [--device cuda|cpu] [--model GE|VGAE] [--hidden_dim 512]
+        [--latent_dim 128] [--epochs N] [--learning_rate LR] [key=value ...]
 
 ``serve`` loads the index that ``encode`` saved for the same corpus and
 tower (or encodes the gallery and saves it), then answers HTTP on
@@ -34,12 +42,18 @@ and ``best_retrieval_model_c{c}_e{d}`` under ``DIR``/models in the JAX
 layout, so ``--resume`` continues a run of either package; ``train_hyp_con``
 trains the figure-only model by InfoNCE.  ``test``, ``infer`` and ``dist``
 serve a ``train_hyp`` checkpoint of either package
-(train/cli_hyperbolic.py).
+(train/cli_hyperbolic.py).  ``train_end`` trains the joint CLIP +
+hyperbolic model on its synthetic corpus; ``plot`` draws a ``train_hyp``
+checkpoint's label table under ``DIR``/plots (where matplotlib and
+scikit-learn are installed); ``train_class_pro`` and its aliases train
+the GCN pair classifier and export graph embeddings for ``finetune``
+(``--model VGAE``: the VGAE link predictor) (train/cli_graph.py), on
+the JAX CLI's synthetic graph.
 
 ``--device`` defaults to the card; without one the command exits non-zero
-rather than run on the CPU (``prep`` runs on the host only).  The other
-actions of the JAX CLI, and HF ``--checkpoint`` directories for the image
-tower, exit non-zero with a message: they are not ported yet.
+rather than run on the CPU (``prep`` and ``plot`` run on the host only).
+``bench``, and HF ``--checkpoint`` directories for the image tower, exit
+non-zero with a message: they are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,15 +63,14 @@ import sys
 
 from ..utils.config import SERVING_PROFILES
 
-# the JAX CLI's action set; RETRIEVAL_ACTIONS, HYPERBOLIC_ACTIONS,
-# TRAIN_ACTIONS, finetune, serve and prep run here so far
+# the JAX CLI's action set; every one but bench runs here
 ACTIONS = ["train", "train_gcn", "train_hyp", "train_hyp_con", "train_end",
            "train_end_2", "train_class", "plot", "train_class_pro", "test",
            "infer", "dist", "prep", "encode", "retrieve", "eval", "bench",
            "finetune", "serve"]
-RETRIEVAL_ACTIONS = ("encode", "retrieve", "eval")
 HYPERBOLIC_ACTIONS = ("test", "infer", "dist")
-TRAIN_ACTIONS = ("train_hyp", "train_hyp_con")
+GRAPH_ACTIONS = ("train_class_pro", "train_class", "train_gcn", "train")
+END_TO_END_ACTIONS = ("train_end", "train_end_2")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,13 +87,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="query image path (retrieve action)")
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="test/infer/dist: the checkpoint's name under "
+                   help="test/infer/dist/plot: the checkpoint's name under "
                         "--path/models (default best_retrieval_model_c"
                         "{curvature}_e{latent_dim}); other actions: an HF "
                         "CLIP checkpoint directory (not yet ported)")
+    p.add_argument("--input_dim", type=int, default=512,
+                   help="graph actions: taken and unused, as in the JAX "
+                        "CLI (the width is the graph's features')")
+    p.add_argument("--hidden_dim", type=int, default=512,
+                   help="graph actions: the GCN's hidden width")
     p.add_argument("--latent_dim", type=int, default=128,
                    help="train_hyp/test/infer/dist: the hyperbolic "
-                        "embedding width")
+                        "embedding width; graph actions: the GCN's "
+                        "latent width")
     p.add_argument("--synthetic", action="store_true",
                    help="force the synthetic corpus")
     p.add_argument("--quantize", action="store_true",
@@ -115,7 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config overrides as key=value (ClipFinetuneConfig "
                         "for finetune, HypTrainConfig for train_hyp and "
                         "test/infer/dist, HypConTrainConfig for "
-                        "train_hyp_con)")
+                        "train_hyp_con, GCNTrainConfig for the graph "
+                        "actions)")
     return p
 
 
@@ -134,8 +154,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> int:
     args = parse_args(argv)
-    if args.action not in RETRIEVAL_ACTIONS + HYPERBOLIC_ACTIONS + \
-            TRAIN_ACTIONS + ("finetune", "serve", "prep"):
+    if args.action == "bench":
         print(f"action {args.action!r} is not yet ported to "
               "patent_tpu_torch", file=sys.stderr)
         return 2
@@ -143,6 +162,11 @@ def main(argv: list[str] | None = None) -> int:
         from ..train.cli_hyperbolic import run_prep_action
 
         return run_prep_action(args)
+    if args.action == "plot":
+        from ..train.plots import run_plot_action
+
+        run_plot_action(args.path, checkpoint=args.checkpoint)
+        return 0
     if args.checkpoint and args.action not in HYPERBOLIC_ACTIONS:
         print(f"--checkpoint {args.checkpoint!r}: loading HF CLIP "
               "checkpoints needs the transformers package and is not yet "
@@ -174,6 +198,14 @@ def main(argv: list[str] | None = None) -> int:
         from ..train.cli_hyperbolic import run_train_hyp_con_action
 
         return run_train_hyp_con_action(args)
+    if args.action in GRAPH_ACTIONS:
+        from ..train.cli_graph import run_graph_action
+
+        return run_graph_action(args)
+    if args.action in END_TO_END_ACTIONS:
+        from ..train.cli_hyperbolic import run_train_end_action
+
+        return run_train_end_action(args)
     if args.action == "serve":
         run_serve_action(args, block=True)
         return 0

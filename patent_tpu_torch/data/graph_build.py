@@ -1,7 +1,8 @@
 """Heterogeneous graph construction: 5 node types → block adjacency + features
-(the port's copy of ``HeteroGraph``, ``build_hetero_graph`` and
-``build_feature_matrix`` in patent_tpu/data/graph_build.py; loading and
-normalizing a saved graph belong to the graph slice).
+(the port's copy of patent_tpu/data/graph_build.py: ``HeteroGraph``,
+``build_hetero_graph``, ``build_feature_matrix``, and ``load_graph`` /
+``process_patent_graph``, which load a saved graph and normalize it with
+``models/gcn.normalize_adjacency``).
 
 Framework-module re-implementation of the reference's notebook ETL
 (graph generation (1).ipynb cells 48-65): node-index maps per type, bipartite
@@ -159,3 +160,26 @@ def build_feature_matrix(graph: HeteroGraph,
             if vec is not None:
                 x[offset + row] = np.asarray(vec, np.float32)
     return x
+
+
+def load_graph(adjacency_path: str, features_path: str
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """(features, adjacency) of a saved graph as dense float32 arrays
+    (reference ``load_patent_graph``, src/process_graph.py:101-130)."""
+    adj = sp.load_npz(adjacency_path).toarray().astype(np.float32)
+    feats = sp.load_npz(features_path).toarray().astype(np.float32) \
+        if features_path.endswith(".npz") else np.load(features_path)
+    return feats.astype(np.float32), adj
+
+
+def process_patent_graph(adjacency_path: str, features_path: str
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Load and symmetric-normalize in one call (reference
+    ``process_patent_graph``, src/process_graph.py:133-167): (X float32,
+    A_tilde float32) for the GCN trainers."""
+    import torch
+
+    from ..models.gcn import normalize_adjacency
+
+    x, adj = load_graph(adjacency_path, features_path)
+    return x, normalize_adjacency(torch.from_numpy(adj)).numpy()

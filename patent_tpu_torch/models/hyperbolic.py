@@ -1,6 +1,6 @@
 """Hyperbolic (Poincaré-ball) models as ``nn.Module``s (port of
 patent_tpu/models/hyperbolic.py: ``MobiusDense``, ``HyperbolicEncoder``,
-``HyperbolicEmbeddingModel``, ``FigureOnlyHyperbolicModel``).
+``HyperbolicEmbeddingModel``, ``FigureOnlyHyperbolicModel``, ``HMI``).
 
 Parameter names and layouts are the Flax tree's, so the weight bridge
 (``models/weights.py``) maps leaf to leaf: ``label_emb`` [L, D],
@@ -201,3 +201,32 @@ class FigureOnlyHyperbolicModel(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = dropout(features, self.dropout_rate, self.training, generator)
         return self.encoder(x, generator)
+
+
+class HMI(nn.Module):
+    """Hyperbolic Multi-label Inference (reference src/models.py:355-445):
+    one hyperbolic-input ``MobiusDense`` at c = 1 (named ``encoder``, no
+    nonlinearity) after projecting the input into the unit ball, and a
+    unit-ball label table expmap0(1e-5·N(0, 1)); ``forward`` gives the
+    [n, label_num] logits insideness − disjointedness against every
+    label's sphere (``ops/horosphere.hmi_logit``)."""
+
+    def __init__(self, feature_dim: int = 512, embed_dim: int = 128,
+                 label_num: int = 1024,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.label_emb = nn.Parameter(poincare.expmap0(
+            _normal((label_num, embed_dim), 1e-5, generator), 1.0))
+        self.encoder = MobiusDense(feature_dim, embed_dim, c=1.0,
+                                   hyperbolic_input=True, nonlin=None,
+                                   generator=generator)
+
+    def encode(self, x: torch.Tensor,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.encoder(poincare.project(x, 1.0), generator)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        from ..ops.horosphere import hmi_logit
+
+        return hmi_logit(self.encode(x, generator), self.label_emb)

@@ -9,7 +9,14 @@ hyperbolic models of ``models/hyperbolic.py`` (``hyperbolic_params_from_jax``
 / ``hyperbolic_params_to_jax``: ``label_emb`` and
 ``encoder/{first_layer,middle_i,final_layer}/{kernel,hyp_bias}``, whose
 names and [in, out] kernels the port keeps, so each leaf maps to the state
-dict key of its path joined by dots).
+dict key of its path joined by dots; ``HMI`` too: ``label_emb`` and
+``encoder/{kernel,hyp_bias}``), the joint tree ``{"vit": ..., "hyp": ...}``
+of train_end's ``EndToEndModel`` (``end_to_end_params_from_jax`` /
+``end_to_end_params_to_jax``: keys ``vit.*`` and ``hyp.*``), and the graph
+models of ``models/gcn.py`` (``gcn_variables_from_jax`` /
+``gcn_variables_to_jax``: the Flax variables ``{"params", "batch_stats"}``
+of ``EnhancedVGAE`` or ``VGAE``, whose BatchNorm statistics ``mean`` and
+``var`` are the port's buffers of those names).
 
 The tree is nested dicts of numpy arrays, with or without the
 ``{"params": ...}`` wrapper.  The patch embedding changes layout (Flax conv
@@ -184,3 +191,54 @@ def hyperbolic_params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
     for name, leaf in state_dict.items():
         _put(tree, tuple(name.split(".")), leaf)
     return tree
+
+
+def _walk(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """Nested dicts of arrays → {dotted path: f32 tensor}."""
+    sd: dict[str, torch.Tensor] = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            sd.update(_walk(val, prefix + key + "."))
+        else:
+            sd[prefix + key] = torch.from_numpy(np.array(val, np.float32))
+    return sd
+
+
+def end_to_end_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX's train_end tree ``{"vit", "hyp"}`` (with or without the
+    ``{"params": ...}`` wrapper) → the state dict of an ``EndToEndModel``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    sd = {f"vit.{k}": v for k, v in params_from_jax(tree["vit"]).items()}
+    sd.update({f"hyp.{k}": v for k, v in
+               hyperbolic_params_from_jax(tree["hyp"]).items()})
+    return sd
+
+
+def end_to_end_params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``end_to_end_params_from_jax`` (no wrapper)."""
+    return {"vit": params_to_jax({k[4:]: v for k, v in state_dict.items()
+                                  if k.startswith("vit.")}),
+            "hyp": hyperbolic_params_to_jax({
+                k[4:]: v for k, v in state_dict.items()
+                if k.startswith("hyp.")})}
+
+
+def gcn_variables_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """Flax variables ``{"params", "batch_stats"}`` of ``EnhancedVGAE`` or
+    ``VGAE`` → the port model's state dict (parameters and the BatchNorm
+    buffers ``mean`` / ``var``)."""
+    sd = _walk(variables["params"])
+    sd.update(_walk(variables.get("batch_stats", {})))
+    return sd
+
+
+def gcn_variables_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``gcn_variables_from_jax``: the BatchNorm buffers go
+    to ``batch_stats``, everything else to ``params``."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, leaf in state_dict.items():
+        kind = ("batch_stats" if name.rsplit(".", 1)[-1] in ("mean", "var")
+                else "params")
+        _put(out[kind], tuple(name.split(".")), leaf)
+    return out

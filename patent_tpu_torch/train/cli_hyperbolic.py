@@ -1,7 +1,9 @@
 """The hyperbolic actions of the port's CLI (port of their branches of
 patent_tpu/cli/main.py): ``train_hyp`` (train/train_hyp.py, with
 ``--learning_rate``, ``--epochs``, ``--resume`` and the final test mAP),
-``train_hyp_con`` (train/train_hyp_con.py), ``prep`` (the synthetic
+``train_hyp_con`` (train/train_hyp_con.py), ``train_end`` /
+``train_end_2`` (the joint CLIP + hyperbolic trainer on its synthetic
+corpus, train/train_end.py; ``--epochs``, default 2), ``prep`` (the synthetic
 prepared_training_data), and the serving actions ``test``, ``infer`` and
 ``dist``.
 
@@ -63,6 +65,16 @@ def _logger(args):
 
     return MetricsLogger(log_dir=os.path.join(args.path, "logs"),
                          run_name=args.action)
+
+
+def run_train_end_action(args) -> int:
+    from ..retrieval.cli_actions import select_device
+    from .train_end import run_end_to_end_synthetic
+
+    run_end_to_end_synthetic(args.path, epochs=args.epochs or 2,
+                             logger=_logger(args),
+                             device=select_device(args.device))
+    return 0
 
 
 def run_train_hyp_action(args) -> int:

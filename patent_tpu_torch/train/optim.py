@@ -14,6 +14,9 @@ and the update is p_new − p, added back to p, so p takes the same two f32
 roundings as JAX's ``optax.apply_updates``.  Every other parameter takes
 Adam as JAX's ``riemannian_adam`` writes it (:113-117), or, in ``Adam``,
 as ``optax.adam`` does; the two differ in the order of their roundings.
+``AdamW`` is ``optax.adamw``: Adam's direction plus ``weight_decay`` times
+the parameter (every leaf, biases and BatchNorm scales too), times the
+learning rate, which a schedule may give per step (optax's count, from 0).
 bc = 1 − β^count, with the count after this step's increment.
 
 Which parameters are points of the ball: those whose name contains
@@ -25,7 +28,7 @@ moments under the JAX tree's names, so either package resumes the other's.
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -169,3 +172,40 @@ class Adam(_Adam):
         nu_new = (1 - self.b2) * (g * g) + self.b2 * nu
         u = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
         return -self.lr * u, mu_new, nu_new
+
+
+class AdamW(Adam):
+    """optax.adamw: scale_by_adam, add_decayed_weights, then the learning
+    rate, or ``schedule(count)`` with the count before this step, as
+    ``optax.scale_by_schedule`` takes it."""
+
+    def __init__(self, params: Mapping[str, torch.nn.Parameter], lr: float,
+                 weight_decay: float = 1e-4, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 schedule: Callable[[int], float] | None = None):
+        super().__init__(params, lr, b1, b2, eps)
+        self.weight_decay = weight_decay
+        self.schedule = schedule
+
+    def _leaf(self, name, p, g, mu, nu, bc1, bc2):
+        mu_new = (1 - self.b1) * g + self.b1 * mu
+        nu_new = (1 - self.b2) * (g * g) + self.b2 * nu
+        u = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
+        u = u + self.weight_decay * p
+        lr = self.lr if self.schedule is None else self.schedule(
+            self.count - 1)
+        return -lr * u, mu_new, nu_new
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float, staircase: bool = False
+                      ) -> Callable[[int], float]:
+    """optax.exponential_decay in f32: init · rate^(count / steps), the
+    exponent floored with ``staircase``."""
+    def schedule(count: int) -> float:
+        e = np.float32(count) / np.float32(transition_steps)
+        if staircase:
+            e = np.floor(e)
+        return float(np.float32(init_value)
+                     * np.power(np.float32(decay_rate), np.float32(e)))
+    return schedule

@@ -11,9 +11,10 @@ A profile sets ``--quantize`` and ``--keep-tokens`` where the command line
 left them unset; explicit flags win.  ``ClipFinetuneConfig`` holds the
 fine-tune's defaults (retrieval.ipynb cell 20), ``HypTrainConfig`` the
 hyperbolic model's and train_hyp's (the serving actions test / infer / dist
-read its widths and curvature), ``HypConTrainConfig`` train_hyp_con's, and
-``apply_overrides`` applies ``key=value`` command-line overrides to any of
-them.
+read its widths and curvature), ``HypConTrainConfig`` train_hyp_con's, ``GCNTrainConfig`` the graph
+trainers' (train_class_pro and its aliases), ``EndToEndConfig`` the joint
+CLIP + hyperbolic trainer's (train_end), and ``apply_overrides`` applies
+``key=value`` command-line overrides to any of them.
 """
 
 from __future__ import annotations
@@ -112,6 +113,51 @@ class HypConTrainConfig:
     patience: int = 7
     seed: int = 42
     data_dir: str = "prepared_training_data"
+    model_dir: str = "models"
+
+
+@dataclasses.dataclass
+class GCNTrainConfig:
+    """train_class_pro: GCN pair classification (reference train.py:124-377,
+    3827-3868).  ``adjacency``: "auto" (sparse for a scipy adjacency above
+    16,384 nodes), "dense" or "sparse" (train/train_gcn.py
+    ``prepare_adjacency``)."""
+
+    input_dim: int = 512
+    hidden_dim: int = 512
+    latent_dim: int = 256
+    num_layers: int = 3
+    epochs: int = 100
+    batch_size: int = 512          # pairs per step
+    learning_rate: float = 2e-3
+    weight_decay: float = 1e-4
+    patience: int = 10
+    train_ratio: float = 0.8
+    val_ratio: float = 0.1
+    seed: int = 42
+    graph_dir: str = "data/graph"
+    model_dir: str = "models"
+    adjacency: str = "auto"
+
+
+@dataclasses.dataclass
+class EndToEndConfig:
+    """train_end / train_end_2: joint CLIP + hyperbolic training (reference
+    train.py:2415-3106); the loss is w·CLIP + (1 − w)·hyperbolic with w =
+    ``clip_weight``."""
+
+    clip_weight: float = 0.5
+    epochs: int = 10
+    batch_size: int = 32
+    image_size: int = 224
+    embed_dim: int = 256           # HYPERBOLIC_EMBED_DIM (train.py:4075)
+    curvature: float = 2.0
+    lr_clip: float = 1e-5
+    lr_euclidean: float = 1e-3
+    lr_label_emb: float = 5e-3
+    trainable_blocks: int = 9
+    val_every: int = 30
+    seed: int = 42
     model_dir: str = "models"
 
 

@@ -1184,13 +1184,16 @@ def _fold(wqkv, bqkv, gain=1.0, d=D, heads=HEADS):
 
 # (B, S, D, heads, valid): the narrow layer with most keys pad, at head
 # widths 64, 32 and 16; the CLIs' small tower (D 64 over 4 heads, 64 px
-# images of 8 px patches: 65 tokens padded to 80); the fine-tune's step at
-# 64 pairs (128 images of ViT-B/16, the token axis padded to 208); a
-# ragged batch at ViT-B/16's widths
+# images of 8 px patches: 65 tokens padded to 80); train_end's CLI tower
+# (8 pairs of 32 px images of 8 px patches: 17 tokens padded to 32, D 64
+# over 4 heads); the fine-tune's step at 64 pairs (128 images of
+# ViT-B/16, the token axis padded to 208); a ragged batch at ViT-B/16's
+# widths
 ATTN_CASES = {"narrow": (3, S, D, HEADS, VALID),
               "narrow-hd32": (3, S, D, 4, VALID),
               "narrow-hd16": (3, S, D, 8, VALID),
               "small-tower": (8, 80, 64, 4, 65),
+              "train-end-cli": (16, 32, 64, 4, 17),
               "vit-b16-B128": (128, 208, 768, 12, 197),
               "vit-b16-B3": (3, 208, 768, 12, 197)}
 
@@ -1321,18 +1324,20 @@ def test_trainable_attention_gates_the_clamp_on_the_card(cuda):
 
 @pytest.mark.parametrize(
     "m,d,f", [(64, D, F), (77, D, F), (25216, D, F),
-              (2 * mm.CHUNK_ROWS + 77, D, F), (3 * 65, 64, 128)],
+              (2 * mm.CHUNK_ROWS + 77, D, F), (3 * 65, 64, 128),
+              (16 * 17, 64, 128)],
     ids=["M64", "M77-ragged", "M25216-fine-tune", "three-chunks-ragged",
-         "small-tower-M195-ragged"])
+         "small-tower-M195-ragged", "train-end-cli-M272"])
 def test_trainable_mlp_kernels_match_plain_and_controls_do_not(cuda, m, d,
                                                                 f):
     """Rows 15 and 16 against their plain versions; M 25,216 is the
     fine-tune's 64 pairs in one chunk (the weight gradients split over
     their rows, the last split ragged); the fourth case runs the
     backward's chunk loop (row offsets, the f32 accumulation of dW1 and
-    dW2 across chunks, the column sums) with a ragged last chunk; the last
-    is the CLIs' small tower (D 64, F 128: N narrower than the GEMM's
-    256-wide tile, K 64 one k-step) at B 3 of 65 tokens."""
+    dW2 across chunks, the column sums) with a ragged last chunk; the
+    fifth is the CLIs' small tower (D 64, F 128: N narrower than the
+    GEMM's 256-wide tile, K 64 one k-step) at B 3 of 65 tokens, the last
+    train_end's CLI tower, 16 images of 17 tokens."""
     x, p = _layer_case(cuda, b=-(-m // S), d=d, f=f)
     x2 = x.reshape(-1, d)[:m].contiguous()
     lns, lnb, w1, b1, w2, b2 = p[6:12]
@@ -1464,6 +1469,143 @@ def test_trainable_tower_step_kernels_match_plain_blocks(cuda):
     for name, want in gp.items():
         err = float((gk[name] - want).norm() / (want.norm() + 1e-12))
         assert err <= (2e-2 if want.numel() > 1 else 1e-1), (name, err)
+
+
+def _end_to_end_run(dev, kernels, cfg, vc, batch, cot, label_num):
+    """One train_end step from seeded weights (head dropout off): its
+    metrics, the tower's trainable gradients given ``cot`` for its
+    features, and the launches of rows 12, 13, 15 and 16 in the step."""
+    from patent_tpu_torch.train import train_end
+
+    model, opt = train_end.init_end_to_end(vc, cfg, label_num, seed=5,
+                                           device=dev)
+    model.vit.kernels = kernels
+    step, _ = train_end.make_end_to_end_step(model, opt, cfg)
+    model.hyp.eval()
+    model.vit.zero_grad(set_to_none=True)
+    model.vit(batch[0]).backward(cot)
+    tower = {n: t.grad.clone() for n, t in model.vit.named_parameters()
+             if t.grad is not None}
+    entries = (fa.fused_attention_fwd, fa.fused_attention_bwd,
+               mm.fused_mlp_fwd, mm.fused_mlp_bwd)
+    counts = [e.launches for e in entries]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    metrics = {k: float(v) for k, v in step(*batch).items()}
+    after = dict(model.named_parameters())
+    frozen = [n for n, p in model.vit.named_parameters()
+              if not p.requires_grad]
+    assert frozen and all(torch.equal(after[f"vit.{n}"],
+                                      before[f"vit.{n}"]) for n in frozen)
+    c = cfg.curvature
+    assert float(after["hyp.label_emb"].detach().norm(dim=1).max()) \
+        < c ** -0.5
+    return metrics, tower, [e.launches - n for e, n in zip(entries, counts)]
+
+
+def test_train_end_step_at_full_width_kernels_match_plain_blocks(cuda):
+    """One train_end step at ViT-B/16's widths (D 768, 12 heads, F 3072;
+    3 layers, the last 2 trained, so block 0 is frozen; 4 pairs of 64 px
+    images: S 17) with the kernels and with the plain blocks, from the
+    same seeded weights: the metrics within 2e-3 relative (1e-4 absolute
+    near 0, where the retrieval hinge may sit), the tower's
+    gradients given one cotangent within 2e-2 in norm, the frozen block
+    equal in bits after the step, every label row inside the ball, and
+    rows 12, 13, 15 and 16 launched (none with the plain blocks)."""
+    from patent_tpu_torch.utils.config import EndToEndConfig
+
+    vc = VisionConfig(image_size=64, patch_size=16, num_layers=3)
+    cfg = EndToEndConfig(batch_size=4, image_size=64, trainable_blocks=2)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    label_num = 40
+    batch = (torch.randn(8, 64, 64, 3, generator=g, device=cuda),
+             torch.randint(0, 20, (4,), generator=g, device=cuda),
+             torch.randint(0, 20, (4, 2), generator=g, device=cuda),
+             torch.stack([torch.arange(20, device=cuda),
+                          20 + torch.arange(20, device=cuda) % 5], 1))
+    cot = torch.randn(8, vc.projection_dim, generator=g, device=cuda)
+    (mk, tk, nk), (mp, tp, np_) = (
+        _end_to_end_run(cuda, k, cfg, vc, batch, cot, label_num)
+        for k in (True, False))
+    assert nk == [2, 1, 2, 1] and np_ == [0, 0, 0, 0]
+    assert list(mk) == list(mp)
+    for key, want in mp.items():
+        assert math.isfinite(mk[key])
+        assert mk[key] == pytest.approx(want, rel=2e-3, abs=1e-4), key
+    assert set(tk) == set(tp) and "blocks.0.wqkv" not in tk
+    for name, want in tp.items():
+        err = float((tk[name] - want).norm() / (want.norm() + 1e-12))
+        assert err <= 2e-2, (name, err)
+
+
+SPMM_REL_TOL = 1e-5
+
+
+def test_spmm_above_the_sparse_threshold_matches_dense_and_repeats(cuda):
+    """``spmm`` on a normalized adjacency of 20,000 nodes (above the
+    trainers' 16,384-node switch to the sparse path) against the dense
+    product (in f64, rounded to f32), forward and backward, and equal in bits on a second run; the
+    control, the last 50 rows' edges dropped, misses the product."""
+    import scipy.sparse as sp
+
+    from patent_tpu_torch.models import gcn
+
+    n, d = 20000, 64
+    rng = np.random.default_rng(0)
+    a = sp.random(n, n, density=2e-4, random_state=rng, format="csr")
+    a.data[:] = 1.0
+    adj = gcn.normalize_adjacency_sparse(((a + a.T) > 0).astype(np.float32))
+    adj = adj.to(cuda)
+    dense = torch.zeros(n, n, device=cuda)
+    dense[adj.rows, adj.cols] = adj.vals
+    g = torch.Generator(device=cuda).manual_seed(1)
+    y = torch.randn(n, d, generator=g, device=cuda)
+    cot = torch.randn(n, d, generator=g, device=cuda)
+    runs = []
+    for _ in range(2):
+        yy = y.clone().requires_grad_(True)
+        out = gcn.spmm(adj, yy)
+        out.backward(cot)
+        runs.append((out.detach(), yy.grad))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    want = (dense.double() @ y.double()).float()
+    want_g = (dense.T.double() @ cot.double()).float()
+    assert _rel_err(runs[0][0], want) <= SPMM_REL_TOL
+    assert _rel_err(runs[0][1], want_g) <= SPMM_REL_TOL
+    keep = (adj.rows < n - 50).cpu().numpy()
+    cut = gcn.sparse_adj(*(t.cpu().numpy()[keep] for t in (
+        adj.rows, adj.cols, adj.vals)), n).to(cuda)
+    assert _rel_err(gcn.spmm(cut, y), want) > SPMM_REL_TOL
+
+
+def test_evaluate_embeddings_on_the_card_matches_the_host(cuda):
+    """``evaluate_embeddings`` runs on the card by default and gives the
+    host's report: the cosine ratios within 1e-5 relative (f32 means
+    summed in another order), Hit@k equal (no ties among random rows);
+    the control, one parent pair moved, changes Hit@1."""
+    from patent_tpu_torch.metrics.embedding_quality import \
+        evaluate_embeddings
+
+    rng = np.random.default_rng(8)
+    # offset from the origin, so that a random pair's cosine (~0.2) is no
+    # mean of cancelling terms
+    z = (rng.standard_normal((3000, 64)) + 0.5).astype(np.float32)
+    parents = rng.integers(0, 3000, (500, 2))
+    parents[:100, 1] = np.argsort(((z[parents[:100, 0], None] - z[None])
+                                   ** 2).sum(-1), axis=1)[:, 1]
+    neigh = rng.integers(0, 3000, (400, 2))
+    got = evaluate_embeddings(z, parents, neigh)
+    want = evaluate_embeddings(z, parents, neigh, device="cpu")
+    assert set(got) == set(want)
+    assert got["hierarchical_hit_at_k"] == want["hierarchical_hit_at_k"]
+    assert want["hierarchical_hit_at_k"][1] >= 0.2
+    for k, v in want.items():
+        if k != "hierarchical_hit_at_k":
+            assert got[k] == pytest.approx(v, rel=1e-5), k
+    moved = parents.copy()
+    moved[0, 1] = np.argsort(((z[moved[0, 0]] - z) ** 2).sum(-1))[-1]
+    assert evaluate_embeddings(z, moved, neigh)["hierarchical_hit_at_k"][
+        1] < got["hierarchical_hit_at_k"][1]
 
 
 # ------------------------------------------------ hyperbolic kernels
