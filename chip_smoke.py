@@ -91,7 +91,14 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    train_class_pro --epochs 3 on the CLI's graph, exporting its figures'
    graph embeddings, finetune --epochs 1, ViT-B/16 on a 224 px corpus
    (48 patents x 4 figures: two steps of 64 pairs) aligned to that
-   export, and eval serving the checkpoint it wrote; then the hyperbolic
+   export and started by --checkpoint from an HF CLIP directory (its
+   starting tower equal in bits to the directory's weights), and eval
+   serving the checkpoint it wrote (before it, the HF directory: the
+   seeded ViT-B/16 weights of the slice and a seeded TEXT_B tower written
+   as model.safetensors and as pytorch_model.bin, each read back equal in
+   bits, and eval --checkpoint, bf16 and --quantize, whose gallery
+   features must equal in bits those of the same weights served as
+   clip_finetune_best); then the hyperbolic
    serving path: infer and dist on a
    DeepPatent-2018-scale prepared_training_data (16,059 patents x 2
    figures, CLIP-width features of 512) with a seeded checkpoint of the
@@ -115,7 +122,7 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    within 2e-2 beside a pixel-noise yardstick, blocks 0-2 equal in bits
    after the step, every label row inside the ball), train_end --epochs
    2 through the CLI (its 32 px tower: S 17, head_dim 16), train_hmi on
-   the hyperbolic data's graph (3 epochs: the loss finite and falling;
+   the hyperbolic data's graph (2 epochs: the loss finite and falling;
    label scores), the same graph (48,192 nodes): train_class_pro's
    trainer for 2 epochs at GCNTrainConfig's widths (the sparse path) and
    its export, evaluate_embeddings of the exported rows on the card held
@@ -123,7 +130,16 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    spmm against the dense product of 8,192 rows and equal in bits twice,
    train_vgae_link_prediction on the sampled objective; train --model
    VGAE through the CLI on the CLI's graph, and plot on a train_hyp
-   checkpoint (without matplotlib it says no figure was written); the int8
+   checkpoint (without matplotlib it says no figure was written); then
+   the text stage: TEXT_B (vocab 49,408, context 77, 12 layers of 512,
+   f32) from the HF directory on the card against the same weights on the
+   CPU (row relative error within 1e-4; the tower without its causal mask
+   as a control that must fail), a BPE vocabulary directory through
+   build_text_feature_dicts (the regex module's pattern or the re
+   fallback, printed), USPTO-style fixed-width CPC lines of the graph's
+   codes through parse_cpc_definitions_fixed_width, the 2018-scale
+   graph's patent and CPC rows filled from the tower (16,059 titles) and
+   one train_class_pro epoch on that matrix; the int8
    tower through a
    RetrievalEngine at batch_size 3 (the whole-layer kernel) over the 224 px
    gallery, held to the same gallery at batch 32 by min feature cosine
@@ -172,14 +188,17 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    and every trainable gradient, from the same seeded weights), with its
    profile; the hyperbolic encoder over 1M rows with row 18 against its
    plain first layer, row 18's launch (CTAs, cluster shape) and device
-   time, the label-retrieval mAP over the 32k figures (device
+   time, the label-retrieval mAP over a quarter of the 32k figures (device
    and host parts), and Poincaré top-10 QPS at 1M x 128 through the kernel
    path against the scan; train_hyp's step (ms, steps/s), an epoch as the
    trainer runs it, its profile (busy share, top kernels, launches a
    step) and a map validation with rows 17 and 18's share of it; the
    train_end step at 32 pairs (ms, img/s, its profile: busy share, rows
    12, 13, 15 and 16's kernels' share, launches a step), a
-   train_class_pro epoch at the 2018 scale and a train_hmi epoch.
+   train_class_pro epoch at the 2018 scale and a train_hmi epoch; the
+   text encode at TEXT_B, batch 256, over the 2018 scale's titles
+   (texts/s, and the tower alone with its profile) and the HF load of
+   ViT-B/16 from each format.
 
 The line before the last is a JSON object with one entry per kernel
 (its launches on the main path, error against the plain version, times
@@ -201,6 +220,7 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(ROOT, "build", "chip_smoke_run")
@@ -1611,7 +1631,8 @@ def hyperbolic_slice(torch, dev, z: dict, h: dict, run_path, cli) -> None:
 def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
                      label: str, k: int, pool: int) -> None:
     """The encoder over z["n_gal"] rows with row 18 against the plain first
-    layer, the label mAP over every figure (its device and host parts),
+    layer, the label mAP over a quarter of the figures (its device and
+    host parts),
     Poincaré top-k QPS through the kernel path against the scan, and rows
     18, 17 and 4 against their plain versions at the path's shapes."""
     from patent_tpu_torch.ops import pallas_kernels as pk
@@ -1641,7 +1662,9 @@ def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
     print_breakdown(torch, "hyperbolic encoder with row 18, 20 batches of "
                     "512 rows", lambda: engine.encode_features(part))
     td, fig_pos = h["td"], h["fig_pos"]
-    eval_idx = sorted(fig_pos)
+    # a quarter of the figures: phase 4's infer runs the whole evaluation
+    # through the CLI; this reads its device and host parts
+    eval_idx = sorted(fig_pos)[:len(fig_pos) // 4]
     t0 = time.perf_counter()
     for _chunk, _d in hyp_eval.label_distance_batches(
             h["model"], td.x_figures, eval_idx, h["num_patents"]):
@@ -1651,8 +1674,9 @@ def hyperbolic_times(torch, z: dict, h: dict, times: dict, bounds: dict,
     hyp_eval.evaluate_retrieval_map(h["model"], td.x_figures, eval_idx,
                                     fig_pos, h["num_patents"])
     t_all = time.perf_counter() - t0
-    print(f"[time] label-retrieval mAP over {len(eval_idx)} figures x "
-          f"{h['num_patents']} patents: {t_all:.2f} s, of which encode + row "
+    print(f"[time] label-retrieval mAP over {len(eval_idx)} of the "
+          f"{len(fig_pos)} figures x {h['num_patents']} patents: "
+          f"{t_all:.2f} s, of which encode + row "
           f"17 + copy to the host {t_dev:.2f} s and host AP "
           f"{t_all - t_dev:.2f} s {label}")
     q, emb = h["q"], engine.index.embeddings
@@ -2023,7 +2047,7 @@ TRAIN_KERNELS_RE = re.compile(
 # rounded to f32): f32 sums of a few products a row
 SPMM_REL_TOL = 1e-5
 # the DeepPatent-2018-scale graph trainers' widths and cuts
-GRAPH_EPOCHS, VGAE_EPOCHS, HMI_EPOCHS = 2, 5, 3
+GRAPH_EPOCHS, VGAE_EPOCHS, HMI_EPOCHS = 2, 5, 2
 # evaluate_embeddings on the card against the host on the exported rows:
 # the first EVAL_PAIRS same-patent and same-CPC pairs; the cosine ratios
 # are f32 means summed in another order, Hit@k may move where two
@@ -2418,6 +2442,342 @@ def end_to_end_times(torch, dev, e: dict, h: dict, label: str) -> None:
     n_pairs = len(inputs.y_pos) + len(inputs.y_neg)
     print(f"[time] train_hmi, one epoch ({n_pairs} pairs, {n_pairs // 256} "
           f"steps of 256; {nf} figures): {t_hmi:.2f} s {label}")
+
+
+TEXT_DIR = os.path.join(ROOT, "build", "chip_smoke_text")
+# an HF CLIP directory of the seeded ViT-B/16 and TEXT_B weights in each
+# of the two formats save_pretrained writes
+HF_DIR = os.path.join(ROOT, "build", "chip_smoke_hf")
+HF_BIN_DIR = os.path.join(ROOT, "build", "chip_smoke_hf_bin")
+# TEXT_B on the card against the same weights on the CPU, f32 on both (no
+# TF32): ||card - cpu|| / ||cpu|| a row.  Without the causal mask the
+# features move by far more
+TEXT_ROW_REL_TOL = 1e-4
+TEXT_ROWS, TEXT_BATCH = 16, 256
+# the CPC sections' titles (the main rows' definitions; the USPTO title
+# lists hold classes and subclasses)
+CPC_SECTIONS = {
+    "A": "HUMAN NECESSITIES",
+    "B": "PERFORMING OPERATIONS; TRANSPORTING",
+    "C": "CHEMISTRY; METALLURGY",
+    "D": "TEXTILES; PAPER",
+    "E": "FIXED CONSTRUCTIONS",
+    "F": "MECHANICAL ENGINEERING; LIGHTING; HEATING; WEAPONS; BLASTING",
+    "G": "PHYSICS",
+    "H": "ELECTRICITY",
+    "Y": "GENERAL TAGGING OF NEW TECHNOLOGICAL DEVELOPMENTS"}
+TITLE_WORDS = ("chair", "lamp", "vehicle", "display screen", "graphical user "
+               "interface", "robot", "arm", "light fixture", "garment",
+               "bottle", "container", "handle", "wheel", "icon", "housing",
+               "speaker", "watch", "shoe", "table", "planter")
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """f32 tensors → a .safetensors file: 8 bytes of little-endian header
+    length, the JSON header (dtype, shape, data_offsets; padded with spaces
+    to 8 bytes), the raw buffer."""
+    import struct
+
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        blob = t.detach().float().contiguous().cpu().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
+
+
+def write_vocab(root: str) -> str:
+    """A CLIP BPE vocabulary of every printable ASCII byte symbol, its
+    </w> form, a few merges and the special tokens (vocab.json +
+    merges.txt under ``root``/vocab); → the directory."""
+    from patent_tpu_torch.data import bpe
+
+    d = os.path.join(root, "vocab")
+    os.makedirs(d, exist_ok=True)
+    b2u = bpe._bytes_to_unicode()
+    vocab: dict = {}
+    for sym in [b2u[c] for c in range(33, 127)] + [b2u[ord(" ")]]:
+        vocab.setdefault(sym, len(vocab))
+        vocab.setdefault(sym + "</w>", len(vocab))
+    merges = ["#version: 0.2", "o r", "a n", "i n", "e r</w>", "t h",
+              "th e</w>", "a r", "in g</w>", "an d</w>", "d e", "s i"]
+    for m in merges[1:]:
+        vocab.setdefault("".join(m.split()), len(vocab))
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(merges) + "\n")
+    return d
+
+
+def hf_checkpoint_slice(torch, np, run_path, cli, counters: dict,
+                        vision_state: dict, slice_out: dict) -> None:
+    """An HF CLIP directory written from the seeded ViT-B/16 weights (the
+    ones served above as clip_finetune_best) and a seeded TEXT_B tower:
+    model.safetensors by write_safetensors, pytorch_model.bin by
+    torch.save, each read back by the port's reader equal in bits; then
+    eval --checkpoint through the CLI, bf16 and --quantize, whose gallery
+    features must equal in bits those of the same weights served from
+    clip_finetune_best (slice_out["GE"], slice_out["GE_int8"])."""
+    from patent_tpu_torch.models.clip_import import (
+        SAFETENSORS_FILE, TORCH_FILE, hf_clip_text_state_dict,
+        hf_clip_vision_state_dict, read_hf_state_dict)
+    from patent_tpu_torch.models.vit import TEXT_B, TextTransformer
+
+    t0 = time.perf_counter()
+    text = TextTransformer(TEXT_B,
+                           generator=torch.Generator().manual_seed(77))
+    sd = hf_clip_vision_state_dict(vision_state)
+    sd.update(hf_clip_text_state_dict(text.state_dict()))
+    del text
+    for d in (HF_DIR, HF_BIN_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+    write_safetensors(os.path.join(HF_DIR, SAFETENSORS_FILE), sd)
+    torch.save(sd, os.path.join(HF_BIN_DIR, TORCH_FILE))
+    a, b = read_hf_state_dict(HF_DIR), read_hf_state_dict(HF_BIN_DIR)
+    same = set(a) == set(b) == set(sd) and all(
+        torch.equal(a[k], sd[k]) and torch.equal(b[k], sd[k]) for k in sd)
+    mb = os.path.getsize(os.path.join(HF_DIR, SAFETENSORS_FILE)) / 2**20
+    print(f"[slice] HF CLIP directories from the seeded ViT-B/16 and TEXT_B "
+          f"weights ({len(sd)} tensors, {mb:.0f} MiB as {SAFETENSORS_FILE} "
+          f"and as {TORCH_FILE}) written in {time.perf_counter() - t0:.1f} "
+          f"s; each read back equal in bits: {same}")
+    check(same, "an HF checkpoint read back differs from what was written")
+    del a, b, sd
+    for flags, ref in (([], "GE"), (["--quantize"], "GE_int8")):
+        tag = "_int8" if flags else ""
+        run_path(f"eval --checkpoint (HF, {'int8' if flags else 'bf16'})",
+                 counters[ref], lambda flags=flags: check(cli(
+                     ["eval", "--path", RUN_DIR, "--model", "HF" + tag,
+                      "--checkpoint", HF_DIR] + flags) == 0,
+                     f"eval --checkpoint {flags} failed"))
+        npys = glob.glob(os.path.join(RUN_DIR, "embeddings",
+                                      f"*_torch{tag}_hf*.npy"))
+        check(len(npys) == 1, f"expected one _hf index, found {npys}")
+        emb = np.load(npys[0])
+        equal = bool(np.array_equal(emb, slice_out[ref]))
+        print(f"[slice] eval --checkpoint {' '.join(flags) or '(bf16)'}: "
+              f"gallery features {emb.shape} equal in bits to the same "
+              f"weights served as clip_finetune_best: {equal}")
+        check(equal, f"eval --checkpoint {flags} features differ from the "
+              "clip_finetune_best run's")
+
+
+def text_slice(torch, dev, h: dict) -> None:
+    """The text stage on the card: TEXT_B from the HF directory on the card
+    against the same weights on the CPU (and the card's tower without the
+    causal mask, a control that must fail the gate); a BPE vocabulary
+    through build_text_feature_dicts; USPTO-style fixed-width CPC lines of
+    the 2018-scale graph's codes through parse_cpc_definitions_fixed_width;
+    the graph's patent and CPC rows filled from the tower (a title per
+    patent, a definition per code) and one train_class_pro epoch on that
+    feature matrix, beside the figure-only run.  Adds what the times reuse
+    to h["text"]."""
+    import numpy as np
+
+    from patent_tpu_torch.data import bpe
+    from patent_tpu_torch.data.graph_build import build_feature_matrix
+    from patent_tpu_torch.data.text_features import (
+        build_text_feature_dicts, clip_tokenizer_or_fallback,
+        parse_cpc_definitions_fixed_width)
+    from patent_tpu_torch.models.clip_import import load_hf_clip_text_params
+    from patent_tpu_torch.models.vit import (TEXT_B, TextTransformer,
+                                             transformer_block)
+    from patent_tpu_torch.train.train_gcn import train_pair_classification
+    from patent_tpu_torch.utils.config import GCNTrainConfig
+    from patent_tpu_torch.utils.logging import MetricsLogger
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TEXT_DIR, ignore_errors=True)
+    vocab_dir = write_vocab(TEXT_DIR)
+    state = load_hf_clip_text_params(HF_DIR, TEXT_B)
+    towers = []
+    for where in ("cpu", dev):
+        tower = TextTransformer(TEXT_B, device=where)
+        tower.load_state_dict(state)
+        towers.append(tower.eval())
+    cpu_tower, card = towers
+    graph = h["graph"]
+    rng = np.random.default_rng(18)
+    titles = {p: "Ornamental design for a " + " and ".join(
+        rng.choice(TITLE_WORDS, 2)) for p in sorted(graph.patent_index)}
+    # the USPTO title list's fixed-width lines for the graph's classes and
+    # subclasses; the sections' titles for its main rows
+    codes = sorted(graph.medium_index) + sorted(graph.big_index)
+    lines = ["# CPC titles (fixed width)"] + [
+        f"{code:<8}{'':8}" + " ".join(rng.choice(TITLE_WORDS, 3)).upper()
+        for code in codes]
+    defs = parse_cpc_definitions_fixed_width(lines)
+    check(sorted(defs) == sorted(codes), f"parsed CPC codes {sorted(defs)} "
+          f"differ from the graph's {codes}")
+    defs.update({c: CPC_SECTIONS[c] for c in graph.main_index})
+    tok = clip_tokenizer_or_fallback(vocab_dir, TEXT_B)
+    check(isinstance(tok, bpe.ClipBPETokenizer),
+          "the vocabulary directory did not give the CLIP BPE tokenizer")
+    ids = torch.from_numpy(np.stack([tok(titles[p])
+                                     for p in sorted(titles)[:TEXT_ROWS]]))
+
+    def row_err(got, want):
+        return float(((got.cpu() - want).norm(dim=1)
+                      / want.norm(dim=1)).max())
+
+    with torch.inference_mode():
+        want = cpu_tower(ids)
+        got = card(ids.to(dev))
+        x = card.embed(ids.to(dev))
+        for layer in card.blocks:
+            x = transformer_block(x, layer, TEXT_B.num_heads, torch.float32)
+        ctrl = card.readout(x, ids.to(dev))
+    err, err_ctrl = row_err(got, want), row_err(ctrl, want)
+    print(f"[kernel] TEXT_B (vocab {TEXT_B.vocab_size}, context "
+          f"{TEXT_B.context_length}, {TEXT_B.num_layers} x {TEXT_B.hidden_dim}"
+          f", f32) on the card vs the CPU, {TEXT_ROWS} BPE-tokenized titles: "
+          f"largest row rel err {err:.3g} (gate {TEXT_ROW_REL_TOL}); "
+          f"control without the causal mask {err_ctrl:.3g} (must fail)")
+    check(err <= TEXT_ROW_REL_TOL < err_ctrl,
+          "TEXT_B on the card differs from the CPU, or the control passed")
+    del cpu_tower
+
+    t0 = time.perf_counter()
+    cpc_feats, pat_feats = build_text_feature_dicts(
+        defs, titles, model=card, checkpoint_dir=vocab_dir, device=dev)
+    t_text = time.perf_counter() - t0
+    first = torch.from_numpy(np.stack([pat_feats[p]
+                                       for p in sorted(titles)[:TEXT_ROWS]]))
+    err_b = row_err(first, want)
+    print(f"[slice] build_text_feature_dicts on the card: {len(titles)} "
+          f"titles and {len(defs)} CPC definitions ({len(codes)} parsed from "
+          f"fixed-width lines), the BPE pattern of the {bpe._re.__name__!r} "
+          f"module, batches of {TEXT_BATCH}, in {t_text:.1f} s; its first "
+          f"{TEXT_ROWS} titles vs the CPU tower: row rel err {err_b:.3g}")
+    check(err_b <= TEXT_ROW_REL_TOL, "embed_texts on the card differs from "
+          "the CPU tower")
+    xf = h["xf"]
+    figs = {name: xf[row] for name, row in graph.figure_index.items()}
+    levels = [{k: cpc_feats[k] for k in idx} for idx in (
+        graph.medium_index, graph.big_index, graph.main_index)]
+    x_text = build_feature_matrix(graph, figs, pat_feats, *levels)
+    nf = graph.counts["figures"]
+    filled = int((np.abs(x_text[nf:]).sum(1) > 0).sum())
+    check(np.array_equal(x_text[:nf], xf[:nf])
+          and bool(np.isfinite(x_text).all())
+          and filled == graph.num_nodes - nf,
+          f"text rows of the feature matrix not filled: {filled} of "
+          f"{graph.num_nodes - nf}")
+    pairs = np.asarray(h["gcn_pairs"]["pairs"], np.int32)
+    labels = np.asarray(h["gcn_pairs"]["labels"], np.int32) - 1
+    gcfg = GCNTrainConfig(epochs=1, latent_dim=256)
+    t0 = time.perf_counter()
+    _v, hist, report = train_pair_classification(
+        x_text, graph.adjacency, pairs, labels, gcfg, device=dev,
+        logger=MetricsLogger(print_every=0))
+    torch.cuda.synchronize()
+    print(f"[slice] train_class_pro's trainer, 1 epoch on the text-filled "
+          f"matrix ({nf} figure rows, {filled} patent and CPC rows from "
+          f"TEXT_B) in {time.perf_counter() - t0:.1f} s: train_loss "
+          f"{hist['train_loss'][0]:.4f}, test_loss "
+          f"{report['test_loss']:.4f}, test_acc {report['test_acc']:.4f}")
+    check(all(math.isfinite(v) for v in hist["train_loss"])
+          and math.isfinite(report["test_loss"])
+          and 0.0 <= report["test_acc"] <= 1.0,
+          f"train_class_pro on the text-filled matrix: {report}")
+    h["text"] = {"model": card, "tok": tok,
+                 "titles": [titles[p] for p in sorted(titles)]}
+    print(f"[slice] text phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def text_flops(cfg) -> float:
+    """Multiply-adds x 2 of one row through the text tower: the dense
+    layers, the attention products over all L x L scores, the projection
+    of the EOS row."""
+    d, f, n = cfg.hidden_dim, cfg.mlp_dim, cfg.context_length
+    dense = n * (3 * d * d + d * d + 2 * d * f)
+    attn = 2 * n * n * d
+    return 2.0 * (cfg.num_layers * (dense + attn) + d * cfg.projection_dim)
+
+
+def text_times(torch, dev, h: dict, label: str) -> None:
+    """Texts a second through embed_texts at TEXT_B, batch 256, over the
+    2018 scale's titles (tokenizing included, then alone), and the tower
+    alone on 2,048 tokenized titles with its profile (busy share, top
+    kernels, the f32 rate)."""
+    import numpy as np
+
+    from patent_tpu_torch.data.text_features import embed_texts
+    from patent_tpu_torch.models.vit import TEXT_B
+
+    t = h.pop("text")
+    model, tok, texts = t["model"], t["tok"], t["titles"]
+    embed_texts(texts[:TEXT_BATCH], model, tok, batch_size=TEXT_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = embed_texts(texts, model, tok, batch_size=TEXT_BATCH)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids = np.stack([tok(x) for x in texts])
+    t_tok = time.perf_counter() - t0
+    check(emb.shape == (len(texts), TEXT_B.projection_dim)
+          and bool(np.isfinite(emb).all()), "text features not finite")
+    n = 2048
+    sub = torch.from_numpy(ids[:n]).to(dev)
+
+    def go():
+        with torch.inference_mode():
+            for s in range(0, n, TEXT_BATCH):
+                model(sub[s:s + TEXT_BATCH])
+
+    ms = cuda_ms(torch, go, warmup=1, iters=3)
+    rows = kernel_breakdown(torch, go)
+    busy = sum(v for _k, v in rows)
+    tflops = n * text_flops(TEXT_B) / (ms * 1e-3) / 1e12
+    print(f"[time] text encode, TEXT_B f32 at batch {TEXT_BATCH}: "
+          f"{len(texts)} titles in {wall:.3f} s, {len(texts) / wall:.1f} "
+          f"texts/s through embed_texts (tokenizing alone {t_tok:.3f} s); "
+          f"the tower alone on {n} titles {n / ms * 1e3:.1f} texts/s "
+          f"({ms:.2f} ms, {tflops:.1f} TFLOP/s of f32 products), "
+          f"torch.profiler {busy:.2f} ms busy ({100 * busy / ms:.1f}%): "
+          + "; ".join(f"{v:.2f} ms {k[:60]}" for k, v in rows[:4])
+          + f" {label}")
+    del model, sub
+
+
+def hf_load_times(torch, dev, label: str) -> None:
+    """ViT-B/16 from the HF directories: read and convert
+    (load_hf_clip_params), then load_state_dict into the serving tower and
+    the copy to the card; the files were just written (a warm read)."""
+    from patent_tpu_torch.models.clip_import import (SAFETENSORS_FILE,
+                                                     TORCH_FILE,
+                                                     hf_weight_file,
+                                                     load_hf_clip_params)
+    from patent_tpu_torch.models.vit import VIT_B16, VisionTransformer
+
+    model = VisionTransformer(VIT_B16, dtype=torch.float32)
+    for where, fmt in ((HF_DIR, SAFETENSORS_FILE), (HF_BIN_DIR, TORCH_FILE)):
+        mb = os.path.getsize(hf_weight_file(where)) / 2**20
+        t0 = time.perf_counter()
+        sd = load_hf_clip_params(where, VIT_B16)
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model.load_state_dict(sd)
+        model.to(dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        model.to("cpu")
+        print(f"[time] HF CLIP load, ViT-B/16 from {fmt} ({mb:.0f} MiB with "
+              f"the text tower, warm read): read and convert {t_read:.3f} s, "
+              f"load_state_dict and the copy to the card {t_load:.3f} s "
+              f"{label}")
 
 
 # The bucket stage at the query counts its tiles take: one query, a ragged
@@ -2831,6 +3191,7 @@ def check_bucket_shapes(torch, tk, index_mod, gal, dev, k: int) -> float:
 
 
 def main() -> None:
+    t_run = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2847,6 +3208,7 @@ def main() -> None:
     from patent_tpu_torch import _build
     from patent_tpu_torch.cli.main import main as cli
     from patent_tpu_torch.cli.main import parse_args
+    from patent_tpu_torch.models.clip_import import load_hf_clip_params
     from patent_tpu_torch.models.vit import VIT_B16, VisionTransformer
     from patent_tpu_torch.models.vit_int8 import (Int8VisionTransformer,
                                                   int8_dense)
@@ -2889,6 +3251,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels against their plain versions
+    print(f"[phase] 3. kernels from {time.perf_counter() - t_run:.0f} s")
     gen = torch.Generator(device=dev).manual_seed(0)
     b, s, valid, d, heads, f = 16, 208, 197, 768, 12, 3072
     p = layer_params(torch, d, f, gen, dev)
@@ -3163,6 +3526,7 @@ def main() -> None:
     check(cos_i8 >= INT8_VS_BF16_MIN_COS, "int8 tower far from the bf16 tower")
 
     # ---- 4. the slice end to end
+    print(f"[phase] 4. the slices from {time.perf_counter() - t_run:.0f} s")
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     # 60 patents: the CLI's 40 give a 160-row gallery, which a k=20
     # search (pool 160) would rank whole with the scan
@@ -3579,12 +3943,21 @@ def main() -> None:
           f"bf16 features at batch 3 far from batch 32's: min cosine "
           f"{cos_odd} < {BF16_ODD_MIN_COS}")
 
+    # the same seeded weights as an HF CLIP directory, served through
+    # eval --checkpoint
+    hf_checkpoint_slice(
+        torch, np, run_path, cli,
+        {"GE": (bf16_layer.fused_layer_block_bf16,
+                bf16_layer.fused_layer_cls_bf16),
+         "GE_int8": (qm.quant_attention_block, qm.quant_attention_cls,
+                     qm.quant_mlp_block)}, tower.state_dict(), slice_out)
+
     # the composed pipeline, the port alone: train_class_pro exports the
     # CLI graph's figure embeddings into the fine-tune's directory; the
-    # fine-tune (ViT-B/16 trained from seeded weights on a 224 px corpus:
-    # 192 anchors, 19 held out, two steps of 64 pairs and one validation
-    # batch) aligns to that export; eval serves its checkpoint through the
-    # bf16 kernels
+    # fine-tune (ViT-B/16 started from the HF directory's weights on a 224
+    # px corpus: 192 anchors, 19 held out, two steps of 64 pairs and one
+    # validation batch) aligns to that export; eval serves its checkpoint
+    # through the bf16 kernels
     shutil.rmtree(FT_DIR, ignore_errors=True)
     write_synthetic_corpus(FT_DIR, num_patents=48, figures_per_patent=4,
                            image_size=224)
@@ -3602,16 +3975,35 @@ def main() -> None:
           f"{gcn_report['test_acc']:.4f}; graph embeddings exported for the "
           "fine-tune")
     log = io.StringIO()
+    started = {}
+
+    def spy(model, optimizer):
+        """The tower as the first step takes it."""
+        started.update({k: v.detach().cpu().clone()
+                        for k, v in model.vit.state_dict().items()})
+        return make_finetune_step(model, optimizer)
 
     def finetune():
-        with contextlib.redirect_stdout(log):
-            rc = cli(["finetune", "--path", FT_DIR, "--epochs", "1"])
+        with contextlib.redirect_stdout(log), mock.patch(
+                "patent_tpu_torch.train.finetune_clip.make_finetune_step",
+                spy):
+            rc = cli(["finetune", "--path", FT_DIR, "--epochs", "1",
+                      "--checkpoint", HF_DIR])
         print(log.getvalue(), end="")
         check(rc == 0, "finetune failed")
 
-    run_path("finetune --epochs 1 (ViT-B/16, 64 pairs a step)",
+    run_path("finetune --epochs 1 --checkpoint (ViT-B/16 from the HF "
+             "directory, 64 pairs a step)",
              (fa.fused_attention_fwd, fa.fused_attention_bwd,
               mm.fused_mlp_fwd, mm.fused_mlp_bwd), finetune)
+    loaded = load_hf_clip_params(HF_DIR, VIT_B16)
+    same = set(started) == set(loaded) and all(
+        torch.equal(started[k], v) for k, v in loaded.items())
+    print(f"[slice] finetune --checkpoint: the starting tower's "
+          f"{len(started)} tensors equal in bits to the HF directory's: "
+          f"{same}")
+    check(same, "the fine-tune did not start from the HF weights")
+    del started, loaded
     losses = [float(t) for t in re.findall(r"train_loss=(\S+)",
                                            log.getvalue())]
     aligned = re.search(r"aligned to (\d+) exported graph embeddings",
@@ -3651,8 +4043,10 @@ def main() -> None:
     e2e = end_to_end_setup(torch, dev, hyp)
     end_to_end_step_check(torch, dev, run_path, e2e)
     end_to_end_slice(torch, dev, run_path, cli, hyp)
+    text_slice(torch, dev, hyp)
 
     # ---- 5. times
+    print(f"[phase] 5. times from {time.perf_counter() - t_run:.0f} s")
     times = {}
     pix =torch.randn(bt, 224, 224, 3, generator=gen, device=dev)
 
@@ -4075,6 +4469,8 @@ def main() -> None:
     hyperbolic_train_times(torch, dev, HYP_SIZES, hyp, label)
     # before hyperbolic_times, which releases what hyp holds
     end_to_end_times(torch, dev, e2e, hyp, label)
+    text_times(torch, dev, hyp, label)
+    hf_load_times(torch, dev, label)
     hyperbolic_times(torch, HYP_SIZES, hyp, times, bounds, label, k, pool)
     for kname, (pm, km) in times.items():
         lib = (f", one PyTorch call {library[kname]:.3f} ms"
@@ -4125,6 +4521,7 @@ def main() -> None:
             ("flash_attention_f32", "flash_attention.cu",
              "patent_tpu/ops/flash_attention.py:187")]
     errs["bucket_topk_bf16"] = err_topk
+    print(f"[phase] done at {time.perf_counter() - t_run:.0f} s")
     # one PyTorch call computes row 14's function in each dtype (up to its
     # exp2 form and roundings); none computes any of the others
     print(json.dumps({"kernels": [

@@ -8,11 +8,14 @@ trainers).
         [--device cuda|cpu] [--synthetic] [--k K] [--query IMG]
         [--model NAME] [--positives patent|cpc] [--keep-tokens K]
         [--quantize] [--profile exact|recommended|turbo]
+        [--checkpoint HF_DIR]
     python -m patent_tpu_torch.cli serve --path DIR [--port 8777]
         [--device cuda|cpu] [--synthetic] [--quantize]
         [--profile exact|recommended|turbo] [--keep-tokens K]
+        [--checkpoint HF_DIR]
     python -m patent_tpu_torch.cli finetune --path DIR [--device cuda|cpu]
-        [--epochs N] [--keep-tokens K] [key=value ...]
+        [--epochs N] [--keep-tokens K] [--checkpoint HF_DIR]
+        [key=value ...]
     python -m patent_tpu_torch.cli train_hyp --path DIR [--device cuda|cpu]
         [--epochs N] [--learning_rate LR] [--resume] [--latent_dim 128]
         [--synthetic] [key=value ...]
@@ -36,6 +39,10 @@ features, name or an image under the gallery directory).  ``finetune``
 trains on ``DIR``/metadata.json + images/ when present, else
 on a generated synthetic corpus, and writes
 ``DIR``/models/clip_finetune_best, which every retrieval action loads.
+``--checkpoint HF_DIR`` names a local HF CLIP directory
+(``save_pretrained``: model.safetensors or pytorch_model.bin, read without
+``transformers``, models/clip_import.py): the retrieval actions serve its
+image tower instead, and ``finetune`` starts from it.
 ``train_hyp`` trains the hyperbolic model on ``DIR``/prepared_training_data
 (or the synthetic corpus, which ``prep`` writes there), keeping ``latest``
 and ``best_retrieval_model_c{c}_e{d}`` under ``DIR``/models in the JAX
@@ -52,13 +59,15 @@ the JAX CLI's synthetic graph.
 
 ``--device`` defaults to the card; without one the command exits non-zero
 rather than run on the CPU (``prep`` and ``plot`` run on the host only).
-``bench``, and HF ``--checkpoint`` directories for the image tower, exit
-non-zero with a message: they are not ported yet.
+``bench`` exits non-zero with a message: it is not ported yet.  So do a
+``--checkpoint`` that is not a local directory and one given to an action
+that reads none (the JAX CLI ignores it there).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from ..utils.config import SERVING_PROFILES
@@ -69,6 +78,8 @@ ACTIONS = ["train", "train_gcn", "train_hyp", "train_hyp_con", "train_end",
            "infer", "dist", "prep", "encode", "retrieve", "eval", "bench",
            "finetune", "serve"]
 HYPERBOLIC_ACTIONS = ("test", "infer", "dist")
+# the actions whose --checkpoint is an HF CLIP directory
+HF_CHECKPOINT_ACTIONS = ("encode", "retrieve", "eval", "serve", "finetune")
 GRAPH_ACTIONS = ("train_class_pro", "train_class", "train_gcn", "train")
 END_TO_END_ACTIONS = ("train_end", "train_end_2")
 
@@ -89,8 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", type=str, default=None,
                    help="test/infer/dist/plot: the checkpoint's name under "
                         "--path/models (default best_retrieval_model_c"
-                        "{curvature}_e{latent_dim}); other actions: an HF "
-                        "CLIP checkpoint directory (not yet ported)")
+                        "{curvature}_e{latent_dim}); encode/retrieve/eval/"
+                        "serve/finetune: a local HF CLIP checkpoint "
+                        "directory")
     p.add_argument("--input_dim", type=int, default=512,
                    help="graph actions: taken and unused, as in the JAX "
                         "CLI (the width is the graph's features')")
@@ -168,12 +180,18 @@ def main(argv: list[str] | None = None) -> int:
         run_plot_action(args.path, checkpoint=args.checkpoint)
         return 0
     if args.checkpoint and args.action not in HYPERBOLIC_ACTIONS:
-        print(f"--checkpoint {args.checkpoint!r}: loading HF CLIP "
-              "checkpoints needs the transformers package and is not yet "
-              "ported to patent_tpu_torch (a JAX fine-tune under "
-              "<path>/models/clip_finetune_best is loaded automatically)",
-              file=sys.stderr)
-        return 2
+        # refused before anything is written; the JAX CLI ignores the flag
+        # where no action reads it
+        if args.action not in HF_CHECKPOINT_ACTIONS:
+            print(f"--checkpoint is not read by {args.action} (it names an "
+                  "HF CLIP directory for "
+                  f"{'/'.join(HF_CHECKPOINT_ACTIONS)})", file=sys.stderr)
+            return 2
+        if not os.path.isdir(args.checkpoint):
+            print(f"--checkpoint {args.checkpoint!r} is not a local "
+                  "directory (HF-format CLIP checkpoints only)",
+                  file=sys.stderr)
+            return 2
     from ..retrieval.cli_actions import (run_retrieval_action,
                                          run_serve_action, select_device)
 

@@ -1,11 +1,12 @@
-"""Synthetic DeepPatent-like retrieval corpus (the port's copy of the parts
-of patent_tpu/data/synthetic.py that the retrieval, fine-tune and
-hyperbolic actions call).
+"""Synthetic DeepPatent-like corpus (the port's copy of
+patent_tpu/data/synthetic.py).
 
 Records follow the real corpus's naming and CPC hierarchy; figures of one
-patent share a base drawing, so the ground truth is learnable.  For one
-seed the records, PNG bytes and feature vectors equal the JAX package's,
-byte for byte.
+patent share a base drawing, so the ground truth is learnable.  Besides the
+noise corpus there is patent-drawing-like line art
+(``synthetic_drawing_arrays``) and a corpus of its geometric views
+(``write_synthetic_view_images``).  For one seed the records, arrays, PNG
+bytes and feature vectors equal the JAX package's, byte for byte.
 """
 
 from __future__ import annotations
@@ -72,6 +73,47 @@ def synthetic_features(records: Sequence[FigureRecord], dim: int = 64,
     return out
 
 
+def synthetic_drawing_arrays(n: int, size: int = 224, seed: int = 0,
+                             line_width: float = 0.10) -> np.ndarray:
+    """[n, size, size, 3] float32 in [0, 1]: patent-drawing-like line art,
+    white paper with thin dark strokes.  The strokes are level-set bands
+    (|f| < eps) of two smoothed random fields, plus a 2 px frame at a random
+    inset, as a figure border."""
+    def box1d(x: np.ndarray, k: int, axis: int) -> np.ndarray:
+        """Moving average, window 2k+1, edge-padded, via cumsum."""
+        pad_width = [(0, 0)] * x.ndim
+        pad_width[axis] = (k, k)
+        xp = np.pad(x, pad_width, mode="edge")
+        zero_shape = list(xp.shape)
+        zero_shape[axis] = 1
+        c = np.concatenate([np.zeros(zero_shape, x.dtype),
+                            np.cumsum(xp, axis=axis, dtype=np.float32)], axis)
+        m = x.shape[axis]
+        hi = np.take(c, np.arange(m) + 2 * k + 1, axis=axis)
+        lo = np.take(c, np.arange(m), axis=axis)
+        return (hi - lo) / np.float32(2 * k + 1)
+
+    rng = np.random.default_rng(seed)
+    low_res = size // 8 + 1
+    canvas = np.ones((n, size, size), np.float32)
+    for _ in range(2):
+        field = rng.standard_normal((n, low_res, low_res)).astype(np.float32)
+        up = np.repeat(np.repeat(field, 8, axis=1), 8, axis=2)[:, :size, :size]
+        smooth = box1d(box1d(up, 9, 1), 9, 2)
+        band = np.abs(smooth) < line_width * smooth.std(axis=(1, 2),
+                                                        keepdims=True)
+        canvas = np.where(band, 0.0, canvas)
+    inset = rng.integers(4, 20, n)
+    for i in range(n):
+        a = int(inset[i])
+        b = size - a
+        canvas[i, a:a + 2, a:b] = 0.0
+        canvas[i, b - 2:b, a:b] = 0.0
+        canvas[i, a:b, a:a + 2] = 0.0
+        canvas[i, a:b, b - 2:b] = 0.0
+    return np.repeat(canvas[..., None], 3, axis=-1)
+
+
 def _entity_rng(seed: int, kind: str, name: str) -> np.random.Generator:
     """A generator keyed on (seed, entity): the same stream whatever was
     generated before, so query and gallery written by separate calls
@@ -123,6 +165,56 @@ def write_synthetic_images(records: Sequence[FigureRecord], root: str,
                           0, 255).astype(np.uint8)
         path = os.path.join(root, r.figure_id)
         Image.fromarray(img).save(path)
+        paths.append(path)
+    return paths
+
+
+def apply_view(img: np.ndarray, view_index: int) -> np.ndarray:
+    """View ``view_index`` % 4 of a drawing [H, W, C]: itself, flipped left
+    to right, turned 90°, or shifted by (4, 12) pixels, which is not a
+    multiple of a patch."""
+    k = view_index % 4
+    if k == 0:
+        return img
+    if k == 1:
+        return img[:, ::-1]
+    if k == 2:
+        return np.rot90(img, 1, (0, 1))
+    return np.roll(img, (4, 12), (0, 1))
+
+
+def write_synthetic_view_images(records: Sequence[FigureRecord], root: str,
+                                image_size: int = 64, seed: int = 0,
+                                noise: float = 8.0) -> list[str]:
+    """The views corpus: figure k of a patent is ``apply_view`` k of the
+    patent's one line-art drawing, with per-figure ink contrast in [0.35,
+    1) and pixel noise, so positives share structure but not pixels.  The
+    view index comes from the '-D<k>_' part of a synthetic name, else from
+    a count per patent.  Writes one PNG per record; returns the paths."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    bases: dict[str, np.ndarray] = {}
+    view_counter: dict[str, int] = {}
+    paths = []
+    for r in records:
+        if r.patent_id not in bases:
+            s = int(_entity_rng(seed, "viewbase", r.patent_id)
+                    .integers(0, 2**31 - 1))
+            bases[r.patent_id] = (
+                synthetic_drawing_arrays(1, image_size, seed=s)[0] * 255.0)
+        try:
+            fidx = int(r.figure_id.split("-D")[1].split("_")[0]) - 1
+        except (IndexError, ValueError):
+            fidx = view_counter.get(r.patent_id, 0)
+        view_counter[r.patent_id] = fidx + 1
+        img = apply_view(bases[r.patent_id], fidx)
+        frng = _entity_rng(seed, "fig", r.figure_id)
+        c = frng.uniform(0.35, 1.0)
+        img = 255.0 - (255.0 - img) * c
+        img = np.clip(img + frng.normal(0.0, noise, img.shape), 0, 255)
+        path = os.path.join(root, r.figure_id)
+        Image.fromarray(img.astype(np.uint8)).save(path)
         paths.append(path)
     return paths
 

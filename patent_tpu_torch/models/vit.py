@@ -1,8 +1,9 @@
-"""CLIP ViT image towers (port of the image path of
-patent_tpu/models/vit.py): the serving tower ``VisionTransformer`` in its
-fused-layer mode and its per-op modes, the parts it shares with the int8
-tower (models/vit_int8.py), and the trainable tower of the fine-tune
-(``TrainableVisionTransformer``).
+"""CLIP towers (port of patent_tpu/models/vit.py): the serving tower
+``VisionTransformer`` in its fused-layer mode and its per-op modes, the
+parts it shares with the int8 tower (models/vit_int8.py), the trainable
+tower of the fine-tune (``TrainableVisionTransformer``) and the text tower
+(``TextTransformer``).  The HF CLIP checkpoint converters are in
+models/clip_import.py.
 
 Layouts follow the JAX package at the public surface: pixels NHWC
 [B, H, W, 3], weights [in, out] as in the Flax tree, activations [B, S, D].
@@ -47,11 +48,26 @@ class VisionConfig:
         return (self.image_size // self.patch_size) ** 2
 
 
-# ViT-B/16 (openai/clip-vit-base-patch16)
+@dataclasses.dataclass(frozen=True)
+class TextConfig:
+    vocab_size: int = 49408
+    context_length: int = 77
+    hidden_dim: int = 512
+    num_layers: int = 12
+    num_heads: int = 8
+    mlp_dim: int = 2048
+    projection_dim: int = 512
+
+
+# ViT-B/16 (openai/clip-vit-base-patch16) and its text tower
 VIT_B16 = VisionConfig()
+TEXT_B = TextConfig()
 VIT_TINY = VisionConfig(image_size=32, patch_size=8, hidden_dim=64,
                         num_layers=2, num_heads=4, mlp_dim=128,
                         projection_dim=32)
+TEXT_TINY = TextConfig(vocab_size=128, context_length=16, hidden_dim=64,
+                       num_layers=2, num_heads=4, mlp_dim=128,
+                       projection_dim=32)
 
 
 def ink_topk_indices(pixel_values: torch.Tensor, patch_size: int,
@@ -442,6 +458,75 @@ class TrainableVisionTransformer(TowerBase):
         x = cls_last_layer(x, *self.blocks[-1].weights(), cfg.num_heads, cdt)
         x = layernorm_flax(x[:, 0], self.post_ln_scale, self.post_ln_bias)
         return x @ self.projection
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """The text tower's additive mask [L, L]: -1e9 above the diagonal, in
+    f32 (added to the f32 scores)."""
+    return torch.triu(torch.full((length, length), -1e9, device=device), 1)
+
+
+class TextTransformer(nn.Module):
+    """CLIP text tower → projected text features (port of the JAX
+    ``TextTransformer``, ``get_text_features``): CPC definitions and
+    patent titles become node features of the graph.
+
+    ``token_embedding[ids]`` plus ``position_embedding[:L]``, both in
+    ``dtype``; ``num_layers`` per-op pre-LN layers (``transformer_block``)
+    under the causal mask, which sends every attention to the einsum path
+    (the JAX tower reaches no Pallas kernel either); Flax's f32 final
+    LayerNorm; pooling at the first maximal id of each row (EOS); the
+    projection in f32, without a bias.  Weights are random (from
+    ``generator``: normal 0.02 and 0.01 for the embeddings, 1/√fan_in for
+    the dense layers) until a state dict is loaded
+    (``weights.text_params_from_jax``, ``clip_import.hf_clip_text_params``).
+    """
+
+    def __init__(self, config: TextConfig = TEXT_B,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        d = config.hidden_dim
+        self.token_embedding = nn.Parameter(0.02 * torch.randn(
+            (config.vocab_size, d), generator=generator, device=device))
+        self.position_embedding = nn.Parameter(0.01 * torch.randn(
+            (config.context_length, d), generator=generator, device=device))
+        self.blocks = nn.ModuleList(
+            EncoderLayer(d, config.mlp_dim, dtype, device, generator)
+            for _ in range(config.num_layers))
+        self.final_ln_scale = nn.Parameter(torch.ones(d, device=device))
+        self.final_ln_bias = nn.Parameter(torch.zeros(d, device=device))
+        self.projection = nn.Parameter(torch.randn(
+            (d, config.projection_dim), generator=generator, device=device)
+            / math.sqrt(d))
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """input_ids [B, L] → the token stream [B, L, D] in ``dtype``."""
+        ids = input_ids.long()
+        return (self.token_embedding[ids].to(self.dtype)
+                + self.position_embedding[:ids.shape[1]].to(self.dtype))
+
+    def readout(self, x: torch.Tensor, input_ids: torch.Tensor
+                ) -> torch.Tensor:
+        """The stream after the last layer → [B, projection]: each row's
+        EOS position (argmax of its ids), the final LayerNorm, the
+        projection."""
+        eos = input_ids.long().argmax(-1)
+        x = x[torch.arange(x.shape[0], device=x.device), eos]
+        x = layernorm_flax(x, self.final_ln_scale, self.final_ln_bias)
+        return x @ self.projection.float()
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """input_ids [B, L] (EOS = the largest id of each row) → [B,
+        projection] f32."""
+        cfg = self.config
+        x = self.embed(input_ids)
+        mask = causal_mask(x.shape[1], x.device)
+        for layer in self.blocks:
+            x = transformer_block(x, layer, cfg.num_heads, self.dtype, mask)
+        return self.readout(x, input_ids)
 
 
 def finetune_param_names(model: nn.Module, num_trainable_blocks: int = 9,

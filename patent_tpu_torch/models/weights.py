@@ -2,7 +2,10 @@
 of the port's towers: ``VisionTransformer`` (and the trainable tower, which
 has its names; ``params_from_jax`` / ``params_to_jax``), the whole
 fine-tune tree ``{"vit": ..., "head": ...}`` of the fine-tune's
-``FinetuneModel`` (the same two functions: keys ``vit.*`` and ``head.*``)
+``FinetuneModel`` (the same two functions: keys ``vit.*`` and ``head.*``),
+``TextTransformer`` (``text_params_from_jax`` / ``text_params_to_jax``:
+``token_embedding``, ``position_embedding``, the layers as the vision
+tower's, ``final_ln`` and ``projection/kernel``),
 ``Int8VisionTransformer`` (``int8_params_from_jax``, the tree
 ``patent_tpu.models.vit_int8.quantize_vit_params`` returns), and the
 hyperbolic models of ``models/hyperbolic.py`` (``hyperbolic_params_from_jax``
@@ -47,6 +50,14 @@ _TOP_LEAVES = [
     (("pre_ln", "scale"), "pre_ln_scale"), (("pre_ln", "bias"), "pre_ln_bias"),
     (("post_ln", "scale"), "post_ln_scale"),
     (("post_ln", "bias"), "post_ln_bias"),
+    (("projection", "kernel"), "projection"),
+]
+# the text tower's leaves outside its layers
+_TEXT_TOP_LEAVES = [
+    (("token_embedding",), "token_embedding"),
+    (("position_embedding",), "position_embedding"),
+    (("final_ln", "scale"), "final_ln_scale"),
+    (("final_ln", "bias"), "final_ln_bias"),
     (("projection", "kernel"), "projection"),
 ]
 
@@ -100,6 +111,41 @@ def _top_from_jax(tree: dict) -> tuple[dict, dict[str, torch.Tensor]]:
     return tree, sd
 
 
+def _layers_from_jax(tree: dict, sd: dict[str, torch.Tensor]) -> None:
+    for i in range(_num_layers(tree)):
+        for path, name in _LAYER_LEAVES:
+            sd[f"blocks.{i}.{name}"] = _get(tree[f"block_{i}"], path)
+
+
+def _layers_to_jax(state_dict: dict[str, torch.Tensor], tree: dict) -> None:
+    n = 1 + max(int(k.split(".")[1]) for k in state_dict
+                if k.startswith("blocks."))
+    for i in range(n):
+        for path, name in _LAYER_LEAVES:
+            _put(tree, (f"block_{i}",) + path,
+                 state_dict[f"blocks.{i}.{name}"])
+
+
+def text_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """Flax ``TextTransformer`` param tree (numpy leaves, with or without
+    the ``{"params": ...}`` wrapper) → the state dict of the port's
+    ``TextTransformer`` (f32)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    sd = {name: _get(tree, path) for path, name in _TEXT_TOP_LEAVES}
+    _layers_from_jax(tree, sd)
+    return sd
+
+
+def text_params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``text_params_from_jax`` (f32 numpy, no wrapper)."""
+    tree: dict = {}
+    for path, name in _TEXT_TOP_LEAVES:
+        _put(tree, path, state_dict[name])
+    _layers_to_jax(state_dict, tree)
+    return tree
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """Flax ``VisionTransformer`` param tree (numpy leaves) → torch state
     dict (f32); a fine-tune tree ``{"vit", "head"}`` → the state dict of a
@@ -113,9 +159,7 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             sd[f"head.{name}"] = leaf.T.contiguous() if transpose else leaf
         return sd
     tree, sd = _top_from_jax(tree)
-    for i in range(_num_layers(tree)):
-        for path, name in _LAYER_LEAVES:
-            sd[f"blocks.{i}.{name}"] = _get(tree[f"block_{i}"], path)
+    _layers_from_jax(tree, sd)
     return sd
 
 
@@ -149,17 +193,12 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
         return {"vit": params_to_jax({k[4:]: v for k, v in state_dict.items()
                                       if k.startswith("vit.")}),
                 "head": head}
-    put = _put
     tree: dict = {}
-    put(tree, ("patch_embed", "kernel"),
-        state_dict["patch_embed"].permute(2, 3, 1, 0))
+    _put(tree, ("patch_embed", "kernel"),
+         state_dict["patch_embed"].permute(2, 3, 1, 0))
     for path, name in _TOP_LEAVES:
-        put(tree, path, state_dict[name])
-    n = 1 + max(int(k.split(".")[1]) for k in state_dict
-                if k.startswith("blocks."))
-    for i in range(n):
-        for path, name in _LAYER_LEAVES:
-            put(tree, (f"block_{i}",) + path, state_dict[f"blocks.{i}.{name}"])
+        _put(tree, path, state_dict[name])
+    _layers_to_jax(state_dict, tree)
     return tree
 
 

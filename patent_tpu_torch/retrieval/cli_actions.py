@@ -6,9 +6,9 @@ Three differences from the JAX package: the device is named by the caller
 (``--device``, the card by default) and a missing card is an error, not a
 fall-back to the CPU; index filenames carry a ``_torch`` backend tag, so
 neither package loads the other's gallery under the same name; and the
-fine-tuned weights tag hashes the bytes of ``state.npz`` (the JAX one
-hashes the directory's mtime, which an in-place re-save can leave
-unchanged).
+weights tags hash the bytes of the weights, ``state.npz`` of a fine-tune
+or the weight file of an HF ``--checkpoint`` directory (the JAX ones hash
+directory mtimes, which an in-place re-save can leave unchanged).
 """
 
 from __future__ import annotations
@@ -74,7 +74,9 @@ def index_prefix(path: str, gallery_dir: str, quantize: bool = False,
 
 
 def _build_encoder(args, image_size: int, device: torch.device):
-    """(encoder, weights tag) for the serving tower at ``image_size``."""
+    """(encoder, weights tag) for the serving tower at ``image_size``: the
+    weights of an HF ``--checkpoint`` directory, else the fine-tune's
+    ``clip_finetune_best`` under ``--path``/models, else seeded ones."""
     from ..models.vit import VIT_B16, VisionConfig, VisionTransformer
     from ..models.vit_int8 import Int8VisionTransformer
     from ..models.weights import params_from_jax
@@ -105,7 +107,18 @@ def _build_encoder(args, image_size: int, device: torch.device):
     models_dir = os.path.join(args.path, "models")
     finetuned = os.path.join(models_dir, "clip_finetune_best")
     weights_tag = "rand"
-    if os.path.isdir(finetuned):
+    hf_dir = getattr(args, "checkpoint", None)
+    if hf_dir:
+        from ..models.clip_import import hf_weight_file, load_hf_clip_params
+
+        if not os.path.isdir(hf_dir):
+            # a mistyped path or a hub id must fail, not serve other weights
+            raise ValueError(f"--checkpoint {hf_dir!r} is not a local "
+                             "directory (HF-format CLIP checkpoints only)")
+        model.load_state_dict(load_hf_clip_params(hf_dir, config))
+        weights_tag = "hf" + _file_hash(hf_weight_file(hf_dir))
+        print(f"loaded CLIP weights from {hf_dir}")
+    elif os.path.isdir(finetuned):
         state = checkpoint.restore(models_dir, "clip_finetune_best")
         ft = state["params"]["vit"]
         ft_hidden = ft["patch_embed"]["kernel"].shape[-1]

@@ -14,7 +14,8 @@ boundary orders more exactly than the scan's f32 surrogate.
 ``EmbeddingIndex`` takes a candidate path whenever the pool is smaller
 than the gallery (the bf16 one on a CUDA device only; the int8 ones,
 ``quantized=True``, on any device), and the scan otherwise; it reads and
-writes the JAX index's ``.npy`` + ``.json`` files.  Its candidate copies
+writes the JAX index's ``.npy`` + ``.json`` files, and exports the
+reference's feature pickle (``save_feature_pickle``).  Its candidate copies
 are zero-padded to the kernels' multiple of columns, as JAX pads D, so
 every width reaches the kernels.
 """
@@ -23,6 +24,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import pickle
 
 import numpy as np
 import torch
@@ -331,3 +334,17 @@ class EmbeddingIndex:
         with open(f"{prefix}.json") as f:
             names = json.load(f)
         return cls(emb, names, **kwargs)
+
+    def to_feature_dict(self, basename_keys: bool = True
+                        ) -> dict[str, np.ndarray]:
+        """{figure name: f32 numpy row}, the reference's per-figure
+        embedding pickle schema (graph generation cell 17), which the
+        feature-matrix builder and the fine-tune's alignment read."""
+        emb = self.embeddings.cpu().numpy()
+        keyfn = os.path.basename if basename_keys else (lambda s: s)
+        return {keyfn(n): emb[i] for i, n in enumerate(self.names)}
+
+    def save_feature_pickle(self, path: str, basename_keys: bool = True
+                            ) -> None:
+        with open(path, "wb") as f:
+            pickle.dump(self.to_feature_dict(basename_keys), f)

@@ -9,8 +9,11 @@ the first of them.  Graph alignment uses the first pickle under
 anchor; a pickle that matches none is refused with a warning, and the
 table is then random, as it is with no pickle.  Images under 224 px train
 a small tower (D 64, 2 layers, 4 heads of 16, patch 8); 224 px trains
-ViT-B/16.  Decoded images are shared with encode and eval through the
-decoded-u8 cache under ``--path``/decoded_cache.
+ViT-B/16.  ``--checkpoint HF_DIR`` starts the tower from a local HF CLIP
+directory's weights, at either size (the JAX action means to at 224 px,
+but imports a module that its package lacks).  Decoded images are shared
+with encode and eval through the decoded-u8 cache under
+``--path``/decoded_cache.
 """
 
 from __future__ import annotations
@@ -93,6 +96,19 @@ def run_finetune_action(args) -> int:
         vc = VisionConfig(image_size=image_size, patch_size=8, hidden_dim=64,
                           num_layers=2, num_heads=4, mlp_dim=128,
                           projection_dim=64)
+    init_vit = None
+    if args.checkpoint:
+        from ..models.clip_import import load_hf_clip_params
+
+        # the reference fine-tunes openai/clip-vit-base-patch16; any tower
+        # whose widths the directory's weights have starts from them
+        if not os.path.isdir(args.checkpoint):
+            raise ValueError(f"--checkpoint {args.checkpoint!r} is not a "
+                             "local directory (HF-format CLIP checkpoints "
+                             "only)")
+        init_vit = load_hf_clip_params(args.checkpoint, vc)
+        print(f"[patent_tpu_torch] fine-tuning from CLIP weights at "
+              f"{args.checkpoint}")
     if cfg.keep_tokens is not None and cfg.keep_tokens >= vc.num_patches:
         print(f"--keep-tokens {cfg.keep_tokens} >= {vc.num_patches} "
               "patches: training the exact (unpruned) tower")
@@ -102,6 +118,7 @@ def run_finetune_action(args) -> int:
         _best, history = run_finetune(
             anchors, positives, node_idx, vgae, vc, cfg,
             ckpt_dir=os.path.join(args.path, "models"),
-            image_size=image_size, cache=cache, device=device)
+            image_size=image_size, cache=cache, device=device,
+            init_vit=init_vit)
     print(f"finetune done: val_loss trajectory {history['val_loss']}")
     return 0

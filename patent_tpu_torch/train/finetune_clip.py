@@ -178,7 +178,8 @@ def run_finetune(anchor_paths, positive_paths, graph_node_idx, vgae_matrix,
                  vision_config: VisionConfig, cfg: ClipFinetuneConfig,
                  val_fraction: float = 0.1, ckpt_dir: str | None = None,
                  image_size: int | None = None, cache=None,
-                 device: torch.device | str = "cuda"
+                 device: torch.device | str = "cuda",
+                 init_vit: dict[str, torch.Tensor] | None = None
                  ) -> tuple[dict, dict]:
     """The fine-tuning loop (cell 20 ``fine_tune_clip``), as the JAX one:
     the seeded split holds out a random ``val_fraction`` of the pairs, each
@@ -188,7 +189,9 @@ def run_finetune(anchor_paths, positive_paths, graph_node_idx, vgae_matrix,
     ``cfg.val_every`` steps and at each epoch's end, and the best
     validation state is saved as ``clip_finetune_best`` under
     ``ckpt_dir`` ({"params": {"vit", "head"}, "step"} with its
-    metadata).  Returns (best state dict, history)."""
+    metadata).  ``init_vit``: a tower state dict to start from (CLIP's
+    weights: ``clip_import.load_hf_clip_params``) instead of the seeded
+    one.  Returns (best state dict, history)."""
     from ..input.pipeline import PairBatcher
     from ..models.weights import params_to_jax
     from ..utils import checkpoint
@@ -204,6 +207,8 @@ def run_finetune(anchor_paths, positive_paths, graph_node_idx, vgae_matrix,
 
     model, optimizer = init_finetune_state(vision_config, cfg, vgae_matrix,
                                            seed=cfg.seed, device=device)
+    if init_vit is not None:
+        model.vit.load_state_dict(init_vit)
     step, eval_step = make_finetune_step(model, optimizer)
     batcher = PairBatcher(anchor_paths, positive_paths, graph_node_idx,
                           batch_size=cfg.batch_size, image_size=image_size,

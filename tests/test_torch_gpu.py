@@ -2417,3 +2417,108 @@ def test_poincare_index_on_a_crowded_gallery_matches_the_cpu(cuda):
                                    q.cpu(), k=10)
     np.testing.assert_allclose(vals, cv, rtol=1e-6)
     assert np.mean(idx == ci) >= 0.99
+
+
+# the text tower on the card against the CPU, f32 on both (no TF32): a
+# row's relative error
+TEXT_ROW_REL_TOL = 1e-4
+
+
+def _text_ids(vocab, length, batch, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, vocab - 1, size=(batch, length))
+    for row in range(batch):
+        eos = 5 + (row * 17) % (length - 5)
+        ids[row, eos] = vocab - 1
+        ids[row, eos + 1:] = 0
+    return torch.from_numpy(ids)
+
+
+def _row_rel(got, want):
+    return float(((got.float().cpu() - want).norm(dim=1)
+                  / want.norm(dim=1)).max())
+
+
+def test_text_tower_b_on_the_card_matches_the_cpu(cuda):
+    """TEXT_B (vocab 49,408, context 77, 12 layers of 512) from one seeded
+    state dict on the card and on the CPU; without the causal mask (the
+    control) the card's features move far past the gate."""
+    from patent_tpu_torch.models.vit import (TEXT_B, TextTransformer,
+                                             transformer_block)
+
+    cpu = TextTransformer(TEXT_B, generator=torch.Generator().manual_seed(0))
+    card = TextTransformer(TEXT_B, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    ids = _text_ids(TEXT_B.vocab_size, TEXT_B.context_length, 6)
+    with torch.inference_mode():
+        want = cpu.eval()(ids)
+        got = card.eval()(ids.to(cuda))
+        x = card.embed(ids.to(cuda))
+        for layer in card.blocks:
+            x = transformer_block(x, layer, TEXT_B.num_heads, torch.float32)
+        ctrl = card.readout(x, ids.to(cuda))
+    assert got.dtype == torch.float32 and got.shape == (6, 512)
+    assert _row_rel(got, want) <= TEXT_ROW_REL_TOL
+    assert _row_rel(ctrl, want) > TEXT_ROW_REL_TOL
+
+
+def test_build_text_feature_dicts_runs_on_the_card_by_default(cuda):
+    from patent_tpu_torch.data.text_features import build_text_feature_dicts
+    from patent_tpu_torch.models.vit import TextConfig, TextTransformer
+
+    cfg = TextConfig(hidden_dim=64, num_layers=2, num_heads=4, mlp_dim=128,
+                     projection_dim=64)
+    defs = {f"A{i:02d}": f"definition number {i} of a class"
+            for i in range(40)}
+    titles = {f"USD{i:07d}": f"ornamental design for a lamp {i}"
+              for i in range(300)}
+    runs = []
+    for device in (None, "cpu"):
+        model = TextTransformer(cfg, generator=torch.Generator().manual_seed(1))
+        runs.append(build_text_feature_dicts(defs, titles, model=model,
+                                             device=device))
+        if device is None:
+            assert model.token_embedding.is_cuda
+    for got, want in zip(*runs):
+        assert list(got) == list(want)
+        g, w = (torch.from_numpy(np.stack(list(d.values())))
+                for d in (got, want))
+        assert _row_rel(g, w) <= TEXT_ROW_REL_TOL
+
+
+@pytest.mark.parametrize("flags", [[], ["--quantize"]], ids=["bf16", "int8"])
+def test_cli_eval_checkpoint_equals_the_same_weights_as_a_finetune(
+        cuda, tmp_path, flags):
+    """One seeded small tower served twice on the card through the CLI: as
+    ``clip_finetune_best`` and from an HF directory (``pytorch_model.bin``)
+    by ``eval --checkpoint``.  The gallery features are equal in bits."""
+    from patent_tpu_torch.cli.main import main as cli
+    from patent_tpu_torch.models.clip_import import (TORCH_FILE,
+                                                     hf_clip_vision_state_dict)
+    from patent_tpu_torch.models.weights import params_to_jax
+    from patent_tpu_torch.retrieval.cli_actions import write_synthetic_split
+    from patent_tpu_torch.utils import checkpoint
+
+    cfg = VisionConfig(image_size=64, patch_size=8, hidden_dim=64,
+                       num_layers=2, num_heads=4, mlp_dim=128,
+                       projection_dim=64)
+    tower = VisionTransformer(cfg, generator=torch.Generator().manual_seed(5))
+    path, hf = str(tmp_path / "run"), tmp_path / "hf"
+    write_synthetic_split(path, 64, num_patents=10)
+    checkpoint.save(os.path.join(path, "models"), "clip_finetune_best",
+                    {"params": {"vit": params_to_jax(tower.state_dict())},
+                     "step": 0})
+    hf.mkdir()
+    torch.save(hf_clip_vision_state_dict(tower.state_dict(), cfg),
+               hf / TORCH_FILE)
+    assert cli(["encode", "--path", path] + flags) == 0
+    assert cli(["eval", "--path", path, "--checkpoint", str(hf)]
+               + flags) == 0
+    tag = "_int8" if flags else ""
+    emb = {}
+    for kind in ("ft", "hf"):
+        (npy,) = [f for f in os.listdir(os.path.join(path, "embeddings"))
+                  if f.endswith(".npy") and f"_torch{tag}_{kind}" in f]
+        emb[kind] = np.load(os.path.join(path, "embeddings", npy))
+    assert emb["ft"].shape == (40, 64)
+    assert np.array_equal(emb["ft"], emb["hf"])

@@ -176,11 +176,18 @@ def test_cli_never_imports_jax(runs):
     ["eval", "--checkpoint", "/nonexistent/hf_clip"], ["bench"]],
     ids=["finetune", "train_end", "train_gcn", "hf-checkpoint", "bench"])
 def test_unported_surface_exits_nonzero(argv, tmp_path, capsys):
-    """What the port does not run yet: HF CLIP checkpoint directories (for
-    every action that would load a tower's weights from one) and
-    ``bench``."""
+    """What the port refuses before it writes anything: ``bench`` (not yet
+    ported), an HF ``--checkpoint`` that is not a local directory (for the
+    actions that load a tower's weights from one), and ``--checkpoint`` on
+    an action that reads none."""
     assert torch_main(argv + ["--path", str(tmp_path)]) == 2
-    assert "not yet ported to patent_tpu_torch" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if argv == ["bench"]:
+        assert "not yet ported to patent_tpu_torch" in err
+    elif argv[0] in ("finetune", "eval"):
+        assert "is not a local directory" in err
+    else:
+        assert f"--checkpoint is not read by {argv[0]}" in err
     assert not os.listdir(tmp_path)          # nothing was written
 
 
