@@ -157,6 +157,20 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    through HyperbolicEmbeddingModel on the card (finite gradients, row 18
    not launched under grad, launched under no_grad); every other kernel's
    launch count over its path must be > 0;
+4b. multi-GPU (patent_tpu_torch/parallel; the machine has one card): a
+   one-rank NCCL world, in which every sharded search (the four
+   functions and EmbeddingIndex(mesh=...)) equals EmbeddingIndex.search
+   at 200k rows and rows 3, 3′ and 4 launch; then two gloo ranks sharing
+   the card (NCCL refuses two ranks on one device): the three candidate
+   paths at 1M x 512 and 1M x 128, 500k rows a rank, equal to the
+   one-process index, each rank's launches printed; encode_sharded of
+   the bf16 and int8 ViT-B/16 towers at global B 128 and 6, equal in bits
+   to one process or within the tower gate, with the function each
+   rank's padded block took; the sharded fine-tune step at 2 x 16 pairs
+   against one process at 32 (metrics within 2e-3, the tower's updates
+   by cosine); the sharded train_hyp step (model 1 and 2, dropout on)
+   within the CPU tests' tolerances; the ranks' launches join the kernels
+   line;
 5. times (CUDA events): the bf16 and the int8 tower img/s at batch 128,
    the three per-op bf16 towers and the f32 use_flash tower (row 14's f32
    instance) at batch 128, the fused-layer bf16 tower
@@ -2789,6 +2803,292 @@ TOPK_QUERY_COUNTS = (1, 3, 65, 256, 300)
 TIE_ROW, TIE_STEPS = 1976, (1, 300)
 
 
+# ---- multi-GPU (patent_tpu_torch/parallel): worlds of ranks on this card
+
+MG_DIR = os.path.join(ROOT, "build", "chip_smoke_multigpu")
+# (a) one NCCL rank: every sharded search against the one-process index
+MG_SEARCH_ONE = dict(n=200_000, d=512, poincare_d=128, queries=64, k=10,
+                     c=2.0)
+# (b) two gloo ranks sharing the card: 500k rows a rank
+MG_SEARCH_TWO = dict(n=1_000_000, d=512, poincare_d=128, queries=256, k=10,
+                     c=2.0)
+MG_FT_PAIRS = 16                 # a rank; one process takes 32
+# the sharded fine-tune step against one process at twice the batch:
+# metrics within STEP_METRIC_REL_TOL; each trained tower leaf's update at
+# cosine MG_FT_MIN_UPDATE_COS or more with the one-process update (AdamW's
+# first step turns the sign of a gradient component near zero, which the
+# batch split decides, into ±lr_clip, so the largest gap is printed in
+# units of lr_clip and not gated)
+MG_FT_MIN_UPDATE_COS = 0.9
+# the sharded train_hyp step against one process, (loss relative, metrics
+# relative, every updated leaf absolute): on the CLI corpus at the CPU
+# tests' widths, their tolerances (tests/test_torch_sharded_train.py); at
+# the main path's size (HypTrainConfig's model over the 2018-scale label
+# table) tolerances measured on the card at that size (PERF.md, PR 19)
+MG_HYP_TOL = {"cli": (1e-6, 1e-5, 1e-7), "2018": (1e-6, 1e-5, 1e-7)}
+MG_HYP_CASES = (("md1", 1, False), ("md2", 2, False), ("drop", 2, True))
+# At the 2018 size the one-process step is itself sensitive: its first
+# layer saturates at the projection radius on the trainer's features, and
+# Adam's first step turns the sign of a near-zero gradient component into
+# +-lr, so features 2 ulp apart move the loss by ~1e-6 relative, the
+# retrieval loss by ~3e-5 and an encoder leaf by up to 2 lr
+# (mg_hyp_yardstick, printed beside).  Where the batch is split over data
+# (md1) each rank encodes half of it at another GEMM tiling, and the step
+# is held to tolerances measured at that size on the card (PERF.md, PR
+# 19): loss, metrics (grad_norm among them) relative; the label table's
+# leaf; every encoder leaf within MG_HYP_SPLIT_LR x lr (Adam's bound).
+MG_HYP_SPLIT_TOL = (1e-5, 2e-4, {"label_emb": 1e-3})
+MG_HYP_SPLIT_LR = 2.5
+# the kernel each sharded search must launch
+MG_SEARCH_KERNEL = {
+    "cosine": "bucket_topk_bf16", "quantized": "bucket_topk_int8",
+    "poincare": "bucket_topk_poincare", "sharded_topk_search": None,
+    "sharded_topk_search_cosine_fast": "bucket_topk_bf16",
+    "sharded_topk_search_quantized": "bucket_topk_int8",
+    "sharded_topk_search_poincare_fast": "bucket_topk_poincare"}
+
+
+def mg_hyp_args(np, torch) -> tuple:
+    """hyp_train_world's arguments: the CLI's synthetic corpus (features
+    scaled by 0.1, as the CPU tests), one batch of 32, a seeded model with
+    an odd label table, and the three cases."""
+    from patent_tpu_torch.models.hyperbolic import HyperbolicEmbeddingModel
+    from patent_tpu_torch.train.cli_hyperbolic import ensure_training_data
+    from patent_tpu_torch.train.train_hyp import (PackedSupervision,
+                                                  stack_epoch_batches)
+
+    td = ensure_training_data(MG_DIR, True)
+    packed = PackedSupervision(td)
+    arrays = tuple(a[0] for a in stack_epoch_batches(
+        packed, np.arange(len(packed.usable)), 32, 1,
+        np.random.default_rng(0)))
+    mk = dict(feature_dim=td.x_figures.shape[1], embed_dim=16,
+              label_num=td.num_labels | 1, hidden_dims=(32,), c=2.0)
+    state = {k: v.numpy() for k, v in HyperbolicEmbeddingModel(
+        **mk, generator=torch.Generator().manual_seed(0)
+    ).state_dict().items()}
+    data = {"x_figures": td.x_figures * np.float32(0.1),
+            "implication": td.implication,
+            "exclusion": np.zeros((0, 2), np.int32), "batch": arrays}
+    return (data, state, mk,
+            dict(embed_dim=16, hidden_dims=(32,), curvature=2.0,
+                 batch_size=32, learning_rate=6e-3), MG_HYP_CASES)
+
+
+def mg_hyp_2018_args(np, torch, td) -> tuple:
+    """hyp_train_world's arguments at the main path's size: the
+    HypTrainConfig model (512 -> 256 -> 128, c = 2) from seeded weights
+    over the hyperbolic slice's label table (``td``, 16,074 labels for
+    DeepPatent 2018's 16,059 patents), its features and exclusions as the
+    trainer reads them, one batch of HypTrainConfig's 128."""
+    from patent_tpu_torch.models.hyperbolic import HyperbolicEmbeddingModel
+    from patent_tpu_torch.train.train_hyp import (PackedSupervision,
+                                                  stack_epoch_batches)
+    from patent_tpu_torch.utils.config import HypTrainConfig
+
+    cfg = HypTrainConfig()
+    arrays = tuple(a[0] for a in stack_epoch_batches(
+        PackedSupervision(td), np.arange(cfg.batch_size), cfg.batch_size,
+        cfg.num_neg_samples, np.random.default_rng(0)))
+    mk = dict(feature_dim=td.x_figures.shape[1], embed_dim=cfg.embed_dim,
+              label_num=td.num_labels, hidden_dims=cfg.hidden_dims,
+              c=cfg.curvature)
+    state = {k: v.numpy() for k, v in HyperbolicEmbeddingModel(
+        **mk, generator=torch.Generator().manual_seed(2018)
+    ).state_dict().items()}
+    data = {"x_figures": td.x_figures, "implication": td.implication,
+            "exclusion": np.asarray(td.exclusion).reshape(-1, 2),
+            "batch": arrays}
+    return (data, state, mk, dict(learning_rate=cfg.learning_rate),
+            MG_HYP_CASES)
+
+
+def mg_hyp_yardstick(torch, np, args, dev) -> tuple:
+    """(metrics' relative gaps, {leaf: largest gap}) between two
+    one-process train_hyp steps on ``dev`` from ``args``'s state
+    (``mg_hyp_2018_args``), one on the features and one on them with
+    each element moved by 2 ulp, up or down at random (seeded): the
+    unstructured rounding a GEMM of another tiling leaves."""
+    from patent_tpu_torch.models.hyperbolic import HyperbolicEmbeddingModel
+    from patent_tpu_torch.train import train_hyp as th
+    from patent_tpu_torch.train.optim import RiemannianAdam
+    from patent_tpu_torch.utils.config import HypTrainConfig
+
+    data, state, mk, cfg_kwargs, _cases = args
+    cfg = HypTrainConfig(**cfg_kwargs, use_dropout=False)
+    x = torch.as_tensor(data["x_figures"], device=dev)
+    impl, excl = (torch.as_tensor(data[k], dtype=torch.long, device=dev)
+                  for k in ("implication", "exclusion"))
+    batch = tuple(torch.as_tensor(np.asarray(a)).to(
+        dev, torch.float32 if i >= 4 else torch.long)
+        for i, a in enumerate(data["batch"]))
+
+    def step(xs):
+        model = HyperbolicEmbeddingModel(**mk).to(dev)
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                               state.items()})
+        opt = RiemannianAdam(dict(model.named_parameters()),
+                             cfg.learning_rate, c=mk["c"])
+        met = th.train_step(model, opt, th.make_loss_fn(model, cfg), batch,
+                            xs, impl, excl)
+        return met.cpu().numpy(), {k: v.detach() for k, v in
+                                   model.state_dict().items()}
+
+    sign = torch.from_numpy(np.random.default_rng(22).choice(
+        np.float32([-1.0, 1.0]), x.shape)).to(dev)
+    (m0, p0), (m1, p1) = step(x), step(x * (1.0 + 2.0 ** -22 * sign))
+    rel = np.abs(m1 - m0) / np.maximum(np.abs(m0), 1e-30)
+    return rel, {k: float((p1[k] - p0[k]).abs().max()) for k in p0}
+
+
+def mg_searches(out: dict, what: str, launches: dict) -> None:
+    """Each search equal to the one-process index, its kernel launched on
+    every rank; the launches recorded."""
+    for mode, res in out.items():
+        kname = MG_SEARCH_KERNEL[mode]
+        per_rank = [r.get(kname, 0) if kname else 0 for r in res["launches"]]
+        times = ("" if res.get("sharded_s") is None else
+                 f", one search {1e3 * res['sharded_s']:.1f} ms sharded, "
+                 f"{1e3 * res['one_s']:.1f} ms in one process")
+        print(f"[slice] multi-GPU {what}: {mode} equal to the one-process "
+              f"index: {res['equal']}; {kname or 'the scan'} launches by "
+              f"rank {per_rank}{times}")
+        check(res["equal"], f"{what}: {mode} differs from the one-process "
+                            "index")
+        if kname:
+            check(all(n > 0 for n in per_rank),
+                  f"{what}: {mode} did not launch {kname} on every rank")
+        for counts in res["launches"]:
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+
+
+def multi_gpu_slice(torch, np, launches: dict, label: str, td) -> None:
+    """The multi-GPU phase: (a) a one-rank NCCL world, every sharded
+    search equal to EmbeddingIndex.search; (b) two gloo ranks sharing the
+    card (NCCL refuses two ranks on one device): the three sharded
+    candidate paths at 1M rows, encode_sharded (bf16 and int8, global B
+    128 and 6), the sharded fine-tune step at ViT-B/16 and the sharded
+    train_hyp step (on the CLI corpus, and at HypTrainConfig's widths
+    over the 2018-scale label table ``td``), each against one process.
+    Two ranks on one card measure the collectives' cost, not scaling: no
+    speed is claimed."""
+    from patent_tpu_torch.parallel.launch import run_world
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_worlds import multi_gpu_world
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[slice] multi-GPU: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB of the card")
+    a = run_world(1, multi_gpu_world, "cuda",
+                  {"searches": MG_SEARCH_ONE, "direct": True},
+                  device="cuda", timeout=300)
+    check(a["backend"] == "nccl", f"world (a) ran on {a['backend']}")
+    mg_searches(a["searches"], f"(a) {a['backend']}, 1 rank, "
+                f"{MG_SEARCH_ONE['n']:,} rows", launches)
+    print(f"[slice] multi-GPU (a) in {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    hyp_2018 = mg_hyp_2018_args(np, torch, td)
+    b = run_world(2, multi_gpu_world, "cuda",
+                  {"searches": MG_SEARCH_TWO, "encode": True,
+                   "finetune": MG_FT_PAIRS,
+                   "hyp": {"cli": mg_hyp_args(np, torch),
+                           "2018": hyp_2018}},
+                  backend="gloo", device="cuda", timeout=600)
+    check(b["backend"] == "gloo" and b["ranks"] == 2,
+          f"world (b): {b['backend']}, {b['ranks']} ranks")
+    mg_searches(b["searches"], f"(b) gloo, 2 ranks on one card, "
+                f"{MG_SEARCH_TWO['n']:,} rows (500k a rank)", launches)
+    for case, res in b["encode"].items():
+        tower, batch = case.split("_B")
+        counts = [{k: v for k, v in r.items() if v} for r in res["launches"]]
+        how = ("equal in bits" if res["bits"] else
+               f"within the tower gate (min cosine {res['min_cos']:.7f}, "
+               f"largest relative error {res['max_rel']:.2e})")
+        print(f"[slice] multi-GPU (b) encode_sharded {tower} ViT-B/16, "
+              f"global B {batch} over 2 ranks: {how} against one process; "
+              f"launches by rank {counts}")
+        check(res["bits"] or res["min_cos"] >= TOWER_MIN_COS,
+              f"encode_sharded {case} differs from one process")
+        ragged = tower == "int8" and int(batch) % 4
+        want = ({"quant_layer_block", "quant_attention_cls",
+                 "quant_mlp_block"} if ragged else
+                {"quant_attention_block", "quant_attention_cls",
+                 "quant_mlp_block"} if tower == "int8" else
+                {"fused_layer_block_bf16", "fused_layer_cls_bf16"})
+        check(all(set(r) == want for r in counts),
+              f"encode_sharded {case} took another function: {counts}")
+        for r in res["launches"]:
+            for k, n in r.items():
+                launches[k] = launches.get(k, 0) + n
+    ft = b["finetune"]
+    metric_gaps = {k: abs(ft["sharded"][k] - v) / abs(v)
+                   for k, v in ft["single"].items()}
+    print(f"[slice] multi-GPU (b) fine-tune step, ViT-B/16 @224, 2 ranks x "
+          f"{MG_FT_PAIRS} pairs against one process at "
+          f"{2 * MG_FT_PAIRS}: metrics {ft['sharded']} vs {ft['single']} "
+          f"(relative gaps {metric_gaps}); the trained tower's largest gap "
+          f"{ft['gap_lr']:.3f} x lr_clip ({ft['gap_leaf']}), least update "
+          f"cosine {ft['min_update_cos']:.5f} ({ft['min_cos_leaf']}); "
+          f"launches by rank {ft['launches']} {label}")
+    check(all(g <= STEP_METRIC_REL_TOL for g in metric_gaps.values()),
+          f"sharded fine-tune metrics differ: {metric_gaps}")
+    check(ft["min_update_cos"] >= MG_FT_MIN_UPDATE_COS,
+          f"sharded fine-tune update cosine {ft['min_update_cos']}")
+    check(all(n > 0 for r in ft["launches"] for n in r.values()),
+          "a fine-tune kernel did not launch on every rank")
+    for r in ft["launches"]:
+        for k, n in r.items():
+            launches[k] = launches.get(k, 0) + n
+    yard_rel, yard_gaps = mg_hyp_yardstick(torch, np, hyp_2018,
+                                           torch.device("cuda"))
+    print(f"[slice] multi-GPU train_hyp yardstick, 2018 size, one process "
+          f"on features 2 ulp apart: metrics' relative gaps "
+          f"{yard_rel.tolist()}, leaves' gaps {yard_gaps}")
+    for setting, cases in b["hyp"].items():
+        for case, md, _drop in MG_HYP_CASES:
+            loss_tol, metric_tol, leaf_tol = MG_HYP_TOL[setting]
+            res = cases[case]
+            single, sharded = res["single"], res["sharded"]
+            rel = np.abs(sharded - single) / np.maximum(np.abs(single),
+                                                        1e-30)
+            gaps = {}
+            for k, want in res["single_params"].items():
+                got = res["sharded_params"][k]
+                if k == "label_emb":
+                    check(bool((got[res["real"]:] == 0).all()),
+                          f"hyp {setting} {case}: padded label rows moved "
+                          "off zero")
+                    got = got[:res["real"]]
+                gaps[k] = float(np.abs(got - want).max())
+            gap_tol = dict.fromkeys(gaps, leaf_tol)
+            split = setting == "2018" and md == 1
+            if split:
+                loss_tol, metric_tol, table_tol = MG_HYP_SPLIT_TOL
+                lr = hyp_2018[3]["learning_rate"]
+                gap_tol = {k: table_tol.get(k, MG_HYP_SPLIT_LR * lr)
+                           for k in gaps}
+            rel_tol = np.full(rel.shape, metric_tol)
+            rel_tol[0] = loss_tol
+            print(f"[slice] multi-GPU (b) train_hyp step {setting} {case} "
+                  f"(labels {res['real']}→{res['padded']}, blocks "
+                  f"{res['block_rows']}): loss {sharded[0]:.6f} vs "
+                  f"{single[0]:.6f}, metrics' relative gaps "
+                  f"{rel.tolist()}, leaves' gaps {gaps}"
+                  + (" (the split tolerances)" if split else ""))
+            check(bool((rel <= rel_tol).all())
+                  and all(gaps[k] <= gap_tol[k] for k in gaps),
+                  f"sharded train_hyp {setting} {case} differs from one "
+                  "process")
+    print(f"[slice] multi-GPU (b) in {time.perf_counter() - t0:.1f} s "
+          f"(searches {b['searches_s']:.1f}, encode {b['encode_s']:.1f}, "
+          f"fine-tune {b['finetune_s']:.1f}, train_hyp {b['hyp_s']:.1f}); "
+          f"[slice] multi-GPU phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 # ---- the retrieval server (patent_tpu_torch/retrieval/server.py)
 
 # the service answers a request from a padded batch (rows and k to powers
@@ -4044,6 +4344,8 @@ def main() -> None:
     end_to_end_step_check(torch, dev, run_path, e2e)
     end_to_end_slice(torch, dev, run_path, cli, hyp)
     text_slice(torch, dev, hyp)
+    print(f"[phase] 4b. multi-GPU from {time.perf_counter() - t_run:.0f} s")
+    multi_gpu_slice(torch, np, launches, label, hyp["td"])
 
     # ---- 5. times
     print(f"[phase] 5. times from {time.perf_counter() - t_run:.0f} s")

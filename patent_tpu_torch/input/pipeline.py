@@ -347,3 +347,11 @@ class PairBatcher:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def shard_paths_per_host(paths: Sequence[str], host_id: int,
+                         num_hosts: int) -> list[str]:
+    """Host ``host_id``'s slice of the file list, every ``num_hosts``-th
+    path from its own (the JAX package's split: each host decodes its
+    slice and forms its batches)."""
+    return list(paths)[host_id::num_hosts]

@@ -25,29 +25,32 @@ LABEL_DIST0_MAX = 8.0
 INSTANCE_DIST0_MAX = 8.0
 
 
-def _pair_rows(label_emb: torch.Tensor, pairs: torch.Tensor | None):
+def _pair_rows(label_emb: torch.Tensor, pairs: torch.Tensor | None,
+               take=take_rows):
     """The two label rows of each pair, or None for no pairs (the shape is
     known on the host: no device sync)."""
     if pairs is None or pairs.shape[0] == 0:
         return None
-    return take_rows(label_emb, pairs[:, 0]), take_rows(label_emb, pairs[:, 1])
+    return take(label_emb, pairs[:, 0]), take(label_emb, pairs[:, 1])
 
 
 def hierarchical_margin_losses(label_emb: torch.Tensor,
                                implication_pairs: torch.Tensor | None,
                                exclusion_pairs: torch.Tensor | None,
                                c=1.0, inside_margin: float = INSIDE_MARGIN,
-                               disjoint_margin: float = DISJOINT_MARGIN
+                               disjoint_margin: float = DISJOINT_MARGIN,
+                               take=take_rows
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(inside_loss, disjoint_loss) over (child, parent) and (left, right)
-    pairs of label indices [P, 2]; 0 for an empty set."""
+    pairs of label indices [P, 2]; 0 for an empty set.  ``take(table,
+    idx)`` gathers the rows (a row-sharded table passes its own)."""
     zero = torch.zeros((), dtype=label_emb.dtype, device=label_emb.device)
     inside_loss = disjoint_loss = zero
-    rows = _pair_rows(label_emb, implication_pairs)
+    rows = _pair_rows(label_emb, implication_pairs, take)
     if rows is not None:
         ins = insideness(rows[0], rows[1], c)
         inside_loss = torch.relu(-ins + inside_margin).mean()
-    rows = _pair_rows(label_emb, exclusion_pairs)
+    rows = _pair_rows(label_emb, exclusion_pairs, take)
     if rows is not None:
         dis = disjointedness(rows[0], rows[1], c)
         disjoint_loss = torch.relu(-dis + disjoint_margin).mean()
@@ -64,20 +67,43 @@ def dist0_band_regularizers(label_emb: torch.Tensor,
     """(label_reg, instance_reg) by hyperbolic distance from the origin.
     ``num_valid_labels`` leaves the rows from it on out of the label term
     (a table zero-padded for row sharding)."""
-    label_d0 = torch.clamp_min(poincare.dist0(label_emb, c, keepdim=True),
-                               poincare.MIN_NORM)
-    per_label = (torch.relu(label_min - label_d0)
-                 + torch.relu(label_d0 - label_max))
+    return (label_band_mean(label_emb, c, num_valid_labels, label_min,
+                            label_max),
+            instance_band(encoded_figures, c, instance_max))
+
+
+def label_band_mean(label_emb: torch.Tensor, c=1.0,
+                    num_valid_labels: int | None = None,
+                    label_min: float = LABEL_DIST0_MIN,
+                    label_max: float = LABEL_DIST0_MAX) -> torch.Tensor:
+    """The label term of ``dist0_band_regularizers``: the mean of
+    ``label_band`` over the first ``num_valid_labels`` rows (all rows by
+    default)."""
+    per_label = label_band(label_emb, c, label_min, label_max)
     if num_valid_labels is not None and num_valid_labels < label_emb.shape[0]:
         valid = (torch.arange(label_emb.shape[0], device=label_emb.device)
                  < num_valid_labels)[:, None].to(per_label.dtype)
-        label_reg = (per_label * valid).sum() / num_valid_labels
-    else:
-        label_reg = per_label.mean()
+        return (per_label * valid).sum() / num_valid_labels
+    return per_label.mean()
+
+
+def label_band(label_emb: torch.Tensor, c=1.0,
+               label_min: float = LABEL_DIST0_MIN,
+               label_max: float = LABEL_DIST0_MAX) -> torch.Tensor:
+    """Each label row's distance outside the band [min, max] of hyperbolic
+    distance from the origin, [L, 1]."""
+    label_d0 = torch.clamp_min(poincare.dist0(label_emb, c, keepdim=True),
+                               poincare.MIN_NORM)
+    return torch.relu(label_min - label_d0) + torch.relu(label_d0 - label_max)
+
+
+def instance_band(encoded_figures: torch.Tensor, c=1.0,
+                  instance_max: float = INSTANCE_DIST0_MAX) -> torch.Tensor:
+    """Mean distance of the figures past ``instance_max`` from the
+    origin."""
     fig_d0 = torch.clamp_min(poincare.dist0(encoded_figures, c, keepdim=True),
                              poincare.MIN_NORM)
-    instance_reg = torch.relu(fig_d0 - instance_max).mean()
-    return label_reg, instance_reg
+    return torch.relu(fig_d0 - instance_max).mean()
 
 
 def hmi_losses(encoded: torch.Tensor, label_emb: torch.Tensor,

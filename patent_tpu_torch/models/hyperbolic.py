@@ -25,6 +25,7 @@ as JAX computes it outside any kernel.
 from __future__ import annotations
 
 import math
+import typing
 from typing import Callable, Sequence
 
 import torch
@@ -40,16 +41,38 @@ def _normal(shape, std: float, generator) -> torch.Tensor:
     return std * torch.randn(*shape, generator=generator)
 
 
+class RowSlice(typing.NamedTuple):
+    """A dropout generator for one rank's rows of a global batch: each
+    batch mask is drawn for the global batch's ``total`` rows from
+    ``generator`` (the draws one device makes) and the rank keeps
+    ``rows``; weight masks are drawn whole.  So a data-parallel step
+    drops out what the single-device step drops out."""
+    generator: torch.Generator
+    rows: torch.Tensor      # this rank's row indices into the global batch
+    total: int
+
+
+def _whole(generator):
+    return generator.generator if isinstance(generator, RowSlice) \
+        else generator
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | RowSlice | None) -> torch.Tensor:
     """Flax's ``nn.Dropout``: keep each element with probability 1 − rate
     (a mask drawn from ``generator``, which lives on ``x``'s device) and
-    scale the kept ones by 1 / (1 − rate); the identity outside training."""
+    scale the kept ones by 1 / (1 − rate); the identity outside training.
+    x's leading axis is the batch where ``generator`` is a ``RowSlice``."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if isinstance(generator, RowSlice):
+        u = torch.rand((generator.total,) + tuple(x.shape[1:]),
+                       generator=generator.generator,
+                       device=x.device)[generator.rows]
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class MobiusDense(nn.Module):
@@ -102,7 +125,7 @@ class MobiusDense(nn.Module):
             return fn(x, self.kernel, self.hyp_bias, c)
         if self.hyperbolic_input:
             w = dropout(self.kernel, self.weight_dropout_rate, self.training,
-                        generator)
+                        _whole(generator))
             out = poincare.mobius_matvec(w.T, x, c)
         else:
             out = poincare.expmap0(x @ self.kernel, c)

@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import bf16_layer
 from ..ops import flash_attention as fa
@@ -184,6 +185,11 @@ class TowerBase(nn.Module):
     ``forward``.  Weights are random (from ``generator``) until a state
     dict is loaded."""
 
+    # the batch multiple at which the tower changes function (JAX's towers
+    # dispatch on the batch): a sharded encode pads each rank's rows to
+    # keep the global batch's (parallel/mesh.py::encode_sharded)
+    batch_multiple = 1
+
     def __init__(self, config: VisionConfig, dtype: torch.dtype,
                  keep_tokens: int | None, kernels: bool, device=None,
                  generator: torch.Generator | None = None):
@@ -266,19 +272,36 @@ class VisionTransformer(TowerBase):
     ``use_flash``.  The per-op stack keeps the residual stream in f32 (its
     LayerNorms are Flax's, in f32, and each dense layer returns
     ``dtype``), runs every layer over every row of the unpadded stream, and
-    reads out CLS after the last.  Every mode has the same parameters."""
+    reads out CLS after the last.  Every mode has the same parameters.
+
+    ``remat`` (training only, as in JAX): while autograd records, each
+    layer runs under ``torch.utils.checkpoint`` and is recomputed in the
+    backward instead of keeping its activations; the outputs and the
+    gradients are those of ``remat=False``."""
 
     def __init__(self, config: VisionConfig = VIT_B16,
                  dtype: torch.dtype = torch.bfloat16,
                  keep_tokens: int | None = None, kernels: bool = True,
                  device=None, generator: torch.Generator | None = None,
                  use_flash: bool = False, fused_block: bool = False,
-                 fused_layer: bool = True):
+                 fused_layer: bool = True, remat: bool = False):
         super().__init__(config, dtype, keep_tokens, kernels, device,
                          generator)
         self.use_flash = use_flash
         self.fused_block = fused_block
         self.fused_layer = fused_layer
+        self.remat = remat
+
+    @property
+    def batch_multiple(self) -> int:
+        """The fused-layer pair runs at even batches only (an odd batch
+        takes the per-op composition); the per-op stack at any batch."""
+        return bf16_layer.GROUP if self.fused_layer else 1
+
+    def _layer(self, fn, *args, **kwargs) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return fn(*args, **kwargs)
 
     def _blocks(self, device, generator) -> nn.ModuleList:
         cfg = self.config
@@ -303,8 +326,8 @@ class VisionTransformer(TowerBase):
                            bf16_layer.fused_layer_cls_bf16_plain)
         for i, layer in enumerate(self.blocks):
             fn = last if i == cfg.num_layers - 1 else block
-            x = fn(x, *layer.weights(), cfg.num_heads, valid_len=seq,
-                   folded=layer.folded())
+            x = self._layer(fn, x, *layer.weights(), cfg.num_heads,
+                            valid_len=seq, folded=layer.folded())
         return self.readout(x)
 
     def _per_op(self, pixel_values: torch.Tensor) -> torch.Tensor:
@@ -312,10 +335,10 @@ class VisionTransformer(TowerBase):
         x = layernorm_flax(self.tokens(pixel_values, self.dtype),
                            self.pre_ln_scale, self.pre_ln_bias)
         for layer in self.blocks:
-            x = transformer_block(x, layer, cfg.num_heads, self.dtype,
-                                  use_flash=self.use_flash,
-                                  fused_block=self.fused_block,
-                                  kernels=self.kernels)
+            x = self._layer(transformer_block, x, layer, cfg.num_heads,
+                            self.dtype, use_flash=self.use_flash,
+                            fused_block=self.fused_block,
+                            kernels=self.kernels)
         x = layernorm_flax(x[:, 0], self.post_ln_scale, self.post_ln_bias)
         return x @ self.projection.float()
 

@@ -123,6 +123,8 @@ class Int8VisionTransformer(TowerBase):
     the tensor's device.  Build one from a float tower with
     ``from_float``."""
 
+    batch_multiple = 4        # rows 5 + 7 where 4 divides B, else row 8
+
     def __init__(self, config: VisionConfig = VIT_B16,
                  keep_tokens: int | None = None, kernels: bool = True,
                  device=None, generator: torch.Generator | None = None):
@@ -158,7 +160,7 @@ class Int8VisionTransformer(TowerBase):
             attn, attn_cls, mlp, whole = (
                 qm.quant_attention_block_plain, qm.quant_attention_cls_plain,
                 qm.quant_mlp_block_plain, qm.quant_layer_block_plain)
-        ragged = x.shape[0] % 4 != 0
+        ragged = x.shape[0] % self.batch_multiple != 0
         for i, layer in enumerate(self.blocks):
             last = i == cfg.num_layers - 1
             if ragged and not last:

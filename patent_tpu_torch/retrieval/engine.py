@@ -56,13 +56,18 @@ class RetrievalEngine:
         encode_fn: [B, H, W, 3] numpy batch → [B, D] numpy features.
         device: where the index lives.
         cache_dir: enable the decoded-u8 cache under this directory.
+        mesh: hold the index's rows in blocks over ``mesh["data"]``
+            (``EmbeddingIndex(mesh=...)``); every rank of the mesh builds
+            the engine and calls its index methods alike.
     """
 
     def __init__(self, encode_fn: Encoder, device: torch.device | str,
                  batch_size: int = 128, num_workers: int = 8,
-                 image_size: int = 224, cache_dir: str | None = None):
+                 image_size: int = 224, cache_dir: str | None = None,
+                 mesh=None):
         self.encode_fn = encode_fn
         self.device = torch.device(device)
+        self.mesh = mesh
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.image_size = image_size
@@ -108,7 +113,8 @@ class RetrievalEngine:
         else:
             paths = list(gallery_folder_or_paths)
         emb, names = self.encode_paths(paths)
-        self.index = EmbeddingIndex(emb, names, device=self.device)
+        self.index = EmbeddingIndex(emb, names, device=self.device,
+                                    mesh=self.mesh)
         if save_prefix is not None:
             os.makedirs(os.path.dirname(save_prefix) or ".", exist_ok=True)
             self.index.save(save_prefix)
@@ -116,7 +122,8 @@ class RetrievalEngine:
 
     def load_embeddings(self, prefix: str) -> EmbeddingIndex:
         """Load a saved index."""
-        self.index = EmbeddingIndex.load(prefix, device=self.device)
+        self.index = EmbeddingIndex.load(prefix, device=self.device,
+                                         mesh=self.mesh)
         return self.index
 
     def retrieve_similar_images(self, query_path: str, k: int = 20

@@ -17,6 +17,7 @@ import torch
 
 from ..metrics.retrieval_metrics import RetrievalMetrics, evaluate_rankings
 from ..models.hyperbolic import HyperbolicEmbeddingModel
+from ..parallel.mesh import RowBlocks
 from .index import EmbeddingIndex
 
 
@@ -30,19 +31,26 @@ class HyperbolicRetrievalEngine:
         features: [N, D] Euclidean figure features, numpy or a tensor.
         names: per-row figure names.
         device: where the encoder and the index run.
+        mesh: hold the index's rows in blocks over ``mesh["data"]``; each
+            rank encodes only its block of the gallery's rows.
     """
 
     def __init__(self, model: HyperbolicEmbeddingModel, features,
                  names: Sequence[str], device: torch.device | str,
-                 batch_size: int = 512, quantized: bool = False):
+                 batch_size: int = 512, quantized: bool = False,
+                 mesh=None):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.c = model.c
         self.batch_size = batch_size
+        if mesh is not None:
+            start, stop = RowBlocks("data").bounds(mesh, len(names))
+            features = features[start:stop]
         gallery = self.encode_features(features)
         self.index = EmbeddingIndex(gallery, list(names),
                                     similarity="poincare", c=self.c,
-                                    device=self.device, quantized=quantized)
+                                    device=self.device, quantized=quantized,
+                                    mesh=mesh)
 
     @torch.no_grad()
     def encode_features(self, features) -> torch.Tensor:

@@ -17,8 +17,13 @@ feature and name searches coalesce into one top-k dispatch of the index
 (``MicroBatcher`` below) instead of one dispatch per request, since at
 serving rates the per-dispatch overhead, not the scoring product, bounds
 serialized throughput.  Every touch of the card (a coalesced search, an
-``image_path`` encode and search) happens under the service's one device
-lock, on the thread's current stream.
+``image_path`` encode and search, a gallery row) happens under the
+service's one device lock, on the thread's current stream.
+
+Over a sharded index (``EmbeddingIndex(mesh=...)``) the mesh axis's rank 0
+serves HTTP and leads: each search or row request it makes is first
+broadcast to the other ranks, which run ``follow(engine)`` and join the
+collective search, until ``RetrievalService.close()`` releases them.
 """
 
 from __future__ import annotations
@@ -253,6 +258,11 @@ class RetrievalService:
         self._device_lock = threading.Lock()
         if engine.index is None:
             raise ValueError("engine has no index; encode_dataset first")
+        # any object with the index's search surface can be served; only
+        # an EmbeddingIndex over a mesh leads followers
+        self._sharded = getattr(engine.index, "mesh", None) is not None
+        if self._sharded:
+            engine.index.lead()
         # feature and name searches coalesce across requests; image_path
         # searches (encode + search) share the same device lock, so the two
         # modes never race on the card
@@ -273,6 +283,12 @@ class RetrievalService:
             return None
         return real if os.path.isfile(real) else None
 
+    def close(self) -> None:
+        """Release the followers of a sharded index (a no-op otherwise)."""
+        if self._sharded:
+            with self._device_lock:
+                self.engine.index.release()
+
     def healthz(self) -> dict:
         return {"status": "ok", "gallery_size": len(self.engine.index)}
 
@@ -283,7 +299,7 @@ class RetrievalService:
             "dim": int(idx.embeddings.shape[1]),
             "similarity": idx.similarity,
             "curvature": idx.c,
-            "sharded": False,          # the port's index is on one device
+            "sharded": idx.mesh is not None,
             "batch_size": self.engine.batch_size,
             "image_size": self.engine.image_size,
         }
@@ -345,9 +361,10 @@ class RetrievalService:
                 return {"error": f"ambiguous gallery item (basename "
                                  f"matches multiple rows): "
                                  f"{payload['name']}", "_status": 400}
-            # the stored row, copied to the host: the index keeps its
-            # gallery as a tensor on its device
-            q = self.engine.index.embeddings[row].detach().cpu().numpy()
+            # the stored row, copied to the host (a sharded index fetches
+            # it from the rank that holds it, a collective)
+            with self._device_lock:
+                q = self.engine.index.row(row)
             results = self._named(*self.batcher.search(q[None], k))
         elif "image_path" in payload:
             real = self._resolve_image_path(str(payload["image_path"]))
@@ -426,17 +443,29 @@ def serve(engine, host: str = "127.0.0.1", port: int = 8777,
           block: bool = True,
           data_root: str | None = None) -> ThreadingHTTPServer:
     """Start the retrieval server; returns the server object (with
-    ``block=False`` it runs on a daemon thread).  ``data_root`` opts in to
-    the image_path search mode, restricted to that directory (see
-    ``RetrievalService``)."""
+    ``block=False`` it runs on a daemon thread; ``server.service.close()``
+    after ``server.shutdown()`` releases a sharded index's followers).
+    ``data_root`` opts in to the image_path search mode, restricted to
+    that directory (see ``RetrievalService``)."""
     service = RetrievalService(engine, data_root=data_root)
     handler = type("BoundHandler", (_Handler,), {"service": service})
     server = ThreadingHTTPServer((host, port), handler)
+    server.service = service
     if block:
         print(f"[patent_tpu_torch] serving retrieval on http://{host}:{port}",
               flush=True)
-        server.serve_forever()
+        try:
+            server.serve_forever()
+        finally:
+            service.close()
     else:
         t = threading.Thread(target=server.serve_forever, daemon=True)
         t.start()
     return server
+
+
+def follow(engine) -> int:
+    """On a rank other than 0 of a sharded index's axis: join every
+    search the serving rank makes until its service closes; returns the
+    requests served."""
+    return engine.index.follow()

@@ -13,9 +13,15 @@ patent_tpu/train/finetune_clip.py; retrieval.ipynb cell 20).
   group the last N vision blocks; frozen parameters take no gradient and
   no update (optax's ``set_to_zero``).
 
-The sharded step (``pad_graph_table``, ``shard_finetune_state``,
-``make_sharded_finetune_step``) belongs to the multi-GPU slice and is not
-here.
+The sharded step over a (data, model) mesh (``pad_graph_table``,
+``shard_finetune_state``, ``make_sharded_finetune_step``): each ``data``
+rank runs its block of the [2B] images through the tower, the features
+are all-gathered (the backward keeps this rank's slice) and every rank
+computes the single-device loss on the global batch; the graph table is
+zero-padded and row-sharded over ``model``, its rows gathered from their
+owners.  The tower's gradients, taken before the gather, are summed over
+``data`` before AdamW; the projectors', ``logit_scale``'s and the table's,
+taken after it, are already whole.
 """
 
 from __future__ import annotations
@@ -63,8 +69,14 @@ class AlignmentHead(nn.Module):
     def forward(self, image_features: torch.Tensor, node_idx: torch.Tensor):
         """→ (projected image feats [2B], projected graph feats [B],
         logit scale)."""
+        return self.project(image_features,
+                            self.graph_embedding[node_idx.long()])
+
+    def project(self, image_features: torch.Tensor,
+                graph_rows: torch.Tensor):
+        """``forward`` from the graph table's rows of the batch."""
         z = self.img_proj(image_features)
-        g = self.graph_proj(self.graph_embedding[node_idx.long()])
+        g = self.graph_proj(graph_rows)
         scale = torch.clamp(torch.exp(self.logit_scale), max=100.0)
         return z, g, scale
 
@@ -130,6 +142,14 @@ def init_finetune_state(vision_config: VisionConfig, cfg: ClipFinetuneConfig,
     return model, optimizer
 
 
+def _ft_loss(z, g, scale, alpha):
+    ce = multi_positive_nt_xent(z, scale)
+    align = graph_alignment_cosine(z[:g.shape[0]], g)
+    loss = (1.0 - alpha) * ce + alpha * align
+    return loss, {"loss": loss, "cross_loss": ce, "align_loss": align,
+                  "tau": 1.0 / scale}
+
+
 def make_finetune_step(model: FinetuneModel, optimizer):
     """(step, eval_step), each ``(images [2B] u8 or normalized f32 on the
     model's device, node_idx [B], alpha) → metrics`` (0-d tensors:
@@ -138,12 +158,7 @@ def make_finetune_step(model: FinetuneModel, optimizer):
     from ..retrieval.engine import device_normalize
 
     def loss_fn(images, node_idx, alpha):
-        z, g, scale = model(device_normalize(images), node_idx)
-        ce = multi_positive_nt_xent(z, scale)
-        align = graph_alignment_cosine(z[:node_idx.shape[0]], g)
-        loss = (1.0 - alpha) * ce + alpha * align
-        return loss, {"loss": loss, "cross_loss": ce, "align_loss": align,
-                      "tau": 1.0 / scale}
+        return _ft_loss(*model(device_normalize(images), node_idx), alpha)
 
     def step(images, node_idx, alpha):
         optimizer.zero_grad(set_to_none=True)
@@ -157,6 +172,90 @@ def make_finetune_step(model: FinetuneModel, optimizer):
             return loss_fn(images, node_idx, alpha)[1]
 
     return step, eval_step
+
+
+def pad_graph_table(model: FinetuneModel, optimizer, model_size: int):
+    """Zero-pad the head's ``graph_embedding`` table (and its AdamW
+    moments, where a step made them) to a multiple of ``model_size`` rows,
+    so it can be row-sharded.  Padded rows are inert: no ``node_idx``
+    gathers them, so their gradient and their AdamW update are exactly
+    zero.  Returns (model, optimizer, real rows, padded rows)."""
+    from ..parallel.sharded_train import pad_table_rows
+
+    real, padded = pad_table_rows(model, optimizer, "graph_embedding",
+                                  model_size)
+    return model, optimizer, real, padded
+
+
+def shard_finetune_state(mesh, model: FinetuneModel, optimizer):
+    """Keep this ``model`` rank's row block of the graph table (and of its
+    moments); the tower and the projectors stay on every rank.  A table
+    that does not divide the axis goes through ``pad_graph_table``
+    first."""
+    from ..parallel.sharded_train import shard_table_rows
+
+    shard_table_rows(mesh, model, optimizer, "graph_embedding",
+                     "pad_graph_table")
+    return model, optimizer
+
+
+def make_sharded_finetune_step(mesh, model: FinetuneModel, optimizer):
+    """The fine-tune step over a (data, model) mesh: (step, eval_step,
+    place_batch).
+
+    ``place_batch(images [2B], node_idx [B])``: this rank's blocks of the
+    global batch (host arrays) on its device; both must divide the
+    ``data`` axis.  ``step`` / ``eval_step(images, node_idx, alpha)`` take
+    the placed blocks and return the metrics of the global batch, as the
+    single-device step computes them."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import (RowBlocks, all_gather_rows, axis_group,
+                                 axis_rank, axis_size, gather_rows_grad,
+                                 mesh_device, take_owned_rows)
+    from ..retrieval.engine import device_normalize
+
+    device = mesh_device(mesh)
+    data_g, model_g = axis_group(mesh, "data"), axis_group(mesh, "model")
+    n_data = axis_size(mesh, "data")
+    tower = [p for p in model.vit.parameters() if p.requires_grad]
+
+    def place_batch(images, node_idx):
+        # both arrays: 3 pairs on data=2 divide the 6 images but not the
+        # 3 node indices
+        if images.shape[0] % n_data or node_idx.shape[0] % n_data:
+            raise ValueError(
+                f"global image batch ({images.shape[0]}) and pair count "
+                f"({node_idx.shape[0]}) must divide the data axis "
+                f"({n_data})")
+        rule = RowBlocks("data")
+        return (torch.as_tensor(rule.local(mesh, images)).to(device),
+                torch.as_tensor(rule.local(mesh, node_idx)).to(device))
+
+    def loss_fn(images, node_idx, alpha):
+        feats = gather_rows_grad(model.vit(device_normalize(images)), data_g)
+        nodes = all_gather_rows(node_idx, data_g).long()
+        table = model.head.graph_embedding
+        rows = take_owned_rows(table, nodes,
+                               axis_rank(mesh, "model") * table.shape[0],
+                               model_g)
+        return _ft_loss(*model.head.project(feats, rows), alpha)
+
+    def step(images, node_idx, alpha):
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(images, node_idx, alpha)
+        loss.backward()
+        for p in tower:
+            if p.grad is not None:
+                dist.all_reduce(p.grad, group=data_g)
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def eval_step(images, node_idx, alpha):
+        with torch.no_grad():
+            return loss_fn(images, node_idx, alpha)[1]
+
+    return step, eval_step, place_batch
 
 
 def alpha_schedule(epoch: int, cfg: ClipFinetuneConfig) -> float:

@@ -48,8 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from ..data.prep import TrainingData, figure_pair_maps
-from ..losses.hierarchy import (dist0_band_regularizers,
-                                hierarchical_margin_losses)
+from ..losses.hierarchy import (hierarchical_margin_losses,
+                                instance_band, label_band_mean)
 from ..models.hyperbolic import HyperbolicEmbeddingModel
 from ..models.weights import hyperbolic_params_from_jax, hyperbolic_params_to_jax
 from ..ops import poincare
@@ -243,6 +243,44 @@ def epoch_to_device(arrays, device) -> list[tuple[torch.Tensor, ...]]:
     return [tuple(f[i] for f in fields) for i in range(packed.shape[0])]
 
 
+def loss_from_encodings(cfg: HypTrainConfig, encoded, partner_enc, batch,
+                        take, hierarchy, label_reg):
+    """The step's loss terms from the batch's encodings and its index
+    arrays: ``take(idx)`` gathers label rows, ``hierarchy()`` gives the
+    (inside, disjoint) margins and ``label_reg()`` the label band term,
+    each called where the single-device loss computes it (a row-sharded
+    table passes its own, parallel/sharded_train.py).  → (total,
+    metrics)."""
+    (_figure_idx, pos_patent, neg_patents, _partner, pair_label,
+     valid) = batch
+    c = cfg.curvature
+    n_valid = torch.clamp_min(valid.sum(), 1.0)
+
+    pos_d = poincare.dist(encoded, take(pos_patent), c)
+    neg_d = poincare.dist(encoded[:, None, :], take(neg_patents),
+                          c).mean(dim=1)
+    per = torch.relu(pos_d - neg_d + cfg.margin) * valid
+    retrieval_loss = per.sum() / n_valid
+
+    inside, disjoint = hierarchy()
+    hierarchical_loss = inside + disjoint
+    reg_loss = label_reg() + instance_band(encoded, c)
+
+    logits = -poincare.dist(encoded, partner_enc, c) / cfg.temperature
+    bce = -(pair_label * F.logsigmoid(logits)
+            + (1 - pair_label) * F.logsigmoid(-logits)) * valid
+    figure_pair_loss = bce.sum() / n_valid
+
+    total = (cfg.retrieval_penalty * retrieval_loss
+             + cfg.constraint_penalty * hierarchical_loss
+             + cfg.reg_penalty * reg_loss
+             + cfg.figure_pair_weight * figure_pair_loss)
+    return total, {"total_loss": total, "retrieval_loss": retrieval_loss,
+                   "hierarchical_loss": hierarchical_loss,
+                   "reg_loss": reg_loss,
+                   "figure_pair_loss": figure_pair_loss}
+
+
 def make_loss_fn(model: HyperbolicEmbeddingModel, cfg: HypTrainConfig,
                  num_real_labels: int | None = None):
     """``loss_fn(batch, x_figures, implication, exclusion, generator,
@@ -253,42 +291,18 @@ def make_loss_fn(model: HyperbolicEmbeddingModel, cfg: HypTrainConfig,
 
     def loss_fn(batch, x_figures, implication, exclusion, generator=None,
                 deterministic=False):
-        (figure_idx, pos_patent, neg_patents, pair_b_figure, pair_label,
-         valid) = batch
+        figure_idx, pair_b_figure = batch[0], batch[3]
         all_x = torch.cat([x_figures[figure_idx], x_figures[pair_b_figure]])
         model.train(cfg.use_dropout and not deterministic)
         encoded_all = model(all_x, generator)
         bsz = figure_idx.shape[0]
-        encoded, partner_enc = encoded_all[:bsz], encoded_all[bsz:]
         label_emb = model.label_emb
-        n_valid = torch.clamp_min(valid.sum(), 1.0)
-
-        pos_d = poincare.dist(encoded, take_rows(label_emb, pos_patent), c)
-        neg_d = poincare.dist(encoded[:, None, :],
-                              take_rows(label_emb, neg_patents), c).mean(dim=1)
-        per = torch.relu(pos_d - neg_d + cfg.margin) * valid
-        retrieval_loss = per.sum() / n_valid
-
-        inside, disjoint = hierarchical_margin_losses(label_emb, implication,
-                                                      exclusion, c)
-        hierarchical_loss = inside + disjoint
-        label_reg, instance_reg = dist0_band_regularizers(
-            label_emb, encoded, c, num_valid_labels=num_real_labels)
-        reg_loss = label_reg + instance_reg
-
-        logits = -poincare.dist(encoded, partner_enc, c) / cfg.temperature
-        bce = -(pair_label * F.logsigmoid(logits)
-                + (1 - pair_label) * F.logsigmoid(-logits)) * valid
-        figure_pair_loss = bce.sum() / n_valid
-
-        total = (cfg.retrieval_penalty * retrieval_loss
-                 + cfg.constraint_penalty * hierarchical_loss
-                 + cfg.reg_penalty * reg_loss
-                 + cfg.figure_pair_weight * figure_pair_loss)
-        return total, {"total_loss": total, "retrieval_loss": retrieval_loss,
-                       "hierarchical_loss": hierarchical_loss,
-                       "reg_loss": reg_loss,
-                       "figure_pair_loss": figure_pair_loss}
+        return loss_from_encodings(
+            cfg, encoded_all[:bsz], encoded_all[bsz:], batch,
+            lambda idx: take_rows(label_emb, idx),
+            lambda: hierarchical_margin_losses(label_emb, implication,
+                                               exclusion, c),
+            lambda: label_band_mean(label_emb, c, num_real_labels))
 
     return loss_fn
 

@@ -2522,3 +2522,58 @@ def test_cli_eval_checkpoint_equals_the_same_weights_as_a_finetune(
         emb[kind] = np.load(os.path.join(path, "embeddings", npy))
     assert emb["ft"].shape == (40, 64)
     assert np.array_equal(emb["ft"], emb["hf"])
+
+
+# ---- multi-GPU on torch.distributed (patent_tpu_torch/parallel): the card
+# box has one card, so a world is one NCCL rank, or two gloo ranks sharing
+# the card (NCCL refuses two ranks on one device)
+
+MG_SMALL = dict(n=50_000, d=512, poincare_d=128, queries=16, k=10, c=2.0)
+MG_VISION = dict(image_size=32, patch_size=8, hidden_dim=64, num_layers=2,
+                 num_heads=4, mlp_dim=128, projection_dim=32)
+MG_KERNEL = {"cosine": "bucket_topk_bf16", "quantized": "bucket_topk_int8",
+             "poincare": "bucket_topk_poincare",
+             "sharded_topk_search_cosine_fast": "bucket_topk_bf16",
+             "sharded_topk_search_quantized": "bucket_topk_int8",
+             "sharded_topk_search_poincare_fast": "bucket_topk_poincare"}
+
+
+def _searches_hold(out: dict) -> None:
+    for mode, res in out.items():
+        assert res["equal"], mode
+        if mode in MG_KERNEL:
+            assert all(r[MG_KERNEL[mode]] > 0 for r in res["launches"]), mode
+
+
+def test_sharded_searches_on_one_nccl_rank_launch_the_kernels(cuda):
+    """Every sharded search in a one-rank NCCL world equals the
+    one-process index, and rows 3, 3′ and 4 launch."""
+    from patent_tpu_torch.parallel.launch import run_world
+    from torch_worlds import multi_gpu_world
+
+    out = run_world(1, multi_gpu_world, "cuda",
+                    {"searches": MG_SMALL, "direct": True}, device="cuda",
+                    timeout=300)
+    assert out["backend"] == "nccl"
+    _searches_hold(out["searches"])
+
+
+def test_two_gloo_ranks_on_one_card_search_and_finetune(cuda):
+    """Two gloo ranks sharing the card: the sharded candidate paths over
+    25k rows a rank equal the one-process index on every rank's kernels,
+    and a sharded fine-tune step of a small tower (head_dim 16) equals one
+    process at twice the batch (metrics within 2e-3), rows 12, 13, 15 and
+    16 launching on both ranks."""
+    from patent_tpu_torch.parallel.launch import run_world
+    from torch_worlds import multi_gpu_world
+
+    out = run_world(2, multi_gpu_world, "cuda",
+                    {"searches": MG_SMALL, "finetune": 4,
+                     "vision": MG_VISION}, backend="gloo", device="cuda",
+                    timeout=300)
+    assert out["backend"] == "gloo" and out["ranks"] == 2
+    _searches_hold(out["searches"])
+    ft = out["finetune"]
+    for k, v in ft["single"].items():
+        assert ft["sharded"][k] == pytest.approx(v, rel=2e-3), k
+    assert all(n > 0 for r in ft["launches"] for n in r.values())
