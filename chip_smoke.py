@@ -113,7 +113,18 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    the trained label table against the f64 distance, infer and a
    quantized HyperbolicRetrievalEngine over the trained checkpoint
    (recall@10 against the exact f64 ranking beside the seeded model's),
-   and train_hyp_con --epochs 2 (its loss finite and falling); then the
+   and train_hyp_con --epochs 2 (its loss finite and
+   falling); then the one-dispatch loops as CUDA graphs
+   (patent_tpu_torch/utils/graphs.py), each against its eager loop in
+   bits: train_hyp's make_epoch_step at HypTrainConfig's defaults over
+   the 2018-scale table (dropout on, row 18 captured in the validation
+   epoch), train_hyp_con at its defaults, train_hmi, the GCN pair
+   classifier (sparse) and train_vgae (dense, sampled) on small graphs,
+   and the scan encoder through RetrievalEngine(batch_size=128,
+   scan_batches=4) at ViT-B/16 over 672 images (a full stack and a tail of
+   2 batches), bf16 (rows 1-2) and int8 (rows 5 + 7), beside the eager
+   stack and the per-batch engine, and the int8 scan at B 3 (row 8's
+   cooperative launch captured); then the
    joint CLIP + hyperbolic trainer at EndToEndConfig's defaults (ViT-B/16
    @224, 32 pairs, the last 9 blocks, a head of 256 over the 16,074
    labels): one step with the kernels (rows 12, 13, 15, 16) against one
@@ -204,12 +215,15 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    plain first layer, row 18's launch (CTAs, cluster shape) and device
    time, the label-retrieval mAP over a quarter of the 32k figures (device
    and host parts), and Poincaré top-10 QPS at 1M x 128 through the kernel
-   path against the scan; train_hyp's step (ms, steps/s), an epoch as the
-   trainer runs it, its profile (busy share, top kernels, launches a
-   step) and a map validation with rows 17 and 18's share of it; the
+   path against the scan; the scan encoder's img/s at ViT-B/16, B 128
+   (per-batch, and stacks of 4 and 8 eager and graphed); train_hyp's
+   step eager and graphed (ms, steps/s, busy share, kernels and host
+   launch calls a step), the graphed epoch as the trainer runs it, and a
+   map validation with rows 17 and 18's share of it; the
    train_end step at 32 pairs (ms, img/s, its profile: busy share, rows
    12, 13, 15 and 16's kernels' share, launches a step), a
-   train_class_pro epoch at the 2018 scale and a train_hmi epoch; the
+   train_class_pro epoch at the 2018 scale and a train_hmi epoch, each
+   eager and graphed; the
    text encode at TEXT_B, batch 256, over the 2018 scale's titles
    (texts/s, and the tower alone with its profile) and the HF load of
    ViT-B/16 from each format.
@@ -1947,12 +1961,13 @@ def hyperbolic_training(torch, dev, z: dict, h: dict, run_path, cli,
 
 def hyperbolic_train_times(torch, dev, z: dict, h: dict, label: str) -> None:
     """train_hyp's epoch on the card at HypTrainConfig's defaults from the
-    trained weights: ms a step (CUDA events over the epoch / its steps) and
-    steps/s; an epoch as the trainer runs it (sampling, the copy, the
-    steps, the validation loss, the metrics read) in seconds; the device
-    busy share, the top kernels and the launches a step (torch.profiler
-    over one epoch); a map validation's seconds and rows 17 and 18's share
-    of it."""
+    trained weights, eager and as CUDA graphs (``make_epoch_step``): ms a
+    step (CUDA events over the epoch / its steps) and steps/s; an epoch as
+    the trainer runs it (sampling, the copy, the steps, the validation
+    loss, the metrics read) in seconds; the device busy share, the top
+    kernels, the kernels a step and the host's launch calls a step
+    (torch.profiler over PROFILE_STEPS steps); a map validation's seconds
+    and rows 17 and 18's share of it."""
     import numpy as np
 
     from patent_tpu_torch.train import train_hyp as th
@@ -1960,13 +1975,9 @@ def hyperbolic_train_times(torch, dev, z: dict, h: dict, label: str) -> None:
     from patent_tpu_torch.train.optim import RiemannianAdam
     from patent_tpu_torch.utils.config import HypTrainConfig
 
+    t_all = time.perf_counter()
     cfg = HypTrainConfig()
     td = h["td"]
-    model = th.build_model(td, cfg, dev)
-    model.load_state_dict(h["trained"])
-    opt = RiemannianAdam(dict(model.named_parameters()), cfg.learning_rate,
-                         c=cfg.curvature)
-    loss_fn = th.make_loss_fn(model, cfg)
     x = torch.as_tensor(td.x_figures, device=dev)
     impl = torch.as_tensor(td.implication, dtype=torch.long, device=dev)
     excl = torch.as_tensor(td.exclusion, dtype=torch.long,
@@ -1979,47 +1990,65 @@ def hyperbolic_train_times(torch, dev, z: dict, h: dict, label: str) -> None:
     train_slots = packed.slots_for(packed.usable[perm[:n_train]])
     val_idx = packed.usable[perm[n_train:n_train + n_val]]
     val_slots = packed.slots_for(val_idx)
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    batches = th.epoch_to_device(th.stack_epoch_batches(
-        packed, train_slots, cfg.batch_size, cfg.num_neg_samples, rng), dev)
-    nb = len(batches)
+    arrays = th.stack_epoch_batches(packed, train_slots, cfg.batch_size,
+                                    cfg.num_neg_samples, rng)
+    nb = len(arrays[0])
+    for graphed in (False, True):
+        kind = "graphed" if graphed else "eager"
+        model = th.build_model(td, cfg, dev)
+        model.load_state_dict(h["trained"])
+        opt = RiemannianAdam(dict(model.named_parameters()),
+                             cfg.learning_rate, c=cfg.curvature)
+        train, evaluate = th.make_epoch_step(model, opt, cfg,
+                                             graphed=graphed)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
-    def epoch():
-        th.train_epoch(model, opt, loss_fn, batches, x, impl, excl, gen)
+        def epoch():
+            train(arrays, x, impl, excl, gen)
 
-    ms = cuda_ms(torch, epoch, warmup=0, iters=1)
+        if graphed:
+            epoch()             # the warm-up and the capture
+        ms = cuda_ms(torch, epoch, warmup=0, iters=1)
+        line = (f"[time] train_hyp at HypTrainConfig's defaults, {kind} "
+                f"({len(train_slots)} training figures, batch "
+                f"{cfg.batch_size}: {nb} steps an epoch): {ms / nb:.3f} ms a "
+                f"step, {nb / ms * 1e3:.1f} steps/s (CUDA events over an "
+                f"epoch)")
+        if graphed:
+            # an epoch as the trainer runs it: sampling, the copy, the
+            # steps, the validation epoch, the metrics read
+            t0 = time.perf_counter()
+            sums = train(th.stack_epoch_batches(
+                packed, train_slots, cfg.batch_size, cfg.num_neg_samples,
+                rng), x, impl, excl, gen)
+            evaluate(th.stack_epoch_batches(
+                packed, val_slots, cfg.batch_size, cfg.num_neg_samples, rng),
+                x, impl, excl)["total_loss"].item()
+            torch.stack(list(sums.values())).tolist()
+            line += (f"; an epoch with its sampling, copy and validation "
+                     f"loss {time.perf_counter() - t0:.3f} s")
+        print(f"{line} {label}")
+        # the profiles over the epoch's first PROFILE_STEPS steps (a new
+        # shape, captured before it is profiled): a whole epoch's 340k
+        # kernel events take the profiler minutes to reduce
+        short = tuple(a[:PROFILE_STEPS] for a in arrays)
 
-    def trainer_epoch():
-        arrays = th.stack_epoch_batches(packed, train_slots, cfg.batch_size,
-                                        cfg.num_neg_samples, rng)
-        acc = th.train_epoch(model, opt, loss_fn,
-                             th.epoch_to_device(arrays, dev), x, impl, excl,
-                             gen)
-        varr = th.stack_epoch_batches(packed, val_slots, cfg.batch_size,
-                                      cfg.num_neg_samples, rng)
-        vacc = torch.stack([th.eval_step(loss_fn, b, x, impl, excl)
-                            for b in th.epoch_to_device(varr, dev)])
-        return acc.sum(0).tolist(), float(vacc[:, 0].sum())
+        def short_epoch():
+            train(short, x, impl, excl, gen)
 
-    t0 = time.perf_counter()
-    trainer_epoch()
-    torch.cuda.synchronize()
-    t_epoch = time.perf_counter() - t0
-    print(f"[time] train_hyp at HypTrainConfig's defaults ({len(train_slots)} "
-          f"training figures, batch {cfg.batch_size}: {nb} steps an epoch): "
-          f"{ms / nb:.3f} ms a step, {nb / ms * 1e3:.1f} steps/s (CUDA "
-          f"events over an epoch); an epoch with its sampling, copy and "
-          f"validation loss {t_epoch:.3f} s {label}")
-    rows = launch_times(torch, epoch, iters=1)
-    busy = sum(t * n for _k, t, n in rows)
-    launches = sum(n for _k, _t, n in rows)
-    top = sorted(rows, key=lambda r: -r[1] * r[2])[:8]
-    print(f"[time] train_hyp epoch profile (torch.profiler, one epoch of "
-          f"{nb} steps): {busy:.1f} ms busy of {ms:.1f} ms wall "
-          f"({100 * busy / ms:.1f}%), {launches} launches ({launches / nb:.0f}"
-          f" a step); top kernels: "
-          + "; ".join(f"{t * n:.1f} ms ({n} launches) {k[:60]}"
-                      for k, t, n in top) + f" {label}")
+        rows = launch_times(torch, short_epoch, iters=1)
+        busy = sum(t * n for _k, t, n in rows) / PROFILE_STEPS
+        launches = sum(n for _k, _t, n in rows) / PROFILE_STEPS
+        host = host_launch_calls(torch, short_epoch) / PROFILE_STEPS
+        top = sorted(rows, key=lambda r: -r[1] * r[2])[:6]
+        print(f"[time] train_hyp step profile, {kind} (torch.profiler, "
+              f"{PROFILE_STEPS} steps): {busy:.3f} ms busy a step of "
+              f"{ms / nb:.3f} ms wall ({100 * busy * nb / ms:.1f}%), "
+              f"{launches:.0f} kernels and {host:.1f} host launch calls a "
+              f"step; top kernels (ms a step): "
+              + "; ".join(f"{t * n / PROFILE_STEPS:.3f} ({n // PROFILE_STEPS}"
+                          f" launches) {k[:60]}" for k, t, n in top)
+              + f" {label}")
     fig_pos = h["fig_pos"]
     val = [int(f) for f in val_idx]
 
@@ -2040,10 +2069,277 @@ def hyperbolic_train_times(torch, dev, z: dict, h: dict, label: str) -> None:
           f"{mbusy:.1f} ms busy, of it row 17 {own['row 17']:.2f} ms and "
           f"row 18 {own['row 18']:.2f} ms; rows 17 + 18 are "
           f"{100 * (own['row 17'] + own['row 18']) / (t_map * 1e3 + ms):.3f}%"
-          f" of an epoch with map validation ({t_map + ms / 1e3:.2f} s) "
+          f" of a graphed epoch with map validation ({t_map + ms / 1e3:.2f} "
+          f"s) "
           f"{label}")
     check(own["row 17"] > 0 and own["row 18"] > 0,
           "the map validation's trace shows no row 17 or 18 launch")
+    print(f"[time] (train_hyp's times took {time.perf_counter() - t_all:.1f}"
+          " s)")
+
+
+# ---- the one-dispatch loops as CUDA graphs (utils/graphs.py): JAX's
+# jitted lax.scan epochs and megabatch encoders
+SCAN_DIR = os.path.join(ROOT, "build", "chip_smoke_scan")
+# the scan encoder's stack and batch; 168 patents x 4 figures = 672
+# images, 6 batches of 128: one full stack of 4 and a tail of 2 batches
+SCAN_K, SCAN_B, SCAN_PATENTS = 4, 128, 168
+# train_hyp's profiled steps (phase 5)
+PROFILE_STEPS = 20
+HOST_LAUNCH_RE = re.compile(r"^cu(da)?(Graph)?Launch|LaunchKernel|"
+                            r"LaunchCooperativeKernel")
+
+
+def host_launch_calls(torch, fn) -> int:
+    """The launch calls the host makes in one call of ``fn``
+    (torch.profiler's runtime events: a kernel launch each, a graph's
+    replay one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if HOST_LAUNCH_RE.search(e.key))
+
+
+def state_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return set(a) == set(b) and all(bool(torch.equal(a[k], b[k]))
+                                    for k in a)
+
+
+def same_result(got, want) -> bool:
+    """A trainer's returns equal: state dicts in bits, the rest by ==."""
+    import torch
+
+    if isinstance(got, dict) and got and all(isinstance(v, torch.Tensor)
+                                             for v in got.values()):
+        return state_equal(got, want)
+    if hasattr(got, "test_edges"):       # an edge split: the host's
+        return True
+    return got == want
+
+
+def graph_loops_slice(torch, dev, h: dict, run_path, tower, tower8) -> None:
+    """Each one-dispatch loop as a CUDA graph against its eager loop, in
+    bits: train_hyp's training and validation epochs at HypTrainConfig's
+    defaults over the 2018-scale table (dropout on; row 18 captured in the
+    validation epoch), train_hyp_con at its defaults on the same data,
+    train_hmi, train_pair_classification (the sparse adjacency's segment
+    sums) and train_vgae (dense and sampled) on small graphs, and the scan
+    encoder through RetrievalEngine(scan_batches=4) at ViT-B/16, B 128
+    over a gallery whose last stack is 2 batches (rows 1-2; rows 5 + 7),
+    beside the per-batch engine, then the int8 tower's scan at B 3 (row
+    8's cooperative launch captured)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from patent_tpu_torch.data import hmi_inputs, synthetic
+    from patent_tpu_torch.data.graph_build import build_hetero_graph
+    from patent_tpu_torch.input.pipeline import list_images
+    from patent_tpu_torch.ops import bf16_layer
+    from patent_tpu_torch.ops import pallas_kernels as pk
+    from patent_tpu_torch.ops import quant_matmul as qm
+    from patent_tpu_torch.retrieval.engine import (
+        RetrievalEngine, make_device_normalizing_encoder, make_scan_encoder)
+    from patent_tpu_torch.train import (train_gcn, train_hmi, train_hyp_con,
+                                        train_vgae)
+    from patent_tpu_torch.train import train_hyp as th
+    from patent_tpu_torch.train.optim import RiemannianAdam
+    from patent_tpu_torch.utils.config import (GCNTrainConfig,
+                                               HypConTrainConfig,
+                                               HypTrainConfig)
+    from patent_tpu_torch.utils.logging import MetricsLogger
+
+    t_phase = time.perf_counter()
+    quiet = MetricsLogger(print_every=0)
+    cfg = HypTrainConfig()
+    td = h["td"]
+    packed = th.PackedSupervision(td)
+    rng = np.random.default_rng(cfg.seed)
+    perm = rng.permutation(len(packed.usable))
+    n_train = int(len(packed.usable) * cfg.train_ratio)
+    n_val = int(len(packed.usable) * cfg.val_ratio)
+    train_slots = packed.slots_for(packed.usable[perm[:n_train]])
+    val_slots = packed.slots_for(packed.usable[perm[n_train:n_train + n_val]])
+    epochs = [th.stack_epoch_batches(packed, train_slots, cfg.batch_size,
+                                     cfg.num_neg_samples, rng)]
+    varr = th.stack_epoch_batches(packed, val_slots, cfg.batch_size,
+                                  cfg.num_neg_samples, rng)
+    data = (torch.as_tensor(td.x_figures, device=dev),
+            torch.as_tensor(td.implication, dtype=torch.long,
+                            device=dev).reshape(-1, 2),
+            torch.as_tensor(td.exclusion, dtype=torch.long,
+                            device=dev).reshape(-1, 2))
+    out = {}
+    for graphed in (False, True):
+        def go(graphed=graphed):
+            model = th.build_model(td, cfg, dev)
+            opt = RiemannianAdam(dict(model.named_parameters()),
+                                 cfg.learning_rate, c=cfg.curvature)
+            train, evaluate = th.make_epoch_step(model, opt, cfg,
+                                                 graphed=graphed)
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+            sums = [torch.stack(list(train(a, *data, gen).values()))
+                    for a in epochs]
+            val = torch.stack(list(evaluate(varr, *data).values()))
+            out[graphed] = (sums, val, {k: v.clone() for k, v in
+                                        model.state_dict().items()})
+
+        run_path(f"train_hyp's make_epoch_step at HypTrainConfig's defaults, "
+                 f"a training epoch of {len(epochs[0][0])} steps + a "
+                 f"validation epoch of {len(varr[0])}, "
+                 f"{'graphed' if graphed else 'eager'}",
+                 (pk.mobius_dense_pallas,), go, record=graphed)
+    (se, ve, pe), (sg, vg, pg) = out[False], out[True]
+    same = (all(bool(torch.equal(a, b)) for a, b in zip(se, sg))
+            and bool(torch.equal(ve, vg)) and state_equal(pe, pg))
+    print(f"[slice] train_hyp graphed vs eager (dropout on; {td.num_labels} "
+          f"labels): epoch sums {[s.tolist() for s in sg]}, validation "
+          f"{vg.tolist()}; equal in bits: {same}")
+    check(same, "train_hyp's graphed epochs differ from the eager ones")
+
+    # the other trainers: train_hyp_con at its defaults on the same data,
+    # the rest on small graphs (their 2018-scale epochs are timed in 5)
+    recs = synthetic.synthetic_records(num_patents=10, figures_per_patent=3,
+                                       seed=0)
+    graph = build_hetero_graph(recs)
+    inputs = hmi_inputs.generate_hmi_inputs(graph, seed=1)
+    feats = np.random.default_rng(2).standard_normal(
+        (graph.counts["figures"], 24)).astype(np.float32)
+    grng = np.random.default_rng(3)
+    a = sp.random(600, 600, density=0.01, random_state=grng, format="csr",
+                  dtype=np.float32)
+    a.data[:] = 1.0
+    adj = sp.csr_matrix(((a + a.T) > 0).astype(np.float32))
+    xg = grng.standard_normal((600, 16)).astype(np.float32)
+    pairs = grng.integers(0, 600, (700, 2)).astype(np.int32)
+    labels = grng.integers(0, 5, 700).astype(np.int32)
+    trainers = {
+        "train_hyp_con (HypConTrainConfig defaults, 1 epoch)":
+            lambda g: train_hyp_con.train_hyperbolic_contrastive(
+                td, HypConTrainConfig(epochs=1), logger=quiet, device=dev,
+                graphed=g),
+        "train_hmi (10 patents, 3 epochs)": lambda g: train_hmi.train_hmi(
+            feats, inputs, graph.num_nodes - graph.counts["figures"],
+            embed_dim=8, epochs=3, batch_size=64, logger=quiet, device=dev,
+            graphed=g),
+        "train_pair_classification (600 nodes, sparse, 2 epochs)":
+            lambda g: train_gcn.train_pair_classification(
+                xg, adj, pairs, labels, GCNTrainConfig(
+                    hidden_dim=32, latent_dim=16, num_layers=4, epochs=2,
+                    batch_size=128, adjacency="sparse"), logger=quiet,
+                device=dev, graphed=g),
+        "train_vgae dense (600 nodes, 7 epochs)":
+            lambda g: train_vgae.train_vgae_link_prediction(
+                xg, adj, hidden_dim=16, latent_dim=8, epochs=7,
+                mode="dense", logger=quiet, device=dev, graphed=g),
+        "train_vgae sampled (600 nodes, 7 epochs)":
+            lambda g: train_vgae.train_vgae_link_prediction(
+                xg, adj, hidden_dim=16, latent_dim=8, epochs=7,
+                mode="sampled", logger=quiet, device=dev, graphed=g)}
+    for what, run in trainers.items():
+        t0 = time.perf_counter()
+        eager = run(False)
+        t1 = time.perf_counter()
+        graphed = run(None)
+        t2 = time.perf_counter()
+        same = all(same_result(g, e) for g, e in zip(graphed, eager))
+        print(f"[slice] {what}: graphed equals eager in bits: {same} "
+              f"(eager {t1 - t0:.2f} s, graphed {t2 - t1:.2f} s with its "
+              "warm-up and capture)")
+        check(same, f"{what}: the graphed loop differs from the eager one")
+
+    # the scan encoder through the engine: a full stack of 4 and a tail
+    # of 2 batches padded to 4, graphed and eager, and the per-batch engine
+    shutil.rmtree(SCAN_DIR, ignore_errors=True)
+    _recs, images = synthetic.write_synthetic_corpus(
+        SCAN_DIR, num_patents=SCAN_PATENTS, figures_per_patent=4,
+        image_size=224)
+    gallery = list_images(images)
+    n_batches = -(-len(gallery) // SCAN_B)
+    check(n_batches % SCAN_K == 2, f"{n_batches} batches do not leave a "
+          f"tail of 2 batches in stacks of {SCAN_K}")
+    for kind, model, kernels in (
+            ("bf16", tower, (bf16_layer.fused_layer_block_bf16,
+                             bf16_layer.fused_layer_cls_bf16)),
+            ("int8", tower8, (qm.quant_attention_block,
+                              qm.quant_attention_cls, qm.quant_mlp_block))):
+        feats_by = {}
+
+        def engine_run(key, model=model, feats_by=feats_by):
+            one = make_device_normalizing_encoder(model, dev)
+            many = (None if key == "per-batch" else make_scan_encoder(
+                model, graphed=key == "graphed"))
+            with RetrievalEngine(one, dev, batch_size=SCAN_B,
+                                 scan_batches=1 if many is None else SCAN_K,
+                                 encode_many_fn=many) as engine:
+                feats_by[key] = engine.encode_paths(gallery)[0]
+
+        for key in ("eager", "graphed", "per-batch"):
+            run_path(f"RetrievalEngine(batch_size={SCAN_B}, scan_batches="
+                     f"{SCAN_K if key != 'per-batch' else 1}), {kind} "
+                     f"ViT-B/16, {len(gallery)} images ({n_batches} batches)"
+                     f", {key}", kernels, lambda key=key: engine_run(key),
+                     record=key == "graphed")
+        same = {k: bool(np.array_equal(v, feats_by["graphed"]))
+                for k, v in feats_by.items()}
+        print(f"[slice] scan encoder, {kind}: features of the graphed stack "
+              f"engine equal in bits to {same}; shape "
+              f"{feats_by['graphed'].shape}")
+        check(all(same.values()), f"the {kind} scan encoder's graph "
+              "differs from the eager encoders")
+    px = np.random.default_rng(5).integers(0, 256, (SCAN_K, 3, 224, 224, 3),
+                                           dtype=np.uint8)
+    eager = make_scan_encoder(tower8, graphed=False)(px)
+    scan = make_scan_encoder(tower8)
+    got = {}
+
+    def row8_scan():
+        for i in range(3):            # warm-up, capture + replay, replay
+            got[i] = scan(px)
+
+    run_path(f"int8 scan encoder at B 3, k {SCAN_K} (row 8's cooperative "
+             "launch captured)", (qm.quant_layer_block,), row8_scan)
+    same = all(np.array_equal(v, eager) for v in got.values())
+    print(f"[slice] int8 scan encoder at B 3: graphed equals eager in bits: "
+          f"{same}")
+    check(same, "the int8 scan at B 3 differs from the eager calls")
+    print(f"[slice] CUDA graph phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def scan_encoder_times(torch, dev, tower, tower8, label: str) -> None:
+    """Encode img/s at ViT-B/16, B 128 through the host API (u8 numpy in,
+    features out): the per-batch encoder a batch at a time, against the
+    scan encoder over stacks of 4 and 8 batches, eager and graphed (CUDA
+    events; the graph warmed up and captured first)."""
+    import numpy as np
+
+    from patent_tpu_torch.retrieval.engine import (
+        make_device_normalizing_encoder, make_scan_encoder)
+
+    px = np.random.default_rng(6).integers(0, 256, (8, SCAN_B, 224, 224, 3),
+                                           dtype=np.uint8)
+    t_all = time.perf_counter()
+    for kind, model in (("bf16", tower), ("int8", tower8)):
+        one = make_device_normalizing_encoder(model, dev)
+        ms_one = cuda_ms(torch, lambda: one(px[0]), warmup=2, iters=8)
+        parts = [f"per-batch {SCAN_B / ms_one * 1e3:.1f} img/s "
+                 f"({ms_one:.2f} ms a batch)"]
+        for k in (4, 8):
+            for graphed in (False, True):
+                scan = make_scan_encoder(model, graphed=graphed)
+                ms = cuda_ms(torch, lambda: scan(px[:k]), warmup=2, iters=3)
+                parts.append(f"k {k} {'graphed' if graphed else 'eager'} "
+                             f"{k * SCAN_B / ms * 1e3:.1f} img/s "
+                             f"({ms / k:.2f} ms a batch)")
+        print(f"[time] scan encoder, {kind} ViT-B/16 @224, B {SCAN_B}, host "
+              f"u8 in, features out: " + "; ".join(parts) + f" {label}")
+    print(f"[time] (the scan encoder's times took "
+          f"{time.perf_counter() - t_all:.1f} s)")
 
 
 # ---- the joint trainer (train/train_end.py), HMI (train/train_hmi.py) and
@@ -2400,6 +2696,7 @@ def end_to_end_times(torch, dev, e: dict, h: dict, label: str) -> None:
 
     import numpy as np
 
+    t_all = time.perf_counter()
     cfg = e["cfg"]
     model, opt = te.init_end_to_end(VIT_B16, cfg, e["label_num"], seed=0,
                                     device=dev)
@@ -2434,28 +2731,33 @@ def end_to_end_times(torch, dev, e: dict, h: dict, label: str) -> None:
     pairs = np.asarray(pair_data["pairs"], np.int32)
     labels = np.asarray(pair_data["labels"], np.int32) - 1
     gcfg = GCNTrainConfig(epochs=1, latent_dim=256)
-    t0 = time.perf_counter()
-    _v, hist, _r = train_pair_classification(
-        x, graph.adjacency, pairs, labels, gcfg, device=dev,
-        logger=MetricsLogger(print_every=0))
-    torch.cuda.synchronize()
-    t_gcn = time.perf_counter() - t0
     n_steps = -(-int(len(pairs) * gcfg.train_ratio) // gcfg.batch_size)
-    print(f"[time] train_class_pro, one epoch at the 2018 scale "
-          f"({graph.adjacency.shape[0]} nodes, {n_steps} steps of "
-          f"{gcfg.batch_size} pairs at 512 -> 512 -> 256, the validation and "
-          f"test passes and the adjacency's preparation included): "
-          f"{t_gcn:.2f} s {label}")
     td, inputs = h["td"], h["hmi_inputs"]
     nf = graph.adjacency.shape[0] - (td.num_labels)
-    t0 = time.perf_counter()
-    train_hmi(td.x_figures, inputs, td.num_labels, epochs=1, device=dev,
-              logger=MetricsLogger(print_every=0))
-    torch.cuda.synchronize()
-    t_hmi = time.perf_counter() - t0
     n_pairs = len(inputs.y_pos) + len(inputs.y_neg)
-    print(f"[time] train_hmi, one epoch ({n_pairs} pairs, {n_pairs // 256} "
-          f"steps of 256; {nf} figures): {t_hmi:.2f} s {label}")
+    for graphed in (False, True):
+        kind = "graphed" if graphed else "eager"
+        t0 = time.perf_counter()
+        train_pair_classification(
+            x, graph.adjacency, pairs, labels, gcfg, device=dev,
+            logger=MetricsLogger(print_every=0), graphed=graphed)
+        torch.cuda.synchronize()
+        t_gcn = time.perf_counter() - t0
+        print(f"[time] train_class_pro, one epoch at the 2018 scale, {kind} "
+              f"({graph.adjacency.shape[0]} nodes, {n_steps} steps of "
+              f"{gcfg.batch_size} pairs at 512 -> 512 -> 256, the validation "
+              f"and test passes, the adjacency's preparation and a graph's "
+              f"warm-up and capture included): {t_gcn:.2f} s {label}")
+        t0 = time.perf_counter()
+        train_hmi(td.x_figures, inputs, td.num_labels, epochs=1, device=dev,
+                  logger=MetricsLogger(print_every=0), graphed=graphed)
+        torch.cuda.synchronize()
+        t_hmi = time.perf_counter() - t0
+        print(f"[time] train_hmi, one epoch, {kind} ({n_pairs} pairs, "
+              f"{n_pairs // 256} steps of 256; {nf} figures): {t_hmi:.2f} s "
+              f"{label}")
+    print(f"[time] (the train_end, train_class_pro and train_hmi times took "
+          f"{time.perf_counter() - t_all:.1f} s)")
 
 
 TEXT_DIR = os.path.join(ROOT, "build", "chip_smoke_text")
@@ -2929,8 +3231,9 @@ def mg_hyp_yardstick(torch, np, args, dev) -> tuple:
                                state.items()})
         opt = RiemannianAdam(dict(model.named_parameters()),
                              cfg.learning_rate, c=mk["c"])
-        met = th.train_step(model, opt, th.make_loss_fn(model, cfg), batch,
-                            xs, impl, excl)
+        _grads, met = th.step_grads(model, opt, th.make_loss_fn(model, cfg),
+                                    batch, xs, impl, excl)
+        opt.step(_grads)
         return met.cpu().numpy(), {k: v.detach() for k, v in
                                    model.state_dict().items()}
 
@@ -4340,6 +4643,7 @@ def main() -> None:
     hyperbolic_slice(torch, dev, HYP_SIZES, hyp, run_path, cli)
     hyperbolic_backward(torch, dev, HYP_SIZES)
     hyperbolic_training(torch, dev, HYP_SIZES, hyp, run_path, cli, errs)
+    graph_loops_slice(torch, dev, hyp, run_path, tower, tower8)
     e2e = end_to_end_setup(torch, dev, hyp)
     end_to_end_step_check(torch, dev, run_path, e2e)
     end_to_end_slice(torch, dev, run_path, cli, hyp)
@@ -4397,6 +4701,7 @@ def main() -> None:
     print_breakdown(torch, "f32 per-op tower, use_flash, batch 128",
                     run_tower(f32_tower, True))
     del f32_tower
+    scan_encoder_times(torch, dev, tower, tower8, label)
     for bv in (3, bt - 1):
         def fused_layer_at(pv=pix[:bv]):
             with torch.inference_mode():

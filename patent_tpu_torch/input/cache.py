@@ -1,5 +1,5 @@
 """Decoded-u8 image cache: one decode, many encode passes (the port's copy
-of patent_tpu/input/cache.py, without its ``vacuum``).
+of patent_tpu/input/cache.py).
 
 Post-resize RGB rows, [S, S, 3] uint8, live in ONE append-only file,
 ``decoded_<S>.u8``, beside a JSON manifest keyed by absolute source path
@@ -8,7 +8,7 @@ decoded again.  The files are the JAX package's, so both packages share a
 cache directory: a manifest whose generation disagrees with the
 ``decoded_<S>.gen`` sidecar (left by a vacuum that did not finish) is
 dropped.  One writer process at a time; reads are ``os.pread`` and safe
-from any thread.
+from any thread, also while ``vacuum`` compacts the file.
 """
 
 from __future__ import annotations
@@ -36,7 +36,9 @@ class DecodedU8Cache:
         stem = os.path.join(cache_dir, f"decoded_{self.image_size}")
         self.data_path = stem + ".u8"
         self.manifest_path = stem + ".json"
-        self._generation = self._read_generation(stem + ".gen")
+        self.gen_path = stem + ".gen"
+        self._generation = self._read_generation(self.gen_path)
+        self._retired_fds: list[int] = []
         self._lock = threading.Lock()
         self._entries: dict[str, dict] = {}
         self._appends_since_flush = 0
@@ -82,6 +84,12 @@ class DecodedU8Cache:
         except (OSError, ValueError):
             return 0
 
+    def _write_generation(self, gen: int) -> None:
+        tmp = self.gen_path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(str(gen))
+        os.replace(tmp, self.gen_path)
+
     @staticmethod
     def _sig(path: str) -> list[int] | None:
         try:
@@ -101,7 +109,8 @@ class DecodedU8Cache:
                 self.misses += 1
                 return None
             offset = entry["row"] * self.row_bytes
-        buf = os.pread(self._read_fd, self.row_bytes, offset)
+            fd = self._read_fd       # a vacuum retires it, never closes it
+        buf = os.pread(fd, self.row_bytes, offset)
         with self._lock:
             if len(buf) != self.row_bytes:      # truncated file: a miss
                 self.misses += 1
@@ -152,7 +161,69 @@ class DecodedU8Cache:
             self._closed = True
             self._flush_locked()
             self._append_f.close()
-            os.close(self._read_fd)
+            for fd in [self._read_fd] + self._retired_fds:
+                os.close(fd)
+            self._retired_fds.clear()
+
+    def vacuum(self) -> None:
+        """Rewrite the data file with only the live rows (reclaims the
+        space of rows decoded again or gone stale).
+
+        Failure contract (JAX's): a row shorter than the manifest says (the
+        file truncated behind the manifest) raises ``RuntimeError`` and
+        leaves the cache usable on its original file: the temporary file
+        is removed and no entry or descriptor changes.  A failure while
+        committing (the generation sidecar, the replace, reopening the
+        file) leaves the object usable on its old descriptors, and a crash
+        between the generation bump and the manifest flush is caught at
+        the next open by the sidecar (the sidecar is bumped before the data
+        file is replaced).  A concurrent ``get`` stays right: the old read
+        descriptor is retired, not closed, and rows and descriptors change
+        together under the lock."""
+        with self._lock:
+            # rows still in the append buffer are invisible to pread
+            self._append_f.flush()
+            live = sorted(self._entries.items(), key=lambda kv: kv[1]["row"])
+            tmp = self.data_path + ".tmp"
+
+            def drop_tmp():
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+
+            try:
+                with open(tmp, "wb") as out:
+                    for key, entry in live:
+                        buf = os.pread(self._read_fd, self.row_bytes,
+                                       entry["row"] * self.row_bytes)
+                        if len(buf) != self.row_bytes:
+                            raise RuntimeError(
+                                f"cache row for {key} truncated "
+                                f"({len(buf)} of {self.row_bytes} bytes); "
+                                "data file inconsistent with manifest")
+                        out.write(buf)
+                new_gen = self._generation + 1
+                self._write_generation(new_gen)
+                os.replace(tmp, self.data_path)
+            except BaseException:
+                drop_tmp()
+                raise
+            new_append = open(self.data_path, "ab")
+            try:
+                new_read = os.open(self.data_path, os.O_RDONLY)
+            except OSError:
+                new_append.close()
+                raise
+            old_append, old_read = self._append_f, self._read_fd
+            self._append_f, self._read_fd = new_append, new_read
+            for i, (_key, entry) in enumerate(live):
+                entry["row"] = i
+            self._n_rows = len(live)
+            self._generation = new_gen
+            old_append.close()
+            self._retired_fds.append(old_read)
+            self._flush_locked()
 
     def __enter__(self):
         return self

@@ -53,6 +53,12 @@ def _load():
         lib.patent_io_decode_batch_u8.argtypes = [
             strs, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
             i32p, ctypes.c_int]
+        lib.patent_io_decode.restype = ctypes.c_int
+        lib.patent_io_decode.argtypes = [ctypes.c_char_p, ctypes.c_int, f32p,
+                                         f32p, f32p]
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.patent_io_probe.restype = ctypes.c_int
+        lib.patent_io_probe.argtypes = [ctypes.c_char_p, ip, ip, ip]
     except (OSError, AttributeError):    # missing, or built from older sources
         return None
     _LIB = lib
@@ -61,6 +67,35 @@ def _load():
 
 def native_available() -> bool:
     return _load() is not None
+
+
+def decode_image_native(path: str, image_size: int = 224
+                        ) -> np.ndarray | None:
+    """Native decode of one PNG → [S, S, 3] CLIP-normalized float32; None
+    where the library is missing or the decode fails (the caller decodes
+    with PIL)."""
+    lib = _load()
+    if lib is None:
+        return None
+    out = np.empty((image_size, image_size, 3), np.float32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    rc = lib.patent_io_decode(path.encode(), image_size,
+                              _MEAN.ctypes.data_as(f32p),
+                              _INV_STD.ctypes.data_as(f32p),
+                              out.ctypes.data_as(f32p))
+    return out if rc == 0 else None
+
+
+def probe_native(path: str) -> tuple[int, int, int] | None:
+    """(width, height, channels) of a PNG from its header; None where the
+    library is missing or the file is not one it reads."""
+    lib = _load()
+    if lib is None:
+        return None
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.patent_io_probe(path.encode(), ctypes.byref(w), ctypes.byref(h),
+                             ctypes.byref(c))
+    return (w.value, h.value, c.value) if rc == 0 else None
 
 
 def _c_paths(paths: list[str]):

@@ -565,3 +565,57 @@ def finetune_param_names(model: nn.Module, num_trainable_blocks: int = 9,
         elif name.startswith(("post_ln", "projection")):
             out.add(name)
     return out
+
+
+def fold_u8_normalize_params(state: dict[str, torch.Tensor]
+                             ) -> dict[str, torch.Tensor]:
+    """Fold CLIP's ``(x/255 − mean)/std`` input normalization into the
+    patch embedding and the position embedding (port of JAX's
+    ``fold_u8_normalize_params``), so raw uint8 pixels feed the tower.
+
+    The normalization is affine per input channel and the patch embedding
+    is linear, so it folds exactly:
+
+        conv(x·a + b) = conv(x)·a_folded + Σ_{c,h,w} K[:, c, h, w]·b[c]
+
+    with ``a = 1/(255·std)`` scaling the kernel's input-channel slices and
+    the per-output-channel constant added to the patch rows of the
+    position embedding (the CLS row takes no conv output).  ``state``: a
+    ``VisionTransformer``'s or an ``Int8VisionTransformer``'s state dict
+    (the patch embedding is unquantized in both), or any mapping with
+    ``patch_embed`` [D, 3, p, p] and ``position_embedding`` [P+1, D].
+    Returns a new dict, the other entries shared; the folded weights must
+    only see raw-u8-scale inputs."""
+    from ..input.pipeline import CLIP_MEAN, CLIP_STD
+
+    kernel = state["patch_embed"]
+    pos = state["position_embedding"]
+    k32 = kernel.float()
+    a = torch.as_tensor(1.0 / (255.0 * CLIP_STD), dtype=torch.float32,
+                        device=kernel.device)
+    b = torch.as_tensor(-CLIP_MEAN / CLIP_STD, dtype=torch.float32,
+                        device=kernel.device)
+    bias = torch.einsum("dchw,c->d", k32, b)
+    folded_pos = pos.float().clone()
+    folded_pos[1:] += bias
+    out = dict(state)
+    out["patch_embed"] = (k32 * a[None, :, None, None]).to(kernel.dtype)
+    out["position_embedding"] = folded_pos.to(pos.dtype)
+    return out
+
+
+def fold_u8_tower(model: TowerBase) -> TowerBase:
+    """A tower that takes raw uint8 pixels: a shallow copy of ``model``
+    whose patch and position embeddings are ``fold_u8_normalize_params``'s
+    (new tensors); every other parameter and every layer is shared."""
+    import copy
+
+    folded = fold_u8_normalize_params(
+        {"patch_embed": model.patch_embed.detach(),
+         "position_embedding": model.position_embedding.detach()})
+    tower = copy.copy(model)
+    tower._parameters = dict(model._parameters)
+    for name in ("patch_embed", "position_embedding"):
+        tower._parameters[name] = nn.Parameter(folded[name],
+                                               requires_grad=False)
+    return tower

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .poincare import project
+from .poincare import _c, project
 
 NORM_FLOOR = 1e-6
 
@@ -35,7 +35,7 @@ def _radius_center(p: torch.Tensor, c) -> tuple[torch.Tensor, torch.Tensor]:
     """The curvature-corrected tangent sphere's radius and center."""
     p = project(p, c)
     n = _norm(p)
-    k = -torch.as_tensor(c, dtype=p.dtype, device=p.device)
+    k = -_c(c, p)
     sqrt_neg_k = torch.sqrt(-k)
     radius = (1.0 + k * n * n) / (2.0 * sqrt_neg_k * n)
     center = p * (1.0 + radius * sqrt_neg_k / n)

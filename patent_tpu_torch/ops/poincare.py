@@ -33,8 +33,12 @@ def ball_eps(dtype: torch.dtype) -> float:
 
 
 def _c(c, x: torch.Tensor) -> torch.Tensor:
-    """The curvature as a 0-d tensor of ``x``'s dtype and device."""
-    return torch.as_tensor(c, dtype=x.dtype, device=x.device)
+    """The curvature as a 0-d tensor of ``x``'s dtype and device (a number
+    is filled in on the device: no host copy, which a CUDA graph's capture
+    refuses)."""
+    if isinstance(c, torch.Tensor):
+        return c.to(dtype=x.dtype, device=x.device)
+    return torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def _sqrt_c(c: torch.Tensor) -> torch.Tensor:
@@ -210,3 +214,56 @@ def inner(x: torch.Tensor, u: torch.Tensor, v: torch.Tensor | None = None,
     lam = lambda_x(x, c)
     return lam * lam * (u * v).sum(dim=-1, keepdim=keepdim)
 
+
+
+class PoincareBall:
+    """A stateless handle bundling the curvature with the ops above (port
+    of JAX's ``PoincareBall``; the reference's ``geoopt.PoincareBall(c)``).
+    The JAX names and keywords (``keepdims``)."""
+
+    def __init__(self, c: float = 1.0):
+        self.c = float(c)
+
+    # point ops
+    def projx(self, x):
+        return project(x, self.c)
+
+    def expmap0(self, u):
+        return expmap0(u, self.c)
+
+    def logmap0(self, y):
+        return logmap0(y, self.c)
+
+    def expmap(self, x, u):
+        return expmap(x, u, self.c)
+
+    def dist(self, x, y, *, keepdims=False):
+        return dist(x, y, self.c, keepdim=keepdims)
+
+    def dist0(self, x, *, keepdims=False):
+        return dist0(x, self.c, keepdim=keepdims)
+
+    def pairwise_dist(self, x, y):
+        return pairwise_dist(x, y, self.c)
+
+    def mobius_add(self, x, y):
+        return mobius_add(x, y, self.c)
+
+    def mobius_matvec(self, m, x):
+        return mobius_matvec(m, x, self.c)
+
+    def mobius_fn_apply(self, fn, x):
+        return mobius_fn_apply(fn, x, self.c)
+
+    # tangent ops
+    def egrad2rgrad(self, x, g):
+        return egrad2rgrad(x, g, self.c)
+
+    def ptransp(self, x, y, v):
+        return ptransp(x, y, v, self.c)
+
+    def lambda_x(self, x, *, keepdims=True):
+        return lambda_x(x, self.c, keepdim=keepdims)
+
+    def __repr__(self):
+        return f"PoincareBall(c={self.c})"

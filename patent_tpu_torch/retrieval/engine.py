@@ -1,9 +1,16 @@
 """Encode → index → retrieve → evaluate (port of
-patent_tpu/retrieval/engine.py, one device, no scan batching).
+patent_tpu/retrieval/engine.py).
 
 Host side: ``ImageBatcher`` (threaded decode into fixed-shape u8 batches),
 ``DecodedU8Cache`` and the reference metric battery, the port's own copies
-of the JAX package's host modules.
+of the JAX package's host modules.  Device side: an encoder of one batch
+(``make_device_normalizing_encoder``) or of k stacked batches
+(``make_scan_encoder``, JAX's jitted ``lax.scan``: on the card one CUDA
+graph of the k tower calls a stack shape, replayed), and the index
+(retrieval/index.py).  ``RetrievalEngine(scan_batches=k)`` sends full
+stacks of k batches through the stack encoder and pads the tail stack
+with copies of its last batch, whose outputs are dropped, as JAX's engine
+does.
 """
 
 from __future__ import annotations
@@ -18,34 +25,107 @@ import torch
 from ..input.cache import DecodedU8Cache
 from ..input.pipeline import CLIP_MEAN, CLIP_STD, ImageBatcher, list_images
 from ..metrics.retrieval_metrics import RetrievalMetrics, evaluate_rankings
+from ..models.vit import fold_u8_tower
+from ..utils.graphs import StepGraph, graphed_on
 from .index import EmbeddingIndex
 
 Encoder = Callable[[np.ndarray], np.ndarray]
 
 
-def device_normalize(batch: torch.Tensor) -> torch.Tensor:
+def clip_constants(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """CLIP's mean and 1/std on ``device`` (made before a CUDA graph's
+    capture, which refuses host copies)."""
+    return (torch.as_tensor(CLIP_MEAN, device=device),
+            torch.as_tensor(1.0 / CLIP_STD, device=device))
+
+
+def device_normalize(batch: torch.Tensor,
+                     constants: tuple | None = None) -> torch.Tensor:
     """CLIP-normalize a uint8 batch on its device, ``(x/255 − mean)/std``;
-    float batches pass through (taken as normalized already)."""
+    float batches pass through (taken as normalized already).
+    ``constants``: ``clip_constants`` of the batch's device."""
     if batch.dtype == torch.uint8:
-        mean = torch.as_tensor(CLIP_MEAN, device=batch.device)
-        inv_std = torch.as_tensor(1.0 / CLIP_STD, device=batch.device)
+        mean, inv_std = (clip_constants(batch.device) if constants is None
+                         else constants)
         batch = (batch.float() / 255.0 - mean) * inv_std
     return batch
 
 
+def _tower_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _u8_only(batch) -> None:
+    if batch.dtype not in (np.uint8, torch.uint8):
+        raise ValueError("fold_u8 encoder accepts uint8 batches only "
+                         "(weights are normalization-folded)")
+
+
 def make_device_normalizing_encoder(model: torch.nn.Module,
-                                    device: torch.device | str) -> Encoder:
+                                    device: torch.device | str | None = None,
+                                    fold_u8: bool = False) -> Encoder:
     """Encoder taking host uint8 (or normalized f32) NHWC batches: the
-    batch moves to ``device`` as it is, is normalized there, and the
-    features come back as an f32 numpy array."""
-    device = torch.device(device)
+    batch moves to ``device`` (the model's by default) as it is, is
+    normalized there, and the features come back as an f32 numpy array.
+    ``fold_u8``: the normalization folded into the tower's patch and
+    position embeddings instead (``models.vit.fold_u8_tower``); the
+    encoder then takes uint8 batches only."""
+    device = _tower_device(model) if device is None else torch.device(device)
+    tower = fold_u8_tower(model) if fold_u8 else model
+    constants = clip_constants(device)
 
     def encode(batch: np.ndarray) -> np.ndarray:
+        if fold_u8:
+            _u8_only(batch)
         x = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
         with torch.inference_mode():
-            return model(device_normalize(x)).float().cpu().numpy()
+            x = x if fold_u8 else device_normalize(x, constants)
+            return tower(x).float().cpu().numpy()
 
     return encode
+
+
+def make_scan_encoder(model: torch.nn.Module, fold_u8: bool = False,
+                      device: torch.device | str | None = None,
+                      graphed: bool | None = None) -> Encoder:
+    """JAX's ``make_scan_encoder``: [k, B, H, W, 3] (uint8, or normalized
+    f32) → [k, B, D] f32 numpy features, the k batches encoded one after
+    another.  On the card (``graphed``; see ``utils.graphs.graphed_on``)
+    one CUDA graph of the k tower calls per (k, B, H, W, input dtype),
+    captured at the second call of that shape (the first is the eager
+    warm-up) and replayed from a static input buffer; elsewhere, or with
+    ``graphed=False``, the same calls eagerly.  ``fold_u8``: as in
+    ``make_device_normalizing_encoder``, uint8 only."""
+    device = _tower_device(model) if device is None else torch.device(device)
+    tower = fold_u8_tower(model) if fold_u8 else model
+    graphed = graphed_on(device, graphed)
+    constants = clip_constants(device)
+    slots: dict = {}
+
+    @torch.no_grad()
+    def encode_stack(x: torch.Tensor) -> torch.Tensor:
+        return torch.stack([
+            tower(x[j] if fold_u8 else device_normalize(x[j], constants))
+            .float() for j in range(x.shape[0])])
+
+    def run(batches) -> np.ndarray:
+        if fold_u8:
+            _u8_only(batches)
+        host = torch.as_tensor(np.ascontiguousarray(batches)) \
+            if isinstance(batches, np.ndarray) else batches
+        if not graphed:
+            return encode_stack(host.to(device)).cpu().numpy()
+        key = (tuple(host.shape), host.dtype)
+        slot = slots.get(key)
+        if slot is None:
+            static = torch.empty(host.shape, dtype=host.dtype, device=device)
+            slot = slots[key] = (static, StepGraph(
+                lambda: encode_stack(static)))
+        static, graph = slot
+        static.copy_(host)
+        return graph().cpu().numpy()
+
+    return run
 
 
 class RetrievalEngine:
@@ -59,15 +139,35 @@ class RetrievalEngine:
         mesh: hold the index's rows in blocks over ``mesh["data"]``
             (``EmbeddingIndex(mesh=...)``); every rank of the mesh builds
             the engine and calls its index methods alike.
+        scan_batches / encode_many_fn: with ``scan_batches`` = k > 1,
+            batches go to ``encode_many_fn`` ([k, B, H, W, 3] → [k, B, D],
+            ``make_scan_encoder``) in stacks of k; a short last stack of
+            two or more batches is padded with copies of its last batch
+            (the same stack shape, the same graph) and the copies'
+            outputs dropped; a last stack of one batch goes to
+            ``encode_fn``.
+        input_dtype: "u8" (the default here: raw uint8 batches, normalized
+            on the device) or "f32" (normalized on the host); the
+            encoders above take both, a ``fold_u8`` one only "u8".
     """
 
     def __init__(self, encode_fn: Encoder, device: torch.device | str,
                  batch_size: int = 128, num_workers: int = 8,
                  image_size: int = 224, cache_dir: str | None = None,
-                 mesh=None):
+                 mesh=None, scan_batches: int = 1,
+                 encode_many_fn: Encoder | None = None,
+                 input_dtype: str = "u8"):
         self.encode_fn = encode_fn
         self.device = torch.device(device)
         self.mesh = mesh
+        self.scan_batches = max(1, scan_batches)
+        self.encode_many_fn = encode_many_fn
+        if self.scan_batches > 1 and encode_many_fn is None:
+            raise ValueError("scan_batches > 1 requires encode_many_fn "
+                             "(build one with make_scan_encoder)")
+        if input_dtype not in ("f32", "u8"):
+            raise ValueError(f"input_dtype must be 'f32'|'u8', {input_dtype}")
+        self.input_dtype = input_dtype
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.image_size = image_size
@@ -92,13 +192,35 @@ class RetrievalEngine:
         batcher = ImageBatcher(image_paths, batch_size=self.batch_size,
                                image_size=self.image_size,
                                num_workers=self.num_workers,
-                               out_dtype="u8", cache=self._cache)
+                               out_dtype=self.input_dtype, cache=self._cache)
         embs, names = [], []
+        pending: list[tuple[np.ndarray, list[str], int]] = []
+
+        def flush():
+            if self.scan_batches > 1 and len(pending) > 1:
+                # only full stacks ride the stack encoder: a short last
+                # stack is padded with copies of its last batch (one
+                # stack shape, one graph) and their outputs dropped; a
+                # last stack of one batch takes the batch encoder
+                stack = [b for b, _, _ in pending]
+                stack += [stack[-1]] * (self.scan_batches - len(stack))
+                outs = self.encode_many_fn(np.stack(stack))
+                for i, (_b, paths, n_valid) in enumerate(pending):
+                    embs.append(outs[i, :n_valid])
+                    names.extend(paths)
+            else:
+                for batch, paths, n_valid in pending:
+                    embs.append(self.encode_fn(batch)[:n_valid])
+                    names.extend(paths)
+            pending.clear()
+
         for batch, paths, n_valid in batcher:
             if n_valid == 0:
                 continue
-            embs.append(self.encode_fn(batch)[:n_valid])
-            names.extend(paths)
+            pending.append((batch, paths, n_valid))
+            if len(pending) >= self.scan_batches:
+                flush()
+        flush()
         if self._cache is not None:
             self._cache.flush()
         if not embs:

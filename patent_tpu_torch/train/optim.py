@@ -76,44 +76,112 @@ def _tree(flat: Mapping[str, torch.Tensor]) -> dict:
 
 class _Adam:
     """The state and the step shared by both optimizers; ``_leaf`` gives a
-    parameter's update and its new moments."""
+    parameter's update and its new moments.
+
+    The state is graph-safe: a CUDA graph of a step (utils/graphs.py)
+    replays what it captured, so nothing a step reads may be a Python
+    number or a tensor the step rebinds.  The count is an int32 device
+    tensor; the bias corrections and the learning rate of each count come
+    from an f32 table on the device (``reserve``), computed on the host in
+    numpy as optax computes them; moments and parameters are updated in
+    place.  ``step`` = ``reserve(1)`` + ``update`` + ``advance(1)``; a
+    graphed loop reserves its steps, replays ``update`` and advances."""
+
+    WINDOW = 256        # the table's rows at least (steps ahead)
 
     def __init__(self, params: Mapping[str, torch.nn.Parameter], lr: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.params = dict(params)
         self.names = jax_order(self.params)
         self.lr, self.b1, self.b2, self.eps = float(lr), b1, b2, eps
-        self.count = 0
+        device = next(iter(self.params.values())).device \
+            if self.params else torch.device("cpu")
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.steps = 0            # the count, on the host
+        self._rates: torch.Tensor | None = None   # [rows, 3] bc1, bc2, −lr
+        self._first = torch.zeros((), dtype=torch.int32, device=device)
+        self._first_host = 0      # the count of the table's row 0
         self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+
+    def learning_rate(self, count: int) -> float:
+        """The learning rate of the step that makes the count ``count``."""
+        return self.lr
+
+    def rates(self, count: int) -> tuple:
+        """(bc1, bc2, −lr) of the step that makes the count ``count``: bc =
+        1 − β^count in f32, as optax takes it, and the update's scale."""
+        c32 = np.float32(count)
+        return (np.float32(1.0) - np.float32(self.b1) ** c32,
+                np.float32(1.0) - np.float32(self.b2) ** c32,
+                -np.float32(self.learning_rate(count)))
+
+    def reserve(self, n: int) -> bool:
+        """Make the table cover the next ``n`` steps (one host → device
+        copy where it does not yet).  A refill rewrites every row of the
+        table from the new base, so that each row it covers is that of its
+        count.  True where the table moved, so that a graph captured
+        before must be captured again."""
+        lo = self.steps + 1
+        held = 0 if self._rates is None else self._rates.shape[0]
+        if (held and self._first_host <= lo
+                and lo + n <= self._first_host + held):
+            return False
+        rows = max(n, self.WINDOW, held)
+        table = torch.from_numpy(np.asarray(
+            [self.rates(lo + i) for i in range(rows)], np.float32))
+        moved = held < rows
+        if moved:
+            self._rates = table.to(self.count.device)
+        else:
+            self._rates.copy_(table)
+        self._first.fill_(lo)
+        self._first_host = lo
+        return moved
+
+    def advance(self, n: int) -> None:
+        """``n`` steps ran (``update`` n times, eagerly or replayed)."""
+        self.steps += n
 
     @torch.no_grad()
     def step(self, grads: Mapping[str, torch.Tensor]) -> None:
         """One update of every parameter in place from ``grads``."""
-        self.count += 1
-        c32 = np.float32(self.count)
-        bc1 = float(np.float32(1.0) - np.float32(self.b1) ** c32)
-        bc2 = float(np.float32(1.0) - np.float32(self.b2) ** c32)
+        self.reserve(1)
+        self.update(grads)
+        self.advance(1)
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor]) -> None:
+        """The step's device work alone, after ``reserve``: no host
+        number, no host read, every state tensor updated in place (``_leaf``
+        writes the moments into their tensors where it can)."""
+        self.count.add_(1)
+        bc1, bc2, scale = self._rates.index_select(
+            0, (self.count - self._first).view(1))[0]
         for n in self.names:
-            p = self.params[n]
-            update, self.mu[n], self.nu[n] = self._leaf(
-                n, p, grads[n], self.mu[n], self.nu[n], bc1, bc2)
+            p, mu, nu = self.params[n], self.mu[n], self.nu[n]
+            update, mu_new, nu_new = self._leaf(n, p, grads[n], mu, nu, bc1,
+                                                bc2, scale)
+            if mu_new is not mu:
+                mu.copy_(mu_new)
+            if nu_new is not nu:
+                nu.copy_(nu_new)
             p.add_(update)
 
     def state_tree(self) -> RiemannianAdamState:
         """The state as JAX's optimizer state flattens: the count (int32),
         then the moments as trees of the JAX names."""
-        return RiemannianAdamState(np.asarray(self.count, np.int32),
+        return RiemannianAdamState(np.asarray(self.count.item(), np.int32),
                                    _tree(self.mu), _tree(self.nu))
 
     def load_state_leaves(self, leaves) -> None:
         """Restore from the flat leaves of a checkpoint's ``opt_state``:
-        the count, then the moments' leaves in JAX's order."""
+        the count, then the moments' leaves in JAX's order (copied into
+        the state tensors in place)."""
         n = len(self.names)
         if len(leaves) != 1 + 2 * n:
             raise ValueError(f"optimizer state has {len(leaves)} leaves, "
                              f"want {1 + 2 * n}")
-        self.count = int(np.asarray(leaves[0]))
         for i, name in enumerate(self.names):
             p = self.params[name]
             for moments, leaf in ((self.mu, leaves[1 + i]),
@@ -123,7 +191,10 @@ class _Adam:
                     raise ValueError(f"optimizer state of {name}: shape "
                                      f"{tuple(leaf.shape)}, want "
                                      f"{tuple(p.shape)}")
-                moments[name] = leaf.to(p.device)
+                moments[name].copy_(leaf)
+        self.steps = int(np.asarray(leaves[0]))
+        self.count.fill_(self.steps)
+        self._rates = None      # the next reserve fills it from the count
 
 
 class RiemannianAdam(_Adam):
@@ -143,23 +214,23 @@ class RiemannianAdam(_Adam):
         self.max_norm = float(np.float32(10.0)
                               / np.float32(max(self.lr, 1e-12)))
 
-    def _leaf(self, name, p, g, mu, nu, bc1, bc2):
-        b1, b2, eps, lr, c = self.b1, self.b2, self.eps, self.lr, self.c
+    def _leaf(self, name, p, g, mu, nu, bc1, bc2, scale):
+        b1, b2, eps, c = self.b1, self.b2, self.eps, self.c
         if self.mask[name]:
             r = poincare.egrad2rgrad(p, g, c)
-            mu_new = b1 * mu + (1.0 - b1) * r
-            nu_new = b2 * nu + (1.0 - b2) * r * r
+            mu_new = torch.add(b1 * mu, (1.0 - b1) * r, out=mu)
+            nu_new = torch.add(b2 * nu, (1.0 - b2) * r * r, out=nu)
             direction = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps)
             dir_norm = torch.linalg.norm(direction, dim=-1, keepdim=True)
             direction = direction * torch.clamp(
                 self.max_norm / torch.clamp_min(dir_norm, 1e-12), max=1.0)
-            p_new = poincare.project(poincare.expmap(p, -lr * direction, c),
-                                     c)
+            p_new = poincare.project(poincare.expmap(p, scale * direction,
+                                                     c), c)
             mu_new = poincare.ptransp(p, p_new, mu_new, c)
             return p_new - p, mu_new, nu_new
-        mu_new = b1 * mu + (1.0 - b1) * g
-        nu_new = b2 * nu + (1.0 - b2) * g * g
-        step = -lr * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps)
+        mu_new = torch.add(b1 * mu, (1.0 - b1) * g, out=mu)
+        nu_new = torch.add(b2 * nu, (1.0 - b2) * g * g, out=nu)
+        step = scale * (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps)
         return step, mu_new, nu_new
 
 
@@ -167,11 +238,11 @@ class Adam(_Adam):
     """optax.adam: scale_by_adam then the learning rate, in optax's order
     of roundings."""
 
-    def _leaf(self, name, p, g, mu, nu, bc1, bc2):
-        mu_new = (1 - self.b1) * g + self.b1 * mu
-        nu_new = (1 - self.b2) * (g * g) + self.b2 * nu
+    def _leaf(self, name, p, g, mu, nu, bc1, bc2, scale):
+        mu_new = torch.add((1 - self.b1) * g, self.b1 * mu, out=mu)
+        nu_new = torch.add((1 - self.b2) * (g * g), self.b2 * nu, out=nu)
         u = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
-        return -self.lr * u, mu_new, nu_new
+        return scale * u, mu_new, nu_new
 
 
 class AdamW(Adam):
@@ -187,14 +258,15 @@ class AdamW(Adam):
         self.weight_decay = weight_decay
         self.schedule = schedule
 
-    def _leaf(self, name, p, g, mu, nu, bc1, bc2):
-        mu_new = (1 - self.b1) * g + self.b1 * mu
-        nu_new = (1 - self.b2) * (g * g) + self.b2 * nu
+    def learning_rate(self, count: int) -> float:
+        return self.lr if self.schedule is None else self.schedule(count - 1)
+
+    def _leaf(self, name, p, g, mu, nu, bc1, bc2, scale):
+        mu_new = torch.add((1 - self.b1) * g, self.b1 * mu, out=mu)
+        nu_new = torch.add((1 - self.b2) * (g * g), self.b2 * nu, out=nu)
         u = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + self.eps)
         u = u + self.weight_decay * p
-        lr = self.lr if self.schedule is None else self.schedule(
-            self.count - 1)
-        return -lr * u, mu_new, nu_new
+        return scale * u, mu_new, nu_new
 
 
 def exponential_decay(init_value: float, transition_steps: int,

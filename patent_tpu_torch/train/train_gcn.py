@@ -12,7 +12,11 @@ one batch of pairs; an epoch's ragged tail is padded cyclically from the
 pool with weight 0 (the padded rows pass through the classifier but add
 nothing to the loss).  The host stream (split, shuffles, padding) is
 JAX's, from one ``np.random.default_rng(cfg.seed)``; the dropout masks
-come from a seeded ``torch.Generator`` on the device.
+come from a seeded ``torch.Generator`` on the device.  An epoch runs as
+JAX's one-dispatch scan does: on the card one CUDA graph of a step
+(utils/graphs.py ``ScanLoop``), replayed once a batch, the generator
+registered with it, BatchNorm's running statistics and the optimizer's
+state updated in place.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ..models.gcn import (EnhancedVGAE, normalize_adjacency,
                           normalize_adjacency_host,
                           normalize_adjacency_sparse)
 from ..utils.config import GCNTrainConfig
+from ..utils.graphs import ScanLoop, upload
 from ..utils.logging import MetricsLogger
 from .optim import AdamW, exponential_decay
 
@@ -58,10 +63,13 @@ def train_pair_classification(x: np.ndarray, adjacency,
                               pairs: np.ndarray, labels: np.ndarray,
                               cfg: GCNTrainConfig,
                               logger: MetricsLogger | None = None,
-                              device: torch.device | str = "cuda"
+                              device: torch.device | str = "cuda",
+                              graphed: bool | None = None
                               ) -> tuple[dict, dict, dict]:
     """Returns (state dict of the best epoch, history, test report).
-    ``adjacency``: dense or scipy-sparse (``prepare_adjacency``)."""
+    ``adjacency``: dense or scipy-sparse (``prepare_adjacency``).
+    ``graphed``: the training epochs as CUDA graphs (by default on the
+    card)."""
     device = torch.device(device)
     logger = logger or MetricsLogger(print_every=20)
     rng = np.random.default_rng(cfg.seed)
@@ -104,21 +112,30 @@ def train_pair_classification(x: np.ndarray, adjacency,
         ce = F.cross_entropy(logits, labels_dev[idx], reduction="none")
         return (ce * wt).sum() / torch.clamp_min(wt.sum(), 1.0)
 
+    buf: dict = {"mats": None}
+
+    def step(i):
+        mats = buf["mats"].index_select(1, i.view(1))
+        idx, wt = mats[0, 0].long(), mats[1, 0].view(torch.float32)
+        for p in params.values():
+            p.grad = None
+        logits = model.encode_and_classify(x_dev, a_tilde, pairs_dev[idx],
+                                           gen)
+        loss = batch_loss(logits, idx, wt)
+        loss.backward()
+        optimizer.update({n: p.grad for n, p in params.items()})
+        return loss.detach()
+
+    loop = ScanLoop(step, device, graphed)
+
     def train_epoch(idx_mat, wt_mat) -> float:
         model.train()
-        idx_mat = torch.as_tensor(idx_mat, device=device)
-        wt_mat = torch.as_tensor(wt_mat, device=device)
-        losses = []
-        for idx, wt in zip(idx_mat, wt_mat):
-            for p in params.values():
-                p.grad = None
-            logits = model.encode_and_classify(x_dev, a_tilde,
-                                               pairs_dev[idx], gen)
-            loss = batch_loss(logits, idx, wt)
-            loss.backward()
-            optimizer.step({n: p.grad for n, p in params.items()})
-            losses.append(loss.detach())
-        return float(torch.stack(losses).mean())
+        # indices and weights (by their bits) in one int32 copy
+        buf["mats"] = upload(buf["mats"], np.stack(
+            [idx_mat.astype(np.int32), wt_mat.view(np.int32)]), device)
+        losses = loop.run_updates(optimizer, idx_mat.shape[0], 1,
+                                  (buf["mats"],), (gen,))
+        return float(losses.mean())
 
     @torch.no_grad()
     def evaluate(idx_pool) -> tuple[float, float, np.ndarray]:

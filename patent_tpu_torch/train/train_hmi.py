@@ -15,8 +15,11 @@ ships no training code for it.  This trains HMI on the inputs of
   regularizers (``losses/hierarchy.hmi_losses``);
 * Riemannian Adam at c = 1 on the label table and the hyperbolic bias.
 
-JAX runs each epoch's steps as one ``lax.scan``; here they are a plain
-loop whose losses stay on the device until the epoch's mean.
+JAX runs each epoch's steps as one ``lax.scan``; here the epoch is one
+``ScanLoop`` (utils/graphs.py): on the card a CUDA graph of a step,
+replayed once a batch, the batch's rows picked by a device index from the
+epoch's index matrix (one copy to the device into a static buffer) and
+the losses written to a device buffer, read once an epoch as their mean.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..losses.hierarchy import hmi_losses
 from ..models.hyperbolic import HMI
 from ..ops.horosphere import disjointedness_unit, insideness_unit
 from ..ops.rows import take_rows
+from ..utils.graphs import ScanLoop, upload
 from ..utils.logging import MetricsLogger
 from .optim import RiemannianAdam
 
@@ -54,11 +58,13 @@ def train_hmi(features: np.ndarray, inputs: HMIInputs, num_labels: int,
               inside_weight: float = 1.0, disjoint_weight: float = 1.0,
               reg_weight: float = 0.01, seed: int = 42,
               logger: MetricsLogger | None = None,
-              device: torch.device | str = "cuda") -> tuple[dict, dict]:
+              device: torch.device | str = "cuda",
+              graphed: bool | None = None) -> tuple[dict, dict]:
     """Returns (state dict, history {"train_loss": per-epoch means}).
 
     ``features``: [num_figures, D] Euclidean figure features.
-    ``inputs.y_pos/y_neg``: (figure index, absolute label index) pairs."""
+    ``inputs.y_pos/y_neg``: (figure index, absolute label index) pairs.
+    ``graphed``: the epochs as CUDA graphs (by default on the card)."""
     device = torch.device(device)
     logger = logger or MetricsLogger(print_every=10)
     rng = np.random.default_rng(seed)
@@ -101,6 +107,19 @@ def train_hmi(features: np.ndarray, inputs: HMIInputs, num_labels: int,
     history: dict[str, list] = {"train_loss": []}
     n = len(pairs)
     it = 0
+    buf: dict = {"idx": None}
+
+    def step(i):
+        for p in optimizer.params.values():
+            p.grad = None
+        rows = buf["idx"].index_select(0, i.view(1))[0]
+        loss = loss_fn(pairs_dev[rows, 0], pairs_dev[rows, 1],
+                       targets_dev[rows])
+        loss.backward()
+        optimizer.update({k: p.grad for k, p in optimizer.params.items()})
+        return loss.detach()
+
+    loop = ScanLoop(step, device, graphed)
     for epoch in range(1, epochs + 1):
         n_steps = n // batch_size
         if n_steps:
@@ -109,20 +128,11 @@ def train_hmi(features: np.ndarray, inputs: HMIInputs, num_labels: int,
             n_steps = 1
             idx = rng.choice(n, size=min(batch_size, n),
                              replace=n < batch_size)
-        idx = torch.from_numpy(idx.reshape(n_steps, -1)).to(device)
-        losses = []
-        for s in range(n_steps):
-            for p in optimizer.params.values():
-                p.grad = None
-            rows = idx[s]
-            loss = loss_fn(pairs_dev[rows, 0], pairs_dev[rows, 1],
-                           targets_dev[rows])
-            loss.backward()
-            optimizer.step({k: p.grad for k, p in
-                            optimizer.params.items()})
-            losses.append(loss.detach())
+        buf["idx"] = upload(buf["idx"], idx.reshape(n_steps, -1), device)
+        losses = loop.run_updates(optimizer, n_steps, 1,
+                                  (buf["idx"],))
         it += n_steps
-        tot = float(torch.stack(losses).mean())
+        tot = float(losses.mean())
         history["train_loss"].append(tot)
         logger.log(it, {"epoch": epoch, "train_loss": tot})
     return {k: v.detach() for k, v in model.state_dict().items()}, history

@@ -18,15 +18,18 @@ no kernel of the port.  ``validate_with="map"`` and the final test mAP run
 ``evaluate_retrieval_map``, whose no-grad encode and label ranking launch
 rows 18 and 17 on the card.
 
-The epoch keeps what JAX's one-dispatch ``lax.scan`` buys without a scan:
+An epoch runs as JAX's one-dispatch ``lax.scan`` does (``make_epoch_step``):
 the batches are sampled on the host with JAX's numpy stream
-(``stack_epoch_batches``, the same arrays), copied to the device once an
-epoch; the features and the pair sets stay on the device; the metrics are
-summed on the device and read once an epoch.  Dropout draws from a
-``torch.Generator`` on the device seeded from ``cfg.seed``, and the label
-table's gathers sum their gradients in a fixed order (ops/rows.py), so a
-run gives the same bits every time on the same device, and a resumed run
-those of an uninterrupted one.
+(``stack_epoch_batches``, the same arrays) and copied to the device once an
+epoch into a static buffer; on the card one CUDA graph of a step
+(utils/graphs.py) is replayed once a batch, the batch picked by a device
+index, the metrics written to a device buffer and read once an epoch.  The
+CPU runs the same step as an eager loop.  Dropout draws from a
+``torch.Generator`` on the device seeded from ``cfg.seed`` (registered
+with the graph, so a replay draws the masks an eager step would), and the
+label table's gathers sum their gradients in a fixed order (ops/rows.py),
+so a run gives the same bits every time on the same device, graphed or
+eager, and a resumed run those of an uninterrupted one.
 
 Checkpoints use the JAX layout and names (``latest``,
 ``best_retrieval_model_c{c}_e{d}``), so ``--resume`` continues a run of
@@ -57,6 +60,7 @@ from ..ops.rows import take_rows
 from ..retrieval.cli_actions import select_device
 from ..utils.checkpoint import CheckpointManager
 from ..utils.config import HypTrainConfig
+from ..utils.graphs import ScanLoop, upload
 from ..utils.logging import MetricsLogger
 from .optim import RiemannianAdam, global_norm
 
@@ -226,21 +230,25 @@ def stack_epoch_batches(packed: PackedSupervision, slots: np.ndarray,
                  for f in BATCH_FIELDS)
 
 
-def epoch_to_device(arrays, device) -> list[tuple[torch.Tensor, ...]]:
-    """The stacked epoch arrays as per-step batches on ``device`` after one
-    host → device copy: every field is packed as int32 columns of one
-    array (the float fields by their bits) and split on the device."""
+def pack_epoch(arrays) -> tuple[np.ndarray, list[int]]:
+    """The stacked epoch arrays as one [nb, B, W] int32 array (the float
+    fields by their bits) and each field's width, for one host → device
+    copy."""
     idx = [a.reshape(a.shape[0], a.shape[1], -1) for a in arrays[:4]]
     flt = [a.reshape(a.shape[0], a.shape[1], 1).view(np.int32)
            for a in arrays[4:]]
-    packed = torch.from_numpy(np.concatenate(idx + flt, axis=2)).to(device)
-    widths = [a.shape[2] for a in idx + flt]
-    cols = torch.split(packed, widths, dim=2)
-    fields = [cols[0][..., 0].long(), cols[1][..., 0].long(), cols[2].long(),
-              cols[3][..., 0].long(),
-              cols[4][..., 0].contiguous().view(torch.float32),
-              cols[5][..., 0].contiguous().view(torch.float32)]
-    return [tuple(f[i] for f in fields) for i in range(packed.shape[0])]
+    return (np.concatenate(idx + flt, axis=2),
+            [a.shape[2] for a in idx + flt])
+
+
+def unpack_fields(packed: torch.Tensor, widths) -> tuple[torch.Tensor, ...]:
+    """``pack_epoch``'s columns (of the whole epoch or of one batch) split
+    back into the ``BATCH_FIELDS`` tensors, on the device."""
+    cols = torch.split(packed, list(widths), dim=-1)
+    return (cols[0][..., 0].long(), cols[1][..., 0].long(), cols[2].long(),
+            cols[3][..., 0].long(),
+            cols[4][..., 0].contiguous().view(torch.float32),
+            cols[5][..., 0].contiguous().view(torch.float32))
 
 
 def loss_from_encodings(cfg: HypTrainConfig, encoded, partner_enc, batch,
@@ -307,11 +315,11 @@ def make_loss_fn(model: HyperbolicEmbeddingModel, cfg: HypTrainConfig,
     return loss_fn
 
 
-def train_step(model, optimizer: RiemannianAdam, loss_fn, batch, x_figures,
-               implication, exclusion, generator=None) -> torch.Tensor:
-    """One step: the loss, its gradients, their global norm (before the
-    update, as optax takes it), the update.  Returns the metrics stacked
-    in ``METRICS`` order, on the device (no host sync)."""
+def step_grads(model, optimizer: RiemannianAdam, loss_fn, batch,
+               x_figures, implication, exclusion, generator=None):
+    """The loss's gradients by parameter name and the step's metrics
+    stacked in ``METRICS`` order (the global norm taken before any
+    update, as optax takes it)."""
     params = optimizer.params
     for p in params.values():
         p.grad = None
@@ -320,20 +328,7 @@ def train_step(model, optimizer: RiemannianAdam, loss_fn, batch, x_figures,
     total.backward()
     grads = {n: p.grad for n, p in params.items()}
     metrics["grad_norm"] = global_norm(grads)
-    optimizer.step(grads)
-    return torch.stack([metrics[k].detach() for k in METRICS])
-
-
-def train_epoch(model, optimizer: RiemannianAdam, loss_fn, batches,
-                x_figures, implication, exclusion,
-                generator=None) -> torch.Tensor:
-    """``train_step`` over the epoch's device batches; the metrics [nb,
-    len(METRICS)] stay on the device."""
-    acc = torch.empty(len(batches), len(METRICS), device=x_figures.device)
-    for i, batch in enumerate(batches):
-        acc[i] = train_step(model, optimizer, loss_fn, batch, x_figures,
-                            implication, exclusion, generator)
-    return acc
+    return grads, torch.stack([metrics[k].detach() for k in METRICS])
 
 
 @torch.no_grad()
@@ -343,6 +338,135 @@ def eval_step(loss_fn, batch, x_figures, implication,
     _, metrics = loss_fn(batch, x_figures, implication, exclusion,
                          deterministic=True)
     return torch.stack([metrics[k] for k in METRICS[:-1]])
+
+
+def _device_of(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def make_train_step(model: HyperbolicEmbeddingModel,
+                    optimizer: RiemannianAdam, cfg: HypTrainConfig,
+                    num_real_labels: int | None = None,
+                    graphed: bool | None = None):
+    """JAX's ``make_train_step``: ``(train_step, eval_step)`` for one
+    batch of device tensors in ``BATCH_FIELDS`` order.
+    ``train_step(batch, x_figures, implication, exclusion, generator)``
+    updates the model and the optimizer in place and returns the metrics
+    by name; ``eval_step(batch, x_figures, implication, exclusion)`` the
+    deterministic loss's metrics.  On the card (``graphed``, see
+    ``utils.graphs.graphed_on``) each is one CUDA graph whose batch is
+    copied into static buffers; the returned tensors are overwritten by
+    the next call.  ``num_real_labels``: the real rows of a padded label
+    table (parallel/sharded_train.py)."""
+    loss_fn = make_loss_fn(model, cfg, num_real_labels)
+    device = _device_of(model)
+    held: dict = {}             # name -> (static batch, args, generator)
+
+    def train_body(_i):
+        batch, args, generator = held["train"]
+        grads, metrics = step_grads(model, optimizer, loss_fn, batch, *args,
+                                    generator)
+        optimizer.update(grads)
+        return metrics
+
+    def eval_body(_i):
+        batch, args, _generator = held["eval"]
+        return eval_step(loss_fn, batch, *args)
+
+    loops = {"train": ScanLoop(train_body, device, graphed),
+             "eval": ScanLoop(eval_body, device, graphed)}
+
+    def stage(name, batch, args, generator=None) -> torch.Tensor:
+        """The batch copied into the static buffers of ``name`` (new ones
+        for a new shape), then its loop's one step."""
+        static = held.get(name, ((),))[0]
+        if [t.shape for t in static] != [t.shape for t in batch]:
+            static = tuple(torch.empty_like(t) for t in batch)
+        for dst, src in zip(static, batch):
+            dst.copy_(src)
+        held[name] = (static, args, generator)
+        reads = static + tuple(args)
+        if name == "eval":
+            return loops[name].run(1, len(METRICS) - 1, reads)[0]
+        return loops[name].run_updates(optimizer, 1, len(METRICS), reads,
+                                       (generator,))[0]
+
+    def train_step_fn(batch, x_figures, implication, exclusion,
+                      generator=None) -> dict:
+        return dict(zip(METRICS, stage(
+            "train", batch, (x_figures, implication, exclusion), generator)))
+
+    def eval_step_fn(batch, x_figures, implication, exclusion) -> dict:
+        return dict(zip(METRICS[:-1], stage(
+            "eval", batch, (x_figures, implication, exclusion))))
+
+    return train_step_fn, eval_step_fn
+
+
+def make_epoch_step(model: HyperbolicEmbeddingModel,
+                    optimizer: RiemannianAdam, cfg: HypTrainConfig,
+                    num_real_labels: int | None = None,
+                    graphed: bool | None = None):
+    """JAX's ``make_epoch_step``: ``(train_epoch, eval_epoch)`` over a
+    whole epoch of ``stack_epoch_batches`` arrays (host numpy), copied to
+    the device in one transfer into a static buffer.
+
+    ``train_epoch(epoch_arrays, x_figures, implication, exclusion,
+    generator)`` steps the model and the optimizer through the epoch's
+    batches in place and returns the metrics summed over the batches, by
+    name, as 0-dim device tensors (divide by nb on the host);
+    ``eval_epoch(epoch_arrays, x_figures, implication, exclusion)`` the
+    deterministic loss's summed metrics.  On the card (``graphed``; see
+    ``utils.graphs.graphed_on``) each is one CUDA graph of a step,
+    replayed once a batch; elsewhere, or with ``graphed=False``, the same
+    step as an eager loop."""
+    loss_fn = make_loss_fn(model, cfg, num_real_labels)
+    device = _device_of(model)
+    run: dict = {}
+
+    def batch_at(buf, i):
+        return unpack_fields(buf["packed"].index_select(0, i.view(1))[0],
+                             buf["widths"])
+
+    def train_body(i):
+        grads, metrics = step_grads(model, optimizer, loss_fn,
+                                    batch_at(run["train"], i),
+                                    *run["train"]["args"],
+                                    run["train"]["gen"])
+        optimizer.update(grads)
+        return metrics
+
+    def eval_body(i):
+        return eval_step(loss_fn, batch_at(run["eval"], i),
+                         *run["eval"]["args"])
+
+    loops = {"train": ScanLoop(train_body, device, graphed),
+             "eval": ScanLoop(eval_body, device, graphed)}
+
+    def epoch(name, epoch_arrays, args, generator=None) -> torch.Tensor:
+        packed, widths = pack_epoch(epoch_arrays)
+        buf = run.setdefault(name, {"packed": None})
+        buf["packed"] = upload(buf["packed"], packed, device)
+        buf["widths"], buf["args"], buf["gen"] = widths, args, generator
+        reads = (buf["packed"],) + args
+        if name == "eval":
+            return loops[name].run(packed.shape[0], len(METRICS) - 1,
+                                   reads).sum(dim=0)
+        return loops[name].run_updates(optimizer, packed.shape[0],
+                                       len(METRICS), reads,
+                                       (generator,)).sum(dim=0)
+
+    def train_epoch(epoch_arrays, x_figures, implication, exclusion,
+                    generator=None) -> dict:
+        return dict(zip(METRICS, epoch(
+            "train", epoch_arrays, (x_figures, implication, exclusion),
+            generator)))
+
+    def eval_epoch(epoch_arrays, x_figures, implication, exclusion) -> dict:
+        return dict(zip(METRICS[:-1], epoch(
+            "eval", epoch_arrays, (x_figures, implication, exclusion))))
+
+    return train_epoch, eval_epoch
 
 
 def _rng_state_bytes(rng: np.random.Generator) -> np.ndarray:
@@ -382,7 +506,8 @@ def train_hyperbolic_retrieval(td: TrainingData, cfg: HypTrainConfig,
                                logger: MetricsLogger | None = None,
                                ckpt: CheckpointManager | None = None,
                                resume: bool = False, device=None,
-                               init_params: dict | None = None
+                               init_params: dict | None = None,
+                               graphed: bool | None = None
                                ) -> tuple[dict, dict]:
     """Split, epochs, validation, best checkpoint, early stop, as the JAX
     trainer runs them.  ``resume`` continues from ``ckpt``'s ``latest``
@@ -390,7 +515,9 @@ def train_hyperbolic_retrieval(td: TrainingData, cfg: HypTrainConfig,
     best params from the best checkpoint).  ``init_params``: a JAX-layout
     param tree to start from instead of the seeded initialisation.
     ``device``: the card when not given (``select_device``: an error
-    where there is none); pass "cpu" for the CPU.
+    where there is none); pass "cpu" for the CPU.  ``graphed``: the
+    epochs as CUDA graphs (``make_epoch_step``; by default on the card,
+    never elsewhere); ``False`` runs the eager loop, in the same bits.
 
     Returns (best params as a state dict of copies, history)."""
     from .evaluate import evaluate_retrieval_map
@@ -403,7 +530,8 @@ def train_hyperbolic_retrieval(td: TrainingData, cfg: HypTrainConfig,
         _load(model, init_params)
     optimizer = RiemannianAdam(dict(model.named_parameters()),
                                cfg.learning_rate, c=cfg.curvature)
-    loss_fn = make_loss_fn(model, cfg)
+    train_epoch, eval_epoch = make_epoch_step(model, optimizer, cfg,
+                                              graphed=graphed)
 
     x_figures = torch.as_tensor(td.x_figures, dtype=torch.float32,
                                 device=device)
@@ -476,12 +604,11 @@ def train_hyperbolic_retrieval(td: TrainingData, cfg: HypTrainConfig,
                                      rng)
         if arrays is None:
             raise RuntimeError("no usable training batches")
-        batches = epoch_to_device(arrays, device)
-        nb = len(batches)
-        acc = train_epoch(model, optimizer, loss_fn, batches, x_figures,
-                          implication, exclusion, gen)
+        nb = arrays[0].shape[0]
+        sums = train_epoch(arrays, x_figures, implication, exclusion, gen)
         step += nb
-        epoch_metrics = dict(zip(METRICS, acc.sum(dim=0).tolist()))
+        epoch_metrics = dict(zip(METRICS, torch.stack(
+            [sums[k] for k in METRICS]).tolist()))
         train_loss = epoch_metrics["total_loss"] / nb
         if not np.isfinite(train_loss):
             raise FloatingPointError(
@@ -493,10 +620,8 @@ def train_hyperbolic_retrieval(td: TrainingData, cfg: HypTrainConfig,
                                          cfg.batch_size,
                                          cfg.num_neg_samples, rng)
         if val_arrays is not None:
-            vbatches = epoch_to_device(val_arrays, device)
-            vacc = torch.stack([eval_step(loss_fn, b, x_figures, implication,
-                                          exclusion) for b in vbatches])
-            val_loss = float(vacc[:, 0].sum()) / len(vbatches)
+            vsums = eval_epoch(val_arrays, x_figures, implication, exclusion)
+            val_loss = float(vsums["total_loss"]) / val_arrays[0].shape[0]
         else:
             val_loss = train_loss
 

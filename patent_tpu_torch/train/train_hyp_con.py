@@ -6,8 +6,10 @@ Anchors and their sampled positive partners are encoded in one forward
 seeded from ``cfg.seed``) and scored with ``hyperbolic_info_nce``; Adam
 with optax's arithmetic (train/optim.py ``Adam``).  The epoch's anchor and
 positive indices come from JAX's numpy stream, as [steps, B] matrices
-copied to the device once; the per-step losses stay on the device until
-the epoch's mean is read.
+copied to the device once into static buffers; the epochs run as JAX's
+one-dispatch scans do (``make_epoch_step``: on the card a CUDA graph of a
+step, replayed once a batch, the generator registered with it), and the
+per-step losses stay on the device until the epoch's mean is read.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..losses.contrastive import hyperbolic_info_nce
 from ..models.hyperbolic import FigureOnlyHyperbolicModel
 from ..retrieval.cli_actions import select_device
 from ..utils.config import HypConTrainConfig
+from ..utils.graphs import ScanLoop, upload
 from ..utils.logging import MetricsLogger
 from .optim import Adam
 
@@ -40,24 +43,67 @@ def make_loss_fn(model: FigureOnlyHyperbolicModel, cfg: HypConTrainConfig):
     return loss
 
 
-def train_step(optimizer: Adam, loss_fn, anchor_idx, pos_idx, x_figures,
-               generator=None) -> torch.Tensor:
-    """One Adam step on the training loss; returns the loss (on the
-    device)."""
-    for p in optimizer.params.values():
-        p.grad = None
-    loss = loss_fn(anchor_idx, pos_idx, x_figures, generator)
-    loss.backward()
-    optimizer.step({n: p.grad for n, p in optimizer.params.items()})
-    return loss.detach()
+def make_epoch_step(model: FigureOnlyHyperbolicModel, optimizer: Adam,
+                    cfg: HypConTrainConfig, graphed: bool | None = None):
+    """JAX's jitted ``train_epoch`` / ``eval_epoch`` scans:
+    ``train_epoch(a_mat, p_mat, x_figures, generator)`` takes an Adam step
+    on each row of the [steps, B] anchor and positive index matrices (host
+    numpy, one copy to the device) and returns the mean loss (a 0-dim
+    device tensor); ``eval_epoch(a_mat, p_mat, x_figures)`` the mean
+    deterministic loss.  A CUDA graph of a step on the card
+    (``utils.graphs.graphed_on``), the eager loop elsewhere."""
+    loss_fn = make_loss_fn(model, cfg)
+    device = next(model.parameters()).device
+    run: dict = {}
+
+    def rows(name, i):
+        both = run[name]["mats"].index_select(1, i.view(1))
+        return both[0, 0], both[1, 0]
+
+    def train_body(i):
+        a, p = rows("train", i)
+        for q in optimizer.params.values():
+            q.grad = None
+        loss = loss_fn(a, p, run["train"]["x"], run["train"]["gen"])
+        loss.backward()
+        optimizer.update({n: q.grad for n, q in optimizer.params.items()})
+        return loss.detach()
+
+    @torch.no_grad()
+    def eval_body(i):
+        a, p = rows("eval", i)
+        return loss_fn(a, p, run["eval"]["x"], deterministic=True)
+
+    loops = {"train": ScanLoop(train_body, device, graphed),
+             "eval": ScanLoop(eval_body, device, graphed)}
+
+    def epoch(name, a_mat, p_mat, x_figures, generator=None):
+        buf = run.setdefault(name, {"mats": None})
+        buf["mats"] = upload(buf["mats"], np.stack([a_mat, p_mat]), device)
+        buf["x"], buf["gen"] = x_figures, generator
+        reads = (buf["mats"], x_figures)
+        if name == "eval":
+            return loops[name].run(a_mat.shape[0], 1, reads).mean()
+        return loops[name].run_updates(optimizer, a_mat.shape[0], 1, reads,
+                                       (generator,)).mean()
+
+    def train_epoch(a_mat, p_mat, x_figures, generator=None):
+        return epoch("train", a_mat, p_mat, x_figures, generator)
+
+    def eval_epoch(a_mat, p_mat, x_figures):
+        return epoch("eval", a_mat, p_mat, x_figures)
+
+    return train_epoch, eval_epoch
 
 
 def train_hyperbolic_contrastive(td: TrainingData, cfg: HypConTrainConfig,
                                  logger: MetricsLogger | None = None,
-                                 device=None) -> tuple[dict, dict]:
+                                 device=None, graphed: bool | None = None
+                                 ) -> tuple[dict, dict]:
     """Returns (best params as a state dict of copies, history).
     ``device``: the card when not given (``select_device``: an error where
-    there is none); pass "cpu" for the CPU."""
+    there is none); pass "cpu" for the CPU.  ``graphed``: the epochs as
+    CUDA graphs (by default on the card); ``False`` the eager loop."""
     logger = logger or MetricsLogger(print_every=20)
     device = select_device() if device is None else torch.device(device)
     rng = np.random.default_rng(cfg.seed)
@@ -66,7 +112,7 @@ def train_hyperbolic_contrastive(td: TrainingData, cfg: HypConTrainConfig,
         hidden_dims=tuple(cfg.hidden_dims), c=cfg.curvature,
         generator=torch.Generator().manual_seed(cfg.seed)).to(device)
     optimizer = Adam(dict(model.named_parameters()), cfg.learning_rate)
-    loss_fn = make_loss_fn(model, cfg)
+    train_epoch, eval_epoch = make_epoch_step(model, optimizer, cfg, graphed)
     x_figures = torch.as_tensor(td.x_figures, dtype=torch.float32,
                                 device=device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -96,9 +142,7 @@ def train_hyperbolic_contrastive(td: TrainingData, cfg: HypConTrainConfig,
         take = pool[rng.permutation(len(pool))[:n_steps * cfg.batch_size]]
         rows = np.asarray([row_of[int(f)] for f in take])
         p = pos_pad[rows, rng.integers(0, pos_cnt[rows])]
-        both = torch.from_numpy(np.stack([take.reshape(n_steps, -1),
-                                          p.reshape(n_steps, -1)])).to(device)
-        return both[0], both[1]
+        return take.reshape(n_steps, -1), p.reshape(n_steps, -1)
 
     best_val = float("inf")
     best_params = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -108,28 +152,21 @@ def train_hyperbolic_contrastive(td: TrainingData, cfg: HypConTrainConfig,
     for epoch in range(1, cfg.epochs + 1):
         mats = epoch_mats(train_anchors)
         if mats is not None:
-            losses = torch.stack([
-                train_step(optimizer, loss_fn, a, p, x_figures, gen)
-                for a, p in zip(*mats)])
+            mean_loss = train_epoch(*mats, x_figures, gen)
             nb = int(mats[0].shape[0])
             step += nb
-            tot = float(losses.mean()) * nb
+            tot = float(mean_loss) * nb
         else:
-            # a small corpus: one step on the first batch-size anchors
+            # a small corpus: one step on the first batch-size anchors,
+            # an epoch of one row
             a = train_anchors[:cfg.batch_size]
-            p = np.asarray([fig_to_pos_figures[int(f)][0] for f in a])
-            loss = train_step(optimizer, loss_fn,
-                              torch.as_tensor(a, device=device),
-                              torch.as_tensor(p, device=device), x_figures,
-                              gen)
-            tot, nb = float(loss), 1
+            p = np.asarray([fig_to_pos_figures[int(f)][0] for f in a],
+                           a.dtype)
+            tot, nb = float(train_epoch(a[None], p[None], x_figures, gen)), 1
             step += 1
         vmats = epoch_mats(val_anchors)
         if vmats is not None:
-            with torch.no_grad():
-                val_loss = float(torch.stack([
-                    loss_fn(a, p, x_figures, deterministic=True)
-                    for a, p in zip(*vmats)]).mean())
+            val_loss = float(eval_epoch(*vmats, x_figures))
         else:
             val_loss = tot / nb
         history["train_loss"].append(tot / nb)

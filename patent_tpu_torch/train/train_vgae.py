@@ -9,7 +9,10 @@ class-balanced BCE over all N² entries (the reference's, auxiliary.py:
 36-58); ``"sampled"`` takes the BCE of every training edge against as
 many random pairs drawn afresh each step, scored from the latents alone,
 over the sparse adjacency: O(E·d) a step.  ``"auto"`` samples above
-16,384 nodes.  Adam with optax's arithmetic.
+16,384 nodes.  Adam with optax's arithmetic.  The steps between two
+validations run as JAX's chunks of 5 do (one ``lax.scan``): on the card
+one CUDA graph of a step (utils/graphs.py ``ScanLoop``) replayed once an
+epoch, the negatives' generator registered with it.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ..data.edges import (EdgeSplit, _pos_neg_metrics, link_prediction_scores,
                           split_edges)
 from ..models.gcn import VGAE, normalize_adjacency, normalize_adjacency_sparse
 from ..ops.rows import take_rows
+from ..utils.graphs import ScanLoop
 from ..utils.logging import MetricsLogger
 from .optim import Adam
 
@@ -32,13 +36,36 @@ def _snapshot(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def _step(model, optimizer, loss_fn) -> torch.Tensor:
+def _update(model, optimizer, loss_fn) -> torch.Tensor:
+    """One step in train mode, the optimizer's device half (after its
+    ``reserve``); returns the loss on the device."""
+    model.train()
     for p in optimizer.params.values():
         p.grad = None
     loss = loss_fn()
     loss.backward()
-    optimizer.step({n: p.grad for n, p in optimizer.params.items()})
+    optimizer.update({n: p.grad for n, p in optimizer.params.items()})
     return loss.detach()
+
+
+def _chunks(epochs: int, every: int = 5) -> list[tuple[int, int]]:
+    """(first, last) epochs of each run of steps between validations
+    (every ``every`` epochs and after the last), as JAX's chunks."""
+    ends = sorted(set(range(every, epochs + 1, every))
+                  | ({epochs} if epochs > 0 else set()))
+    return [(a + 1, b) for a, b in zip([0] + ends[:-1], ends)]
+
+
+def _train_chunks(model, optimizer, loss_fn, epochs: int, device,
+                  graphed, generators, validate) -> None:
+    """The training loop: each chunk of epochs (one step each) as one
+    ``ScanLoop`` run, then ``validate(epoch, last loss)``."""
+    loop = ScanLoop(lambda _i: _update(model, optimizer, loss_fn), device,
+                    graphed)
+    for first, last in _chunks(epochs):
+        losses = loop.run_updates(optimizer, last - first + 1, 1, (),
+                                  generators)
+        validate(last, float(losses[-1, 0]))
 
 
 def train_vgae_link_prediction(x: np.ndarray, adjacency,
@@ -48,9 +75,11 @@ def train_vgae_link_prediction(x: np.ndarray, adjacency,
                                test_ratio: float = 0.1, seed: int = 42,
                                logger: MetricsLogger | None = None,
                                mode: str = "auto",
-                               device: torch.device | str = "cuda"
+                               device: torch.device | str = "cuda",
+                               graphed: bool | None = None
                                ) -> tuple[dict, EdgeSplit, dict]:
-    """Returns (state dict, edge split, test report)."""
+    """Returns (state dict, edge split, test report).  ``graphed``: the
+    training steps as CUDA graphs (by default on the card)."""
     import scipy.sparse as sp
 
     device = torch.device(device)
@@ -67,7 +96,7 @@ def train_vgae_link_prediction(x: np.ndarray, adjacency,
     x_dev = torch.as_tensor(np.asarray(x, np.float32), device=device)
     if mode == "sampled":
         return _train_vgae_sampled(model, optimizer, x_dev, split, epochs,
-                                   seed, logger)
+                                   seed, logger, graphed)
 
     a_np = split.train_adjacency.toarray()
     a_tilde = normalize_adjacency(torch.as_tensor(a_np, dtype=torch.float32,
@@ -90,18 +119,20 @@ def train_vgae_link_prediction(x: np.ndarray, adjacency,
         model.eval()
         return model(x_dev, a_tilde)[1].cpu().numpy()
 
-    best_auc, best = 0.0, _snapshot(model)
-    for epoch in range(1, epochs + 1):
-        model.train()
-        loss = _step(model, optimizer, loss_fn)
-        if epoch % 5 == 0 or epoch == epochs:
-            val = link_prediction_scores(reconstruction(), split.val_edges,
-                                         split.val_non_edges)
-            logger.log(epoch, {"loss": float(loss), "val_auc": val["roc_auc"],
-                               "val_ap": val["average_precision"]},
-                       force_print=True)
-            if val["roc_auc"] > best_auc:
-                best_auc, best = val["roc_auc"], _snapshot(model)
+    best = {"auc": 0.0, "params": _snapshot(model)}
+
+    def validate(epoch, loss):
+        val = link_prediction_scores(reconstruction(), split.val_edges,
+                                     split.val_non_edges)
+        logger.log(epoch, {"loss": loss, "val_auc": val["roc_auc"],
+                           "val_ap": val["average_precision"]},
+                   force_print=True)
+        if val["roc_auc"] > best["auc"]:
+            best["auc"], best["params"] = val["roc_auc"], _snapshot(model)
+
+    _train_chunks(model, optimizer, loss_fn, epochs, device, graphed, (),
+                  validate)
+    best = best["params"]
     model.load_state_dict(best)
     test = link_prediction_scores(reconstruction(), split.test_edges,
                                   split.test_non_edges)
@@ -130,7 +161,8 @@ def draw_negatives(n: int, shape: tuple, generator: torch.Generator
 
 
 def _train_vgae_sampled(model, optimizer, x_dev, split: EdgeSplit,
-                        epochs: int, seed: int, logger: MetricsLogger
+                        epochs: int, seed: int, logger: MetricsLogger,
+                        graphed: bool | None = None
                         ) -> tuple[dict, EdgeSplit, dict]:
     """The sampled-edge objective over the sparse adjacency; a random pair
     (i, i) is rerolled to (i, i + 1 mod n), whose logit would be exactly 1
@@ -154,20 +186,24 @@ def _train_vgae_sampled(model, optimizer, x_dev, split: EdgeSplit,
 
         return _pos_neg_metrics(scores(edges), scores(non_edges))
 
-    best_auc, best = 0.0, _snapshot(model)
-    for epoch in range(1, epochs + 1):
+    def loss_fn():
         neg = draw_negatives(n, tuple(train_edges.shape), gen)
         neg[:, 1] = torch.where(neg[:, 0] == neg[:, 1], (neg[:, 1] + 1) % n,
                                 neg[:, 1])
-        model.train()
-        loss = _step(model, optimizer, lambda: sampled_loss(
-            model, x_dev, a_tilde, train_edges, neg))
-        if epoch % 5 == 0 or epoch == epochs:
-            val = eval_split(split.val_edges, split.val_non_edges)
-            logger.log(epoch, {"loss": float(loss), "val_auc": val["roc_auc"],
-                               "val_ap": val["average_precision"]},
-                       force_print=True)
-            if val["roc_auc"] > best_auc:
-                best_auc, best = val["roc_auc"], _snapshot(model)
+        return sampled_loss(model, x_dev, a_tilde, train_edges, neg)
+
+    best = {"auc": 0.0, "params": _snapshot(model)}
+
+    def validate(epoch, loss):
+        val = eval_split(split.val_edges, split.val_non_edges)
+        logger.log(epoch, {"loss": loss, "val_auc": val["roc_auc"],
+                           "val_ap": val["average_precision"]},
+                   force_print=True)
+        if val["roc_auc"] > best["auc"]:
+            best["auc"], best["params"] = val["roc_auc"], _snapshot(model)
+
+    _train_chunks(model, optimizer, loss_fn, epochs, device, graphed, (gen,),
+                  validate)
+    best = best["params"]
     model.load_state_dict(best)
     return best, split, eval_split(split.test_edges, split.test_non_edges)

@@ -175,3 +175,23 @@ def parse_checkpoint_name(encoded: str) -> dict:
     return {"name": m.group("name"), "hidden_dim": int(m.group("hidden")),
             "latent_dim": int(m.group("latent")), "lr": float(m.group("lr")),
             "epochs": int(m.group("epochs"))}
+
+
+def save_model(manager: CheckpointManager, state: dict, name: str,
+               hidden_dim: int, latent_dim: int, lr: float, epochs: int,
+               metadata: dict | None = None) -> str:
+    """The reference's ``save_model`` (train.py:94-110): ``state`` saved
+    under the name-encoded hyperparameters
+    (``reference_checkpoint_name``); returns what the manager's ``save``
+    returns."""
+    encoded = reference_checkpoint_name(name, hidden_dim, latent_dim, lr,
+                                        epochs)
+    return manager.save(encoded, state, metadata=metadata)
+
+
+def load_model(manager: CheckpointManager, encoded_name: str
+               ) -> tuple[dict, dict]:
+    """The reference's ``load_model`` (train.py:56-91) without its fixed
+    node counts: (the restored state, the hyperparameters parsed from
+    the name)."""
+    return manager.restore(encoded_name), parse_checkpoint_name(encoded_name)

@@ -161,6 +161,17 @@ class EndToEndConfig:
     model_dir: str = "models"
 
 
+@dataclasses.dataclass
+class EvalConfig:
+    """Retrieval evaluation (retrieval.ipynb cell 3)."""
+
+    batch_size: int = 128
+    image_size: int = 224
+    k_values: tuple[int, ...] = (5, 10, 20)
+    positives_key: str = "patent_positives"
+    results_dir: str = "results"
+
+
 def apply_overrides(cfg, overrides: Sequence[str]):
     """Apply ``key=value`` CLI overrides to a config dataclass in place:
     each value takes its field's type (bool from 1/true/yes, int, float, a

@@ -2316,8 +2316,10 @@ def test_train_hyp_loss_and_step_on_the_card_match_the_cpu(cuda):
         opt = optim.RiemannianAdam(dict(model.named_parameters()),
                                    cfg.learning_rate, c=2.0)
         tb = tuple(torch.as_tensor(a).to(dev) for a in batch)
-        metrics = th.train_step(model, opt, th.make_loss_fn(model, cfg), tb,
-                                x.to(dev), impl.to(dev), excl.to(dev))
+        grads, metrics = th.step_grads(model, opt,
+                                       th.make_loss_fn(model, cfg), tb,
+                                       x.to(dev), impl.to(dev), excl.to(dev))
+        opt.step(grads)
         out[str(dev)] = (metrics.cpu(),
                          {n: p.grad.cpu() for n, p in model.named_parameters()},
                          {n: p.detach().cpu()
@@ -2577,3 +2579,364 @@ def test_two_gloo_ranks_on_one_card_search_and_finetune(cuda):
     for k, v in ft["single"].items():
         assert ft["sharded"][k] == pytest.approx(v, rel=2e-3), k
     assert all(n > 0 for r in ft["launches"] for n in r.values())
+
+
+# ------------------------------------------- CUDA graphs of the loops
+# The graphed loop (utils/graphs.py) replays what its capture recorded;
+# every case below holds it to the eager loop in bits (the same kernels on
+# the same inputs in the same order), and the controls show what a state
+# that a replay cannot see would do.
+
+class _Replays:
+    """Counts ``StepGraph.replay`` calls (the graphed path was taken)."""
+
+    def __init__(self, monkeypatch):
+        from patent_tpu_torch.utils import graphs
+
+        self.n = 0
+        real = graphs.StepGraph.replay
+
+        def replay(graph):
+            self.n += 1
+            real(graph)
+
+        monkeypatch.setattr(graphs.StepGraph, "replay", replay)
+
+
+def _hyp_run(td, tmp_path, name, epochs, graphed, resume=False, **kw):
+    from patent_tpu_torch.train import train_hyp as th
+    from patent_tpu_torch.utils.checkpoint import CheckpointManager
+    from patent_tpu_torch.utils.config import HypTrainConfig
+    from patent_tpu_torch.utils.logging import MetricsLogger
+
+    cfg = HypTrainConfig(embed_dim=16, hidden_dims=(32,), batch_size=32,
+                         epochs=epochs, **kw)
+    return th.train_hyperbolic_retrieval(
+        td, cfg, logger=MetricsLogger(print_every=0),
+        ckpt=CheckpointManager(str(tmp_path / name)), resume=resume,
+        device="cuda", graphed=graphed)
+
+
+def _same_run(got, want):
+    best, hist = got
+    best_w, hist_w = want
+    assert hist["train_loss"] == hist_w["train_loss"]
+    assert hist["val_loss"] == hist_w["val_loss"]
+    for k in best_w:
+        assert torch.equal(best[k], best_w[k]), k
+
+
+def test_train_hyp_graphed_equals_eager_and_resumes_across(cuda, tmp_path,
+                                                           monkeypatch):
+    """Dropout on, three epochs: the graphed trainer (one replay a batch,
+    the dropout generator registered with the graph) equals the eager one
+    in bits, and a run resumed from the other kind's ``latest`` equals
+    both."""
+    td = _hyp_td(tmp_path)
+    eager = _hyp_run(td, tmp_path, "eager", 3, graphed=False)
+    replays = _Replays(monkeypatch)
+    graphed = _hyp_run(td, tmp_path, "graphed", 3, graphed=None)
+    assert replays.n > 0
+    _same_run(graphed, eager)
+    _hyp_run(td, tmp_path, "e2g", 2, graphed=False)
+    _same_run(_hyp_run(td, tmp_path, "e2g", 3, graphed=True, resume=True),
+              eager)
+    _hyp_run(td, tmp_path, "g2e", 2, graphed=True)
+    _same_run(_hyp_run(td, tmp_path, "g2e", 3, graphed=False, resume=True),
+              eager)
+
+
+def test_make_train_step_graphed_equals_eager(cuda, tmp_path):
+    """JAX's per-batch steps: the graphed step (the batch copied into
+    static buffers, dropout on) and the eval step with row 18 equal the
+    eager ones in bits over four batches."""
+    from patent_tpu_torch.train import train_hyp as th
+    from patent_tpu_torch.train.optim import RiemannianAdam
+    from patent_tpu_torch.utils.config import HypTrainConfig
+
+    td = _hyp_td(tmp_path)
+    cfg = HypTrainConfig(embed_dim=16, hidden_dims=(32,), batch_size=32)
+    packed = th.PackedSupervision(td)
+    arrays = th.stack_epoch_batches(packed, np.arange(len(packed.usable)),
+                                    32, 2, np.random.default_rng(0))
+    packed, widths = th.pack_epoch(arrays)
+    batches = [th.unpack_fields(torch.from_numpy(p).to(cuda), widths)
+               for p in packed[:4]]
+    data = (torch.as_tensor(td.x_figures, device=cuda),
+            torch.as_tensor(td.implication, device=cuda).long()
+            .reshape(-1, 2),
+            torch.zeros(0, 2, dtype=torch.long, device=cuda))
+    out = {}
+    for graphed in (False, True):
+        model = th.build_model(td, cfg, cuda)
+        opt = RiemannianAdam(dict(model.named_parameters()),
+                             cfg.learning_rate, c=cfg.curvature)
+        step, evaluate = th.make_train_step(model, opt, cfg, graphed=graphed)
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        got = [torch.stack(list(step(b, *data, gen).values())).clone()
+               for b in batches]
+        got += [torch.stack(list(evaluate(b, *data).values())).clone()
+                for b in batches]
+        out[graphed] = (got, {k: v.clone() for k, v in
+                              model.state_dict().items()})
+    assert all(torch.equal(a, b) for a, b in zip(out[True][0], out[False][0]))
+    assert all(torch.equal(out[True][1][k], out[False][1][k])
+               for k in out[False][1])
+
+
+def test_eval_epoch_graph_captures_row_18(cuda, tmp_path):
+    """The validation epoch under no_grad runs the encoder's first layer
+    on row 18: captured, it launches once a replay and gives the eager
+    epoch's bits."""
+    from patent_tpu_torch.train import train_hyp as th
+    from patent_tpu_torch.train.optim import RiemannianAdam
+    from patent_tpu_torch.utils.config import HypTrainConfig
+
+    td = _hyp_td(tmp_path)
+    cfg = HypTrainConfig(embed_dim=16, hidden_dims=(32,), batch_size=32)
+    packed = th.PackedSupervision(td)
+    arrays = th.stack_epoch_batches(packed, np.arange(len(packed.usable)),
+                                    32, 2, np.random.default_rng(0))
+    data = (torch.as_tensor(td.x_figures, device=cuda),
+            torch.as_tensor(td.implication, device=cuda).long()
+            .reshape(-1, 2),
+            torch.zeros(0, 2, dtype=torch.long, device=cuda))
+    out = {}
+    for graphed in (False, True):
+        model = th.build_model(td, cfg, cuda)
+        opt = RiemannianAdam(dict(model.named_parameters()),
+                             cfg.learning_rate, c=cfg.curvature)
+        _train, evaluate = th.make_epoch_step(model, opt, cfg,
+                                              graphed=graphed)
+        runs = []
+        for _ in range(3):        # warm-up, capture + replay, replay
+            n18 = pk.mobius_dense_pallas.launches
+            runs.append(torch.stack(list(evaluate(arrays, *data).values())))
+            assert pk.mobius_dense_pallas.launches - n18 == len(arrays[0])
+        assert all(torch.equal(r, runs[0]) for r in runs)
+        out[graphed] = runs[0]
+    assert torch.equal(out[True], out[False])
+
+
+class _RebindingAdam:
+    """Controls, Adam's arithmetic written out: ``update`` rebinds the
+    moments to new tensors (as the optimizer did before its state moved in
+    place), or takes the bias corrections of a Python count."""
+
+    @staticmethod
+    def make(kind, params, lr):
+        from patent_tpu_torch.train.optim import Adam
+
+        class Control(Adam):
+            python_count = 0
+
+            @torch.no_grad()
+            def update(self, grads):
+                if kind == "frozen_count":
+                    self.python_count += 1
+                    c32 = np.float32(self.python_count)
+                    bc1 = float(np.float32(1) - np.float32(self.b1) ** c32)
+                    bc2 = float(np.float32(1) - np.float32(self.b2) ** c32)
+                    scale = -self.lr
+                else:
+                    self.count.add_(1)
+                    bc1, bc2, scale = self._rates.index_select(
+                        0, (self.count - self._first).view(1))[0]
+                for n in self.names:
+                    p, g = self.params[n], grads[n]
+                    mu = (1 - self.b1) * g + self.b1 * self.mu[n]
+                    nu = (1 - self.b2) * (g * g) + self.b2 * self.nu[n]
+                    u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                    if kind == "frozen_count":
+                        self.mu[n].copy_(mu)
+                        self.nu[n].copy_(nu)
+                    else:
+                        self.mu[n], self.nu[n] = mu, nu
+                    p.add_(scale * u)
+
+        return Control(params, lr)
+
+
+def _optimizer_loop(dev, make_opt, graphed, steps=3):
+    from patent_tpu_torch.utils.graphs import ScanLoop
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.nn.Parameter(torch.randn(8, 4, generator=g, device=dev))
+    x = torch.randn(steps, 16, 8, generator=g, device=dev)
+    opt = make_opt({"w": w})
+
+    def step(i):
+        w.grad = None
+        loss = torch.tanh(x.index_select(0, i.view(1))[0] @ w).square().sum()
+        loss.backward()
+        opt.update({"w": w.grad})
+        return torch.cat([loss.detach().view(1), w.detach().flatten()])
+
+    return ScanLoop(step, dev, graphed).run_updates(opt, steps, 33).clone()
+
+
+@pytest.mark.parametrize("kind", ["rebinding_moments", "frozen_count"])
+def test_graph_controls_differ_from_eager_by_the_second_replay(cuda, kind):
+    """Step 1 is the eager warm-up, step 2 the first replay, step 3 the
+    second: the graph-safe optimizer equals eager at every step; a control
+    equals eager through the first replay (it reads what the capture saw)
+    and differs by the second."""
+    from patent_tpu_torch.train.optim import Adam
+
+    good = {g: _optimizer_loop(cuda, lambda p: Adam(p, 1e-2), g)
+            for g in (False, True)}
+    assert torch.equal(good[True], good[False])
+    ctrl = {g: _optimizer_loop(cuda, lambda p: _RebindingAdam.make(
+        kind, p, 1e-2), g) for g in (False, True)}
+    if kind == "rebinding_moments":     # eager: the same arithmetic
+        assert torch.equal(ctrl[False], good[False])
+    assert torch.equal(ctrl[True][:2], ctrl[False][:2])
+    assert not torch.equal(ctrl[True][2], ctrl[False][2])
+
+
+def test_hyperbolic_con_hmi_gcn_vgae_graphed_equal_eager(cuda, tmp_path,
+                                                         monkeypatch):
+    """train_hyp_con, train_hmi, train_pair_classification (the sparse
+    path's segment sums captured) and train_vgae (dense and sampled, the
+    negatives' generator registered): graphed equals eager in bits."""
+    import scipy.sparse as sp
+
+    from patent_tpu_torch.data import hmi_inputs, synthetic
+    from patent_tpu_torch.data.graph_build import build_hetero_graph
+    from patent_tpu_torch.train import (train_gcn, train_hmi, train_hyp_con,
+                                        train_vgae)
+    from patent_tpu_torch.utils.config import (GCNTrainConfig,
+                                               HypConTrainConfig)
+    from patent_tpu_torch.utils.logging import MetricsLogger
+
+    quiet = MetricsLogger(print_every=0)
+    td = _hyp_td(tmp_path)
+    recs = synthetic.synthetic_records(num_patents=10, figures_per_patent=3,
+                                       seed=0)
+    graph = build_hetero_graph(recs)
+    inputs = hmi_inputs.generate_hmi_inputs(graph, seed=1)
+    feats = np.random.default_rng(2).standard_normal(
+        (graph.counts["figures"], 24)).astype(np.float32)
+    rng = np.random.default_rng(3)
+    a = sp.random(600, 600, density=0.01, random_state=rng, format="csr",
+                  dtype=np.float32)
+    a.data[:] = 1.0
+    adj = sp.csr_matrix(((a + a.T) > 0).astype(np.float32))
+    x = rng.standard_normal((600, 16)).astype(np.float32)
+    pairs = rng.integers(0, 600, (700, 2)).astype(np.int32)
+    labels = rng.integers(0, 5, 700).astype(np.int32)
+
+    runs = {
+        "train_hyp_con": lambda g: train_hyp_con.train_hyperbolic_contrastive(
+            td, HypConTrainConfig(embed_dim=8, hidden_dims=(16,), epochs=2,
+                                  batch_size=16), logger=quiet,
+            device="cuda", graphed=g),
+        "train_hmi": lambda g: train_hmi.train_hmi(
+            feats, inputs, graph.num_nodes - graph.counts["figures"],
+            embed_dim=8, epochs=3, batch_size=64, logger=quiet,
+            device="cuda", graphed=g),
+        "train_gcn": lambda g: train_gcn.train_pair_classification(
+            x, adj, pairs, labels, GCNTrainConfig(
+                hidden_dim=32, latent_dim=16, num_layers=4, epochs=2,
+                batch_size=128, adjacency="sparse"), logger=quiet,
+            device="cuda", graphed=g),
+        "vgae_dense": lambda g: train_vgae.train_vgae_link_prediction(
+            x, adj, hidden_dim=16, latent_dim=8, epochs=7, mode="dense",
+            logger=quiet, device="cuda", graphed=g),
+        "vgae_sampled": lambda g: train_vgae.train_vgae_link_prediction(
+            x, adj, hidden_dim=16, latent_dim=8, epochs=7, mode="sampled",
+            logger=quiet, device="cuda", graphed=g),
+    }
+    replays = _Replays(monkeypatch)
+    for name, run in runs.items():
+        eager = run(False)
+        before = replays.n
+        graphed = run(None)
+        assert replays.n > before, name
+        for e, gr in zip(eager, graphed):
+            if isinstance(e, dict) and e and all(
+                    isinstance(v, torch.Tensor) for v in e.values()):
+                for k in e:
+                    assert torch.equal(e[k], gr[k]), (name, k)
+            elif not hasattr(e, "test_edges"):
+                assert e == gr, name
+
+
+def test_epoch_loop_with_fresh_inputs_each_epoch_equals_eager(cuda,
+                                                              monkeypatch):
+    """A fresh dropout generator and a fresh feature table (another shape,
+    its predecessor freed first, so the allocator may hand out its
+    address) each epoch: the graph is captured again for each, draws from
+    the new generator, and equals the eager loop in bits."""
+    from patent_tpu_torch.models.hyperbolic import FigureOnlyHyperbolicModel
+    from patent_tpu_torch.train import optim, train_hyp_con
+    from patent_tpu_torch.utils.config import HypConTrainConfig
+
+    cfg = HypConTrainConfig(embed_dim=8, hidden_dims=(16,), batch_size=16)
+    feats = np.random.default_rng(4).standard_normal(
+        (80, 24)).astype(np.float32)
+    mats = np.random.default_rng(5).integers(0, 64, (3, 2, 4, 16))
+    replays = _Replays(monkeypatch)
+    out = {}
+    for graphed in (False, None):
+        model = FigureOnlyHyperbolicModel(
+            feature_dim=24, embed_dim=8, hidden_dims=(16,), c=1.0,
+            generator=torch.Generator().manual_seed(0)).to(cuda)
+        opt = optim.Adam(dict(model.named_parameters()), 1e-3)
+        train, _eval = train_hyp_con.make_epoch_step(model, opt, cfg,
+                                                     graphed)
+        losses = []
+        for e, (a_mat, p_mat) in enumerate(mats):
+            x = torch.as_tensor(feats[:64 + 8 * e], device=cuda)
+            gen = torch.Generator(device=cuda).manual_seed(30 + e)
+            losses.append(train(a_mat, p_mat, x, gen).clone())
+            del x, gen
+        out[graphed] = (torch.stack(losses),
+                        {k: v.clone() for k, v in model.state_dict().items()})
+    assert replays.n > 0
+    assert torch.equal(out[None][0], out[False][0])
+    assert all(torch.equal(out[None][1][k], out[False][1][k])
+               for k in out[False][1])
+
+
+def _scan_tower(dev, cls, seed=21):
+    cfg = VisionConfig(image_size=64, patch_size=8, hidden_dim=D,
+                       num_layers=3, num_heads=HEADS, mlp_dim=F,
+                       projection_dim=64)
+    gen = torch.Generator().manual_seed(seed)
+    tower = VisionTransformer(cfg, generator=gen)
+    with torch.no_grad():
+        for prm in tower.parameters():
+            if prm.dim() == 1:
+                prm.add_(0.05 * torch.randn(prm.shape, generator=gen))
+    tower = tower.to(dev)
+    return tower if cls is VisionTransformer else Int8VisionTransformer.\
+        from_float(tower)
+
+
+@pytest.mark.parametrize("kind,b", [("bf16", 4), ("int8", 4), ("int8", 3),
+                                    ("int8", 6)],
+                         ids=["bf16_rows1-2", "int8_rows5+7",
+                              "int8_row8_coop", "int8_row8_chain"])
+def test_scan_encoder_graph_equals_eager(cuda, kind, b):
+    """k = 3 stacked batches through one captured graph of the tower calls
+    (rows 1-2; rows 5 + 7; row 8's cooperative launch at B 3 and its
+    chain at B 6) equal the eager calls in bits, the folded-u8 tower too,
+    and each replay counts its kernels' launches."""
+    from patent_tpu_torch.retrieval.engine import make_scan_encoder
+
+    tower = _scan_tower(cuda, VisionTransformer if kind == "bf16"
+                        else Int8VisionTransformer)
+    px = np.random.default_rng(b).integers(0, 256, (3, b, 64, 64, 3),
+                                           dtype=np.uint8)
+    fns = ([bf16_layer.fused_layer_block_bf16] if kind == "bf16" else
+           [qm.quant_attention_block] if b % 4 == 0 else
+           [qm.quant_layer_block])
+    for fold in (False, True):
+        eager = make_scan_encoder(tower, fold_u8=fold, graphed=False)(px)
+        scan = make_scan_encoder(tower, fold_u8=fold)
+        for call in range(3):             # warm-up, capture, replay
+            before = [f.launches for f in fns]
+            got = scan(px)
+            assert np.array_equal(got, eager), (fold, call)
+            assert all(f.launches - n == 3 * 2 for f, n in zip(fns, before))

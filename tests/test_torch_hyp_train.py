@@ -305,9 +305,10 @@ def test_figure_pair_maps_and_batches_equal_jax(cli_td):
         assert len(ja) == len(ta) == 6
         for a, b in zip(ja, ta):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
-        # the device copy splits the packed columns back into the fields
-        dev = th.epoch_to_device(ta, "cpu")
-        for i, batch in enumerate(dev):
+        # the packed copy splits back into the fields
+        packed, widths = th.pack_epoch(ta)
+        for i, batch in enumerate(th.unpack_fields(torch.from_numpy(p),
+                                                   widths) for p in packed):
             for a, b in zip(ta, batch):
                 np.testing.assert_array_equal(a[i], b.numpy())
     jb = list(jax_th.make_batches(cli_td, cli_td.y_pos[:50, 0], 16, 2,
@@ -359,11 +360,13 @@ def test_one_train_hyp_step_matches_jax(cli_td):
     topt = optim.RiemannianAdam(dict(model.named_parameters()),
                                 tcfg.learning_rate, c=2.0)
     tloss = th.make_loss_fn(model, tcfg)
-    tbatch = th.epoch_to_device(tuple(a[:1] for a in arrays), "cpu")[0]
-    got = th.train_step(model, topt, tloss, tbatch,
-                        torch.from_numpy(td.x_figures),
-                        torch.from_numpy(td.implication).long(),
-                        torch.zeros(0, 2, dtype=torch.long))
+    packed, widths = th.pack_epoch(tuple(a[:1] for a in arrays))
+    tbatch = th.unpack_fields(torch.from_numpy(packed[0]), widths)
+    grads, got = th.step_grads(model, topt, tloss, tbatch,
+                               torch.from_numpy(td.x_figures),
+                               torch.from_numpy(td.implication).long(),
+                               torch.zeros(0, 2, dtype=torch.long))
+    topt.step(grads)
     for name, v in zip(th.METRICS, got.tolist()):
         want = (float(optax.global_norm(jgrads)) if name == "grad_norm"
                 else float(jmet[name]))

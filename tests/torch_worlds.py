@@ -292,9 +292,10 @@ def hyp_train_world(device: str, data: dict, state: dict, model_kwargs: dict,
         cfg = HypTrainConfig(**cfg_kwargs, use_dropout=use_dropout)
         model, opt = fresh()
         gen = torch.Generator(device=dev).manual_seed(7)
-        single = th.train_step(model, opt, th.make_loss_fn(model, cfg),
-                               _hyp_batch(data["batch"], dev), x, impl, excl,
-                               gen if use_dropout else None)
+        grads, single = th.step_grads(model, opt, th.make_loss_fn(model, cfg),
+                                      _hyp_batch(data["batch"], dev), x, impl,
+                                      excl, gen if use_dropout else None)
+        opt.step(grads)
         mesh = make_hyp_mesh(model_dim=model_dim, device=device)
         smodel, sopt = fresh()
         _m, _o, real, padded = pad_label_table(smodel, sopt, model_dim)
