@@ -226,7 +226,27 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    eager and graphed; the
    text encode at TEXT_B, batch 256, over the 2018 scale's titles
    (texts/s, and the tower alone with its profile) and the HF load of
-   ViT-B/16 from each format.
+   ViT-B/16 from each format;
+6. the wide towers (csrc/flash_tile.cuh at the JAX kernels' contract:
+   head widths to 128, keys streamed past shared memory), seeded weights
+   at published widths: CLIP ViT-L/14 @336 (openai/clip-vit-large-
+   patch14-336: D 1,024, 24 layers, 16 x 64 heads, MLP 4,096, 577 tokens
+   padded to 592, projection 768) and the repo's quick_gelu tower at
+   OpenCLIP ViT-H/14's widths (D 1,280, 32 layers, 16 x 80 heads, MLP
+   5,120, 257 tokens padded to 272, projection 1,024): the bf16
+   fused-layer tower at B 32 (rows 1-2) and 3 (JAX's per-op composition,
+   no kernel) and the int8 tower at B 32 (rows 5 + 7, 6) and 3 (row 8),
+   and at ViT-L/14 the use_flash (row 14) and fused_block (row 12)
+   per-op towers at B 32, each held to itself with kernels=False (bf16
+   and per-op: min row cosine 0.9999; int8: the ViT-B/16 gate) and the
+   int8 tower printed against the bf16 one; one int8 layer at B 3 through
+   the cooperative launch, forced, equal in bits to the chain; then each
+   tower's img/s (the int8 tower's ms at B 3), and the tile at each
+   instance width (48 to 128, 72 and 88 on 80 and 96) on q, k, v [32,
+   257, H, hd] and at the two towers' shapes beside its plain version,
+   F.scaled_dot_product_attention and its bound; the towers' tile
+   launches by instance width join the kernels line as
+   flash_tile_hd64_streamed and flash_tile_hd80.
 
 The line before the last is a JSON object with one entry per kernel
 (its launches on the main path, error against the plain version, times
@@ -2080,6 +2100,218 @@ def hyperbolic_train_times(torch, dev, z: dict, h: dict, label: str) -> None:
 
 # ---- the one-dispatch loops as CUDA graphs (utils/graphs.py): JAX's
 # jitted lax.scan epochs and megabatch encoders
+# ---- 6. the wide towers
+
+# CLIP ViT-L/14 @336 (openai/clip-vit-large-patch14-336's vision tower,
+# quick_gelu as the repo's) and the repo's quick_gelu tower at OpenCLIP
+# ViT-H/14's widths (laion/CLIP-ViT-H-14-laion2B-s32B-b79K, whose own
+# tower uses exact GELU): VisionConfig's fields, full depth
+WIDE_TOWERS = {
+    "ViT-L/14 @336": dict(image_size=336, patch_size=14, hidden_dim=1024,
+                          num_layers=24, num_heads=16, mlp_dim=4096,
+                          projection_dim=768),
+    "ViT-H/14 widths @224": dict(image_size=224, patch_size=14,
+                                 hidden_dim=1280, num_layers=32,
+                                 num_heads=16, mlp_dim=5120,
+                                 projection_dim=1024)}
+# the kernels line's tile entries: (name, tower, head width)
+WIDE_TILES = (("flash_tile_hd64_streamed", "ViT-L/14 @336", 64),
+              ("flash_tile_hd80", "ViT-H/14 widths @224", 80))
+# the instance widths timed alone (72 and 88 on the 80 and 96 instances)
+TILE_TIMED_WIDTHS = (48, 64, 72, 80, 88, 96, 112, 128)
+WIDE_BATCH = 32
+
+
+def tile_bound(b, s, heads, hd) -> tuple[float, str]:
+    """bound() of the tile on q, k, v [B, S, H, hd] bf16: each read once
+    and o written once; q kᵀ and p v, 2 operations a multiply-add."""
+    return bound(4 * 2 * b * s * heads * hd,
+                 {"bf16": 4 * b * heads * s * s * hd})
+
+
+def time_tile(torch, fa, b, s, heads, hd, gen, dev) -> dict:
+    """Row 14 (the tile on every query row) on q, k, v [B, S, H, hd],
+    slices of one qkv tensor: its max |error| against the plain version,
+    (plain ms, kernel ms) in turns, F.scaled_dot_product_attention's ms
+    on contiguous [B, H, S, hd] copies (the transposes not timed) and the
+    bound."""
+    qkv = torch.randn(b, s, 3 * heads * hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (heads, hd))
+               for t in qkv.split(heads * hd, dim=-1))
+    with torch.inference_mode():
+        got = fa.flash_attention(q, k, v)
+        want = fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(rel_err(got, want) <= FLASH_REL_TOL,
+              f"the tile at [{b}, {s}, {heads}, {hd}] disagrees with plain")
+        times = in_turns(torch, lambda: fa.flash_attention_plain(q, k, v),
+                         lambda: fa.flash_attention(q, k, v), iters=10)
+        sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = cuda_ms(torch, lambda: torch.nn.functional.
+                       scaled_dot_product_attention(sq, sk, sv), iters=10)
+    return {"err": err, "times": times, "sdpa": sdpa,
+            "bound": tile_bound(b, s, heads, hd)}
+
+
+def wide_towers_phase(torch, dev, run_path, launches: dict, errs: dict,
+                      times: dict, bounds: dict, library: dict,
+                      label: str) -> None:
+    """Phase 6 (see the module docstring): the serving towers at ViT-L/14
+    @336 and ViT-H/14's widths on the tile's instances."""
+    from patent_tpu_torch.models.vit import VisionConfig, VisionTransformer
+    from patent_tpu_torch.models.vit_int8 import Int8VisionTransformer
+    from patent_tpu_torch.ops import bf16_layer, common
+    from patent_tpu_torch.ops import flash_attention as fa
+    from patent_tpu_torch.ops import quant_matmul as qm
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bt = WIDE_BATCH
+    counters = {"bf16": (bf16_layer.fused_layer_block_bf16,
+                         bf16_layer.fused_layer_cls_bf16),
+                "int8": (qm.quant_attention_block, qm.quant_attention_cls,
+                         qm.quant_mlp_block),
+                "int8 B3": (qm.quant_layer_block, qm.quant_attention_cls,
+                            qm.quant_mlp_block),
+                "use_flash": (fa.flash_attention,),
+                "fused_block": (fa.fused_attention_fwd,)}
+    tile_launches = {}
+    for tname, fields in WIDE_TOWERS.items():
+        cfg = VisionConfig(**fields)
+        hd = cfg.hidden_dim // cfg.num_heads
+        tower = VisionTransformer(cfg, device=dev, generator=gen)
+        with torch.no_grad():     # init leaves them 0 and 1: make each matter
+            for prm in tower.parameters():
+                if prm.dim() == 1:
+                    prm.add_(0.05 * torch.randn(prm.shape, generator=gen,
+                                                device=dev))
+        tower.eval()
+        tower8 = Int8VisionTransformer.from_float(tower).eval()
+        models = {"bf16": tower, "int8": tower8}
+        if tname == "ViT-L/14 @336":
+            for mode in ("use_flash", "fused_block"):
+                m = VisionTransformer(cfg, fused_layer=False, device=dev,
+                                      **{mode: True})
+                m.load_state_dict(tower.state_dict())
+                models[mode] = m.eval()
+        px = torch.randn(bt, cfg.image_size, cfg.image_size, 3,
+                         generator=gen, device=dev)
+        feats = {}
+
+        def run(name, model, pix, key):
+            def go():
+                with torch.inference_mode():
+                    feats[key] = model(pix)
+            run_path(f"{tname} {name} tower, B {pix.shape[0]}",
+                     counters[name if pix.shape[0] == bt or name == "bf16"
+                              else name + " B3"], go)
+
+        common.TILE_LAUNCHES.clear()
+        for name, model in models.items():
+            run(name, model, px, name)
+        run("int8", tower8, px[:3], "int8 B3")
+        tile_launches[tname] = dict(common.TILE_LAUNCHES)
+        with torch.inference_mode():
+            for key, model in list(models.items()) + [("int8 B3", tower8)]:
+                model.kernels = False
+                feats[key + " plain"] = model(px[:3] if key == "int8 B3"
+                                              else px)
+                model.kernels = True
+        torch.cuda.synchronize()
+        for key in ("bf16", "int8", "int8 B3", "use_flash", "fused_block"):
+            if key not in feats:
+                continue
+            got, ref = feats[key], feats[key + " plain"]
+            cos, rel = min_row_cosine(torch, got, ref), rel_err(got, ref)
+            int8 = key.startswith("int8")
+            print(f"[kernel] {tname} {key} tower, kernels vs plain layers: "
+                  f"feature rel err {rel:.3g}, min cosine {cos:.6f}")
+            check(got.shape == (ref.shape[0], cfg.projection_dim)
+                  and bool(torch.isfinite(got).all())
+                  and rel <= (INT8_TOWER_REL_TOL if int8 else TOWER_REL_TOL)
+                  and cos >= (INT8_TOWER_MIN_COS if int8
+                              else TOWER_MIN_COS),
+                  f"the {tname} {key} tower disagrees with its plain layers")
+        cos_i8 = min_row_cosine(torch, feats["int8"], feats["bf16"])
+        print(f"[kernel] {tname} int8 tower vs bf16 tower (kernels): min "
+              f"feature cosine {cos_i8:.6f}, rel err "
+              f"{rel_err(feats['int8'], feats['bf16']):.3g}")
+        check(cos_i8 >= INT8_VS_BF16_MIN_COS,
+              f"the {tname} int8 tower is far from the bf16 tower")
+        # one int8 layer at B 3 through the cooperative launch, forced (the
+        # plan takes the chain at these widths: MLP in's tiles pass one
+        # wave), against the chain in bits
+        with torch.inference_mode():
+            x3, seq = tower8.embed(px[:3])
+        layer = tower8.blocks[0]
+        plan = qm.layer_plan(3 * x3.shape[1], cfg.hidden_dim, cfg.mlp_dim,
+                             qm.layer_grid())
+        outs = {}
+        with torch.inference_mode():
+            for coop in (True, False):
+                with mock.patch.object(qm, "layer_plan", lambda *a, c=coop: (
+                        qm.LayerPlan(True, 1, 2) if c
+                        else qm.LayerPlan(False, 1, 1))):
+                    outs[coop] = qm.quant_layer_block(
+                        x3, *layer.attn_weights(), *layer.mlp_weights(),
+                        cfg.num_heads, valid_len=seq, folded=layer.folded())
+        torch.cuda.synchronize()
+        print(f"[kernel] {tname} int8 layer, B 3: the plan takes "
+              f"{'the cooperative launch' if plan.coop else 'the chain'}; "
+              f"the cooperative launch forced equals the chain in bits: "
+              f"{torch.equal(outs[True], outs[False])}")
+        check(torch.equal(outs[True], outs[False]),
+              f"{tname}: row 8's cooperative launch differs from the chain")
+
+        # times
+        def tower_ms(model, pix):
+            def go():
+                with torch.inference_mode():
+                    model(pix)
+            return cuda_ms(torch, go, warmup=2, iters=5)
+
+        for key, model in models.items():
+            ms = tower_ms(model, px)
+            print(f"[time] {tname} {key} tower, batch {bt}: "
+                  f"{bt / ms * 1e3:.1f} img/s ({ms:.2f} ms) {label}")
+        for key, model in (("bf16", tower), ("int8", tower8)):
+            ms = tower_ms(model, px[:3])
+            print(f"[time] {tname} {key} tower, batch 3: {ms:.2f} ms "
+                  f"({3 / ms * 1e3:.1f} img/s) {label}")
+        del models, tower, tower8, feats, outs, x3, px
+        torch.cuda.empty_cache()
+
+    print(f"[slice] wide towers' tile launches by instance width: "
+          f"{tile_launches}")
+    for kname, tname, hd in WIDE_TILES:
+        n = tile_launches[tname].get(hd, 0)
+        check(n > 0, f"the tile's {hd} instance never ran in the {tname} "
+                     "towers")
+        launches[kname] = n
+        cfg = VisionConfig(**WIDE_TOWERS[tname])
+        seq = cfg.num_patches + 1
+        r = time_tile(torch, fa, bt, seq, cfg.num_heads, hd, gen, dev)
+        errs[kname], times[kname] = r["err"], r["times"]
+        bounds[kname], library[kname] = r["bound"], r["sdpa"]
+        print(f"[time] {kname} at [{bt}, {seq}, {cfg.num_heads}, {hd}] "
+              f"({tname}): kernel {r['times'][1]:.3f} ms, plain "
+              f"{r['times'][0]:.3f} ms, F.scaled_dot_product_attention "
+              f"{r['sdpa']:.3f} ms, bound {r['bound'][0]:.3f} ms "
+              f"({r['bound'][1]}) {label}")
+    for hd in TILE_TIMED_WIDTHS:
+        heads = 1024 // hd if 1024 % hd == 0 else 16
+        r = time_tile(torch, fa, bt, 257, heads, hd, gen, dev)
+        print(f"[time] tile instance {common.tile_width(hd)} at head width "
+              f"{hd}, [{bt}, 257, {heads}, {hd}]: kernel "
+              f"{r['times'][1]:.3f} ms, plain {r['times'][0]:.3f} ms, "
+              f"F.scaled_dot_product_attention {r['sdpa']:.3f} ms, bound "
+              f"{r['bound'][0]:.3f} ms ({r['bound'][1]}), max |err| "
+              f"{r['err']:.3g} {label}")
+    print(f"[slice] wide towers phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 SCAN_DIR = os.path.join(ROOT, "build", "chip_smoke_scan")
 # the scan encoder's stack and batch; 168 patents x 4 figures = 672
 # images, 6 batches of 128: one full stack of 4 and a tail of 2 batches
@@ -5086,6 +5318,10 @@ def main() -> None:
               f"bound {bounds[kname][0]:.3f} ms ({bounds[kname][1]}) "
               f"{label}")
 
+    print(f"[phase] 6. wide towers from {time.perf_counter() - t_run:.0f} s")
+    wide_towers_phase(torch, dev, run_path, launches, errs, times, bounds,
+                      library, label)
+
     src = "patent_tpu_torch/csrc/"
     rows = [("fused_layer_block_bf16", "bf16_layer.cu",
              "patent_tpu/ops/bf16_layer.py:151"),
@@ -5126,6 +5362,10 @@ def main() -> None:
             ("flash_attention", "flash_attention.cu",
              "patent_tpu/ops/flash_attention.py:187"),
             ("flash_attention_f32", "flash_attention.cu",
+             "patent_tpu/ops/flash_attention.py:187"),
+            ("flash_tile_hd64_streamed", "flash_tile.cuh",
+             "patent_tpu/ops/flash_attention.py:187"),
+            ("flash_tile_hd80", "flash_tile.cuh",
              "patent_tpu/ops/flash_attention.py:187")]
     errs["bucket_topk_bf16"] = err_topk
     print(f"[phase] done at {time.perf_counter() - t_run:.0f} s")

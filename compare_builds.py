@@ -186,6 +186,7 @@ def run(root: str, out_path: str) -> None:
     device.update(int8_family(torch, randn, mat, outs, times))
     device.update(search(torch, dev, gen, outs, times))
     device.update(fine_tune(torch, dev, randn, outs, times))
+    device.update(attention_rows(torch, dev, outs, times))
     torch.cuda.synchronize()
     torch.save({"root": os.path.abspath(root), "card": smi,
                 "outputs": {key: v.cpu() for key, v in outs.items()},
@@ -204,6 +205,51 @@ def timed(torch, name: str, fn, outs: dict, times: dict, device: dict,
         outs[name if not isinstance(got, tuple) else f"{name} [{i}]"] = v
     times[name] = cuda_ms(torch, fn, iters=iters)
     device[name] = sum(ms for _k, ms in kernel_breakdown(torch, fn))
+
+
+def attention_rows(torch, dev, outs: dict, times: dict) -> dict:
+    """The entries of csrc/flash_tile.cuh's tile alone at ViT-B/16 @224:
+    rows 1 and 2 on [128, 208, 768] (197 valid keys, seeded weights), row
+    12's forward on the same stream and row 14 on the use_flash tower's
+    q, k, v [128, 197, 12, 64] (slices of one qkv tensor), bf16; returns
+    the device time a call of each."""
+    from patent_tpu_torch.ops import bf16_layer
+    from patent_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    d, f, s, bt, valid, heads = 768, 3072, 208, 128, 197, 12
+
+    def randn(*shape, std=1.0):
+        return std * torch.randn(*shape, generator=gen, device=dev)
+
+    def m(rows, cols):
+        return randn(rows, cols, std=rows ** -0.5).to(torch.bfloat16)
+
+    p = (1 + randn(d, std=0.1), randn(d, std=0.1), m(d, 3 * d),
+         randn(3 * d, std=0.2), m(d, d), randn(d, std=0.02),
+         1 + randn(d, std=0.1), randn(d, std=0.1), m(d, f),
+         randn(f, std=0.02), m(f, d), randn(d, std=0.02))
+    folded = bf16_layer.fold_layer(*p, heads)
+    x = randn(bt, s, d).to(torch.bfloat16)
+    wqkv = bf16_layer.fold_q_matrix(p[2].float(), heads).to(torch.bfloat16)
+    bqkv = randn(3 * d, std=0.2)
+    qkv = randn(bt, valid, 3 * d).to(torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (heads, d // heads))
+               for t in qkv.split(d, dim=-1))
+    device = {}
+    for name, fn in (
+            ("row 1, [128, 208, 768]", lambda: bf16_layer.
+             fused_layer_block_bf16(x, *p, heads, valid_len=valid,
+                                    folded=folded)),
+            ("row 2, [128, 208, 768]", lambda: bf16_layer.
+             fused_layer_cls_bf16(x, *p, heads, valid_len=valid,
+                                  folded=folded)),
+            ("row 12 forward, [128, 208, 768]", lambda: fa.
+             fused_attention_fwd(x, wqkv, bqkv, p[4], p[5], heads, valid)),
+            ("row 14, [128, 197, 12, 64] bf16",
+             lambda: fa.flash_attention(q, k, v))):
+        timed(torch, name, fn, outs, times, device)
+    return device
 
 
 def sha256(torch, t):

@@ -30,8 +30,9 @@
 //     epilogues fused (+bias; +bias, quick_gelu; +residual +bias in the
 //     TPU kernel's two orders);
 //   * attention is csrc/flash_tile.cuh: per (head, image) K and V in
-//     shared memory once, scores and p in registers, the one-pass exp2
-//     softmax;
+//     shared memory once (streamed in key blocks past the tile's ring,
+//     at any S and head widths to 128), scores and p in registers, the
+//     one-pass exp2 softmax;
 //   * the layer is seven launches, so qkv, ao, x1 and the MLP hidden
 //     [M, 3072] pass through device memory (the TPU kernel keeps them on
 //     chip); keeping them on chip is later work.  The timings sit in

@@ -1,6 +1,7 @@
 // Standalone multi-head attention softmax(q k^T / sqrt(d)) v on projected
 // q, k, v [B, S, H, hd] -> [B, S, H, hd] in q's dtype, the `use_flash`
-// tower's attention, at head width hd 64 (ViT-B/16), 32 or 16.
+// tower's attention: bf16 at any head width hd that is a multiple of 8 up
+// to 128 and any S, f32 at hd 64 (ViT-B/16), 32 or 16.
 //
 // Replaces the TPU kernels of patent_tpu/ops/flash_attention.py
 // _attn_kernel (_flash_impl) and _attn_kernel_headbatch
@@ -15,8 +16,9 @@
 //
 // bf16 (the tower's dtype): csrc/flash_tile.cuh, which says what bounds it
 // on the H100 and what its design does about it, with q scaled on load,
-// K and V read once per (head, image) and zero-filled from S up to the
-// next multiple of 16, and q, k, v read where they lie (image and row
+// K and V read once per (head, image), or once per 64 query rows past
+// the tile's ring, and zero-filled from S up to the next multiple of 16,
+// and q, k, v read where they lie (image and row
 // strides are arguments, so the [B, S, H*64] layout, or slices of one
 // [B, S, 3*H*64] qkv tensor, need no copy or transpose).
 //
@@ -71,6 +73,11 @@ constexpr int F32_TY = 8;           // thread rows: query rows ty + 8i
 constexpr int F32_KT = 64;          // keys per tile
 constexpr int F32_LD = F32_KT + 4;  // padded row of Q, K and p (floats):
                                     // a p row holds the tile's 64 keys
+
+// the f32 kernel's own head widths (the bf16 tile takes more)
+inline bool f32_head_dim_ok(int hd) {
+  return hd == 16 || hd == 32 || hd == 64;
+}
 
 template <int TM, int HD>
 constexpr size_t f32_smem_bytes() {
@@ -293,8 +300,8 @@ extern "C" {
 
 // q [B, S, H, hd] bf16 with image stride q_img and row stride q_row
 // (elements), k and v with kv_img and kv_row, the last two axes packed; o
-// [B, S, H, hd] contiguous.  hd 16, 32 or 64; scale = log2(e)/sqrt(hd) in
-// f32.
+// [B, S, H, hd] contiguous.  hd a multiple of 8 up to 128 (the tile's
+// instance tile_width(hd)); scale = log2(e)/sqrt(hd) in f32.
 int ptt_flash_attention(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int hd, long long q_img,
                         int q_row, long long kv_img, int kv_row, float scale,
@@ -307,13 +314,13 @@ int ptt_flash_attention(const void* q, const void* k, const void* v, void* o,
 }
 
 // The same function on f32 q, k, v, o (strides as above; 16-byte aligned
-// rows).  The query block of 8 * TM rows, TM in 4..8, that pads S the
-// least (the larger on a tie).
+// rows; hd 16, 32 or 64 only, f32_head_dim_ok).  The query block of 8 * TM
+// rows, TM in 4..8, that pads S the least (the larger on a tie).
 int ptt_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* o, int B, int S, int H, int hd,
                             long long q_img, int q_row, long long kv_img,
                             int kv_row, float scale, void* stream) {
-  if (!ptt_flash::head_dim_ok(hd)) return (int)cudaErrorInvalidValue;
+  if (!f32_head_dim_ok(hd)) return (int)cudaErrorInvalidValue;
   int tm = 8, padded = (S + 63) / 64 * 64;
   for (int c = 7; c >= 4; --c) {
     const int bq = F32_TY * c, p = (S + bq - 1) / bq * bq;
@@ -336,7 +343,8 @@ int ptt_flash_attention_f32(const void* q, const void* k, const void* v,
   switch (hd) {
     case 16: return at_hd(std::integral_constant<int, 16>());
     case 32: return at_hd(std::integral_constant<int, 32>());
-    default: return at_hd(std::integral_constant<int, 64>());
+    case 64: return at_hd(std::integral_constant<int, 64>());
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -44,8 +44,11 @@
 //     between steps, so dq's sums run in one order and two runs give the
 //     same bits.  Shared memory is q, dn, K and V (or dq) and dden, 516
 //     bytes a row: 107 KB at S 208, two blocks an SM.
-// Both are instantiated at head width 64 (ViT-B/16), 32 and 16 (the CLIs'
-// small tower, D 64 over 4 heads).
+// The forward takes the tile's contract (head widths that are multiples of
+// 8 up to 128, any S); the backward is instantiated at head width 64
+// (ViT-B/16), 32 and 16 (the CLIs' small tower, D 64 over 4 heads) only,
+// its shared memory S x 516 bytes at 64: ptt_fab_bwd names each width and
+// refuses the rest.
 
 #include <type_traits>
 

@@ -49,7 +49,9 @@
 //     quick_gelu / residual fused into the epilogue) and their attention
 //     on csrc/flash_tile.cuh's tile with an f32 output (K and V of a
 //     (head, image) in shared memory once, the scores and p in registers,
-//     53 KB at S 208);
+//     53 KB at S 208; past the tile's ring, streamed in key blocks within
+//     the same bytes, so the cooperative launch's ring holds them at any
+//     S and head width);
 //   * the CLS variant (row 6) runs its three GEMMs on the same wgmma
 //     GEMM: the K/V product over every row, the q product over row 0 of
 //     each image only (A read as every S-th row of the LN1 codes, its
@@ -261,6 +263,7 @@ struct LayerArgs {
   const bf16* x;
   bf16* out;
   int B, S, D, H, F, valid_len;
+  int tile_width;             // the attention tile's instance for D / H
   int split_out, split_mlp;   // k-ranges a tile: out-projection, MLP out
   const float *ln1s, *ln1b, *sq, *bq, *sout, *bout;
   const float *ln2s, *ln2b, *s1, *b1, *s2, *b2;
@@ -295,6 +298,9 @@ constexpr int LAYER_WARPS = s8::THREADS / 32;
 constexpr int LAYER_STAGES = 4;
 constexpr size_t LAYER_SMEM = s8::smem_bytes(LAYER_STAGES);
 constexpr size_t LAYER_RING = s8::ring_bytes(LAYER_STAGES);
+// the attention tile runs on the ring's bytes at any S and head width
+static_assert((size_t)ptt_flash::RING_BYTES <= LAYER_RING,
+              "the tile's ring fits the layer's");
 
 // The rows a block takes at once in a row phase: as many as spread M rows
 // over the grid in one round, at most a row a warp.
@@ -405,21 +411,38 @@ __global__ void __launch_bounds__(s8::THREADS, 1)
   const int rows = 16 * per_unit;
   const int chunks = (S + rows - 1) / rows;
   const long long img = (long long)S * 3 * D;
-  auto tile = [&](auto hd) {
+  auto tile = [&](auto w) {
+    constexpr int HD = decltype(w)::value;
+    const bool stream = S > ptt_flash::Layout<HD>::RING;
     for (int t = blockIdx.x; t < chunks * a.H * a.B; t += gridDim.x) {
       __syncthreads();        // the last unit's warps are done with smem
       const int q0 = t % chunks * rows;
-      ptt_flash::flash_tile<decltype(hd)::value, false, float, LAYER_WARPS>(
-          a.qkv + (size_t)q0 * 3 * D, img, 3 * D, min(rows, S - q0),
-          a.qkv + D, a.qkv + 2 * D, img, 3 * D, a.ao + (size_t)q0 * D,
-          (long long)S * D, D, S, a.valid_len, 0.0f, t / chunks % a.H,
-          t / (chunks * a.H), ring.tiles);
+      auto run = [&](auto streamed) {
+        ptt_flash::flash_tile<HD, false, decltype(streamed)::value, float,
+                              LAYER_WARPS>(
+            a.qkv + (size_t)q0 * 3 * D, img, 3 * D, min(rows, S - q0),
+            a.qkv + D, a.qkv + 2 * D, img, 3 * D, a.ao + (size_t)q0 * D,
+            (long long)S * D, D, S, a.valid_len, D / a.H, 0.0f,
+            t / chunks % a.H, t / (chunks * a.H), ring.tiles);
+      };
+      if (stream)
+        run(std::true_type());
+      else
+        run(std::false_type());
     }
   };
-  switch (D / a.H) {          // the head width: 16, 32 or 64 (layer_coop)
+  // the head width's instance: every width layer_coop takes is named, and
+  // it refuses the rest before the launch
+  switch (a.tile_width) {
     case 16: tile(std::integral_constant<int, 16>()); break;
     case 32: tile(std::integral_constant<int, 32>()); break;
-    default: tile(std::integral_constant<int, 64>()); break;
+    case 48: tile(std::integral_constant<int, 48>()); break;
+    case 64: tile(std::integral_constant<int, 64>()); break;
+    case 80: tile(std::integral_constant<int, 80>()); break;
+    case 96: tile(std::integral_constant<int, 96>()); break;
+    case 112: tile(std::integral_constant<int, 112>()); break;
+    case 128: tile(std::integral_constant<int, 128>()); break;
+    default: break;
   }
   grid_sync(grid);
   stamp();
@@ -525,8 +548,7 @@ int layer_grid(int* blocks) {
 }
 
 int layer_coop(const LayerArgs& a, cudaStream_t st) {
-  if (a.D % a.H || !ptt_flash::head_dim_ok(a.D / a.H) ||
-      ptt_flash::smem_bytes(a.S, a.D / a.H) > LAYER_RING ||
+  if (a.tile_width == 0 ||         // D / H is not a width the tile takes
       (size_t)LAYER_WARPS * a.D * sizeof(float) > LAYER_RING ||
       a.split_out > SPLIT_MAX || a.split_mlp > SPLIT_MAX)
     return (int)cudaErrorInvalidValue;
@@ -753,8 +775,9 @@ int ptt_int8_layer(const void* x, void* out, int B, int S, int D, int H,
                    void* hq2, void* hs2, void* g, void* gq, void* gs,
                    void* part, void* stamps, void* stream) {
   const LayerArgs a{
-      (const bf16*)x, (bf16*)out, B, S, D, H, F, valid_len, split_out,
-      split_mlp, (const float*)ln1s, (const float*)ln1b, (const float*)sq,
+      (const bf16*)x, (bf16*)out, B, S, D, H, F, valid_len,
+      D % H ? 0 : ptt_flash::tile_width(D / H), split_out, split_mlp,
+      (const float*)ln1s, (const float*)ln1b, (const float*)sq,
       (const float*)bq, (const float*)sout, (const float*)bout,
       (const float*)ln2s, (const float*)ln2b, (const float*)s1,
       (const float*)b1, (const float*)s2, (const float*)b2,

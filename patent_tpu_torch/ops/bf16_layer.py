@@ -40,7 +40,7 @@ import torch
 
 from .. import _build
 from .common import (NEG_1702_LOG2E, check_attention_shape,
-                     check_cuda_tensor, dense, einsum_attention,
+                     check_cuda_tensor, count_tile, dense, einsum_attention,
                      layernorm_f32, mm_f32, quick_gelu, round_up,
                      weak_scalar)
 
@@ -285,6 +285,7 @@ def _launch(x, fw: FoldedLayer, num_heads: int, valid_len: int,
         fused_layer_cls_bf16.launches += 1
     else:
         fused_layer_block_bf16.launches += 1
+    count_tile(d, num_heads)
     return out
 
 

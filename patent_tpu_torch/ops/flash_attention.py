@@ -35,9 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .common import (ATTENTION_HEAD_DIMS, check_attention_shape,
-                     check_cuda_tensor, mm_f32, refuse_grad, round_up,
-                     weak_scalar)
+from .common import (BWD_HEAD_DIMS, check_attention_bwd_shape,
+                     check_attention_shape, check_cuda_tensor, count_tile,
+                     mm_f32, refuse_grad, round_up, weak_scalar)
 
 SCORE_CLAMP_LO = -100.0
 SCORE_CLAMP_HI = 80.0
@@ -163,12 +163,15 @@ def attention_bwd_plain(x, wqkv_f, bqkv_f, da, num_heads: int,
     return dqkv, _unheads(o.to(cdt), b)
 
 
-def _kernel_check(x, num_heads, valid_len, mats, vecs) -> None:
-    """Raise unless the CUDA kernels take this call: x [B, S, D] and the
-    matrices bf16, the biases f32, all contiguous on the card."""
+def _kernel_check(x, num_heads, valid_len, mats, vecs,
+                  check_shape=check_attention_shape) -> None:
+    """Raise unless the CUDA kernel takes this call: x [B, S, D] and the
+    matrices bf16, the biases f32, all contiguous on the card, and the
+    shape within ``check_shape``'s contract (the tile's for row 12, the
+    backward's for row 13)."""
     check_cuda_tensor("x", x, torch.bfloat16)
     b, s, d = x.shape
-    check_attention_shape(d, num_heads, s, valid_len)
+    check_shape(d, num_heads, s, valid_len)
     for name, t, shape in mats:
         check_cuda_tensor(name, t, torch.bfloat16, shape)
     for name, t, n in vecs:
@@ -199,6 +202,7 @@ def fused_attention_fwd(x, wqkv_f, bqkv_f, wout, bout, num_heads: int,
                 *map(_build.ptr, (wqkv_t, bqkv_f, wout_t, bout, *scratch)),
                 _build.stream(dev))
     fused_attention_fwd.launches += 1
+    count_tile(d, num_heads)
     return out
 
 
@@ -217,7 +221,7 @@ def fused_attention_bwd(x, wqkv_f, bqkv_f, da, num_heads: int,
     b, s, d = x.shape
     _kernel_check(x, num_heads, valid_len,
                   [("wqkv", wqkv_f, (d, 3 * d)), ("da", da, (b, s, d))],
-                  [("bqkv", bqkv_f, 3 * d)])
+                  [("bqkv", bqkv_f, 3 * d)], check_attention_bwd_shape)
     dev = x.device
     dqkv = torch.empty(b, s, 3 * d, dtype=torch.bfloat16, device=dev)
     a = torch.empty_like(x)
@@ -295,6 +299,10 @@ def fused_attention_block(x, wqkv, bqkv, wout, bout, num_heads: int,
                         wqkv[:, d:]], dim=1)
     bqkv_f = torch.cat([bqkv[:d] * weak_scalar(scale2, bqkv.dtype), bqkv[d:]])
     sp = round_up(max(s, 16), 16)
+    if kernels and x.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wqkv, bqkv, wout, bout)):
+        # autograd records, so row 13 will run: its contract, before row 12
+        check_attention_bwd_shape(d, num_heads, sp, s)
     xp = F.pad(x, (0, 0, 0, sp - s)).contiguous()
     out = _FusedAttentionBlock.apply(xp, wqkv_f.contiguous(), bqkv_f, wout,
                                      bout, num_heads, s, kernels)
@@ -334,12 +342,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_check(q, k, v) -> None:
-    """Raise unless the row-14 kernel takes q, k, v: [B, S, H, D] (D 16,
-    32 or 64) of one dtype, bf16 or f32, on the card with each row's
-    [H, D] packed (a slice of a wider row, as q, k, v of one qkv tensor
-    are, is read in place), 16-byte aligned, k and v with the same strides, and in bf16
-    the sequence within shared memory (the f32 kernel streams the keys
-    in tiles)."""
+    """Raise unless the row-14 kernel takes q, k, v: [B, S, H, D] of one
+    dtype, bf16 or f32, on the card with each row's [H, D] packed (a
+    slice of a wider row, as q, k, v of one qkv tensor are, is read in
+    place), 16-byte aligned, k and v with the same strides; in bf16 the
+    tile's contract (D a multiple of 8 up to 128, any S), in f32 D 16, 32
+    or 64 (any S: that kernel streams the keys in tiles too)."""
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -361,11 +369,11 @@ def _flash_check(q, k, v) -> None:
     if k.stride() != v.stride():
         raise ValueError(f"k and v differ in strides: {k.stride()}, "
                          f"{v.stride()}")
-    if d not in ATTENTION_HEAD_DIMS:
-        raise ValueError(f"the row-14 kernel needs head_dim in "
-                         f"{ATTENTION_HEAD_DIMS}, got {d}")
     if q.dtype == torch.bfloat16:
         check_attention_shape(h * d, h, round_up(s, 16), s)
+    elif d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the row-14 f32 kernel needs head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {d}")
 
 
 def _launch_flash(name: str, q, k, v) -> torch.Tensor:
@@ -383,9 +391,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     head_batch: bool = True) -> torch.Tensor:
     """softmax(q kᵀ/√D) v for q, k, v [B, S, H, D] → [B, S, H, D], the
     TPU kernel's exp2 form (``flash_attention_plain``) in q's dtype.
-    Inference only.  CPU tensor: the plain version; CUDA tensor (head_dim
-    16, 32 or 64): bf16 the kernel, f32 ``flash_attention_f32``, anything
-    else an error."""
+    Inference only.  CPU tensor: the plain version; CUDA tensor: bf16 the
+    kernel (head_dim a multiple of 8 up to 128), f32
+    ``flash_attention_f32`` (head_dim 16, 32 or 64), anything else an
+    error."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, head_batch)
     if q.dtype == torch.float32:
@@ -394,6 +403,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     refuse_grad("flash_attention", q, k, v)
     out = _launch_flash("ptt_flash_attention", q, k, v)
     flash_attention.launches += 1
+    count_tile(q.shape[2] * q.shape[3], q.shape[2])
     return out
 
 

@@ -52,7 +52,7 @@ import torch
 
 from .. import _build
 from .common import (NEG_1702_LOG2E, check_attention_shape,
-                     check_cuda_tensor, layernorm_f32, mm_f32)
+                     check_cuda_tensor, count_tile, layernorm_f32, mm_f32)
 from .flash_attention import SCORE_CLAMP_HI, SCORE_CLAMP_LO
 
 _P, _I = _build.P, _build.I
@@ -308,6 +308,7 @@ def quant_attention_block(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t,
                 b, s, d, num_heads, valid_len, *map(_build.ptr, ws),
                 *scratch, _build.stream(dev))
     quant_attention_block.launches += 1
+    count_tile(d, num_heads)
     return out
 
 
@@ -340,6 +341,7 @@ def quant_attention_cls(x, ln_scale, ln_bias, wqkv_t, sqkv, bqkv, wout_t,
                 _build.ptr(out), b, s, d, num_heads, valid_len,
                 *map(_build.ptr, ws), *scratch, _build.stream(dev))
     quant_attention_cls.launches += 1
+    count_tile(d, num_heads)
     return out
 
 
@@ -474,6 +476,7 @@ def _layer_kernel(x, params, num_heads: int, valid_len: int, folded=None,
                 *([] if plan.coop else [None]),
                 None if stamps is None else _build.ptr(stamps),
                 _build.stream(dev))
+    count_tile(d, num_heads)
     return out
 
 

@@ -25,6 +25,7 @@ back and each replay adds them again (``launch_counters``).
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Sequence
 
 import numpy as np
@@ -115,8 +116,20 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph):
-            out = self.body()
+        # no garbage collection inside the capture: torch.cuda.graph
+        # collects on entry, and a collection during the capture can run a
+        # finalizer that calls CUDA (an earlier loop's graph, held in a
+        # ScanLoop <-> StepGraph cycle, destroyed), which invalidates the
+        # capture; seen on the H100 as cudaErrorStreamCaptureInvalidated
+        # in 4 of 5 runs of the card tests at one allocation history
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = self.body()
+        finally:
+            if collecting:
+                gc.enable()
         self.counts = [(f, f.launches - n) for f, n in zip(counters, before)
                        if f.launches != n]
         for f, n in zip(counters, before):     # a capture launches nothing

@@ -132,8 +132,8 @@ def test_layer_kernel_rejects_what_it_does_not_take(cuda):
     x, p = _layer_case(cuda, b=4)
     with pytest.raises(ValueError):
         bf16_layer.fused_layer_block_bf16(x.float(), *p, HEADS, valid_len=VALID)
-    with pytest.raises(ValueError, match="head_dim"):    # head_dim 128
-        bf16_layer.fused_layer_block_bf16(x, *p, 1, valid_len=VALID)
+    with pytest.raises(ValueError, match="head_dim"):    # head_dim 4
+        bf16_layer.fused_layer_block_bf16(x, *p, 32, valid_len=VALID)
     with pytest.raises(ValueError):      # token axis not padded to 16
         bf16_layer.fused_layer_block_bf16(x[:, :40].contiguous(), *p, HEADS,
                                           valid_len=VALID)
@@ -411,8 +411,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(q.float(), k, v)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fa.flash_attention(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(*(t.reshape(2, 20, 16, 8) for t in (q, k, v)))
+    with pytest.raises(ValueError, match="head_dim"):   # 4: not 8's multiple
+        fa.flash_attention(*(t.reshape(2, 20, 32, 4) for t in (q, k, v)))
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(*(t.float().reshape(2, 20, 1, 128)
                              for t in (q, k, v)))
@@ -508,10 +508,10 @@ def test_int8_kernels_reject_what_they_do_not_take(cuda):
     x, attn, mlp = _int8_case(cuda)
     with pytest.raises(ValueError):      # f32 tokens
         qm.quant_attention_block(x.float(), *attn, HEADS, valid_len=VALID)
-    with pytest.raises(ValueError, match="head_dim"):    # head_dim 128
-        qm.quant_attention_block(x, *attn, 1, valid_len=VALID)
+    with pytest.raises(ValueError, match="head_dim"):    # head_dim 4
+        qm.quant_attention_block(x, *attn, 32, valid_len=VALID)
     with pytest.raises(ValueError, match="head_dim"):
-        qm.quant_layer_block(x, *attn, *mlp, 1, valid_len=VALID)
+        qm.quant_layer_block(x, *attn, *mlp, 32, valid_len=VALID)
     with pytest.raises(ValueError):      # weights in the [in, out] layout
         qm.quant_attention_block(x, *attn[:2], attn[2].T, *attn[3:], HEADS,
                                  valid_len=VALID)
@@ -2940,3 +2940,199 @@ def test_scan_encoder_graph_equals_eager(cuda, kind, b):
             got = scan(px)
             assert np.array_equal(got, eager), (fold, call)
             assert all(f.launches - n == 3 * 2 for f, n in zip(fns, before))
+
+
+# ---- the attention tile at the JAX kernels' contract (csrc/flash_tile.cuh):
+# head widths that are multiples of 8 up to 128, on instances every 16 (a
+# real width runs on the next one up, its extra columns zero), and any S
+# (past the tile's ring, K and V stream through shared memory in key
+# blocks).  The tolerances are those at head width 64 above: the same bf16
+# q, p and f32 sums in another order.
+
+# (real head width, heads): the instances added beside 16, 32 and 64, the
+# padded widths 72 (ViT-B's 64 + 8) and 88 (ViT-g/14's), and 64, which at
+# S 577 streams its keys
+TILE_CASES = [(48, 4), (64, 4), (72, 2), (80, 4), (88, 2), (96, 2), (112, 2),
+              (128, 2)]
+TILE_IDS = [f"hd{hd}" for hd, _h in TILE_CASES]
+
+
+@pytest.mark.parametrize("hd,heads", TILE_CASES, ids=TILE_IDS)
+@pytest.mark.parametrize("b", [3, 32])
+@pytest.mark.parametrize("s", [257, 577])
+def test_tile_widths_match_plain_on_the_full_query_axis(cuda, s, b, hd,
+                                                        heads):
+    """Row 14 (the tile on every query row) at each new instance and at
+    the padded widths, with 257 and 577 keys (past the ring at every
+    width from 64 up), against its plain version at the real width."""
+    q, k, v = _flash_case(cuda, b, s, heads=heads, hd=hd)
+    got = fa.flash_attention(q, k, v)
+    packed = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+    want = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    assert torch.equal(got, packed)
+    assert _rel_err(got, want) <= FLASH_REL_TOL
+    for name, ctrl in (
+            ("q unscaled", fa.flash_attention_plain(q, k, v, scale=False)),
+            ("pad keys counted", fa.flash_attention_plain(
+                q, k, v, pad_keys_to=-(-s // 16) * 16))):
+        assert _rel_err(ctrl, want) > FLASH_REL_TOL, name
+
+
+def _int8_weights(dev, d, f, seed):
+    """_int8_case's attention and MLP parameters at width d, MLP f."""
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+
+    def r(*shape, std):
+        return std * torch.randn(*shape, generator=g, device=dev)
+
+    def m(rows, cols):
+        q, scale = qm.quantize_weight(r(rows, cols, std=rows ** -0.5))
+        return q.T.contiguous(), scale
+
+    wqkv, sqkv = m(d, 3 * d)
+    wout, sout = m(d, d)
+    w1, s1 = m(d, f)
+    w2, s2 = m(f, d)
+    return ((1 + r(d, std=0.1), r(d, std=0.1), wqkv, sqkv,
+             r(3 * d, std=0.2), wout, sout, r(d, std=0.02)),
+            (1 + r(d, std=0.1), r(d, std=0.1), w1, s1, r(f, std=0.02), w2,
+             s2, r(d, std=0.02)))
+
+
+@pytest.mark.parametrize("hd,heads", TILE_CASES, ids=TILE_IDS)
+@pytest.mark.parametrize("b", [3, 32])
+def test_tile_widths_in_the_layers_match_plain(cuda, b, hd, heads):
+    """Rows 1 and 2 (bf16 out; group 1, so B 3 runs them too) and rows 5
+    and 6 (f32 out) at each new instance, with a full query axis and with
+    n_q 1 (the CLS rows), at 272 rows (ViT-H/14's 257 tokens) and, at
+    head width 64, 592 (ViT-L/14 @336's 577)."""
+    s = 592 if hd == 64 else 272
+    valid = s - 15
+    d = hd * heads
+    x, p = _layer_case(cuda, b=b, s=s, d=d, f=2 * d, valid=valid)
+    attn, _mlp = _int8_weights(cuda, d, 2 * d, hd)
+    for name, fn, plain, args, kw, tol in (
+            ("row 1", bf16_layer.fused_layer_block_bf16,
+             bf16_layer.fused_layer_block_bf16_plain, p, dict(group=1),
+             REL_TOL),
+            ("row 2", bf16_layer.fused_layer_cls_bf16,
+             bf16_layer.fused_layer_cls_bf16_plain, p, dict(group=1),
+             REL_TOL),
+            ("row 5", qm.quant_attention_block,
+             qm.quant_attention_block_plain, attn, {}, INT8_REL_TOL),
+            ("row 6", qm.quant_attention_cls, qm.quant_attention_cls_plain,
+             attn, {}, INT8_REL_TOL)):
+        got = fn(x, *args, heads, valid_len=valid, **kw)
+        want = plain(x, *args, heads, valid_len=valid, **kw)
+        if got.dim() == 3:
+            got, want = got[:, :valid], want[:, :valid]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel_err(got, want) <= tol, name
+        assert _min_cosine(got, want) > 0.9999, name
+
+
+# Row 8 at ViT-L/14 and ViT-H/14 widths against its plain version: the
+# whole layer's int8 codes flip as at ViT-B/16 (INT8_LAYER_REL_TOL above),
+# more of them at D 1,024 with F 4,096: measured 1.51e-3 at B 3 there on
+# the H100.  The no-key-mask and rows 5 + 7 controls must fail the gate.
+INT8_LAYER_WIDE_REL_TOL = 3e-3
+
+
+@pytest.mark.parametrize("hd,heads,s", [(64, 16, 592), (80, 16, 272),
+                                        (72, 4, 272), (128, 2, 592)],
+                         ids=["L14-336", "H14", "hd72", "hd128"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_int8_layer_cooperative_launch_at_the_new_widths(cuda, b, hd, heads,
+                                                         s, monkeypatch):
+    """Row 8's cooperative launch runs the tile on its GEMM ring at every
+    new width (K and V streamed past the tile's ring): forced at B 1 and
+    3, it equals the chain in bits, and the chain its plain version."""
+    d = hd * heads
+    valid = s - 15
+    x, _p = _layer_case(cuda, b=b, s=s, d=d, f=4 * d, valid=valid)
+    attn, mlp = _int8_weights(cuda, d, 4 * d, hd)
+    outs = {}
+    for coop in (True, False):
+        monkeypatch.setattr(qm, "layer_plan", lambda m, d_, f, g, c=coop: (
+            qm.LayerPlan(True, 1, 2) if c else qm.LayerPlan(False, 1, 1)))
+        outs[coop] = qm.quant_layer_block(x, *attn, *mlp, heads,
+                                          valid_len=valid)
+    want = qm.quant_layer_block_plain(x, *attn, *mlp, heads,
+                                      valid_len=valid)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[True], outs[False])
+    assert _rel_err(outs[True][:, :valid], want[:, :valid]) <= \
+        INT8_LAYER_WIDE_REL_TOL
+    assert _min_cosine(outs[True][:, :valid], want[:, :valid]) > 0.9999
+    controls = {
+        "no key mask": qm.quant_layer_block_plain(x, *attn, *mlp, heads,
+                                                  valid_len=s),
+        "bf16 mid residual": qm.quant_mlp_block_plain(
+            qm.quant_attention_block_plain(x, *attn, heads, valid_len=valid),
+            *mlp)}
+    for name, ctrl in controls.items():
+        assert _rel_err(ctrl[:, :valid], want[:, :valid]) > \
+            INT8_LAYER_WIDE_REL_TOL, name
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_tile_past_the_old_limit_equals_the_resident_tile_in_bits(cuda,
+                                                                  kind):
+    """At head width 64 the tile holds 208 keys resident and streams 592
+    in key blocks.  With 197 valid keys the layer's valid rows at 592 rows
+    equal those at 208 in bits (pad keys add exact zeros, every other
+    step runs in the same order; the GEMMs and LayerNorms are per row);
+    counting one more key (valid 198) must differ."""
+    d, heads, b = 768, 12, 2
+    x, p = _layer_case(cuda, b=b, s=592, d=d, f=2 * d, valid=197)
+    attn, _mlp = _int8_weights(cuda, d, 2 * d, 7)
+    if kind == "bf16":
+        def run(t, valid):
+            return bf16_layer.fused_layer_block_bf16(t, *p, heads,
+                                                     valid_len=valid)
+    else:
+        def run(t, valid):
+            return qm.quant_attention_block(t, *attn, heads, valid_len=valid)
+    short = run(x[:, :208].contiguous(), 197)[:, :197]
+    long = run(x, 197)[:, :197]
+    control = run(x, 198)[:, :197]
+    torch.cuda.synchronize()
+    assert torch.equal(long, short)
+    assert not torch.equal(control, short)
+
+
+@pytest.mark.parametrize("hd,heads,s", [(80, 4, 257), (64, 4, 577)],
+                         ids=["hd80", "s577"])
+def test_row_12_takes_the_tile_contract_only_without_autograd(cuda, hd,
+                                                              heads, s):
+    """Row 12's forward runs the tile, so with nothing recorded it takes
+    head_dim 80 and S past 448 (against its plain version); while autograd
+    records, row 13 would run, whose contract stays head_dim 16, 32, 64
+    within shared memory, so the block raises before any launch; row 13
+    and row 14's f32 kernel refuse those shapes themselves too."""
+    d = hd * heads
+    x, p = _layer_case(cuda, b=2, s=s, d=d, f=d, valid=s)
+    args = (x, p[2], p[3].to(torch.bfloat16), p[4],
+            p[5].to(torch.bfloat16))
+    with torch.no_grad():
+        got = fa.fused_attention_block(*args, heads)
+        want = fa.fused_attention_block(*args, heads, kernels=False)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= REL_TOL
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    n0 = fa.fused_attention_fwd.launches
+    with pytest.raises(ValueError, match="backward"):
+        fa.fused_attention_block(*leaves, heads)
+    assert fa.fused_attention_fwd.launches == n0
+    sp = -(-s // 16) * 16
+    xp = torch.nn.functional.pad(x, (0, 0, 0, sp - s))
+    with pytest.raises(ValueError, match="backward"):
+        fa.fused_attention_bwd(xp, p[2], p[3], xp, heads, s)
+    q = x.float().unflatten(-1, (heads, hd))
+    if hd not in (16, 32, 64):
+        with pytest.raises(ValueError, match="f32"):
+            fa.flash_attention(q, q, q)

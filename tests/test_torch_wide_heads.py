@@ -1,0 +1,318 @@
+"""The attention tile's contract on the CPU: head widths past 64 and
+sequences past 448, held to patent_tpu.
+
+The JAX kernels take any head width and any padded sequence; the port's
+tile (csrc/flash_tile.cuh) takes every head width that is a multiple of 8
+up to 128 and any S.  Here the port's plain versions of rows 1, 2, 5, 6,
+8 and 14, and its bf16 and int8 towers at 2 layers, meet the JAX package
+at head_dim 72 (on the tile's 80 instance), 80 (ViT-H/14's) and 128, and
+at 1,040 rows (D 64 over 4 heads at 256 px, patch 8: 1,025 tokens), with
+the JAX kernels in TPU interpret mode as tests/test_torch_bf16_layer.py,
+tests/test_torch_int8.py, tests/test_torch_int8_layer.py and
+tests/test_torch_flash_attention.py run them, and with the gates those
+files set at head_dim 64 and 16 (rows 1-2: a gate measured here, whose
+reason is stated beside it).  The CUDA kernels are held to the same
+plain versions on the card (tests/test_torch_gpu.py, chip_smoke.py).
+"""
+
+import importlib
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from patent_tpu.models import vit as jax_vit
+from patent_tpu.models import vit_int8 as jax_vit_int8
+from patent_tpu.ops import bf16_layer as jax_layer
+from patent_tpu.ops import quant_matmul as jqm
+from patent_tpu_torch.models import vit as torch_vit
+from patent_tpu_torch.models import vit_int8 as torch_vit_int8
+from patent_tpu_torch.models.weights import (int8_params_from_jax,
+                                             params_from_jax)
+from patent_tpu_torch.ops import bf16_layer as torch_layer
+from patent_tpu_torch.ops import flash_attention as tfa
+from patent_tpu_torch.ops import quant_matmul as tqm
+from patent_tpu_torch.ops.common import attention_kernel_takes
+
+# patent_tpu.ops exports a function of the same name as this module
+jfa = importlib.import_module("patent_tpu.ops.flash_attention")
+
+# (D, heads, padded rows, valid rows): head_dim 72, 80 and 128 at 48 rows
+# (41 valid), and head_dim 16 at 1,040 rows (1,025 valid)
+SHAPES = {"hd72": (144, 2, 48, 41), "hd80": (160, 2, 48, 41),
+          "hd128": (128, 1, 48, 41), "s1040": (64, 4, 1040, 1025)}
+
+# Rows 1-2 against JAX's kernels: mean |got - want| / mean |want| over the
+# valid rows.  Both compute the TPU kernel's function and round at the
+# same points; f32 sums in another order flip a rare bf16 rounding (of h,
+# qkv, p, ao or the gelu), and a flipped h or qkv reaches every column
+# through the next product, so the gap grows with D, not with the head
+# width (at D 256 it is the same 2e-5 to 3e-4 at head_dim 32, 64 and 128).
+# Measured over seeds 0-7 at B 8 and these shapes: at most 3.9e-5 (layer)
+# and 8.9e-5 (CLS) at head_dim 72, 80 and 128, 2.0e-6 at S 1,040 (B 2);
+# tests/test_torch_bf16_layer.py's earlier max-subtracted form sits at
+# 3.3e-4 or more at the three widths.  The gate sits ~2x above the one and
+# ~1.7x below the other (that file's 3e-5 is set at D 64 and 128, where
+# these seeds' flips are rarer).
+WIDE_MEAN_REL = 2e-4
+# Row 5 and 6 against JAX's kernels: tests/test_torch_int8.py's gate (an
+# int8 code flipped by a LayerNorm summed in another order).
+ATTN_MEAN_REL, ATTN_MAX_REL = 1e-4, 5e-3
+# Row 8: tests/test_torch_int8_layer.py's gate.
+LAYER_MEAN_REL, LAYER_MAX_REL = 3e-3, 2e-2
+# Row 14 in bf16: tests/test_torch_flash_attention.py's gate.
+BF16_MAX_ULPS, BF16_MEAN_REL = 1.0, 1e-3
+# The bf16 fused-layer tower against JAX's: tests/test_torch_pipeline.py's
+# min feature cosine; the int8 tower: tests/test_torch_int8.py's.
+TOWER_MIN_COS, INT8_TOWER_MIN_COS = 0.999, 0.9999
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+def _mean_rel(got, want):
+    return float(np.abs(got - want).mean() / np.abs(want).mean())
+
+
+def _max_rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _min_cosine(a, b):
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    return float(np.min(np.sum(a * b, -1) / (
+        np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))))
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_every_shape_here_is_in_the_tiles_contract(shape):
+    d, heads, sp, valid = SHAPES[shape]
+    assert attention_kernel_takes(d, heads, sp, valid)
+
+
+def _bf16_params(rng, d, mlp):
+    """tests/test_bf16_layer.py's distributions, f32 numpy."""
+    def n(shape, scale, shift=0.0):
+        return (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+
+    return [n(d, 0.1, 1.0), n(d, 0.1), n((d, 3 * d), 0.05), n(3 * d, 0.05),
+            n((d, d), 0.05), n(d, 0.05), n(d, 0.1, 1.0), n(d, 0.1),
+            n((d, mlp), 0.05), n(mlp, 0.05), n((mlp, d), 0.05), n(d, 0.05)]
+
+
+@pytest.mark.parametrize("cls", [False, True], ids=["row1", "row2"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_bf16_layer_plain_matches_pallas_interpret(shape, cls):
+    """Rows 1 and 2: bf16 on both sides, the same function and rounding
+    points, within WIDE_MEAN_REL and cosine > 0.999 on the valid rows."""
+    d, heads, sp, valid = SHAPES[shape]
+    b = 2 if sp > 100 else 8
+    rng = np.random.default_rng(sp + d)
+    params = _bf16_params(rng, d, 2 * d)
+    x = rng.standard_normal((b, sp, d)).astype(np.float32)
+    x[:, valid:] = 7.0
+    jfn = jax_layer.fused_layer_cls_bf16 if cls \
+        else jax_layer.fused_layer_block_bf16
+    tfn = torch_layer.fused_layer_cls_bf16 if cls \
+        else torch_layer.fused_layer_block_bf16
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfn(jnp.asarray(x, jnp.bfloat16),
+                              *map(jnp.asarray, params), heads,
+                              valid_len=valid, group=min(b, 4),
+                              force=True),
+                          np.float32)
+    got = _np(tfn(torch.from_numpy(x).bfloat16(),
+                  *map(torch.from_numpy, params), heads, valid_len=valid))
+    if not cls:
+        want, got = want[:, :valid], got[:, :valid]
+    assert _mean_rel(got, want) <= WIDE_MEAN_REL, _mean_rel(got, want)
+    assert _min_cosine(got, want) > 0.999
+
+
+def _t(a, dtype=None):
+    t = torch.from_numpy(np.array(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _weights(rng, k, n):
+    """(JAX int8 [in, out], scale, bias) and the port's ([out, in], scale,
+    bias), from one f32 matrix (tests/test_torch_int8.py's)."""
+    w = jnp.asarray(rng.standard_normal((k, n)) * 0.05, jnp.float32)
+    wq, s = jqm.quantize_weight(w)
+    b = jnp.asarray(rng.standard_normal(n) * 0.01, jnp.float32)
+    return (wq, s, b), (_t(wq).T.contiguous(), _t(s), _t(b))
+
+
+def _ln(rng, d):
+    return (jnp.asarray(1.0 + 0.1 * rng.standard_normal(d), jnp.float32),
+            jnp.asarray(0.1 * rng.standard_normal(d), jnp.float32))
+
+
+def _int8_case(shape, b, mlp: bool, row_multiple: int = 16):
+    """bf16 tokens (pad rows random, the rows padded to ``row_multiple``)
+    and the attention sub-layer's (and, with ``mlp``, the MLP's) weights in
+    both layouts."""
+    d, _heads, sp, _valid = SHAPES[shape]
+    sp = -(-sp // row_multiple) * row_multiple
+    rng = np.random.default_rng(sp + d + b)
+    x = jnp.asarray(rng.standard_normal((b, sp, d)) * 0.3, jnp.bfloat16)
+    ln1, (jqkv, tqkv), (jout, tout) = (_ln(rng, d), _weights(rng, d, 3 * d),
+                                       _weights(rng, d, d))
+    jargs = (*ln1, *jqkv, *jout)
+    targs = (*map(_t, ln1), *tqkv, *tout)
+    if mlp:
+        ln2, (j1, t1), (j2, t2) = (_ln(rng, d), _weights(rng, d, 2 * d),
+                                   _weights(rng, 2 * d, d))
+        jargs += (*ln2, *j1, *j2)
+        targs += (*map(_t, ln2), *t1, *t2)
+    return x, _t(np.asarray(x, np.float32), torch.bfloat16), jargs, targs
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_int8_attention_plain_matches_pallas_interpret(shape):
+    """Rows 5 and 6 (fast=False, group=4) within tests/test_torch_int8.py's
+    gates: row 5 on its valid rows, row 6 on the CLS rows."""
+    _d, heads, _sp, valid = SHAPES[shape]
+    x, xt, jargs, targs = _int8_case(shape, 4, mlp=False)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jqm.quant_attention_block(
+            x, *jargs, num_heads=heads, valid_len=valid, force=True,
+            fast=False, group=4), np.float32)[:, :valid]
+        want_cls = np.asarray(jqm.quant_attention_cls(
+            x, *jargs, num_heads=heads, valid_len=valid, force=True,
+            fast=False, group=4), np.float32)
+    got = _np(tqm.quant_attention_block(xt, *targs, heads, valid))[:, :valid]
+    got_cls = _np(tqm.quant_attention_cls(xt, *targs, heads, valid))
+    assert _mean_rel(got, want) <= ATTN_MEAN_REL, _mean_rel(got, want)
+    assert _max_rel(got, want) <= ATTN_MAX_REL
+    assert _max_rel(got_cls, want_cls) <= ATTN_MAX_REL
+
+
+@pytest.mark.parametrize("b", [1, 3], ids=["B1", "B3"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_int8_layer_plain_matches_pallas_interpret(shape, b):
+    """Row 8 (the whole layer, f32 mid residual) within
+    tests/test_torch_int8_layer.py's gates on the valid rows; JAX's kernel
+    takes rows padded to a multiple of 32 (64 and 1,056 here)."""
+    _d, heads, _sp, valid = SHAPES[shape]
+    x, xt, jargs, targs = _int8_case(shape, b, mlp=True, row_multiple=32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jqm.quant_layer_block(
+            x, *jargs, num_heads=heads, valid_len=valid, force=True,
+            fast=False), np.float32)[:, :valid]
+    got = _np(tqm.quant_layer_block(xt, *targs, heads, valid))[:, :valid]
+    assert _mean_rel(got, want) <= LAYER_MEAN_REL, _mean_rel(got, want)
+    assert _max_rel(got, want) <= LAYER_MAX_REL
+
+
+def _ulps(got, want):
+    """max |got - want| in bf16 ulps at the largest |want|."""
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    return float(np.max(np.abs(got - want)) / ulp)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_flash_attention_plain_matches_pallas_interpret(shape):
+    """Row 14 in bf16 (q, k, v [2, S, H, hd], S the valid rows, which the
+    kernel pads itself) within tests/test_torch_flash_attention.py's
+    gate; JAX pads the head width to 128 lanes, the tile to its next
+    instance."""
+    d, heads, _sp, s = SHAPES[shape]
+    rng = np.random.default_rng(s + d)
+    q, k, v = (rng.standard_normal((2, s, heads, d // heads)).astype(
+        np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfa.flash_attention(
+            *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), force=True),
+            np.float32)
+    got = _np(tfa.flash_attention(*(torch.from_numpy(t).bfloat16()
+                                    for t in (q, k, v))))
+    assert _ulps(got, want) <= BF16_MAX_ULPS, _ulps(got, want)
+    assert _mean_rel(got, want) <= BF16_MEAN_REL
+
+
+# 2-layer towers: head_dim 72, 80 and 128 at 32 px (17 tokens, 32 rows),
+# and head_dim 16 at 256 px (1,025 tokens, 1,040 rows)
+TOWERS = {"hd72": dict(image_size=32, patch_size=8, hidden_dim=144,
+                       num_layers=2, num_heads=2, mlp_dim=288,
+                       projection_dim=32),
+          "hd80": dict(image_size=32, patch_size=8, hidden_dim=160,
+                       num_layers=2, num_heads=2, mlp_dim=320,
+                       projection_dim=32),
+          "hd128": dict(image_size=32, patch_size=8, hidden_dim=256,
+                        num_layers=2, num_heads=2, mlp_dim=512,
+                        projection_dim=32),
+          "s1040": dict(image_size=256, patch_size=8, hidden_dim=64,
+                        num_layers=2, num_heads=4, mlp_dim=128,
+                        projection_dim=32)}
+
+
+def _flax_params(jcfg, seed=0):
+    """A seeded Flax init, every parameter perturbed so that it matters."""
+    model = jax_vit.VisionTransformer(jcfg, dtype=jnp.float32,
+                                      fused_layer=True)
+    params = model.init(jax.random.key(seed), jnp.zeros(
+        (1, jcfg.image_size, jcfg.image_size, 3)))["params"]
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: (np.asarray(a, np.float32)
+                   + 0.05 * rng.standard_normal(a.shape).astype(np.float32)),
+        params)
+
+
+def _pixels(size, n, seed=1):
+    return np.random.default_rng(seed).standard_normal(
+        (n, size, size, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("tower", sorted(TOWERS))
+def test_bf16_tower_matches_jax(tower):
+    """The fused-layer tower at an even batch (rows 1-2's plain versions)
+    against JAX's with its kernels interpreted, one jit without excess
+    precision (tests/test_torch_vit_modes.py's reasons)."""
+    jcfg = jax_vit.VisionConfig(**TOWERS[tower])
+    params = _flax_params(jcfg)
+    px = _pixels(jcfg.image_size, 2)
+    with pltpu.force_tpu_interpret_mode(), \
+            mock.patch.object(jax_layer, "_on_tpu", lambda: True):
+        fn = jax.jit(jax_vit.VisionTransformer(
+            jcfg, dtype=jnp.bfloat16, fused_layer=True).apply,
+            compiler_options={"xla_allow_excess_precision": False})
+        want = np.asarray(fn({"params": jax.tree.map(jnp.asarray, params)},
+                             jnp.asarray(px)), np.float32)
+    model = torch_vit.VisionTransformer(torch_vit.VisionConfig(
+        **TOWERS[tower]))
+    model.load_state_dict(params_from_jax({"params": params}))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(px)).numpy()
+    assert got.shape == want.shape == (2, jcfg.projection_dim)
+    assert _min_cosine(got, want) > TOWER_MIN_COS, _min_cosine(got, want)
+
+
+@pytest.mark.parametrize("batch", [4, 3], ids=["rows5+7", "row8"])
+@pytest.mark.parametrize("tower", sorted(TOWERS))
+def test_int8_tower_matches_jax(monkeypatch, tower, batch):
+    """The int8 tower against JAX's Int8VisionTransformer (kernels
+    interpreted, fast=False) on the same quantize_vit_params weights: at
+    batch 4 rows 5 + 7, at batch 3 row 8 in every layer but the last."""
+    jcfg = jax_vit.VisionConfig(**TOWERS[tower])
+    qparams = jax_vit_int8.quantize_vit_params(_flax_params(jcfg))
+    model = torch_vit_int8.Int8VisionTransformer(torch_vit.VisionConfig(
+        **TOWERS[tower]))
+    model.load_state_dict(int8_params_from_jax(qparams))
+    px = _pixels(jcfg.image_size, batch)
+    monkeypatch.setenv("PATENT_TPU_FAST_KERNELS", "0")
+    with pltpu.force_tpu_interpret_mode(), \
+            mock.patch.object(jqm, "_on_tpu", lambda: True):
+        want = np.asarray(jax_vit_int8.Int8VisionTransformer(jcfg).apply(
+            {"params": qparams}, jnp.asarray(px)), np.float32)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(px)).numpy()
+    assert got.shape == want.shape == (batch, jcfg.projection_dim)
+    assert _min_cosine(got, want) > INT8_TOWER_MIN_COS, _min_cosine(got,
+                                                                   want)
