@@ -246,7 +246,37 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    257, H, hd] and at the two towers' shapes beside its plain version,
    F.scaled_dot_product_attention and its bound; the towers' tile
    launches by instance width join the kernels line as
-   flash_tile_hd64_streamed and flash_tile_hd80.
+   flash_tile_hd64_streamed and flash_tile_hd80;
+6b. the wide trainers (row 13, the attention backward, and row 14′, the
+   f32 attention, at the attention kernels' one contract): rows 12 and 13
+   and row 14′ at every instance width (16 to 128; 8, 72, 88 and 120 on
+   16, 80, 96 and 128) against their plain versions, row 13 on the path
+   its shape takes (the resident kernel at widths up to 64 where the
+   sequence fits a block, else the streamed pair: at S 208, and at the
+   resident widths also at the first S that streams), with controls that
+   must fail each gate (no key mask, a bias zeroed, the last key block's
+   keys dropped, below an instance's width the zero columns read as
+   real; for row 14′ q unscaled and the pad keys counted), and the
+   streamed path equal in bits twice; then at each
+   wide tower rows 12 and 13 on its fine-tune stream (also with scores
+   past the +80 clamp and the ungated backward as the control), rows 15
+   and 16 on a 64-pair step's rows, one fine-tune step and one train_end
+   step at 16 pairs with the kernels against the plain blocks
+   (check_train_step, beside each metric's pixel-noise yardstick; the
+   train_end hinge there held to a multiple of its own yardstick, with a
+   planted fault that must fail that gate), and
+   the main path: the fine-tune at ClipFinetuneConfig's 64 pairs and
+   train_end at EndToEndConfig's 32 through their library entries, timed
+   (ms/step, img/s, busy share, launches a step, peak memory; a batch
+   that does not fit is halved until it does, and said so); row 13 at
+   the fine-tune's stream beside its bound and the backward of
+   F.scaled_dot_product_attention (a yardstick, not the same function);
+   the f32 use_flash tower at ViT-H/14's widths against kernels=False,
+   timed; rows 13 and 14′ timed at each instance width and path.  Row
+   13's launches in the main path by instance and path join the kernels
+   line as fused_attention_bwd_hd64_streamed and
+   fused_attention_bwd_hd80_streamed,
+   the f32 tower's as flash_attention_f32_hd80.
 
 The line before the last is a JSON object with one entry per kernel
 (its launches on the main path, error against the plain version, times
@@ -945,21 +975,51 @@ def saturated_share(torch, x, wqkv, bqkv, heads, valid) -> float:
     return float((sc >= 80.0).float().mean())
 
 
+def last_key_block(s: int, hd: int, valid: int) -> int:
+    """The first key of the last key block that holds a valid key, on the
+    path row 13 takes at padded S and head width hd (the library's plan):
+    the streamed ring's last stage (its last 16-key step where the keys are
+    one stage), the resident path's last 16-key step."""
+    from patent_tpu_torch.ops import flash_attention as fa
+
+    streamed, ring = fa.attention_bwd_plan(s, hd)
+    block = ring if streamed else 16
+    return (valid - 1) // block * block or (valid - 1) // 16 * 16
+
+
+def first_streamed_s(hd: int) -> int:
+    """The first padded S at which row 13 streams at head width hd (the
+    library's plan)."""
+    from patent_tpu_torch.ops import flash_attention as fa
+
+    s = 16
+    while not fa.attention_bwd_plan(s, hd)[0]:
+        s += 16
+    return s
+
+
 def check_train_attention(torch, fa, x, p, heads, valid, gen,
                           saturate: bool = False) -> tuple[float, float]:
     """Hold rows 12 and 13 to their plain versions on x [B, S, D] with
     `valid` keys (row 13 given a cotangent whose pad rows are 0, as the
-    tower's slice gives it), with controls that must fail the same gates:
-    the plain version without the key mask and with each bias zeroed; with
-    ``saturate``, every fourth head's scores partly past the +80 clamp and
-    the control the plain backward without the clamp's gate.  Returns the
-    max-abs errors (forward, backward)."""
+    tower's slice gives it, on the path its shape takes), with controls
+    that must fail the same gates: the
+    plain version without the key mask, with each bias zeroed, with the
+    last key block's keys dropped (the path's last stage of keys) and, at
+    a head width below its instance's, reading the instance's width of
+    columns; with ``saturate``, every fourth head's scores partly past the
+    +80 clamp and the control the plain backward without the clamp's gate.
+    Returns the max-abs errors (forward, backward)."""
     b, s, d = x.shape
+    hd = d // heads
+    streamed = fa.attention_bwd_plan(s, hd)[0]
     wqkv, bqkv = fold_q(torch, p[2], p[3], d, heads,
                         SATURATED_Q_GAIN if saturate else 1.0)
     wout, bout = p[4], p[5]
     zb = torch.zeros_like(bqkv)
-    tag = f"valid {valid}/{s}" + (", saturated" if saturate else "")
+    tag = (f"[{b}, {s}, {heads} x {hd}] valid {valid}"
+           + (", streamed" if streamed else "")
+           + (", saturated" if saturate else ""))
     e12 = 0.0
     if not saturate:
         def fwd(fn, bq=bqkv, bo=bout, v=valid):
@@ -975,8 +1035,9 @@ def check_train_attention(torch, fa, x, p, heads, valid, gen,
     da = (torch.randn(b, s, d, generator=gen, device=x.device)
           * keep).to(torch.bfloat16)
 
-    def bwd(bq=bqkv, v=valid, gate_on=True):
-        return fa.attention_bwd_plain(x, wqkv, bq, da, heads, v, gate_on)
+    def bwd(bq=bqkv, v=valid, gate_on=True, read_width=None):
+        return fa.attention_bwd_plain(x, wqkv, bq, da, heads, v, gate_on,
+                                      read_width)
 
     got = fa.fused_attention_bwd(x, wqkv, bqkv, da, heads, valid)
     ref = bwd()
@@ -994,8 +1055,12 @@ def check_train_attention(torch, fa, x, p, heads, valid, gen,
         controls = [{"no clamp gate": bwd(gate_on=False)}, {}]
     else:
         no_mask, no_bias = bwd(v=s), bwd(bq=zb)
-        controls = [{"no key mask": no_mask, "bqkv=0": no_bias},
+        dropped = bwd(v=last_key_block(s, hd, valid))
+        controls = [{"no key mask": no_mask, "bqkv=0": no_bias,
+                     "last key block dropped": dropped},
                     {"no key mask": no_mask, "bqkv=0": no_bias}]
+        if hd % 16:
+            controls[0]["zero columns as real"] = bwd(read_width=hd + 8)
     e13 = gate(torch, f"fused_attention_bwd dqkv {tag}", got[0][:, :valid],
                ref[0][:, :valid],
                {c: t[0][:, :valid] for c, t in controls[0].items()},
@@ -1072,30 +1137,37 @@ def check_train_mlp(torch, mm, x2, p, gen) -> tuple[float, float]:
     return e15, e16
 
 
-def check_flash_f32(torch, fa, b, s, heads, gen, dev) -> float:
+def check_flash_f32(torch, fa, b, s, heads, gen, dev, hd: int = 64) -> float:
     """Hold row 14's f32 instance to its plain version in f32 on q, k, v
-    [B, S, H, 64] slices of one f32 qkv tensor: within FLASH_F32_REL_TOL
-    (mean and max-abs relative), with q unscaled as a control that must
-    fail.  Returns the max-abs error."""
-    d = heads * 64
+    [B, S, H, hd] slices of one f32 qkv tensor: within FLASH_F32_REL_TOL
+    (mean and max-abs relative), with controls that must fail: q unscaled
+    and, where S ends inside a 64-key tile, the zero keys up to its end
+    counted.  Returns the max-abs error."""
+    d = heads * hd
     qkv = torch.randn(b, s, 3 * d, generator=gen, device=dev)
-    q, k, v = (t.unflatten(-1, (heads, 64)) for t in qkv.split(d, dim=-1))
+    q, k, v = (t.unflatten(-1, (heads, hd)) for t in qkv.split(d, dim=-1))
     ref = fa.flash_attention_plain(q, k, v)
     got = fa.flash_attention(q, k, v)
-    ctrl = fa.flash_attention_plain(q, k, v, scale=False)
+    controls = {"q unscaled": fa.flash_attention_plain(q, k, v, scale=False)}
+    if s % 64:
+        controls["pad keys counted"] = fa.flash_attention_plain(
+            q, k, v, pad_keys_to=-(-s // 64) * 64)
     torch.cuda.synchronize()
     scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
     gaps = (rel_err(got, ref), err / scale)
-    cgap = (rel_err(ctrl, ref), float((ctrl - ref).abs().max()) / scale)
-    print(f"[kernel] flash_attention f32 [{b}, {s}, {heads}, 64] vs plain: "
-          f"rel err {gaps[0]:.3g}, max-abs / max|ref| {gaps[1]:.3g}; control "
-          f"(must fail) q unscaled {cgap[0]:.3g} / {cgap[1]:.3g}")
+    cgaps = {c: (rel_err(t, ref), float((t - ref).abs().max()) / scale)
+             for c, t in controls.items()}
+    print(f"[kernel] flash_attention f32 [{b}, {s}, {heads}, {hd}] vs plain: "
+          f"rel err {gaps[0]:.3g}, max-abs / max|ref| {gaps[1]:.3g}; controls "
+          "(must fail) " + ", ".join(f"{c} {g[0]:.3g} / {g[1]:.3g}"
+                                     for c, g in cgaps.items()))
     check(bool(torch.isfinite(got).all()) and max(gaps) <= FLASH_F32_REL_TOL,
           f"flash_attention f32 disagrees with its plain version (gate "
           f"{FLASH_F32_REL_TOL})")
-    check(max(cgap) > FLASH_F32_REL_TOL, "flash_attention f32: the control "
-          "passes the gate")
+    for c, g in cgaps.items():
+        check(max(g) > FLASH_F32_REL_TOL, f"flash_attention f32: the control "
+              f"'{c}' passes the gate")
     return err
 
 
@@ -1189,6 +1261,20 @@ def hyperbolic_backward(torch, dev, z: dict) -> None:
 # that sum it over the batch up to 0.17 apart).
 STEP_METRIC_REL_TOL = 2e-3
 STEP_GRAD_REL_TOL = 2e-2
+# train_end's retrieval hinge, mean(relu(pos_d - neg_d + 0.1)), is a small
+# difference of large Poincaré distances to label rows near the ball's
+# boundary, so a relative gap in it is the features' rounding difference
+# magnified: at the wide towers its move when the plain blocks' pixels get
+# noise of std 1e-3 reaches 2e-3 by itself.  There (and only there: the
+# ViT-B/16 step keeps STEP_METRIC_REL_TOL) the hinge is held to
+# HINGE_NOISE_MULT times the root mean square of that move over
+# HINGE_NOISE_DRAWS draws, measured in the same run, and never to less
+# than STEP_METRIC_REL_TOL; a planted fault, every attention of the plain
+# blocks seeing its first 16 keys only, must fail that gate.  PERF.md
+# section 6 gives the readings over seeds at both wide towers.
+STEP_HINGE = "retrieval_loss"
+HINGE_NOISE_DRAWS = 8
+HINGE_NOISE_MULT = 3.0
 
 
 def rel_gap(a, b) -> float:
@@ -1202,16 +1288,22 @@ def grad_gaps(gk: dict, gp: dict) -> dict[str, float]:
 
 
 def check_train_step(torch, metrics, tower, step, dz, yardstick,
-                     what: str = "fine-tune step, ViT-B/16") -> None:
+                     what: str = "fine-tune step, ViT-B/16",
+                     metric_yardstick: dict | None = None,
+                     metric_tols: dict | None = None) -> None:
     """Hold one training step with the kernels to one with the plain
     blocks; each of the first four arguments is a (kernels, plain) pair:
     the step's metrics, the tower's gradients given one cotangent, the
     step's gradients, and the loss's cotangent of the tower's features.
     ``yardstick``: per-leaf gaps of the plain tower's gradients when its
-    pixels get noise of std 1e-3, printed beside the tower's gaps."""
+    pixels get noise of std 1e-3, printed beside the tower's gaps;
+    ``metric_yardstick``: the same for the loss's metrics (the plain
+    blocks' relative gaps), printed beside the metrics' gaps;
+    ``metric_tols``: a metric's gate where it is not STEP_METRIC_REL_TOL."""
     (mk, mp), (tk, tp), (sk, sp) = metrics, tower, step
     metric_gaps = {key: abs(mk[key] - want) / abs(want)
                    for key, want in mp.items()}
+    tols = {key: STEP_METRIC_REL_TOL for key in mp} | (metric_tols or {})
     check(set(tk) == set(tp) and set(sk) == set(sp) and tp,
           "the kernels and the plain blocks train different leaves")
     tgaps, sgaps = grad_gaps(tk, tp), grad_gaps(sk, sp)
@@ -1223,6 +1315,10 @@ def check_train_step(torch, metrics, tower, step, dz, yardstick,
     print(f"[kernel] {what}, kernels vs plain blocks: "
           + ", ".join(f"{key} {mk[key]:.6f} vs {mp[key]:.6f}"
                       for key in mp)
+          + "; relative gaps " + ", ".join(
+              f"{key} {g:.2g}" + (f" (yardstick {metric_yardstick[key]:.2g})"
+                                  if metric_yardstick else "")
+              for key, g in metric_gaps.items())
           + f"; tower gradients given one cotangent, {len(tp)} trainable "
           f"leaves, largest gaps: {largest(tgaps)} (yardstick, plain vs "
           f"plain on pixels + 1e-3 noise: {largest(yardstick)}); the "
@@ -1231,9 +1327,9 @@ def check_train_step(torch, metrics, tower, step, dz, yardstick,
           f"loss's cotangent of the features {rel_gap(*dz):.3g} "
           "apart")
     check(all(math.isfinite(v) for v in mk.values())
-          and all(g <= STEP_METRIC_REL_TOL for g in metric_gaps.values()),
+          and all(g <= tols[key] for key, g in metric_gaps.items()),
           f"training step metrics with kernels {mk} differ from the plain "
-          f"blocks' {mp} by more than {STEP_METRIC_REL_TOL} relative")
+          f"blocks' {mp} by more than {tols} relative")
     check(all(bool(torch.isfinite(g).all()) for g in sk.values()),
           "the step's gradients with kernels are not finite")
     for name, gap in tgaps.items():
@@ -2312,6 +2408,460 @@ def wide_towers_phase(torch, dev, run_path, launches: dict, errs: dict,
     print(f"[slice] wide towers phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- 6b. the wide trainers: rows 13 and 14′ at the attention kernels'
+# one contract, the fine-tune and train_end at both wide towers
+
+# pairs of each kernels-against-plain-blocks step check at the wide towers
+# (the plain attention keeps [B·H, S, S] f32 scores: 1.4 GB a tensor at 32
+# images of ViT-L/14 @336), and of the trainers' own steps
+# (ClipFinetuneConfig's and EndToEndConfig's defaults)
+WIDE_CHECK_PAIRS = 16
+WIDE_TRAIN_PAIRS = {"fine-tune": 64, "train_end": 32}
+# the kernels line's entries of rows 13 and 14′ at the wide towers' main
+# path: (name, tower, instance key)
+WIDE_BWD_ENTRIES = (
+    ("fused_attention_bwd_hd64_streamed", "ViT-L/14 @336", "hd64_streamed"),
+    ("fused_attention_bwd_hd80_streamed", "ViT-H/14 widths @224",
+     "hd80_streamed"))
+WIDE_F32_ENTRY = ("flash_attention_f32_hd80", "ViT-H/14 widths @224", "hd80")
+# the f32 use_flash tower's batch (JAX's VisionTransformer defaults to f32)
+WIDE_F32_BATCH = 8
+# the head widths at which rows 13 and 14′ are checked and timed alone (8,
+# 72, 88 and 120 on the 16, 80, 96 and 128 instances); the streamed row
+# 13 is last, for the check that two runs give the same bits
+BWD_WIDTHS = (8, 16, 32, 48, 64, 72, 80, 88, 96, 112, 120, 128)
+
+
+def fitting_pairs(torch, pairs: int, what: str, run):
+    """run(pairs) at the largest power of two of pairs, from ``pairs`` down,
+    whose step fits the card's memory; says so where it cuts.  Returns
+    (pairs, run's result)."""
+    while True:
+        try:
+            return pairs, run(pairs)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            check(pairs > 1, f"{what}: one pair does not fit the card")
+            gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+            print(f"[slice] {what}: {pairs} pairs do not fit the card's "
+                  f"memory ({gib:.0f} GiB); cut to {pairs // 2}")
+            pairs //= 2
+
+
+def sdpa_backward_ms(torch, b, s, heads, hd, gen, dev) -> float:
+    """A yardstick, not the same function (a max-subtracted softmax, no
+    clamp, no recompute of qkv): the backward of
+    F.scaled_dot_product_attention on q, k, v [B, H, S, hd] bf16, ms a
+    call (CUDA events)."""
+    q, k, v = (torch.randn(b, heads, s, hd, generator=gen, device=dev)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    dout = torch.randn_like(out)
+    return cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (q, k, v), dout, retain_graph=True), iters=10)
+
+
+def trainer_times(torch, run_path, kind, tname, pairs, one_step,
+                  label: str) -> dict:
+    """One step of a trainer through run_path (the main path), then a few
+    timed: ms/step and img/s (CUDA events), busy share, rows 12, 13, 15
+    and 16's share and launches a step (torch.profiler) and peak memory.
+    Returns row 13's launches by instance in that one step."""
+    from patent_tpu_torch.ops import bf16_mlp_grad as mm
+    from patent_tpu_torch.ops import flash_attention as fa
+
+    fa.fused_attention_bwd.instances.clear()
+    run_path(f"{kind} step, {tname}, {pairs} pairs",
+             (fa.fused_attention_fwd, fa.fused_attention_bwd,
+              mm.fused_mlp_fwd, mm.fused_mlp_bwd), one_step)
+    instances = dict(fa.fused_attention_bwd.instances)
+    ms = cuda_ms(torch, one_step, warmup=1, iters=3)
+    rows = launch_times(torch, one_step, iters=2)
+    busy = sum(t * n for _k, t, n in rows) / 2
+    ours = sum(t * n for k, t, n in rows if TRAIN_KERNELS_RE.search(k)) / 2
+    n_img = 2 * pairs
+    print(f"[time] {kind} step, {tname}, {pairs} pairs ({n_img} images, "
+          f"last 9 blocks trained): {ms:.2f} ms/step, "
+          f"{n_img / ms * 1e3:.1f} img/s forward + backward; busy "
+          f"{busy:.2f} ms ({100 * busy / ms:.1f}%), rows 12, 13, 15 and 16's "
+          f"kernels {ours:.2f} ms ({100 * ours / ms:.1f}%), "
+          f"{sum(n for _k, _t, n in rows) / 2:.0f} launches a step; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB "
+          f"{label}")
+    return instances
+
+
+def wide_finetune(torch, dev, run_path, vcfg, tname, gen, label) -> dict:
+    """The fine-tune at ``vcfg`` from one seeded init: a step with the
+    kernels against one with the plain blocks from the same weights (the
+    state restored, AdamW's moments cleared), at WIDE_CHECK_PAIRS:
+    check_train_step's gates (phase 3's ViT-B/16 check at this tower);
+    then, from the same weights again, the main path at
+    ClipFinetuneConfig's 64 pairs (cut to the largest power of two that
+    fits, where it must) through trainer_times.  Returns row 13's
+    launches by instance in the main path's step."""
+    import numpy as np
+
+    from patent_tpu_torch.ops import bf16_mlp_grad as mm
+    from patent_tpu_torch.ops import flash_attention as fa
+    from patent_tpu_torch.retrieval.engine import device_normalize
+    from patent_tpu_torch.train.finetune_clip import (init_finetune_state,
+                                                      make_finetune_step)
+    from patent_tpu_torch.utils.config import ClipFinetuneConfig
+
+    cfg = ClipFinetuneConfig()
+    table = np.random.default_rng(0).standard_normal((192, 128)).astype(
+        np.float32)
+    model, opt = init_finetune_state(vcfg, cfg, table, seed=0, device=dev)
+    step, eval_step = make_finetune_step(model, opt)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def restart(kernels):
+        model.load_state_dict(start)
+        opt.state.clear()
+        model.vit.kernels = kernels
+
+    def batch(pairs):
+        px = vcfg.image_size
+        return (torch.randint(0, 256, (2 * pairs, px, px, 3), generator=gen,
+                              device=dev, dtype=torch.uint8),
+                torch.randint(0, 192, (pairs,), generator=gen, device=dev))
+
+    pairs = WIDE_CHECK_PAIRS
+    images, nodes = batch(pairs)
+    cot = torch.randn(2 * pairs, vcfg.projection_dim, generator=gen,
+                      device=dev)
+    x = device_normalize(images)
+    noisy = x + 1e-3 * torch.randn(x.shape, generator=gen, device=dev)
+
+    def tower_grads(pix):
+        model.vit.zero_grad(set_to_none=True)
+        model.vit(pix).backward(cot)
+        return {k: t.grad.clone() for k, t in model.vit.named_parameters()
+                if t.grad is not None}
+
+    runs = []
+    for kernels in (True, False):
+        restart(kernels)
+        tower = tower_grads(x)
+        if not kernels:
+            yardstick = grad_gaps(tower_grads(noisy), tower)
+            clean, shaken = ({k: float(v) for k, v in eval_step(
+                pix, nodes, cfg.alpha_max).items()} for pix in (x, noisy))
+            metric_yardstick = {k: abs(shaken[k] - v) / abs(v)
+                                for k, v in clean.items()}
+        kept, metrics = {}, {}
+
+        def keep_dz(_module, _inputs, out):
+            out.register_hook(lambda g: kept.update(dz=g.clone()))
+
+        def go():
+            metrics.update(step(images, nodes, cfg.alpha_max))
+
+        hook = model.vit.register_forward_hook(keep_dz)
+        if kernels:
+            run_path(f"fine-tune step, {tname}, {pairs} pairs",
+                     (fa.fused_attention_fwd, fa.fused_attention_bwd,
+                      mm.fused_mlp_fwd, mm.fused_mlp_bwd), go, False)
+        else:
+            go()
+        hook.remove()
+        runs.append(({k: float(v) for k, v in metrics.items()}, tower,
+                     {k: t.grad.clone() for k, t in model.named_parameters()
+                      if t.grad is not None}, kept["dz"]))
+    check_train_step(torch, *zip(*runs), yardstick,
+                     what=f"fine-tune step, {tname}",
+                     metric_yardstick=metric_yardstick)
+    del runs, x, noisy, images, nodes, cot, tower
+
+    def main_path(n_pairs):
+        restart(True)
+        torch.cuda.reset_peak_memory_stats()
+        imgs, idx = batch(n_pairs)
+        return trainer_times(torch, run_path, "fine-tune", tname, n_pairs,
+                             lambda: step(imgs, idx, cfg.alpha_max), label)
+
+    return fitting_pairs(torch, WIDE_TRAIN_PAIRS["fine-tune"],
+                         f"the fine-tune at {tname}", main_path)[1]
+
+
+def wide_train_end(torch, dev, run_path, vcfg, tname, e2e, gen,
+                   label) -> dict:
+    """train_end at ``vcfg``: end_to_end_step_check at WIDE_CHECK_PAIRS
+    (a step with the kernels against one with the plain blocks), then the
+    main path at EndToEndConfig's 32 pairs (cut to the largest power of
+    two that fits, where it must) through trainer_times.  Returns row 13's
+    launches by instance in the main path's step."""
+    from patent_tpu_torch.train import train_end as te
+    from patent_tpu_torch.utils.config import EndToEndConfig
+
+    px, n = vcfg.image_size, 2 * WIDE_CHECK_PAIRS
+    images = torch.randn(n, px, px, 3, generator=gen, device=dev)
+    e_w = {"cfg": EndToEndConfig(batch_size=WIDE_CHECK_PAIRS),
+           "label_num": e2e["label_num"], "images": images,
+           "pos": e2e["pos"][:WIDE_CHECK_PAIRS],
+           "neg": e2e["neg"][:WIDE_CHECK_PAIRS], "impl": e2e["impl"],
+           "cot": torch.randn(n, vcfg.projection_dim, generator=gen,
+                              device=dev),
+           "noisy": images + 1e-3 * torch.randn(images.shape, generator=gen,
+                                                device=dev)}
+    end_to_end_step_check(torch, dev, run_path, e_w, vcfg, tname,
+                          record=False)
+    del e_w, images
+    torch.cuda.empty_cache()
+
+    def main_path(pairs):
+        torch.cuda.reset_peak_memory_stats()
+        cfg = EndToEndConfig(batch_size=pairs)
+        model, opt = te.init_end_to_end(vcfg, cfg, e2e["label_num"], seed=0,
+                                        device=dev)
+        step, _loss = te.make_end_to_end_step(model, opt, cfg)
+        imgs = torch.randn(2 * pairs, px, px, 3, generator=gen, device=dev)
+        pos, neg = e2e["pos"][:pairs], e2e["neg"][:pairs]
+        dgen = torch.Generator(device=dev).manual_seed(3)
+        return trainer_times(torch, run_path, "train_end", tname, pairs,
+                             lambda: step(imgs, pos, neg, e2e["impl"], dgen),
+                             label)
+
+    return fitting_pairs(torch, WIDE_TRAIN_PAIRS["train_end"],
+                         f"train_end at {tname}", main_path)[1]
+
+
+def wide_trainers_phase(torch, dev, run_path, launches: dict, errs: dict,
+                        times: dict, bounds: dict, library: dict, e2e: dict,
+                        label: str) -> None:
+    """Phase 6b (see the module docstring): rows 13 and 14′ at every
+    instance width and path against their plain versions, then at each
+    wide tower rows 12, 13, 15 and 16 at its fine-tune shapes, one
+    fine-tune and one train_end step against plain blocks, the f32
+    use_flash tower at ViT-H/14's widths, the trainers timed, and rows 13
+    and 14′ timed by instance."""
+    from patent_tpu_torch.models.vit import VisionConfig, VisionTransformer
+    from patent_tpu_torch.ops import bf16_mlp_grad as mm
+    from patent_tpu_torch.ops import flash_attention as fa
+    from patent_tpu_torch.ops.common import round_up
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    # rows 13 and 14′ alone at every instance width: row 13 at S 208 on the
+    # path that takes it, and where that is the resident kernel also at the
+    # first S at which it streams
+    for hd in BWD_WIDTHS:
+        d = 2 * hd
+        p = layer_params(torch, d, d, gen, dev)
+        shapes = [(4, 208, 197)]
+        if not fa.attention_bwd_plan(208, hd)[0]:
+            sl = first_streamed_s(hd)
+            shapes.append((2, sl, sl - 6))
+        for b, s, valid in shapes:
+            x = layer_input(torch, b, s, d, valid, gen, dev)
+            e12, _e13 = check_train_attention(torch, fa, x, p, 2, valid, gen)
+            errs["fused_attention_fwd"] = max(errs["fused_attention_fwd"],
+                                              e12)
+        check_flash_f32(torch, fa, 4, 257, 2, gen, dev, hd=hd)
+    # two runs of the streamed path give the same bits
+    check(fa.attention_bwd_plan(x.shape[1], hd)[0],
+          f"row 13 does not stream at head width {hd}, S {x.shape[1]}")
+    wq, bq = fold_q(torch, p[2], p[3], d, 2)
+    da = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    runs = [fa.fused_attention_bwd(x, wq, bq, da, 2, 197)
+            for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "row 13's streamed path differs between two runs")
+    del p, x, wq, bq, da, runs
+
+    t_alone = time.perf_counter()
+    print(f"[slice] rows 13 and 14′ alone at every instance width in "
+          f"{t_alone - t_phase:.1f} s")
+    instances = {}
+    for tname, fields in WIDE_TOWERS.items():
+        t_tower = time.perf_counter()
+        vcfg = VisionConfig(**fields)
+        d, heads, f = vcfg.hidden_dim, vcfg.num_heads, vcfg.mlp_dim
+        hd, seq = d // heads, vcfg.num_patches + 1
+        sp = round_up(seq, 16)
+        # rows 12 and 13 at the tower's fine-tune stream (16 images), also
+        # with scores past the clamp; rows 15 and 16 on a fine-tune step's
+        # unpadded rows (64 pairs)
+        p = layer_params(torch, d, f, gen, dev)
+        x = layer_input(torch, WIDE_CHECK_PAIRS, sp, d, seq, gen, dev)
+        e12, e13 = check_train_attention(torch, fa, x, p, heads, seq, gen)
+        errs["fused_attention_fwd"] = max(errs["fused_attention_fwd"], e12)
+        _e, e13s = check_train_attention(torch, fa, x, p, heads, seq, gen,
+                                         saturate=True)
+        for kname, tn, _key in WIDE_BWD_ENTRIES:
+            if tn == tname:
+                errs[kname] = max(e13, e13s)
+        x2 = layer_input(torch, 2 * WIDE_TRAIN_PAIRS["fine-tune"], seq, d,
+                         seq, gen, dev).reshape(-1, d)
+        e15, e16 = check_train_mlp(torch, mm, x2, p, gen)
+        errs["fused_mlp_fwd"] = max(errs["fused_mlp_fwd"], e15)
+        errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], e16)
+        del p, x, x2
+        torch.cuda.empty_cache()
+        t_check = time.perf_counter()
+        print(f"[slice] {tname}: rows 12, 13, 15 and 16 at its fine-tune "
+              f"shapes in {t_check - t_tower:.1f} s")
+        # each trainer: one step with the kernels against plain blocks,
+        # then the main path timed
+        for run in (wide_finetune, wide_train_end):
+            args = (e2e,) if run is wide_train_end else ()
+            for key, n in run(torch, dev, run_path, vcfg, tname, *args, gen,
+                              label).items():
+                instances[key] = instances.get(key, 0) + n
+            torch.cuda.empty_cache()
+        t_train = time.perf_counter()
+        print(f"[slice] {tname}: the trainers' checks and times in "
+              f"{t_train - t_check:.1f} s")
+        # row 13 alone at the fine-tune's stream of 64 pairs
+        b = 2 * WIDE_TRAIN_PAIRS["fine-tune"]
+        p = layer_params(torch, d, f, gen, dev)
+        wq, bq = fold_q(torch, p[2], p[3], d, heads)
+        xb = layer_input(torch, b, sp, d, seq, gen, dev)
+        da = torch.randn(b, sp, d, generator=gen, device=dev)
+        da[:, seq:] = 0.0
+        da = da.to(torch.bfloat16)
+        args = (xb, wq, bq, da, heads, seq)
+        tm = in_turns(torch, lambda: fa.attention_bwd_plain(*args),
+                      lambda: fa.fused_attention_bwd(*args), iters=3)
+        bnd = train_bounds(b, sp, seq, d, f)["fused_attention_bwd"]
+        sdpa = sdpa_backward_ms(torch, b, sp, heads, hd, gen, dev)
+        path = ("streamed" if fa.attention_bwd_plan(sp, hd)[0]
+                else "resident")
+        print(f"[time] fused_attention_bwd ({path}) at [{b}, {sp}, {d}], "
+              f"{heads} x {hd} heads, {seq} valid ({tname}, the fine-tune's "
+              f"64 pairs): kernel {tm[1]:.3f} ms, plain {tm[0]:.3f} ms, bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]}); yardstick, not the same function:"
+              f" the backward of F.scaled_dot_product_attention on [{b}, "
+              f"{heads}, {sp}, {hd}] {sdpa:.3f} ms {label}")
+        for kname, tn, _key in WIDE_BWD_ENTRIES:
+            if tn == tname:
+                times[kname], bounds[kname] = tm, bnd
+                library[kname] = None
+        del p, wq, bq, xb, da, args
+        torch.cuda.empty_cache()
+
+    t_f32 = time.perf_counter()
+    # the f32 use_flash tower at ViT-H/14's widths (row 14′ at head width
+    # 80 in every layer) against its plain layers
+    kname, tname, key = WIDE_F32_ENTRY
+    vcfg = VisionConfig(**WIDE_TOWERS[tname])
+    tower = VisionTransformer(vcfg, dtype=torch.float32, fused_layer=False,
+                              use_flash=True, device=dev, generator=gen)
+    tower.eval()
+    bt = WIDE_F32_BATCH
+    px = torch.randn(bt, vcfg.image_size, vcfg.image_size, 3, generator=gen,
+                     device=dev)
+    feats = {}
+
+    def f32_tower():
+        with torch.inference_mode():
+            feats["kernels"] = tower(px)
+
+    fa.flash_attention_f32.instances.clear()
+    run_path(f"{tname} f32 use_flash tower, B {bt}", (fa.flash_attention_f32,),
+             f32_tower)
+    launches[kname] = fa.flash_attention_f32.instances.get(key, 0)
+    check(launches[kname] == vcfg.num_layers,
+          f"row 14′'s {key} instance ran {launches[kname]} times in the "
+          f"{vcfg.num_layers}-layer f32 tower")
+    tower.kernels = False
+    with torch.inference_mode():
+        feats["plain"] = tower(px)
+    tower.kernels = True
+    got, ref = feats["kernels"], feats["plain"]
+    print(f"[kernel] {tname} f32 use_flash tower, kernels vs plain layers: "
+          f"feature rel err {rel_err(got, ref):.3g}, min cosine "
+          f"{min_row_cosine(torch, got, ref):.7f}")
+    check(got.shape == (bt, vcfg.projection_dim)
+          and bool(torch.isfinite(got).all())
+          and rel_err(got, ref) <= FLASH_F32_REL_TOL * 10,
+          f"the {tname} f32 use_flash tower disagrees with its plain layers")
+    ms = cuda_ms(torch, f32_tower, warmup=1, iters=3)
+    print(f"[time] {tname} f32 use_flash tower, batch {bt}: "
+          f"{bt / ms * 1e3:.1f} img/s ({ms:.1f} ms) {label}")
+    del tower, feats, got, ref
+    # row 14′ at that tower's attention shapes
+    heads, hd, seq = vcfg.num_heads, vcfg.hidden_dim // vcfg.num_heads, \
+        vcfg.num_patches + 1
+    d = heads * hd
+    qkv = torch.randn(bt, seq, 3 * d, generator=gen, device=dev)
+    q, k, v = (t.unflatten(-1, (heads, hd)) for t in qkv.split(d, dim=-1))
+    errs[kname] = float((fa.flash_attention(q, k, v)
+                         - fa.flash_attention_plain(q, k, v)).abs().max())
+    times[kname] = in_turns(torch, lambda: fa.flash_attention_plain(q, k, v),
+                            lambda: fa.flash_attention(q, k, v), iters=5)
+    sq, sk_, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library[kname] = cuda_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            sq, sk_, sv))
+    bounds[kname] = bound(4 * 4 * bt * seq * d,
+                          {"fp32": 4 * bt * seq * seq * d})
+    print(f"[time] {kname} at [{bt}, {seq}, {heads}, {hd}] ({tname}): "
+          f"kernel {times[kname][1]:.3f} ms, plain {times[kname][0]:.3f} ms, "
+          f"F.scaled_dot_product_attention f32 {library[kname]:.3f} ms, "
+          f"bound {bounds[kname][0]:.3f} ms ({bounds[kname][1]}) {label}")
+    del qkv, q, k, v, sq, sk_, sv
+
+    print(f"[slice] wide trainers' row 13 launches by instance and path: "
+          f"{instances}")
+    for kname, tname, key in WIDE_BWD_ENTRIES:
+        check(instances.get(key, 0) > 0, f"row 13's {key} instance never ran "
+              f"in the {tname} trainers")
+        launches[kname] = instances[key]
+
+    t_widths = time.perf_counter()
+    print(f"[slice] the f32 use_flash tower and row 14′ at its shapes in "
+          f"{t_widths - t_f32:.1f} s")
+    # rows 13 and 14′ by instance width, row 13 on the path each shape
+    # takes: 32 images of 208 rows and, at the resident instances, about as
+    # many rows at the first S at which it streams
+    for hd in BWD_WIDTHS:
+        heads = 1024 // hd if 1024 % hd == 0 else 16
+        d = heads * hd
+        p = layer_params(torch, d, d, gen, dev)
+        wq, bq = fold_q(torch, p[2], p[3], d, heads)
+        shapes = [(32, 208, 197)]
+        if hd % 16 == 0 and not fa.attention_bwd_plan(208, hd)[0]:
+            sl = first_streamed_s(hd)
+            shapes.append((max(1, 32 * 208 // sl), sl, sl - 6))
+        for b, s, valid in shapes:
+            xb = layer_input(torch, b, s, d, valid, gen, dev)
+            da = torch.randn(b, s, d, generator=gen, device=dev)
+            da[:, valid:] = 0.0
+            da = da.to(torch.bfloat16)
+            bnd = train_bounds(b, s, valid, d, d)["fused_attention_bwd"]
+            plain = cuda_ms(torch, lambda: fa.attention_bwd_plain(
+                xb, wq, bq, da, heads, valid), iters=5)
+            kms = cuda_ms(torch, lambda: fa.fused_attention_bwd(
+                xb, wq, bq, da, heads, valid), iters=10)
+            path = ("streamed" if fa.attention_bwd_plan(s, hd)[0]
+                    else "resident")
+            print(f"[time] fused_attention_bwd instance {-(-hd // 16) * 16}"
+                  f" ({path}) at head width {hd}, [{b}, {s}, {heads} x {hd}],"
+                  f" {valid} valid: kernel {kms:.3f} ms, plain {plain:.3f} "
+                  f"ms, bound {bnd[0]:.3f} ms ({bnd[1]}) {label}")
+            del xb, da
+        qkv = torch.randn(32, 257, 3 * d, generator=gen, device=dev)
+        q, k, v = (t.unflatten(-1, (heads, hd))
+                   for t in qkv.split(d, dim=-1))
+        ftm = in_turns(torch, lambda: fa.flash_attention_plain(q, k, v),
+                       lambda: fa.flash_attention(q, k, v), iters=5)
+        sq, sk_, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa = cuda_ms(torch, lambda: torch.nn.functional.
+                       scaled_dot_product_attention(sq, sk_, sv), iters=10)
+        fb = bound(4 * 4 * 32 * 257 * d, {"fp32": 4 * 32 * 257 * 257 * d})
+        print(f"[time] flash_attention_f32 instance {-(-hd // 16) * 16} at "
+              f"head width {hd}, [32, 257, {heads}, {hd}]: kernel "
+              f"{ftm[1]:.3f} ms, plain {ftm[0]:.3f} ms, "
+              f"F.scaled_dot_product_attention f32 {sdpa:.3f} ms, bound "
+              f"{fb[0]:.3f} ms ({fb[1]}) {label}")
+        del p, wq, bq, qkv, q, k, v, sq, sk_, sv
+    print(f"[slice] rows 13 and 14′ timed by instance in "
+          f"{time.perf_counter() - t_widths:.1f} s; wide trainers phase: "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 SCAN_DIR = os.path.join(ROOT, "build", "chip_smoke_scan")
 # the scan encoder's stack and batch; 168 patents x 4 figures = 672
 # images, 6 batches of 128: one full stack of 4 and a tail of 2 batches
@@ -2583,7 +3133,7 @@ GRAPH_DIR = os.path.join(ROOT, "build", "chip_smoke_graph")
 # backward's reductions (csrc/fused_attention.cu, mlp_grad.cu and the
 # headers they include)
 TRAIN_KERNELS_RE = re.compile(
-    r"gemm_kernel|gemm_tn_kernel|flash_kernel|attn_bwd_kernel|"
+    r"gemm_kernel|gemm_tn_kernel|flash_kernel|attn_bwd_|"
     r"layernorm_kernel|ln_bwd_kernel|colsum_parts_kernel|sum_splits_kernel")
 # spmm on the card against the dense product of a block of rows (in f64,
 # rounded to f32): f32 sums of a few products a row
@@ -2624,18 +3174,24 @@ def end_to_end_setup(torch, dev, h: dict) -> dict:
                                                  device=dev)}
 
 
-def end_to_end_step_check(torch, dev, run_path, e: dict) -> None:
+def end_to_end_step_check(torch, dev, run_path, e: dict, vcfg=None,
+                          tname: str = "ViT-B/16 @224",
+                          record: bool = True) -> None:
     """One train_end step at full width with the kernels (the main path:
-    its launches recorded) against one with the plain blocks, from the
-    same seeded weights and dropout generator: check_train_step's gates;
-    blocks 0-2 (frozen) equal in bits after the step and every label row
-    inside the ball."""
+    its launches recorded unless ``record`` is False) against one with the
+    plain blocks, from the same seeded weights and dropout generator, at
+    the tower ``vcfg`` (ViT-B/16 by default): check_train_step's gates;
+    the frozen blocks equal in bits after the step and every label row
+    inside the ball; at a tower other than ViT-B/16 the hinge held to
+    hinge_gate's gate."""
     from patent_tpu_torch.models.vit import VIT_B16
     from patent_tpu_torch.ops import bf16_mlp_grad as mm
     from patent_tpu_torch.ops import flash_attention as fa
     from patent_tpu_torch.train import train_end as te
 
     cfg = e["cfg"]
+    vcfg = vcfg or VIT_B16
+    n_frozen = vcfg.num_layers - cfg.trainable_blocks
     counters = (fa.fused_attention_fwd, fa.fused_attention_bwd,
                 mm.fused_mlp_fwd, mm.fused_mlp_bwd)
 
@@ -2647,13 +3203,28 @@ def end_to_end_step_check(torch, dev, run_path, e: dict) -> None:
 
     runs = []
     for kernels in (True, False):
-        model, opt = te.init_end_to_end(VIT_B16, cfg, e["label_num"], seed=0,
+        model, opt = te.init_end_to_end(vcfg, cfg, e["label_num"], seed=0,
                                         device=dev)
         model.vit.kernels = kernels
-        step, _loss = te.make_end_to_end_step(model, opt, cfg)
+        step, loss_fn = te.make_end_to_end_step(model, opt, cfg)
         tower = tower_grads(model.vit, e["images"])
         if not kernels:
             yardstick = grad_gaps(tower_grads(model.vit, e["noisy"]), tower)
+
+            def loss_metrics(pix):
+                with torch.no_grad():
+                    return {k: float(v) for k, v in loss_fn(
+                        pix, e["pos"], e["neg"], e["impl"],
+                        torch.Generator(device=dev).manual_seed(3))[
+                            1].items()}
+
+            clean, shaken = (loss_metrics(pix)
+                             for pix in (e["images"], e["noisy"]))
+            metric_yardstick = {k: abs(shaken[k] - v) / abs(v)
+                                for k, v in clean.items()}
+            metric_tols = (None if vcfg is VIT_B16 else
+                           {STEP_HINGE: hinge_gate(torch, dev, loss_metrics,
+                                                   e["images"], tname)})
         kept, out = {}, {}
 
         def keep_dz(_module, _inputs, feats):
@@ -2669,14 +3240,14 @@ def end_to_end_step_check(torch, dev, run_path, e: dict) -> None:
                             dgen))
 
         if kernels:
-            run_path(f"train_end step, ViT-B/16 @224, {cfg.batch_size} pairs "
-                     "(EndToEndConfig's defaults)", counters, go)
+            run_path(f"train_end step, {tname}, {cfg.batch_size} pairs",
+                     counters, go, record)
         else:
             go()
         hook.remove()
         torch.cuda.synchronize()
         params = dict(model.vit.named_parameters())
-        check({f"blocks.{i}.wqkv" for i in range(3)} <= set(frozen)
+        check({f"blocks.{i}.wqkv" for i in range(n_frozen)} <= set(frozen)
               and all(torch.equal(params[n], t) for n, t in frozen.items()),
               "a frozen leaf of the train_end tower moved in a step")
         radius = float(model.hyp.label_emb.detach().norm(dim=1).max()) \
@@ -2687,11 +3258,52 @@ def end_to_end_step_check(torch, dev, run_path, e: dict) -> None:
                       if t.grad is not None}, kept["dz"]))
         del model, opt
     check_train_step(torch, *zip(*runs), yardstick,
-                     what="train_end step, ViT-B/16")
-    print(f"[slice] train_end step: the {len(frozen)} frozen tower leaves "
-          f"(blocks 0-{VIT_B16.num_layers - cfg.trainable_blocks - 1}, the "
-          f"embeddings, pre-LN) equal in bits after it; label rows inside "
-          f"the ball (largest radius {radius:.6f} of 1/sqrt(c))")
+                     what=f"train_end step, {tname}",
+                     metric_yardstick=metric_yardstick,
+                     metric_tols=metric_tols)
+    print(f"[slice] train_end step, {tname}: the {len(frozen)} frozen tower "
+          f"leaves (blocks 0-{n_frozen - 1}, the embeddings, pre-LN) equal "
+          f"in bits after it; label rows inside the ball (largest radius "
+          f"{radius:.6f} of 1/sqrt(c))")
+
+
+def hinge_gate(torch, dev, loss_metrics, images, tname: str) -> float:
+    """The gate of train_end's hinge at a wide tower: HINGE_NOISE_MULT
+    times the root mean square of its relative move over
+    HINGE_NOISE_DRAWS draws of pixel noise of std 1e-3 (loss_metrics: the
+    plain blocks' metrics of a batch of pixels), never below
+    STEP_METRIC_REL_TOL.  A planted fault must fail it: the plain blocks
+    with every attention seeing its first 16 keys only."""
+    from patent_tpu_torch.ops import flash_attention as fa
+
+    clean = loss_metrics(images)[STEP_HINGE]
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def move(pix):
+        return abs(loss_metrics(pix)[STEP_HINGE] - clean) / abs(clean)
+
+    moves = [move(images + 1e-3 * torch.randn(images.shape, generator=gen,
+                                              device=dev))
+             for _ in range(HINGE_NOISE_DRAWS)]
+    rms = math.sqrt(sum(m * m for m in moves) / len(moves))
+    tol = max(STEP_METRIC_REL_TOL, HINGE_NOISE_MULT * rms)
+    plain = fa.fused_attention_block_plain
+    # the Function's forward looks the plain block up by name at each call
+    fa.fused_attention_block_plain = lambda *a: plain(*a[:-1], 16)
+    try:
+        fault = move(images)
+    finally:
+        fa.fused_attention_block_plain = plain
+    print(f"[kernel] train_end step, {tname}: the hinge's pixel-noise "
+          f"moves over {len(moves)} draws "
+          + ", ".join(f"{m:.2g}" for m in moves)
+          + f" (rms {rms:.3g}); its gate max({STEP_METRIC_REL_TOL}, "
+          f"{HINGE_NOISE_MULT} x rms) = {tol:.3g}; planted fault (the plain "
+          f"blocks, every attention seeing its first 16 keys only) moves it "
+          f"{fault:.3g}, which must fail that gate")
+    check(fault > tol, f"train_end at {tname}: the planted fault moves the "
+          f"hinge by {fault:.3g}, within its gate {tol:.3g}")
+    return tol
 
 
 def end_to_end_slice(torch, dev, run_path, cli, h: dict) -> None:
@@ -5321,6 +5933,10 @@ def main() -> None:
     print(f"[phase] 6. wide towers from {time.perf_counter() - t_run:.0f} s")
     wide_towers_phase(torch, dev, run_path, launches, errs, times, bounds,
                       library, label)
+    print(f"[phase] 6b. wide trainers from {time.perf_counter() - t_run:.0f} "
+          "s")
+    wide_trainers_phase(torch, dev, run_path, launches, errs, times, bounds,
+                        library, e2e, label)
 
     src = "patent_tpu_torch/csrc/"
     rows = [("fused_layer_block_bf16", "bf16_layer.cu",
@@ -5361,11 +5977,17 @@ def main() -> None:
              "patent_tpu/ops/quant_matmul.py:266"),
             ("flash_attention", "flash_attention.cu",
              "patent_tpu/ops/flash_attention.py:187"),
-            ("flash_attention_f32", "flash_attention.cu",
+            ("flash_attention_f32", "flash_attention_f32.cu",
              "patent_tpu/ops/flash_attention.py:187"),
             ("flash_tile_hd64_streamed", "flash_tile.cuh",
              "patent_tpu/ops/flash_attention.py:187"),
             ("flash_tile_hd80", "flash_tile.cuh",
+             "patent_tpu/ops/flash_attention.py:187"),
+            ("fused_attention_bwd_hd64_streamed", "fused_attention.cu",
+             "patent_tpu/ops/flash_attention.py:360"),
+            ("fused_attention_bwd_hd80_streamed", "fused_attention.cu",
+             "patent_tpu/ops/flash_attention.py:360"),
+            ("flash_attention_f32_hd80", "flash_attention_f32.cu",
              "patent_tpu/ops/flash_attention.py:187")]
     errs["bucket_topk_bf16"] = err_topk
     print(f"[phase] done at {time.perf_counter() - t_run:.0f} s")

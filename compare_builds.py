@@ -6,7 +6,8 @@ the int8 attention sub-layer and its CLS variant (rows 5 and 6), the int8
 layer group, dense layer and MLP (rows 9-11), the bucketed candidate
 stages (rows 3, 3′ and 4) and both cosine top-10 paths, the fine-tune's
 MLP block forward and backward (rows 15 and 16) and attention backward
-(row 13), and its training step.
+(row 13), the f32 attention (row 14′), and the fine-tune's and
+train_end's training steps.
 
     python3 compare_builds.py run ROOT OUT.pt
     python3 compare_builds.py compare A.pt B.pt [C.pt ...]
@@ -48,8 +49,10 @@ CUDA events, 20 calls after 3 of warm-up) of:
   heads, 197 valid keys), each output apart, with the device time a call
   (torch.profiler, the sum over kernels);
 * one fine-tune step at 64 pairs (ClipFinetuneConfig's defaults, seeded
-  ViT-B/16 weights, u8 batches on the card): its first step's metrics, the
-  wall time of a step (10 after 2 of warm-up) and its device time;
+  ViT-B/16 weights, u8 batches on the card) and one train_end step at 32
+  pairs (EndToEndConfig's defaults, seeded labels, pairs and implication
+  rows): each first step's metrics, the wall time of a step (10 after 2
+  of warm-up) and its device time;
 
 with the card's name and power limit.  Run each checkout in its own
 process: two builds of the kernel library cannot share one.  ``compare``
@@ -211,8 +214,9 @@ def attention_rows(torch, dev, outs: dict, times: dict) -> dict:
     """The entries of csrc/flash_tile.cuh's tile alone at ViT-B/16 @224:
     rows 1 and 2 on [128, 208, 768] (197 valid keys, seeded weights), row
     12's forward on the same stream and row 14 on the use_flash tower's
-    q, k, v [128, 197, 12, 64] (slices of one qkv tensor), bf16; returns
-    the device time a call of each."""
+    q, k, v [128, 197, 12, 64] (slices of one qkv tensor), bf16; and row
+    14′, the f32 kernel, on the same q, k, v in f32; returns the device
+    time a call of each."""
     from patent_tpu_torch.ops import bf16_layer
     from patent_tpu_torch.ops import flash_attention as fa
 
@@ -249,6 +253,9 @@ def attention_rows(torch, dev, outs: dict, times: dict) -> dict:
             ("row 14, [128, 197, 12, 64] bf16",
              lambda: fa.flash_attention(q, k, v))):
         timed(torch, name, fn, outs, times, device)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    timed(torch, "row 14′, [128, 197, 12, 64] f32",
+          lambda: fa.flash_attention(q32, k32, v32), outs, times, device)
     return device
 
 
@@ -394,9 +401,10 @@ def search(torch, dev, gen, outs: dict, times: dict) -> dict:
 
 
 def fine_tune(torch, dev, randn, outs: dict, times: dict) -> dict:
-    """Rows 15, 16 and 13 at a fine-tune step's shapes, then the step: their
-    outputs and wall times into ``outs`` and ``times``; returns the device
-    time a call of each (torch.profiler)."""
+    """Rows 15, 16 and 13 at a fine-tune step's shapes, then the step and a
+    train_end step (EndToEndConfig's 32 pairs, seeded labels and pairs):
+    their outputs and wall times into ``outs`` and ``times``; returns the
+    device time a call of each (torch.profiler)."""
     import math
 
     import numpy as np
@@ -404,9 +412,11 @@ def fine_tune(torch, dev, randn, outs: dict, times: dict) -> dict:
     from patent_tpu_torch.models.vit import VIT_B16
     from patent_tpu_torch.ops import bf16_mlp_grad as mm
     from patent_tpu_torch.ops import flash_attention as fa
+    from patent_tpu_torch.train import train_end as te
     from patent_tpu_torch.train.finetune_clip import (init_finetune_state,
                                                       make_finetune_step)
-    from patent_tpu_torch.utils.config import ClipFinetuneConfig
+    from patent_tpu_torch.utils.config import (ClipFinetuneConfig,
+                                               EndToEndConfig)
 
     bf = torch.bfloat16
     d, f, s, bt, valid, heads = 768, 3072, 208, 128, 197, 12
@@ -467,6 +477,29 @@ def fine_tune(torch, dev, randn, outs: dict, times: dict) -> dict:
                           warmup=2, iters=10)
     device[name] = sum(ms for _k, ms in kernel_breakdown(
         torch, lambda: step(images, nodes, cfg.alpha_max)))
+    del model, opt, step, images
+    ecfg = EndToEndConfig()
+    labels, patents = 2048, 1024
+    model, opt = te.init_end_to_end(VIT_B16, ecfg, labels, seed=0,
+                                    device=dev)
+    estep, _loss = te.make_end_to_end_step(model, opt, ecfg)
+    pix = torch.randn(2 * ecfg.batch_size, 224, 224, 3, generator=gen,
+                      device=dev)
+    pos = torch.randint(0, patents, (ecfg.batch_size,), generator=gen,
+                        device=dev)
+    neg = torch.randint(0, patents, (ecfg.batch_size, 2), generator=gen,
+                        device=dev)
+    impl = torch.randint(patents, labels, (4096, 2), generator=gen,
+                         device=dev)
+    dgen = torch.Generator(device=dev).manual_seed(3)
+    metrics = estep(pix, pos, neg, impl, dgen)
+    outs["train_end step, first step's metrics"] = torch.tensor(
+        [float(metrics[key]) for key in sorted(metrics)])
+    name = f"train_end step, {ecfg.batch_size} pairs"
+    times[name] = cuda_ms(torch, lambda: estep(pix, pos, neg, impl, dgen),
+                          warmup=2, iters=10)
+    device[name] = sum(ms for _k, ms in kernel_breakdown(
+        torch, lambda: estep(pix, pos, neg, impl, dgen)))
     return device
 
 

@@ -29,26 +29,54 @@
 //     (TMA and wgmma, bias epilogue, bf16 out; the wrapper passes the
 //     weights transposed, [out, in], as that GEMM reads them) around
 //     csrc/flash_tile.cuh reading q, k, v as strided slices of qkv;
-//   * the backward recomputes qkv on the same GEMM, then runs one block of
-//     4 warps per (head, image), in the shape of FlashAttention-2's
-//     backward, on mma.sync with every score tile in registers:
+//   * the backward recomputes qkv on the same GEMM, then, where one (head,
+//     image)'s whole sequence fits a block's shared memory (the resident
+//     path), runs one block of 4 warps per (head, image), in the shape of
+//     FlashAttention-2's backward, on mma.sync with every score tile in
+//     registers:
 //     phase 1, the warps over query tiles of 16, is the forward's tile
 //     (K and V in shared memory): p, o and the row sums, then A = bf16(o),
 //     bf16(dn) into shared memory beside q, and bf16(dden);
 //     phase 2, the warps over key tiles of 16, recomputes s^T and p^T once
 //     for its keys against every query tile, and keeps dk and dv in
 //     registers; dq of a query tile is ds k, the transpose of the ds^T
-//     fragments taken in registers (movmatrix), added into an f32 [S, 64]
+//     fragments taken in registers (movmatrix), added into an f32 [S, HD]
 //     sum in shared memory over the space K and V held.  At each step the
 //     warps take distinct query tiles (a diagonal), with a barrier
 //     between steps, so dq's sums run in one order and two runs give the
-//     same bits.  Shared memory is q, dn, K and V (or dq) and dden, 516
-//     bytes a row: 107 KB at S 208, two blocks an SM.
-// The forward takes the tile's contract (head widths that are multiples of
-// 8 up to 128, any S); the backward is instantiated at head width 64
-// (ViT-B/16), 32 and 16 (the CLIs' small tower, D 64 over 4 heads) only,
-// its shared memory S x 516 bytes at 64: ptt_fab_bwd names each width and
-// refuses the rest.
+//     same bits.  Shared memory is q, dn, K and V (or dq) of LD elements a
+//     row and dden, 8 LD + 4 bytes a row: 107 KB at S 208 and head width
+//     64, two blocks an SM.  Its instances stop at 64 (RESIDENT_MAX_HD):
+//     at every width past it the streamed path measured faster on the
+//     H100 (PERF.md section 6), and ViT-B/16 (64) keeps its bits;
+//   * past that (S 592 at 64: ViT-L/14 @336; every S at widths 72 to
+//     128, ViT-H/14's 80 among them), the streamed path, two
+//     launches with no float atomics (so two runs give the same bits):
+//     (a + c) a row pass of 4 query tiles a block (grid: heads x images x
+//     passes), K and V streamed through the tile's two-stage cp.async
+//     ring twice: the first sweep is phase 1 (A = bf16(o); bf16(dn) into a
+//     [B, S, D] scratch and bf16(dden) into an f32 [B, H, S] one, each
+//     also kept in the warp's registers), the second computes s, p, dp
+//     and ds again and sums dq = ds k over the key blocks in registers;
+//     (b) a key pass of 4 key tiles a block (grid: key blocks x heads x
+//     images) with its keys' k and v in registers, q, dn and dden of 64
+//     query rows a stage streamed through a two-stage ring: s^T, p^T,
+//     dp^T and ds^T as in phase 2, dk and dv summed in registers.
+//     The exp2 form has no running maximum, so a row's p needs nothing
+//     from other key blocks, and dn and dden are all the key pass needs
+//     of a row; the row pass and FlashAttention-2's separate dq pass are
+//     one launch because dn and dden of a row are that block's own.  The
+//     split computes s and dp once more than the resident path (9
+//     products of S^2 hd a head against 6), the price of holding only 2
+//     stages of keys or queries in shared memory.
+// ptt_fab_bwd_plan gives the path; the library's callers ask it rather
+// than size the blocks themselves.  Every head width that is a multiple
+// of 8 up to 128 runs on the instance ptt_flash::tile_width (16 to 64 on
+// either path, 80 to 128 streamed): a real width of HD - 8 runs
+// on HD with its q, K, V and dn columns past it zero-filled (cp.async with
+// source size 0; a register fragment's words past it set to 0), which add
+// exact zeros to every product, and only the real width of A, dq, dk and
+// dv is stored.
 
 #include <type_traits>
 
@@ -64,16 +92,43 @@ constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr float LN2 = 0.69314718055994531f;
 constexpr float LO = ptt_flash::SCORE_LO, HI = ptt_flash::SCORE_HI;
+// the most shared memory a block may use on the H100
+constexpr size_t SMEM_MAX = 232448;
+// the widest instance of the resident kernel
+constexpr int RESIDENT_MAX_HD = 64;
+// query rows a stage of the key pass's ring
+constexpr int QB = 16 * WARPS;
 
+using ptt_flash::Layout;
 using ptt_flash::ldmatrix_x4;
 using ptt_flash::ldmatrix_x4_trans;
 using ptt_flash::mma_bf16;
 using ptt_flash::pack_bf16;
 using ptt_flash::swz;
 
-// q, dn, then K and V (phase 1) or dq (phase 2), then dden: bytes
-inline size_t bwd_smem(int S, int hd) {
-  return (size_t)S * (4 * hd * sizeof(bf16) + sizeof(float));
+// the resident path: q, dn, then K and V (phase 1) or dq (phase 2) of LD
+// elements a row, then dden: bytes
+template <int HD>
+inline size_t bwd_smem(int S) {
+  return (size_t)S * (4 * Layout<HD>::LD * sizeof(bf16) + sizeof(float));
+}
+
+// whether row 13 streams at instance width HD and padded S
+template <int HD>
+inline bool bwd_streamed(int S) {
+  return HD > RESIDENT_MAX_HD || bwd_smem<HD>(S) > SMEM_MAX;
+}
+
+// the streamed row pass: the tile's ring of K and V
+template <int HD>
+constexpr size_t ring_smem() {
+  return 2 * (size_t)Layout<HD>::RING * Layout<HD>::LD * sizeof(bf16);
+}
+
+// the key pass: a stage is q and dn of QB rows, then their dden
+template <int HD>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return 2 * (size_t)QB * Layout<HD>::LD * sizeof(bf16) + QB * sizeof(float);
 }
 
 // the transpose of an 8 x 8 bf16 tile held as mma fragments
@@ -94,39 +149,158 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// One (head, image) of HD columns: writes A [B, S, D] and dq, dk, dv into
-// dqkv [B, S, 3D] (bf16) from qkv [B, S, 3D] and da [B, S, D].  S is a
-// multiple of 16.
+// A warp's keys k0 .. k0 + 15 of a head (zero past valid_len and past the
+// real width hd): k and v as the A fragments of s^T = k q^T and dp^T =
+// v dn^T, read from device memory (row stride D3)
+template <int HD>
+__device__ __forceinline__ void load_key_frags(uint32_t (&ka)[HD / 16][4],
+                                               uint32_t (&va)[HD / 16][4],
+                                               const bf16* __restrict__ kb,
+                                               const bf16* __restrict__ vb,
+                                               int D3, int k0, int valid_len,
+                                               int hd, int g, int t) {
+  auto word = [&](const bf16* base, int r, int c) -> uint32_t {
+    return r < valid_len && c < hd
+               ? *reinterpret_cast<const uint32_t*>(&base[(size_t)r * D3 + c])
+               : 0u;
+  };
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    ka[kk][0] = word(kb, k0 + g, c);
+    ka[kk][1] = word(kb, k0 + g + 8, c);
+    ka[kk][2] = word(kb, k0 + g, c + 8);
+    ka[kk][3] = word(kb, k0 + g + 8, c + 8);
+    va[kk][0] = word(vb, k0 + g, c);
+    va[kk][1] = word(vb, k0 + g + 8, c);
+    va[kk][2] = word(vb, k0 + g, c + 8);
+    va[kk][3] = word(vb, k0 + g + 8, c + 8);
+  }
+}
+
+// One query tile q0 .. q0 + 15 (rows of Qs, DNs and dd) against a warp's
+// keys k0 .. k0 + 15: s^T = k q^T, p^T = bf16(exp2(clip(s^T))) (0 at pad
+// keys), dp = dn v^T + dden at valid keys, ds^T = bf16(s < 80 ? (ln2 dp)
+// p : 0); dv += p^T dn, dk += ds^T q.  Returns ds^T as A fragments (rows =
+// keys) in dsa.
+template <int HD>
+__device__ __forceinline__ void key_tile_step(
+    const uint32_t (&ka)[HD / 16][4], const uint32_t (&va)[HD / 16][4],
+    float (&dk)[HD / 8][4], float (&dv)[HD / 8][4], const bf16* Qs,
+    const bf16* DNs, const float* dd, int q0, int k0, int valid_len,
+    int lane, uint32_t (&dsa)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  // s^T: sacc[j][e] at key k0 + g + 8(e/2), query q0 + 8j + 2t + e%2
+  float sacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+  float dpacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t qf[4], nf[4];
+    ldmatrix_x4(qf, &Qs[swz<HD>(q0 + (lane & 7) + ((lane >> 4) << 3),
+                               kk * 2 + ((lane >> 3) & 1))]);
+    mma_bf16(sacc[0], ka[kk], qf[0], qf[1]);
+    mma_bf16(sacc[1], ka[kk], qf[2], qf[3]);
+    // dp^T = v dn^T
+    ldmatrix_x4(nf, &DNs[swz<HD>(q0 + (lane & 7) + ((lane >> 4) << 3),
+                                kk * 2 + ((lane >> 3) & 1))]);
+    mma_bf16(dpacc[0], va[kk], nf[0], nf[1]);
+    mma_bf16(dpacc[1], va[kk], nf[2], nf[3]);
+  }
+  float p[2][4], ds[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool key = k0 + g + 8 * (e >> 1) < valid_len;
+      const float sv = sacc[j][e];
+      p[j][e] = key ? round_bf16(exp2f(fminf(fmaxf(sv, LO), HI))) : 0.0f;
+      const float dp = key ? dpacc[j][e] + dd[q0 + 8 * j + 2 * t + (e & 1)]
+                           : 0.0f;
+      ds[j][e] = sv < HI ? (LN2 * dp) * p[j][e] : 0.0f;
+    }
+  const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
+                          pack_bf16(p[0][2], p[0][3]),
+                          pack_bf16(p[1][0], p[1][1]),
+                          pack_bf16(p[1][2], p[1][3])};
+  dsa[0] = pack_bf16(ds[0][0], ds[0][1]);
+  dsa[1] = pack_bf16(ds[0][2], ds[0][3]);
+  dsa[2] = pack_bf16(ds[1][0], ds[1][1]);
+  dsa[3] = pack_bf16(ds[1][2], ds[1][3]);
+#pragma unroll
+  for (int jj = 0; jj < HD / 16; ++jj) {
+    uint32_t nf[4], qf[4];
+    // dv += p^T dn
+    ldmatrix_x4_trans(nf, &DNs[swz<HD>(q0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                  jj * 2 + (lane >> 4))]);
+    mma_bf16(dv[2 * jj], pa, nf[0], nf[1]);
+    mma_bf16(dv[2 * jj + 1], pa, nf[2], nf[3]);
+    // dk += ds^T q
+    ldmatrix_x4_trans(qf, &Qs[swz<HD>(q0 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                 jj * 2 + (lane >> 4))]);
+    mma_bf16(dk[2 * jj], dsa, qf[0], qf[1]);
+    mma_bf16(dk[2 * jj + 1], dsa, qf[2], qf[3]);
+  }
+}
+
+// dk and dv of a warp's keys k0 + g and k0 + g + 8, their first hd columns
+template <int HD>
+__device__ __forceinline__ void store_dkv(bf16* __restrict__ dqb, int D,
+                                          const float (&dk)[HD / 8][4],
+                                          const float (&dv)[HD / 8][4],
+                                          int k0, int hd, int g, int t) {
+  const int D3 = 3 * D;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (j == HD / 8 - 1 && hd < HD) break;   // the last 8 columns, past hd
+    const int c = 8 * j + 2 * t;
+#pragma unroll
+    for (int hlf = 0; hlf < 2; ++hlf) {
+      const size_t o = (size_t)(k0 + g + 8 * hlf) * D3 + c;
+      ptt::store2(dqb + D + o, dk[j][2 * hlf], dk[j][2 * hlf + 1]);
+      ptt::store2(dqb + 2 * D + o, dv[j][2 * hlf], dv[j][2 * hlf + 1]);
+    }
+  }
+}
+
+// The resident path.  One (head, image) at real head width hd (HD or
+// HD - 8): writes A [B, S, D] and dq, dk, dv into dqkv [B, S, 3D] (bf16)
+// from qkv [B, S, 3D] and da [B, S, D].  S is a multiple of 16.
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
     attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ da,
                     bf16* __restrict__ dqkv, bf16* __restrict__ a, int S,
-                    int D, int valid_len) {
+                    int D, int valid_len, int hd) {
+  static_assert(HD <= RESIDENT_MAX_HD, "a resident instance");
+  constexpr int LD = Layout<HD>::LD;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* DNs = Qs + (size_t)S * HD;
-  bf16* Ks = DNs + (size_t)S * HD;
-  bf16* Vs = Ks + (size_t)S * HD;
+  bf16* DNs = Qs + (size_t)S * LD;
+  bf16* Ks = DNs + (size_t)S * LD;
+  bf16* Vs = Ks + (size_t)S * LD;
   float* DQ = reinterpret_cast<float*>(Ks);     // phase 2, over K and V
-  float* dden = reinterpret_cast<float*>(Vs + (size_t)S * HD);
+  float* dden = reinterpret_cast<float*>(Vs + (size_t)S * LD);
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int D3 = 3 * D, nt = S / 16;
-  const bf16* qb = qkv + (size_t)b * S * D3 + h * HD;
+  const bool full = hd == HD;              // else the last 8 columns are 0
+  const bf16* qb = qkv + (size_t)b * S * D3 + h * hd;
   const bf16* kb = qb + D;
   const bf16* vb = qb + 2 * D;
-  const bf16* dab = da + (size_t)b * S * D + h * HD;
-  bf16* ab = a + (size_t)b * S * D + h * HD;
-  bf16* dqb = dqkv + (size_t)b * S * D3 + h * HD;
+  const bf16* dab = da + (size_t)b * S * D + h * hd;
+  bf16* ab = a + (size_t)b * S * D + h * hd;
+  bf16* dqb = dqkv + (size_t)b * S * D3 + h * hd;
 
-  // q of every row; K and V zero past valid_len, as the forward's tile
+  // q of every row; K and V zero past valid_len, as the forward's tile;
+  // chunks past hd zero
   constexpr int CH = HD / 8;             // 16-byte chunks a row
   for (int c = tid; c < S * CH; c += THREADS) {
     const int r = c / CH, ch = c % CH;
-    const bool ok = r < valid_len;
-    ptt::cp_async16(&Qs[swz<HD>(r, ch)], qb + (size_t)r * D3 + ch * 8, true);
+    const bool col = ch * 8 < hd;
+    const bool ok = col && r < valid_len;
+    ptt::cp_async16(&Qs[swz<HD>(r, ch)], col ? qb + (size_t)r * D3 + ch * 8 : qb,
+                    col);
     ptt::cp_async16(&Ks[swz<HD>(r, ch)], ok ? kb + (size_t)r * D3 + ch * 8 : kb,
                     ok);
     ptt::cp_async16(&Vs[swz<HD>(r, ch)], ok ? vb + (size_t)r * D3 + ch * 8 : vb,
@@ -186,19 +360,23 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int c = 8 * j + 2 * t;
+      const bool in = j < HD / 8 - 1 || full;
 #pragma unroll
       for (int hlf = 0; hlf < 2; ++hlf) {
         const int r = rows[hlf];
-        const float den = lacc[2 * hlf];
-        const float o0 = __fdiv_rn(oacc[j][2 * hlf], den);
-        const float o1 = __fdiv_rn(oacc[j][2 * hlf + 1], den);
-        ptt::store2(ab + (size_t)r * D + c, o0, o1);
-        const float2 dv2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&dab[(size_t)r * D + c]));
-        dot[hlf] += dv2.x * o0;
-        dot[hlf] += dv2.y * o1;
-        *reinterpret_cast<uint32_t*>(&DNs[swz<HD>(r, j) + 2 * t]) =
-            pack_bf16(__fdiv_rn(dv2.x, den), __fdiv_rn(dv2.y, den));
+        uint32_t w = 0u;                 // dn past hd is 0
+        if (in) {
+          const float den = lacc[2 * hlf];
+          const float o0 = __fdiv_rn(oacc[j][2 * hlf], den);
+          const float o1 = __fdiv_rn(oacc[j][2 * hlf + 1], den);
+          ptt::store2(ab + (size_t)r * D + c, o0, o1);
+          const float2 dv2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&dab[(size_t)r * D + c]));
+          dot[hlf] += dv2.x * o0;
+          dot[hlf] += dv2.y * o1;
+          w = pack_bf16(__fdiv_rn(dv2.x, den), __fdiv_rn(dv2.y, den));
+        }
+        *reinterpret_cast<uint32_t*>(&DNs[swz<HD>(r, j) + 2 * t]) = w;
       }
     }
 #pragma unroll
@@ -211,7 +389,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   __syncthreads();
   // K and V are done with: their space holds dq's f32 sums, [query tile]
-  // [HD / 2 values][32 lanes] in the mma accumulator layout
+  // [HD / 2 values][32 lanes] in the mma accumulator layout (S x HD floats
+  // within the 2 x S x LD bf16 of K and V)
   for (int i = tid; i < S * HD; i += THREADS) DQ[i] = 0.0f;
   __syncthreads();
 
@@ -227,26 +406,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (active) {
       // this warp's keys (zero past valid_len): k and v as A fragments
       // (rows = keys), k as the B fragments of ds k
-      auto word = [&](const bf16* base, int r, int c) -> uint32_t {
-        return r < valid_len
-                   ? *reinterpret_cast<const uint32_t*>(&base[(size_t)r * D3 + c])
-                   : 0u;
-      };
+      load_key_frags<HD>(ka, va, kb, vb, D3, k0, valid_len, hd, g, t);
       auto val = [&](int r, int c) -> bf16 {
-        return r < valid_len ? kb[(size_t)r * D3 + c] : __float2bfloat16(0.0f);
+        return r < valid_len && c < hd ? kb[(size_t)r * D3 + c]
+                                       : __float2bfloat16(0.0f);
       };
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int c = kk * 16 + 2 * t;
-        ka[kk][0] = word(kb, k0 + g, c);
-        ka[kk][1] = word(kb, k0 + g + 8, c);
-        ka[kk][2] = word(kb, k0 + g, c + 8);
-        ka[kk][3] = word(kb, k0 + g + 8, c + 8);
-        va[kk][0] = word(vb, k0 + g, c);
-        va[kk][1] = word(vb, k0 + g + 8, c);
-        va[kk][2] = word(vb, k0 + g, c + 8);
-        va[kk][3] = word(vb, k0 + g + 8, c + 8);
-      }
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
         const int c = 8 * j + g;
@@ -257,60 +421,9 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int step = 0; step < nt; ++step) {
       if (active) {
         const int q0 = (step + warp) % nt * 16;
-        // s^T = k q^T: sacc[j][e] at key k0 + g + 8(e/2), query q0 + 8j +
-        // 2t + e%2
-        float sacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-        float dpacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f},
-                             {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          uint32_t qf[4], nf[4];
-          ldmatrix_x4(qf, &Qs[swz<HD>(q0 + (lane & 7) + ((lane >> 4) << 3),
-                                 kk * 2 + ((lane >> 3) & 1))]);
-          mma_bf16(sacc[0], ka[kk], qf[0], qf[1]);
-          mma_bf16(sacc[1], ka[kk], qf[2], qf[3]);
-          // dp^T = v dn^T
-          ldmatrix_x4(nf, &DNs[swz<HD>(q0 + (lane & 7) + ((lane >> 4) << 3),
-                                  kk * 2 + ((lane >> 3) & 1))]);
-          mma_bf16(dpacc[0], va[kk], nf[0], nf[1]);
-          mma_bf16(dpacc[1], va[kk], nf[2], nf[3]);
-        }
-        // p^T = bf16(exp2(clip(s^T))), 0 at pad keys; ds^T = bf16(s < 80 ?
-        // (ln2 dp) p : 0), dp = dn v^T + dden at valid keys
-        float p[2][4], ds[2][4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool key = k0 + g + 8 * (e >> 1) < valid_len;
-            const float sv = sacc[j][e];
-            p[j][e] = key ? round_bf16(exp2f(fminf(fmaxf(sv, LO), HI))) : 0.0f;
-            const float dp =
-                key ? dpacc[j][e] + dden[q0 + 8 * j + 2 * t + (e & 1)] : 0.0f;
-            ds[j][e] = sv < HI ? (LN2 * dp) * p[j][e] : 0.0f;
-          }
-        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
-                                pack_bf16(p[0][2], p[0][3]),
-                                pack_bf16(p[1][0], p[1][1]),
-                                pack_bf16(p[1][2], p[1][3])};
-        const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]),
-                                 pack_bf16(ds[0][2], ds[0][3]),
-                                 pack_bf16(ds[1][0], ds[1][1]),
-                                 pack_bf16(ds[1][2], ds[1][3])};
-#pragma unroll
-        for (int jj = 0; jj < HD / 16; ++jj) {
-          uint32_t nf[4], qf[4];
-          // dv += p^T dn
-          ldmatrix_x4_trans(nf, &DNs[swz<HD>(q0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                        jj * 2 + (lane >> 4))]);
-          mma_bf16(dv[2 * jj], pa, nf[0], nf[1]);
-          mma_bf16(dv[2 * jj + 1], pa, nf[2], nf[3]);
-          // dk += ds^T q
-          ldmatrix_x4_trans(qf, &Qs[swz<HD>(q0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                       jj * 2 + (lane >> 4))]);
-          mma_bf16(dk[2 * jj], dsa, qf[0], qf[1]);
-          mma_bf16(dk[2 * jj + 1], dsa, qf[2], qf[3]);
-        }
+        uint32_t dsa[4];
+        key_tile_step<HD>(ka, va, dk, dv, Qs, DNs, dden, q0, k0, valid_len,
+                          lane, dsa);
         // dq[q0 .. q0 + 15] += ds k, ds = (ds^T)^T as an A fragment
         const uint32_t dsq[4] = {movmatrix_trans(dsa[0]),
                                  movmatrix_trans(dsa[2]),
@@ -329,24 +442,14 @@ __global__ void __launch_bounds__(THREADS, 2)
       }
       __syncthreads();
     }
-    if (active) {
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        const int c = 8 * j + 2 * t;
-#pragma unroll
-        for (int hlf = 0; hlf < 2; ++hlf) {
-          const size_t o = (size_t)(k0 + g + 8 * hlf) * D3 + c;
-          ptt::store2(dqb + D + o, dk[j][2 * hlf], dk[j][2 * hlf + 1]);
-          ptt::store2(dqb + 2 * D + o, dv[j][2 * hlf], dv[j][2 * hlf + 1]);
-        }
-      }
-    }
+    if (active) store_dkv<HD>(dqb, D, dk, dv, k0, hd, g, t);
   }
   // dq, from the f32 sums
   for (int qt = warp; qt < nt; qt += WARPS) {
     const float* tile = DQ + (size_t)qt * (16 * HD) + lane;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
+      if (j == HD / 8 - 1 && !full) break;
       const int c = 8 * j + 2 * t;
 #pragma unroll
       for (int hlf = 0; hlf < 2; ++hlf)
@@ -354,6 +457,325 @@ __global__ void __launch_bounds__(THREADS, 2)
                     tile[(4 * j + 2 * hlf) * 32],
                     tile[(4 * j + 2 * hlf + 1) * 32]);
     }
+  }
+}
+
+// The streamed path, (a + c): one pass of WARPS query tiles of one (head
+// h, image b), a tile a warp (grid: heads x images x passes).  Sweep 1 is
+// phase 1 over K and V streamed through the tile's ring: A, and dn and
+// dden into their scratch ([B, S, D] bf16, [B, H, S] f32) and the warp's
+// registers; sweep 2 streams K and V again for dq = ds k, summed in
+// registers over the key steps in order.
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+    attn_bwd_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ da,
+                  bf16* __restrict__ dqkv, bf16* __restrict__ a,
+                  bf16* __restrict__ dn, float* __restrict__ dden, int S,
+                  int D, int valid_len, int hd) {
+  using L = Layout<HD>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + (size_t)L::RING * L::LD;
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int D3 = 3 * D;
+  const int r0 = (blockIdx.z * WARPS + warp) * 16 + g, r1 = r0 + 8;
+  const bool active = r0 - g < S;
+  const bool full = hd == HD;
+  const bf16* qb = qkv + (size_t)b * S * D3 + h * hd;
+  const bf16* kb = qb + D;
+  const bf16* vb = qb + 2 * D;
+  const bf16* dab = da + (size_t)b * S * D + h * hd;
+  bf16* ab = a + (size_t)b * S * D + h * hd;
+  bf16* dnb = dn + (size_t)b * S * D + h * hd;
+  float* ddb = dden + ((size_t)b * H + h) * S;
+  bf16* dqb = dqkv + (size_t)b * S * D3 + h * hd;
+
+  // key block i into its stage of the ring, or an empty group past the
+  // last, so that the count of groups in flight stays the same
+  const int blocks = (S + L::KB - 1) / L::KB;
+  auto load_block = [&](int i) {
+    if (i < blocks)
+      ptt_flash::load_keys<HD, WARPS>(Ks, Vs, kb, vb, D3, i * L::KB,
+                                      min(L::KB, S - i * L::KB),
+                                      i % L::STAGES * L::KB, valid_len, hd);
+    else
+      ptt::cp_async_commit();
+  };
+
+  uint32_t qa[HD / 16][4];
+  ptt_flash::load_q<HD, false>(qa, qb, D3, r0, S, hd, 0.0f, t);
+  float oacc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.0f;
+  float lacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // ---- sweep 1: the forward, as the tile's streamed pass
+#pragma unroll
+  for (int i = 0; i < L::STAGES - 1; ++i) load_block(i);
+  for (int i = 0; i < blocks; ++i) {
+    load_block(i + L::STAGES - 1);
+    ptt::cp_async_wait<L::STAGES - 1>();   // block i has landed
+    __syncthreads();
+    if (active) {
+      const int n0 = i * L::KB, n1 = min(S, n0 + L::KB);
+      const int rb = i % L::STAGES * L::KB;
+      for (int n = n0; n < n1; n += 16)
+        ptt_flash::key_step<HD>(qa, oacc, lacc, Ks, Vs, n, rb + n - n0,
+                                valid_len, lane);
+    }
+    __syncthreads();                       // block i's stage is free
+  }
+  ptt::cp_async_wait<0>();
+
+  // A, dn and dden of rows r0 (den lacc[0]) and r1 (den lacc[2]), in the
+  // resident path's order; dn kept as the A fragments of dp = dn v^T
+  uint32_t dna[HD / 16][4];
+  float drow[2] = {0.0f, 0.0f};
+  if (active) {
+    const int rows[2] = {r0, r1};
+    float dot[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const bool in = j < HD / 8 - 1 || full;
+#pragma unroll
+      for (int hlf = 0; hlf < 2; ++hlf) {
+        const int r = rows[hlf];
+        uint32_t w = 0u;
+        if (in) {
+          const float den = lacc[2 * hlf];
+          const float o0 = __fdiv_rn(oacc[j][2 * hlf], den);
+          const float o1 = __fdiv_rn(oacc[j][2 * hlf + 1], den);
+          ptt::store2(ab + (size_t)r * D + c, o0, o1);
+          const float2 dv2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&dab[(size_t)r * D + c]));
+          dot[hlf] += dv2.x * o0;
+          dot[hlf] += dv2.y * o1;
+          w = pack_bf16(__fdiv_rn(dv2.x, den), __fdiv_rn(dv2.y, den));
+          *reinterpret_cast<uint32_t*>(&dnb[(size_t)r * D + c]) = w;
+        }
+        dna[j / 2][(j & 1) * 2 + hlf] = w;
+      }
+    }
+#pragma unroll
+    for (int hlf = 0; hlf < 2; ++hlf) {
+      dot[hlf] += __shfl_xor_sync(0xffffffffu, dot[hlf], 1);
+      dot[hlf] += __shfl_xor_sync(0xffffffffu, dot[hlf], 2);
+      drow[hlf] = round_bf16(__fdiv_rn(-dot[hlf], lacc[2 * hlf]));
+      if (t == 0) ddb[rows[hlf]] = drow[hlf];
+    }
+  }
+
+  // ---- sweep 2: dq = ds k over the key blocks again
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < L::STAGES - 1; ++i) load_block(i);
+  for (int i = 0; i < blocks; ++i) {
+    load_block(i + L::STAGES - 1);
+    ptt::cp_async_wait<L::STAGES - 1>();
+    __syncthreads();
+    if (active) {
+      const int n0 = i * L::KB, n1 = min(S, n0 + L::KB);
+      const int rb = i % L::STAGES * L::KB;
+      for (int n = n0; n < n1; n += 16) {
+        const int r = rb + n - n0;
+        // s = q k^T and dp = dn v^T: [e] at row g + 8(e/2), key n + 8j +
+        // 2t + e%2
+        float sacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f},
+                            {0.0f, 0.0f, 0.0f, 0.0f}};
+        float dpacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f},
+                             {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          uint32_t kf[4], vf[4];
+          ldmatrix_x4(kf, &Ks[swz<HD>(r + (lane & 7) + ((lane >> 4) << 3),
+                                     kk * 2 + ((lane >> 3) & 1))]);
+          mma_bf16(sacc[0], qa[kk], kf[0], kf[1]);
+          mma_bf16(sacc[1], qa[kk], kf[2], kf[3]);
+          ldmatrix_x4(vf, &Vs[swz<HD>(r + (lane & 7) + ((lane >> 4) << 3),
+                                     kk * 2 + ((lane >> 3) & 1))]);
+          mma_bf16(dpacc[0], dna[kk], vf[0], vf[1]);
+          mma_bf16(dpacc[1], dna[kk], vf[2], vf[3]);
+        }
+        float ds[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool key = n + 8 * j + 2 * t + (e & 1) < valid_len;
+            const float sv = sacc[j][e];
+            const float p =
+                key ? round_bf16(exp2f(fminf(fmaxf(sv, LO), HI))) : 0.0f;
+            const float dp = key ? dpacc[j][e] + drow[e >> 1] : 0.0f;
+            ds[j][e] = sv < HI ? (LN2 * dp) * p : 0.0f;
+          }
+        const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]),
+                                 pack_bf16(ds[0][2], ds[0][3]),
+                                 pack_bf16(ds[1][0], ds[1][1]),
+                                 pack_bf16(ds[1][2], ds[1][3])};
+#pragma unroll
+        for (int jj = 0; jj < HD / 16; ++jj) {
+          uint32_t kf[4];
+          ldmatrix_x4_trans(kf, &Ks[swz<HD>(r + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                           jj * 2 + (lane >> 4))]);
+          mma_bf16(dq[2 * jj], dsa, kf[0], kf[1]);
+          mma_bf16(dq[2 * jj + 1], dsa, kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  ptt::cp_async_wait<0>();
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if (j == HD / 8 - 1 && !full) break;
+      const int c = 8 * j + 2 * t;
+      ptt::store2(dqb + (size_t)r0 * D3 + c, dq[j][0], dq[j][1]);
+      ptt::store2(dqb + (size_t)r1 * D3 + c, dq[j][2], dq[j][3]);
+    }
+  }
+}
+
+// The streamed path, (b): one block of WARPS key tiles of one (head h,
+// image b), a tile a warp (grid: key blocks x heads x images), their k and
+// v in registers; q and dn of QB query rows a stage and the rows' dden
+// stream through a ring of two stages, the query tiles in order; dk and dv
+// summed in registers.
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+    attn_bwd_keys(const bf16* __restrict__ qkv, const bf16* __restrict__ dn,
+                  const float* __restrict__ dden, bf16* __restrict__ dqkv,
+                  int S, int D, int valid_len, int hd) {
+  constexpr int LD = Layout<HD>::LD;
+  constexpr int CH = HD / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int D3 = 3 * D;
+  const int k0 = (blockIdx.x * WARPS + warp) * 16;
+  const bool active = k0 < S;
+  const bf16* qb = qkv + (size_t)b * S * D3 + h * hd;
+  const bf16* dnb = dn + (size_t)b * S * D + h * hd;
+  const float* ddb = dden + ((size_t)b * H + h) * S;
+  bf16* dqb = dqkv + (size_t)b * S * D3 + h * hd;
+
+  auto stage_q = [&](int i) {
+    return reinterpret_cast<bf16*>(smem + (size_t)(i & 1) * stage_bytes<HD>());
+  };
+  const int stages = (S + QB - 1) / QB;
+  auto load_stage = [&](int i) {
+    if (i < stages) {
+      bf16* Qs = stage_q(i);
+      bf16* DNs = Qs + QB * LD;
+      float* dd = reinterpret_cast<float*>(DNs + QB * LD);
+      const int q0 = i * QB, n = min(QB, S - q0);
+      for (int c = threadIdx.x; c < n * CH; c += THREADS) {
+        const int r = c / CH, ch = c % CH;
+        const bool col = ch * 8 < hd;
+        ptt::cp_async16(&Qs[swz<HD>(r, ch)],
+                        col ? qb + (size_t)(q0 + r) * D3 + ch * 8 : qb, col);
+        ptt::cp_async16(&DNs[swz<HD>(r, ch)],
+                        col ? dnb + (size_t)(q0 + r) * D + ch * 8 : dnb, col);
+      }
+      for (int c = threadIdx.x; c < n / 4; c += THREADS)
+        ptt::cp_async16(&dd[4 * c], ddb + q0 + 4 * c, true);
+    }
+    ptt::cp_async_commit();
+  };
+
+  load_stage(0);
+  uint32_t ka[HD / 16][4], va[HD / 16][4];
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
+  if (active)
+    load_key_frags<HD>(ka, va, qb + D, qb + 2 * D, D3, k0, valid_len, hd, g,
+                       t);
+  for (int i = 0; i < stages; ++i) {
+    load_stage(i + 1);
+    ptt::cp_async_wait<1>();               // stage i has landed
+    __syncthreads();
+    if (active) {
+      const bf16* Qs = stage_q(i);
+      const bf16* DNs = Qs + QB * LD;
+      const float* dd = reinterpret_cast<const float*>(DNs + QB * LD);
+      const int n = min(QB, S - i * QB);
+      for (int q0 = 0; q0 < n; q0 += 16) {
+        uint32_t dsa[4];
+        key_tile_step<HD>(ka, va, dk, dv, Qs, DNs, dd, q0, k0, valid_len,
+                          lane, dsa);
+      }
+    }
+    __syncthreads();                       // stage i is free
+  }
+  ptt::cp_async_wait<0>();
+  if (active) store_dkv<HD>(dqb, D, dk, dv, k0, hd, g, t);
+}
+
+// One backward at instance width HD: the resident kernel where
+// bwd_streamed is false, else the row pass then the key pass (dn, dden:
+// their scratch)
+template <int HD>
+int attention_bwd(const bf16* qkv, const bf16* da, bf16* dqkv, bf16* a,
+                  bf16* dn, float* dden, int B, int S, int D, int H,
+                  int valid_len, int hd, cudaStream_t st) {
+  if constexpr (HD <= RESIDENT_MAX_HD) {
+    if (!bwd_streamed<HD>(S)) {
+      const size_t smem = bwd_smem<HD>(S);
+      const cudaError_t err = cudaFuncSetAttribute(
+          attn_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      attn_bwd_kernel<HD><<<dim3(H, B), THREADS, smem, st>>>(
+          qkv, da, dqkv, a, S, D, valid_len, hd);
+      return (int)cudaGetLastError();
+    }
+  }
+  if (dn == nullptr || dden == nullptr) return (int)cudaErrorInvalidValue;
+  constexpr size_t ring = ring_smem<HD>();
+  constexpr size_t stages = 2 * stage_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_rows<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ring);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attn_bwd_keys<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)stages);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (S + 16 * WARPS - 1) / (16 * WARPS);
+  attn_bwd_rows<HD><<<dim3(H, B, tiles), THREADS, ring, st>>>(
+      qkv, da, dqkv, a, dn, dden, S, D, valid_len, hd);
+  PTT_CHECK();
+  attn_bwd_keys<HD><<<dim3(tiles, H, B), THREADS, stages, st>>>(
+      qkv, dn, dden, dqkv, S, D, valid_len, hd);
+  return (int)cudaGetLastError();
+}
+
+// f(std::integral_constant<int, HD>()) at instance width HD, or
+// `otherwise` where there is no instance
+template <typename F>
+int at_width(int width, int otherwise, F&& f) {
+  switch (width) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 48: return f(std::integral_constant<int, 48>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 112: return f(std::integral_constant<int, 112>());
+    case 128: return f(std::integral_constant<int, 128>());
+    default: return otherwise;
   }
 }
 
@@ -387,14 +809,38 @@ int ptt_fab_fwd(const void* x, void* out, int B, int S, int D, int H,
       (bf16*)out, D, M, D, D, st);
 }
 
+// Row 13's plan at padded S and head width hd: *streamed 0 for the
+// resident kernel, 1 for the streamed pair (which needs ptt_fab_bwd's dn
+// and dden scratch); *ring_keys the keys a stage of the streamed row
+// pass's ring holds (Layout::KB).  cudaErrorInvalidValue for a width the
+// contract does not take.
+int ptt_fab_bwd_plan(int S, int hd, int* streamed, int* ring_keys) {
+  return at_width(ptt_flash::tile_width(hd), (int)cudaErrorInvalidValue,
+                  [&](auto w) {
+                    constexpr int HD = decltype(w)::value;
+                    *streamed = bwd_streamed<HD>(S) ? 1 : 0;
+                    *ring_keys = Layout<HD>::KB;
+                    return 0;
+                  });
+}
+
 // The attention backward from the saved forward inputs: recompute
 // qkv = bf16(x Wqkv' + b') (wqkv_t = Wqkv'^T, [3D, D], as the forward
 // takes it), then dqkv [B, S, 3D] and A [B, S, D] (bf16) from da [B, S, D]
-// bf16.  Scratch: qkv [M, 3D] bf16.
+// bf16, at head width D / H (a multiple of 8 up to 128) on the instance
+// ptt_flash::tile_width, on the path ptt_fab_bwd_plan names.  Scratch:
+// qkv [M, 3D] bf16; on the streamed path also dn [B, S, D] bf16 and dden
+// [B, H, S] f32 (else they may be null).
 int ptt_fab_bwd(const void* x, const void* wqkv_t, const void* bqkv,
                 const void* da, void* dqkv, void* a, int B, int S, int D,
-                int H, int valid_len, void* qkv, void* stream) {
+                int H, int valid_len, void* qkv, void* dn, void* dden,
+                void* stream) {
   namespace wg = ptt_wgmma;
+  if (H < 1 || D % H || S % 16 || valid_len < 1 || valid_len > S)
+    return (int)cudaErrorInvalidValue;
+  const int hd = D / H;
+  const int width = ptt_flash::tile_width(hd);
+  if (width == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = B * S;
   bf16* qkvb = (bf16*)qkv;
@@ -402,23 +848,11 @@ int ptt_fab_bwd(const void* x, const void* wqkv_t, const void* bqkv,
   PTT_TRY((wg::gemm<wg::EPI_BIAS, float, bf16>(
       (const bf16*)x, D, (const bf16*)wqkv_t, D, (const float*)bqkv, nores,
       0, qkvb, 3 * D, M, 3 * D, D, st)));
-  auto run = [&](auto hd) {
-    constexpr int HD = decltype(hd)::value;
-    const size_t smem = bwd_smem(S, HD);
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    attn_bwd_kernel<HD><<<dim3(H, B), THREADS, smem, st>>>(
-        qkvb, (const bf16*)da, (bf16*)dqkv, (bf16*)a, S, D, valid_len);
-    return (int)cudaGetLastError();
-  };
-  switch (D / H) {
-    case 16: return run(std::integral_constant<int, 16>());
-    case 32: return run(std::integral_constant<int, 32>());
-    case 64: return run(std::integral_constant<int, 64>());
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return at_width(width, (int)cudaErrorInvalidValue, [&](auto w) {
+    return attention_bwd<decltype(w)::value>(
+        qkvb, (const bf16*)da, (bf16*)dqkv, (bf16*)a, (bf16*)dn,
+        (float*)dden, B, S, D, H, valid_len, hd, st);
+  });
 }
 
 }  // extern "C"

@@ -11,17 +11,12 @@ import torch
 NEG_1702_LOG2E = float(-1.702 * math.log2(math.e))
 
 
-# The two attention contracts.  The tile (csrc/flash_tile.cuh: rows 1, 2,
-# 5, 6, 8, 9, 14 and row 12's forward) takes every head width that is a
-# multiple of 8 up to TILE_MAX_HEAD_DIM, on instances every 16, at any
-# padded S: it streams K and V past its ring.  Row 13's backward (and so
-# row 12 while autograd records) keeps its own: the head widths
-# BWD_HEAD_DIMS, with its whole-sequence block within the shared memory a
-# block may use on the H100, SMEM_LIMIT; row 14's f32 kernel takes those
-# head widths at any S.
+# The attention kernels' one contract: the tile (csrc/flash_tile.cuh: rows
+# 1, 2, 5, 6, 8, 9, 14 and row 12's forward), row 13's backward
+# (csrc/fused_attention.cu) and row 14's f32 kernel take every head width
+# that is a multiple of 8 up to TILE_MAX_HEAD_DIM, on instances every 16,
+# at any padded S: each streams its keys past what a block holds.
 TILE_MAX_HEAD_DIM = 128
-BWD_HEAD_DIMS = (16, 32, 64)
-SMEM_LIMIT = 232448
 
 
 def round_up(x: int, m: int) -> int:
@@ -142,48 +137,20 @@ def _token_axis_ok(s: int, valid_len: int) -> bool:
 
 def attention_kernel_takes(d: int, num_heads: int, s: int,
                            valid_len: int) -> bool:
-    """Whether the attention tile takes this shape: a head width that is a
-    multiple of 8 up to TILE_MAX_HEAD_DIM, the token axis padded to a
+    """Whether the attention kernels take this shape: a head width that is
+    a multiple of 8 up to TILE_MAX_HEAD_DIM, the token axis padded to a
     multiple of 16 with 1 <= valid_len <= S, any S."""
     return _tile_width_ok(d, num_heads) and _token_axis_ok(s, valid_len)
-
-
-def _raise_token_axis(s: int, valid_len: int) -> None:
-    if not _token_axis_ok(s, valid_len):
-        raise ValueError(f"token axis {s} must be padded to a multiple of "
-                         f"16 with 1 <= valid_len ({valid_len}) <= {s}")
 
 
 def check_attention_shape(d: int, num_heads: int, s: int,
                           valid_len: int) -> None:
     """Raise unless ``attention_kernel_takes`` this shape, saying why: what
-    every entry that launches the tile asks first."""
+    every entry that launches an attention kernel asks first."""
     if not _tile_width_ok(d, num_heads):
         raise ValueError(f"CUDA attention needs a head_dim that is a "
                          f"multiple of 8 up to {TILE_MAX_HEAD_DIM}, got "
                          f"D={d} with {num_heads} heads")
-    _raise_token_axis(s, valid_len)
-
-
-def attention_bwd_takes(d: int, num_heads: int, s: int,
-                        valid_len: int) -> bool:
-    """Whether the attention backward (row 13, csrc/fused_attention.cu)
-    takes this shape: head_dim 16, 32 or 64, the token axis as the tile
-    takes it, and one (image, head)'s q, dn, K, V and row terms within
-    shared memory.  Row 12 while autograd records asks it too."""
-    return (d % num_heads == 0 and d // num_heads in BWD_HEAD_DIMS
-            and _token_axis_ok(s, valid_len)
-            and s * (8 * (d // num_heads) + 4) <= SMEM_LIMIT)
-
-
-def check_attention_bwd_shape(d: int, num_heads: int, s: int,
-                              valid_len: int) -> None:
-    """Raise unless ``attention_bwd_takes`` this shape, saying why."""
-    if d % num_heads or d // num_heads not in BWD_HEAD_DIMS:
-        raise ValueError(f"the CUDA attention backward needs head_dim in "
-                         f"{BWD_HEAD_DIMS}, got D={d} with "
-                         f"{num_heads} heads")
-    _raise_token_axis(s, valid_len)
-    if not attention_bwd_takes(d, num_heads, s, valid_len):
-        raise ValueError(f"sequence {s} exceeds the attention backward's "
-                         "shared memory")
+    if not _token_axis_ok(s, valid_len):
+        raise ValueError(f"token axis {s} must be padded to a multiple of "
+                         f"16 with 1 <= valid_len ({valid_len}) <= {s}")

@@ -1,9 +1,10 @@
 """Attention of the JAX package's patent_tpu/ops/flash_attention.py: the
 exp2-domain score clamp and one-pass softmax·v the serving layers share,
 the standalone attention ``flash_attention`` of the ``use_flash`` tower
-(TPU row 14; the kernel of csrc/flash_attention.cu, bf16 or f32, on a
-CUDA tensor, ``flash_attention_plain`` on a CPU tensor; inference only, as
-the TPU kernel has no VJP), and the trainable attention sub-layer
+(TPU row 14; on a CUDA tensor the kernel of csrc/flash_attention.cu in
+bf16 or of csrc/flash_attention_f32.cu in f32, ``flash_attention_plain``
+on a CPU tensor; inference only, as the TPU kernel has no VJP), and the
+trainable attention sub-layer
 ``fused_attention_block`` of the fine-tune tower with its backward.
 
 ``fused_attention_block`` computes ``(x Wqkv + b) → MHA → @ Wout + b``
@@ -29,22 +30,23 @@ saturate stops learning; ``attention_saturation`` watches for it.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .common import (BWD_HEAD_DIMS, check_attention_bwd_shape,
-                     check_attention_shape, check_cuda_tensor, count_tile,
-                     mm_f32, refuse_grad, round_up, weak_scalar)
+from .common import (check_attention_shape, check_cuda_tensor, count_tile,
+                     mm_f32, refuse_grad, round_up, tile_width, weak_scalar)
 
 SCORE_CLAMP_LO = -100.0
 SCORE_CLAMP_HI = 80.0
 _LN2 = math.log(2.0)
 _P, _I, _L, _F = _build.P, _build.I, _build.L, _build.F
 _SIG_FWD = [_P, _P] + [_I] * 5 + [_P] * 6 + [_P]
-_SIG_BWD = [_P] * 6 + [_I] * 5 + [_P] + [_P]
+_SIG_BWD = [_P] * 6 + [_I] * 5 + [_P] * 3 + [_P]
+_SIG_BWD_PLAN = [_I, _I, _P, _P]
 _SIG_FLASH = [_P] * 4 + [_I] * 4 + [_L, _I, _L, _I, _F, _P]
 
 
@@ -131,18 +133,38 @@ def fused_attention_block_plain(x, wqkv_f, bqkv_f, wout, bout, num_heads: int,
     return out.to(x.dtype).reshape(b, s, d)
 
 
+def _windows(t: torch.Tensor, d: int, hd: int, w: int,
+             sections: int) -> torch.Tensor:
+    """[..., sections·D] → [..., sections·H·w]: each head's w columns from
+    h·hd of its section, zeros past the row's end."""
+    t = F.pad(t, (0, w))
+    return torch.cat([t[..., sec * d + h * hd:sec * d + h * hd + w]
+                      for sec in range(sections) for h in range(d // hd)], -1)
+
+
 def attention_bwd_plain(x, wqkv_f, bqkv_f, da, num_heads: int,
-                        valid_len: int, gate: bool = True
+                        valid_len: int, gate: bool = True,
+                        read_width: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the row-13 kernel: recompute qkv, then (dqkv
     [B, S, 3D] in pre-scaled-q coordinates, A [B, S, D] the head outputs),
     both bf16, from da = dout Woutᵀ [B, S, D] bf16.  Scores at or above the
     +80 clamp get a zero gradient (the gate; ``gate=False`` drops it, a
-    control that checks must tell apart); pad keys get dk = dv = 0."""
+    control that checks must tell apart); pad keys get dk = dv = 0.
+    ``read_width`` (a control too): each head's q, k, v and da read as
+    that many columns from h·hd (the next head's first columns, or zeros
+    past the row), as a kernel on an instance wider than hd would read
+    them without zero-filling its columns past hd, and the outputs cut
+    back to hd columns."""
     b, s, d = x.shape
     cdt = x.dtype
+    hd = d // num_heads
+    w = read_width or hd
     qkv = _qkv(x, wqkv_f, bqkv_f)
-    q, k, v = (_heads(t.contiguous(), num_heads) for t in qkv.split(d, -1))
+    if w != hd:
+        qkv, da = _windows(qkv, d, hd, w, 3), _windows(da, d, hd, w, 1)
+    q, k, v = (_heads(t.contiguous(), num_heads)
+               for t in qkv.split(num_heads * w, -1))
     sc, p = _scores_p(q, k, valid_len)
     valid = (torch.arange(s, device=x.device) < valid_len).float()
     o_ext = mm_f32(p, v)
@@ -159,19 +181,18 @@ def attention_bwd_plain(x, wqkv_f, bqkv_f, da, num_heads: int,
     dq = mm_f32(ds, k)
     dk = mm_f32(ds.transpose(1, 2), q)
     dv = mm_f32(p.transpose(1, 2), dn) * valid[:, None]
-    dqkv = torch.cat([_unheads(t.to(cdt), b) for t in (dq, dk, dv)], -1)
-    return dqkv, _unheads(o.to(cdt), b)
+    outs = [t[..., :hd] if w != hd else t for t in (dq, dk, dv, o)]
+    dqkv = torch.cat([_unheads(t.to(cdt), b) for t in outs[:3]], -1)
+    return dqkv, _unheads(outs[3].to(cdt), b)
 
 
-def _kernel_check(x, num_heads, valid_len, mats, vecs,
-                  check_shape=check_attention_shape) -> None:
+def _kernel_check(x, num_heads, valid_len, mats, vecs) -> None:
     """Raise unless the CUDA kernel takes this call: x [B, S, D] and the
     matrices bf16, the biases f32, all contiguous on the card, and the
-    shape within ``check_shape``'s contract (the tile's for row 12, the
-    backward's for row 13)."""
+    shape within the attention kernels' contract."""
     check_cuda_tensor("x", x, torch.bfloat16)
     b, s, d = x.shape
-    check_shape(d, num_heads, s, valid_len)
+    check_attention_shape(d, num_heads, s, valid_len)
     for name, t, shape in mats:
         check_cuda_tensor(name, t, torch.bfloat16, shape)
     for name, t, n in vecs:
@@ -209,32 +230,59 @@ def fused_attention_fwd(x, wqkv_f, bqkv_f, wout, bout, num_heads: int,
 fused_attention_fwd.launches = 0
 
 
+def attention_bwd_plan(s: int, hd: int) -> tuple[bool, int]:
+    """Row 13's plan on the card at a padded S and head width hd, from the
+    kernel library (csrc/fused_attention.cu's ptt_fab_bwd_plan): whether
+    it streams (the resident kernel holds one (head, image)'s whole
+    sequence in a block's shared memory, at head widths up to 64 where it
+    fits; past either it streams), and the keys a stage of the streamed
+    row pass's ring holds."""
+    streamed, ring = ctypes.c_int(0), ctypes.c_int(0)
+    _build.call("ptt_fab_bwd_plan", _SIG_BWD_PLAN, s, hd,
+                ctypes.byref(streamed), ctypes.byref(ring))
+    return bool(streamed.value), ring.value
+
+
 def fused_attention_bwd(x, wqkv_f, bqkv_f, da, num_heads: int,
                         valid_len: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Row 13: (dqkv, A) from the saved inputs and da.  CPU tensor: the
     plain version; CUDA tensor (bf16): the kernel, or an error; the
     kernel's qkv recompute reads Wqkv′ transposed, made per call as in
-    ``fused_attention_fwd``."""
+    ``fused_attention_fwd``.  The path is ``attention_bwd_plan``'s.
+    Launches are counted in ``launches`` and by instance width and path in
+    ``instances`` ("hd64", "hd64_streamed", ...)."""
     if x.device.type == "cpu":
         return attention_bwd_plain(x, wqkv_f, bqkv_f, da, num_heads,
                                    valid_len)
     b, s, d = x.shape
     _kernel_check(x, num_heads, valid_len,
                   [("wqkv", wqkv_f, (d, 3 * d)), ("da", da, (b, s, d))],
-                  [("bqkv", bqkv_f, 3 * d)], check_attention_bwd_shape)
+                  [("bqkv", bqkv_f, 3 * d)])
+    hd = d // num_heads
+    streamed, _ring = attention_bwd_plan(s, hd)
     dev = x.device
     dqkv = torch.empty(b, s, 3 * d, dtype=torch.bfloat16, device=dev)
     a = torch.empty_like(x)
     qkv = torch.empty(b * s, 3 * d, dtype=torch.bfloat16, device=dev)
+    dn = dden = None
+    if streamed:
+        dn = torch.empty(b, s, d, dtype=torch.bfloat16, device=dev)
+        dden = torch.empty(b, num_heads, s, dtype=torch.float32, device=dev)
     _build.call("ptt_fab_bwd", _SIG_BWD,
                 *map(_build.ptr, (x, wqkv_f.t().contiguous(), bqkv_f, da, dqkv,
                                   a)), b, s, d, num_heads, valid_len,
-                _build.ptr(qkv), _build.stream(dev))
+                _build.ptr(qkv),
+                *(None if t is None else _build.ptr(t) for t in (dn, dden)),
+                _build.stream(dev))
     fused_attention_bwd.launches += 1
+    key = f"hd{tile_width(hd)}" + ("_streamed" if streamed else "")
+    inst = fused_attention_bwd.instances
+    inst[key] = inst.get(key, 0) + 1
     return dqkv, a
 
 
 fused_attention_bwd.launches = 0
+fused_attention_bwd.instances = {}
 
 
 def _fab_bwd(x, wqkv_f, bqkv_f, wout, dout, num_heads: int, valid_len: int,
@@ -299,10 +347,6 @@ def fused_attention_block(x, wqkv, bqkv, wout, bout, num_heads: int,
                         wqkv[:, d:]], dim=1)
     bqkv_f = torch.cat([bqkv[:d] * weak_scalar(scale2, bqkv.dtype), bqkv[d:]])
     sp = round_up(max(s, 16), 16)
-    if kernels and x.is_cuda and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, wqkv, bqkv, wout, bout)):
-        # autograd records, so row 13 will run: its contract, before row 12
-        check_attention_bwd_shape(d, num_heads, sp, s)
     xp = F.pad(x, (0, 0, 0, sp - s)).contiguous()
     out = _FusedAttentionBlock.apply(xp, wqkv_f.contiguous(), bqkv_f, wout,
                                      bout, num_heads, s, kernels)
@@ -345,9 +389,9 @@ def _flash_check(q, k, v) -> None:
     """Raise unless the row-14 kernel takes q, k, v: [B, S, H, D] of one
     dtype, bf16 or f32, on the card with each row's [H, D] packed (a
     slice of a wider row, as q, k, v of one qkv tensor are, is read in
-    place), 16-byte aligned, k and v with the same strides; in bf16 the
-    tile's contract (D a multiple of 8 up to 128, any S), in f32 D 16, 32
-    or 64 (any S: that kernel streams the keys in tiles too)."""
+    place), 16-byte aligned, k and v with the same strides; in the
+    attention kernels' contract (D a multiple of 8 up to 128, any S: the
+    f32 kernel streams the keys in tiles too)."""
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -369,11 +413,7 @@ def _flash_check(q, k, v) -> None:
     if k.stride() != v.stride():
         raise ValueError(f"k and v differ in strides: {k.stride()}, "
                          f"{v.stride()}")
-    if q.dtype == torch.bfloat16:
-        check_attention_shape(h * d, h, round_up(s, 16), s)
-    elif d not in BWD_HEAD_DIMS:
-        raise ValueError(f"the row-14 f32 kernel needs head_dim in "
-                         f"{BWD_HEAD_DIMS}, got {d}")
+    check_attention_shape(h * d, h, round_up(s, 16), s)
 
 
 def _launch_flash(name: str, q, k, v) -> torch.Tensor:
@@ -391,10 +431,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     head_batch: bool = True) -> torch.Tensor:
     """softmax(q kᵀ/√D) v for q, k, v [B, S, H, D] → [B, S, H, D], the
     TPU kernel's exp2 form (``flash_attention_plain``) in q's dtype.
-    Inference only.  CPU tensor: the plain version; CUDA tensor: bf16 the
-    kernel (head_dim a multiple of 8 up to 128), f32
-    ``flash_attention_f32`` (head_dim 16, 32 or 64), anything else an
-    error."""
+    Inference only.  CPU tensor: the plain version; CUDA tensor (head_dim
+    a multiple of 8 up to 128): bf16 the kernel, f32
+    ``flash_attention_f32``, anything else an error."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, head_batch)
     if q.dtype == torch.float32:
@@ -415,7 +454,8 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
     """Row 14's f32 instance (``flash_attention`` on f32 tensors): the
     plain version's f32 function, products and sums in f32 with no TF32.
     CPU tensor: the plain version; CUDA tensor (f32): the kernel, or an
-    error."""
+    error.  Launches are counted in ``launches`` and by instance width in
+    ``instances`` ("hd64", "hd80", ...)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     _flash_check(q, k, v)
@@ -424,7 +464,11 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor,
     refuse_grad("flash_attention", q, k, v)
     out = _launch_flash("ptt_flash_attention_f32", q, k, v)
     flash_attention_f32.launches += 1
+    key = f"hd{tile_width(q.shape[3])}"
+    inst = flash_attention_f32.instances
+    inst[key] = inst.get(key, 0) + 1
     return out
 
 
 flash_attention_f32.launches = 0
+flash_attention_f32.instances = {}

@@ -81,25 +81,29 @@ def _jax_grads(vit, head, params, images, nodes, alpha):
     return jax.grad(loss_fn)(params)
 
 
-@pytest.fixture(scope="module")
-def two_steps():
+def two_steps_of(tower: VisionConfig, excess_precision: bool = True):
     """(JAX metrics, port metrics, JAX grads, port grads, JAX params
     before and after, port state dicts before and after, trainable
-    names)."""
+    names) of two steps at ``tower``.  ``excess_precision=False`` compiles
+    JAX's step as tests/test_torch_train_end.py does: XLA's CPU backend
+    otherwise keeps the bf16 tower's intermediates in f32 where the port
+    rounds them, and at D 144-160 that alone moves step 1's cross loss by
+    2.5-2.8e-3 (1.0e-4-1.0e-3 without it)."""
     rng = np.random.default_rng(0)
     vgae = rng.standard_normal((10, 32)).astype(np.float32)
     (vit, head), params, opt, opt_state = jax_ft.init_finetune_state(
-        TINY64, JaxConfig(batch_size=PAIRS), vgae, seed=0)
+        tower, JaxConfig(batch_size=PAIRS), vgae, seed=0)
     step, _ = jax_ft.make_finetune_step(vit, head, opt,
                                         JaxConfig(batch_size=PAIRS))
     model, topt = torch_ft.init_finetune_state(
-        TorchVisionConfig(**dataclasses.asdict(TINY64)),
+        TorchVisionConfig(**dataclasses.asdict(tower)),
         TorchConfig(batch_size=PAIRS), vgae)
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     tstep, _ = torch_ft.make_finetune_step(model, topt)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     jbefore = params_from_jax(jax.tree.map(np.asarray, params))
-    batches = [(rng.integers(0, 256, (2 * PAIRS, 64, 64, 3), dtype=np.uint8),
+    px = tower.image_size
+    batches = [(rng.integers(0, 256, (2 * PAIRS, px, px, 3), dtype=np.uint8),
                 rng.integers(0, 10, PAIRS).astype(np.int32))
                for _ in range(2)]
     jm, tm = [], []
@@ -110,6 +114,10 @@ def two_steps():
         jgrads = params_from_jax(jax.tree.map(np.asarray, _jax_grads(
             vit, head, params, jnp.asarray(batches[0][0]),
             jnp.asarray(batches[0][1]), ALPHA)))
+        if not excess_precision:
+            step = step.lower(params, opt_state, jnp.asarray(batches[0][0]),
+                              jnp.asarray(batches[0][1]), ALPHA).compile(
+                {"xla_allow_excess_precision": False})
         for i, (images, nodes) in enumerate(batches):
             params, opt_state, m = step(params, opt_state,
                                         jnp.asarray(images),
@@ -125,6 +133,11 @@ def two_steps():
     return (jm, tm, jgrads, tgrads, jbefore,
             params_from_jax(jax.tree.map(np.asarray, params)), before,
             model.state_dict(), trainable)
+
+
+@pytest.fixture(scope="module")
+def two_steps():
+    return two_steps_of(TINY64)
 
 
 def test_two_steps_metrics_match_jax(two_steps):

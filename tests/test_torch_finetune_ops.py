@@ -86,13 +86,18 @@ def _attention_both(case, heads):
 
 @pytest.mark.parametrize("b,s,d,heads", [(2, 13, 128, 2), (3, 5, 64, 4),
                                          (3, 16, 128, 2), (2, 13, 128, 4),
-                                         (2, 65, 64, 4)],
+                                         (2, 65, 64, 4), (2, 13, 144, 2),
+                                         (2, 13, 160, 2), (2, 13, 128, 1),
+                                         (1, 470, 64, 1)],
                          ids=["S13", "most-keys-pad", "odd-batch-no-pad",
-                              "hd32", "small-tower"])
+                              "hd32", "small-tower", "hd72", "hd80",
+                              "hd128", "s480-streamed"])
 def test_fused_attention_block_matches_jax_pallas(b, s, d, heads):
     """Forward and all five gradients; S = 5 pads to 16, so 11 of 16 keys
     are pad; S = 16 at B 3 pads nothing, and B·S = 48 rows is ragged
-    against the card's 128-row GEMM tiles."""
+    against the card's 128-row GEMM tiles; head widths 72 (on the CUDA
+    kernels' 80 instance), 80 and 128; and S 470, padded to 480, past the
+    448 rows at which the card's backward streams its keys."""
     jout, jgrads, tout, tgrads = _attention_both(
         _attention_case(b, s, d), heads)
     assert tout.dtype == torch.bfloat16 and tout.shape == (b, s, d)

@@ -375,10 +375,13 @@ def test_flash_kernel_clamps_scores_past_80(cuda, dtype):
 FLASH_F32_REL_TOL = 1e-5
 
 
-@pytest.mark.parametrize("hd", [64, 32, 16])
+@pytest.mark.parametrize("hd", [64, 32, 16, 48, 72, 80, 88, 96, 112, 128,
+                                8, 120])
 @pytest.mark.parametrize("s,heads", [(197, 12), (64, 2), (5, 1), (1, 1),
                                      (15, 2), (17, 2), (65, 1)])
 def test_flash_kernel_f32_matches_plain(cuda, s, heads, hd):
+    """Every instance width; 8, 72, 88 and 120 on the 16, 80, 96 and 128
+    instances."""
     q, k, v = _flash_case(cuda, 3, s, heads=heads, dtype=torch.float32,
                           hd=hd)
     n0 = fa.flash_attention_f32.launches
@@ -413,8 +416,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head_dim"):   # 4: not 8's multiple
         fa.flash_attention(*(t.reshape(2, 20, 32, 4) for t in (q, k, v)))
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(*(t.float().reshape(2, 20, 1, 128)
+    with pytest.raises(ValueError, match="head_dim"):   # f32 head_dim 4
+        fa.flash_attention(*(t.float().reshape(2, 20, 32, 4)
                              for t in (q, k, v)))
     with pytest.raises(ValueError, match="strides"):
         fa.flash_attention(q, k.contiguous(), v)
@@ -1325,9 +1328,11 @@ def test_trainable_attention_gates_the_clamp_on_the_card(cuda):
 @pytest.mark.parametrize(
     "m,d,f", [(64, D, F), (77, D, F), (25216, D, F),
               (2 * mm.CHUNK_ROWS + 77, D, F), (3 * 65, 64, 128),
-              (16 * 17, 64, 128)],
+              (16 * 17, 64, 128), (128 * 592, 1024, 4096),
+              (128 * 592, 1280, 5120)],
     ids=["M64", "M77-ragged", "M25216-fine-tune", "three-chunks-ragged",
-         "small-tower-M195-ragged", "train-end-cli-M272"])
+         "small-tower-M195-ragged", "train-end-cli-M272",
+         "vit-l14-336-M75776", "vit-h14-widths-M75776"])
 def test_trainable_mlp_kernels_match_plain_and_controls_do_not(cuda, m, d,
                                                                 f):
     """Rows 15 and 16 against their plain versions; M 25,216 is the
@@ -1336,8 +1341,11 @@ def test_trainable_mlp_kernels_match_plain_and_controls_do_not(cuda, m, d,
     backward's chunk loop (row offsets, the f32 accumulation of dW1 and
     dW2 across chunks, the column sums) with a ragged last chunk; the
     fifth is the CLIs' small tower (D 64, F 128: N narrower than the
-    GEMM's 256-wide tile, K 64 one k-step) at B 3 of 65 tokens, the last
-    train_end's CLI tower, 16 images of 17 tokens."""
+    GEMM's 256-wide tile, K 64 one k-step) at B 3 of 65 tokens, the sixth
+    train_end's CLI tower, 16 images of 17 tokens; the last two are the
+    fine-tune's 64 pairs at ViT-L/14 @336's and ViT-H/14's widths (D
+    1,024 / F 4,096 and D 1,280 / F 5,120) over 128 x 592 rows, three
+    chunks with their f32 sums across chunks."""
     x, p = _layer_case(cuda, b=-(-m // S), d=d, f=f)
     x2 = x.reshape(-1, d)[:m].contiguous()
     lns, lnb, w1, b1, w2, b2 = p[6:12]
@@ -3110,10 +3118,11 @@ def test_tile_past_the_old_limit_equals_the_resident_tile_in_bits(cuda,
 def test_row_12_takes_the_tile_contract_only_without_autograd(cuda, hd,
                                                               heads, s):
     """Row 12's forward runs the tile, so with nothing recorded it takes
-    head_dim 80 and S past 448 (against its plain version); while autograd
-    records, row 13 would run, whose contract stays head_dim 16, 32, 64
-    within shared memory, so the block raises before any launch; row 13
-    and row 14's f32 kernel refuse those shapes themselves too."""
+    head_dim 80 and S past 448 (against its plain version); rows 13 and
+    14′ now take the same contract, so while autograd records the block
+    runs rows 12 and 13 there too (gradients against ``kernels=False``),
+    and row 14's f32 kernel takes those shapes; head_dim 4 still
+    raises before any launch."""
     d = hd * heads
     x, p = _layer_case(cuda, b=2, s=s, d=d, f=d, valid=s)
     args = (x, p[2], p[3].to(torch.bfloat16), p[4],
@@ -3123,16 +3132,153 @@ def test_row_12_takes_the_tile_contract_only_without_autograd(cuda, hd,
         want = fa.fused_attention_block(*args, heads, kernels=False)
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= REL_TOL
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    cot = torch.randn(x.shape, generator=g, device=cuda)
+    grads = []
+    n0 = fa.fused_attention_bwd.launches
+    for kernels in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        out = fa.fused_attention_block(*leaves, heads, kernels=kernels)
+        (out.float() * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert fa.fused_attention_bwd.launches == n0 + 1
+    for name, gk, gp in zip(("x", "wqkv", "bqkv", "wout", "bout"), *grads):
+        assert _rel_err(gk, gp) <= TRAIN_BWD_REL_TOL, name
     leaves = [t.clone().requires_grad_(True) for t in args]
     n0 = fa.fused_attention_fwd.launches
-    with pytest.raises(ValueError, match="backward"):
-        fa.fused_attention_block(*leaves, heads)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.fused_attention_block(*leaves, d // 4)
     assert fa.fused_attention_fwd.launches == n0
-    sp = -(-s // 16) * 16
-    xp = torch.nn.functional.pad(x, (0, 0, 0, sp - s))
-    with pytest.raises(ValueError, match="backward"):
-        fa.fused_attention_bwd(xp, p[2], p[3], xp, heads, s)
     q = x.float().unflatten(-1, (heads, hd))
-    if hd not in (16, 32, 64):
-        with pytest.raises(ValueError, match="f32"):
-            fa.flash_attention(q, q, q)
+    assert _rel_err(fa.flash_attention(q, q, q),
+                    fa.flash_attention_plain(q, q, q)) <= 1e-5
+
+
+# Row 13 at every instance width of the attention kernels' contract, on
+# the path each shape takes (ptt_fab_bwd_plan): (B, S, D, heads, valid,
+# path).  Head widths 8 to 64 at S 208 (197 valid keys) run on the
+# resident kernel, and at the first padded S past its whole-sequence
+# block (1,776 rows at 8 and 16, 896 at 32, 528 at 48, 464 at 64) on the
+# streamed pair; 72 to 128 stream at every S; 8, 72, 88 and 120 run on
+# the 16, 80, 96 and 128 instances with their last 8 columns zero; CLIP
+# ViT-L/14 @336's 592 rows of 16 x 64 heads and ViT-H/14's widths
+# stream.  The gate is TRAIN_BWD_REL_TOL, measured on the H100 at 0 to
+# 5.9e-5 over these shapes; every control below moves the plain backward
+# by far more.
+BWD_FIRST_STREAMED_S = {8: 1776, 16: 1776, 32: 896, 48: 528, 64: 464}
+BWD_WIDTH_CASES = {
+    **{f"hd{hd}": (3, 208, 2 * hd, 2, 197,
+                   "resident" if hd <= 64 else "streamed")
+       for hd in (8, 16, 32, 48, 64, 72, 80, 88, 96, 112, 120, 128)},
+    **{f"hd{hd}-s{s}": (2, s, 2 * hd, 2, s - 6, "streamed")
+       for hd, s in BWD_FIRST_STREAMED_S.items()},
+    "vit-l14-336": (2, 592, 1024, 16, 577, "streamed"),
+    "vit-h14-widths": (2, 272, 1280, 16, 257, "streamed")}
+
+
+def _bwd_path(hd, s):
+    """The path row 13 names for this shape, read from the library."""
+    return "streamed" if fa.attention_bwd_plan(s, hd)[0] else "resident"
+
+
+@pytest.mark.parametrize("case", sorted(BWD_WIDTH_CASES))
+def test_attention_backward_at_every_width_matches_plain(cuda, case):
+    """Row 13 against ``attention_bwd_plain`` at every instance width and on
+    the path its shape takes (the launch counted under that path), with
+    controls that must fail the same gate: no key mask, bqkv = 0, the keys
+    of the last key block dropped (the streamed ring's last, partial
+    stage, or its last 16-key step where the keys are one stage; the
+    resident path's last 16-key step), and at widths below their
+    instance's the zero columns treated as real.  Two runs give the same
+    bits."""
+    b, s, d, heads, valid, path = BWD_WIDTH_CASES[case]
+    hd = d // heads
+    assert _bwd_path(hd, s) == path
+    x, wqkv, bqkv, _wo, _bo, da = _attn_case(cuda, b, s, d, heads, valid)
+    key = f"hd{-(-hd // 16) * 16}" + ("_streamed" if path == "streamed"
+                                      else "")
+    n0 = fa.fused_attention_bwd.instances.get(key, 0)
+    got = fa.fused_attention_bwd(x, wqkv, bqkv, da, heads, valid)
+    again = fa.fused_attention_bwd(x, wqkv, bqkv, da, heads, valid)
+    want = fa.attention_bwd_plain(x, wqkv, bqkv, da, heads, valid)
+    torch.cuda.synchronize()
+    assert fa.fused_attention_bwd.instances[key] == n0 + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    v = slice(0, valid)
+    assert not got[0][:, valid:].any()       # pad queries and pad keys
+    assert _rel_err(got[1][:, v], want[1][:, v]) <= REL_TOL
+    assert _rel_err(got[0][:, v], want[0][:, v]) <= TRAIN_BWD_REL_TOL
+    block = fa.attention_bwd_plan(s, hd)[1] if path == "streamed" else 16
+    last = (valid - 1) // block * block or (valid - 1) // 16 * 16
+    assert 0 < last < valid
+    controls = {
+        "no key mask": fa.attention_bwd_plain(x, wqkv, bqkv, da, heads, s),
+        "bqkv=0": fa.attention_bwd_plain(x, wqkv, torch.zeros_like(bqkv), da,
+                                         heads, valid),
+        "last key block dropped": fa.attention_bwd_plain(x, wqkv, bqkv, da,
+                                                         heads, last)}
+    if hd % 16:
+        controls["zero columns as real"] = fa.attention_bwd_plain(
+            x, wqkv, bqkv, da, heads, valid, read_width=hd + 8)
+    for name, ctrl in controls.items():
+        assert _rel_err(ctrl[0][:, v], want[0][:, v]) > TRAIN_BWD_REL_TOL, \
+            name
+
+
+@pytest.mark.parametrize("s,hd,streamed", [
+    (208, 64, False),     # ViT-B/16 @224: 107 KB, two blocks an SM
+    (448, 64, False),     # the resident block's last S at 64
+    (464, 64, True),
+    (592, 64, True),      # CLIP ViT-L/14 @336
+    (272, 80, True),      # ViT-H/14's widths: no resident instance past 64
+    (272, 72, True),      # on the 80 instance
+    (1760, 8, False),     # on the 16 instance: its last resident S
+    (512, 48, False),     # 48's rows take one chunk more (56 elements)
+    (528, 48, True),
+    (80, 16, False),      # the CLIs' small tower
+], ids=["vit-b16", "s448", "s464", "vit-l14-336", "vit-h14", "hd72",
+        "hd8-s1760", "hd48-s512", "hd48-s528", "small-tower"])
+def test_attention_backward_takes_the_resident_path_where_it_fits(cuda, s,
+                                                                  hd,
+                                                                  streamed):
+    """Row 13 keeps one (head, image)'s whole sequence in a block's shared
+    memory (q, dn, K and V at the tile's row stride, and dden) at head
+    widths up to 64 where it fits the 232,448 bytes a block may use, and
+    streams past either (the library's plan)."""
+    assert fa.attention_bwd_plan(s, hd)[0] is streamed
+
+
+@pytest.mark.parametrize("hd,heads,s,valid,path", [
+    (80, 4, 272, 257, "streamed"), (72, 4, 208, 197, "streamed"),
+    (64, 4, 208, 197, "resident"), (32, 4, 896, 890, "streamed"),
+    (64, 16, 592, 577, "streamed")],
+    ids=["hd80-streamed", "hd72-streamed", "hd64-resident", "hd32-streamed",
+         "vit-l14-336-streamed"])
+def test_attention_backward_gates_the_clamp_at_every_width(cuda, hd, heads,
+                                                          s, valid, path):
+    """Head 0's q columns scaled 40x, so that a share of its scores passes
+    +80: row 13 on the path its shape takes (both are among the cases)
+    agrees with the gated plain backward, and
+    the plain backward without the gate fails the same gate."""
+    d = hd * heads
+    x, p = _layer_case(cuda, b=2, s=s, d=d, f=8, valid=valid)
+    wqkv, bqkv = _fold(p[2], p[3], gain=40.0, d=d, heads=heads)
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    da = torch.randn(x.shape, generator=g, device=cuda)
+    da[:, valid:] = 0.0
+    da = da.to(torch.bfloat16)
+    gain = torch.ones(3 * d, device=cuda)
+    gain[:hd] = 40.0
+    sat = fa.attention_saturation(x[:, :valid].float(), p[2].float() * gain,
+                                  p[3] * gain, heads)
+    assert float(sat) > fa.SCORE_CLAMP_HI
+    assert _bwd_path(hd, s) == path
+    got = fa.fused_attention_bwd(x, wqkv, bqkv, da, heads, valid)
+    want = fa.attention_bwd_plain(x, wqkv, bqkv, da, heads, valid)
+    ungated = fa.attention_bwd_plain(x, wqkv, bqkv, da, heads, valid,
+                                     gate=False)
+    torch.cuda.synchronize()
+    v = slice(0, valid)
+    assert torch.isfinite(got[0].float()).all()
+    assert _rel_err(got[0][:, v], want[0][:, v]) <= TRAIN_BWD_REL_TOL
+    assert _rel_err(ungated[0][:, v], want[0][:, v]) > TRAIN_BWD_REL_TOL

@@ -1,20 +1,19 @@
 """Shapes the JAX package serves that the port's kernels take, on the CPU.
 
-Two attention contracts.  The tile (csrc/flash_tile.cuh: rows 1, 2, 5, 6,
-8, 9, 14 and row 12's forward) is instantiated at every multiple of 16 up
-to 128 and streams its keys, so it takes any head width that is a
-multiple of 8 up to 128 at any padded S; those entries ask
-``check_attention_shape`` (``attention_kernel_takes``).  Row 13's backward
-(and row 12 while autograd records) keeps head_dim 16, 32 and 64 with its
-whole-sequence block within shared memory: ``check_attention_bwd_shape``
-(``attention_bwd_takes``).  Each raises on any other shape.  The bucket top-k kernels take
+One attention contract.  The tile (csrc/flash_tile.cuh: rows 1, 2, 5, 6,
+8, 9, 14 and row 12's forward), row 13's backward and row 14's f32
+kernel are instantiated at every multiple of 16 up to 128 and stream
+their keys past what a block holds, so they take any head width that is
+a multiple of 8 up to 128 at any padded S; their entries ask
+``check_attention_shape`` (``attention_kernel_takes``), which raises on
+any other shape.  The bucket top-k kernels take
 widths that are multiples of 16 (bf16) or 32 (int8, Poincaré), and
 ``EmbeddingIndex`` zero-pads its candidate copies to them, as the JAX
 wrappers pad D.  Row 18 takes up to ``MOBIUS_DENSE_MAX_OUT`` columns in
 column groups, and an empty batch without a launch.  These tests hold
-what the CPU can show: the predicate and its raise, the exactness of the
-zero padding on the plain top-2 versions, and ``MobiusDense`` at those
-widths.  tests/test_torch_gpu.py holds the same calls on the card.
+what the CPU can show: the predicate and its raise, the exactness of the zero padding on the plain top-2 versions, and
+``MobiusDense`` at those widths.  tests/test_torch_gpu.py holds the same
+calls on the card.
 """
 
 import numpy as np
@@ -24,9 +23,7 @@ import torch
 from patent_tpu_torch.models.hyperbolic import MobiusDense
 from patent_tpu_torch.ops import pallas_kernels as pk
 from patent_tpu_torch.ops import topk_kernel as tk
-from patent_tpu_torch.ops.common import (attention_bwd_takes,
-                                         attention_kernel_takes,
-                                         check_attention_bwd_shape,
+from patent_tpu_torch.ops.common import (attention_kernel_takes,
                                          check_attention_shape)
 from patent_tpu_torch.retrieval import index as index_mod
 
@@ -51,12 +48,30 @@ from patent_tpu_torch.retrieval import index as index_mod
     (64, 4, 1040, 1025, True),      # 256 px, patch 8: 1,025 tokens
     (96, 8, 48, 20, False),         # head_dim 12: not a multiple of 8
     (136, 1, 48, 20, False),        # head_dim 136: past the widest
+    # row 13's shapes, which its own narrower contract took or refused
+    # before it met the tile's: the fine-tune's, the CLIs' small tower,
+    # its old whole-sequence limit and past it (streamed), head_dim 8,
+    # 128, 80 and 72, and an unpadded token axis, which still raises
+    (768, 12, 208, 197, True),      # ViT-B/16 @224: the fine-tune's shape
+    (64, 4, 80, 65, True),          # the CLIs' small tower
+    (768, 12, 448, 400, True),      # the resident block: 231,168 bytes
+    (768, 12, 592, 577, True),      # past it: the streamed path
+    (1024, 16, 592, 577, True),     # CLIP ViT-L/14 @336
+    (128, 16, 48, 20, True),        # head_dim 8
+    (128, 1, 48, 20, True),         # head_dim 128
+    (1280, 16, 272, 257, True),     # head_dim 80
+    (1152, 16, 272, 257, True),     # head_dim 72
+    (768, 12, 197, 197, False),     # the token axis not padded to 16
 ], ids=["vit-b16", "narrow", "small-tower", "hd32", "hd8", "hd128",
         "d-ragged", "unpadded", "valid0", "valid-past-S", "s448", "s592",
-        "hd72", "hd80", "hd88", "vit-l14-336", "s1040", "hd12", "hd136"])
+        "hd72", "hd80", "hd88", "vit-l14-336", "s1040", "hd12", "hd136",
+        "bwd-vit-b16", "bwd-small-tower", "bwd-s448", "bwd-s592",
+        "bwd-vit-l14-336", "bwd-hd8", "bwd-hd128", "bwd-hd80", "bwd-hd72",
+        "bwd-unpadded"])
 def test_attention_predicate_and_its_raise_agree(d, heads, s, valid, takes):
-    """``check_attention_shape`` raises exactly where the tile's predicate
-    is false, so no entry launches the tile on a shape it does not take."""
+    """``check_attention_shape`` raises exactly where the attention
+    kernels' predicate is false, so no entry launches a kernel on a shape
+    it does not take."""
     assert attention_kernel_takes(d, heads, s, valid) is takes
     if takes:
         check_attention_shape(d, heads, s, valid)
@@ -65,41 +80,15 @@ def test_attention_predicate_and_its_raise_agree(d, heads, s, valid, takes):
             check_attention_shape(d, heads, s, valid)
 
 
-@pytest.mark.parametrize("d,heads,s,valid,takes", [
-    (768, 12, 208, 197, True),      # ViT-B/16 @224: the fine-tune's shape
-    (64, 4, 80, 65, True),          # the CLIs' small tower
-    (768, 12, 448, 400, True),      # the backward's block: 231,168 bytes
-    (768, 12, 592, 577, False),     # past the backward's shared memory
-    (1024, 16, 592, 577, False),    # CLIP ViT-L/14 @336
-    (128, 16, 48, 20, False),       # head_dim 8
-    (128, 1, 48, 20, False),        # head_dim 128
-    (1280, 16, 272, 257, False),    # head_dim 80
-    (1152, 16, 272, 257, False),    # head_dim 72
-    (768, 12, 197, 197, False),     # the token axis not padded to 16
-], ids=["vit-b16", "small-tower", "s448", "s592", "vit-l14-336", "hd8",
-        "hd128", "hd80", "hd72", "unpadded"])
-def test_attention_bwd_predicate_and_its_raise_agree(d, heads, s, valid,
-                                                     takes):
-    """Row 13's contract (and row 12's while autograd records) stays as it
-    was: widening the tile loosens none of it."""
-    assert attention_bwd_takes(d, heads, s, valid) is takes
-    if takes:
-        check_attention_bwd_shape(d, heads, s, valid)
-    else:
-        with pytest.raises(ValueError):
-            check_attention_bwd_shape(d, heads, s, valid)
-
-
 def test_attention_predicate_names_the_head_dim():
-    with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64\), got "
-                                         "D=128 with 16"):
-        check_attention_bwd_shape(128, 16, 48, 20)
+    with pytest.raises(ValueError, match="multiple of 8 up to 128, got "
+                                         "D=136 with 1"):
+        check_attention_shape(136, 1, 48, 20)
     with pytest.raises(ValueError, match="multiple of 8 up to 128, got "
                                          "D=96 with 8"):
         check_attention_shape(96, 8, 48, 20)
-    with pytest.raises(ValueError, match="backward's shared memory"):
-        check_attention_bwd_shape(768, 12, 592, 577)
-
+    with pytest.raises(ValueError, match="token axis 592 must be padded"):
+        check_attention_shape(768, 12, 592, 593)
 
 
 def _cosine_case(d, n=2500, nq=24, seed=0):

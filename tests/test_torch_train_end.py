@@ -110,19 +110,21 @@ def _lr(name, cfg):
         else cfg.lr_euclidean
 
 
-@pytest.fixture(scope="module", params=[9, 1], ids=["cli", "block0-frozen"])
-def two_steps(request, corpus):
+def two_steps_of(corpus, tower: VisionConfig, trainable_blocks: int):
+    """(JAX metrics, port metrics, the starting tree, JAX's and the port's
+    trees after two steps, trainable names, the config, the port's step-1
+    gradients) of two steps at ``tower`` (32 px) on ``corpus``."""
     _path, graph, implication, batches = corpus
     jcfg = JaxConfig(batch_size=8, image_size=32, embed_dim=16,
-                     trainable_blocks=request.param)
+                     trainable_blocks=trainable_blocks)
     tcfg = TorchConfig(**dataclasses.asdict(jcfg))
     label_num = graph.num_nodes - len(graph.figure_index)
     (vit, hyp), params, opt, opt_state = jax_te.init_end_to_end(
-        TOWER, jcfg, label_num)
+        tower, jcfg, label_num)
     start = end_to_end_params_from_jax(jax.tree.map(np.asarray, params))
     step = jax_te.make_end_to_end_step(vit, Deterministic(hyp), opt, jcfg)
     model, topt = torch_te.init_end_to_end(
-        TorchVisionConfig(**dataclasses.asdict(TOWER)), tcfg, label_num)
+        TorchVisionConfig(**dataclasses.asdict(tower)), tcfg, label_num)
     model.load_state_dict(start)
     tstep, _ = torch_te.make_end_to_end_step(model, topt, tcfg)
     model.hyp.eval()
@@ -153,6 +155,11 @@ def two_steps(request, corpus):
     return (jm, tm, start,
             end_to_end_params_from_jax(jax.tree.map(np.asarray, params)),
             model.state_dict(), trainable, tcfg, grads)
+
+
+@pytest.fixture(scope="module", params=[9, 1], ids=["cli", "block0-frozen"])
+def two_steps(request, corpus):
+    return two_steps_of(corpus, TOWER, request.param)
 
 
 def test_two_steps_metrics_match_jax(two_steps):

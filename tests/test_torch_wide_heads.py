@@ -236,6 +236,28 @@ def test_flash_attention_plain_matches_pallas_interpret(shape):
     assert _mean_rel(got, want) <= BF16_MEAN_REL
 
 
+# Row 14 in f32 (row 14′): tests/test_torch_flash_attention.py's gate, the
+# same function with the denominator summed in another order.
+F32_TOL = 1e-5
+
+
+@pytest.mark.parametrize("shape", ["hd72", "hd80", "hd128"])
+def test_flash_attention_f32_plain_matches_pallas_interpret(shape):
+    """Row 14′'s plain version (the f32 kernel's function on the card) at
+    the widths its kernel now takes."""
+    d, heads, _sp, s = SHAPES[shape]
+    rng = np.random.default_rng(s + d + 1)
+    q, k, v = (rng.standard_normal((2, s, heads, d // heads)).astype(
+        np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfa.flash_attention(
+            *(jnp.asarray(t, jnp.float32) for t in (q, k, v)), force=True),
+            np.float32)
+    got = tfa.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
 # 2-layer towers: head_dim 72, 80 and 128 at 32 px (17 tokens, 32 rows),
 # and head_dim 16 at 256 px (1,025 tokens, 1,040 rows)
 TOWERS = {"hd72": dict(image_size=32, patch_size=8, hidden_dim=144,
