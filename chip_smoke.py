@@ -2394,8 +2394,20 @@ def wide_towers_phase(torch, dev, run_path, launches: dict, errs: dict,
         print(f"[time] {kname} at [{bt}, {seq}, {cfg.num_heads}, {hd}] "
               f"({tname}): kernel {r['times'][1]:.3f} ms, plain "
               f"{r['times'][0]:.3f} ms, F.scaled_dot_product_attention "
-              f"{r['sdpa']:.3f} ms, bound {r['bound'][0]:.3f} ms "
-              f"({r['bound'][1]}) {label}")
+              f"{r['sdpa']:.3f} ms (kernel / SDPA "
+              f"{r['times'][1] / r['sdpa']:.2f}), bound "
+              f"{r['bound'][0]:.3f} ms ({r['bound'][1]}) {label}")
+        if kname == "flash_tile_hd64_streamed":
+            # per image at a batch whose K and V (9.7 MB) fit the 50 MB L2
+            # against the batch of 32 (77.6 MB), which does not
+            small = time_tile(torch, fa, 4, seq, cfg.num_heads, hd, gen, dev)
+            per = [t["times"][1] / n for t, n in ((small, 4), (r, bt))]
+            print(f"[time] {kname} per image at [B, {seq}, "
+                  f"{cfg.num_heads}, {hd}]: B 4 {per[0]:.5f} ms, B {bt} "
+                  f"{per[1]:.5f} ms, ratio B {bt} / B 4 "
+                  f"{per[1] / per[0]:.3f}; SDPA B 4 "
+                  f"{small['sdpa'] / 4:.5f}, B {bt} {r['sdpa'] / bt:.5f} "
+                  f"{label}")
     for hd in TILE_TIMED_WIDTHS:
         heads = 1024 // hd if 1024 % hd == 0 else 16
         r = time_tile(torch, fa, bt, 257, heads, hd, gen, dev)

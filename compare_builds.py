@@ -6,8 +6,9 @@ the int8 attention sub-layer and its CLS variant (rows 5 and 6), the int8
 layer group, dense layer and MLP (rows 9-11), the bucketed candidate
 stages (rows 3, 3′ and 4) and both cosine top-10 paths, the fine-tune's
 MLP block forward and backward (rows 15 and 16) and attention backward
-(row 13), the f32 attention (row 14′), and the fine-tune's and
-train_end's training steps.
+(row 13), the f32 attention (row 14′), the fine-tune's and
+train_end's training steps, and the streamed attention paths at the wide
+towers' shapes.
 
     python3 compare_builds.py run ROOT OUT.pt
     python3 compare_builds.py compare A.pt B.pt [C.pt ...]
@@ -53,6 +54,12 @@ CUDA events, 20 calls after 3 of warm-up) of:
   pairs (EndToEndConfig's defaults, seeded labels, pairs and implication
   rows): each first step's metrics, the wall time of a step (10 after 2
   of warm-up) and its device time;
+* the streamed attention paths at the wide towers' shapes, as SHA-256
+  digests of their outputs: the tile alone at [32, 577, 16, 64] (CLIP
+  ViT-L/14 @336), [32, 257, 16, 80] (ViT-H/14's widths) and [32, 257,
+  16, 72]; rows 1 and 5 on [32, 592, 1,024]; row 8's cooperative launch,
+  forced, on [3, 592, 1,024]; row 13 on [128, 592, 1,024] and [128, 272,
+  1,280] (the fine-tune's streams at 64 pairs), each with its device time;
 
 with the card's name and power limit.  Run each checkout in its own
 process: two builds of the kernel library cannot share one.  ``compare``
@@ -190,6 +197,7 @@ def run(root: str, out_path: str) -> None:
     device.update(search(torch, dev, gen, outs, times))
     device.update(fine_tune(torch, dev, randn, outs, times))
     device.update(attention_rows(torch, dev, outs, times))
+    device.update(wide_attention(torch, dev, outs, times))
     torch.cuda.synchronize()
     torch.save({"root": os.path.abspath(root), "card": smi,
                 "outputs": {key: v.cpu() for key, v in outs.items()},
@@ -256,6 +264,96 @@ def attention_rows(torch, dev, outs: dict, times: dict) -> dict:
     q32, k32, v32 = (t.float() for t in (q, k, v))
     timed(torch, "row 14′, [128, 197, 12, 64] f32",
           lambda: fa.flash_attention(q32, k32, v32), outs, times, device)
+    return device
+
+
+def wide_attention(torch, dev, outs: dict, times: dict) -> dict:
+    """The streamed attention paths at the wide towers' shapes, their
+    outputs as SHA-256 digests: the tile alone (row 14's entry) on q, k, v
+    slices of one qkv tensor at [32, 577, 16, 64] (CLIP ViT-L/14 @336),
+    [32, 257, 16, 80] (ViT-H/14's widths) and [32, 257, 16, 72] (8 zero
+    columns); rows 1 and 5 on [32, 592, 1,024] (577 valid keys, seeded
+    weights); row 8's cooperative launch, forced, on [3, 592, 1,024]; row
+    13 on the fine-tune's streams at 64 pairs, [128, 592, 1,024] and
+    [128, 272, 1,280]; returns the device time a call of each."""
+    import math
+    from unittest import mock
+
+    from patent_tpu_torch.ops import bf16_layer
+    from patent_tpu_torch.ops import flash_attention as fa
+    from patent_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return std * torch.randn(*shape, generator=gen, device=dev)
+
+    device = {}
+
+    def timed_digest(name, fn, iters=20):
+        got = fn()
+        for i, v in enumerate(got if isinstance(got, tuple) else (got,)):
+            key = name if not isinstance(got, tuple) else f"{name} [{i}]"
+            outs[f"{key} (sha256)"] = sha256(torch, v)
+        del got
+        times[name] = cuda_ms(torch, fn, iters=iters)
+        device[name] = sum(ms for _k, ms in kernel_breakdown(torch, fn))
+
+    for b, s, heads, hd in ((32, 577, 16, 64), (32, 257, 16, 80),
+                            (32, 257, 16, 72)):
+        d = heads * hd
+        q, k, v = (t.unflatten(-1, (heads, hd))
+                   for t in randn(b, s, 3 * d).to(bf).split(d, dim=-1))
+        timed_digest(f"tile, [{b}, {s}, {heads}, {hd}]",
+                     lambda: fa.flash_attention(q, k, v))
+        del q, k, v
+    d, heads, s, valid = 1024, 16, 592, 577
+
+    def m(rows, cols):
+        return randn(rows, cols, std=rows ** -0.5).to(bf)
+
+    def q8(rows, cols):
+        w, scale = qm.quantize_weight(randn(rows, cols, std=rows ** -0.5))
+        return w.T.contiguous(), scale
+
+    p = (1 + randn(d, std=0.1), randn(d, std=0.1), m(d, 3 * d),
+         randn(3 * d, std=0.2), m(d, d), randn(d, std=0.02),
+         1 + randn(d, std=0.1), randn(d, std=0.1), m(d, 4 * d),
+         randn(4 * d, std=0.02), m(4 * d, d), randn(d, std=0.02))
+    folded = bf16_layer.fold_layer(*p, heads)
+    wqkv, sqkv = q8(d, 3 * d)
+    wout, sout = q8(d, d)
+    w1, s1 = q8(d, 4 * d)
+    w2, s2 = q8(4 * d, d)
+    attn = (p[0], p[1], wqkv, sqkv, p[3], wout, sout, p[5])
+    mlp = (p[6], p[7], w1, s1, p[9], w2, s2, p[11])
+    x = randn(32, s, d).to(bf)
+    timed_digest("row 1, [32, 592, 1024]", lambda: bf16_layer.
+                 fused_layer_block_bf16(x, *p, heads, valid_len=valid,
+                                        folded=folded))
+    timed_digest("row 5, [32, 592, 1024]", lambda: qm.quant_attention_block(
+        x, *attn, heads, valid_len=valid))
+    with mock.patch.object(qm, "layer_plan",
+                           lambda *a: qm.LayerPlan(True, 1, 2)):
+        timed_digest("row 8 cooperative launch, [3, 592, 1024]",
+                     lambda: qm.quant_layer_block(x[:3], *attn, *mlp, heads,
+                                                  valid_len=valid))
+    del p, folded, attn, mlp, x
+    for b, s, d, heads, valid in ((128, 592, 1024, 16, 577),
+                                  (128, 272, 1280, 16, 257)):
+        col = torch.ones(3 * d, device=dev)
+        col[:d] = math.log2(math.e) / math.sqrt(d // heads)
+        wq = (randn(d, 3 * d, std=d ** -0.5) * col).to(bf)
+        bq = randn(3 * d, std=0.2) * col
+        xa = randn(b, s, d).to(bf)
+        da = randn(b, s, d)
+        da[:, valid:] = 0.0
+        da = da.to(bf)
+        timed_digest(f"row 13, [{b}, {s}, {d}]", lambda: fa.
+                     fused_attention_bwd(xa, wq, bq, da, heads, valid))
+        del wq, xa, da
+        torch.cuda.empty_cache()
     return device
 
 

@@ -50,33 +50,48 @@
 //     at every width past it the streamed path measured faster on the
 //     H100 (PERF.md section 6), and ViT-B/16 (64) keeps its bits;
 //   * past that (S 592 at 64: ViT-L/14 @336; every S at widths 72 to
-//     128, ViT-H/14's 80 among them), the streamed path, two
-//     launches with no float atomics (so two runs give the same bits):
-//     (a + c) a row pass of 4 query tiles a block (grid: heads x images x
-//     passes), K and V streamed through the tile's two-stage cp.async
+//     128, ViT-H/14's 80 among them), the streamed path, two launches with
+//     no float atomics (so two runs give the same bits).  At [128, 592,
+//     1,024] its 9 products of S^2 hd a head are 826 GFLOP (0.84 ms at the
+//     bf16 peak) beside 476 GFLOP of qkv recompute: the tensor cores bound
+//     it, and the work is to keep mma.sync fed; each pass is a block of
+//     consumer warps and one producer warp that streams stages of 64 rows
+//     with TMA into a ring of mbarrier'd stages (csrc/flash_tile.cuh's
+//     4-D maps and layout: columns past hd and rows past valid_len read as
+//     zero), so no consumer waits on a block barrier:
+//     (a + c) a row pass of RowPass::NW query tiles a block (grid: passes
+//     x heads x images, so that a (head, image)'s passes run side by side
+//     and share its K and V in L2), K and V streamed through the tile's
 //     ring twice: the first sweep is phase 1 (A = bf16(o); bf16(dn) into a
 //     [B, S, D] scratch and bf16(dden) into an f32 [B, H, S] one, each
 //     also kept in the warp's registers), the second computes s, p, dp
-//     and ds again and sums dq = ds k over the key blocks in registers;
-//     (b) a key pass of 4 key tiles a block (grid: key blocks x heads x
-//     images) with its keys' k and v in registers, q, dn and dden of 64
-//     query rows a stage streamed through a two-stage ring: s^T, p^T,
+//     and ds again and sums dq = ds k over the key steps in registers,
+//     each step's scores for RowPass::KS keys taken before its products so
+//     that independent chains of mma overlap;
+//     (b) a key pass of KeyPass::NW key tiles a block (grid: key blocks x
+//     heads x images): the producer loads the block's K and V once, then
+//     q, dn and dden of 64 query rows a stage; a warp reads its keys'
+//     fragments from shared memory at each step (registers held for more
+//     warps an SM) and takes KeyPass::QT query tiles a step: s^T, p^T,
 //     dp^T and ds^T as in phase 2, dk and dv summed in registers.
 //     The exp2 form has no running maximum, so a row's p needs nothing
 //     from other key blocks, and dn and dden are all the key pass needs
 //     of a row; the row pass and FlashAttention-2's separate dq pass are
 //     one launch because dn and dden of a row are that block's own.  The
 //     split computes s and dp once more than the resident path (9
-//     products of S^2 hd a head against 6), the price of holding only 2
-//     stages of keys or queries in shared memory.
+//     products of S^2 hd a head against 6), the price of holding a few
+//     stages of keys or queries in shared memory.  Every sum runs in the
+//     order it ran in the resident and the cp.async streamed kernels
+//     before them, so the outputs keep their bits; the streamed kernels
+//     take the scores' 2^x on ex2.approx.ftz alone (ptt_flash::exp2_score).
 // ptt_fab_bwd_plan gives the path; the library's callers ask it rather
 // than size the blocks themselves.  Every head width that is a multiple
 // of 8 up to 128 runs on the instance ptt_flash::tile_width (16 to 64 on
 // either path, 80 to 128 streamed): a real width of HD - 8 runs
 // on HD with its q, K, V and dn columns past it zero-filled (cp.async with
-// source size 0; a register fragment's words past it set to 0), which add
-// exact zeros to every product, and only the real width of A, dq, dk and
-// dv is stored.
+// source size 0 or TMA's out-of-bounds fill; a register fragment's words
+// past it set to 0), which add exact zeros to every product, and only the
+// real width of A, dq, dk and dv is stored.
 
 #include <type_traits>
 
@@ -117,18 +132,6 @@ inline size_t bwd_smem(int S) {
 template <int HD>
 inline bool bwd_streamed(int S) {
   return HD > RESIDENT_MAX_HD || bwd_smem<HD>(S) > SMEM_MAX;
-}
-
-// the streamed row pass: the tile's ring of K and V
-template <int HD>
-constexpr size_t ring_smem() {
-  return 2 * (size_t)Layout<HD>::RING * Layout<HD>::LD * sizeof(bf16);
-}
-
-// the key pass: a stage is q and dn of QB rows, then their dden
-template <int HD>
-__host__ __device__ constexpr size_t stage_bytes() {
-  return 2 * (size_t)QB * Layout<HD>::LD * sizeof(bf16) + QB * sizeof(float);
 }
 
 // the transpose of an 8 x 8 bf16 tile held as mma fragments
@@ -178,68 +181,120 @@ __device__ __forceinline__ void load_key_frags(uint32_t (&ka)[HD / 16][4],
   }
 }
 
-// One query tile q0 .. q0 + 15 (rows of Qs, DNs and dd) against a warp's
-// keys k0 .. k0 + 15: s^T = k q^T, p^T = bf16(exp2(clip(s^T))) (0 at pad
-// keys), dp = dn v^T + dden at valid keys, ds^T = bf16(s < 80 ? (ln2 dp)
-// p : 0); dv += p^T dn, dk += ds^T q.  Returns ds^T as A fragments (rows =
-// keys) in dsa.
+// A warp's 16 keys as the A fragments of s^T = k q^T (k) and dp^T = v
+// dn^T (v), step kk of 16 columns: KeyRegs holds them in registers (the
+// resident path), KeySmem reads them from shared memory with ldmatrix
+// each time (the key pass: rows r0 .. r0 + 15 of K and V stages in layout
+// Lay), which keeps a thread's registers to what more warps an SM allow.
 template <int HD>
+struct KeyRegs {
+  const uint32_t (&ka)[HD / 16][4];
+  const uint32_t (&va)[HD / 16][4];
+  __device__ __forceinline__ void k(int kk, uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = ka[kk][i];
+  }
+  __device__ __forceinline__ void v(int kk, uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = va[kk][i];
+  }
+};
+
+template <int HD, class Lay>
+struct KeySmem {
+  const bf16* Kb;
+  const bf16* Vb;
+  int r0, lane;
+  __device__ __forceinline__ void k(int kk, uint32_t (&a)[4]) const {
+    ldmatrix_x4(a, &Kb[Lay::off(r0, lane & 15, kk, lane >> 4)]);
+  }
+  __device__ __forceinline__ void v(int kk, uint32_t (&a)[4]) const {
+    ldmatrix_x4(a, &Vb[Lay::off(r0, lane & 15, kk, lane >> 4)]);
+  }
+};
+
+// QT query tiles q0 .. q0 + 16 QT - 1 (rows of Qs, DNs and dd) against a
+// warp's keys k0 .. k0 + 15: s^T = k q^T, p^T = bf16(exp2(clip(s^T))) (0
+// at pad keys), dp = dn v^T + dden at valid keys, ds^T = bf16(s < 80 ?
+// (ln2 dp) p : 0); dv += p^T dn, dk += ds^T q.  The scores of all QT
+// tiles come first (2 QT independent product chains), then the dv and dk
+// products a tile at a time in query order, so each sum runs in the order
+// of QT 1.  Returns ds^T as A fragments (rows = keys) in dsa.
+template <int HD, class Lay = ptt_flash::Swz<HD>, int QT = 1,
+          bool RAW = false, class Keys>
 __device__ __forceinline__ void key_tile_step(
-    const uint32_t (&ka)[HD / 16][4], const uint32_t (&va)[HD / 16][4],
+    const Keys& keys,
     float (&dk)[HD / 8][4], float (&dv)[HD / 8][4], const bf16* Qs,
     const bf16* DNs, const float* dd, int q0, int k0, int valid_len,
-    int lane, uint32_t (&dsa)[4]) {
+    int lane, uint32_t (&dsa)[QT][4]) {
   const int g = lane >> 2, t = lane & 3;
-  // s^T: sacc[j][e] at key k0 + g + 8(e/2), query q0 + 8j + 2t + e%2
-  float sacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-  float dpacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+  // s^T: sacc[u][j][e] at key k0 + g + 8(e/2), query q0 + 16u + 8j + 2t +
+  // e%2
+  float sacc[QT][2][4], dpacc[QT][2][4];
+#pragma unroll
+  for (int u = 0; u < QT; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[u][j][e] = dpacc[u][j][e] = 0.0f;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t qf[4], nf[4];
-    ldmatrix_x4(qf, &Qs[swz<HD>(q0 + (lane & 7) + ((lane >> 4) << 3),
-                               kk * 2 + ((lane >> 3) & 1))]);
-    mma_bf16(sacc[0], ka[kk], qf[0], qf[1]);
-    mma_bf16(sacc[1], ka[kk], qf[2], qf[3]);
-    // dp^T = v dn^T
-    ldmatrix_x4(nf, &DNs[swz<HD>(q0 + (lane & 7) + ((lane >> 4) << 3),
-                                kk * 2 + ((lane >> 3) & 1))]);
-    mma_bf16(dpacc[0], va[kk], nf[0], nf[1]);
-    mma_bf16(dpacc[1], va[kk], nf[2], nf[3]);
-  }
-  float p[2][4], ds[2][4];
+    uint32_t ka[4], va[4];
+    keys.k(kk, ka);
+    keys.v(kk, va);
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool key = k0 + g + 8 * (e >> 1) < valid_len;
-      const float sv = sacc[j][e];
-      p[j][e] = key ? round_bf16(exp2f(fminf(fmaxf(sv, LO), HI))) : 0.0f;
-      const float dp = key ? dpacc[j][e] + dd[q0 + 8 * j + 2 * t + (e & 1)]
-                           : 0.0f;
-      ds[j][e] = sv < HI ? (LN2 * dp) * p[j][e] : 0.0f;
+    for (int u = 0; u < QT; ++u) {
+      const int lr = (lane & 7) + ((lane >> 4) << 3);
+      uint32_t qf[4], nf[4];
+      ldmatrix_x4(qf, &Qs[Lay::off(q0 + 16 * u, lr, kk, (lane >> 3) & 1)]);
+      mma_bf16(sacc[u][0], ka, qf[0], qf[1]);
+      mma_bf16(sacc[u][1], ka, qf[2], qf[3]);
+      // dp^T = v dn^T
+      ldmatrix_x4(nf, &DNs[Lay::off(q0 + 16 * u, lr, kk, (lane >> 3) & 1)]);
+      mma_bf16(dpacc[u][0], va, nf[0], nf[1]);
+      mma_bf16(dpacc[u][1], va, nf[2], nf[3]);
     }
-  const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
-                          pack_bf16(p[0][2], p[0][3]),
-                          pack_bf16(p[1][0], p[1][1]),
-                          pack_bf16(p[1][2], p[1][3])};
-  dsa[0] = pack_bf16(ds[0][0], ds[0][1]);
-  dsa[1] = pack_bf16(ds[0][2], ds[0][3]);
-  dsa[2] = pack_bf16(ds[1][0], ds[1][1]);
-  dsa[3] = pack_bf16(ds[1][2], ds[1][3]);
-#pragma unroll
-  for (int jj = 0; jj < HD / 16; ++jj) {
-    uint32_t nf[4], qf[4];
-    // dv += p^T dn
-    ldmatrix_x4_trans(nf, &DNs[swz<HD>(q0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                  jj * 2 + (lane >> 4))]);
-    mma_bf16(dv[2 * jj], pa, nf[0], nf[1]);
-    mma_bf16(dv[2 * jj + 1], pa, nf[2], nf[3]);
-    // dk += ds^T q
-    ldmatrix_x4_trans(qf, &Qs[swz<HD>(q0 + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                 jj * 2 + (lane >> 4))]);
-    mma_bf16(dk[2 * jj], dsa, qf[0], qf[1]);
-    mma_bf16(dk[2 * jj + 1], dsa, qf[2], qf[3]);
   }
+  uint32_t pa[QT][4];
+#pragma unroll
+  for (int u = 0; u < QT; ++u) {
+    float p[2][4], ds[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key = k0 + g + 8 * (e >> 1) < valid_len;
+        const float sv = sacc[u][j][e];
+        p[j][e] = key ? round_bf16(ptt_flash::exp2_score<RAW>(sv)) : 0.0f;
+        const float dp =
+            key ? dpacc[u][j][e] + dd[q0 + 16 * u + 8 * j + 2 * t + (e & 1)]
+                : 0.0f;
+        ds[j][e] = sv < HI ? (LN2 * dp) * p[j][e] : 0.0f;
+      }
+    pa[u][0] = pack_bf16(p[0][0], p[0][1]);
+    pa[u][1] = pack_bf16(p[0][2], p[0][3]);
+    pa[u][2] = pack_bf16(p[1][0], p[1][1]);
+    pa[u][3] = pack_bf16(p[1][2], p[1][3]);
+    dsa[u][0] = pack_bf16(ds[0][0], ds[0][1]);
+    dsa[u][1] = pack_bf16(ds[0][2], ds[0][3]);
+    dsa[u][2] = pack_bf16(ds[1][0], ds[1][1]);
+    dsa[u][3] = pack_bf16(ds[1][2], ds[1][3]);
+  }
+#pragma unroll
+  for (int u = 0; u < QT; ++u)
+#pragma unroll
+    for (int jj = 0; jj < HD / 16; ++jj) {
+      const int lr = (lane & 7) + (((lane >> 3) & 1) << 3);
+      uint32_t nf[4], qf[4];
+      // dv += p^T dn
+      ldmatrix_x4_trans(nf, &DNs[Lay::off(q0 + 16 * u, lr, jj, lane >> 4)]);
+      mma_bf16(dv[2 * jj], pa[u], nf[0], nf[1]);
+      mma_bf16(dv[2 * jj + 1], pa[u], nf[2], nf[3]);
+      // dk += ds^T q
+      ldmatrix_x4_trans(qf, &Qs[Lay::off(q0 + 16 * u, lr, jj, lane >> 4)]);
+      mma_bf16(dk[2 * jj], dsa[u], qf[0], qf[1]);
+      mma_bf16(dk[2 * jj + 1], dsa[u], qf[2], qf[3]);
+    }
 }
 
 // dk and dv of a warp's keys k0 + g and k0 + g + 8, their first hd columns
@@ -421,14 +476,14 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int step = 0; step < nt; ++step) {
       if (active) {
         const int q0 = (step + warp) % nt * 16;
-        uint32_t dsa[4];
-        key_tile_step<HD>(ka, va, dk, dv, Qs, DNs, dden, q0, k0, valid_len,
-                          lane, dsa);
+        uint32_t dsa[1][4];
+        key_tile_step<HD>(KeyRegs<HD>{ka, va}, dk, dv, Qs, DNs, dden, q0, k0,
+                          valid_len, lane, dsa);
         // dq[q0 .. q0 + 15] += ds k, ds = (ds^T)^T as an A fragment
-        const uint32_t dsq[4] = {movmatrix_trans(dsa[0]),
-                                 movmatrix_trans(dsa[2]),
-                                 movmatrix_trans(dsa[1]),
-                                 movmatrix_trans(dsa[3])};
+        const uint32_t dsq[4] = {movmatrix_trans(dsa[0][0]),
+                                 movmatrix_trans(dsa[0][2]),
+                                 movmatrix_trans(dsa[0][1]),
+                                 movmatrix_trans(dsa[0][3])};
         float* tile = DQ + (size_t)(q0 / 16) * (16 * HD) + lane;
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j) {
@@ -460,49 +515,154 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// The streamed path, (a + c): one pass of WARPS query tiles of one (head
-// h, image b), a tile a warp (grid: heads x images x passes).  Sweep 1 is
-// phase 1 over K and V streamed through the tile's ring: A, and dn and
-// dden into their scratch ([B, S, D] bf16, [B, H, S] f32) and the warp's
-// registers; sweep 2 streams K and V again for dq = ds k, summed in
-// registers over the key steps in order.
+// The streamed pair's blocks.  The row pass: NW consumer warps of one
+// 16-row query tile each (a pass of 16 NW rows) over the tile's K/V ring
+// (ptt_flash::Stream<HD>'s stages), KS keys a step.  The key pass: NW
+// consumer warps of one 16-key tile each, QT query tiles a step, over a
+// ring of STAGES stages of QB query rows (q and dn in the tile's TMA
+// layout, then their dden).  Each block has one producer warp after its
+// consumers, and MINB blocks an SM bound its registers.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-    attn_bwd_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ da,
+struct RowPass {
+  static constexpr int NW = 4;
+  static constexpr int KS = HD <= 80 ? 32 : 16;
+  static constexpr int MINB = HD <= 80 ? 3 : 2;
+  static constexpr int THREADS = 32 * (NW + 1);
+};
+
+template <int HD>
+struct KeyPass {
+  using Rows = ptt_flash::TmaRows<HD, QB>;
+  static constexpr int NW = 4;
+  static constexpr int QT = 2;
+  static constexpr int MINB = 2;
+  static constexpr int STAGES = 3;
+  static constexpr int THREADS = 32 * (NW + 1);
+  static constexpr int STAGE = QB * HD;           // elements of q (or dn)
+  static constexpr uint32_t STAGE_BYTES =
+      2 * STAGE * sizeof(bf16) + QB * sizeof(float);
+  // the block's keys, in blocks of QB rows of K and of V
+  static constexpr int KBLOCKS = (16 * NW + QB - 1) / QB;
+  static constexpr uint32_t KV_BYTES = 2 * KBLOCKS * STAGE * sizeof(bf16);
+  // K and V, then q stages, dn stages, dden stages (1,024-byte aligned by
+  // hand), then the full and empty barriers and the keys' barrier
+  static constexpr size_t SMEM = 1024 + KV_BYTES +
+                                 (size_t)STAGES * STAGE_BYTES +
+                                 (2 * STAGES + 1) * sizeof(uint64_t);
+};
+
+// Sweep 2 of the row pass, KS keys (a multiple of 16) of a warp's query
+// tile: s = q k^T and dp = dn v^T for every key first (2 KS/16
+// independent product chains), then ds and dq += ds k 16 keys at a time in
+// key order, so dq sums in the order of KS 16.  The keys n..n+KS-1 are
+// rows r..r+KS-1 of the ring stage Kst / Vst (layout Lay).  MASK: some of
+// them may be at or past valid_len (else none is, and nothing is tested).
+template <int HD, int KS, class Lay, bool MASK>
+__device__ __forceinline__ void dq_step(const uint32_t (&qa)[HD / 16][4],
+                                        const uint32_t (&dna)[HD / 16][4],
+                                        const float (&drow)[2],
+                                        float (&dq)[HD / 8][4],
+                                        const bf16* Kst, const bf16* Vst,
+                                        int n, int r, int valid_len,
+                                        int lane) {
+  constexpr int U = KS / 16;
+  const int t = lane & 3;
+  // s and dp: [u][j][e] at row g + 8(e/2), key n + 16u + 8j + 2t + e%2
+  float sacc[U][2][4], dpacc[U][2][4];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[u][j][e] = dpacc[u][j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int lr = (lane & 7) + ((lane >> 4) << 3);
+      uint32_t kf[4], vf[4];
+      ldmatrix_x4(kf, &Kst[Lay::off(r + 16 * u, lr, kk, (lane >> 3) & 1)]);
+      mma_bf16(sacc[u][0], qa[kk], kf[0], kf[1]);
+      mma_bf16(sacc[u][1], qa[kk], kf[2], kf[3]);
+      ldmatrix_x4(vf, &Vst[Lay::off(r + 16 * u, lr, kk, (lane >> 3) & 1)]);
+      mma_bf16(dpacc[u][0], dna[kk], vf[0], vf[1]);
+      mma_bf16(dpacc[u][1], dna[kk], vf[2], vf[3]);
+    }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float ds[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool key =
+            !MASK || n + 16 * u + 8 * j + 2 * t + (e & 1) < valid_len;
+        const float sv = sacc[u][j][e];
+        const float p =
+            key ? round_bf16(ptt_flash::exp2_score<true>(sv)) : 0.0f;
+        const float dp = key ? dpacc[u][j][e] + drow[e >> 1] : 0.0f;
+        ds[j][e] = sv < HI ? (LN2 * dp) * p : 0.0f;
+      }
+    const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]),
+                             pack_bf16(ds[0][2], ds[0][3]),
+                             pack_bf16(ds[1][0], ds[1][1]),
+                             pack_bf16(ds[1][2], ds[1][3])};
+#pragma unroll
+    for (int jj = 0; jj < HD / 16; ++jj) {
+      uint32_t kf[4];
+      ldmatrix_x4_trans(
+          kf, &Kst[Lay::off(r + 16 * u, (lane & 7) + (((lane >> 3) & 1) << 3),
+                            jj, lane >> 4)]);
+      mma_bf16(dq[2 * jj], dsa, kf[0], kf[1]);
+      mma_bf16(dq[2 * jj + 1], dsa, kf[2], kf[3]);
+    }
+  }
+}
+
+// The streamed path, (a + c): one pass of RowPass<HD>::NW query tiles of one
+// (head h, image b), a tile a warp (grid: passes x heads x images, so that
+// a (head, image)'s passes run side by side and share its K and V in L2).
+// The producer warp streams K and V through the tile's TMA ring twice
+// (csrc/flash_tile.cuh, produce_kv).  Sweep 1 is phase 1: A, and dn and
+// dden into their scratch ([B, S, D] bf16, [B, H, S] f32) and the warp's
+// registers; sweep 2 computes dq = ds k, summed in registers over the key
+// steps in order.
+template <int HD>
+__global__ void __launch_bounds__(RowPass<HD>::THREADS, RowPass<HD>::MINB)
+    attn_bwd_rows(const __grid_constant__ ptt_flash::PartMaps kmaps,
+                  const __grid_constant__ ptt_flash::PartMaps vmaps,
+                  const bf16* __restrict__ qkv, const bf16* __restrict__ da,
                   bf16* __restrict__ dqkv, bf16* __restrict__ a,
                   bf16* __restrict__ dn, float* __restrict__ dden, int S,
                   int D, int valid_len, int hd) {
-  using L = Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + (size_t)L::RING * L::LD;
-  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  using SL = ptt_flash::Stream<HD>;
+  using Lay = typename SL::Rows;
+  constexpr int KB = ptt_flash::STREAM_KB, NW = RowPass<HD>::NW;
+  constexpr int KS = RowPass<HD>::KS;
+  extern __shared__ unsigned char smem_raw[];
+  bf16 *Ks, *Vs;
+  uint64_t *full, *empty;
+  ptt_flash::ring_init<HD>(smem_raw, Ks, Vs, full, empty, NW);
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int blocks = (S + KB - 1) / KB;
+  if (warp == NW) {
+    if (lane == 0)
+      ptt_flash::produce_kv<HD>(kmaps, vmaps, Ks, Vs, full, empty, h, b,
+                                blocks, 2 * blocks);
+    return;
+  }
   const int g = lane >> 2, t = lane & 3;
   const int D3 = 3 * D;
-  const int r0 = (blockIdx.z * WARPS + warp) * 16 + g, r1 = r0 + 8;
+  const int r0 = (blockIdx.x * NW + warp) * 16 + g, r1 = r0 + 8;
   const bool active = r0 - g < S;
-  const bool full = hd == HD;
+  const bool full_width = hd == HD;
   const bf16* qb = qkv + (size_t)b * S * D3 + h * hd;
-  const bf16* kb = qb + D;
-  const bf16* vb = qb + 2 * D;
   const bf16* dab = da + (size_t)b * S * D + h * hd;
   bf16* ab = a + (size_t)b * S * D + h * hd;
   bf16* dnb = dn + (size_t)b * S * D + h * hd;
   float* ddb = dden + ((size_t)b * H + h) * S;
   bf16* dqb = dqkv + (size_t)b * S * D3 + h * hd;
-
-  // key block i into its stage of the ring, or an empty group past the
-  // last, so that the count of groups in flight stays the same
-  const int blocks = (S + L::KB - 1) / L::KB;
-  auto load_block = [&](int i) {
-    if (i < blocks)
-      ptt_flash::load_keys<HD, WARPS>(Ks, Vs, kb, vb, D3, i * L::KB,
-                                      min(L::KB, S - i * L::KB),
-                                      i % L::STAGES * L::KB, valid_len, hd);
-    else
-      ptt::cp_async_commit();
-  };
 
   uint32_t qa[HD / 16][4];
   ptt_flash::load_q<HD, false>(qa, qb, D3, r0, S, hd, 0.0f, t);
@@ -512,23 +672,26 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[j][e] = 0.0f;
   float lacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  // ---- sweep 1: the forward, as the tile's streamed pass
-#pragma unroll
-  for (int i = 0; i < L::STAGES - 1; ++i) load_block(i);
+  // ---- sweep 1: the forward, as the tile's streamed pass (ring steps
+  // 0 .. blocks - 1)
   for (int i = 0; i < blocks; ++i) {
-    load_block(i + L::STAGES - 1);
-    ptt::cp_async_wait<L::STAGES - 1>();   // block i has landed
-    __syncthreads();
+    const int s = i % SL::STAGES;
+    ptt_wgmma::mbar_wait(&full[s], (i / SL::STAGES) & 1);
     if (active) {
-      const int n0 = i * L::KB, n1 = min(S, n0 + L::KB);
-      const int rb = i % L::STAGES * L::KB;
-      for (int n = n0; n < n1; n += 16)
-        ptt_flash::key_step<HD>(qa, oacc, lacc, Ks, Vs, n, rb + n - n0,
-                                valid_len, lane);
+      const bf16* Kst = Ks + s * SL::STAGE;
+      const bf16* Vst = Vs + s * SL::STAGE;
+      const int n0 = i * KB, n1 = min(S, n0 + KB);
+      int n = n0;
+      for (; n + KS <= n1; n += KS)
+        ptt_flash::key_step<HD, Lay, KS, true>(qa, oacc, lacc, Kst, Vst, n,
+                                               n - n0, valid_len, lane);
+      for (; n < n1; n += 16)        // a last block of fewer keys
+        ptt_flash::key_step<HD, Lay, 16, true>(qa, oacc, lacc, Kst, Vst, n,
+                                               n - n0, valid_len, lane);
     }
-    __syncthreads();                       // block i's stage is free
+    __syncwarp();
+    if (lane == 0) ptt_wgmma::mbar_arrive(&empty[s]);
   }
-  ptt::cp_async_wait<0>();
 
   // A, dn and dden of rows r0 (den lacc[0]) and r1 (den lacc[2]), in the
   // resident path's order; dn kept as the A fragments of dp = dn v^T
@@ -540,7 +703,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int c = 8 * j + 2 * t;
-      const bool in = j < HD / 8 - 1 || full;
+      const bool in = j < HD / 8 - 1 || full_width;
 #pragma unroll
       for (int hlf = 0; hlf < 2; ++hlf) {
         const int r = rows[hlf];
@@ -569,74 +732,39 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  // ---- sweep 2: dq = ds k over the key blocks again
+  // ---- sweep 2: dq = ds k over the key blocks again (ring steps blocks
+  // .. 2 blocks - 1)
   float dq[HD / 8][4];
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[j][e] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < L::STAGES - 1; ++i) load_block(i);
   for (int i = 0; i < blocks; ++i) {
-    load_block(i + L::STAGES - 1);
-    ptt::cp_async_wait<L::STAGES - 1>();
-    __syncthreads();
+    const int it = blocks + i, s = it % SL::STAGES;
+    ptt_wgmma::mbar_wait(&full[s], (it / SL::STAGES) & 1);
     if (active) {
-      const int n0 = i * L::KB, n1 = min(S, n0 + L::KB);
-      const int rb = i % L::STAGES * L::KB;
-      for (int n = n0; n < n1; n += 16) {
-        const int r = rb + n - n0;
-        // s = q k^T and dp = dn v^T: [e] at row g + 8(e/2), key n + 8j +
-        // 2t + e%2
-        float sacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f},
-                            {0.0f, 0.0f, 0.0f, 0.0f}};
-        float dpacc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f},
-                             {0.0f, 0.0f, 0.0f, 0.0f}};
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          uint32_t kf[4], vf[4];
-          ldmatrix_x4(kf, &Ks[swz<HD>(r + (lane & 7) + ((lane >> 4) << 3),
-                                     kk * 2 + ((lane >> 3) & 1))]);
-          mma_bf16(sacc[0], qa[kk], kf[0], kf[1]);
-          mma_bf16(sacc[1], qa[kk], kf[2], kf[3]);
-          ldmatrix_x4(vf, &Vs[swz<HD>(r + (lane & 7) + ((lane >> 4) << 3),
-                                     kk * 2 + ((lane >> 3) & 1))]);
-          mma_bf16(dpacc[0], dna[kk], vf[0], vf[1]);
-          mma_bf16(dpacc[1], dna[kk], vf[2], vf[3]);
-        }
-        float ds[2][4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const bool key = n + 8 * j + 2 * t + (e & 1) < valid_len;
-            const float sv = sacc[j][e];
-            const float p =
-                key ? round_bf16(exp2f(fminf(fmaxf(sv, LO), HI))) : 0.0f;
-            const float dp = key ? dpacc[j][e] + drow[e >> 1] : 0.0f;
-            ds[j][e] = sv < HI ? (LN2 * dp) * p : 0.0f;
-          }
-        const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]),
-                                 pack_bf16(ds[0][2], ds[0][3]),
-                                 pack_bf16(ds[1][0], ds[1][1]),
-                                 pack_bf16(ds[1][2], ds[1][3])};
-#pragma unroll
-        for (int jj = 0; jj < HD / 16; ++jj) {
-          uint32_t kf[4];
-          ldmatrix_x4_trans(kf, &Ks[swz<HD>(r + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                           jj * 2 + (lane >> 4))]);
-          mma_bf16(dq[2 * jj], dsa, kf[0], kf[1]);
-          mma_bf16(dq[2 * jj + 1], dsa, kf[2], kf[3]);
-        }
-      }
+      const bf16* Kst = Ks + s * SL::STAGE;
+      const bf16* Vst = Vs + s * SL::STAGE;
+      const int n0 = i * KB, n1 = min(S, n0 + KB);
+      int n = n0;
+      for (; n + KS <= n1; n += KS)
+        if (n + KS <= valid_len)     // every key valid: no mask
+            dq_step<HD, KS, Lay, false>(qa, dna, drow, dq, Kst, Vst, n, n - n0,
+                                      valid_len, lane);
+        else
+          dq_step<HD, KS, Lay, true>(qa, dna, drow, dq, Kst, Vst, n, n - n0,
+                                     valid_len, lane);
+      for (; n < n1; n += 16)        // a last block of fewer keys
+        dq_step<HD, 16, Lay, true>(qa, dna, drow, dq, Kst, Vst, n, n - n0,
+                                   valid_len, lane);
     }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) ptt_wgmma::mbar_arrive(&empty[s]);
   }
-  ptt::cp_async_wait<0>();
   if (active) {
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
-      if (j == HD / 8 - 1 && !full) break;
+      if (j == HD / 8 - 1 && !full_width) break;
       const int c = 8 * j + 2 * t;
       ptt::store2(dqb + (size_t)r0 * D3 + c, dq[j][0], dq[j][1]);
       ptt::store2(dqb + (size_t)r1 * D3 + c, dq[j][2], dq[j][3]);
@@ -644,83 +772,128 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// The streamed path, (b): one block of WARPS key tiles of one (head h,
-// image b), a tile a warp (grid: key blocks x heads x images), their k and
-// v in registers; q and dn of QB query rows a stage and the rows' dden
-// stream through a ring of two stages, the query tiles in order; dk and dv
-// summed in registers.
+// The streamed path, (b): one block of KeyPass<HD>::NW key tiles of one
+// (head h, image b), a tile a warp (grid: key blocks x heads x images).
+// The producer warp loads the block's K and V once (TMA, the row pass's
+// maps: zero past valid_len and past hd), then streams q and dn of QB
+// query rows a stage and the rows' dden through a ring of STAGES stages
+// (q and dn in the tile's TMA layout, their columns past hd read as zero;
+// dden a 2-D map over [B H, S]), the query tiles in order; a warp reads
+// its keys' fragments from shared memory at each step and sums dk and dv
+// in registers.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-    attn_bwd_keys(const bf16* __restrict__ qkv, const bf16* __restrict__ dn,
-                  const float* __restrict__ dden, bf16* __restrict__ dqkv,
-                  int S, int D, int valid_len, int hd) {
-  constexpr int LD = Layout<HD>::LD;
-  constexpr int CH = HD / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(KeyPass<HD>::THREADS, KeyPass<HD>::MINB)
+    attn_bwd_keys(const __grid_constant__ ptt_flash::PartMaps kmaps,
+                  const __grid_constant__ ptt_flash::PartMaps vmaps,
+                  const __grid_constant__ ptt_flash::PartMaps qmaps,
+                  const __grid_constant__ ptt_flash::PartMaps dnmaps,
+                  const __grid_constant__ CUtensorMap ddmap,
+                  bf16* __restrict__ dqkv, int S, int D, int valid_len,
+                  int hd) {
+  using KP = KeyPass<HD>;
+  using Lay = typename KP::Rows;
+  constexpr int NW = KP::NW, STAGES = KP::STAGES, QT = KP::QT;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Kb = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  bf16* Vb = Kb + KP::KBLOCKS * KP::STAGE;
+  bf16* Qs = Vb + KP::KBLOCKS * KP::STAGE;
+  bf16* DNs = Qs + STAGES * KP::STAGE;
+  float* dds = reinterpret_cast<float*>(DNs + STAGES * KP::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dds + STAGES * QB);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      ptt_wgmma::mbar_init(&full[s], 1);
+      ptt_wgmma::mbar_init(&empty[s], NW);
+    }
+    ptt_wgmma::mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stages = (S + QB - 1) / QB;
+  const int kb0 = blockIdx.x * 16 * NW;      // the block's first key
+  if (warp == NW) {
+    if (lane == 0) {
+      ptt_wgmma::mbar_expect_tx(kvbar, KP::KV_BYTES);
+#pragma unroll
+      for (int j = 0; j < KP::KBLOCKS; ++j) {
+        ptt_flash::load_rows<HD, QB>(Kb + j * KP::STAGE, kmaps, kvbar, h,
+                                     kb0 + j * QB, b);
+        ptt_flash::load_rows<HD, QB>(Vb + j * KP::STAGE, vmaps, kvbar, h,
+                                     kb0 + j * QB, b);
+      }
+      for (int i = 0; i < stages; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) ptt_wgmma::mbar_wait(&empty[s], (i / STAGES - 1) & 1);
+        ptt_wgmma::mbar_expect_tx(&full[s], KP::STAGE_BYTES);
+        ptt_flash::load_rows<HD, QB>(Qs + s * KP::STAGE, qmaps, &full[s], h,
+                                     i * QB, b);
+        ptt_flash::load_rows<HD, QB>(DNs + s * KP::STAGE, dnmaps, &full[s],
+                                     h, i * QB, b);
+        ptt_wgmma::tma_load(dds + s * QB, &ddmap, &full[s], i * QB,
+                            b * H + h);
+      }
+    }
+    return;
+  }
   const int g = lane >> 2, t = lane & 3;
   const int D3 = 3 * D;
-  const int k0 = (blockIdx.x * WARPS + warp) * 16;
+  const int k0 = kb0 + warp * 16;
   const bool active = k0 < S;
-  const bf16* qb = qkv + (size_t)b * S * D3 + h * hd;
-  const bf16* dnb = dn + (size_t)b * S * D + h * hd;
-  const float* ddb = dden + ((size_t)b * H + h) * S;
   bf16* dqb = dqkv + (size_t)b * S * D3 + h * hd;
+  // this warp's keys: rows k0 % QB .. + 15 of key block warp * 16 / QB
+  const int kblk = warp * 16 / QB * KP::STAGE;
+  const KeySmem<HD, Lay> keys{Kb + kblk, Vb + kblk, warp * 16 % QB, lane};
 
-  auto stage_q = [&](int i) {
-    return reinterpret_cast<bf16*>(smem + (size_t)(i & 1) * stage_bytes<HD>());
-  };
-  const int stages = (S + QB - 1) / QB;
-  auto load_stage = [&](int i) {
-    if (i < stages) {
-      bf16* Qs = stage_q(i);
-      bf16* DNs = Qs + QB * LD;
-      float* dd = reinterpret_cast<float*>(DNs + QB * LD);
-      const int q0 = i * QB, n = min(QB, S - q0);
-      for (int c = threadIdx.x; c < n * CH; c += THREADS) {
-        const int r = c / CH, ch = c % CH;
-        const bool col = ch * 8 < hd;
-        ptt::cp_async16(&Qs[swz<HD>(r, ch)],
-                        col ? qb + (size_t)(q0 + r) * D3 + ch * 8 : qb, col);
-        ptt::cp_async16(&DNs[swz<HD>(r, ch)],
-                        col ? dnb + (size_t)(q0 + r) * D + ch * 8 : dnb, col);
-      }
-      for (int c = threadIdx.x; c < n / 4; c += THREADS)
-        ptt::cp_async16(&dd[4 * c], ddb + q0 + 4 * c, true);
-    }
-    ptt::cp_async_commit();
-  };
-
-  load_stage(0);
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
   float dk[HD / 8][4], dv[HD / 8][4];
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
-  if (active)
-    load_key_frags<HD>(ka, va, qb + D, qb + 2 * D, D3, k0, valid_len, hd, g,
-                       t);
+  ptt_wgmma::mbar_wait(kvbar, 0);
   for (int i = 0; i < stages; ++i) {
-    load_stage(i + 1);
-    ptt::cp_async_wait<1>();               // stage i has landed
-    __syncthreads();
+    const int s = i % STAGES;
+    ptt_wgmma::mbar_wait(&full[s], (i / STAGES) & 1);
     if (active) {
-      const bf16* Qs = stage_q(i);
-      const bf16* DNs = Qs + QB * LD;
-      const float* dd = reinterpret_cast<const float*>(DNs + QB * LD);
+      const bf16* Qst = Qs + s * KP::STAGE;
+      const bf16* DNst = DNs + s * KP::STAGE;
+      const float* dd = dds + s * QB;
       const int n = min(QB, S - i * QB);
-      for (int q0 = 0; q0 < n; q0 += 16) {
-        uint32_t dsa[4];
-        key_tile_step<HD>(ka, va, dk, dv, Qs, DNs, dd, q0, k0, valid_len,
-                          lane, dsa);
+      int q0 = 0;
+      for (; q0 + 16 * QT <= n; q0 += 16 * QT) {
+        uint32_t dsa[QT][4];
+        key_tile_step<HD, Lay, QT, true>(keys, dk, dv, Qst, DNst, dd, q0,
+                                         k0, valid_len, lane, dsa);
+      }
+      for (; q0 < n; q0 += 16) {     // a last stage of fewer rows
+        uint32_t dsa[1][4];
+        key_tile_step<HD, Lay, 1, true>(keys, dk, dv, Qst, DNst, dd, q0, k0,
+                                        valid_len, lane, dsa);
       }
     }
-    __syncthreads();                       // stage i is free
+    __syncwarp();
+    if (lane == 0) ptt_wgmma::mbar_arrive(&empty[s]);
   }
-  ptt::cp_async_wait<0>();
   if (active) store_dkv<HD>(dqb, D, dk, dv, k0, hd, g, t);
+}
+
+// the key pass's map of dden [B H, S] f32: boxes of QB values of one row
+inline bool dden_map(CUtensorMap* map, const float* dden, int rows, int S) {
+  ptt_wgmma::EncodeTiled encode = ptt_wgmma::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)S, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)S * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)QB, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)dden, dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // One backward at instance width HD: the resident kernel where
@@ -743,22 +916,36 @@ int attention_bwd(const bf16* qkv, const bf16* da, bf16* dqkv, bf16* a,
     }
   }
   if (dn == nullptr || dden == nullptr) return (int)cudaErrorInvalidValue;
-  constexpr size_t ring = ring_smem<HD>();
-  constexpr size_t stages = 2 * stage_bytes<HD>();
+  using SL = ptt_flash::Stream<HD>;
+  using RP = RowPass<HD>;
+  using KP = KeyPass<HD>;
+  const long long img = (long long)S * 3 * D;
+  ptt_flash::PartMaps kmaps, vmaps, qmaps, dnmaps;
+  CUtensorMap ddmap;
+  if (!ptt_flash::part_maps<HD, ptt_flash::STREAM_KB>(
+          &kmaps, qkv + D, hd, H, valid_len, B, 3 * D, img) ||
+      !ptt_flash::part_maps<HD, ptt_flash::STREAM_KB>(
+          &vmaps, qkv + 2 * D, hd, H, valid_len, B, 3 * D, img) ||
+      !ptt_flash::part_maps<HD, QB>(&qmaps, qkv, hd, H, S, B, 3 * D, img) ||
+      !ptt_flash::part_maps<HD, QB>(&dnmaps, dn, hd, H, S, B, D,
+                                    (long long)S * D) ||
+      !dden_map(&ddmap, dden, B * H, S))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_rows<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ring);
+      (int)SL::SMEM);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(attn_bwd_keys<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)stages);
+                             (int)KP::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (S + 16 * WARPS - 1) / (16 * WARPS);
-  attn_bwd_rows<HD><<<dim3(H, B, tiles), THREADS, ring, st>>>(
-      qkv, da, dqkv, a, dn, dden, S, D, valid_len, hd);
+  const int passes = (S + 16 * RP::NW - 1) / (16 * RP::NW);
+  attn_bwd_rows<HD><<<dim3(passes, H, B), RP::THREADS, SL::SMEM, st>>>(
+      kmaps, vmaps, qkv, da, dqkv, a, dn, dden, S, D, valid_len, hd);
   PTT_CHECK();
-  attn_bwd_keys<HD><<<dim3(tiles, H, B), THREADS, stages, st>>>(
-      qkv, dn, dden, dqkv, S, D, valid_len, hd);
+  const int tiles = (S + 16 * KP::NW - 1) / (16 * KP::NW);
+  attn_bwd_keys<HD><<<dim3(tiles, H, B), KP::THREADS, KP::SMEM, st>>>(
+      kmaps, vmaps, qmaps, dnmaps, ddmap, dqkv, S, D, valid_len, hd);
   return (int)cudaGetLastError();
 }
 
@@ -819,7 +1006,7 @@ int ptt_fab_bwd_plan(int S, int hd, int* streamed, int* ring_keys) {
                   [&](auto w) {
                     constexpr int HD = decltype(w)::value;
                     *streamed = bwd_streamed<HD>(S) ? 1 : 0;
-                    *ring_keys = Layout<HD>::KB;
+                    *ring_keys = ptt_flash::STREAM_KB;
                     return 0;
                   });
 }

@@ -3282,3 +3282,121 @@ def test_attention_backward_gates_the_clamp_at_every_width(cuda, hd, heads,
     assert torch.isfinite(got[0].float()).all()
     assert _rel_err(got[0][:, v], want[0][:, v]) <= TRAIN_BWD_REL_TOL
     assert _rel_err(ungated[0][:, v], want[0][:, v]) > TRAIN_BWD_REL_TOL
+
+
+# ---- the streamed paths' TMA rings: the tile past its ring
+# (csrc/flash_tile.cuh's stream_kernel: passes of 128 query rows up to
+# head width 80, 64 past it, over stages of 64 keys) and row 13's streamed
+# pair (csrc/fused_attention.cu: passes of 128 query rows, blocks of 128
+# keys, stages of 64 keys or query rows), at the rings' edges: a partial
+# last stage, valid_len inside it, query rows that are not a multiple of a
+# pass, and head x image counts that are not a multiple of anything the
+# grid groups.
+
+# (B, S, heads, hd): S past the tile's ring at each instance
+TILE_EDGE_CASES = {
+    "hd64-s577-b3h3": (3, 577, 3, 64),
+    "hd80-s257-b5h1": (5, 257, 1, 80),
+    "hd72-s1000-b1h3": (1, 1000, 3, 72),
+    "hd48-s290-b3h5": (3, 290, 5, 48),
+    "hd128-s200-b3h3": (3, 200, 3, 128),
+    "hd96-s129-b7h1": (7, 129, 1, 96),
+    "hd112-s161-b2h3": (2, 161, 3, 112),
+    "hd32-s465-b3h3": (3, 465, 3, 32),
+    "hd16-s913-b3h3": (3, 913, 3, 16)}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_EDGE_CASES))
+def test_streamed_tile_at_the_ring_edges_matches_plain_twice(cuda, case):
+    """Row 14 (the tile on every query row) where its keys stream, at the
+    ring's edges: against its plain version, two runs equal in bits, the
+    same bits on packed copies of q, k, v, and the plain version that
+    counts the pad keys failing the same gate."""
+    b, s, heads, hd = TILE_EDGE_CASES[case]
+    q, k, v = _flash_case(cuda, b, s, heads=heads, hd=hd, seed=s)
+    got = fa.flash_attention(q, k, v)
+    again = fa.flash_attention(q, k, v)
+    packed = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+    want = fa.flash_attention_plain(q, k, v)
+    counted = fa.flash_attention_plain(q, k, v, pad_keys_to=-(-s // 16) * 16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again) and torch.equal(got, packed)
+    assert _rel_err(got, want) <= FLASH_REL_TOL
+    assert _rel_err(counted, want) > FLASH_REL_TOL
+
+
+@pytest.mark.parametrize("hd,heads,s", [(64, 3, 577), (72, 3, 257),
+                                        (88, 2, 257)],
+                         ids=["hd64", "hd72", "hd88"])
+def test_streamed_tile_reads_no_pad_row_and_no_column_past_its_head(cuda, hd,
+                                                                    heads, s):
+    """q, k, v slices of a store whose rows past S (the pad rows up to the
+    next multiple of 16) and whose 16 columns past the last head are NaN:
+    the tile's copies read neither (a row's extent is S, a head's hd), so
+    its output is finite and equal in bits to that on packed copies.  As
+    controls, the plain version that reads the store's pad rows, and at
+    72 and 88 one that reads each head's 8 columns past hd (the next
+    head's, and past the last head the NaN ones), turn non-finite."""
+    b, sp = 2, -(-s // 16) * 16
+    width = heads * hd + 16
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    store = torch.randn(b, sp, 3, width, generator=g, device=cuda).to(
+        torch.bfloat16)
+    store[:, s:] = float("nan")
+    store[..., heads * hd:] = float("nan")
+    q, k, v = (store[:, :s, i, :heads * hd].unflatten(-1, (heads, hd))
+               for i in range(3))
+    got = fa.flash_attention(q, k, v)
+    packed = fa.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous())
+    want = fa.flash_attention_plain(q, k, v)
+    kp, vp = (store[:, :, i, :heads * hd].unflatten(-1, (heads, hd))
+              for i in (1, 2))
+    controls = {"pad rows read": fa.flash_attention_plain(q, kp, vp)}
+    if hd % 16:
+        st = (sp * 3 * width, 3 * width, hd, 1)
+        kw, vw = (torch.as_strided(store[:, :, i], (b, s, heads, hd + 8), st)
+                  for i in (1, 2))
+        controls["next columns read"] = fa.flash_attention_plain(
+            torch.nn.functional.pad(q, (0, 8)), kw, vw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, packed)
+    assert _rel_err(got, want) <= FLASH_REL_TOL
+    for name, ctrl in controls.items():
+        assert not torch.isfinite(ctrl.float()).all(), name
+
+
+# (B, S, D, heads, valid): row 13 on its streamed pair at the rings' edges
+BWD_EDGE_CASES = {
+    "hd64-s592-b3h3": (3, 592, 192, 3, 577),
+    "hd80-s272-b1h5": (1, 272, 400, 5, 257),
+    "hd72-s208-b3h3": (3, 208, 216, 3, 200),
+    "hd128-s336-b3h1": (3, 336, 128, 1, 321),
+    "hd96-s144-b5h1": (5, 144, 96, 1, 137),
+    "hd32-s912-b1h3": (1, 912, 96, 3, 900),
+    "hd48-s528-b3h1": (3, 528, 48, 1, 515)}
+
+
+@pytest.mark.parametrize("case", sorted(BWD_EDGE_CASES))
+def test_streamed_attention_backward_at_the_ring_edges(cuda, case):
+    """Row 13's streamed pair at the rings' edges against
+    ``attention_bwd_plain``, two runs equal in bits, the pad rows of dqkv
+    0, and the plain backward without the key mask failing the gate."""
+    b, s, d, heads, valid = BWD_EDGE_CASES[case]
+    hd = d // heads
+    assert _bwd_path(hd, s) == "streamed"
+    x, wqkv, bqkv, _wo, _bo, da = _attn_case(cuda, b, s, d, heads, valid)
+    got = fa.fused_attention_bwd(x, wqkv, bqkv, da, heads, valid)
+    again = fa.fused_attention_bwd(x, wqkv, bqkv, da, heads, valid)
+    want = fa.attention_bwd_plain(x, wqkv, bqkv, da, heads, valid)
+    no_mask = fa.attention_bwd_plain(x, wqkv, bqkv, da, heads, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    v = slice(0, valid)
+    assert not got[0][:, valid:].any()
+    assert _rel_err(got[1][:, v], want[1][:, v]) <= REL_TOL
+    assert _rel_err(got[0][:, v], want[0][:, v]) <= TRAIN_BWD_REL_TOL
+    assert _rel_err(no_mask[0][:, v], want[0][:, v]) > TRAIN_BWD_REL_TOL
