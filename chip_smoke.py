@@ -154,8 +154,11 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    tower through a
    RetrievalEngine at batch_size 3 (the whole-layer kernel) over the 224 px
    gallery, held to the same gallery at batch 32 by min feature cosine
-   beside a pixel-noise yardstick; the int8 family's public entries
-   (quant_layer_group, int8_dense, quant_mlp) on the tower's tokens; the
+   beside a pixel-noise yardstick, and with PATENT_TPU_FAST_KERNELS=0 at
+   batch 3 and 128 (the exact form) against the card's default, the fast
+   form, by min feature cosine; the int8 family's public entries
+   (quant_layer_group, int8_dense, quant_mlp) on the tower's tokens, in
+   each form; the
    per-op towers (VisionTransformer(fused_layer=False) with use_flash, row
    14, and with fused_block, row 12's forward) through a RetrievalEngine
    at batch 32 (encode_dataset, rank_queries, evaluate), each held to the
@@ -182,7 +185,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    by cosine); the sharded train_hyp step (model 1 and 2, dropout on)
    within the CPU tests' tolerances; the ranks' launches join the kernels
    line;
-5. times (CUDA events): the bf16 and the int8 tower img/s at batch 128,
+5. times (CUDA events): the bf16 and the int8 tower img/s at batch 128
+   (the int8 tower in both forms in turns, and at 1, 3 and 127),
    the three per-op bf16 towers and the f32 use_flash tower (row 14's f32
    instance) at batch 128, the fused-layer bf16 tower
    at batch 3 (composition) and 127, row 14 at [128, 197, 12, 64] in bf16
@@ -278,7 +282,11 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    fused_attention_bwd_hd80_streamed,
    the f32 tower's as flash_attention_f32_hd80.
 
-The line before the last is a JSON object with one entry per kernel
+Rows 5-11 (the int8 entries) are checked in phase 3 in both of their
+forms (``fast``; rows 5 and 6 also at ViT-L/14 @336's streamed rows)
+and timed in both in phase 5; the kernels line lists the fast form's
+instances as <entry>_fast.  The line before the last is a JSON object
+with one entry per kernel
 (its launches on the main path, error against the plain version, times
 and the least time the card could take); the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before either
@@ -288,6 +296,7 @@ is printed.  Needs one CUDA card; without one it exits 1.
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import io
 import json
@@ -466,6 +475,16 @@ INT8_VS_BF16_MIN_COS = 0.9
 # 0.999764 against the yardstick's 0.999757; the gate sits ~4x farther
 # from 1.
 INT8_RAGGED_MIN_COS = 0.999
+# the int8 tower in its fast form (the card's default) against its exact
+# form (PATENT_TPU_FAST_KERNELS=0) at one batch: two functions, the fast
+# form's reciprocals off by up to 5.8e-3 each, about 1% of a layer's
+# output apart (tests/test_torch_int8_fast.py); held as the ragged batch is
+INT8_FORMS_MIN_COS = 0.999
+# the int8 entries (rows 5-11) whose kernels have both forms: the kernels
+# line names the fast form's instances <entry>_fast
+INT8_ENTRIES = ("quant_attention_block", "quant_attention_cls",
+                "quant_mlp_block", "quant_layer_block", "quant_layer_group",
+                "quant_dense", "quant_mlp")
 # Row 14 against its plain version: the same bf16 q and p, f32 sums in
 # another order, so now and then one output rounding flips (as row 12's
 # forward, 0 to 2.3e-6); leaving q unscaled, counting the zero keys up to
@@ -711,22 +730,49 @@ def s8_gemm_case(torch, qm, epilogue, m, n, k, gen, dev):
             else torch.randn(m, n, generator=gen, device=dev).to(rdt))
 
 
-def check_s8_gemm(torch, qm, epilogue, m, n, k, gen, dev) -> float:
+def form_name(fast: bool) -> str:
+    return "fast form" if fast else "exact form"
+
+
+@contextlib.contextmanager
+def kernel_form(fast: bool):
+    """PATENT_TPU_FAST_KERNELS for the block, as a user sets it: "1" (the
+    int8 kernels' fast form, the card's default) or "0" (the exact form);
+    the int8 entries read it at each call."""
+    env = "PATENT_TPU_FAST_KERNELS"
+    old = os.environ.get(env)
+    os.environ[env] = "1" if fast else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(env)
+        else:
+            os.environ[env] = old
+
+
+def check_s8_gemm(torch, qm, epilogue, m, n, k, gen, dev,
+                  fast: bool = False) -> float:
     """Hold one of rows 5 and 8's int8 GEMM instances (csrc/wgmma_s8.cuh)
     alone to its plain epilogue on the same integer product at [m x k] x
-    [k x n] (the products are exact, so they should agree bit for bit);
-    control: the bias dropped.  Returns the max-abs error."""
+    [k x n] (the products are exact, so they should agree bit for bit; the
+    "gelu" epilogue in the form ``fast``); control: the bias dropped.
+    Returns the max-abs error."""
     a, a_scale, w_t, scale, bias, res = s8_gemm_case(torch, qm, epilogue, m,
                                                      n, k, gen, dev)
-    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, res)
-    ref = qm.int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res)
+    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, res,
+                       fast=fast)
+    ref = qm.int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res,
+                             fast=fast)
     controls = {"bias=0": qm.int8_gemm_plain(
-        a, a_scale, w_t, scale, torch.zeros_like(bias), epilogue, res)}
-    err = gate(torch, f"s8 GEMM {epilogue} [{m} x {k}] x [{k} x {n}] -> "
-               f"{str(got.dtype)[6:]}", got, ref, controls, INT8_REL_TOL,
-               INT8_MAX_ULPS)
-    print(f"[kernel] s8 GEMM {epilogue} [{m} x {k}] x [{k} x {n}] equals its "
-          f"plain epilogue bit for bit: {bool(torch.equal(got, ref))}")
+        a, a_scale, w_t, scale, torch.zeros_like(bias), epilogue, res,
+        fast=fast)}
+    what = (f"s8 GEMM {epilogue}" + (", fast form" if fast else "")
+            + f" [{m} x {k}] x [{k} x {n}]")
+    err = gate(torch, f"{what} -> {str(got.dtype)[6:]}", got, ref, controls,
+               INT8_REL_TOL, INT8_MAX_ULPS)
+    print(f"[kernel] {what} equals its plain epilogue bit for bit: "
+          f"{bool(torch.equal(got, ref))}")
     return err
 
 
@@ -763,14 +809,16 @@ def int8_params(torch, qm, d, f, gen, dev):
     return attn, mlp
 
 
-def check_int8(torch, qm, name, x, p, heads, valid) -> float:
+def check_int8(torch, qm, name, x, p, heads, valid, fast: bool = False
+               ) -> float:
     """Hold one int8 kernel (``name``: quant_attention_block,
-    quant_attention_cls or quant_mlp_block) to its plain version on the
-    valid rows (every row for the MLP, which is row-independent and takes
-    x [..., D] of any row count), with controls that must fail the same
-    gate.  Returns the max-abs error."""
-    kernel = getattr(qm, name)
-    plain = getattr(qm, name + "_plain")
+    quant_attention_cls or quant_mlp_block) in the form ``fast`` to its
+    plain version in that form on the valid rows (every row for the MLP,
+    which is row-independent and takes x [..., D] of any row count), with
+    controls that must fail the same gate, the other form among them.
+    Returns the max-abs error."""
+    kernel = functools.partial(getattr(qm, name), fast=fast)
+    plain = functools.partial(getattr(qm, name + "_plain"), fast=fast)
     s = x.shape[1]
     attention = name != "quant_mlp_block"
     kind = "attention" if attention else "mlp"
@@ -790,30 +838,34 @@ def check_int8(torch, qm, name, x, p, heads, valid) -> float:
         q = list(p)
         q[i] = torch.full_like(q[i], float(q[i].mean()))
         controls[sname + "=mean"] = run(plain, q)
+    controls[form_name(not fast)] = run(functools.partial(
+        getattr(qm, name + "_plain"), fast=not fast), p)
     rows = (f"valid {valid}/{s}" if attention
             else f"[{x.numel() // x.shape[-1]} x {x.shape[-1]}]")
-    return gate(torch, f"{name} {rows}", got, ref, controls, INT8_REL_TOL,
-                INT8_MAX_ULPS)
+    return gate(torch, f"{name} {rows}, {form_name(fast)}", got, ref,
+                controls, INT8_REL_TOL, INT8_MAX_ULPS)
 
 
-def check_gelu_quant(torch, qm, x, p) -> None:
-    """Row 7's MLP in alone on the row codes of x [M, D]: its hidden g
-    equal to the plain epilogue's, the row maxima its epilogue takes equal
-    to max |g| of its own g, and the one-pass quantization equal to
-    quant_rows(g), each bit for bit."""
+def check_gelu_quant(torch, qm, x, p, fast: bool = False) -> None:
+    """Row 7's MLP in alone on the row codes of x [M, D], in the form
+    ``fast``: its hidden g equal to the plain epilogue's, the row maxima
+    its epilogue takes equal to max |g| of its own g, and the one-pass
+    quantization equal to quant_rows(g) (fast: quant_rows_fast, whose codes
+    saturate at 127), each bit for bit."""
     a, a_scale = qm.quant_rows(x.float())
     a_scale = a_scale[:, 0].contiguous()
-    g, g_max, gq, gs = qm.int8_gelu_quant(a, a_scale, *p[2:5])
-    want_q, want_s = qm.quant_rows(g)
+    g, g_max, gq, gs = qm.int8_gelu_quant(a, a_scale, *p[2:5], fast=fast)
+    want_q, want_s = (qm.quant_rows_fast if fast else qm.quant_rows)(g)
     torch.cuda.synchronize()
-    same = {"hidden": torch.equal(g, qm.int8_gemm_plain(a, a_scale, *p[2:5],
-                                                        "gelu")),
+    same = {"hidden": torch.equal(g, qm.int8_gemm_plain(
+                a, a_scale, *p[2:5], "gelu", fast=fast)),
             "row maxima": torch.equal(g_max, g.abs().amax(dim=-1)),
             "codes": torch.equal(gq, want_q),
             "scales": torch.equal(gs, want_s[:, 0])}
-    print(f"[kernel] row 7's MLP in alone, [{x.shape[0]} x {x.shape[1]}] x "
-          f"[{x.shape[1]} x {p[2].shape[0]}]: equal bit for bit to the plain "
-          "epilogue and to quant_rows of its own hidden: "
+    print(f"[kernel] row 7's MLP in alone, {form_name(fast)}, [{x.shape[0]} "
+          f"x {x.shape[1]}] x [{x.shape[1]} x {p[2].shape[0]}]: equal bit for "
+          "bit to the plain epilogue and to the row quantization of its own "
+          "hidden: "
           + ", ".join(f"{key} {v}" for key, v in same.items()))
     check(all(same.values()), "row 7's MLP in or the hidden's one-pass "
           "quantization differs from its plain version")
@@ -832,19 +884,21 @@ def row7_phase(kname: str) -> str:
                 kname[:60])
 
 
-def check_int8_layer(torch, qm, name, x, p, heads, valid, **kw) -> float:
+def check_int8_layer(torch, qm, name, x, p, heads, valid,
+                     fast: bool = False, **kw) -> float:
     """Hold the whole int8 layer (``name``: quant_layer_block, or
-    quant_layer_group with ``kw`` its group) to its plain version on the
-    valid rows, with the controls of both sub-layers (the key mask, each
-    bias, each matrix's scales) and the other mid-layer residual: rows 5 +
-    7 chained (bf16) against the whole layer, the whole layer (f32) against
-    the group dispatch's ragged fallback.  Returns the max-abs error."""
+    quant_layer_group with ``kw`` its group) in the form ``fast`` to its
+    plain version in that form on the valid rows, with the controls of
+    both sub-layers (the key mask, each bias, each matrix's scales), the
+    other form and the other mid-layer residual: rows 5 + 7 chained (bf16)
+    against the whole layer, the whole layer (f32) against the group
+    dispatch's ragged fallback.  Returns the max-abs error."""
     kernel = getattr(qm, name)
     plain = getattr(qm, name + "_plain")
     s = x.shape[1]
 
-    def run(fn, q, v=valid):
-        return fn(x, *q, heads, v, **kw)[:, :valid]
+    def run(fn, q, v=valid, form=fast):
+        return fn(x, *q, heads, v, fast=form, **kw)[:, :valid]
 
     ref = run(plain, p)
     got = run(kernel, p)
@@ -859,39 +913,48 @@ def check_int8_layer(torch, qm, name, x, p, heads, valid, **kw) -> float:
             q[offset + i] = torch.full_like(q[offset + i],
                                             float(q[offset + i].mean()))
             controls[sname + "=mean"] = run(plain, q)
+    controls[form_name(not fast)] = run(plain, p, form=not fast)
     chain = qm.quant_mlp_block_plain(
-        qm.quant_attention_block_plain(x, *p[:8], heads, valid), *p[8:])
+        qm.quant_attention_block_plain(x, *p[:8], heads, valid, fast=fast),
+        *p[8:], fast=fast)
     whole = x.shape[0] % kw.get("group", 1) == 0
     controls["rows 5 + 7, bf16 mid residual" if whole
              else "whole layer, f32 mid residual"] = (
-        chain if whole else qm.quant_layer_block_plain(x, *p, heads, valid)
+        chain if whole else qm.quant_layer_block_plain(x, *p, heads, valid,
+                                                       fast=fast)
     )[:, :valid]
     return gate(torch, f"{name} B {x.shape[0]}, valid {valid}/{s}"
-                + (f", group {kw['group']}" if kw else ""), got, ref,
-                controls, INT8_LAYER_REL_TOL, INT8_MAX_ULPS)
+                + (f", group {kw['group']}" if kw else "")
+                + f", {form_name(fast)}", got, ref, controls,
+                INT8_LAYER_REL_TOL, INT8_MAX_ULPS)
 
 
-def check_int8_dense(torch, qm, tag, x, w, scale, bias, act) -> float:
-    """Hold quant_dense to its plain version, with controls that must fail
-    the same gate: the bias zeroed, the scales replaced by their mean, the
-    other activation.  Returns the max-abs error."""
-    plain = qm.quant_dense_plain
+def check_int8_dense(torch, qm, tag, x, w, scale, bias, act,
+                     fast: bool = False) -> float:
+    """Hold quant_dense in the form ``fast`` to its plain version in that
+    form, with controls that must fail the same gate: the bias zeroed, the
+    scales replaced by their mean, the other activation, the other form.
+    Returns the max-abs error."""
+    plain = functools.partial(qm.quant_dense_plain, fast=fast)
     other = None if act else "quick_gelu"
-    return gate(torch, f"quant_dense {tag}", qm.quant_dense(x, w, scale,
-                                                            bias, act),
+    return gate(torch, f"quant_dense {tag}, {form_name(fast)}",
+                qm.quant_dense(x, w, scale, bias, act, fast=fast),
                 plain(x, w, scale, bias, act),
                 {"bias=0": plain(x, w, scale, None, act),
                  "scale=mean": plain(x, w, torch.full_like(
                      scale, float(scale.mean())), bias, act),
-                 f"act {other}": plain(x, w, scale, bias, other)},
+                 f"act {other}": plain(x, w, scale, bias, other),
+                 form_name(not fast): qm.quant_dense_plain(
+                     x, w, scale, bias, act, fast=not fast)},
                 INT8_REL_TOL, INT8_MAX_ULPS)
 
 
-def check_int8_qmlp(torch, qm, tag, x, w) -> float:
-    """Hold quant_mlp to its plain version (w: w1_t, s1, b1, w2_t, s2,
-    b2), with each bias zeroed and each scale vector replaced by its mean
-    as the controls.  Returns the max-abs error."""
-    plain = qm.quant_mlp_plain
+def check_int8_qmlp(torch, qm, tag, x, w, fast: bool = False) -> float:
+    """Hold quant_mlp in the form ``fast`` to its plain version in that
+    form (w: w1_t, s1, b1, w2_t, s2, b2), with each bias zeroed, each
+    scale vector replaced by its mean and the other form as the controls.
+    Returns the max-abs error."""
+    plain = functools.partial(qm.quant_mlp_plain, fast=fast)
     controls = {}
     for i, cname in ((2, "b1=0"), (5, "b2=0"), (1, "s1=mean"),
                      (4, "s2=mean")):
@@ -899,8 +962,10 @@ def check_int8_qmlp(torch, qm, tag, x, w) -> float:
         q[i] = (torch.zeros_like(q[i]) if cname.endswith("0")
                 else torch.full_like(q[i], float(q[i].mean())))
         controls[cname] = plain(x, *q)
-    return gate(torch, f"quant_mlp {tag}", qm.quant_mlp(x, *w),
-                plain(x, *w), controls, INT8_REL_TOL, INT8_MAX_ULPS)
+    controls[form_name(not fast)] = qm.quant_mlp_plain(x, *w, fast=not fast)
+    return gate(torch, f"quant_mlp {tag}, {form_name(fast)}",
+                qm.quant_mlp(x, *w, fast=fast), plain(x, *w), controls,
+                INT8_REL_TOL, INT8_MAX_ULPS)
 
 
 def int8_family_bounds(b_layer, b_group, s, valid, d, f, m) -> dict:
@@ -4178,6 +4243,8 @@ def multi_gpu_slice(torch, np, launches: dict, label: str, td) -> None:
                 {"quant_attention_block", "quant_attention_cls",
                  "quant_mlp_block"} if tower == "int8" else
                 {"fused_layer_block_bf16", "fused_layer_cls_bf16"})
+        if tower == "int8":     # the card's default form, counted apart too
+            want |= {k + "_fast" for k in want}
         check(all(set(r) == want for r in counts),
               f"encode_sharded {case} took another function: {counts}")
         for r in res["launches"]:
@@ -4649,6 +4716,55 @@ def check_bucket_shapes(torch, tk, index_mod, gal, dev, k: int) -> float:
     return err16
 
 
+def int8_family_slice(torch, qm, tower8, int8_dense, px2, heads, run_path,
+                      form: str) -> None:
+    """The int8 family's public entries on ViT-B/16 tokens, in the form
+    PATENT_TPU_FAST_KERNELS names (``form`` says which): layers 0..10 of
+    ``tower8`` as quant_layer_group(group=2) at batch 2 (row 9: row 8's
+    kernel), then int8_dense (row 10) and quant_mlp (row 11) with layer
+    0's weights on the stack's output; the stack equal in bits to the
+    quant_layer_block stack, rows 10 and 11 within their gate of their
+    plain versions."""
+    fam = {}
+
+    def family():
+        with torch.inference_mode():
+            xt, seq = tower8.embed(px2)
+            fam["x0"] = xt
+            for layer in tower8.blocks[:-1]:
+                xt = qm.quant_layer_group(xt, *layer.attn_weights(),
+                                          *layer.mlp_weights(), heads,
+                                          valid_len=seq, group=2)
+            l0 = tower8.blocks[0]
+            fam.update(x=xt, seq=seq, qkv=int8_dense(xt, l0.wqkv_t, l0.sqkv,
+                                                     l0.bqkv),
+                       mlp=qm.quant_mlp(xt, *l0.mlp_weights()[2:]))
+
+    run_path(f"int8 family entries, {form}: 11 x quant_layer_group(group=2) "
+             "at batch 2, int8_dense and quant_mlp on its output",
+             (qm.quant_layer_group, qm.quant_dense, qm.quant_mlp), family)
+    with torch.inference_mode():
+        ref = fam["x0"]
+        for layer in tower8.blocks[:-1]:
+            ref = qm.quant_layer_block(ref, *layer.attn_weights(),
+                                       *layer.mlp_weights(), heads,
+                                       valid_len=fam["seq"])
+        l0 = tower8.blocks[0]
+        dense_gap = layer_gap(torch, fam["qkv"], qm.quant_dense_plain(
+            fam["x"], l0.wqkv_t, l0.sqkv, l0.bqkv))
+        mlp_gap = layer_gap(torch, fam["mlp"], qm.quant_mlp_plain(
+            fam["x"], *l0.mlp_weights()[2:]))
+    torch.cuda.synchronize()
+    print(f"[slice] {form}: the quant_layer_group stack equals the "
+          f"quant_layer_block stack bit for bit: "
+          f"{bool(torch.equal(ref, fam['x']))}; on its output int8_dense vs "
+          f"plain rel err {dense_gap[0]:.3g}, quant_mlp {mlp_gap[0]:.3g}")
+    check(bool(torch.equal(ref, fam["x"]))
+          and layer_passes(dense_gap, INT8_REL_TOL, INT8_MAX_ULPS)
+          and layer_passes(mlp_gap, INT8_REL_TOL, INT8_MAX_ULPS),
+          f"the int8 family's entries disagree on the tower's tokens ({form})")
+
+
 def main() -> None:
     t_run = time.perf_counter()
     try:
@@ -4724,36 +4840,60 @@ def main() -> None:
         for kname in ("fused_layer_block_bf16", "fused_layer_cls_bf16"):
             errs[kname] = max(errs[kname], check_layer(
                 torch, bf16_layer, kname, x, p, heads, v))
+        # the int8 kernels in both forms (the fast form's errors under
+        # <name>_fast), on the same inputs
         for kname, ip in (("quant_attention_block", ip_attn),
                           ("quant_attention_cls", ip_attn),
                           ("quant_mlp_block", ip_mlp)):
-            errs[kname] = max(errs[kname], check_int8(
-                torch, qm, kname, x, ip, heads, v))
+            for fast in (False, True):
+                key = kname + "_fast" * fast
+                errs[key] = max(errs.get(key, 0.0), check_int8(
+                    torch, qm, kname, x, ip, heads, v, fast=fast))
         # each CLS kernel runs row 0's operations of its full kernel in the
         # same order, so it equals row 0 bit for bit
-        for full, cls, args in (
+        for full, cls, args, kw in (
                 (bf16_layer.fused_layer_block_bf16,
-                 bf16_layer.fused_layer_cls_bf16, p),
-                (qm.quant_attention_block, qm.quant_attention_cls, ip_attn)):
-            got = full(x, *args, heads, v)
-            got_c = cls(x, *args, heads, v)
+                 bf16_layer.fused_layer_cls_bf16, p, {}),
+                (qm.quant_attention_block, qm.quant_attention_cls, ip_attn,
+                 {"fast": False}),
+                (qm.quant_attention_block, qm.quant_attention_cls, ip_attn,
+                 {"fast": True})):
+            got = full(x, *args, heads, v, **kw)
+            got_c = cls(x, *args, heads, v, **kw)
             torch.cuda.synchronize()
             check(got_c.shape == (b, d) and bool(torch.equal(got_c, got[:, 0])),
-                  f"{cls.__name__} differs from row 0 of {full.__name__} "
-                  f"(valid {v})")
+                  f"{cls.__name__} {kw} differs from row 0 of "
+                  f"{full.__name__} (valid {v})")
     # row 6 at the CLS call's batches of the int8 tower (B % 4 == 0): 4 and
-    # a batch of 128's, on a generator of its own
+    # a batch of 128's, on a generator of its own, in both forms
     cgen = torch.Generator(device=dev).manual_seed(6)
     for bv in (4, 128):
         x = layer_input(torch, bv, s, d, valid, cgen, dev)
-        got = qm.quant_attention_block(x, *ip_attn, heads, valid)
-        got_c = qm.quant_attention_cls(x, *ip_attn, heads, valid)
-        torch.cuda.synchronize()
-        check(bool(torch.equal(got_c, got[:, 0])), "quant_attention_cls "
-              f"differs from row 0 of quant_attention_block at B {bv}")
+        for fast in (False, True):
+            got = qm.quant_attention_block(x, *ip_attn, heads, valid,
+                                           fast=fast)
+            got_c = qm.quant_attention_cls(x, *ip_attn, heads, valid,
+                                           fast=fast)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(got_c, got[:, 0])), "quant_attention_cls "
+                  f"differs from row 0 of quant_attention_block at B {bv}, "
+                  f"{form_name(fast)}")
     print("[kernel] fused_layer_cls_bf16 equals row 0 of "
           "fused_layer_block_bf16, and quant_attention_cls row 0 of "
-          "quant_attention_block (also at B 4 and 128), bit for bit")
+          "quant_attention_block (also at B 4 and 128) in both forms, bit "
+          "for bit")
+    # row 5 (and its CLS row) at CLIP ViT-L/14 @336's stream, [4, 592,
+    # 1,024] with 577 valid keys: the tile past its ring (stream_kernel),
+    # in both forms, on a generator of its own
+    lgen = torch.Generator(device=dev).manual_seed(336)
+    wide_attn, _wide_mlp = int8_params(torch, qm, 1024, 4096, lgen, dev)
+    xw = layer_input(torch, 4, 592, 1024, 577, lgen, dev)
+    for fast in (False, True):
+        for kname in ("quant_attention_block", "quant_attention_cls"):
+            key = kname + "_fast" * fast
+            errs[key] = max(errs.get(key, 0.0), check_int8(
+                torch, qm, kname, xw, wide_attn, 16, 577, fast=fast))
+    del xw, wide_attn, _wide_mlp
 
     # the whole int8 layer (row 8) at the int8 tower's ragged batches, its
     # group dispatch (row 9) on both of its paths, the int8 dense layer (row
@@ -4761,51 +4901,56 @@ def main() -> None:
     # int8 MLP (row 11), on a generator of their own
     igen = torch.Generator(device=dev).manual_seed(8)
     ip = (*ip_attn, *ip_mlp)
+    forms = (("", False), ("_fast", True))
     for lname, batches, kw in (("quant_layer_block", (1, 3, 127), {}),
                                ("quant_layer_group", (2, 3), {"group": 2})):
         for bv in batches:
             x = layer_input(torch, bv, s, d, valid, igen, dev)
-            errs[lname] = max(errs.get(lname, 0.0), check_int8_layer(
-                torch, qm, lname, x, ip, heads, valid, **kw))
+            for sfx, fast in forms:
+                errs[lname + sfx] = max(errs.get(lname + sfx, 0.0),
+                                        check_int8_layer(
+                    torch, qm, lname, x, ip, heads, valid, fast=fast, **kw))
     x2 = layer_input(torch, 128, s, d, valid, igen, dev).reshape(-1, d)
     m = x2.shape[0]
-    errs["quant_dense"] = max(
-        check_int8_dense(torch, qm, f"[{m} x {d}] x [{d} x {3 * d}] bf16", x2,
-                         *ip_attn[2:5], None),
-        check_int8_dense(torch, qm, f"[{m} x {d}] x [{d} x {f}] bf16, "
-                         "quick_gelu", x2, *ip_mlp[2:5], "quick_gelu"),
-        check_int8_dense(torch, qm, f"[{3 * valid} x {d}] x [{d} x {f}] f32, "
-                         "quick_gelu", x2[:3 * valid].float(), *ip_mlp[2:5],
-                         "quick_gelu"))
-    # row 10 at one row, and at an odd output width (the wgmma epilogue
-    # stores the last column alone): QKV's first 13 channels
+    # row 10 at a batch of 128's QKV and MLP-in shapes, on f32 rows, at one
+    # row, and at an odd output width (the wgmma epilogue stores the last
+    # column alone): QKV's first 13 channels
     q13 = tuple(t[:13].contiguous() for t in ip_attn[2:5])
-    for tag, xv, wv, act in (
-            (f"[1 x {d}] x [{d} x {3 * d}] bf16", x2[:1], ip_attn[2:5], None),
-            (f"[{m} x {d}] x [{d} x 13] bf16, quick_gelu", x2, q13,
-             "quick_gelu"),
-            (f"[1 x {d}] x [{d} x 13] f32", x2[:1].float(), q13, None)):
-        errs["quant_dense"] = max(errs["quant_dense"], check_int8_dense(
-            torch, qm, tag, xv, *wv, act))
-    errs["quant_mlp"] = check_int8_qmlp(torch, qm, f"[{m} x {d}], H {f}", x2,
-                                        ip_mlp[2:])
-    # and at one row, and at an odd output width (the wgmma epilogue
-    # stores the last column alone): MLP out's first 13 channels
+    dense_cases = (
+        (f"[{m} x {d}] x [{d} x {3 * d}] bf16", x2, ip_attn[2:5], None),
+        (f"[{m} x {d}] x [{d} x {f}] bf16, quick_gelu", x2, ip_mlp[2:5],
+         "quick_gelu"),
+        (f"[{3 * valid} x {d}] x [{d} x {f}] f32, quick_gelu",
+         x2[:3 * valid].float(), ip_mlp[2:5], "quick_gelu"),
+        (f"[1 x {d}] x [{d} x {3 * d}] bf16", x2[:1], ip_attn[2:5], None),
+        (f"[{m} x {d}] x [{d} x 13] bf16, quick_gelu", x2, q13,
+         "quick_gelu"),
+        (f"[1 x {d}] x [{d} x 13] f32", x2[:1].float(), q13, None))
+    # row 11 at a batch of 128's rows, at one row, and at an odd output
+    # width: MLP out's first 13 channels
     w13 = (*ip_mlp[2:5], *(t[:13].contiguous() for t in ip_mlp[5:]))
-    for tag, xv, wv in ((f"[1 x {d}], H {f}", x2[:1], ip_mlp[2:]),
-                        (f"[{m} x {d}], H {f}, N 13", x2, w13),
-                        (f"[1 x {d}], H {f}, N 13", x2[:1], w13)):
-        errs["quant_mlp"] = max(errs["quant_mlp"],
-                                check_int8_qmlp(torch, qm, tag, xv, wv))
-    # row 7 at the other rows the main path gives it: the CLS call at M = B
-    # (1 and 3 at a ragged batch, 4 and 128 at B % 4 = 0) and a batch of
-    # 128's tokens (the cases above hold B 16's 3,328); and its MLP in
-    # alone, whose epilogue takes the hidden's row maxima
-    for mv in (1, 3, 4, 128, m):
-        errs["quant_mlp_block"] = max(errs["quant_mlp_block"], check_int8(
-            torch, qm, "quant_mlp_block", x2[:mv], ip_mlp, heads, valid))
-    for mv in (4, m):
-        check_gelu_quant(torch, qm, x2[:mv], ip_mlp)
+    mlp_cases = ((f"[{m} x {d}], H {f}", x2, ip_mlp[2:]),
+                 (f"[1 x {d}], H {f}", x2[:1], ip_mlp[2:]),
+                 (f"[{m} x {d}], H {f}, N 13", x2, w13),
+                 (f"[1 x {d}], H {f}, N 13", x2[:1], w13))
+    for sfx, fast in forms:
+        errs["quant_dense" + sfx] = max(
+            check_int8_dense(torch, qm, tag, xv, *wv, act, fast=fast)
+            for tag, xv, wv, act in dense_cases)
+        errs["quant_mlp" + sfx] = max(
+            check_int8_qmlp(torch, qm, tag, xv, wv, fast=fast)
+            for tag, xv, wv in mlp_cases)
+        # row 7 at the other rows the main path gives it: the CLS call at
+        # M = B (1 and 3 at a ragged batch, 4 and 128 at B % 4 = 0) and a
+        # batch of 128's tokens (the cases above hold B 16's 3,328); and its
+        # MLP in alone, whose epilogue takes the hidden's row maxima
+        for mv in (1, 3, 4, 128, m):
+            errs["quant_mlp_block" + sfx] = max(
+                errs["quant_mlp_block" + sfx], check_int8(
+                    torch, qm, "quant_mlp_block", x2[:mv], ip_mlp, heads,
+                    valid, fast=fast))
+        for mv in (4, m):
+            check_gelu_quant(torch, qm, x2[:mv], ip_mlp, fast=fast)
     del x2
 
     # the fine-tune's trainable blocks, on a generator of their own so that
@@ -4860,6 +5005,12 @@ def main() -> None:
     for epi, (gn, gk) in S8_GEMM_SHAPES.items():
         for gm in (s, 3 * s, 128 * s):
             check_s8_gemm(torch, qm, epi, gm, gn, gk, sgen, dev)
+    # and its fast form's MLP-in instance (quick_gelu times the bf16
+    # reciprocal), on a generator of its own
+    fsgen = torch.Generator(device=dev).manual_seed(24)
+    for gm in (s, 3 * s, 128 * s):
+        check_s8_gemm(torch, qm, "gelu", gm, *S8_GEMM_SHAPES["gelu"], fsgen,
+                      dev, fast=True)
 
     # the layer's GEMM alone, each of its four instances at a batch of
     # 128's rows and at B 2's ragged 416, on a generator of its own
@@ -5000,20 +5151,25 @@ def main() -> None:
 
     def run_path(what, counters, run, record: bool = True):
         """Run one path with its kernels' counts set to 0 just before and
-        read just after; every kernel of the path must have launched.
+        read just after; every kernel of the path must have launched.  An
+        int8 entry counts both forms, and its fast form apart
+        (``<entry>_fast``), in the form PATENT_TPU_FAST_KERNELS names.
         ``record``: the counts are those of the kernels' main path."""
-        for fn in counters:
+        fast = [fn.fast for fn in counters if hasattr(fn, "fast")]
+        for fn in (*counters, *fast):
             fn.launches = 0
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         got = {fn.__name__: fn.launches for fn in counters}
+        of_fast = {fn.__name__: fn.launches for fn in fast}
         print(f"[slice] {what} in {time.perf_counter() - t0:.1f} s; "
-              f"launches {got}")
+              f"launches {got}" + (f", of them in the fast form {of_fast}"
+                                   if fast else ""))
         check(all(v > 0 for v in got.values()),
               f"a kernel of the path '{what}' was never launched")
         if record:
-            for kname, n in got.items():
+            for kname, n in (*got.items(), *of_fast.items()):
                 launches[kname] = launches.get(kname, 0) + n
 
     def cli_slice(flags, model):
@@ -5137,10 +5293,13 @@ def main() -> None:
             (["--quantize"], "int8", (qm.quant_attention_block,
                                       qm.quant_attention_cls,
                                       qm.quant_mlp_block))):
-        run_path(f"eval --synthetic ({tag}; 64 px: the small tower, "
-                 "head_dim 16)", counters,
-                 lambda flags=flags: synthetic_eval(flags, "cuda"),
-                 record=False)
+        # the CPU computes the int8 kernels' exact form: the card runs it
+        # too here (its default, the fast form, is another function)
+        with kernel_form(False):
+            run_path(f"eval --synthetic ({tag}; 64 px: the small tower, "
+                     "head_dim 16)", counters,
+                     lambda flags=flags: synthetic_eval(flags, "cuda"),
+                     record=False)
         synthetic_eval(flags, "cpu")
         (got, got_emb), (want, want_emb) = (synth[(tuple(flags), w)]
                                             for w in ("cuda", "cpu"))
@@ -5223,6 +5382,34 @@ def main() -> None:
         f32_noisy = tower8(px32 + 1e-3 * torch.randn(
             px32.shape, generator=igen, device=dev))
     f3, f32b = (torch.from_numpy(by_batch[bs]) for bs in (3, 32))
+    # the same gallery in the int8 kernels' exact form, as a user asks for
+    # it (PATENT_TPU_FAST_KERNELS=0): batch 3 (row 8) and 128 (rows 5, 6
+    # and 7), and batch 128 in the fast form; each batch's two forms held
+    # by min cosine
+    by_form = {}
+    for fast in (False, True):
+        for bs in ((3, 128) if not fast else (128,)):
+            with kernel_form(fast):
+                run_path(f"RetrievalEngine(batch_size={bs}).encode_paths, "
+                         f"int8 tower, {form_name(fast)}, {len(gallery)} "
+                         "images", (qm.quant_layer_block,) if bs == 3 else
+                         (qm.quant_attention_block, qm.quant_attention_cls,
+                          qm.quant_mlp_block),
+                         lambda bs=bs: engine_encode(bs))
+            by_form[bs, fast] = torch.from_numpy(by_batch[bs])
+    by_form[3, True] = f3
+    for bs in (3, 128):
+        cos_forms = min_row_cosine(torch, by_form[bs, True],
+                                   by_form[bs, False])
+        print(f"[slice] int8 gallery features, fast form (the card's "
+              f"default) vs exact form (PATENT_TPU_FAST_KERNELS=0), batch "
+              f"{bs}, {f3.shape[0]} images: min cosine {cos_forms:.6f}, rel "
+              f"err {rel_err(by_form[bs, True], by_form[bs, False]):.3g} "
+              f"(gate {INT8_FORMS_MIN_COS})")
+        check(bool(torch.isfinite(by_form[bs, False]).all())
+              and cos_forms >= INT8_FORMS_MIN_COS,
+              f"the int8 tower's two forms far apart at batch {bs}: min "
+              f"cosine {cos_forms} < {INT8_FORMS_MIN_COS}")
     cos_engine = min_row_cosine(torch, f3, f32b)
     print(f"[slice] int8 gallery features at batch 3 (whole layer) vs batch "
           f"32 (rows 5 + 7), {f3.shape[0]} images: min cosine "
@@ -5238,48 +5425,15 @@ def main() -> None:
     # the int8 family's public entries on ViT-B/16 tokens: layers 0..10 as
     # quant_layer_group(group=2) at batch 2 (row 9: row 8's kernel), then
     # int8_dense (row 10) and quant_mlp (row 11) with layer 0's weights on
-    # the stack's output
+    # the stack's output, in the card's default form and then with
+    # PATENT_TPU_FAST_KERNELS=0
     px2 = torch.randn(2, 224, 224, 3, generator=igen, device=dev)
-    fam = {}
+    for fast in (True, False):
+        with kernel_form(fast):
+            int8_family_slice(torch, qm, tower8, int8_dense, px2, heads,
+                              run_path, form_name(fast))
 
-    def family():
-        with torch.inference_mode():
-            xt, seq = tower8.embed(px2)
-            fam["x0"] = xt
-            for layer in tower8.blocks[:-1]:
-                xt = qm.quant_layer_group(xt, *layer.attn_weights(),
-                                          *layer.mlp_weights(), heads,
-                                          valid_len=seq, group=2)
-            l0 = tower8.blocks[0]
-            fam.update(x=xt, seq=seq, qkv=int8_dense(xt, l0.wqkv_t, l0.sqkv,
-                                                     l0.bqkv),
-                       mlp=qm.quant_mlp(xt, *l0.mlp_weights()[2:]))
-
-    run_path("int8 family entries: 11 x quant_layer_group(group=2) at batch "
-             "2, int8_dense and quant_mlp on its output",
-             (qm.quant_layer_group, qm.quant_dense, qm.quant_mlp), family)
-    with torch.inference_mode():
-        ref = fam["x0"]
-        for layer in tower8.blocks[:-1]:
-            ref = qm.quant_layer_block(ref, *layer.attn_weights(),
-                                       *layer.mlp_weights(), heads,
-                                       valid_len=fam["seq"])
-        l0 = tower8.blocks[0]
-        dense_gap = layer_gap(torch, fam["qkv"], qm.quant_dense_plain(
-            fam["x"], l0.wqkv_t, l0.sqkv, l0.bqkv))
-        mlp_gap = layer_gap(torch, fam["mlp"], qm.quant_mlp_plain(
-            fam["x"], *l0.mlp_weights()[2:]))
-    torch.cuda.synchronize()
-    print(f"[slice] the quant_layer_group stack equals the quant_layer_block "
-          f"stack bit for bit: {bool(torch.equal(ref, fam['x']))}; on its "
-          f"output int8_dense vs plain rel err {dense_gap[0]:.3g}, quant_mlp "
-          f"{mlp_gap[0]:.3g}")
-    check(bool(torch.equal(ref, fam["x"]))
-          and layer_passes(dense_gap, INT8_REL_TOL, INT8_MAX_ULPS)
-          and layer_passes(mlp_gap, INT8_REL_TOL, INT8_MAX_ULPS),
-          "the int8 family's entries disagree on the tower's tokens")
-    del fam, ref
-
+    # the bf16 towers at batch 32 over the same gallery: the fused-layer
     # the bf16 towers at batch 32 over the same gallery: the fused-layer
     # tower (rows 1-2), then the per-op towers of JAX's VisionTransformer
     # (fused_layer=False) from the same weights through a RetrievalEngine:
@@ -5519,6 +5673,19 @@ def main() -> None:
                 model(pix)
         return go
 
+    def in_form(fn, fast):
+        def go():
+            with kernel_form(fast):
+                fn()
+        return go
+
+    # the int8 tower in both forms, in turns: the card's default, the fast
+    # form, and PATENT_TPU_FAST_KERNELS=0, the exact form
+    te, tf = in_turns(torch, in_form(run_tower(tower8, True), False),
+                      in_form(run_tower(tower8, True), True))
+    print(f"[time] ViT-B/16 @224 int8 tower, batch {bt}, in turns: fast form "
+          f"{bt / tf * 1e3:.1f} img/s ({tf:.2f} ms), exact form "
+          f"{bt / te * 1e3:.1f} img/s ({te:.2f} ms) {label}")
     for tname, model in (("bf16", tower), ("int8", tower8)):
         tp, tk = in_turns(torch, run_tower(model, False),
                           run_tower(model, True))
@@ -5569,15 +5736,16 @@ def main() -> None:
               + f"): {ms:.3f} ms, {bv / ms * 1e3:.1f} img/s {label}")
 
     # the int8 tower at ragged batches (layers 0..10 through row 8): the
-    # latency of one image, and img/s at 3 and 127
+    # latency of one image, and img/s at 3 and 127, in both forms in turns
     for bv in (1, 3, bt - 1):
         def ragged(pv=pix[:bv]):
             with torch.inference_mode():
                 tower8(pv)
 
-        ms = cuda_ms(torch, ragged)
+        me, ms = in_turns(torch, in_form(ragged, False), in_form(ragged, True))
         print(f"[time] ViT-B/16 @224 int8 tower, batch {bv} (whole-layer "
-              f"kernel): {ms:.3f} ms, {bv / ms * 1e3:.1f} img/s {label}")
+              f"kernel): fast form {ms:.3f} ms, {bv / ms * 1e3:.1f} img/s; "
+              f"exact form {me:.3f} ms, {bv / me * 1e3:.1f} img/s {label}")
         print_breakdown(torch, f"int8 tower, batch {bv}", ragged)
 
     xb = torch.randn(bt, s, d, generator=gen, device=dev).to(torch.bfloat16)
@@ -5618,14 +5786,16 @@ def main() -> None:
             ("quant_mlp_block", qm, ip_mlp)):
         kernel = getattr(module, kname)
         plain = getattr(module, kname + "_plain")
-        times[kname] = in_turns(torch, lambda: plain(xb, *args),
-                                lambda: kernel(xb, *args))
-    # row 7 at a batch of 128: where its device time goes (each of its
-    # kernels launches once a call)
-    rows7 = sorted(launch_times(torch,
-                                lambda: qm.quant_mlp_block(xb, *ip_mlp)),
-                   key=lambda row: -row[1])
-    print(f"[time] row 7 (quant_mlp_block) at [{bt}, {s}, {d}], hidden {f}: "
+        for fast in (False, True):
+            times[kname + "_fast" * fast] = in_turns(
+                torch, lambda: plain(xb, *args, fast=fast),
+                lambda: kernel(xb, *args, fast=fast))
+    # row 7 at a batch of 128, exact form: where its device time goes (each
+    # of its kernels launches once a call)
+    rows7 = sorted(launch_times(torch, lambda: qm.quant_mlp_block(
+        xb, *ip_mlp, fast=False)), key=lambda row: -row[1])
+    print(f"[time] row 7 (quant_mlp_block) at [{bt}, {s}, {d}], hidden {f}, "
+          "exact form: "
           f"device time by kernel (torch.profiler, 30 calls) "
           f"{sum(ms for _k, ms, _n in rows7):.4f} ms a call; "
           + "; ".join(f"{row7_phase(kname)} {ms:.4f} ms ({n} launches seen)"
@@ -5637,38 +5807,46 @@ def main() -> None:
     layer_times = {}
     for bv in (1, 3, bt - 1):
         xl = xb[:bv]
-        pl, kl = in_turns(
-            torch, lambda: qm.quant_layer_block_plain(xl, *ip, heads, valid),
-            lambda: qm.quant_layer_block(xl, *ip, heads, valid))
+        for fast in (False, True):
+            pl, kl = in_turns(
+                torch, lambda: qm.quant_layer_block_plain(
+                    xl, *ip, heads, valid, fast=fast),
+                lambda: qm.quant_layer_block(xl, *ip, heads, valid,
+                                             fast=fast))
 
-        def folded_call(xl=xl):
-            return qm.quant_layer_block(xl, *ip, heads, valid, folded=fold8)
+            def folded_call(xl=xl, fast=fast):
+                return qm.quant_layer_block(xl, *ip, heads, valid,
+                                            folded=fold8, fast=fast)
 
-        kf = cuda_ms(torch, folded_call)
-        # the kernels line keeps a call's wall time, on the clock of every
-        # other row and of its plain time; at a query's batch much of it is
-        # the host's, and the device time says how much is the kernel's
-        kd = sum(ms for _k, ms in kernel_breakdown(torch, folded_call, 10))
-        chain = cuda_ms(torch, lambda: qm.quant_mlp_block(
-            qm.quant_attention_block(xl, *ip_attn, heads, valid), *ip_mlp))
-        layer_times[bv] = (pl, kl)
-        b8 = int8_family_bounds(bv, bt, s, valid, d, f, bt * s)
-        plan = qm.layer_plan(bv * s, d, f, qm.layer_grid())
-        print(f"[time] one int8 layer, B {bv}, S {s} ({valid} valid): whole-"
-              f"layer kernel {kd:.4f} ms of device time "
-              f"({'one cooperative launch, split '
-              f'{plan.split_out} / {plan.split_mlp}' if plan.coop else
-              'a chain of launches'}), a call {kl:.3f} ms of wall time "
-              f"({kf:.3f} ms on folded vectors), rows 5 + 7 kernels "
-              f"{chain:.3f} ms, plain {pl:.3f} ms, bound "
-              f"{b8['quant_layer_block'][0]:.4f} ms "
-              f"({b8['quant_layer_block'][1]}) {label}")
+            kf = cuda_ms(torch, folded_call)
+            # the kernels line keeps a call's wall time, on the clock of
+            # every other row and of its plain time; at a query's batch much
+            # of it is the host's, and the device time says how much is the
+            # kernel's
+            kd = sum(ms for _k, ms in kernel_breakdown(torch, folded_call,
+                                                       10))
+            chain = cuda_ms(torch, lambda: qm.quant_mlp_block(
+                qm.quant_attention_block(xl, *ip_attn, heads, valid,
+                                         fast=fast), *ip_mlp, fast=fast))
+            layer_times[bv, fast] = (pl, kl)
+            b8 = int8_family_bounds(bv, bt, s, valid, d, f, bt * s)
+            plan = qm.layer_plan(bv * s, d, f, qm.layer_grid())
+            print(f"[time] one int8 layer, {form_name(fast)}, B {bv}, S {s} "
+                  f"({valid} valid): whole-layer kernel {kd:.4f} ms of "
+                  f"device time ({'one cooperative launch, split '
+                  f'{plan.split_out} / {plan.split_mlp}' if plan.coop else
+                  'a chain of launches'}), a call {kl:.3f} ms of wall time "
+                  f"({kf:.3f} ms on folded vectors), rows 5 + 7 kernels "
+                  f"{chain:.3f} ms, plain {pl:.3f} ms, bound "
+                  f"{b8['quant_layer_block'][0]:.4f} ms "
+                  f"({b8['quant_layer_block'][1]}) {label}")
         if plan.coop:
-            # where the cooperative launch's time goes: block 0's clock at
-            # the end of each phase, over three launches
+            # where the cooperative launch's time goes (exact form): block
+            # 0's clock at the end of each phase, over three launches
             stamps = torch.zeros(11, dtype=torch.int64, device=dev)
             for _ in range(3):
-                qm._layer_kernel(xl, ip, heads, valid, fold8, stamps=stamps)
+                qm._layer_kernel(xl, ip, heads, valid, fold8, stamps=stamps,
+                                 fast=False)
             torch.cuda.synchronize()
             c = stamps.tolist()
             print(f"[time] one int8 layer, B {bv}: the cooperative launch's "
@@ -5677,20 +5855,24 @@ def main() -> None:
                       for i, name in enumerate(LAYER_PHASES)))
     # row 8's launches on the main path are at B 3 (RetrievalEngine at
     # batch_size 3)
-    times["quant_layer_block"] = layer_times[3]
-    times["quant_layer_group"] = in_turns(
-        torch, lambda: qm.quant_layer_group_plain(xb, *ip, heads, valid),
-        lambda: qm.quant_layer_group(xb, *ip, heads, valid))
     x2d = xb.reshape(-1, d)
     m = x2d.shape[0]
-    times["quant_dense"] = in_turns(
-        torch, lambda: qm.quant_dense_plain(x2d, *ip_attn[2:5]),
-        lambda: qm.quant_dense(x2d, *ip_attn[2:5]))
-    times["quant_mlp"] = in_turns(
-        torch, lambda: qm.quant_mlp_plain(x2d, *ip_mlp[2:]),
-        lambda: qm.quant_mlp(x2d, *ip_mlp[2:]))
-    dev11 = launch_times(torch, lambda: qm.quant_mlp(x2d, *ip_mlp[2:]), 10)
-    print(f"[time] row 11 (quant_mlp) at [{m} x {d}], H {f}: "
+    for sfx, fast in (("", False), ("_fast", True)):
+        times["quant_layer_block" + sfx] = layer_times[3, fast]
+        times["quant_layer_group" + sfx] = in_turns(
+            torch, lambda: qm.quant_layer_group_plain(xb, *ip, heads, valid,
+                                                      fast=fast),
+            lambda: qm.quant_layer_group(xb, *ip, heads, valid, fast=fast))
+        times["quant_dense" + sfx] = in_turns(
+            torch, lambda: qm.quant_dense_plain(x2d, *ip_attn[2:5],
+                                                fast=fast),
+            lambda: qm.quant_dense(x2d, *ip_attn[2:5], fast=fast))
+        times["quant_mlp" + sfx] = in_turns(
+            torch, lambda: qm.quant_mlp_plain(x2d, *ip_mlp[2:], fast=fast),
+            lambda: qm.quant_mlp(x2d, *ip_mlp[2:], fast=fast))
+    dev11 = launch_times(torch, lambda: qm.quant_mlp(x2d, *ip_mlp[2:],
+                                                     fast=False), 10)
+    print(f"[time] row 11 (quant_mlp) at [{m} x {d}], H {f}, exact form: "
           f"{times['quant_mlp'][1]:.4f} ms a call (wall); device time by "
           "kernel (torch.profiler, 10 calls) "
           + ", ".join(f"{ms:.4f} ms a launch ({n} launches seen) "
@@ -5795,6 +5977,8 @@ def main() -> None:
               "flash_attention_f32": bound(
                   4 * 4 * bt * valid * d,
                   {"fp32": 4 * bt * valid * valid * d})}
+    # the same work in either form
+    bounds.update({k + "_fast": bounds[k] for k in INT8_ENTRIES})
 
     # one training step at 64 pairs (ClipFinetuneConfig's defaults), u8
     # batches already on the card: first one step with the kernels against
@@ -6001,6 +6185,12 @@ def main() -> None:
              "patent_tpu/ops/flash_attention.py:360"),
             ("flash_attention_f32_hd80", "flash_attention_f32.cu",
              "patent_tpu/ops/flash_attention.py:187")]
+    # rows 5-11's fast form (the card's default, JAX's on its TPU): the same
+    # sources and TPU kernels; an entry's own count holds both forms
+    rows += [(kname + "_fast", source, replaces)
+             for kname, source, replaces in rows if kname in INT8_ENTRIES]
+    for kname in INT8_ENTRIES:
+        launches[kname] -= launches.get(kname + "_fast", 0)
     errs["bucket_topk_bf16"] = err_topk
     print(f"[phase] done at {time.perf_counter() - t_run:.0f} s")
     # one PyTorch call computes row 14's function in each dtype (up to its

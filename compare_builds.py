@@ -61,14 +61,18 @@ CUDA events, 20 calls after 3 of warm-up) of:
   forced, on [3, 592, 1,024]; row 13 on [128, 592, 1,024] and [128, 272,
   1,280] (the fine-tune's streams at 64 pairs), each with its device time;
 
-with the card's name and power limit.  Run each checkout in its own
+with the card's name and power limit, and the int8 kernels' form it asked
+for (PATENT_TPU_FAST_KERNELS, which ``run`` passes on to the checkout: it
+runs in this process).  Run each checkout in its own
 process: two builds of the kernel library cannot share one.  ``compare``
 prints, for each output, whether the first two files hold the same bits
 (else the largest difference relative to the largest value) and how many
 of the outputs both hold are equal, then every file's times side by
 side.  A run of the parent lacks the outputs this checkout added.  To compare a parent commit with a change,
 run parent, change, change, parent one after another on the same card,
-each from a ``git archive`` of its commit, and compare the four files.
+each from a ``git archive`` of its commit, and compare the four files;
+with PATENT_TPU_FAST_KERNELS=0 set for all four, a change that adds the
+fast form keeps every output of its parent's exact one.
 """
 
 from __future__ import annotations
@@ -80,6 +84,15 @@ import sys
 from chip_smoke import cuda_ms, kernel_breakdown, launch_times
 
 SEARCH_ROWS = 1_000_000     # the galleries of rows 3, 3′ and 4
+
+
+def form() -> str:
+    """The int8 kernels' form this process asks for: the checkout's entries
+    read PATENT_TPU_FAST_KERNELS from the environment it inherits (a
+    checkout from before the fast form computes the exact one whatever it
+    says)."""
+    return ("PATENT_TPU_FAST_KERNELS="
+            + os.environ.get("PATENT_TPU_FAST_KERNELS", "unset"))
 
 
 def busy_share(torch, fn, wall_ms: float, iters: int = 3) -> float:
@@ -199,11 +212,11 @@ def run(root: str, out_path: str) -> None:
     device.update(attention_rows(torch, dev, outs, times))
     device.update(wide_attention(torch, dev, outs, times))
     torch.cuda.synchronize()
-    torch.save({"root": os.path.abspath(root), "card": smi,
+    torch.save({"root": os.path.abspath(root), "card": smi, "form": form(),
                 "outputs": {key: v.cpu() for key, v in outs.items()},
                 "times": times, "busy": busy, "device": device}, out_path)
-    print(f"{root}: {smi}; " + "; ".join(f"{key} {ms:.4f} ms"
-                                         for key, ms in times.items()))
+    print(f"{root}: {smi}; {form()}; " + "; ".join(
+        f"{key} {ms:.4f} ms" for key, ms in times.items()))
 
 
 def timed(torch, name: str, fn, outs: dict, times: dict, device: dict,
@@ -606,7 +619,9 @@ def compare(paths: list[str]) -> None:
 
     runs = [torch.load(p) for p in paths]
     a, b = runs[0]["outputs"], runs[1]["outputs"]
-    print(f"[compare] {paths[0]} against {paths[1]} ({runs[0]['card']})")
+    print(f"[compare] {paths[0]} against {paths[1]} ({runs[0]['card']}; "
+          + ", ".join(r.get("form", "PATENT_TPU_FAST_KERNELS=unset")
+                      for r in runs[:2]) + ")")
     differ = []
     for key in a:
         if key not in b:

@@ -63,6 +63,27 @@ __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
+// The int8 kernels' fast form (csrc/int8_layer.cu): the reciprocal
+// f32(bf16(1 / f32(bf16(x)))), what the JAX kernels' approximate
+// reciprocal lowers to off the TPU.  y = bf16(x) has 8 significant bits,
+// so 1 / y lies at least 128 f32 ulps from every bf16 rounding midpoint
+// (tests/test_torch_int8_fast.py checks each of the 128 mantissas): the
+// hardware's approximate reciprocal (rcp.approx.f32, within 1 ulp, one
+// instruction; subnormals kept) rounds to the bf16 value the IEEE divide
+// rounds to, bit for bit.
+__device__ __forceinline__ float recip_bf16(float x) {
+  float r;
+  asm("rcp.approx.f32 %0, %1;"
+      : "=f"(r)
+      : "f"(__bfloat162float(__float2bfloat16_rn(x))));
+  return __bfloat162float(__float2bfloat16_rn(r));
+}
+// and its int8 code of v: rint, saturated to [-128, 127] as XLA's f32 ->
+// s8 convert saturates (x * inv reaches 127.74 there)
+__device__ __forceinline__ signed char sat_s8(float v) {
+  return (signed char)max(-128, min(127, __float2int_rn(v)));
+}
+
 // 16-byte global -> shared copy that bypasses registers; pred == false
 // zero-fills the destination (the source address is then not read).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

@@ -9,7 +9,9 @@
 //        load: bf16(f32(q) * scale), the TPU kernel's order)
 //   p  = bf16(exp2(clip(q'.k, -100, 80))), keys at or past valid_len p = 0
 //   o  = (p v) / sum(p)          f32 sums of the rounded p, an exact divide,
-//                                stored bf16 (rounded) or f32
+//                                stored bf16 (rounded) or f32; the int8
+//                                layers' fast form (FAST, f32 output only)
+//                                multiplies by ptt::recip_bf16(sum(p))
 //
 // With no max subtraction there is no running max to rescale by, so the
 // softmax is one pass over the keys, 16 at a time, with nothing carried
@@ -82,7 +84,8 @@
 //     one more m16n8k16 of p against a block of ones gives each row's f32
 //     sum of its rounded p; the key mask runs only on the step that holds
 //     valid_len;
-//   * the output is divided exactly, rounded, and stored from registers.
+//   * the output is divided exactly (FAST: times the bf16 reciprocal),
+//     rounded, and stored from registers.
 // What bounds it, measured: at [32, 577, 16, 64] the streamed tile runs
 // at about a quarter of the larger of its byte and product bounds: a
 // warp's chain of products, exponentials and products waits on itself,
@@ -377,23 +380,31 @@ __device__ __forceinline__ void key_step(const uint32_t (&qa)[HD / 16][4],
 }
 
 // The outputs of query rows r0 and r0 + 8 below n_q, their first hd
-// columns: divided exactly, rounded to OutT
-template <int HD, typename OutT>
+// columns: divided exactly (FAST: multiplied by the bf16 reciprocal of the
+// row sum, the int8 layers' fast form), rounded to OutT
+template <int HD, typename OutT, bool FAST = false>
 __device__ __forceinline__ void store_o(OutT* __restrict__ ob, int o_row,
                                         const float (&oacc)[HD / 8][4],
                                         const float (&lacc)[4], int r0,
                                         int n_q, int hd, int t) {
+  static_assert(!FAST || std::is_same<OutT, float>::value,
+                "the fast form is the int8 layers' f32 output's");
   const int r1 = r0 + 8;
+  const float d0 = FAST ? ptt::recip_bf16(lacc[0]) : lacc[0];
+  const float d1 = FAST ? ptt::recip_bf16(lacc[2]) : lacc[2];
+  auto norm = [](float o, float d) {
+    return FAST ? __fmul_rn(o, d) : __fdiv_rn(o, d);
+  };
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     const int c = 8 * j + 2 * t;
     if (j == HD / 8 - 1 && hd < HD) break;   // the last 8 columns, past hd
     if (r0 < n_q)
-      ptt::store2(&ob[(size_t)r0 * o_row + c], __fdiv_rn(oacc[j][0], lacc[0]),
-                  __fdiv_rn(oacc[j][1], lacc[0]));
+      ptt::store2(&ob[(size_t)r0 * o_row + c], norm(oacc[j][0], d0),
+                  norm(oacc[j][1], d0));
     if (r1 < n_q)
-      ptt::store2(&ob[(size_t)r1 * o_row + c], __fdiv_rn(oacc[j][2], lacc[2]),
-                  __fdiv_rn(oacc[j][3], lacc[2]));
+      ptt::store2(&ob[(size_t)r1 * o_row + c], norm(oacc[j][2], d1),
+                  norm(oacc[j][3], d1));
   }
 }
 
@@ -407,9 +418,9 @@ __device__ __forceinline__ void store_o(OutT* __restrict__ ob, int o_row,
 // cooperative launch): K and V stream through a two-stage cp.async ring
 // once for every NWARPS query tiles; else (Sp <= RING) they are loaded
 // once.  A query row's output depends on that row alone,
-// whatever the others hold, and is the same either way.
+// whatever the others hold, and is the same either way.  FAST: store_o's.
 template <int HD, bool SCALE_Q, bool STREAM, typename OutT = bf16,
-          int NWARPS = WARPS>
+          int NWARPS = WARPS, bool FAST = false>
 __device__ __forceinline__ void flash_tile(
     const bf16* __restrict__ q, long long q_img, int q_row, int n_q,
     const bf16* __restrict__ k, const bf16* __restrict__ v, long long kv_img,
@@ -441,7 +452,7 @@ __device__ __forceinline__ void flash_tile(
       float lacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // row sums: [0] g, [2] g+8
       for (int n = 0; n < Sp; n += 16)
         key_step<HD>(qa, oacc, lacc, Ks, Vs, n, n, valid_len, lane);
-      store_o<HD, OutT>(ob, o_row, oacc, lacc, r0, n_q, hd, t);
+      store_o<HD, OutT, FAST>(ob, o_row, oacc, lacc, r0, n_q, hd, t);
     }
   } else {
     // a pass of NWARPS query tiles, a tile a warp, over key blocks of KB
@@ -483,13 +494,14 @@ __device__ __forceinline__ void flash_tile(
         __syncthreads();             // block i's stage is free
       }
       ptt::cp_async_wait<0>();
-      if (active) store_o<HD, OutT>(ob, o_row, oacc, lacc, r0, n_q, hd, t);
+      if (active)
+        store_o<HD, OutT, FAST>(ob, o_row, oacc, lacc, r0, n_q, hd, t);
     }
   }
 }
 
 // The resident path: one block of THREADS threads per (head, image).
-template <int HD, bool SCALE_Q, typename OutT>
+template <int HD, bool SCALE_Q, typename OutT, bool FAST = false>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const bf16* __restrict__ q, long long q_img, int q_row,
                  int n_q, const bf16* __restrict__ k,
@@ -497,7 +509,7 @@ __global__ void __launch_bounds__(THREADS)
                  OutT* __restrict__ o, long long o_img, int o_row, int Sp,
                  int valid_len, int hd, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  flash_tile<HD, SCALE_Q, false, OutT>(
+  flash_tile<HD, SCALE_Q, false, OutT, WARPS, FAST>(
       q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img, o_row, Sp,
       valid_len, hd, scale, blockIdx.x, blockIdx.y, smem);
 }
@@ -614,7 +626,7 @@ __device__ __forceinline__ void ring_init(unsigned char* smem_raw, bf16*& Ks,
 // passes x heads x images, so that a (head, image)'s passes are adjacent
 // in launch order): NW consumer warps of one 16-row query tile each, then
 // the producer warp.
-template <int HD, bool SCALE_Q, typename OutT>
+template <int HD, bool SCALE_Q, typename OutT, bool FAST = false>
 __global__ void __launch_bounds__(Stream<HD>::THREADS, Stream<HD>::MINB)
     stream_kernel(const __grid_constant__ PartMaps kmaps,
                   const __grid_constant__ PartMaps vmaps,
@@ -668,7 +680,7 @@ __global__ void __launch_bounds__(Stream<HD>::THREADS, Stream<HD>::MINB)
     __syncwarp();
     if (lane == 0) ptt_wgmma::mbar_arrive(&empty[s]);
   }
-  if (active) store_o<HD, OutT>(ob, o_row, oacc, lacc, r0, nq, hd, t);
+  if (active) store_o<HD, OutT, FAST>(ob, o_row, oacc, lacc, r0, nq, hd, t);
 }
 
 // The 4-D map of a head's rows in a strided [images, rows, heads x hd]
@@ -710,7 +722,7 @@ inline bool part_maps(PartMaps* maps, const bf16* p, int hd, int H, int rows,
   return true;
 }
 
-template <int HD, bool SCALE_Q, typename OutT>
+template <int HD, bool SCALE_Q, typename OutT, bool FAST>
 int launch_resident(const bf16* q, long long q_img, int q_row, int n_q,
                     const bf16* k, const bf16* v, long long kv_img,
                     int kv_row, OutT* o, long long o_img, int o_row, int B,
@@ -718,16 +730,16 @@ int launch_resident(const bf16* q, long long q_img, int q_row, int n_q,
                     cudaStream_t st) {
   const size_t smem = tile_smem<HD>(Sp);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<HD, SCALE_Q, OutT>,
+      flash_kernel<HD, SCALE_Q, OutT, FAST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_kernel<HD, SCALE_Q, OutT><<<dim3(H, B), THREADS, smem, st>>>(
+  flash_kernel<HD, SCALE_Q, OutT, FAST><<<dim3(H, B), THREADS, smem, st>>>(
       q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img, o_row, Sp,
       valid_len, hd, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD, bool SCALE_Q, typename OutT>
+template <int HD, bool SCALE_Q, typename OutT, bool FAST>
 int launch_streamed(const bf16* q, long long q_img, int q_row, int n_q,
                     const bf16* k, const bf16* v, long long kv_img,
                     int kv_row, OutT* o, long long o_img, int o_row, int B,
@@ -741,11 +753,11 @@ int launch_streamed(const bf16* q, long long q_img, int q_row, int n_q,
                                 kv_img))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      stream_kernel<HD, SCALE_Q, OutT>,
+      stream_kernel<HD, SCALE_Q, OutT, FAST>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SL::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int passes = (n_q + SL::ROWS - 1) / SL::ROWS;
-  stream_kernel<HD, SCALE_Q, OutT>
+  stream_kernel<HD, SCALE_Q, OutT, FAST>
       <<<dim3(passes, H, B), SL::THREADS, SL::SMEM, st>>>(
           kmaps, vmaps, q, q_img, q_row, n_q, o, o_img, o_row, Sp, valid_len,
           hd, scale);
@@ -755,8 +767,8 @@ int launch_streamed(const bf16* q, long long q_img, int q_row, int n_q,
 // Launch over (heads, images) at real head width hd (a multiple of 8 up to
 // MAX_HEAD_DIM) on the instance tile_width(hd); returns cudaGetLastError(),
 // or cudaErrorInvalidValue for a width or a sequence the tile does not
-// take.
-template <bool SCALE_Q, typename OutT = bf16>
+// take.  FAST (an f32 output only): the int8 layers' fast normalize.
+template <bool SCALE_Q, typename OutT = bf16, bool FAST = false>
 int attention(const bf16* q, long long q_img, int q_row, int n_q,
               const bf16* k, const bf16* v, long long kv_img, int kv_row,
               OutT* o, long long o_img, int o_row, int B, int H, int hd,
@@ -766,10 +778,10 @@ int attention(const bf16* q, long long q_img, int q_row, int n_q,
   auto run = [&](auto w) {
     constexpr int HD = decltype(w)::value;
     return Sp > Layout<HD>::RING
-               ? launch_streamed<HD, SCALE_Q, OutT>(
+               ? launch_streamed<HD, SCALE_Q, OutT, FAST>(
                      q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img,
                      o_row, B, H, hd, Sp, valid_len, scale, st)
-               : launch_resident<HD, SCALE_Q, OutT>(
+               : launch_resident<HD, SCALE_Q, OutT, FAST>(
                      q, q_img, q_row, n_q, k, v, kv_img, kv_row, o, o_img,
                      o_row, B, H, hd, Sp, valid_len, scale, st);
   };

@@ -12,7 +12,9 @@
 //                      _qlayer_group_kernel (quant_layer_group)
 //   ptt_int8_dense     _qdense_kernel (quant_dense)
 //   ptt_int8_qmlp      _qmlp_kernel (quant_mlp)
-// in their exact-division form (fast=False, the XLA fallback's numerics):
+// in either of their two forms, picked by each entry's `fast` as the JAX
+// package's `fast` picks them: the exact-division form (fast=False, the
+// XLA fallback's numerics):
 //
 //   attention:  h = LN1(x);  (hq, hs) = rowquant(h)
 //               qkv = bf16(f32(hq @ Wqkv) * hs * sqkv' + bqkv')
@@ -32,6 +34,16 @@
 //
 // rowquant(r): amax = max(max|r|, 1e-8); scale = amax * f32(1/127);
 // q = rint(r / scale) (round half to even, an IEEE divide, no clip).  The
+// fast form (fast=1, JAX's default on its accelerator) takes each of
+// those divides as a multiply by recip(x) = f32(bf16(1 / f32(bf16(x))))
+// (ptt::recip_bf16; JAX's approximate reciprocal off the TPU): rowquant's
+// codes are sat_s8(rint(r * (recip(amax) * 127))), -128 to 127 (r * inv
+// reaches 127.74, and XLA's f32 -> s8 convert saturates), with the same
+// scale; quick_gelu is g * recip(1 + exp2(...)) (csrc/wgmma_s8.cuh's
+// EPI_GELU_FAST, whose row maxima are of those values); the attention's
+// normalize is o * recip(sum(p)) (csrc/flash_tile.cuh's FAST).  Each
+// function below takes the form as a template flag FAST, and the exact
+// form's code and bits are those it had alone.  The
 // epilogues use explicitly rounded multiplies and adds (__fmul_rn,
 // __fadd_rn) in the oracle's order, so that no fused multiply-add changes
 // a rounding against the plain PyTorch version.
@@ -115,11 +127,37 @@ namespace {
 
 constexpr float INV127 = (float)(1.0 / 127.0);
 
+// A row's quantization from its amax = max(max|r|, 1e-8): the scale, and
+// the code of each value; the exact form divides by the scale, the fast
+// form multiplies by recip(amax) * 127 and saturates.
+template <bool FAST>
+struct RowCode {
+  float sc, inv;
+
+  __device__ __forceinline__ explicit RowCode(float amax) {
+    sc = __fmul_rn(amax, INV127);
+    inv = FAST ? __fmul_rn(ptt::recip_bf16(amax), 127.0f) : 0.0f;
+  }
+
+  __device__ __forceinline__ signed char operator()(float v) const {
+    if constexpr (FAST)
+      return ptt::sat_s8(__fmul_rn(v, inv));
+    else
+      return (signed char)__float2int_rn(__fdiv_rn(v, sc));
+  }
+};
+
+// f(std::bool_constant<FAST>()) for the form an entry's `fast` names
+template <typename F>
+int by_form(int fast, F f) {
+  return fast ? f(std::true_type()) : f(std::false_type());
+}
+
 // One row, by one warp: [LayerNorm (f32 statistics, eps 1e-5), then] the
 // per-row int8 quantization.  Writes q[row] int8 and its scale qs[row].
 // The row is read again in each pass (it stays in L1/L2) and every pass
 // recomputes the same f32 values.
-template <bool LN, typename InT>
+template <bool LN, typename InT, bool FAST>
 __device__ __forceinline__ void rowquant_row(
     const InT* __restrict__ x, int ldx, const float* __restrict__ lns,
     const float* __restrict__ lnb, int8_t* __restrict__ q, int ldq,
@@ -148,14 +186,13 @@ __device__ __forceinline__ void rowquant_row(
   };
   float amax = 0.0f;
   for (int c = lane; c < D; c += 32) amax = fmaxf(amax, fabsf(val(c)));
-  const float sc = __fmul_rn(fmaxf(ptt::warp_max(amax), 1e-8f), INV127);
+  const RowCode<FAST> code(fmaxf(ptt::warp_max(amax), 1e-8f));
   int8_t* qr = q + (size_t)row * ldq;
-  for (int c = lane; c < D; c += 32)
-    qr[c] = (int8_t)__float2int_rn(__fdiv_rn(val(c), sc));
-  if (lane == 0) qs[row] = sc;
+  for (int c = lane; c < D; c += 32) qr[c] = code(val(c));
+  if (lane == 0) qs[row] = code.sc;
 }
 
-template <bool LN, typename InT>
+template <bool LN, typename InT, bool FAST>
 __global__ void rowquant_kernel(const InT* __restrict__ x, int ldx,
                                 const float* __restrict__ lns,
                                 const float* __restrict__ lnb,
@@ -163,8 +200,8 @@ __global__ void rowquant_kernel(const InT* __restrict__ x, int ldx,
                                 float* __restrict__ qs, int M, int D) {
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row < M)
-    rowquant_row<LN, InT>(x, ldx, lns, lnb, q, ldq, qs, row, D,
-                          threadIdx.x & 31);
+    rowquant_row<LN, InT, FAST>(x, ldx, lns, lnb, q, ldq, qs, row, D,
+                                threadIdx.x & 31);
 }
 
 // Reads and clears the last CUDA error, so that a failed launch is
@@ -181,11 +218,11 @@ struct named {
   using type = T;
 };
 
-template <bool LN, typename InT>
+template <bool LN, typename InT, bool FAST>
 int rowquant(const InT* x, int ldx, const float* lns, const float* lnb,
              int8_t* q, int ldq, float* qs, int M, int D, cudaStream_t st) {
-  rowquant_kernel<LN, InT><<<(M + 7) / 8, 256, 0, st>>>(x, ldx, lns, lnb, q,
-                                                        ldq, qs, M, D);
+  rowquant_kernel<LN, InT, FAST><<<(M + 7) / 8, 256, 0, st>>>(
+      x, ldx, lns, lnb, q, ldq, qs, M, D);
   return (int)cudaGetLastError();
 }
 
@@ -193,29 +230,28 @@ int rowquant(const InT* x, int ldx, const float* lns, const float* lnb,
 // aligned) given each row's max |g| in amax [M]: one streaming pass, a
 // block a row, four values a thread at a time; the scale and codes are
 // rowquant_row's, bit for bit (the max is exact in any order).
+template <bool FAST>
 __global__ void __launch_bounds__(256)
     rowquant_amax_kernel(const float* __restrict__ g,
                          const float* __restrict__ amax,
                          int8_t* __restrict__ q, float* __restrict__ qs,
                          int F) {
   const size_t row = blockIdx.x;
-  const float sc = __fmul_rn(fmaxf(amax[row], 1e-8f), INV127);
+  const RowCode<FAST> code(fmaxf(amax[row], 1e-8f));
   const float4* gr = reinterpret_cast<const float4*>(g + row * F);
   char4* qr = reinterpret_cast<char4*>(q + row * F);
-  auto code = [&](float v) {
-    return (signed char)__float2int_rn(__fdiv_rn(v, sc));
-  };
 #pragma unroll 4
   for (int c = threadIdx.x; c < F / 4; c += blockDim.x) {
     const float4 v = __ldcs(gr + c);     // read once
     qr[c] = make_char4(code(v.x), code(v.y), code(v.z), code(v.w));
   }
-  if (threadIdx.x == 0) qs[row] = sc;
+  if (threadIdx.x == 0) qs[row] = code.sc;
 }
 
+template <bool FAST>
 int rowquant_amax(const float* g, const float* amax, int8_t* q, float* qs,
                   int M, int F, cudaStream_t st) {
-  rowquant_amax_kernel<<<M, 256, 0, st>>>(g, amax, q, qs, F);
+  rowquant_amax_kernel<FAST><<<M, 256, 0, st>>>(g, amax, q, qs, F);
   return (int)cudaGetLastError();
 }
 
@@ -235,21 +271,23 @@ int gemm_wg(const int8_t* A, const float* rs, const int8_t* Bt,
 // MLP in with its row maxima, then the hidden's one-pass quantization:
 // g = quick_gelu(dequant(A . Bt^T) + bias) [M, N] f32, amax [M] its rows'
 // max |g|, gq [M, N] and gs [M] their codes and scales
+template <bool FAST>
 int gelu_quant(const int8_t* A, const float* rs, const int8_t* Bt,
                const float* cs, const float* bias, float* g, float* amax,
                int8_t* gq, float* gs, int M, int N, int K, cudaStream_t st) {
   PTT_TRY(last_error(cudaMemsetAsync(amax, 0, sizeof(float) * M, st)));
-  PTT_TRY((gemm_wg<s8::EPI_GELU, float, bf16, true>(
+  PTT_TRY((gemm_wg<s8::gelu_epi(FAST), float, bf16, true>(
       A, rs, Bt, cs, bias, nullptr, g, M, N, K, st, amax)));
-  return rowquant_amax(g, amax, gq, gs, M, N, st);
+  return rowquant_amax<FAST>(g, amax, gq, gs, M, N, st);
 }
 
 // attention with an f32 output over (heads, images), q, k, v the strided
 // thirds of qkv [B, S, 3D]
+template <bool FAST>
 int attention_f32(const bf16* qkv, float* ao, int B, int S, int D, int H,
                   int valid_len, cudaStream_t st) {
   const long long img = (long long)S * 3 * D;
-  return ptt_flash::attention<false, float>(
+  return ptt_flash::attention<false, float, FAST>(
       qkv, img, 3 * D, S, qkv + D, qkv + 2 * D, img, 3 * D, ao,
       (long long)S * D, D, B, H, D / H, S, valid_len, 0.0f, st);
 }
@@ -313,7 +351,7 @@ __device__ __forceinline__ int rows_per_block(int M) {
 // row's max is exact in any order, so the codes and scales equal
 // rowquant_row's.  val(r, c) gives element c of row r; red holds
 // LAYER_WARPS^2 floats.
-template <typename Val>
+template <bool FAST, typename Val>
 __device__ __forceinline__ void rowquant_rows(Val val, int8_t* __restrict__ q,
                                               float* __restrict__ qs, int r0,
                                               int n, int D, float* red) {
@@ -330,11 +368,10 @@ __device__ __forceinline__ void rowquant_rows(Val val, int8_t* __restrict__ q,
     float amax = red[r * LAYER_WARPS];
     for (int w = 1; w < LAYER_WARPS; ++w)
       amax = fmaxf(amax, red[r * LAYER_WARPS + w]);
-    const float sc = __fmul_rn(fmaxf(amax, 1e-8f), INV127);
+    const RowCode<FAST> code(fmaxf(amax, 1e-8f));
     int8_t* qr = q + (size_t)(r0 + r) * D;
-    for (int c = threadIdx.x; c < D; c += blockDim.x)
-      qr[c] = (int8_t)__float2int_rn(__fdiv_rn(val(r, c), sc));
-    if (threadIdx.x == 0) qs[r0 + r] = sc;
+    for (int c = threadIdx.x; c < D; c += blockDim.x) qr[c] = code(val(r, c));
+    if (threadIdx.x == 0) qs[r0 + r] = code.sc;
   }
   __syncthreads();                  // red and val's source are the next's
 }
@@ -367,6 +404,7 @@ __device__ __forceinline__ int part_sum(const int* __restrict__ part,
   return acc;
 }
 
+template <bool FAST>
 __global__ void __launch_bounds__(s8::THREADS, 1)
     int8_layer_kernel(const LayerArgs a,
                       const __grid_constant__ LayerMaps maps) {
@@ -388,8 +426,8 @@ __global__ void __launch_bounds__(s8::THREADS, 1)
 
   // 1. LN1 + quantization of x, a warp a row
   for (int row = gwarp; row < M; row += gwarps)
-    rowquant_row<true, bf16>(a.x, D, a.ln1s, a.ln1b, a.hq, D, a.hs, row, D,
-                             lane);
+    rowquant_row<true, bf16, FAST>(a.x, D, a.ln1s, a.ln1b, a.hq, D, a.hs,
+                                   row, D, lane);
   grid_sync(grid);
   stamp();
   // 2. qkv = bf16(dequant(hq . Wqkv^T) + bq), the q columns folded
@@ -419,7 +457,7 @@ __global__ void __launch_bounds__(s8::THREADS, 1)
       const int q0 = t % chunks * rows;
       auto run = [&](auto streamed) {
         ptt_flash::flash_tile<HD, false, decltype(streamed)::value, float,
-                              LAYER_WARPS>(
+                              LAYER_WARPS, FAST>(
             a.qkv + (size_t)q0 * 3 * D, img, 3 * D, min(rows, S - q0),
             a.qkv + D, a.qkv + 2 * D, img, 3 * D, a.ao + (size_t)q0 * D,
             (long long)S * D, D, S, a.valid_len, D / a.H, 0.0f,
@@ -450,8 +488,9 @@ __global__ void __launch_bounds__(s8::THREADS, 1)
   const int per = rows_per_block(M);
   for (int r0 = blockIdx.x * per; r0 < M; r0 += gridDim.x * per) {
     const float* rows = a.ao + (size_t)r0 * D;
-    rowquant_rows([&](int r, int c) { return rows[(size_t)r * D + c]; },
-                  a.aq, a.as, r0, min(per, M - r0), D, red);
+    rowquant_rows<FAST>(
+        [&](int r, int c) { return rows[(size_t)r * D + c]; }, a.aq, a.as,
+        r0, min(per, M - r0), D, red);
   }
   grid_sync(grid);
   stamp();
@@ -479,14 +518,15 @@ __global__ void __launch_bounds__(s8::THREADS, 1)
     __syncthreads();
     const int w = threadIdx.x >> 5;
     if (w < n)
-      rowquant_row<true, float>(x1s + (size_t)w * D, 0, a.ln2s, a.ln2b,
-                                a.hq2, D, a.hs2, r0 + w, D, lane);
+      rowquant_row<true, float, FAST>(x1s + (size_t)w * D, 0, a.ln2s,
+                                      a.ln2b, a.hq2, D, a.hs2, r0 + w, D,
+                                      lane);
     __syncthreads();
   }
   grid_sync(grid);
   stamp();
   // 7. g = quick_gelu(dequant(hq2 . W1^T) + b1), f32
-  s8::gemm_units<s8::EPI_GELU, float, float>(
+  s8::gemm_units<s8::gelu_epi(FAST), float, float>(
       &maps.hq2, &maps.w1,
       s8::Gemm{a.hs2, a.s1, a.b1, nullptr, 0, a.g, F, M, F, D, 1},
       blockIdx.x, gridDim.x, ring);
@@ -495,8 +535,9 @@ __global__ void __launch_bounds__(s8::THREADS, 1)
   // 8. quantization of g, a block a few rows
   for (int r0 = blockIdx.x * per; r0 < M; r0 += gridDim.x * per) {
     const float* rows = a.g + (size_t)r0 * F;
-    rowquant_rows([&](int r, int c) { return rows[(size_t)r * F + c]; },
-                  a.gq, a.gs, r0, min(per, M - r0), F, red);
+    rowquant_rows<FAST>(
+        [&](int r, int c) { return rows[(size_t)r * F + c]; }, a.gq, a.gs,
+        r0, min(per, M - r0), F, red);
   }
   grid_sync(grid);
   stamp();
@@ -519,26 +560,32 @@ __global__ void __launch_bounds__(s8::THREADS, 1)
   stamp();
 }
 
-// The cooperative grid: every block that fits on the current card at once
-// (a barrier across blocks needs them all resident), asked once a device.
+// The cooperative grid: every block of either form's kernel that fits on
+// the current card at once (a barrier across blocks needs them all
+// resident), asked once a device.
 int layer_grid(int* blocks) {
   static int n[ptt::MAX_DEVICES] = {};
   int dev = 0;
   PTT_TRY(ptt::current_device(&dev));
   if (n[dev] == 0) {
-    int coop = 0, sms = 0, per_sm = 0;
+    int coop = 0, sms = 0, per_sm = 1 << 30;
     cudaError_t e =
         cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(int8_layer_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)LAYER_SMEM);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, int8_layer_kernel, s8::THREADS, LAYER_SMEM);
+    for (const void* kernel : {(const void*)int8_layer_kernel<false>,
+                               (const void*)int8_layer_kernel<true>}) {
+      int fits = 0;
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)LAYER_SMEM);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &fits, kernel, s8::THREADS, LAYER_SMEM);
+      per_sm = fits < per_sm ? fits : per_sm;
+    }
     if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidConfiguration;
     if (e != cudaSuccess) return last_error(e);
     n[dev] = per_sm * sms;
@@ -547,6 +594,7 @@ int layer_grid(int* blocks) {
   return 0;
 }
 
+template <bool FAST>
 int layer_coop(const LayerArgs& a, cudaStream_t st) {
   if (a.tile_width == 0 ||         // D / H is not a width the tile takes
       (size_t)LAYER_WARPS * a.D * sizeof(float) > LAYER_RING ||
@@ -567,29 +615,31 @@ int layer_coop(const LayerArgs& a, cudaStream_t st) {
   PTT_TRY(layer_grid(&blocks));
   void* args[] = {const_cast<LayerArgs*>(&a), &maps};
   return last_error(cudaLaunchCooperativeKernel(
-      (const void*)int8_layer_kernel, dim3(blocks), dim3(s8::THREADS), args,
-      LAYER_SMEM, st));
+      (const void*)int8_layer_kernel<FAST>, dim3(blocks), dim3(s8::THREADS),
+      args, LAYER_SMEM, st));
 }
 
 // the same layer as a chain of launches of the same bodies, x1 f32
+template <bool FAST>
 int layer_chain(const LayerArgs& a, cudaStream_t st) {
   const int M = a.B * a.S, D = a.D, F = a.F;
-  PTT_TRY((rowquant<true, bf16>(a.x, D, a.ln1s, a.ln1b, a.hq, D, a.hs, M, D,
-                                st)));
+  PTT_TRY((rowquant<true, bf16, FAST>(a.x, D, a.ln1s, a.ln1b, a.hq, D, a.hs,
+                                      M, D, st)));
   PTT_TRY((gemm_wg<s8::EPI_BIAS, bf16>(a.hq, a.hs, a.wqkv, a.sq, a.bq,
                                        nullptr, a.qkv, M, 3 * D, D, st)));
-  PTT_TRY(attention_f32(a.qkv, a.ao, a.B, a.S, D, a.H, a.valid_len, st));
-  PTT_TRY((rowquant<false, float>(a.ao, D, nullptr, nullptr, a.aq, D, a.as,
-                                  M, D, st)));
+  PTT_TRY(attention_f32<FAST>(a.qkv, a.ao, a.B, a.S, D, a.H, a.valid_len,
+                              st));
+  PTT_TRY((rowquant<false, float, FAST>(a.ao, D, nullptr, nullptr, a.aq, D,
+                                        a.as, M, D, st)));
   PTT_TRY((gemm_wg<s8::EPI_RES, float, bf16>(a.aq, a.as, a.wout, a.sout,
                                              a.bout, a.x, a.x1, M, D, D,
                                              st)));
-  PTT_TRY((rowquant<true, float>(a.x1, D, a.ln2s, a.ln2b, a.hq2, D, a.hs2, M,
-                                 D, st)));
-  PTT_TRY((gemm_wg<s8::EPI_GELU, float>(a.hq2, a.hs2, a.w1, a.s1, a.b1,
-                                        nullptr, a.g, M, F, D, st)));
-  PTT_TRY((rowquant<false, float>(a.g, F, nullptr, nullptr, a.gq, F, a.gs, M,
-                                  F, st)));
+  PTT_TRY((rowquant<true, float, FAST>(a.x1, D, a.ln2s, a.ln2b, a.hq2, D,
+                                       a.hs2, M, D, st)));
+  PTT_TRY((gemm_wg<s8::gelu_epi(FAST), float>(a.hq2, a.hs2, a.w1, a.s1, a.b1,
+                                              nullptr, a.g, M, F, D, st)));
+  PTT_TRY((rowquant<false, float, FAST>(a.g, F, nullptr, nullptr, a.gq, F,
+                                        a.gs, M, F, st)));
   return gemm_wg<s8::EPI_RES, bf16, float>(a.gq, a.gs, a.w2, a.s2, a.b2,
                                            a.x1, a.out, M, D, F, st);
 }
@@ -610,13 +660,14 @@ int gemm_any_n(const int8_t* A, const float* rs, const int8_t* Bt,
                                   st);
 }
 
-template <typename T>
+template <typename T, bool FAST>
 int dense(const T* x, T* out, int M, int K, int N, int gelu, const int8_t* w,
           const float* scale, const float* bias, int8_t* xq, float* xs,
           cudaStream_t st) {
-  PTT_TRY((rowquant<false, T>(x, K, nullptr, nullptr, xq, K, xs, M, K, st)));
-  return gelu ? gemm_any_n<s8::EPI_GELU, T>(xq, xs, w, scale, bias, out, M, N,
-                                            K, st)
+  PTT_TRY((rowquant<false, T, FAST>(x, K, nullptr, nullptr, xq, K, xs, M, K,
+                                    st)));
+  return gelu ? gemm_any_n<s8::gelu_epi(FAST), T>(xq, xs, w, scale, bias, out,
+                                                  M, N, K, st)
               : gemm_any_n<s8::EPI_BIAS, T>(xq, xs, w, scale, bias, out, M, N,
                                             K, st);
 }
@@ -625,13 +676,15 @@ int dense(const T* x, T* out, int M, int K, int N, int gelu, const int8_t* w,
 // in with the hidden's row maxima and its one-pass quantization
 // (gelu_quant), MLP out with the bias epilogue, both GEMMs on
 // csrc/wgmma_s8.cuh
-template <typename T>
+template <typename T, bool FAST>
 int qmlp(const T* x, T* out, int M, int K, int H, int N, const int8_t* w1,
          const float* s1, const float* b1, const int8_t* w2, const float* s2,
          const float* b2, int8_t* xq, float* xs, float* g, int8_t* gq,
          float* gs, float* gmax, cudaStream_t st) {
-  PTT_TRY((rowquant<false, T>(x, K, nullptr, nullptr, xq, K, xs, M, K, st)));
-  PTT_TRY(gelu_quant(xq, xs, w1, s1, b1, g, gmax, gq, gs, M, H, K, st));
+  PTT_TRY((rowquant<false, T, FAST>(x, K, nullptr, nullptr, xq, K, xs, M, K,
+                                    st)));
+  PTT_TRY(gelu_quant<FAST>(xq, xs, w1, s1, b1, g, gmax, gq, gs, M, H, K,
+                           st));
   return gemm_any_n<s8::EPI_BIAS, T>(gq, gs, w2, s2, b2, out, M, N, H, st);
 }
 
@@ -639,12 +692,13 @@ int qmlp(const T* x, T* out, int M, int K, int H, int N, const int8_t* w1,
 
 extern "C" {
 
-// x [B, S, D] bf16 -> out [B, S, D] bf16.  wqkv_t [3D, D], wout_t [D, D]
-// int8 ([out, in]); sq, bq [3D] with the q columns folded; sout, bout,
-// lns, lnb [D] f32.  Scratch: hq [M, D] int8 and hs [M] f32 (LN1's codes,
-// then ao's), qkv [M, 3D] bf16, ao [M, D] f32 (M = B*S).
+// x [B, S, D] bf16 -> out [B, S, D] bf16, in the form `fast` names (0
+// exact, 1 fast; every entry below takes it).  wqkv_t [3D, D], wout_t
+// [D, D] int8 ([out, in]); sq, bq [3D] with the q columns folded; sout,
+// bout, lns, lnb [D] f32.  Scratch: hq [M, D] int8 and hs [M] f32 (LN1's
+// codes, then ao's), qkv [M, 3D] bf16, ao [M, D] f32 (M = B*S).
 int ptt_int8_attn(const void* x, void* out, int B, int S, int D, int H,
-                  int valid_len, const void* lns, const void* lnb,
+                  int valid_len, int fast, const void* lns, const void* lnb,
                   const void* wqkv_t, const void* sq, const void* bq,
                   const void* wout_t, const void* sout, const void* bout,
                   void* hq, void* hs, void* qkv, void* ao, void* stream) {
@@ -656,24 +710,29 @@ int ptt_int8_attn(const void* x, void* out, int B, int S, int D, int H,
   bf16* qkvb = (bf16*)qkv;
   float* aof = (float*)ao;
 
-  PTT_TRY((rowquant<true, bf16>(xb, D, (const float*)lns, (const float*)lnb,
-                                hq8, D, hsf, M, D, st)));
-  PTT_TRY((gemm_wg<s8::EPI_BIAS, bf16>(hq8, hsf, (const int8_t*)wqkv_t,
-                                       (const float*)sq, (const float*)bq,
-                                       nullptr, qkvb, M, 3 * D, D, st)));
-  PTT_TRY(attention_f32(qkvb, aof, B, S, D, H, valid_len, st));
-  PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, hq8, D, hsf, M, D,
-                                  st)));
-  return gemm_wg<s8::EPI_RES, bf16>(hq8, hsf, (const int8_t*)wout_t,
-                                    (const float*)sout, (const float*)bout,
-                                    xb, (bf16*)out, M, D, D, st);
+  return by_form(fast, [&](auto form) {
+    constexpr bool FAST = decltype(form)::value;
+    PTT_TRY((rowquant<true, bf16, FAST>(xb, D, (const float*)lns,
+                                        (const float*)lnb, hq8, D, hsf, M, D,
+                                        st)));
+    PTT_TRY((gemm_wg<s8::EPI_BIAS, bf16>(hq8, hsf, (const int8_t*)wqkv_t,
+                                         (const float*)sq, (const float*)bq,
+                                         nullptr, qkvb, M, 3 * D, D, st)));
+    PTT_TRY(attention_f32<FAST>(qkvb, aof, B, S, D, H, valid_len, st));
+    PTT_TRY((rowquant<false, float, FAST>(aof, D, nullptr, nullptr, hq8, D,
+                                          hsf, M, D, st)));
+    return gemm_wg<s8::EPI_RES, bf16>(hq8, hsf, (const int8_t*)wout_t,
+                                      (const float*)sout, (const float*)bout,
+                                      xb, (bf16*)out, M, D, D, st);
+  });
 }
 
 // x [B, S, D] bf16 -> out [B, D] bf16, row 0 of ptt_int8_attn.  Scratch:
 // hq [M, D] int8, hs [M] f32, kv [M, 2D] bf16, qc [B, D] bf16, ao [B, D]
 // f32, aq [B, D] int8, as [B] f32.
 int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
-                      int valid_len, const void* lns, const void* lnb,
+                      int valid_len, int fast, const void* lns,
+                      const void* lnb,
                       const void* wqkv_t, const void* sq, const void* bq,
                       const void* wout_t, const void* sout, const void* bout,
                       void* hq, void* hs, void* kv, void* qc, void* ao,
@@ -692,32 +751,37 @@ int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
   int8_t* aq8 = (int8_t*)aq;
   float* asf = (float*)as;
 
-  PTT_TRY((rowquant<true, bf16>(xb, D, (const float*)lns, (const float*)lnb,
-                                hq8, D, hsf, M, D, st)));
-  // K and V over every row: rows D..3D of wqkv_t
-  PTT_TRY((s8::gemm<s8::EPI_BIAS, bf16, bf16>(
-      hq8, D, w + (size_t)D * D, D,
-      s8::Gemm{hsf, sqf + D, bqf + D, nullptr, 0, kvb, 2 * D, M, 2 * D, D, 1},
-      st)));
-  // Q for the CLS rows only: row 0 of each image is every S-th row of hq,
-  // its scale every S-th of hs
-  PTT_TRY((s8::gemm<s8::EPI_BIAS, bf16, bf16>(
-      hq8, (long long)S * D, w, D,
-      s8::Gemm{hsf, sqf, bqf, nullptr, 0, qcb, D, B, D, D, 1, nullptr, S},
-      st)));
-  // the attention tile of ptt_int8_attn, the CLS row in row 0 of its query
-  // tile
-  PTT_TRY((ptt_flash::attention<false, float>(
-      qcb, D, D, 1, kvb, kvb + D, (long long)S * 2 * D, 2 * D, aof, D, D, B,
-      H, D / H, S, valid_len, 0.0f, st)));
-  PTT_TRY((rowquant<false, float>(aof, D, nullptr, nullptr, aq8, D, asf, B, D,
-                                  st)));
-  // the out-projection, the residual row 0 of each image
-  return s8::gemm<s8::EPI_RES, bf16, bf16>(
-      aq8, D, (const int8_t*)wout_t, D,
-      s8::Gemm{asf, (const float*)sout, (const float*)bout, xb,
-               (long long)S * D, out, D, B, D, D, 1},
-      st);
+  return by_form(fast, [&](auto form) {
+    constexpr bool FAST = decltype(form)::value;
+    PTT_TRY((rowquant<true, bf16, FAST>(xb, D, (const float*)lns,
+                                        (const float*)lnb, hq8, D, hsf, M, D,
+                                        st)));
+    // K and V over every row: rows D..3D of wqkv_t
+    PTT_TRY((s8::gemm<s8::EPI_BIAS, bf16, bf16>(
+        hq8, D, w + (size_t)D * D, D,
+        s8::Gemm{hsf, sqf + D, bqf + D, nullptr, 0, kvb, 2 * D, M, 2 * D, D,
+                 1},
+        st)));
+    // Q for the CLS rows only: row 0 of each image is every S-th row of hq,
+    // its scale every S-th of hs
+    PTT_TRY((s8::gemm<s8::EPI_BIAS, bf16, bf16>(
+        hq8, (long long)S * D, w, D,
+        s8::Gemm{hsf, sqf, bqf, nullptr, 0, qcb, D, B, D, D, 1, nullptr, S},
+        st)));
+    // the attention tile of ptt_int8_attn, the CLS row in row 0 of its
+    // query tile
+    PTT_TRY((ptt_flash::attention<false, float, FAST>(
+        qcb, D, D, 1, kvb, kvb + D, (long long)S * 2 * D, 2 * D, aof, D, D,
+        B, H, D / H, S, valid_len, 0.0f, st)));
+    PTT_TRY((rowquant<false, float, FAST>(aof, D, nullptr, nullptr, aq8, D,
+                                          asf, B, D, st)));
+    // the out-projection, the residual row 0 of each image
+    return s8::gemm<s8::EPI_RES, bf16, bf16>(
+        aq8, D, (const int8_t*)wout_t, D,
+        s8::Gemm{asf, (const float*)sout, (const float*)bout, xb,
+                 (long long)S * D, out, D, B, D, D, 1},
+        st);
+  });
 }
 
 // x [M, D] bf16 -> out [M, D] bf16.  w1_t [F, D], w2_t [D, F] int8
@@ -727,7 +791,7 @@ int ptt_int8_attn_cls(const void* x, void* out, int B, int S, int D, int H,
 // on csrc/wgmma_s8.cuh with the hidden's row maxima in its epilogue; the
 // hidden's one-pass quantization; MLP out with the residual, on the same
 // GEMM.
-int ptt_int8_mlp(const void* x, void* out, int M, int D, int F,
+int ptt_int8_mlp(const void* x, void* out, int M, int D, int F, int fast,
                  const void* lns, const void* lnb, const void* w1_t,
                  const void* s1, const void* b1, const void* w2_t,
                  const void* s2, const void* b2, void* hq, void* hs, void* g,
@@ -739,14 +803,18 @@ int ptt_int8_mlp(const void* x, void* out, int M, int D, int F,
   int8_t* gq8 = (int8_t*)gq;
   float* gsf = (float*)gs;
 
-  PTT_TRY((rowquant<true, bf16>(xb, D, (const float*)lns, (const float*)lnb,
-                                hq8, D, hsf, M, D, st)));
-  PTT_TRY(gelu_quant(hq8, hsf, (const int8_t*)w1_t, (const float*)s1,
-                     (const float*)b1, (float*)g, (float*)gmax, gq8, gsf, M,
-                     F, D, st));
-  return gemm_wg<s8::EPI_RES, bf16>(gq8, gsf, (const int8_t*)w2_t,
-                                    (const float*)s2, (const float*)b2, xb,
-                                    (bf16*)out, M, D, F, st);
+  return by_form(fast, [&](auto form) {
+    constexpr bool FAST = decltype(form)::value;
+    PTT_TRY((rowquant<true, bf16, FAST>(xb, D, (const float*)lns,
+                                        (const float*)lnb, hq8, D, hsf, M, D,
+                                        st)));
+    PTT_TRY(gelu_quant<FAST>(hq8, hsf, (const int8_t*)w1_t, (const float*)s1,
+                             (const float*)b1, (float*)g, (float*)gmax, gq8,
+                             gsf, M, F, D, st));
+    return gemm_wg<s8::EPI_RES, bf16>(gq8, gsf, (const int8_t*)w2_t,
+                                      (const float*)s2, (const float*)b2, xb,
+                                      (bf16*)out, M, D, F, st);
+  });
 }
 
 // x [B, S, D] bf16 -> out [B, S, D] bf16, one whole layer: the attention
@@ -765,7 +833,8 @@ int ptt_int8_mlp(const void* x, void* out, int M, int D, int F,
 // each of the cooperative launch's ten phases.
 int ptt_int8_layer(const void* x, void* out, int B, int S, int D, int H,
                    int F, int valid_len, int coop, int split_out,
-                   int split_mlp, const void* ln1s, const void* ln1b,
+                   int split_mlp, int fast, const void* ln1s,
+                   const void* ln1b,
                    const void* wqkv_t, const void* sq, const void* bq,
                    const void* wout_t, const void* sout, const void* bout,
                    const void* ln2s, const void* ln2b, const void* w1_t,
@@ -786,7 +855,10 @@ int ptt_int8_layer(const void* x, void* out, int B, int S, int D, int H,
       (int8_t*)aq, (float*)as, (float*)x1, (int8_t*)hq2, (float*)hs2,
       (float*)g, (int8_t*)gq, (float*)gs, (int*)part, (long long*)stamps};
   cudaStream_t st = (cudaStream_t)stream;
-  return coop ? layer_coop(a, st) : layer_chain(a, st);
+  return by_form(fast, [&](auto form) {
+    constexpr bool FAST = decltype(form)::value;
+    return coop ? layer_coop<FAST>(a, st) : layer_chain<FAST>(a, st);
+  });
 }
 
 // The cooperative grid of ptt_int8_layer on the current card: *blocks,
@@ -806,8 +878,9 @@ int ptt_int8_layer_grid(int* blocks, int* split_max) {
 // -> bf16 (row 5's out-projection, row 7's MLP out); 3 + bf16 res -> f32
 // (row 8's out-projection); 4 + f32 res -> bf16 (row 8's MLP out); 5 ->
 // bf16, any N (0's TAIL instance, which rows 10 and 11 take where N is not
-// a multiple of 16).
-int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
+// a multiple of 16).  fast: epi 1's quick_gelu in the fast form.
+int ptt_int8_gemm(int epi, int fast, const void* A, const void* rs,
+                  const void* Bt,
                   const void* cs, const void* bias, const void* res, void* C,
                   int M, int N, int K, int every, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -820,7 +893,9 @@ int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
     case 0:
       return s8::gemm<s8::EPI_BIAS, bf16, bf16>(a, lda, b, K, g, st);
     case 1:
-      return s8::gemm<s8::EPI_GELU, float, bf16>(a, lda, b, K, g, st);
+      return fast ? s8::gemm<s8::EPI_GELU_FAST, float, bf16>(a, lda, b, K, g,
+                                                             st)
+                  : s8::gemm<s8::EPI_GELU, float, bf16>(a, lda, b, K, g, st);
     case 2:
       return s8::gemm<s8::EPI_RES, bf16, bf16>(a, lda, b, K, g, st);
     case 3:
@@ -841,12 +916,14 @@ int ptt_int8_gemm(int epi, const void* A, const void* rs, const void* Bt,
 // gq [M, N] int8 and gs [M] f32.
 int ptt_int8_gelu_quant(const void* A, const void* rs, const void* Bt,
                         const void* cs, const void* bias, void* g, void* amax,
-                        void* gq, void* gs, int M, int N, int K,
+                        void* gq, void* gs, int M, int N, int K, int fast,
                         void* stream) {
-  return gelu_quant((const int8_t*)A, (const float*)rs, (const int8_t*)Bt,
-                    (const float*)cs, (const float*)bias, (float*)g,
-                    (float*)amax, (int8_t*)gq, (float*)gs, M, N, K,
-                    (cudaStream_t)stream);
+  return by_form(fast, [&](auto form) {
+    return gelu_quant<decltype(form)::value>(
+        (const int8_t*)A, (const float*)rs, (const int8_t*)Bt,
+        (const float*)cs, (const float*)bias, (float*)g, (float*)amax,
+        (int8_t*)gq, (float*)gs, M, N, K, (cudaStream_t)stream);
+  });
 }
 
 // x [M, K] -> out [M, N], both bf16 (f32 == 0) or both f32: row
@@ -854,17 +931,20 @@ int ptt_int8_gelu_quant(const void* A, const void* rs, const void* Bt,
 // csrc/wgmma_s8.cuh, dequant, bias [+ quick_gelu].  scale, bias [N] f32;
 // K % 16 == 0, any N.  Scratch: xq [M, K] int8, xs [M] f32.
 int ptt_int8_dense(const void* x, void* out, int M, int K, int N, int f32,
-                   int gelu, const void* w_t, const void* scale,
+                   int gelu, int fast, const void* w_t, const void* scale,
                    const void* bias, void* xq, void* xs, void* stream) {
   const int8_t* w = (const int8_t*)w_t;
   cudaStream_t st = (cudaStream_t)stream;
-  if (f32)
-    return dense<float>((const float*)x, (float*)out, M, K, N, gelu, w,
-                        (const float*)scale, (const float*)bias, (int8_t*)xq,
-                        (float*)xs, st);
-  return dense<bf16>((const bf16*)x, (bf16*)out, M, K, N, gelu, w,
-                     (const float*)scale, (const float*)bias, (int8_t*)xq,
-                     (float*)xs, st);
+  return by_form(fast, [&](auto form) {
+    constexpr bool FAST = decltype(form)::value;
+    if (f32)
+      return dense<float, FAST>((const float*)x, (float*)out, M, K, N, gelu,
+                                w, (const float*)scale, (const float*)bias,
+                                (int8_t*)xq, (float*)xs, st);
+    return dense<bf16, FAST>((const bf16*)x, (bf16*)out, M, K, N, gelu, w,
+                             (const float*)scale, (const float*)bias,
+                             (int8_t*)xq, (float*)xs, st);
+  });
 }
 
 // x [M, K] -> out [M, N], both bf16 (f32 == 0) or both f32: dense with
@@ -874,7 +954,8 @@ int ptt_int8_dense(const void* x, void* out, int M, int K, int N, int f32,
 // [M, K] int8, xs [M] f32, g [M, H] f32, gq [M, H] int8, gs [M] f32, gmax
 // [M] f32.  Four kernels and a memset on the stream.
 int ptt_int8_qmlp(const void* x, void* out, int M, int K, int H, int N,
-                  int f32, const void* w1_t, const void* s1, const void* b1,
+                  int f32, int fast, const void* w1_t, const void* s1,
+                  const void* b1,
                   const void* w2_t, const void* s2, const void* b2, void* xq,
                   void* xs, void* g, void* gq, void* gs, void* gmax,
                   void* stream) {
@@ -882,13 +963,18 @@ int ptt_int8_qmlp(const void* x, void* out, int M, int K, int H, int N,
   const float *s1f = (const float*)s1, *b1f = (const float*)b1;
   const float *s2f = (const float*)s2, *b2f = (const float*)b2;
   cudaStream_t st = (cudaStream_t)stream;
-  if (f32)
-    return qmlp<float>((const float*)x, (float*)out, M, K, H, N, w1, s1f, b1f,
-                       w2, s2f, b2f, (int8_t*)xq, (float*)xs, (float*)g,
-                       (int8_t*)gq, (float*)gs, (float*)gmax, st);
-  return qmlp<bf16>((const bf16*)x, (bf16*)out, M, K, H, N, w1, s1f, b1f, w2,
-                    s2f, b2f, (int8_t*)xq, (float*)xs, (float*)g, (int8_t*)gq,
-                    (float*)gs, (float*)gmax, st);
+  return by_form(fast, [&](auto form) {
+    constexpr bool FAST = decltype(form)::value;
+    if (f32)
+      return qmlp<float, FAST>((const float*)x, (float*)out, M, K, H, N, w1,
+                               s1f, b1f, w2, s2f, b2f, (int8_t*)xq,
+                               (float*)xs, (float*)g, (int8_t*)gq, (float*)gs,
+                               (float*)gmax, st);
+    return qmlp<bf16, FAST>((const bf16*)x, (bf16*)out, M, K, H, N, w1, s1f,
+                            b1f, w2, s2f, b2f, (int8_t*)xq, (float*)xs,
+                            (float*)g, (int8_t*)gq, (float*)gs, (float*)gmax,
+                            st);
+  });
 }
 
 }  // extern "C"

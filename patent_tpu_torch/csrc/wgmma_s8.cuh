@@ -22,7 +22,8 @@
 // The epilogue runs on the int32 accumulators: __int2float_rn(acc), times
 // the row scale, times the column scale, plus the bias, in __fmul_rn /
 // __fadd_rn order (no fused multiply-add), then the exp2 quick_gelu or
-// the residual (bf16 or f32), stored bf16 or f32; or, split over K, the
+// the residual (bf16 or f32), stored bf16 or f32 (the fast form's quick_gelu
+// multiplies by ptt::recip_bf16 of its denominator); or, split over K, the
 // int32 partial sums of one k-range are stored for a later pass to add in
 // a fixed order (exact, deterministic) and finish with the same epilogue.
 // The AMAX instance (MLP in of row 7) also takes each output row's max |v|
@@ -86,7 +87,13 @@ enum Epi {
   EPI_GELU = 1,   // v / (1 + exp2(-1.702 log2(e) v))    (MLP in)
   EPI_RES = 2,    // res + v                            (out-projection, MLP out)
   EPI_PART = 3,   // the int32 sums of the unit's k-range, unscaled
+  EPI_GELU_FAST = 4,  // v * recip(1 + exp2(...)), the fast form's MLP in
 };
+
+// the MLP in's epilogue of the form FAST (csrc/int8_layer.cu)
+__host__ __device__ constexpr int gelu_epi(bool fast) {
+  return fast ? EPI_GELU_FAST : EPI_GELU;
+}
 
 // v = f32(acc) * rsc * csc + bias, then EPI's step (the residual read from
 // *res); the TPU kernels' order, each operation rounded on its own
@@ -97,6 +104,9 @@ __device__ __forceinline__ float epi_value(int acc, float rsc, float csc,
                       bias);
   if constexpr (EPI == EPI_GELU)
     v = __fdiv_rn(v, __fadd_rn(1.0f, exp2f(__fmul_rn(wg::NEG_1702_LOG2E, v))));
+  if constexpr (EPI == EPI_GELU_FAST)
+    v = __fmul_rn(v, ptt::recip_bf16(__fadd_rn(
+                         1.0f, exp2f(__fmul_rn(wg::NEG_1702_LOG2E, v)))));
   if constexpr (EPI == EPI_RES) v = __fadd_rn(ptt::to_f(*res), v);
   return v;
 }

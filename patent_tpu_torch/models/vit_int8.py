@@ -120,8 +120,10 @@ class Int8VisionTransformer(TowerBase):
     """Int8 serving twin of ``VisionTransformer`` (same config, embeddings
     and read-out).  ``kernels=False`` runs the sub-layers' plain PyTorch
     versions on any device; ``kernels=True`` lets each call dispatch on
-    the tensor's device.  Build one from a float tower with
-    ``from_float``."""
+    the tensor's device.  Its int8 kernels' form is the entries' default
+    (``ops/quant_matmul.py``): on the card the fast form unless
+    PATENT_TPU_FAST_KERNELS=0, as JAX's tower on its TPU; on the CPU the
+    exact form.  Build one from a float tower with ``from_float``."""
 
     batch_multiple = 4        # rows 5 + 7 where 4 divides B, else row 8
 

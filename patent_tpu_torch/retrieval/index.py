@@ -1,9 +1,10 @@
-"""Exact cosine and Poincaré top-k index, on one device or with the
-gallery's rows in blocks over a mesh (port of
+"""Exact cosine, dot-product and Poincaré top-k index, on one device or
+with the gallery's rows in blocks over a mesh (port of
 patent_tpu/retrieval/index.py).
 
 ``topk_search`` is the oracle: a blockwise f32 scan (plain matmuls, as the
-JAX package leaves it to XLA).  For ``similarity="poincare"`` it ranks by
+JAX package leaves it to XLA); ``similarity="dot"`` ranks by the raw f32
+dot product, which only the scan serves, as in JAX.  For ``similarity="poincare"`` it ranks by
 the monotone surrogate of −distance and returns the true −distance of the
 k winners.  ``topk_search_cosine_fast`` over-fetches a
 ``DEFAULT_RERANK_MULT``·k candidate pool with the bucketed bf16 kernel
@@ -47,7 +48,7 @@ from ..parallel.mesh import (all_gather_rows, axis_group, axis_rank,
 DEFAULT_RERANK_MULT = 8
 # pool depth of the Poincaré candidate stage (the JAX package's choice)
 POINCARE_RERANK_MULT = DEFAULT_RERANK_MULT
-SIMILARITIES = ("cosine", "poincare")
+SIMILARITIES = ("cosine", "dot", "poincare")
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -65,7 +66,8 @@ def _top_sorted(vals: torch.Tensor, k: int
 def _scores_block(q: torch.Tensor, g: torch.Tensor, similarity: str,
                   c: float) -> torch.Tensor:
     """[Q, B] scores (higher is better) of one gallery block.  Cosine: q
-    is already normalized.  Poincaré: the monotone surrogate of −distance,
+    is already normalized; dot: the raw f32 products.  Poincaré: the
+    monotone surrogate of −distance,
 
         s(v) = 2·u·(v·w) − |u|²·w − |v|²·w,   w = 1/(1 − c|v|²),
 
@@ -73,6 +75,8 @@ def _scores_block(q: torch.Tensor, g: torch.Tensor, similarity: str,
     u-terms of the arcosh form are constants of the query)."""
     if similarity == "cosine":
         return q @ _normalize(g).T
+    if similarity == "dot":
+        return q @ g.T
     g_sq = (g * g).sum(dim=-1)
     w = 1.0 / torch.clamp_min(1.0 - c * g_sq, 1e-12)
     q_sq = (q * q).sum(dim=-1, keepdim=True)
@@ -87,7 +91,8 @@ def topk_search(queries: torch.Tensor, gallery: torch.Tensor, k: int = 10,
 
     Returns (scores [Q, k] f32, indices [Q, k] int64) best-first; ties go
     to the lower gallery index; a gallery smaller than k pads with
-    (-inf, 0).  Cosine scores are cosines; Poincaré ones are the true
+    (-inf, 0).  Cosine scores are cosines, dot ones dot products; Poincaré
+    ones are the true
     −distance of each winner (ranked by the surrogate)."""
     if similarity not in SIMILARITIES:
         raise ValueError(f"unknown similarity {similarity!r}")
@@ -485,8 +490,8 @@ _STOP, _SEARCH, _ROW = 0, 1, 2
 
 
 class EmbeddingIndex:
-    """In-memory exact index, cosine or Poincaré (curvature ``c``), on one
-    device or with its rows in blocks over ``mesh[axis]``; persistence
+    """In-memory exact index, cosine, dot product or Poincaré (curvature
+    ``c``), on one device or with its rows in blocks over ``mesh[axis]``; persistence
     matches the reference's ``.npy`` + names-JSON layout.
 
     ``device``: where the gallery lives; by default a tensor's own device
@@ -515,9 +520,11 @@ class EmbeddingIndex:
                  device: torch.device | str | None = None,
                  quantized: bool = False, mesh=None, axis: str = "data"):
         if similarity not in SIMILARITIES:
-            raise NotImplementedError(
-                f"similarity {similarity!r} is not yet ported to "
-                f"patent_tpu_torch (one of {SIMILARITIES})")
+            raise ValueError(f"unknown similarity {similarity!r} (one of "
+                             f"{SIMILARITIES})")
+        if quantized and similarity == "dot":
+            raise ValueError(
+                "quantized index supports cosine and poincare only")
         n, rows = len(names), int(embeddings.shape[0])
         shard = _shard_of(mesh, axis, n) if mesh is not None else None
         if rows != n and (shard is None or rows != shard.stop - shard.start):
@@ -593,13 +600,15 @@ class EmbeddingIndex:
             vals, idx = topk_search_quantized(
                 q, self.emb_i8, self.emb_scale, self.embeddings, k=k,
                 block_size=block_size)
-        elif fused_cosine_eligible(len(self.names), k, self.device):
+        elif self.similarity == "cosine" and fused_cosine_eligible(
+                len(self.names), k, self.device):
             gal16, valid = self._bf16_copy(len(self.names))
             vals, idx = topk_search_cosine_fast(
                 q, gal16, valid, self.embeddings, k=k, block_size=block_size)
         else:
             vals, idx = topk_search(q, self.embeddings, k=k,
-                                    block_size=block_size)
+                                    block_size=block_size,
+                                    similarity=self.similarity)
         return vals.cpu().numpy(), idx.cpu().numpy()
 
     def _search_sharded(self, q, k: int, block_size: int):

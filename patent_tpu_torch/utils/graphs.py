@@ -45,7 +45,8 @@ def graphed_on(device, graphed: bool | None) -> bool:
 
 def launch_counters() -> list:
     """Every kernel wrapper of the port that counts its launches (a
-    function with an int ``launches`` attribute)."""
+    function with an int ``launches`` attribute), and the int8 entries'
+    counts of their fast form apart (``entry.fast``)."""
     from ..ops import (bf16_layer, bf16_mlp_grad, flash_attention,
                        pallas_kernels, quant_matmul, topk_kernel)
 
@@ -55,6 +56,9 @@ def launch_counters() -> list:
         for obj in vars(mod).values():
             if callable(obj) and type(getattr(obj, "launches", None)) is int:
                 found[id(obj)] = obj
+                fast = getattr(obj, "fast", None)
+                if fast is not None:
+                    found[id(fast)] = fast
     return list(found.values())
 
 

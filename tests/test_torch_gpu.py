@@ -8,6 +8,7 @@ This file imports no JAX module of its own, so it runs where only PyTorch
 is installed.  ``chip_smoke.py`` repeats the checks at ViT-B/16 shapes.
 """
 
+import functools
 import json
 import math
 import os
@@ -435,6 +436,9 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
 INT8_REL_TOL = 3e-4
 INT8_BIASES = {"attention": (1, 4, 7), "mlp": (1, 4, 7)}
 INT8_SCALES = {"attention": (3, 6), "mlp": (3, 6)}
+# the int8 kernels' two forms (``fast``), each held to its plain version
+# (the fast form is the card's default, PATENT_TPU_FAST_KERNELS unset)
+FORMS = pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
 
 
 def _int8_case(dev, b=3, seed=0):
@@ -461,12 +465,13 @@ def _int8_case(dev, b=3, seed=0):
     return x, attn, mlp
 
 
+@FORMS
 @pytest.mark.parametrize("hw", sorted(HEAD_WIDTHS))
 @pytest.mark.parametrize("name", ["quant_attention_block",
                                   "quant_attention_cls", "quant_mlp_block"])
-def test_int8_kernel_matches_plain_and_controls_do_not(cuda, name, hw):
-    kernel = getattr(qm, name)
-    plain = getattr(qm, name + "_plain")
+def test_int8_kernel_matches_plain_and_controls_do_not(cuda, name, hw, fast):
+    kernel = functools.partial(getattr(qm, name), fast=fast)
+    plain = functools.partial(getattr(qm, name + "_plain"), fast=fast)
     x, attn, mlp = _int8_case(cuda)
     heads = HEAD_WIDTHS[hw]
     attention = name != "quant_mlp_block"
@@ -477,11 +482,11 @@ def test_int8_kernel_matches_plain_and_controls_do_not(cuda, name, hw):
         out = fn(x, *p, heads, valid_len=valid) if attention else fn(x, *p)
         return out[:, :VALID] if name == "quant_attention_block" else out
 
-    n0 = kernel.launches
+    n0 = kernel.func.launches
     got = run(kernel, params)
     want = run(plain, params)
     torch.cuda.synchronize()
-    assert kernel.launches == n0 + 1
+    assert kernel.func.launches == n0 + 1
     assert torch.isfinite(got.float()).all()
     assert _rel_err(got, want) <= INT8_REL_TOL
     assert _min_cosine(got, want) > 0.9999
@@ -497,10 +502,12 @@ def test_int8_kernel_matches_plain_and_controls_do_not(cuda, name, hw):
         assert _rel_err(run(plain, q), want) > INT8_REL_TOL, i
 
 
-def test_int8_cls_kernel_is_row_0_of_the_attention_kernel(cuda):
+@FORMS
+def test_int8_cls_kernel_is_row_0_of_the_attention_kernel(cuda, fast):
     x, attn, _mlp = _int8_case(cuda)
-    full = qm.quant_attention_block(x, *attn, HEADS, valid_len=VALID)
-    cls = qm.quant_attention_cls(x, *attn, HEADS, valid_len=VALID)
+    full = qm.quant_attention_block(x, *attn, HEADS, valid_len=VALID,
+                                    fast=fast)
+    cls = qm.quant_attention_cls(x, *attn, HEADS, valid_len=VALID, fast=fast)
     torch.cuda.synchronize()
     assert cls.shape == (x.shape[0], D)
     # the same kernels and per-element operations for row 0: equal bits
@@ -696,28 +703,32 @@ def _int8_attention(dev, b, s, d, seed=0):
 
 # Row 6 at the CLS call's batches (4 and a batch of 128) and at each head
 # width, on the 224 px stream (S 208) and the CLIs' small tower's (S 80)
+@FORMS
 @pytest.mark.parametrize("b", [4, 128])
 @pytest.mark.parametrize("d,heads,s,valid", [
     (768, 12, 208, 197), (128, 8, 80, 65), (128, 4, 80, 65),
     (128, 2, 80, 65), (128, 8, 208, 197), (128, 4, 208, 197),
     (128, 2, 208, 197)])
 def test_int8_cls_kernel_is_row_0_at_every_head_width(cuda, b, d, heads, s,
-                                                      valid):
+                                                      valid, fast):
     """The CLS sub-layer runs row 0's operations of the attention sub-layer
-    on the same GEMM and tile: equal bits."""
+    on the same GEMM and tile: equal bits, in either form."""
     x, attn = _int8_attention(cuda, b, s, d, seed=b + s + heads)
     n0 = qm.quant_attention_cls.launches
-    cls = qm.quant_attention_cls(x, *attn, heads, valid_len=valid)
-    full = qm.quant_attention_block(x, *attn, heads, valid_len=valid)
+    cls = qm.quant_attention_cls(x, *attn, heads, valid_len=valid, fast=fast)
+    full = qm.quant_attention_block(x, *attn, heads, valid_len=valid,
+                                    fast=fast)
     torch.cuda.synchronize()
     assert qm.quant_attention_cls.launches == n0 + 1
     assert torch.equal(cls, full[:, 0])
 
 
-@pytest.mark.parametrize("epilogue", ["bias", "gelu"])
+@pytest.mark.parametrize("epilogue,fast", [("bias", None), ("gelu", False),
+                                           ("gelu", True)],
+                         ids=["bias", "gelu-exact", "gelu-fast"])
 @pytest.mark.parametrize("m,every", [(4, 80), (4, 208), (128, 208)])
 def test_s8_gemm_with_a_row_stride_equals_the_gathered_rows(cuda, epilogue,
-                                                            m, every):
+                                                            m, every, fast):
     """Row 6's CLS q product: A read in place as every S-th row, its row
     scales at the same stride, equals the product of the gathered rows bit
     for bit; reading the first M rows instead must show."""
@@ -730,26 +741,31 @@ def test_s8_gemm_with_a_row_stride_equals_the_gathered_rows(cuda, epilogue,
     a_scale = 0.1 * torch.rand(m * every, generator=g, device=cuda)
     scale = 10 * torch.rand(n, generator=g, device=cuda) / 127 / k ** 0.5
     bias = 0.1 * torch.randn(n, generator=g, device=cuda)
-    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, every=every)
+    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, every=every,
+                       fast=fast)
     gathered = qm.int8_gemm(a[::every].contiguous(),
                             a_scale[::every].contiguous(), w_t, scale, bias,
-                            epilogue)
+                            epilogue, fast=fast)
     want = qm.int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue,
-                              every=every)
+                              every=every, fast=fast)
     first = qm.int8_gemm(a[:m].contiguous(), a_scale[:m].contiguous(), w_t,
-                         scale, bias, epilogue)
+                         scale, bias, epilogue, fast=fast)
     torch.cuda.synchronize()
     assert got.shape == (m, n)
     assert torch.equal(got, gathered) and torch.equal(got, want)
     assert _rel_err(first, want) > INT8_REL_TOL
 
 
-def test_int8_tower_kernels_match_plain_layers(cuda):
+@FORMS
+def test_int8_tower_kernels_match_plain_layers(cuda, fast, monkeypatch):
     """Each int8 layer agrees with its plain version to an ulp, but an
     int8 code flipped by a rounding difference is a step of 1/127 of its
     row's range, and the layers carry it on: features within 2e-2
     relative error and cosine 0.999 over three layers, at batch 5 (layers
-    0-1 as quant_layer_block) and 4 (as the two sub-layers)."""
+    0-1 as quant_layer_block) and 4 (as the two sub-layers).  The tower
+    passes no form: PATENT_TPU_FAST_KERNELS names it on the card, for the
+    kernels and the plain versions alike."""
+    monkeypatch.setenv(qm.FAST_ENV, "1" if fast else "0")
     cfg = VisionConfig(image_size=32, patch_size=8, hidden_dim=D,
                        num_layers=3, num_heads=HEADS, mlp_dim=F,
                        projection_dim=32)
@@ -786,15 +802,17 @@ INT8_LAYER_REL_TOL = 1.5e-3
 LAYER_CONTROLS = {"bias": (1, 4, 7, 9, 12, 15), "scale": (3, 6, 11, 14)}
 
 
+@FORMS
 @pytest.mark.parametrize("hw", sorted(HEAD_WIDTHS))
 @pytest.mark.parametrize("b", [1, 3, 127], ids=["B1", "B3", "B127"])
-def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b, hw):
+def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b, hw,
+                                                             fast):
     x, attn, mlp = _int8_case(cuda, b=b)
     params = (*attn, *mlp)
     heads = HEAD_WIDTHS[hw]
 
     def run(fn, p=params, valid=VALID):
-        return fn(x, *p, heads, valid_len=valid)[:, :VALID]
+        return fn(x, *p, heads, valid_len=valid, fast=fast)[:, :VALID]
 
     n0 = qm.quant_layer_block.launches
     got = run(qm.quant_layer_block)
@@ -805,10 +823,14 @@ def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b, hw):
     assert _rel_err(got, want) <= INT8_LAYER_REL_TOL
     assert _min_cosine(got, want) > 0.9999
     chain = qm.quant_mlp_block_plain(
-        qm.quant_attention_block_plain(x, *attn, heads, valid_len=VALID),
-        *mlp)[:, :VALID]
+        qm.quant_attention_block_plain(x, *attn, heads, valid_len=VALID,
+                                       fast=fast),
+        *mlp, fast=fast)[:, :VALID]
     controls = {"no key mask": run(qm.quant_layer_block_plain, valid=S),
-                "bf16 mid residual": chain}
+                "bf16 mid residual": chain,
+                "the other form": qm.quant_layer_block_plain(
+                    x, *params, heads, valid_len=VALID,
+                    fast=not fast)[:, :VALID]}
     for kind, idx in LAYER_CONTROLS.items():
         for i in idx:
             q = list(params)
@@ -819,9 +841,10 @@ def test_int8_layer_kernel_matches_plain_and_controls_do_not(cuda, b, hw):
         assert _rel_err(ctrl, want) > INT8_LAYER_REL_TOL, name
 
 
+@FORMS
 @pytest.mark.parametrize("hw", sorted(HEAD_WIDTHS))
 @pytest.mark.parametrize("b", [1, 3, 127], ids=["B1", "B3", "B127"])
-def test_int8_layer_cooperative_launch_equals_the_chain(cuda, b, hw,
+def test_int8_layer_cooperative_launch_equals_the_chain(cuda, b, hw, fast,
                                                         monkeypatch):
     """Row 8 runs one cooperative launch at a query's batch and a chain of
     launches of the same bodies at a larger one: the integer products are
@@ -839,9 +862,10 @@ def test_int8_layer_cooperative_launch_equals_the_chain(cuda, b, hw,
                 False, 1, 1)
 
         monkeypatch.setattr(qm, "layer_plan", plan)
-        outs[coop] = qm.quant_layer_block(x, *params, heads, valid_len=VALID)
+        outs[coop] = qm.quant_layer_block(x, *params, heads, valid_len=VALID,
+                                          fast=fast)
         outs[coop, "folded"] = qm.quant_layer_block(
-            x, *params, heads, valid_len=VALID, folded=folded)
+            x, *params, heads, valid_len=VALID, folded=folded, fast=fast)
     torch.cuda.synchronize()
     for key, got in outs.items():
         assert torch.equal(got, outs[True]), key
@@ -852,9 +876,10 @@ S8_GEMM_SHAPES = {"bias": (2304, 768), "gelu": (3072, 768), "res": (768, 768),
                   "res_f32_out": (768, 768), "res_f32": (768, 3072)}
 
 
+@FORMS
 @pytest.mark.parametrize("m", [208, 624, 26624])
 @pytest.mark.parametrize("epilogue", sorted(S8_GEMM_SHAPES))
-def test_s8_gemm_matches_plain(cuda, epilogue, m):
+def test_s8_gemm_matches_plain(cuda, epilogue, m, fast):
     """Rows 5 and 8's int8 GEMM alone equals its plain epilogue bit for bit
     (the integer products are exact, the epilogue the same operations in
     the same order) at one image's rows, three images' and a batch of
@@ -874,14 +899,17 @@ def test_s8_gemm_matches_plain(cuda, epilogue, m):
     res = (None if rdt is None
            else torch.randn(m, n, generator=g, device=cuda).to(rdt))
     n0 = qm.int8_gemm.launches
-    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, res)
-    want = qm.int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res)
+    got = qm.int8_gemm(a, a_scale, w_t, scale, bias, epilogue, res,
+                       fast=fast)
+    want = qm.int8_gemm_plain(a, a_scale, w_t, scale, bias, epilogue, res,
+                              fast=fast)
     torch.cuda.synchronize()
     assert qm.int8_gemm.launches == n0 + 1
     assert got.dtype == qm.S8_GEMM_EPILOGUES[epilogue][2]
     assert torch.equal(got, want)
     no_bias = qm.int8_gemm_plain(a, a_scale, w_t, scale,
-                                 torch.zeros_like(bias), epilogue, res)
+                                 torch.zeros_like(bias), epilogue, res,
+                                 fast=fast)
     assert _rel_err(no_bias, want) > INT8_REL_TOL
 
 
@@ -890,8 +918,9 @@ def test_s8_gemm_matches_plain(cuda, epilogue, m):
 # RetrievalEngine's batch 32 (6,656 rows) and at 128 (26,624), ViT-B/16
 # widths.  Its GEMMs are exact and its epilogues the plain version's
 # operations, so only an LN2 code flipped by f32 summation order moves it.
+@FORMS
 @pytest.mark.parametrize("m", [1, 4, 128, 6656, 26624])
-def test_int8_mlp_kernel_at_the_main_path_rows(cuda, m):
+def test_int8_mlp_kernel_at_the_main_path_rows(cuda, m, fast):
     d, f = 768, 3072
     g = torch.Generator(device=cuda).manual_seed(m)
 
@@ -908,8 +937,8 @@ def test_int8_mlp_kernel_at_the_main_path_rows(cuda, m):
               s2, r(d, std=0.02))
     x = r(m, d, std=1.0).to(torch.bfloat16)
     n0 = qm.quant_mlp_block.launches
-    got = qm.quant_mlp_block(x, *params)
-    want = qm.quant_mlp_block_plain(x, *params)
+    got = qm.quant_mlp_block(x, *params, fast=fast)
+    want = qm.quant_mlp_block_plain(x, *params, fast=fast)
     torch.cuda.synchronize()
     assert qm.quant_mlp_block.launches == n0 + 1
     assert got.shape == x.shape and torch.isfinite(got.float()).all()
@@ -917,20 +946,22 @@ def test_int8_mlp_kernel_at_the_main_path_rows(cuda, m):
     for i in INT8_BIASES["mlp"]:
         q = list(params)
         q[i] = torch.zeros_like(q[i])
-        assert _rel_err(qm.quant_mlp_block_plain(x, *q), want) > \
+        assert _rel_err(qm.quant_mlp_block_plain(x, *q, fast=fast), want) > \
             INT8_REL_TOL, i
     for i in INT8_SCALES["mlp"]:
         q = list(params)
         q[i] = torch.full_like(q[i], float(q[i].mean()))
-        assert _rel_err(qm.quant_mlp_block_plain(x, *q), want) > \
+        assert _rel_err(qm.quant_mlp_block_plain(x, *q, fast=fast), want) > \
             INT8_REL_TOL, i
 
 
+@FORMS
 @pytest.mark.parametrize("m", [4, 208, 26624])
-def test_int8_gelu_quant_row_maxima_and_codes(cuda, m):
+def test_int8_gelu_quant_row_maxima_and_codes(cuda, m, fast):
     """Row 7's MLP in alone: its hidden equals the plain epilogue bit for
     bit, the row maxima its epilogue takes equal max |g| of its own hidden
-    bit for bit, and the one-pass quantization equals quant_rows(g) bit for
+    bit for bit, and the one-pass quantization equals quant_rows(g) (the
+    fast form: quant_rows_fast, with codes saturated at 127) bit for
     bit."""
     n, k = 3072, 768
     g = torch.Generator(device=cuda).manual_seed(m + 1)
@@ -942,21 +973,23 @@ def test_int8_gelu_quant_row_maxima_and_codes(cuda, m):
     scale = 10 * torch.rand(n, generator=g, device=cuda) / 127 / k ** 0.5
     bias = 0.1 * torch.randn(n, generator=g, device=cuda)
     n0 = qm.int8_gelu_quant.launches
-    hid, hid_max, hq, hs = qm.int8_gelu_quant(a, a_scale, w_t, scale, bias)
+    hid, hid_max, hq, hs = qm.int8_gelu_quant(a, a_scale, w_t, scale, bias,
+                                              fast=fast)
     torch.cuda.synchronize()
     assert qm.int8_gelu_quant.launches == n0 + 1
     assert torch.equal(hid, qm.int8_gemm_plain(a, a_scale, w_t, scale, bias,
-                                               "gelu"))
+                                               "gelu", fast=fast))
     assert torch.equal(hid_max, hid.abs().amax(dim=-1))
-    want_q, want_s = qm.quant_rows(hid)
+    want_q, want_s = (qm.quant_rows_fast if fast else qm.quant_rows)(hid)
     assert torch.equal(hq, want_q)
     assert torch.equal(hs, want_s[:, 0])
 
 
-def test_int8_layer_group_dispatches_as_jax(cuda):
+@FORMS
+def test_int8_layer_group_dispatches_as_jax(cuda, fast):
     """Row 9: at B % group == 0 it launches row 8's kernel and equals
     quant_layer_block bit for bit; at a ragged batch, or without
-    valid_len, it runs the two sub-layer kernels."""
+    valid_len, it runs the two sub-layer kernels, each in its form."""
     x, attn, mlp = _int8_case(cuda, b=4)
     fns = (qm.quant_layer_group, qm.quant_layer_block,
            qm.quant_attention_block, qm.quant_mlp_block)
@@ -966,14 +999,15 @@ def test_int8_layer_group_dispatches_as_jax(cuda):
         xb = xb.contiguous()
         counts = [fn.launches for fn in fns]
         got = qm.quant_layer_group(xb, *attn, *mlp, HEADS, valid_len=valid,
-                                   group=group)
+                                   group=group, fast=fast)
         if launched[0]:
             want = qm.quant_layer_block(xb, *attn, *mlp, HEADS,
-                                        valid_len=valid)
+                                        valid_len=valid, fast=fast)
             launched[1] += 1
         else:
             want = qm.quant_mlp_block(qm.quant_attention_block(
-                xb, *attn, HEADS, valid_len=valid), *mlp)
+                xb, *attn, HEADS, valid_len=valid, fast=fast), *mlp,
+                fast=fast)
             launched[2] += 1
             launched[3] += 1
         torch.cuda.synchronize()
@@ -988,11 +1022,12 @@ def test_int8_layer_group_dispatches_as_jax(cuda):
 DENSE_REL_TOL = 1e-5
 
 
+@FORMS
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("act", [None, "quick_gelu"], ids=["none", "gelu"])
 def test_int8_dense_kernel_matches_plain_and_controls_do_not(cuda, act,
-                                                             dtype):
+                                                             dtype, fast):
     """Ragged rows (3 x 37) and a ragged N (200)."""
     g = torch.Generator(device=cuda).manual_seed(10)
     x = torch.randn(3, 37, D, generator=g, device=cuda).to(dtype)
@@ -1001,21 +1036,23 @@ def test_int8_dense_kernel_matches_plain_and_controls_do_not(cuda, act,
     w = w.T.contiguous()
     bias = 0.05 * torch.randn(200, generator=g, device=cuda)
     n0 = qm.quant_dense.launches
-    got = qm.quant_dense(x, w, scale, bias, act)
-    want = qm.quant_dense_plain(x, w, scale, bias, act)
+    got = qm.quant_dense(x, w, scale, bias, act, fast=fast)
+    plain = functools.partial(qm.quant_dense_plain, fast=fast)
+    want = plain(x, w, scale, bias, act)
     torch.cuda.synchronize()
     assert qm.quant_dense.launches == n0 + 1
     assert got.dtype == dtype and got.shape == (3, 37, 200)
     assert _rel_err(got, want) <= DENSE_REL_TOL
     controls = {
-        "bias=0": qm.quant_dense_plain(x, w, scale, None, act),
-        "scale=mean": qm.quant_dense_plain(
+        "bias=0": plain(x, w, scale, None, act),
+        "scale=mean": plain(
             x, w, torch.full_like(scale, float(scale.mean())), bias, act),
-        "last 16 of K dropped": qm.quant_dense_plain(
+        "last 16 of K dropped": plain(
             x[..., :-16].contiguous(), w[:, :-16].contiguous(), scale, bias,
             act),
-        "other act": qm.quant_dense_plain(x, w, scale, bias,
-                                          None if act else "quick_gelu")}
+        "other act": plain(x, w, scale, bias, None if act else "quick_gelu"),
+        "the other form": qm.quant_dense_plain(x, w, scale, bias, act,
+                                               fast=not fast)}
     for name, ctrl in controls.items():
         assert _rel_err(ctrl, want) > DENSE_REL_TOL, name
 
@@ -1036,15 +1073,17 @@ def _dense_case(dev, m, n, k=768, seed=10):
 @pytest.mark.parametrize("act", [None, "quick_gelu"], ids=["none", "gelu"])
 @pytest.mark.parametrize("n", [8, 13, 768, 2304])
 @pytest.mark.parametrize("m", [1, 77, 26624])
-def test_int8_dense_kernel_at_the_main_path_widths(cuda, m, n, act, dtype):
+@FORMS
+def test_int8_dense_kernel_at_the_main_path_widths(cuda, m, n, act, dtype,
+                                                   fast):
     """Row 10 at one row, a ragged 77 and a batch of 128's 26,624 rows, at
     output widths 8, 13 (odd: the wgmma epilogue stores its last column
     alone), 768 and QKV's 2,304, K 768."""
     x, w = _dense_case(cuda, m, n)
     x = x.to(dtype)
     n0 = qm.quant_dense.launches
-    got = qm.quant_dense(x, *w, act)
-    want = qm.quant_dense_plain(x, *w, act)
+    got = qm.quant_dense(x, *w, act, fast=fast)
+    want = qm.quant_dense_plain(x, *w, act, fast=fast)
     torch.cuda.synchronize()
     assert qm.quant_dense.launches == n0 + 1
     assert got.dtype == dtype and got.shape == (m, n)
@@ -1097,8 +1136,9 @@ def _qmlp_case(dev, m, n, k=768, h=3072, seed=11):
 @pytest.mark.parametrize("m,n", [(None, None), (1, 8), (1, 13), (1, 768),
                                  (77, 8), (77, 13), (77, 768), (26624, 8),
                                  (26624, 13), (26624, 768)])
+@FORMS
 def test_int8_qmlp_kernel_matches_plain_and_controls_do_not(cuda, dtype, m,
-                                                            n):
+                                                            n, fast):
     """The int8 case's small MLP (m None), then one row, a ragged 77 and a
     batch of 128's 26,624 rows at output widths 8, 13 (odd: the wgmma
     epilogue stores its last column alone) and 768, K 768 and H 3072."""
@@ -1109,8 +1149,8 @@ def test_int8_qmlp_kernel_matches_plain_and_controls_do_not(cuda, dtype, m,
         x, w = _qmlp_case(cuda, m, n)
     x = x.to(dtype)
     n0 = qm.quant_mlp.launches
-    got = qm.quant_mlp(x, *w)
-    want = qm.quant_mlp_plain(x, *w)
+    got = qm.quant_mlp(x, *w, fast=fast)
+    want = qm.quant_mlp_plain(x, *w, fast=fast)
     torch.cuda.synchronize()
     assert qm.quant_mlp.launches == n0 + 1
     assert got.dtype == dtype
@@ -1119,11 +1159,15 @@ def test_int8_qmlp_kernel_matches_plain_and_controls_do_not(cuda, dtype, m,
     for i in (2, 5):                  # b1, b2
         q = list(w)
         q[i] = torch.zeros_like(q[i])
-        assert _rel_err(qm.quant_mlp_plain(x, *q), want) > DENSE_REL_TOL, i
+        assert _rel_err(qm.quant_mlp_plain(x, *q, fast=fast),
+                        want) > DENSE_REL_TOL, i
     for i in (1, 4):                  # s1, s2 -> their mean
         q = list(w)
         q[i] = torch.full_like(q[i], float(q[i].mean()))
-        assert _rel_err(qm.quant_mlp_plain(x, *q), want) > DENSE_REL_TOL, i
+        assert _rel_err(qm.quant_mlp_plain(x, *q, fast=fast),
+                        want) > DENSE_REL_TOL, i
+    assert _rel_err(qm.quant_mlp_plain(x, *w, fast=not fast),
+                    want) > DENSE_REL_TOL
 
 
 def test_int8_qmlp_runs_both_gemms_on_the_wgmma_kernel(cuda):
@@ -1962,12 +2006,17 @@ def _battery(path):
 
 
 @pytest.mark.parametrize("flags", [[], ["--quantize"]], ids=["bf16", "int8"])
-def test_cli_eval_synthetic_runs_on_the_card(cuda, tmp_path, flags):
+def test_cli_eval_synthetic_runs_on_the_card(cuda, tmp_path, flags,
+                                             monkeypatch):
     """``eval --synthetic`` builds the CLI's small tower (D 64, 4 heads:
     head_dim 16) through build_engine on a fresh 64 px corpus.  On the
     default device its attention kernels launch, and the gallery features
-    (and, in bf16, the battery) equal the CPU run's."""
+    (and, in bf16, the battery) equal the CPU run's.  The CPU computes the
+    int8 kernels' exact form, so the card runs it too
+    (PATENT_TPU_FAST_KERNELS=0): the card's default, the fast form, is
+    another function."""
     from patent_tpu_torch.cli.main import main as cli
+    monkeypatch.setenv(qm.FAST_ENV, "0")
     entries = ((qm.quant_attention_block, qm.quant_attention_cls,
                 qm.quant_mlp_block) if flags else
                (bf16_layer.fused_layer_block_bf16,
@@ -3010,9 +3059,10 @@ def _int8_weights(dev, d, f, seed):
              s2, r(d, std=0.02)))
 
 
+@FORMS
 @pytest.mark.parametrize("hd,heads", TILE_CASES, ids=TILE_IDS)
 @pytest.mark.parametrize("b", [3, 32])
-def test_tile_widths_in_the_layers_match_plain(cuda, b, hd, heads):
+def test_tile_widths_in_the_layers_match_plain(cuda, b, hd, heads, fast):
     """Rows 1 and 2 (bf16 out; group 1, so B 3 runs them too) and rows 5
     and 6 (f32 out) at each new instance, with a full query axis and with
     n_q 1 (the CLS rows), at 272 rows (ViT-H/14's 257 tokens) and, at
@@ -3030,9 +3080,10 @@ def test_tile_widths_in_the_layers_match_plain(cuda, b, hd, heads):
              bf16_layer.fused_layer_cls_bf16_plain, p, dict(group=1),
              REL_TOL),
             ("row 5", qm.quant_attention_block,
-             qm.quant_attention_block_plain, attn, {}, INT8_REL_TOL),
+             qm.quant_attention_block_plain, attn, dict(fast=fast),
+             INT8_REL_TOL),
             ("row 6", qm.quant_attention_cls, qm.quant_attention_cls_plain,
-             attn, {}, INT8_REL_TOL)):
+             attn, dict(fast=fast), INT8_REL_TOL)):
         got = fn(x, *args, heads, valid_len=valid, **kw)
         want = plain(x, *args, heads, valid_len=valid, **kw)
         if got.dim() == 3:
@@ -3054,8 +3105,10 @@ INT8_LAYER_WIDE_REL_TOL = 3e-3
                                         (72, 4, 272), (128, 2, 592)],
                          ids=["L14-336", "H14", "hd72", "hd128"])
 @pytest.mark.parametrize("b", [1, 3])
+@FORMS
 def test_int8_layer_cooperative_launch_at_the_new_widths(cuda, b, hd, heads,
-                                                         s, monkeypatch):
+                                                         s, fast,
+                                                         monkeypatch):
     """Row 8's cooperative launch runs the tile on its GEMM ring at every
     new width (K and V streamed past the tile's ring): forced at B 1 and
     3, it equals the chain in bits, and the chain its plain version."""
@@ -3068,9 +3121,9 @@ def test_int8_layer_cooperative_launch_at_the_new_widths(cuda, b, hd, heads,
         monkeypatch.setattr(qm, "layer_plan", lambda m, d_, f, g, c=coop: (
             qm.LayerPlan(True, 1, 2) if c else qm.LayerPlan(False, 1, 1)))
         outs[coop] = qm.quant_layer_block(x, *attn, *mlp, heads,
-                                          valid_len=valid)
+                                          valid_len=valid, fast=fast)
     want = qm.quant_layer_block_plain(x, *attn, *mlp, heads,
-                                      valid_len=valid)
+                                      valid_len=valid, fast=fast)
     torch.cuda.synchronize()
     assert torch.equal(outs[True], outs[False])
     assert _rel_err(outs[True][:, :valid], want[:, :valid]) <= \
@@ -3078,10 +3131,11 @@ def test_int8_layer_cooperative_launch_at_the_new_widths(cuda, b, hd, heads,
     assert _min_cosine(outs[True][:, :valid], want[:, :valid]) > 0.9999
     controls = {
         "no key mask": qm.quant_layer_block_plain(x, *attn, *mlp, heads,
-                                                  valid_len=s),
+                                                  valid_len=s, fast=fast),
         "bf16 mid residual": qm.quant_mlp_block_plain(
-            qm.quant_attention_block_plain(x, *attn, heads, valid_len=valid),
-            *mlp)}
+            qm.quant_attention_block_plain(x, *attn, heads, valid_len=valid,
+                                           fast=fast),
+            *mlp, fast=fast)}
     for name, ctrl in controls.items():
         assert _rel_err(ctrl[:, :valid], want[:, :valid]) > \
             INT8_LAYER_WIDE_REL_TOL, name

@@ -147,12 +147,14 @@ def test_scan_loop_captures_again_for_another_shape_or_generator(
 
 def test_launch_counters_find_every_kernel_wrapper():
     names = {f.__name__ for f in graphs.launch_counters()}
+    int8 = {"quant_attention_block", "quant_attention_cls",
+            "quant_mlp_block", "quant_layer_block"}
     assert {"fused_layer_block_bf16", "fused_layer_cls_bf16",
             "bucket_topk_bf16", "bucket_topk_int8", "bucket_topk_poincare",
-            "quant_attention_block", "quant_attention_cls",
-            "quant_mlp_block", "quant_layer_block", "mobius_dense_pallas",
-            "pairwise_dist_pallas", "flash_attention",
-            "flash_attention_f32"} <= names
+            "mobius_dense_pallas", "pairwise_dist_pallas", "flash_attention",
+            "flash_attention_f32"} | int8 <= names
+    # the int8 entries' fast-form counts, which a replay adds to as well
+    assert {n + "_fast" for n in int8} <= names
 
 
 # --------------------------------------------------- graph-safe optimizer

@@ -2,15 +2,19 @@
 CPU) held to patent_tpu.
 
 The JAX side runs as tests/test_quant_matmul.py runs it: the Pallas
-kernels under ``force_tpu_interpret_mode`` with ``force=True``,
-``fast=False`` (the exact-division form the port computes) and, for the
-attention sub-layer, ``group=4``; the tower with ``quant_matmul._on_tpu``
-patched, as tests/test_torch_pipeline.py does for the bf16 tower, and
-PATENT_TPU_FAST_KERNELS=0.  The XLA fallback is the second reference.
-Inputs come from numpy with a fixed seed.
+kernels under ``force_tpu_interpret_mode`` with ``force=True`` and, for
+the attention sub-layer, ``group=4``, in each of the two forms the port
+computes (``fast=False``, the exact-division form, and ``fast=True``,
+JAX's default on its accelerator: tests/test_torch_int8_fast.py pins its
+reciprocal and codes); the tower with ``quant_matmul._on_tpu`` patched, as
+tests/test_torch_pipeline.py does for the bf16 tower, and
+PATENT_TPU_FAST_KERNELS set to the form, the port's tower with its device
+probe patched for the fast form.  The XLA fallback is the second
+reference.  Inputs come from numpy with a fixed seed.
 """
 
 import contextlib
+import functools
 from unittest import mock
 
 import jax
@@ -30,6 +34,9 @@ from patent_tpu_torch.models.weights import (int8_params_from_jax,
 from patent_tpu_torch.ops import quant_matmul as tqm
 
 D, HEADS, S, VALID, F = 128, 4, 64, 50, 256
+# both forms of the int8 kernels (``fast``), by test id
+FORMS = pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+NO_EXCESS = {"xla_allow_excess_precision": False}
 
 
 @pytest.fixture(autouse=True)
@@ -69,6 +76,14 @@ def _attn_case(rng, b=4):
     return x, _t(np.asarray(x, np.float32), torch.bfloat16), jargs, targs
 
 
+def _jit(fn, *args, **static):
+    """``fn(*args, **static)`` in one jit without excess precision, as f32
+    numpy: each bf16 rounding as written (the fast form's reciprocal rounds
+    to bf16; with excess precision XLA may keep it f32)."""
+    return np.asarray(jax.jit(functools.partial(fn, **static),
+                              compiler_options=NO_EXCESS)(*args), np.float32)
+
+
 def _rel(got, want):
     """max |got - want| / max |want|."""
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
@@ -101,21 +116,23 @@ def test_quantize_weight_and_quant_rows_equal_jax(rng, shape):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(xs))
 
 
+@FORMS
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32],
                          ids=["bf16", "f32"])
-def test_quant_mlp_block_plain_matches_jax_kernel(rng, dtype):
-    """Row 7 against the Pallas kernel (fast=False) at the
-    test_quant_matmul.py floor, 1e-4.  Measured: bit-identical in bf16,
-    2.5e-7 relative in f32 (LayerNorm sums in another order)."""
+def test_quant_mlp_block_plain_matches_jax_kernel(rng, dtype, fast):
+    """Row 7 against the Pallas kernel in the same form at the
+    test_quant_matmul.py floor, 1e-4.  Measured (exact form):
+    bit-identical in bf16, 2.5e-7 relative in f32 (LayerNorm sums in
+    another order)."""
     x = jnp.asarray(rng.standard_normal((3, 40, D)) * 0.3, dtype)
     lns, lnb = _ln(rng)
     j1, t1 = _weights(rng, D, F)
     j2, t2 = _weights(rng, F, D)
-    want = np.asarray(jqm.quant_mlp_block(x, lns, lnb, *j1, *j2, m_tile=64,
-                                          force=True, fast=False), np.float32)
+    want = _jit(jqm.quant_mlp_block, x, lns, lnb, *j1, *j2, m_tile=64,
+                force=True, fast=fast)
     xt = _t(np.asarray(x, np.float32),
             torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
-    got = tqm.quant_mlp_block(xt, _t(lns), _t(lnb), *t1, *t2)
+    got = tqm.quant_mlp_block(xt, _t(lns), _t(lnb), *t1, *t2, fast=fast)
     assert got.dtype == xt.dtype and got.shape == xt.shape
     np.testing.assert_allclose(_np(got), want, atol=1e-4, rtol=1e-4)
 
@@ -128,15 +145,15 @@ def test_quant_mlp_block_plain_matches_jax_kernel(rng, dtype):
 ATTN_MEAN_REL, ATTN_MAX_REL = 1e-4, 5e-3
 
 
+@FORMS
 @pytest.mark.parametrize("valid", [VALID, S], ids=["valid50", "valid64"])
-def test_quant_attention_block_plain_matches_jax_kernel(rng, valid):
-    """Row 5 against the Pallas kernel (fast=False, group=4) within the
-    gate above."""
+def test_quant_attention_block_plain_matches_jax_kernel(rng, valid, fast):
+    """Row 5 against the Pallas kernel (group=4) in the same form within
+    the gate above."""
     x, xt, jargs, targs = _attn_case(rng)
-    want = np.asarray(jqm.quant_attention_block(
-        x, *jargs, num_heads=HEADS, valid_len=valid, force=True, fast=False,
-        group=4), np.float32)[:, :valid]
-    got = tqm.quant_attention_block(xt, *targs, HEADS, valid)
+    want = _jit(jqm.quant_attention_block, x, *jargs, num_heads=HEADS,
+                valid_len=valid, force=True, fast=fast, group=4)[:, :valid]
+    got = tqm.quant_attention_block(xt, *targs, HEADS, valid, fast=fast)
     assert got.dtype == torch.bfloat16 and got.shape == (4, S, D)
     got = _np(got)[:, :valid]
     assert _mean_rel(got, want) <= ATTN_MEAN_REL
@@ -153,19 +170,20 @@ def test_quant_attention_block_plain_within_xla_fallback(rng):
     assert _rel(_np(got)[:, :VALID], want) <= 2e-2
 
 
-def test_quant_attention_cls_plain_is_row_0_and_matches_jax(rng):
+@FORMS
+def test_quant_attention_cls_plain_is_row_0_and_matches_jax(rng, fast):
     """Row 6 against row 0 of row 5 (both plain) within the
     test_quant_matmul.py reasoning, 2e-3 (CPU BLAS may sum a 1-row product
     in another order; measured: identical), and against the JAX CLS
-    kernel."""
+    kernel, in the same form."""
     x, xt, jargs, targs = _attn_case(rng)
-    full = _np(tqm.quant_attention_block(xt, *targs, HEADS, VALID))
-    cls = tqm.quant_attention_cls(xt, *targs, HEADS, VALID)
+    full = _np(tqm.quant_attention_block(xt, *targs, HEADS, VALID,
+                                         fast=fast))
+    cls = tqm.quant_attention_cls(xt, *targs, HEADS, VALID, fast=fast)
     assert cls.shape == (4, D) and cls.dtype == torch.bfloat16
     assert _rel(_np(cls), full[:, 0]) <= 2e-3
-    want = np.asarray(jqm.quant_attention_cls(
-        x, *jargs, num_heads=HEADS, valid_len=VALID, force=True, fast=False,
-        group=4), np.float32)
+    want = _jit(jqm.quant_attention_cls, x, *jargs, num_heads=HEADS,
+                valid_len=VALID, force=True, fast=fast, group=4)
     assert _rel(_np(cls), want) <= ATTN_MAX_REL
 
 
@@ -214,17 +232,21 @@ GOLDEN64 = dict(image_size=64, patch_size=8, hidden_dim=64, num_layers=2,
                 num_heads=4, mlp_dim=128, projection_dim=64)
 
 
+@FORMS
 @pytest.mark.parametrize(
     "name,keep,batch",
     [("tiny", None, 4), ("golden64", None, 4), ("golden64", 40, 4),
      ("tiny", None, 3), ("golden64", None, 3), ("golden64", None, 1)],
     ids=["tiny", "golden64", "golden64-keep40", "tiny-B3", "golden64-B3",
          "golden64-B1"])
-def test_int8_tower_matches_jax(monkeypatch, name, keep, batch):
+def test_int8_tower_matches_jax(monkeypatch, name, keep, batch, fast):
     """The int8 tower against JAX's Int8VisionTransformer (Pallas kernels
-    in interpret mode, fast=False) with the same quantize_vit_params
-    weights: min feature cosine above 0.9999 (measured: 1.0, identical
-    features but for LayerNorm summation order).  At batch 4 both run the
+    in interpret mode) with the same quantize_vit_params weights, both in
+    the form PATENT_TPU_FAST_KERNELS names and no ``fast`` passed, as a
+    server runs them (the port's device probe patched for the fast form,
+    as JAX's is for its kernels): min feature cosine above 0.9999
+    (measured, exact form: 1.0, identical features but for LayerNorm
+    summation order).  At batch 4 both run the
     attention and MLP sub-layers; at batch 3 and 1 the JAX tower runs its
     whole-layer kernel (row 8) and the port quant_layer_block: measured
     1 - cosine 1.8e-5 to 3.1e-5 there (the rows 5 + 7 chain in its place
@@ -237,12 +259,13 @@ def test_int8_tower_matches_jax(monkeypatch, name, keep, batch):
     _params, qparams, tower = _int8_tower(jcfg, tcfg, keep)
     px = np.random.default_rng(1).standard_normal(
         (batch, jcfg.image_size, jcfg.image_size, 3)).astype(np.float32)
-    monkeypatch.setenv("PATENT_TPU_FAST_KERNELS", "0")
+    monkeypatch.setenv("PATENT_TPU_FAST_KERNELS", "1" if fast else "0")
     with mock.patch.object(jqm, "_on_tpu", lambda: True):
-        want = np.asarray(jax_vit_int8.Int8VisionTransformer(
-            jcfg, keep_tokens=keep).apply({"params": qparams},
-                                          jnp.asarray(px)), np.float32)
-    with torch.inference_mode():
+        want = _jit(jax_vit_int8.Int8VisionTransformer(
+            jcfg, keep_tokens=keep).apply, {"params": qparams},
+            jnp.asarray(px))
+    with torch.inference_mode(), mock.patch.object(
+            tqm, "_on_card", lambda x: fast):
         got = tower(_t(px)).numpy()
     assert got.shape == want.shape == (batch, tcfg.projection_dim)
     cos = np.sum(got * want, -1) / (np.linalg.norm(got, axis=-1)

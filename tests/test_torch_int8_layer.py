@@ -4,11 +4,14 @@ MLP (``quant_dense``, ``quant_mlp``): the plain versions, on the CPU, held
 to patent_tpu's Pallas kernels.
 
 The JAX side runs as tests/test_torch_int8.py runs rows 5 and 7: under
-``force_tpu_interpret_mode`` with ``force=True`` and ``fast=False`` (the
-exact-division form the port computes).  Inputs come from numpy with a
-fixed seed, at D 128, 4 heads, MLP 256, S 64 (50 valid).
+``force_tpu_interpret_mode`` with ``force=True``, in each of the two forms
+the port computes (``fast=False`` and ``fast=True``).  Inputs come from
+numpy with a fixed seed, at D 128, 4 heads, MLP 256, S 64 (50 valid).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,9 @@ from patent_tpu_torch.models import vit_int8 as torch_vit_int8
 from patent_tpu_torch.ops import quant_matmul as tqm
 
 D, HEADS, S, VALID, F = 128, 4, 64, 50, 256
+# both forms of the int8 kernels (``fast``), by test id
+FORMS = pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+NO_EXCESS = {"xla_allow_excess_precision": False}
 
 
 @pytest.fixture(autouse=True)
@@ -67,6 +73,13 @@ def _layer_case(rng, b, dtype=jnp.bfloat16):
     return x, _stream(x), jargs, targs
 
 
+def _jit(fn, *args, **static):
+    """``fn(*args, **static)`` in one jit without excess precision, as f32
+    numpy (tests/test_torch_int8.py's reasons)."""
+    return np.asarray(jax.jit(functools.partial(fn, **static),
+                              compiler_options=NO_EXCESS)(*args), np.float32)
+
+
 def _np(t):
     return t.float().numpy()
 
@@ -78,18 +91,18 @@ def _gaps(got, want):
             float(d.max() / np.abs(want).max()))
 
 
-def _jax_layer(x, jargs, valid):
-    return np.asarray(jqm.quant_layer_block(
-        x, *jargs, num_heads=HEADS, valid_len=valid, force=True, fast=False),
-        np.float32)
+def _jax_layer(x, jargs, valid, fast=False):
+    return _jit(jqm.quant_layer_block, x, *jargs, num_heads=HEADS,
+                valid_len=valid, force=True, fast=fast)
 
 
-def _chain_plain(xt, targs, valid):
+def _chain_plain(xt, targs, valid, fast=False):
     """Rows 5 + 7 chained, the port's int8 tower layer before row 8: the
     mid-layer residual stored in the stream's dtype."""
     return tqm.quant_mlp_block_plain(
-        tqm.quant_attention_block_plain(xt, *targs[:8], HEADS, valid),
-        *targs[8:])
+        tqm.quant_attention_block_plain(xt, *targs[:8], HEADS, valid,
+                                        fast=fast),
+        *targs[8:], fast=fast)
 
 
 # Row 8's plain version against the Pallas kernel: both round at the same
@@ -120,34 +133,37 @@ def test_rows_5_7_chain_is_not_row_8_on_a_bf16_stream(b):
         assert _gaps(chain, want)[0] > LAYER_MEAN_REL, seed
 
 
+@FORMS
 @pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("valid", [VALID, None], ids=["valid50", "validNone"])
 @pytest.mark.parametrize("b", [1, 3], ids=["B1", "B3"])
-def test_quant_layer_block_plain_matches_jax_kernel(rng, b, valid, dtype):
-    """Row 8 against the Pallas kernel within the gate above, on the valid
-    rows; with ``valid_len=None`` every key counts."""
+def test_quant_layer_block_plain_matches_jax_kernel(rng, b, valid, dtype,
+                                                    fast):
+    """Row 8 against the Pallas kernel in the same form within the gate
+    above, on the valid rows; with ``valid_len=None`` every key counts."""
     x, xt, jargs, targs = _layer_case(rng, b, dtype)
     rows = valid or S
-    want = _jax_layer(x, jargs, valid)[:, :rows]
-    got = tqm.quant_layer_block(xt, *targs, HEADS, valid)
+    want = _jax_layer(x, jargs, valid, fast)[:, :rows]
+    got = tqm.quant_layer_block(xt, *targs, HEADS, valid, fast=fast)
     assert got.dtype == xt.dtype and got.shape == (b, S, D)
     mean, mx = _gaps(_np(got)[:, :rows], want)
     assert mean <= LAYER_MEAN_REL and mx <= LAYER_MAX_REL
 
 
+@FORMS
 @pytest.mark.parametrize("b", [2, 3], ids=["B2-whole-layer", "B3-fallback"])
-def test_quant_layer_group_plain_matches_jax(rng, b):
+def test_quant_layer_group_plain_matches_jax(rng, b, fast):
     """Row 9 at group 2: at B 2 the JAX grouped whole-layer kernel, at B 3
     its ragged fallback (rows 5 + 7), each against the port's dispatch,
-    which is row 8's plain version or the chain, bit for bit."""
+    which is row 8's plain version or the chain, bit for bit, in the same
+    form."""
     x, xt, jargs, targs = _layer_case(rng, b)
-    want = np.asarray(jqm.quant_layer_group(
-        x, *jargs, num_heads=HEADS, valid_len=VALID, group=2, force=True,
-        fast=False), np.float32)[:, :VALID]
-    got = tqm.quant_layer_group(xt, *targs, HEADS, VALID, group=2)
-    same = (tqm.quant_layer_block_plain(xt, *targs, HEADS, VALID) if b == 2
-            else _chain_plain(xt, targs, VALID))
+    want = _jit(jqm.quant_layer_group, x, *jargs, num_heads=HEADS,
+                valid_len=VALID, group=2, force=True, fast=fast)[:, :VALID]
+    got = tqm.quant_layer_group(xt, *targs, HEADS, VALID, group=2, fast=fast)
+    same = (tqm.quant_layer_block_plain(xt, *targs, HEADS, VALID, fast=fast)
+            if b == 2 else _chain_plain(xt, targs, VALID, fast))
     assert torch.equal(got, same)
     mean, mx = _gaps(_np(got)[:, :VALID], want)
     assert mean <= LAYER_MEAN_REL and mx <= LAYER_MAX_REL
@@ -162,10 +178,11 @@ _DENSE_CASES = [(f"{tag}{aname}-{dname}", act, dtype, lead, n)
                                      ("f32", jnp.float32))]
 
 
+@FORMS
 @pytest.mark.parametrize("act,dtype,lead,n",
                          [case[1:] for case in _DENSE_CASES],
                          ids=[case[0] for case in _DENSE_CASES])
-def test_quant_dense_plain_matches_jax_kernel(rng, act, dtype, lead, n):
+def test_quant_dense_plain_matches_jax_kernel(rng, act, dtype, lead, n, fast):
     """Row 10 against the Pallas kernel, no bias: lead dims (3, 5) at N
     192, and a ragged M (77) at an odd N (13), which the card's epilogue
     stores a column at a time.  The same int8 codes and the same f32
@@ -174,9 +191,9 @@ def test_quant_dense_plain_matches_jax_kernel(rng, act, dtype, lead, n):
     last bit: 1.8e-7 relative)."""
     x = jnp.asarray(rng.standard_normal((*lead, D)) * 0.5, dtype)
     (wq, s, _b), (wt, ts, _tb) = _weights(rng, D, n)
-    want = np.asarray(jqm.quant_dense(x, wq, s, act=act, m_tile=64,
-                                      force=True, fast=False), np.float32)
-    got = tqm.quant_dense(_stream(x), wt, ts, act=act)
+    want = _jit(jqm.quant_dense, x, wq, s, act=act, m_tile=64, force=True,
+                fast=fast)
+    got = tqm.quant_dense(_stream(x), wt, ts, act=act, fast=fast)
     assert got.dtype == _stream(x).dtype and got.shape == (*lead, n)
     np.testing.assert_allclose(_np(got), want, rtol=1e-6, atol=0)
 
@@ -204,7 +221,8 @@ def test_quant_dense_refuses_an_unknown_activation(rng):
     [(jnp.bfloat16, (3, 40), 96), (jnp.float32, (3, 40), 96),
      (jnp.bfloat16, (77,), 13), (jnp.float32, (77,), 13)],
     ids=["bf16", "f32", "bf16-m77-n13", "f32-m77-n13"])
-def test_quant_mlp_plain_matches_jax_kernel(rng, dtype, lead, n):
+@FORMS
+def test_quant_mlp_plain_matches_jax_kernel(rng, dtype, lead, n, fast):
     """Row 11 against the Pallas kernel: dense, quick_gelu, row quantization
     of the f32 hidden, dense; also at a ragged M (77) and an odd output
     width (13), which the card's epilogue stores a column at a time.
@@ -213,9 +231,9 @@ def test_quant_mlp_plain_matches_jax_kernel(rng, dtype, lead, n):
     dequant's multiply-add once), at most 2.5e-7 of the largest |y|."""
     x = jnp.asarray(rng.standard_normal((*lead, D)) * 0.5, dtype)
     (j1, t1), (j2, t2) = _weights(rng, D, F), _weights(rng, F, n)
-    want = np.asarray(jqm.quant_mlp(x, *j1, *j2, m_tile=64, force=True,
-                                    fast=False), np.float32)
-    got = tqm.quant_mlp(_stream(x), *t1, *t2)
+    want = _jit(jqm.quant_mlp, x, *j1, *j2, m_tile=64, force=True,
+                fast=fast)
+    got = tqm.quant_mlp(_stream(x), *t1, *t2, fast=fast)
     assert got.dtype == _stream(x).dtype and got.shape == (*lead, n)
     assert _gaps(_np(got), want)[1] <= (0 if dtype == jnp.bfloat16 else 1e-6)
 

@@ -75,6 +75,8 @@ def _cases():
         "scan_1000": dict(kind="scan", gallery=g1000, queries=q17, k=10,
                           block_size=64),
         "scan_uneven": dict(kind="scan", gallery=g1003, queries=q5, k=7),
+        "scan_dot": dict(kind="scan", gallery=g1003, queries=q5, k=7,
+                         similarity="dot", block_size=64),
         "scan_poincare": dict(kind="scan", gallery=p301, queries=pq301, k=5,
                               similarity="poincare", c=1.5, block_size=64),
         "cosine_fast_317": dict(kind="cosine_fast", gallery=g317,
@@ -92,6 +94,8 @@ def _cases():
                        valid=valid40),
         "index_cosine": dict(kind="index", gallery=g1000, queries=q17,
                              k=None, ks=(1000, 10)),
+        "index_dot": dict(kind="index", gallery=g1000, queries=q17,
+                          k=None, ks=(10, 1000), similarity="dot"),
         "index_quantized": dict(kind="index", gallery=g1000, queries=q17,
                                 k=None, ks=(10, 200), quantized=True),
         "index_poincare_q": dict(kind="index", gallery=p300, queries=pq300,
@@ -149,7 +153,8 @@ def _jax_answer(mesh, case):
 
 
 @pytest.mark.parametrize("name", [
-    "scan_1000", "scan_uneven", "scan_poincare", "cosine_fast_317",
+    "scan_1000", "scan_uneven", "scan_dot", "scan_poincare",
+    "cosine_fast_317",
     "cosine_fast_901", "quantized_301", "poincare_203", "poincare_301"])
 def test_sharded_search_equals_jax(world, mesh4, name):
     """Each sharded search over 4 ranks against JAX's over 4 devices (the
@@ -184,6 +189,7 @@ def test_filler_candidates_never_reach_the_rerank(world):
 
 @pytest.mark.parametrize("name,k,bf16", [
     ("index_cosine", 10, True), ("index_cosine", 1000, False),
+    ("index_dot", 10, False), ("index_dot", 1000, False),
     ("index_quantized", 10, False), ("index_quantized", 200, False),
     ("index_poincare_q", 6, False), ("index_poincare_q", 40, False),
     ("index_poincare", 6, False)])
@@ -201,6 +207,23 @@ def test_sharded_index_routes_and_equals_one_process(world, name, k, bf16):
     np.testing.assert_allclose(sv, ov, rtol=tol, atol=tol)
     assert not res["bf16_before"]
     assert built == bf16
+
+
+@pytest.mark.parametrize("k", [10, 1000])
+def test_sharded_dot_index_equals_jax(world, mesh4, k):
+    """EmbeddingIndex(similarity="dot", mesh=...) over 4 ranks against
+    JAX's over 4 devices of the virtual mesh: indices equal, dot products
+    within 1e-5."""
+    cases, out, _ = world
+    case = cases["index_dot"]
+    names = [f"g{i}" for i in range(len(case["gallery"]))]
+    want_v, want_i = jax_index.EmbeddingIndex(
+        case["gallery"], names, similarity="dot",
+        mesh=mesh4).search(case["queries"], k=k)
+    (vals, idx), _single, _built = out["index_dot"][k]
+    np.testing.assert_array_equal(idx, np.asarray(want_i))
+    np.testing.assert_allclose(vals, np.asarray(want_v), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["index_cosine", "index_quantized",

@@ -498,7 +498,7 @@ def _encode_checks(mesh, dev, vc, batches=(128, 6), seed: int = 5) -> dict:
     int8, seeded weights) at each global batch against the one-process
     encode on rank 0: equal in bits, else the largest relative error and
     the least row cosine; the launches of the towers' kernels on every
-    rank."""
+    rank (the int8 entries' fast-form launches also apart, ``<entry>_fast``)."""
     from patent_tpu_torch.models.vit import VisionTransformer
     from patent_tpu_torch.models.vit_int8 import Int8VisionTransformer
     from patent_tpu_torch.ops import bf16_layer
@@ -509,8 +509,11 @@ def _encode_checks(mesh, dev, vc, batches=(128, 6), seed: int = 5) -> dict:
     towers = {"bf16": (bf16, (bf16_layer.fused_layer_block_bf16,
                               bf16_layer.fused_layer_cls_bf16)),
               "int8": (Int8VisionTransformer.from_float(bf16).eval(),
-                       (qm.quant_attention_block, qm.quant_attention_cls,
-                        qm.quant_mlp_block, qm.quant_layer_block))}
+                       tuple(c for fn in (qm.quant_attention_block,
+                                          qm.quant_attention_cls,
+                                          qm.quant_mlp_block,
+                                          qm.quant_layer_block)
+                             for c in (fn, fn.fast)))}
     rng = np.random.default_rng(seed)
     out = {}
     for b in batches:
